@@ -1,0 +1,124 @@
+"""CLIP / OpenCLIP text encoders in PyTorch.
+
+Port of the JAX package's ``models/clip.py`` without LoRA and textual
+inversion: fused QKV projection, pre-LN layers with f32 LayerNorm, an
+additive causal mask of -1e9, webui's clip-skip rule (the final LayerNorm
+re-applied to a skipped hidden state where ``layernorm_skipped``) and the
+EOS-position pooled output. CLIP attention went through XLA's
+``dot_product_attention`` in the JAX package, not a Pallas kernel, so here it
+goes through ``scaled_dot_product_attention``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+    CLIPTextConfig,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+    Dense,
+    LayerNorm32,
+    reproducible_sdpa,
+)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")  # Flax nn.gelu
+    raise ValueError(f"unknown activation {name}")
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out_proj = Dense(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        B, T, C = x.shape
+        head_dim = C // self.num_heads
+        q, k, v = (t.unflatten(-1, (self.num_heads, head_dim)).transpose(1, 2)
+                   for t in self.qkv(x).split(C, dim=-1))
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask.to(q.dtype),
+            scale=1.0 / math.sqrt(head_dim))
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, C))
+
+
+class CLIPLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.act = cfg.hidden_act
+        self.ln1 = LayerNorm32(cfg.hidden_size)
+        self.attn = CLIPAttention(cfg)
+        self.ln2 = LayerNorm32(cfg.hidden_size)
+        self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask)
+        return x + self.fc2(_act(self.act, self.fc1(self.ln2(x))))
+
+
+class CLIPTextModel(nn.Module):
+    """Causal text transformer; ``forward(input_ids (B,T), skip)`` returns
+    ``(context, pooled)``: the hidden states fed to cross-attention, taken
+    ``skip`` layers before the end, and the final layer's EOS-position
+    embedding (projected where ``projection_dim`` is set)."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Parameter(
+            torch.zeros(cfg.max_length, cfg.hidden_size))
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", CLIPLayer(cfg))
+        self.final_ln = LayerNorm32(cfg.hidden_size)
+        self.text_projection = (
+            Dense(cfg.hidden_size, cfg.projection_dim, bias=False)
+            if cfg.projection_dim else None)
+
+    def forward(self, input_ids: torch.Tensor, skip: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with reproducible_sdpa():
+            return self._forward(input_ids, skip)
+
+    def _forward(self, input_ids: torch.Tensor, skip: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.cfg
+        skip = c.default_skip if skip is None else skip
+        if not 0 <= skip < c.num_layers:
+            raise ValueError(f"skip={skip} exceeds depth {c.num_layers}")
+        B, T = input_ids.shape
+        dtype = self.token_embedding.weight.dtype
+        x = self.token_embedding(input_ids) \
+            + self.position_embedding[None, :T].to(dtype)
+        causal = torch.triu(torch.full((T, T), -1e9, device=x.device),
+                            diagonal=1)[None, None]
+        hidden = None
+        for i in range(c.num_layers):
+            x = getattr(self, f"layer_{i}")(x, causal)
+            if i == c.num_layers - 1 - skip:
+                hidden = x
+        final = self.final_ln(x)
+        if skip == 0:
+            context = final
+        elif c.layernorm_skipped:
+            context = self.final_ln(hidden)
+        else:
+            context = hidden
+        eos = input_ids.argmax(dim=-1)  # EOS has the largest token id
+        pooled = final[torch.arange(B, device=x.device), eos]
+        if self.text_projection is not None:
+            pooled = self.text_projection(pooled)
+        return context.to(dtype), pooled.to(dtype)

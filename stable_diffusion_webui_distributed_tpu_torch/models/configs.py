@@ -1,0 +1,261 @@
+"""Model architecture configs: SD 1.5, SDXL base/refiner, and tiny test models.
+
+Shapes follow the published Stable Diffusion architectures (the ones every
+sdwui node in the reference deployment serves remotely). A ``TINY`` family is
+provided so the full pipeline runs in seconds on CPU for tests — same code
+path, ~100k params.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """Text-encoder transformer config (CLIP / OpenCLIP family)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    # "quick_gelu" (OpenAI CLIP, SD1.5) or "gelu" (OpenCLIP bigG, SDXL).
+    hidden_act: str = "quick_gelu"
+    # Project pooled EOS embedding (OpenCLIP bigG); 0 disables.
+    projection_dim: int = 0
+    # Which hidden state feeds cross-attention: 0 = final layer norm output,
+    # 1 = penultimate layer ("clip skip 2" — SDXL always uses penultimate).
+    default_skip: int = 0
+    # webui re-applies the final LayerNorm to clip-skipped hidden states for
+    # SD1.x; SDXL (sgm) uses the raw penultimate states.
+    layernorm_skipped: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Denoising UNet config (SD family).
+
+    ``down_blocks`` entries are transformer depths per block: ``None`` means a
+    plain ResNet block (no attention); an int is the number of transformer
+    layers in each attention block at that resolution.
+    """
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_blocks: Tuple[Optional[int], ...] = (1, 1, 1, None)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    # Per-block head count; None derives heads from head_dim=64 (SDXL rule).
+    num_attention_heads: Optional[int] = 8
+    mid_block_depth: Optional[int] = 1  # transformer depth in the mid block
+    # SDXL micro-conditioning: pooled text (1280) + 6 fourier-embedded
+    # time_ids (6*256) -> MLP -> added to the timestep embedding.
+    addition_embed_dim: int = 0  # 0 = disabled (SD1.5)
+    addition_time_embed_dim: int = 256
+    projection_input_dim: int = 2816
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL config."""
+
+    in_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    scaling_factor: float = 0.18215
+    # Decode in f32 even under bf16 policy (visible banding otherwise).
+    force_decoder_f32: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelFamily:
+    """A complete diffusion model family: text encoder(s) + UNet + VAE."""
+
+    name: str = "sd15"
+    text_encoder: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    # SDXL's second (OpenCLIP bigG) encoder; None for SD1.5.
+    text_encoder_2: Optional[CLIPTextConfig] = None
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    # v-prediction (SD2.x-style) vs epsilon-prediction.
+    prediction_type: str = "epsilon"
+
+    @property
+    def vae_scale_factor(self) -> int:
+        """Image->latent downsampling: one 2x per VAE level transition
+        (8 for every real SD family; derived so tiny test VAEs agree)."""
+        return 2 ** (len(self.vae.block_out_channels) - 1)
+
+    @property
+    def inpaint(self) -> bool:
+        """Inpainting-specialized checkpoint (ldm "hybrid" conditioning):
+        the UNet eats [latent, mask, masked-image latent] — latent + 1 +
+        latent channels (sd-v1-5-inpainting and friends)."""
+        return self.unet.in_channels == 2 * self.vae.latent_channels + 1
+
+    @property
+    def context_dim(self) -> int:
+        return self.unet.cross_attention_dim
+
+
+# Alias kept for readability at call sites that only care about dimensions.
+SDModelConfig = ModelFamily
+
+
+SD15 = ModelFamily(name="sd15")
+
+# SD 2.x: OpenCLIP ViT-H text encoder (penultimate layer + final LN, the
+# ldm FrozenOpenCLIPEmbedder convention), 1024-dim cross-attention,
+# head_dim-64 attention. "sd21" is the 768-v v-prediction model; "sd21-base"
+# the 512 epsilon model (same weights layout — select via the <ckpt>.json
+# family sidecar, as webui selects via the .yaml).
+SD2_TEXT = CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                          num_layers=24, num_heads=16, hidden_act="gelu",
+                          default_skip=1, layernorm_skipped=True)
+_SD2_UNET = UNetConfig(cross_attention_dim=1024, num_attention_heads=None)
+
+SD21 = ModelFamily(name="sd21", text_encoder=SD2_TEXT, unet=_SD2_UNET,
+                   prediction_type="v_prediction")
+SD21_BASE = ModelFamily(name="sd21-base", text_encoder=SD2_TEXT,
+                        unet=_SD2_UNET)
+
+SDXL_TEXT_L = CLIPTextConfig(hidden_size=768, intermediate_size=3072,
+                             num_layers=12, num_heads=12, default_skip=1,
+                             layernorm_skipped=False)
+SDXL_TEXT_G = CLIPTextConfig(hidden_size=1280, intermediate_size=5120,
+                             num_layers=32, num_heads=20, hidden_act="gelu",
+                             projection_dim=1280, default_skip=1,
+                             layernorm_skipped=False)
+
+SDXL_BASE = ModelFamily(
+    name="sdxl-base",
+    text_encoder=SDXL_TEXT_L,
+    text_encoder_2=SDXL_TEXT_G,
+    unet=UNetConfig(
+        block_out_channels=(320, 640, 1280),
+        down_blocks=(None, 2, 10),
+        cross_attention_dim=2048,
+        num_attention_heads=None,  # heads = channels // 64
+        mid_block_depth=10,
+        addition_embed_dim=1280,
+    ),
+    vae=VAEConfig(scaling_factor=0.13025),
+)
+
+# SDXL refiner: single 1280-wide text encoder (bigG), 4-level UNet with
+# depth-4 transformers, aesthetic-score conditioning (2560 proj input).
+SDXL_REFINER = ModelFamily(
+    name="sdxl-refiner",
+    text_encoder=SDXL_TEXT_G,
+    text_encoder_2=None,
+    unet=UNetConfig(
+        block_out_channels=(384, 768, 1536, 1536),
+        down_blocks=(None, 4, 4, None),
+        cross_attention_dim=1280,
+        num_attention_heads=None,
+        mid_block_depth=4,
+        addition_embed_dim=1280,
+        projection_input_dim=2560,
+    ),
+    vae=VAEConfig(scaling_factor=0.13025),
+)
+
+# Tiny family for CPU tests: same code path, trivially small.
+TINY = ModelFamily(
+    name="tiny",
+    text_encoder=CLIPTextConfig(
+        vocab_size=1024, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=4, max_length=77,
+    ),
+    unet=UNetConfig(
+        block_out_channels=(32, 64),
+        down_blocks=(1, 1),
+        layers_per_block=1,
+        cross_attention_dim=32,
+        num_attention_heads=4,
+        mid_block_depth=1,
+    ),
+    vae=VAEConfig(block_out_channels=(32, 32), layers_per_block=1),
+)
+
+# Tiny SDXL-shaped family: exercises dual encoders + micro-conditioning.
+TINY_XL = ModelFamily(
+    name="tiny-xl",
+    text_encoder=CLIPTextConfig(
+        vocab_size=1024, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=4, default_skip=1, layernorm_skipped=False,
+    ),
+    text_encoder_2=CLIPTextConfig(
+        vocab_size=1024, hidden_size=48, intermediate_size=96,
+        num_layers=2, num_heads=4, hidden_act="gelu",
+        projection_dim=48, default_skip=1, layernorm_skipped=False,
+    ),
+    unet=UNetConfig(
+        block_out_channels=(32, 64),
+        down_blocks=(None, 2),
+        layers_per_block=1,
+        cross_attention_dim=80,
+        num_attention_heads=4,
+        mid_block_depth=2,
+        addition_embed_dim=48,
+        addition_time_embed_dim=8,
+        projection_input_dim=48 + 6 * 8,
+    ),
+    vae=VAEConfig(block_out_channels=(32, 32), layers_per_block=1,
+                  scaling_factor=0.13025),
+)
+
+# Tiny refiner-shaped family: single projected text encoder + the refiner's
+# 5-element micro-conditioning (aesthetic score instead of target size).
+TINY_REFINER = ModelFamily(
+    name="tiny-refiner",
+    text_encoder=CLIPTextConfig(
+        vocab_size=1024, hidden_size=48, intermediate_size=96,
+        num_layers=2, num_heads=4, hidden_act="gelu",
+        projection_dim=48, default_skip=1, layernorm_skipped=False,
+    ),
+    unet=UNetConfig(
+        block_out_channels=(32, 64),
+        down_blocks=(None, 2),
+        layers_per_block=1,
+        cross_attention_dim=48,
+        num_attention_heads=4,
+        mid_block_depth=2,
+        addition_embed_dim=48,
+        addition_time_embed_dim=8,
+        projection_input_dim=48 + 5 * 8,
+    ),
+    vae=VAEConfig(block_out_channels=(32, 32), layers_per_block=1,
+                  scaling_factor=0.13025),
+)
+
+# Tiny v-prediction family: exercises the v-pred denoiser branch on CPU.
+TINY_V = dataclasses.replace(TINY, name="tiny-v",
+                             prediction_type="v_prediction")
+
+# Inpainting-specialized variants (ldm "hybrid" conditioning, 9-channel
+# conv_in: latent + mask + masked-image latent — sd-v1-5-inpainting,
+# stable-diffusion-2-inpainting, sd_xl_base inpainting ports; webui
+# detects these via the .yaml, here via conv_in shape at load).
+SD15_INPAINT = dataclasses.replace(
+    SD15, name="sd15-inpaint",
+    unet=dataclasses.replace(SD15.unet, in_channels=9))
+SD2_INPAINT = dataclasses.replace(
+    SD21_BASE, name="sd2-inpaint",
+    unet=dataclasses.replace(SD21_BASE.unet, in_channels=9))
+SDXL_INPAINT = dataclasses.replace(
+    SDXL_BASE, name="sdxl-inpaint",
+    unet=dataclasses.replace(SDXL_BASE.unet, in_channels=9))
+TINY_INPAINT = dataclasses.replace(
+    TINY, name="tiny-inpaint",
+    unet=dataclasses.replace(TINY.unet, in_channels=9))
+
+FAMILIES = {f.name: f for f in (SD15, SD21, SD21_BASE, SDXL_BASE,
+                                SDXL_REFINER, SD15_INPAINT, SD2_INPAINT,
+                                SDXL_INPAINT, TINY, TINY_XL, TINY_REFINER,
+                                TINY_V, TINY_INPAINT)}

@@ -1,0 +1,198 @@
+"""CLIP BPE tokenizer, implemented natively (no network, no HF hub).
+
+A copy of the JAX package's ``models/tokenizer.py`` (the port imports
+nothing from that package). Prompts are encoded here: a faithful byte-level BPE implementation that loads the
+standard ``vocab.json`` + ``merges.txt`` pair from the model directory, and a
+deterministic hash fallback so tiny-model tests need no vocabulary files.
+
+The special-token ids (start 49406, end 49407) and the 77-token window match
+the OpenAI CLIP release used by every SD checkpoint.
+"""
+
+from __future__ import annotations
+
+import functools
+import gzip
+import html
+import json
+import os
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+BOS = 49406
+EOS = 49407
+MAX_LEN = 77
+
+# OpenAI CLIP's pretokenizer: contractions, letter-only runs, SINGLE digits,
+# punctuation runs (underscore counts as punctuation, not a word char).
+# Original pattern: 's|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+
+# expressed with Python-re unicode classes: [^\W\d_]+ == \p{L}+, \d == one
+# decimal digit, (?:[^\s\w]|_)+ == run of non-space non-letter non-digit.
+# Digits tokenize one-by-one ('4k' -> '4','k') exactly like every webui
+# worker's bundled CLIP tokenizer, keeping conditioning seed-exact fleet-wide.
+_WORD_RE = re.compile(
+    r"'s|'t|'re|'ve|'m|'ll|'d|[^\W\d_]+|\d|(?:[^\s\w]|_)+",
+    re.IGNORECASE,
+)
+
+
+@functools.lru_cache()
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2/CLIP byte<->unicode table: every byte maps to a printable char."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+def _clean(text: str) -> str:
+    text = html.unescape(html.unescape(text))
+    return re.sub(r"\s+", " ", text).strip().lower()
+
+
+class CLIPTokenizer:
+    """Byte-level BPE with the CLIP end-of-word convention (``</w>``)."""
+
+    def __init__(self, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]]):
+        self.vocab = vocab
+        self.ranks = {m: i for i, m in enumerate(merges)}
+        self.byte_encoder = _bytes_to_unicode()
+        self._cache: Dict[str, List[str]] = {}
+        self.bos = vocab.get("<|startoftext|>", BOS)
+        self.eos = vocab.get("<|endoftext|>", EOS)
+
+    @classmethod
+    def load(cls, model_dir: str) -> "CLIPTokenizer":
+        """Load ``vocab.json`` + ``merges.txt`` (or ``bpe_*.txt.gz``) from a dir."""
+        vocab_path = os.path.join(model_dir, "vocab.json")
+        merges_path = os.path.join(model_dir, "merges.txt")
+        if os.path.exists(vocab_path) and os.path.exists(merges_path):
+            with open(vocab_path, encoding="utf-8") as f:
+                vocab = json.load(f)
+            with open(merges_path, encoding="utf-8") as f:
+                lines = f.read().split("\n")
+            merges = [
+                tuple(l.split()) for l in lines
+                if l and not l.startswith("#") and len(l.split()) == 2
+            ]
+            return cls(vocab, merges)
+        # Original CLIP release format: one gzipped merges file defines the
+        # vocab implicitly (bytes + bytes</w> + merged pairs + specials).
+        gz = [p for p in os.listdir(model_dir) if p.endswith(".txt.gz")] \
+            if os.path.isdir(model_dir) else []
+        if gz:
+            with gzip.open(os.path.join(model_dir, gz[0]), "rt",
+                           encoding="utf-8") as f:
+                merges = [tuple(l.split()) for l in
+                          f.read().split("\n")[1:48894 + 1] if l]
+            chars = list(_bytes_to_unicode().values())
+            tokens = chars + [c + "</w>" for c in chars]
+            tokens += ["".join(m) for m in merges]
+            tokens += ["<|startoftext|>", "<|endoftext|>"]
+            vocab = {t: i for i, t in enumerate(tokens)}
+            return cls(vocab, merges)
+        raise FileNotFoundError(
+            f"no CLIP vocabulary (vocab.json+merges.txt or *.txt.gz) in {model_dir}"
+        )
+
+    def _bpe(self, token: str) -> List[str]:
+        if token in self._cache:
+            return self._cache[token]
+        word: List[str] = list(token[:-1]) + [token[-1] + "</w>"]
+        while len(word) > 1:
+            pairs = [(word[i], word[i + 1]) for i in range(len(word) - 1)]
+            best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 30))
+            if best not in self.ranks:
+                break
+            merged: List[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and (word[i], word[i + 1]) == best:
+                    merged.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[token] = word
+        return word
+
+    def encode(self, text: str) -> List[int]:
+        """Raw BPE ids, no specials, no truncation."""
+        ids: List[int] = []
+        for w in _WORD_RE.findall(_clean(text)):
+            w = "".join(self.byte_encoder[b] for b in w.encode("utf-8"))
+            for piece in self._bpe(w):
+                ids.append(self.vocab.get(piece, self.eos))
+        return ids
+
+    def __call__(self, texts: Sequence[str], max_length: int = MAX_LEN) -> np.ndarray:
+        """Batch-encode to (B, max_length) int32 with BOS/EOS + EOS padding
+        (CLIP pads with EOS; the pooled embedding reads argmax position)."""
+        out = np.full((len(texts), max_length), self.eos, dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = self.encode(text)[: max_length - 2]
+            out[row, 0] = self.bos
+            out[row, 1:1 + len(ids)] = ids
+            out[row, 1 + len(ids)] = self.eos
+        return out
+
+
+class FallbackTokenizer:
+    """Deterministic hash tokenizer for tests / tiny models.
+
+    NOT a real vocabulary — maps each whitespace word to a stable id in
+    ``[2, vocab_size)``. Lets the full pipeline run without CLIP vocab files.
+    """
+
+    def __init__(self, vocab_size: int = 1024):
+        self.vocab_size = vocab_size
+        self.bos = 0
+        self.eos = 1
+
+    def encode(self, text: str) -> List[int]:
+        import hashlib
+
+        ids = []
+        for w in _clean(text).split():
+            h = int(hashlib.sha256(w.encode()).hexdigest(), 16)
+            ids.append(2 + h % (self.vocab_size - 2))
+        return ids
+
+    def __call__(self, texts: Sequence[str], max_length: int = MAX_LEN) -> np.ndarray:
+        out = np.full((len(texts), max_length), self.eos, dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = self.encode(text)[: max_length - 2]
+            out[row, 0] = self.bos
+            out[row, 1:1 + len(ids)] = ids
+            out[row, 1 + len(ids)] = self.eos
+        return out
+
+
+def load_tokenizer(model_dir: Optional[str], vocab_size: int = 49408):
+    """Best tokenizer available: real CLIP BPE if vocab files exist, else
+    the deterministic fallback (logged once)."""
+    if model_dir:
+        try:
+            return CLIPTokenizer.load(model_dir)
+        except (FileNotFoundError, OSError):
+            pass
+    import logging
+
+    logging.getLogger(__name__).warning(
+        "no CLIP vocab files found%s; using deterministic fallback tokenizer "
+        "(fine for tests; supply vocab.json+merges.txt for real prompts)",
+        f" in {model_dir}" if model_dir else "",
+    )
+    return FallbackTokenizer(vocab_size)

@@ -1,0 +1,364 @@
+"""Denoising UNet (SD 1.x family), full forward, in PyTorch.
+
+Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` with no
+ControlNet residuals, ragged rows, LoRA, int8 or SDXL added conditioning.
+Submodule and parameter names mirror the Flax tree (``down_0_res_0``,
+``attn1/qkv`` ...) so ``bridge.flax_to_torch`` maps one onto the other.
+
+The public forward keeps the JAX package's NHWC layout; inside, convs run
+NCHW. Flax's conventions carry over: GroupNorm/LayerNorm use eps 1e-6 with
+f32 statistics, groups are ``min(32, C)``, GEGLU's gelu is the tanh
+approximation, the timestep embedding is ``[cos, sin]`` in f32, the
+ResBlock residual add is f32, and 2x nearest upsampling is a plain repeat.
+
+Latent self-attention goes to kernel K1 (``ops/flash_attention.py``);
+cross-attention over the 77·n context tokens, which the JAX package left to
+XLA, goes to ``scaled_dot_product_attention`` on the backends of
+:func:`reproducible_sdpa`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
+
+from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+    UNetConfig,
+)
+from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
+    flash_attention,
+)
+
+EPS = 1e-6  # Flax's GroupNorm/LayerNorm epsilon (torch defaults to 1e-5)
+
+# The backends ``scaled_dot_product_attention`` may take here. PyTorch's
+# default on Hopper for bf16 is cuDNN's fused attention, which gave other
+# bits in another process for the same inputs on the same card; these give
+# the same bits in every process, so a seed gives the same image on every
+# worker.
+_SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.MATH]
+
+
+def reproducible_sdpa():
+    """Context in which ``scaled_dot_product_attention`` takes only
+    backends that give the same bits from process to process."""
+    return sdpa_kernel(_SDPA_BACKENDS)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in its weight's dtype (Flax ``Dense``
+    with ``dtype`` = the policy's compute dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(_cast(x, self.weight.dtype), self.weight, self.bias)
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(_cast(x, self.weight.dtype))
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # the check costs less than a dispatched no-op ``to``; the UNet makes
+    # some 200 such calls per step
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """Flax ``LayerNorm(dtype=float32)``: f32 statistics AND f32 output.
+    Its scale and bias stay f32 whatever the policy stores (see
+    :func:`norms_to_f32`)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm over NCHW with f32 statistics, output in the input dtype.
+    Its scale and bias stay f32 (see :func:`norms_to_f32`)."""
+
+    def __init__(self, channels: int, num_groups: int = 32):
+        super().__init__()
+        self.gn = nn.GroupNorm(min(num_groups, channels), channels, eps=EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.gn.num_groups, self.gn.weight,
+                         self.gn.bias, self.gn.eps)
+        return _cast(y, x.dtype)
+
+
+def norms_to_f32(module: nn.Module) -> nn.Module:
+    """Hold every norm's scale and bias in f32, after the policy has stored
+    them (in bf16 on the card): the values are the stored ones, and the
+    norms, which compute in f32, need not cast them on every call."""
+    for m in module.modules():
+        if isinstance(m, (LayerNorm32, GroupNorm32)):
+            m.float()
+    return module
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding, (B,) -> (B, dim), ``[cos, sin]``, f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsampling of NCHW (``jax.image.resize(nearest)``)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> (B, H*W, C), row-major like the JAX package's NHWC reshape."""
+    return x.permute(0, 2, 3, 1).flatten(1, 2)
+
+
+def from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return x.unflatten(1, (h, w)).permute(0, 3, 1, 2)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, time_dim: int):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_channels)
+        self.conv1 = Conv(in_channels, out_channels, 3, padding=1)
+        self.time_proj = Dense(time_dim, out_channels)
+        self.norm2 = GroupNorm32(out_channels)
+        self.conv2 = Conv(out_channels, out_channels, 3, padding=1)
+        self.skip = (Conv(in_channels, out_channels, 1)
+                     if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.skip is not None:
+            x = self.skip(x)
+        return (x.float() + h).to(h.dtype)
+
+
+class Attention(nn.Module):
+    """Self-attention (fused QKV, kernel K1) or cross-attention (fused KV,
+    SDPA) over flattened spatial tokens."""
+
+    def __init__(self, channels: int, num_heads: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        if context_dim is None:
+            self.qkv = Dense(channels, 3 * channels, bias=False)
+        else:
+            self.q = Dense(channels, channels, bias=False)
+            self.kv = Dense(context_dim, 2 * channels, bias=False)
+        self.out_proj = Dense(channels, channels)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, T, C = x.shape
+        heads = self.num_heads
+        scale = 1.0 / math.sqrt(C // heads)
+        if context is None:
+            # column slices of the fused projection, read in place by K1
+            q, k, v = (t.unflatten(-1, (heads, C // heads))
+                       for t in self.qkv(x).split(C, dim=-1))
+            out = flash_attention(q, k, v, scale=scale)
+        else:
+            q = self.q(x).unflatten(-1, (heads, C // heads))
+            k, v = (t.unflatten(-1, (heads, C // heads))
+                    for t in self.kv(context).split(C, dim=-1))
+            out = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale).transpose(1, 2)
+        return self.out_proj(out.reshape(B, T, C))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, dim_out: int):
+        super().__init__()
+        self.proj = Dense(dim, 2 * dim_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, g = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(g, approximate="tanh")
+
+
+class TransformerBlock(nn.Module):
+    """self-attn -> cross-attn -> GEGLU MLP, each with pre-LN + residual."""
+
+    def __init__(self, channels: int, num_heads: int, context_dim: int):
+        super().__init__()
+        self.ln1 = LayerNorm32(channels)
+        self.attn1 = Attention(channels, num_heads)
+        self.ln2 = LayerNorm32(channels)
+        self.attn2 = Attention(channels, num_heads, context_dim)
+        self.ln3 = LayerNorm32(channels)
+        self.geglu = GEGLU(channels, 4 * channels)
+        self.ff_out = Dense(4 * channels, channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.ln1(x))
+        x = x + self.attn2(self.ln2(x), context)
+        return x + self.ff_out(self.geglu(self.ln3(x)))
+
+
+class SpatialTransformer(nn.Module):
+    """GN -> linear proj-in -> depth x TransformerBlock -> proj-out +
+    residual."""
+
+    def __init__(self, channels: int, depth: int, num_heads: int,
+                 context_dim: int):
+        super().__init__()
+        self.depth = depth
+        self.norm = GroupNorm32(channels)
+        self.proj_in = Dense(channels, channels)
+        for i in range(depth):
+            self.add_module(f"block_{i}", TransformerBlock(
+                channels, num_heads, context_dim))
+        self.proj_out = Dense(channels, channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        _, _, H, W = x.shape
+        h = self.proj_in(to_tokens(self.norm(x)))
+        for i in range(self.depth):
+            h = getattr(self, f"block_{i}")(h, context)
+        return x + from_tokens(self.proj_out(h), H, W)
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(upsample_nearest(x))
+
+
+class UNet(nn.Module):
+    """The conditional denoiser: ``forward(latents (B,H,W,Cin) NHWC,
+    timesteps (B,) f32, context (B,L,D))`` -> predicted noise
+    ``(B,H,W,Cout)`` f32."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        if cfg.addition_embed_dim:
+            raise ValueError("SDXL added conditioning is not ported yet")
+        self.cfg = cfg
+        ch0 = cfg.block_out_channels[0]
+        time_dim = 4 * ch0
+        ctx_dim = cfg.cross_attention_dim
+        self.time_fc1 = Dense(ch0, time_dim)
+        self.time_fc2 = Dense(time_dim, time_dim)
+        self.conv_in = Conv(cfg.in_channels, ch0, 3, padding=1)
+        n_levels = len(cfg.block_out_channels)
+        cur = ch0
+        skips = [cur]
+        for level, (ch, depth) in enumerate(zip(cfg.block_out_channels,
+                                                cfg.down_blocks)):
+            for i in range(cfg.layers_per_block):
+                self.add_module(f"down_{level}_res_{i}",
+                                ResBlock(cur, ch, time_dim))
+                cur = ch
+                if depth is not None:
+                    self.add_module(f"down_{level}_attn_{i}",
+                                    SpatialTransformer(ch, depth,
+                                                       self.heads_for(ch),
+                                                       ctx_dim))
+                skips.append(cur)
+            if level < n_levels - 1:
+                self.add_module(f"down_{level}_ds", Downsample(ch))
+                skips.append(cur)
+        self.mid_res_0 = ResBlock(cur, cur, time_dim)
+        self.mid_attn = (SpatialTransformer(cur, cfg.mid_block_depth,
+                                            self.heads_for(cur), ctx_dim)
+                         if cfg.mid_block_depth is not None else None)
+        self.mid_res_1 = ResBlock(cur, cur, time_dim)
+        for level in reversed(range(n_levels)):
+            ch = cfg.block_out_channels[level]
+            for i in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{level}_res_{i}",
+                                ResBlock(cur + skips.pop(), ch, time_dim))
+                cur = ch
+                if cfg.down_blocks[level] is not None:
+                    self.add_module(f"up_{level}_attn_{i}",
+                                    SpatialTransformer(
+                                        ch, cfg.down_blocks[level],
+                                        self.heads_for(ch), ctx_dim))
+            if level > 0:
+                self.add_module(f"up_{level}_us", Upsample(ch))
+        self.norm_out = GroupNorm32(cur)
+        self.conv_out = Conv(cur, cfg.out_channels, 3, padding=1)
+
+    def heads_for(self, channels: int) -> int:
+        if self.cfg.num_attention_heads is not None:
+            return self.cfg.num_attention_heads
+        return max(1, channels // 64)
+
+    def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        with reproducible_sdpa():
+            return self._forward(latents, timesteps, context)
+
+    def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
+                 context: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        dtype = self.conv_in.weight.dtype
+        temb = self.time_fc1(
+            timestep_embedding(timesteps, c.block_out_channels[0]).to(dtype))
+        temb = self.time_fc2(F.silu(temb))
+        context = context.to(dtype)
+        x = self.conv_in(latents.permute(0, 3, 1, 2))
+
+        n_levels = len(c.block_out_channels)
+        skips = [x]
+        for level, depth in enumerate(c.down_blocks):
+            for i in range(c.layers_per_block):
+                x = getattr(self, f"down_{level}_res_{i}")(x, temb)
+                if depth is not None:
+                    x = getattr(self, f"down_{level}_attn_{i}")(x, context)
+                skips.append(x)
+            if level < n_levels - 1:
+                x = getattr(self, f"down_{level}_ds")(x)
+                skips.append(x)
+
+        x = self.mid_res_0(x, temb)
+        if self.mid_attn is not None:
+            x = self.mid_attn(x, context)
+        x = self.mid_res_1(x, temb)
+
+        for level in reversed(range(n_levels)):
+            for i in range(c.layers_per_block + 1):
+                x = torch.cat([x, skips.pop()], dim=1)
+                x = getattr(self, f"up_{level}_res_{i}")(x, temb)
+                if c.down_blocks[level] is not None:
+                    x = getattr(self, f"up_{level}_attn_{i}")(x, context)
+            if level > 0:
+                x = getattr(self, f"up_{level}_us")(x)
+
+        x = F.silu(self.norm_out(x))
+        return self.conv_out(x).float().permute(0, 2, 3, 1)

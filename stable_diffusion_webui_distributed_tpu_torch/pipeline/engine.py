@@ -1,0 +1,396 @@
+"""The generation engine: the txt2img slice in PyTorch.
+
+Port of the JAX package's ``pipeline/engine.py`` for the single-prompt
+txt2img path: encode the prompts (CLIP, clip skip, emphasis with the chunk
+mean restored, 77-token chunks joined), draw each image's init noise from
+its seed, denoise with classifier-free guidance over two rows in a chunked
+loop that polls the interrupt between chunks, decode to uint8 pixels, and
+return base64 PNGs with per-image seeds and infotext.
+
+Seed-exact sub-ranges carry over: ``generate_range(payload, start, count)``
+produces images ``[start, start+count)`` of the request, equal to the same
+rows of the whole-batch run, because every draw is keyed by
+``seed + image index`` and never by batch position.
+
+What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
+422): img2img, hires fix, the refiner, ControlNet, LoRA tags, per-image
+prompts and scripts, the step cache, other serving precisions, and the
+samplers other than Euler and Euler a.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stable_diffusion_webui_distributed_tpu_torch.bridge import (
+    StateDicts,
+    build_modules,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+    ModelFamily,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.prompt import (
+    pad_chunks,
+    tokenize_weighted,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
+    load_tokenizer,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+    norms_to_f32,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+    GenerationPayload,
+    GenerationResult,
+    Unsupported,
+    apply_scripts,
+    array_to_b64png,
+    build_infotext,
+    fix_seed,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes, rng
+from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+    interrupt as interrupt_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+    kdiffusion as kd,
+)
+from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+    schedules as sched,
+)
+
+_LORA_TAG = re.compile(r"<lora:([^:>]+)(?::([0-9.+-]+))?(?::([0-9.+-]+))?>")
+
+
+def _load(module: torch.nn.Module, state_dict, device) -> torch.nn.Module:
+    module = module.to_empty(device=device)
+    module.load_state_dict(state_dict, strict=True)
+    return module.requires_grad_(False).eval()
+
+
+class Engine:
+    """One loaded model family on one device.
+
+    ``params`` are the port's state dicts (``bridge.flax_to_torch`` or
+    ``bridge.init_seeded``). ``device`` is ``cuda`` unless named; with none
+    named and no GPU present the constructor raises."""
+
+    def __init__(
+        self,
+        family: ModelFamily,
+        params: StateDicts,
+        tokenizer=None,
+        policy: dtypes.Policy = dtypes.F32,
+        model_name: str = "",
+        state: Optional[interrupt_mod.GenerationState] = None,
+        chunk_size: int = 10,
+        schedule: Optional[sched.NoiseSchedule] = None,
+        device=None,
+    ):
+        self.device = dtypes.resolve_device(device)
+        self.family = family
+        self.policy = policy
+        self.model_name = model_name or family.name
+        self.state = state or interrupt_mod.STATE
+        self.chunk_size = max(1, chunk_size)
+        self.schedule = schedule or sched.sd_schedule(
+            prediction_type=family.prediction_type)
+        self.tokenizer = tokenizer or load_tokenizer(
+            None, family.text_encoder.vocab_size)
+
+        with torch.device("meta"):
+            modules = build_modules(family)
+        loaded = {name: _load(m, params[name], self.device)
+                  for name, m in modules.items()}
+        pd, cd = policy.param_dtype, policy.compute_dtype
+        # weights are stored in param_dtype and computed in compute_dtype;
+        # the norms, the UNet's conv_out and the whole VAE decoder compute
+        # in f32
+        self.text_encoder = norms_to_f32(loaded["text_encoder"].to(pd).to(cd))
+        self.unet = norms_to_f32(loaded["unet"].to(pd).to(cd))
+        self.unet.conv_out.float()
+        self.vae = loaded["vae"].to(pd).float()
+
+        # cross-request conditioning cache (webui's cached_c/cached_uc),
+        # keyed on prompt text + clip skip + chunk count
+        self._cond_cache: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        self._COND_CACHE_MAX = 64
+        # Every generation runs on this one thread, whichever thread asks.
+        # PyTorch keeps cuBLAS and cuDNN handles and cuDNN's plan cache per
+        # thread, and on the card the same UNet call made from a fresh
+        # thread can give other bits; a repeated request must give the same
+        # image bytes. One thread also serialises the engine's requests.
+        self._device_thread = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="engine")
+
+    # -- text conditioning -------------------------------------------------
+
+    def _encode(self, ids: np.ndarray, weights: np.ndarray, skip: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(n_chunks, 77) ids/weights -> (context (1, n*77, D) f32, pooled
+        (1, D) f32): emphasis scales the tokens, the chunk mean is
+        restored, the chunks join along the sequence axis."""
+        ctx, pooled = self.text_encoder(
+            torch.from_numpy(ids).long().to(self.device),
+            skip=skip if skip else None)
+        ctx = ctx.float()
+        w = torch.from_numpy(weights).to(self.device)
+        orig_mean = ctx.mean(dim=(1, 2), keepdim=True)
+        ctx = ctx * w[:, :, None]
+        new_mean = ctx.mean(dim=(1, 2), keepdim=True)
+        ratio = torch.where(new_mean.abs() > 1e-7, orig_mean / new_mean,
+                            torch.ones_like(new_mean))
+        ctx = ctx * ratio
+        return ctx.reshape(1, -1, ctx.shape[-1]), pooled[:1].float()
+
+    def encode_prompts(self, payload: GenerationPayload):
+        """``((ctx_u, ctx_c), (pooled_u, pooled_c))`` for the request's one
+        prompt and its negative prompt, padded to one chunk count."""
+        tok = self.tokenizer
+        prompt = _strip_prompt(payload.prompt)
+        ids_c, w_c = tokenize_weighted(tok, prompt)
+        ids_u, w_u = tokenize_weighted(tok, payload.negative_prompt)
+        n = max([ids_c.shape[0], ids_u.shape[0]]
+                + ([payload.context_chunks] if payload.context_chunks
+                   else []))
+        depth = self.family.text_encoder.num_layers
+        skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
+
+        def cached(raw, ids, w):
+            key = (raw, skip, n)
+            hit = self._cond_cache.get(key)
+            if hit is not None:
+                self._cond_cache.move_to_end(key)
+                return hit
+            out = self._encode(*pad_chunks(ids, w, n, tok.eos, tok.bos),
+                               skip)
+            self._cond_cache[key] = out
+            if len(self._cond_cache) > self._COND_CACHE_MAX:
+                self._cond_cache.popitem(last=False)
+            return out
+
+        ctx_c, pooled_c = cached(prompt, ids_c, w_c)
+        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u)
+        return (ctx_u, ctx_c), (pooled_u, pooled_c)
+
+    # -- denoise -------------------------------------------------------------
+
+    def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int):
+        """x0-prediction denoiser with classifier-free guidance: one UNet
+        call on ``[uncond; cond]`` rows per evaluation."""
+        ctx = torch.cat([ctx_u.expand(batch, -1, -1),
+                         ctx_c.expand(batch, -1, -1)])
+        cfg = torch.tensor(cfg_scale, dtype=torch.float32)
+        v_pred = self.schedule.prediction_type == "v_prediction"
+
+        def denoise(x, sigma, step):
+            c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
+            t = self.schedule.sigma_to_t(sigma)
+            xin = x * c_in
+            tb = torch.full((2 * batch,), float(t), dtype=torch.float32,
+                            device=x.device)
+            out = self.unet(torch.cat([xin, xin]), tb, ctx)
+            out_u, out_c = out.float().chunk(2)
+            guided = out_u + cfg * (out_c - out_u)
+            if v_pred:
+                c_skip = 1.0 / (sigma**2 + 1.0)
+                c_out = sigma / torch.sqrt(sigma**2 + 1.0)
+                return x * c_skip - guided * c_out
+            return x - sigma * guided
+
+        return denoise
+
+    def _denoise(self, payload: GenerationPayload, x: torch.Tensor,
+                 image_keys: torch.Tensor, conds, job: str) -> torch.Tensor:
+        """Chunked sampler loop: ``chunk_size`` steps at a time, the
+        interrupt flag and progress checked between chunks."""
+        spec = kd.resolve_sampler(payload.sampler_name)
+        steps = payload.steps
+        sigmas = kd.build_sigmas(spec, self.schedule, steps)
+        denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
+                                        x.shape[0])
+        step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
+        carry = kd.init_carry(x)
+        self.state.begin(job, steps)
+        pos = 0
+        while pos < steps and not self.state.flag.interrupted:
+            end = min(pos + self.chunk_size, steps)
+            for i in range(pos, end):
+                carry = step(carry, i)
+            pos = end
+            self.state.step(pos)
+        self.state.finish()
+        return carry.x
+
+    # -- decode --------------------------------------------------------------
+
+    #: images decoded per call = max(1, budget // (width*height)), bounding
+    #: the f32 decoder's scratch (the JAX package's _DECODE_PIXEL_BUDGET)
+    _DECODE_PIXEL_BUDGET = 1024 * 1024
+
+    def _decode_u8(self, latents: torch.Tensor, width: int,
+                   height: int) -> np.ndarray:
+        """Latents (B,h,w,C) -> uint8 pixels (B,H,W,3) on the host."""
+        per = max(1, self._DECODE_PIXEL_BUDGET // max(1, width * height))
+        scale = self.family.vae.scaling_factor
+        out = []
+        for s in range(0, latents.shape[0], per):
+            imgs = self.vae(latents[s:s + per] / scale)
+            px = torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0) * 255.0 + 0.5
+            out.append(px.to(torch.uint8).cpu().numpy())
+        return np.concatenate(out)
+
+    # -- requests ------------------------------------------------------------
+
+    def _image_keys(self, payload: GenerationPayload, start: int,
+                    batch: int) -> torch.Tensor:
+        # ENSD offsets the sampler noise seed only (webui semantics)
+        ensd = int((payload.override_settings or {})
+                   .get("eta_noise_seed_delta", 0) or 0)
+        seed = (payload.seed + ensd) % (2 ** 32)
+        pin = payload.subseed_strength > 0 or payload.same_seed
+        return rng.batch_keys(seed, start, batch, pin_index=pin,
+                              device=self.device)
+
+    def _seed_resize_latent(self, payload: GenerationPayload):
+        if payload.seed_resize_from_w > 0 and payload.seed_resize_from_h > 0:
+            f = self.family.vae_scale_factor
+            return (payload.seed_resize_from_h // f,
+                    payload.seed_resize_from_w // f)
+        return None
+
+    def _run_txt2img(self, payload: GenerationPayload, start: int,
+                     count: int, job: str) -> GenerationResult:
+        width, height = payload.width, payload.height
+        f = self.family.vae_scale_factor
+        h, w = height // f, width // f
+        C = self.family.vae.latent_channels
+        spec = kd.resolve_sampler(payload.sampler_name)
+        sigma0 = kd.build_sigmas(spec, self.schedule, payload.steps)[0]
+        conds, _ = self.encode_prompts(payload)
+        out = GenerationResult(parameters=payload.model_dump())
+        # groups of batch_size keep the batch dim stable across n_iter
+        group = max(1, payload.group_size or payload.batch_size)
+        pos, remaining = start, count
+        while remaining > 0 and not self.state.flag.interrupted:
+            n = min(group, remaining)
+            # pad-and-drop: a short group runs at the full group size and
+            # its extra rows are dropped after decoding, so every UNet and
+            # decoder call has the batch size of the whole-batch run. A
+            # row's numbers depend on the batch size (GEMM and convolution
+            # algorithms do), not on its position, so a sub-range then
+            # reproduces the whole-batch rows exactly.
+            noise = rng.batch_noise(
+                payload.seed, payload.subseed, payload.subseed_strength,
+                pos, group, (h, w, C),
+                seed_resize=self._seed_resize_latent(payload),
+                pin_index=payload.same_seed, device=self.device)
+            latents = self._denoise(payload, noise * sigma0,
+                                    self._image_keys(payload, pos, group),
+                                    conds, job)
+            imgs = self._decode_u8(latents, width, height)[:n]
+            self._append_images(out, payload, imgs, pos, width, height)
+            pos += n
+            remaining -= n
+        return out
+
+    def _append_images(self, out: GenerationResult,
+                       payload: GenerationPayload, imgs: np.ndarray,
+                       pos: int, width: int, height: int) -> None:
+        pinned = payload.subseed_strength > 0 or payload.same_seed
+        for j, img in enumerate(imgs):
+            i = pos + j
+            seed_i = payload.seed + (0 if pinned else i)
+            sub_i = payload.subseed + (0 if payload.same_seed else i)
+            out.images.append(array_to_b64png(img))
+            out.seeds.append(int(seed_i))
+            out.subseeds.append(int(sub_i))
+            out.prompts.append(payload.prompt)
+            out.negative_prompts.append(payload.negative_prompt)
+            out.infotexts.append(build_infotext(
+                payload, int(seed_i), int(sub_i), self.model_name,
+                width, height))
+            out.worker_labels.append("")
+
+    def generate_range(self, payload: GenerationPayload,
+                       start_index: int = 0, count: Optional[int] = None,
+                       job: str = "txt2img") -> GenerationResult:
+        """Produce images ``[start_index, start_index+count)`` of the
+        request (the unit of a seed-exact batch split)."""
+        payload = payload.model_copy()
+        payload.seed = fix_seed(payload.seed)
+        payload.subseed = fix_seed(payload.subseed)
+        check_supported(payload)
+        count = payload.total_images if count is None else count
+        return self._device_thread.submit(
+            self._generate, payload, start_index, count, job).result()
+
+    def _generate(self, payload: GenerationPayload, start: int, count: int,
+                  job: str) -> GenerationResult:
+        with torch.inference_mode(), _reproducible(self.device):
+            return self._run_txt2img(payload, start, count, job)
+
+    def txt2img(self, payload: GenerationPayload) -> GenerationResult:
+        # top-level request: reset the interrupt latch, expand scripts
+        self.state.begin_request()
+        return self.generate_range(apply_scripts(payload), 0, None,
+                                   "txt2img")
+
+
+@contextlib.contextmanager
+def _reproducible(device: torch.device):
+    """cuDNN may otherwise pick convolution algorithms whose sums run in a
+    different order from one call to the next; a repeated request must give
+    the same image bytes."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _strip_prompt(prompt: str) -> str:
+    """The JAX package strips ``<lora:...>`` tags before tokenizing and
+    collapses the whitespace they leave; the port has no LoRA, so a tag
+    raises."""
+    if _LORA_TAG.search(prompt):
+        raise Unsupported("LoRA tags are not ported to the PyTorch engine "
+                          "yet")
+    return re.sub(r"\s{2,}", " ", prompt).strip()
+
+
+def check_supported(payload: GenerationPayload) -> None:
+    """Raise :class:`Unsupported` for what this slice does not run, rather
+    than answer with an image the JAX package would not make."""
+    ov: Dict = payload.override_settings or {}
+    scripts = payload.alwayson_scripts or {}
+    unsupported = {
+        "img2img (init_images)": bool(payload.init_images),
+        "hires fix (enable_hr)": payload.enable_hr,
+        "the refiner": bool(payload.refiner_checkpoint)
+        and payload.refiner_switch_at < 1.0,
+        "per-image prompts (all_prompts)": bool(payload.all_prompts),
+        "ControlNet": "controlnet" in scripts or "ControlNet" in scripts,
+        "serving precisions other than bf16": str(
+            payload.precision or ov.get("precision") or "bf16") != "bf16",
+        "the step cache (deepcache)": int(ov.get("deepcache", 1) or 1) > 1,
+        "CFG truncation (cfg_cutoff)": float(ov.get("cfg_cutoff", 0)
+                                             or 0) > 0,
+    }
+    asked = [name for name, on in unsupported.items() if on]
+    if asked:
+        raise Unsupported(f"not ported to the PyTorch engine yet: "
+                          f"{', '.join(asked)}")
+    kd.resolve_sampler(payload.sampler_name)
+    _strip_prompt(payload.prompt)

@@ -1,0 +1,68 @@
+"""The port stands alone: no JAX, no Flax, nothing of the JAX package.
+
+A fresh interpreter imports every module of the port; afterwards neither
+``jax``, ``flax`` nor any module of ``stable_diffusion_webui_distributed_tpu``
+may be loaded. A scan of the sources (the port's and ``chip_smoke.py``)
+asserts the same of every import statement, including imports inside
+functions.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = "stable_diffusion_webui_distributed_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "stable_diffusion_webui_distributed_tpu")
+
+PROBE = f"""
+import importlib, json, pkgutil, sys
+import {PORT} as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, "{PORT}.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(json.dumps({{"imported": names, "forbidden": loaded}}))
+"""
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_importing_every_port_module_loads_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert f"{PORT}.pipeline.engine" in out["imported"]
+    assert f"{PORT}.server.api" in out["imported"]
+    assert len(out["imported"]) >= 20
+    assert out["forbidden"] == []
+
+
+def _sources():
+    yield from sorted((ROOT / PORT).rglob("*.py"))
+    yield ROOT / "chip_smoke.py"
+
+
+@pytest.mark.parametrize("path", list(_sources()),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
