@@ -6,20 +6,33 @@
 Phases, each fatal on failure (no phase is caught and passed over):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: kernel K1 compiled with ``nvcc`` from the repository's source;
+2. build: kernels K1 and K2 compiled with ``nvcc`` from the repository's
+   sources, one compiler per source, started together;
 3. kernels: K1 held against its plain PyTorch version on the card at every
    shape and layout SD1.5 512x512 gives it, in f32 (TF32 off for matmul and
    cuDNN) and in bf16, and timed beside its plain version, PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
    it) and its bound;
-4. main path: the port's ``ApiServer`` over SD1.5 at full width on seeded
+4. ragged kernels: K2 the same way at every shape and length the ragged
+   serving phase gives it (self-attention and cross-attention), timed
+   beside its plain version and SDPA with a boolean key mask (a yardstick
+   that leaves the padded query rows un-zeroed), its bound counted on the
+   valid work only;
+5. main path: the port's ``ApiServer`` over SD1.5 at full width on seeded
    random weights (bf16 card policy) answers three ``POST
-   /sdapi/v1/txt2img`` requests (512x512, 20 steps, Euler a, CFG 7); K1 must
-   be launched 320 times per image group, repeats must be byte-identical and
-   a batch's image 1 must carry image 0 of the next seed's init noise;
-5. reference: one full-width UNet call on the bf16 card policy against the
+   /sdapi/v1/txt2img`` requests (512x512, 20 steps, Euler a, CFG 7) through
+   its serving dispatcher (512x512 is an exact bucket hit); K1 must be
+   launched 320 times per image group and K2 never, repeats must be
+   byte-identical and a batch's image 1 must carry image 0 of the next
+   seed's init noise;
+6. ragged serving: the same server with ``SDTPU_RAGGED=1`` on a 512x768
+   bucket gets three concurrent requests of 512x512, 512x640 and 512x768;
+   they must run as ONE dispatch, launch K2 640 times (32 per UNet call x
+   20 steps) and K1 never, come back at their sizes, and agree with each
+   request sent alone within a mean of 2 uint8 levels;
+7. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
-6. profile: where a warm request's time goes (device time by kernel group
+8. profile: where a warm request's time goes (device time by kernel group
    and the device's busy share, from ``torch.profiler``), and the same for
    one UNet call.
 
@@ -36,8 +49,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -57,6 +72,35 @@ EXTRA_SHAPES = [(1, 1000, 8, 64)]  # ragged edges, head dim 64
 TOLERANCE = {"f32": 2e-5, "bf16": 1e-2}  # max abs error vs the plain version
 
 LAUNCHES_PER_GROUP = 16 * 20  # 16 per UNet call x 20 steps
+
+# The ragged serving phase: three requests on one 512x768 bucket, the group
+# padded to batch 4 (the last row repeated), CFG doubling it to 8 rows.
+# Latent rows per level (ceil-halved) of 512x512, 512x640 and 512x768.
+RAGGED_SIZES = [(512, 512), (512, 640), (512, 768)]
+RAGGED_ROWS = [64, 80, 96, 96]
+# the first request's prompt runs past 75 tokens: 2 chunks, 154 context
+# tokens in the group; the others and every negative prompt take 77
+RAGGED_CTX = [77, 77, 77, 77, 154, 77, 77, 77]  # [uncond rows; cond rows]
+K2_LAUNCHES = 32 * 20  # 16 self + 16 cross per UNet call x 20 steps
+RAGGED_MEAN_TOLERANCE = 2.0  # uint8 levels, coalesced vs solo
+
+
+def ragged_shapes():
+    """(shape (B,T,H,D), S, lengths, mask_queries, calls per UNet call) of
+    every K2 launch of one ragged UNet call: levels 0-2 five each, the mid
+    block one, self-attention then cross-attention."""
+    out = []
+    for level, (d, calls) in enumerate([(40, 5), (80, 5), (160, 5),
+                                        (160, 1)]):
+        rows = list(RAGGED_ROWS)
+        for _ in range(level):
+            rows = [(r + 1) // 2 for r in rows]
+        width = 64 >> level
+        t = 96 * 64 >> (2 * level)
+        out.append(((8, t, 8, d), t, [r * width for r in rows] * 2, True,
+                    calls))
+        out.append(((8, t, 8, d), 154, RAGGED_CTX, False, calls))
+    return out
 
 
 class SmokeFailure(RuntimeError):
@@ -104,6 +148,97 @@ def bound_ms(shape, dtype_name: str):
     t_exp = b * h * t * t / PEAK_EXP
     by = "bytes" if t_bytes >= t_flops else "operations"
     return 1e3 * max(t_bytes, t_flops), by, 1e3 * t_exp
+
+
+def ragged_bound_ms(shape, s_len: int, lens, mask_q: bool,
+                    dtype_name: str):
+    """``bound_ms`` on the valid work: the valid q, k and v rows read once
+    and the whole o written once, and sum over rows of valid queries x
+    valid keys for the FLOPs and the exps."""
+    b, t, h, d = shape
+    elem = 2 if dtype_name == "bf16" else 4
+    kv = [min(n, s_len) for n in lens]
+    qv = [min(n, t) if mask_q else t for n in lens]
+    pairs = sum(q * k for q, k in zip(qv, kv))
+    t_bytes = elem * h * d * (sum(qv) + 2 * sum(kv) + b * t) / PEAK_BYTES
+    t_flops = 4 * h * d * pairs / PEAK_FLOPS[dtype_name]
+    t_exp = h * pairs / PEAK_EXP
+    by = "bytes" if t_bytes >= t_flops else "operations"
+    return 1e3 * max(t_bytes, t_flops), by, 1e3 * t_exp
+
+
+def phase_ragged_kernels(ra):
+    """K2 against its plain version in f32 and bf16 at every launch of one
+    ragged UNet call, then timed (bf16) beside its plain version and SDPA
+    with a boolean key mask."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+              "exp_ms": 0.0}
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    bound_by = set()
+    for shape, s_len, lens, mask_q, calls in ragged_shapes():
+        b, t, h, d = shape
+        kind = "self" if mask_q else "cross"
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q_true = lengths if mask_q else None
+        for name, dtype in dtypes.items():
+            # as the UNet hands them to K2: self-attention reads column
+            # slices of the fused QKV projection, cross-attention a q
+            # projection and slices of the fused KV projection
+            if mask_q:
+                qkv = torch.randn((b, t, 3 * h * d), device="cuda",
+                                  generator=gen).to(dtype)
+                q, k, v = (x.unflatten(-1, (h, d))
+                           for x in qkv.split(h * d, dim=-1))
+            else:
+                q = torch.randn((b, t, h, d), device="cuda",
+                                generator=gen).to(dtype)
+                kv = torch.randn((b, s_len, 2 * h * d), device="cuda",
+                                 generator=gen).to(dtype)
+                k, v = (x.unflatten(-1, (h, d))
+                        for x in kv.split(h * d, dim=-1))
+            out = ra.ragged_attention(q, k, v, lengths, mask_queries=mask_q)
+            torch.cuda.synchronize()
+            ref = ra.ragged_attention_reference(q, k, v, lengths,
+                                                q_true_len=q_true)
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"kernel ragged_attention {shape} S={s_len} {kind} "
+                  f"{name}: max_abs_err {err:.3g} (tolerance "
+                  f"{TOLERANCE[name]:g})")
+            check(err <= TOLERANCE[name],
+                  f"ragged_attention {shape} {kind} {name} disagrees with "
+                  f"the plain version: {err}")
+            max_err[name] = max(max_err[name], err)
+            del ref
+            if name != "bf16":
+                continue
+            ms = cuda_ms(lambda: ra.ragged_attention(
+                q, k, v, lengths, mask_queries=mask_q), 20)
+            plain = cuda_ms(lambda: ra.ragged_attention_reference(
+                q, k, v, lengths, q_true_len=q_true), 5)
+            mask = (torch.arange(s_len, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 20)
+            bms, by, exp_ms = ragged_bound_ms(shape, s_len, lens, mask_q,
+                                              name)
+            bound_by.add(by)
+            print(f"kernel ragged_attention {shape} S={s_len} {kind} bf16 "
+                  f"per call: ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                  f"{lib:.4f} bound_ms {bms:.4f} ({by}) exp_ms "
+                  f"{exp_ms:.4f} x{calls} per ragged UNet call")
+            totals["ms"] += calls * ms
+            totals["plain_ms"] += calls * plain
+            totals["library_ms"] += calls * lib
+            totals["bound_ms"] += calls * bms
+            totals["exp_ms"] += calls * exp_ms
+    return totals, max_err, ("operations" if "operations" in bound_by
+                             else "bytes")
 
 
 def phase_kernels(fa):
@@ -179,7 +314,7 @@ def png_pixels(b64: str):
     return np.asarray(img.convert("RGB"))
 
 
-def phase_main_path(fa, card_line: str):
+def phase_main_path(fa, ra, card_line: str):
     import numpy as np
     import torch
 
@@ -199,6 +334,9 @@ def phase_main_path(fa, card_line: str):
     from stable_diffusion_webui_distributed_tpu_torch.server.api import (
         ApiServer,
     )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
 
     t0 = time.perf_counter()
     params = init_seeded(SD15, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -211,9 +349,12 @@ def phase_main_path(fa, card_line: str):
             "height": 512, "cfg_scale": 7, "sampler_name": "Euler a"}
     server = ApiServer(engine, port=0).start()
     try:
+        check(server.dispatcher is not None, "the server has no dispatcher")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        METRICS.clear()
         fa.flash_attention.launches = 0
+        ra.ragged_attention.launches = 0
         runs = {}
         for tag, extra in (("a", {"seed": 1234, "batch_size": 1}),
                            ("b", {"seed": 1234, "batch_size": 1}),
@@ -225,8 +366,14 @@ def phase_main_path(fa, card_line: str):
                          fa.flash_attention.launches - before)
         peak = torch.cuda.max_memory_allocated()
         total_launches = fa.flash_attention.launches
+        k2_launches = ra.ragged_attention.launches
     finally:
         server.stop()
+    serving = METRICS.summary()
+    print(f"main path dispatcher: {json.dumps(serving)}")
+    check(serving["dispatches"] == 3 and serving["bucket_hits"] == 3,
+          "the main path did not run as three exact-bucket dispatches")
+    check(k2_launches == 0, f"the main path launched K2 {k2_launches} times")
 
     for tag, (lat, resp, launches) in runs.items():
         print(f"main path request ({tag}): latency {lat:.3f} s, "
@@ -259,9 +406,120 @@ def phase_main_path(fa, card_line: str):
     metrics = {"latency_s": {t: round(runs[t][0], 4) for t in "abc"},
                "images_per_minute_batch1": round(60.0 / lat_warm, 3),
                "peak_memory_gib": round(peak / 2**30, 3),
-               "k1_launches": total_launches, "card": card_line}
+               "k1_launches": total_launches, "k2_launches": k2_launches,
+               "card": card_line}
     print("main path metrics: " + json.dumps(metrics))
     return engine, total_launches
+
+
+RAGGED_ENV = {"SDTPU_RAGGED": "1", "SDTPU_RAGGED_LADDER": "512x768",
+              "SDTPU_BATCH_LADDER": "1,2,4,8",
+              "SDTPU_COALESCE_WINDOW": "0.5"}
+
+
+def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
+    """Three concurrent requests of three heights on one ragged 512x768
+    bucket through the port's server; returns K2's launches in them."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    long_prompt = ", ".join(["a photograph of an astronaut riding a horse"]
+                            * 10)
+    bodies = [{"prompt": long_prompt if i == 0 else
+               f"a photograph of an astronaut riding a horse, view {i}",
+               "negative_prompt": "blurry", "steps": 20, "width": w,
+               "height": h, "cfg_scale": 7, "sampler_name": "Euler a",
+               "seed": 1234 + i} for i, (w, h) in enumerate(RAGGED_SIZES)]
+    results, latency, errors = [None] * 3, [0.0] * 3, []
+
+    def send(i):
+        try:
+            t = time.perf_counter()
+            results[i] = post(server.port, bodies[i])
+            latency[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errors.append(e)
+
+    # the ladders are read when the server is made, the ragged knobs on
+    # every request: all of them stay set for the whole phase
+    saved = {k: os.environ.get(k) for k in RAGGED_ENV}
+    os.environ.update(RAGGED_ENV)
+    server = None
+    try:
+        server = ApiServer(engine, port=0).start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        METRICS.clear()
+        fa.flash_attention.launches = 0
+        ra.ragged_attention.launches = 0
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(3)]
+        for th in threads:  # in order, well inside the coalesce window
+            th.start()
+            time.sleep(0.05)
+        for th in threads:
+            th.join()
+        k1, k2 = fa.flash_attention.launches, ra.ragged_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        serving = METRICS.summary()
+        check(not errors, f"a ragged request failed: {errors}")
+        solo = []
+        for body in bodies:
+            t = time.perf_counter()
+            solo.append((post(server.port, body), time.perf_counter() - t))
+        solo_k2 = ra.ragged_attention.launches - k2
+    finally:
+        if server is not None:
+            server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    print(f"ragged serving dispatcher: {json.dumps(serving)}")
+    print(f"ragged serving: K2 launches {k2}, K1 launches {k1}; solo runs: "
+          f"K2 launches {solo_k2} [{card_line}]")
+    check(serving["dispatches"] == 1 and serving["coalesced_requests"] == 3,
+          "the three ragged requests did not run as one dispatch")
+    check(k2 == K2_LAUNCHES, f"K2 launched {k2} times, want {K2_LAUNCHES}")
+    check(k1 == 0, f"K1 launched {k1} times in the ragged phase")
+    check(solo_k2 == 3 * K2_LAUNCHES, f"solo runs launched K2 {solo_k2} "
+          f"times, want {3 * K2_LAUNCHES}")
+    diffs = []
+    for i, (w, h) in enumerate(RAGGED_SIZES):
+        resp, (solo_resp, solo_lat) = results[i], solo[i]
+        info = json.loads(resp["info"])
+        check(info["all_seeds"] == [1234 + i], f"request {i} seeds")
+        check(f"Size: {w}x{h}" in info["infotexts"][0],
+              f"request {i} infotext lacks Size: {w}x{h}")
+        px, px_solo = (png_pixels(r["images"][0]) for r in (resp,
+                                                           solo_resp))
+        check(px.shape == px_solo.shape == (h, w, 3),
+              f"request {i} image shape {px.shape}, solo {px_solo.shape}")
+        check(float(px.std()) > 1.0, f"request {i} image is (near) constant")
+        diff = np.abs(px.astype(np.int32) - px_solo.astype(np.int32))
+        diffs.append(float(diff.mean()))
+        print(f"ragged serving request {w}x{h}: coalesced latency "
+              f"{latency[i]:.3f} s, solo latency {solo_lat:.3f} s; "
+              f"coalesced vs solo mean abs {diff.mean():.4f}, max "
+              f"{diff.max()} (uint8 levels) [{card_line}]")
+        check(diff.mean() <= RAGGED_MEAN_TOLERANCE,
+              f"request {i}: coalesced image drifted from its solo run")
+    metrics = {"latency_s": [round(x, 4) for x in latency],
+               "solo_latency_s": [round(x[1], 4) for x in solo],
+               "coalesced_vs_solo_mean_abs": [round(x, 4) for x in diffs],
+               "peak_memory_gib": round(peak / 2**30, 3),
+               "k2_launches": k2, "k1_launches": k1, "card": card_line}
+    print("ragged serving metrics: " + json.dumps(metrics))
+    return k2
 
 
 def phase_reference(engine) -> None:
@@ -294,6 +552,7 @@ def phase_reference(engine) -> None:
 # xmma kernels too, so they are matched before the GEMMs)
 KERNEL_GROUPS = (
     ("K1 flash_attention", ("attn_fwd",)),
+    ("K2 ragged_attention", ("ragged_fwd",)),
     ("SDPA (cross-attention)", ("sdpa", "flash_fwd", "fmha", "attention")),
     ("convolution", ("fprop", "conv", "implicit")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -332,7 +591,9 @@ def phase_profile(engine, card_line: str) -> None:
     on the host clock, traced with ``torch.profiler``: device time by
     kernel group and the share of the request the device was busy. Then one
     warm UNet call (batch 2 = CFG at 512x512) the same way, timed with CUDA
-    events, and the text encoder and the VAE decode timed alone."""
+    events, one warm ragged UNet call as the ragged serving phase makes it
+    (batch 8 = 4 rows with CFG on the 512x768 bucket), and the text encoder
+    and the VAE decode timed alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,21 +619,54 @@ def phase_profile(engine, card_line: str) -> None:
     ctx = torch.randn((2, 77, 768), device="cuda", generator=gen)
     lat = torch.randn((1, 64, 64, 4), device="cuda", generator=gen)
     ids = torch.randint(0, 49408, (1, 77), device="cuda", generator=gen)
+    xr = torch.randn((8, 96, 64, 4), device="cuda", generator=gen)
+    tr = torch.full((8,), 500.0, device="cuda")
+    ctxr = torch.randn((8, 154, 768), device="cuda", generator=gen)
+    ragged = {"true_rows": torch.tensor(RAGGED_ROWS * 2, device="cuda"),
+              "ctx_true": torch.tensor(RAGGED_CTX, device="cuda")}
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # as the engine runs
     with torch.inference_mode():
         unet_ms = cuda_ms(lambda: engine.unet(x, t, ctx), 5)
+        ragged_ms = cuda_ms(lambda: engine.unet(xr, tr, ctxr, **ragged), 5)
         text_ms = cuda_ms(lambda: engine.text_encoder(ids), 5)
         decode_ms = cuda_ms(lambda: engine.vae(lat / 0.18215), 3)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 engine.unet(x, t, ctx)
             torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_r:
+            for _ in range(3):
+                engine.unet(xr, tr, ctxr, **ragged)
+            torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = prev
     print_groups("UNet call (batch 2 = CFG, 64x64 latents)", unet_ms,
                  device_groups(prof, 3), card_line)
+    print_groups("ragged UNet call (batch 8 = 4 rows with CFG, 96x64 "
+                 "latents)", ragged_ms, device_groups(prof_r, 3), card_line)
     print(f"profile: text encoder (1 x 77 tokens) {text_ms:.3f} ms, VAE "
           f"decode (1 x 512x512, f32) {decode_ms:.3f} ms [{card_line}]")
+
+
+def phase_build(*modules) -> None:
+    """Every kernel built at once: one nvcc per source, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        logs = list(pool.map(lambda m: m.build()[1], modules))
+    for mod, log in zip(modules, logs):
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w in [line.split("Used ")[1].split(" ")[0]]]
+        # "Function properties for <kernel>" precedes its spill line
+        spills, kernel = [], ""
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                kernel = line.rsplit(" ", 1)[-1]
+            elif "spill stores" in line and "0 bytes spill stores" not in line:
+                spills.append(f"{kernel} ({line.strip()})")
+        print(f"build: {mod.__name__.rsplit('.', 1)[-1]}: {len(regs)} "
+              f"kernels, max {max(regs, default=0)} registers, "
+              f"{len(spills)} with spills {spills}")
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -385,24 +679,20 @@ def main() -> int:
     from stable_diffusion_webui_distributed_tpu_torch.ops import (
         flash_attention as fa,
     )
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        ragged_attention as ra,
+    )
 
     kind = torch.cuda.get_device_name(0)
     card_line = card()
     print(f"device: {kind}; nvidia-smi: {card_line}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    _, log = fa.build()
-    regs = [int(w) for line in log.splitlines() if "registers" in line
-            for w in [line.split("Used ")[1].split(" ")[0]]]
-    spills = sum("0 bytes spill stores" not in line
-                 for line in log.splitlines() if "spill stores" in line)
-    print(f"build: flash_attention in {time.perf_counter() - t0:.2f} s, "
-          f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
-          f"{spills} with spills")
-
+    phase_build(fa, ra)
     totals, max_err, bound_by = phase_kernels(fa)
-    engine, launches = phase_main_path(fa, card_line)
+    r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
+    engine, launches = phase_main_path(fa, ra, card_line)
+    k2_launches = phase_ragged_serving(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
 
@@ -422,6 +712,25 @@ def main() -> int:
         "library_ms": round(totals["library_ms"], 4),
         "exp_ms": round(totals["exp_ms"], 4),
         "per": "one UNet call of SD1.5 512x512 with CFG (16 launches), bf16",
+    }, {
+        "name": "ragged_attention",
+        "route": "cuda",
+        "source": "stable_diffusion_webui_distributed_tpu_torch/csrc/"
+                  "ragged_attention.cu",
+        "replaces": "stable_diffusion_webui_distributed_tpu/ops/"
+                    "ragged_attention.py:76",
+        "launches": k2_launches,
+        "max_abs_err": r_err["bf16"],
+        "max_abs_err_f32": r_err["f32"],
+        "ms": round(r_totals["ms"], 4),
+        "plain_ms": round(r_totals["plain_ms"], 4),
+        "bound_ms": round(r_totals["bound_ms"], 4),
+        "bound_by": r_bound_by,
+        "library_ms": round(r_totals["library_ms"], 4),
+        "exp_ms": round(r_totals["exp_ms"], 4),
+        "per": "one ragged UNet call of SD1.5 on a 512x768 bucket, batch 4 "
+               "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
+               "the valid work",
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

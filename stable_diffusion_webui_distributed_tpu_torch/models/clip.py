@@ -122,3 +122,18 @@ class CLIPTextModel(nn.Module):
         if self.text_projection is not None:
             pooled = self.text_projection(pooled)
         return context.to(dtype), pooled.to(dtype)
+
+
+def pad_encoded_context(ctx: torch.Tensor, n_chunks: int,
+                        tokens_per_chunk: int = 77) -> torch.Tensor:
+    """Zero-pad an encoded ``(B, L, D)`` context along the sequence axis to
+    ``n_chunks * tokens_per_chunk`` rows.
+
+    Ragged conditioning encodes each prompt at its true chunk count and pads
+    the encoded rows to the group's context length afterwards; cross-
+    attention masks the padded rows by each row's ``ctx_true``, so their
+    value never matters, and zeros keep them inert anywhere else."""
+    want = n_chunks * tokens_per_chunk
+    if ctx.shape[1] >= want:
+        return ctx
+    return F.pad(ctx, (0, 0, 0, want - ctx.shape[1]))

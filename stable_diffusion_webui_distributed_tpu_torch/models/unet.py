@@ -1,7 +1,7 @@
 """Denoising UNet (SD 1.x family), full forward, in PyTorch.
 
 Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` with no
-ControlNet residuals, ragged rows, LoRA, int8 or SDXL added conditioning.
+ControlNet residuals, LoRA, int8 or SDXL added conditioning.
 Submodule and parameter names mirror the Flax tree (``down_0_res_0``,
 ``attn1/qkv`` ...) so ``bridge.flax_to_torch`` maps one onto the other.
 
@@ -15,6 +15,17 @@ Latent self-attention goes to kernel K1 (``ops/flash_attention.py``);
 cross-attention over the 77·n context tokens, which the JAX package left to
 XLA, goes to ``scaled_dot_product_attention`` on the backends of
 :func:`reproducible_sdpa`.
+
+Ragged rows (ragged dispatch): ``forward(..., true_rows, ctx_true)`` takes
+``(B,)`` integer device tensors, the valid latent rows of each batch row
+(padded at the bottom) and its valid context tokens. Each Downsample halves
+the valid rows rounding up, a SpatialTransformer turns rows into a token
+prefix of ``min(rows, H) * W``, and both attentions go to kernel K2
+(``ops/ragged_attention.py``): self-attention masks keys and queries past
+the prefix, cross-attention masks the context past ``ctx_true``. As in the
+JAX package, the GroupNorms and convolutions are not masked: their
+statistics and 3x3 windows span the padded rows, so a ragged image is not
+the image of the same seed at its own size.
 """
 
 from __future__ import annotations
@@ -32,6 +43,9 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     flash_attention,
+)
+from stable_diffusion_webui_distributed_tpu_torch.ops.ragged_attention import (
+    ragged_attention,
 )
 
 EPS = 1e-6  # Flax's GroupNorm/LayerNorm epsilon (torch defaults to 1e-5)
@@ -156,7 +170,9 @@ class ResBlock(nn.Module):
 
 class Attention(nn.Module):
     """Self-attention (fused QKV, kernel K1) or cross-attention (fused KV,
-    SDPA) over flattened spatial tokens."""
+    SDPA) over flattened spatial tokens. With ``true_len`` (a ``(B,)``
+    valid prefix: of the tokens for self-attention, of the context for
+    cross-attention) both take kernel K2."""
 
     def __init__(self, channels: int, num_heads: int,
                  context_dim: Optional[int] = None):
@@ -170,22 +186,31 @@ class Attention(nn.Module):
         self.out_proj = Dense(channels, channels)
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                true_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, C = x.shape
         heads = self.num_heads
         scale = 1.0 / math.sqrt(C // heads)
         if context is None:
-            # column slices of the fused projection, read in place by K1
+            # column slices of the fused projection, read in place by the
+            # kernel
             q, k, v = (t.unflatten(-1, (heads, C // heads))
                        for t in self.qkv(x).split(C, dim=-1))
-            out = flash_attention(q, k, v, scale=scale)
+            if true_len is None:
+                out = flash_attention(q, k, v, scale=scale)
+            else:
+                out = ragged_attention(q, k, v, true_len, scale=scale)
         else:
             q = self.q(x).unflatten(-1, (heads, C // heads))
             k, v = (t.unflatten(-1, (heads, C // heads))
                     for t in self.kv(context).split(C, dim=-1))
-            out = F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                scale=scale).transpose(1, 2)
+            if true_len is None:
+                out = F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    scale=scale).transpose(1, 2)
+            else:
+                out = ragged_attention(q, k, v, true_len, scale=scale,
+                                       mask_queries=False)
         return self.out_proj(out.reshape(B, T, C))
 
 
@@ -212,9 +237,11 @@ class TransformerBlock(nn.Module):
         self.geglu = GEGLU(channels, 4 * channels)
         self.ff_out = Dense(4 * channels, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.ln1(x))
-        x = x + self.attn2(self.ln2(x), context)
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                true_len: Optional[torch.Tensor] = None,
+                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn1(self.ln1(x), true_len=true_len)
+        x = x + self.attn2(self.ln2(x), context, true_len=ctx_true)
         return x + self.ff_out(self.geglu(self.ln3(x)))
 
 
@@ -233,11 +260,17 @@ class SpatialTransformer(nn.Module):
                 channels, num_heads, context_dim))
         self.proj_out = Dense(channels, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                true_rows: Optional[torch.Tensor] = None,
+                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
         _, _, H, W = x.shape
+        # row-major flatten: a valid prefix of true_rows rows is a valid
+        # prefix of true_rows * W tokens
+        true_len = (None if true_rows is None
+                    else torch.clamp(true_rows, max=H) * W)
         h = self.proj_in(to_tokens(self.norm(x)))
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context)
+            h = getattr(self, f"block_{i}")(h, context, true_len, ctx_true)
         return x + from_tokens(self.proj_out(h), H, W)
 
 
@@ -261,8 +294,9 @@ class Upsample(nn.Module):
 
 class UNet(nn.Module):
     """The conditional denoiser: ``forward(latents (B,H,W,Cin) NHWC,
-    timesteps (B,) f32, context (B,L,D))`` -> predicted noise
-    ``(B,H,W,Cout)`` f32."""
+    timesteps (B,) f32, context (B,L,D), true_rows (B,) int, ctx_true (B,)
+    int)`` -> predicted noise ``(B,H,W,Cout)`` f32; the two length vectors
+    are for ragged rows and optional."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -320,12 +354,16 @@ class UNet(nn.Module):
         return max(1, channels // 64)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor,
+                true_rows: Optional[torch.Tensor] = None,
+                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
         with reproducible_sdpa():
-            return self._forward(latents, timesteps, context)
+            return self._forward(latents, timesteps, context, true_rows,
+                                 ctx_true)
 
     def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                 context: torch.Tensor) -> torch.Tensor:
+                 context: torch.Tensor, true_rows: Optional[torch.Tensor],
+                 ctx_true: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
@@ -335,12 +373,20 @@ class UNet(nn.Module):
         x = self.conv_in(latents.permute(0, 3, 1, 2))
 
         n_levels = len(c.block_out_channels)
+        # valid rows per level: each stride-2 Downsample halves them,
+        # rounding up, like the spatial size
+        rows = [None] * n_levels
+        if true_rows is not None:
+            rows[0] = true_rows.to(torch.int32)
+            for level in range(1, n_levels):
+                rows[level] = (rows[level - 1] + 1) // 2
         skips = [x]
         for level, depth in enumerate(c.down_blocks):
             for i in range(c.layers_per_block):
                 x = getattr(self, f"down_{level}_res_{i}")(x, temb)
                 if depth is not None:
-                    x = getattr(self, f"down_{level}_attn_{i}")(x, context)
+                    x = getattr(self, f"down_{level}_attn_{i}")(
+                        x, context, rows[level], ctx_true)
                 skips.append(x)
             if level < n_levels - 1:
                 x = getattr(self, f"down_{level}_ds")(x)
@@ -348,7 +394,7 @@ class UNet(nn.Module):
 
         x = self.mid_res_0(x, temb)
         if self.mid_attn is not None:
-            x = self.mid_attn(x, context)
+            x = self.mid_attn(x, context, rows[-1], ctx_true)
         x = self.mid_res_1(x, temb)
 
         for level in reversed(range(n_levels)):
@@ -356,7 +402,8 @@ class UNet(nn.Module):
                 x = torch.cat([x, skips.pop()], dim=1)
                 x = getattr(self, f"up_{level}_res_{i}")(x, temb)
                 if c.down_blocks[level] is not None:
-                    x = getattr(self, f"up_{level}_attn_{i}")(x, context)
+                    x = getattr(self, f"up_{level}_attn_{i}")(
+                        x, context, rows[level], ctx_true)
             if level > 0:
                 x = getattr(self, f"up_{level}_us")(x)
 

@@ -20,27 +20,20 @@ The kernel is built with ``nvcc`` from the repository's source at first use
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "flash_attention.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
-_build_lock = threading.Lock()
-_loaded: dict = {}  # written under _build_lock: "lib" -> ctypes.CDLL
+_KERNEL = nvcc.KernelLibrary(
+    "flash_attention.cu", "sdt_flash_attention_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -56,48 +49,17 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
 
 
-def build() -> Tuple[Path, str]:
-    """Compile the kernel into a shared library, once per source content.
-    Returns the library's path and the compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per instantiation; empty when the
-    library was already built)."""
-    tag = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"flash_attention-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+def build() -> Tuple:
+    """Compile the kernel (see :func:`.nvcc.build`): the library's path and
+    the compiler's output, empty when it was already built."""
+    return _KERNEL.build()
 
 
-def _library() -> ctypes.CDLL:
-    lib = _loaded.get("lib")  # built and loaded once per process
-    if lib is not None:
-        return lib
-    with _build_lock:
-        if "lib" not in _loaded:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            fn = lib.sdt_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _loaded["lib"] = lib
-        return _loaded["lib"]
-
-
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """``(B, T, H, D)`` queries over ``(B, S, H, D)`` keys and values of one
+    dtype on one device, or ValueError."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention wants (B, T, H, D) tensors")
+        raise ValueError("attention wants (B, T, H, D) tensors")
     b, t, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
@@ -108,22 +70,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(B, T, H, D)`` queries and ``(B, S, H, D)`` keys and
-    values -> ``(B, T, H, D)`` in q's dtype.
-
-    CUDA tensors (f32 or bf16, last axis contiguous, D <= 256) launch the
-    kernel; anything it does not take raises. CPU tensors take the plain
-    version."""
-    _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {q.device}")
-    if q.dtype not in _DTYPES:
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """What the attention kernels (K1, K2) take on the card, or ValueError:
+    f32 or bf16, head dims 1..256, B*H <= 65535 and a contiguous last
+    axis."""
+    if q.dtype not in DTYPES:
         raise ValueError(f"kernel takes f32 or bf16, not {q.dtype}")
     b, t, h, d = q.shape
     s = k.shape[1]
@@ -133,14 +85,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel cannot take B={b}, T={t}, S={s}, H={h}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("kernel needs a contiguous last (head-dim) axis")
-    lib = _library()
+
+
+def kernel_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The (b, t, h) element strides of q, k and v, as the kernels take
+    them: column slices of a fused projection are read in place."""
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def current_stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over ``(B, T, H, D)`` queries and ``(B, S, H, D)`` keys and
+    values -> ``(B, T, H, D)`` in q's dtype.
+
+    CUDA tensors (f32 or bf16, last axis contiguous, D <= 256) launch the
+    kernel; anything it does not take raises. CPU tensors take the plain
+    version."""
+    check_inputs(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention for device {q.device}")
+    check_kernel_inputs(q, k, v)
+    fn = _KERNEL.function()
+    b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.sdt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), _DTYPES[q.dtype], stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, t, k.shape[1], h, d, *kernel_strides(q, k, v),
+                 float(scale), DTYPES[q.dtype], current_stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1

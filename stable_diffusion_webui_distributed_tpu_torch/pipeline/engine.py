@@ -12,6 +12,16 @@ produces images ``[start, start+count)`` of the request, equal to the same
 rows of the whole-batch run, because every draw is keyed by
 ``seed + image index`` and never by batch position.
 
+Ragged dispatch: a payload that carries the serving bucketer's
+``ragged_true_wh`` marker runs at its bucket's shape with its true latent
+rows as data. Each prompt is encoded at its own chunk count and padded,
+the init noise is drawn at the true rows and zero-padded, the UNet masks
+attention past each row's valid prefix (kernel K2), and the rows past it
+are re-zeroed after every sampler step. The serving dispatcher builds such
+batches from several requests and hands them to :meth:`Engine._denoise`
+with per-row contexts and lengths. Lengths stay device tensors, never read
+back to the host.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
 422): img2img, hires fix, the refiner, ControlNet, LoRA tags, per-image
 prompts and scripts, the step cache, other serving precisions, and the
@@ -28,10 +38,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stable_diffusion_webui_distributed_tpu_torch.bridge import (
     StateDicts,
     build_modules,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
+    pad_encoded_context,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     ModelFamily,
@@ -150,9 +164,15 @@ class Engine:
         ctx = ctx * ratio
         return ctx.reshape(1, -1, ctx.shape[-1]), pooled[:1].float()
 
-    def encode_prompts(self, payload: GenerationPayload):
+    def encode_prompts(self, payload: GenerationPayload, ragged: bool = False):
         """``((ctx_u, ctx_c), (pooled_u, pooled_c))`` for the request's one
-        prompt and its negative prompt, padded to one chunk count."""
+        prompt and its negative prompt, padded to one chunk count.
+
+        ``ragged``: each prompt is encoded at its own chunk count (so one
+        cache entry serves it in any group) and the encoded rows are
+        zero-padded to the request's; a third item ``(ctx_true_u,
+        ctx_true_c)`` gives the valid context tokens of each half, which
+        the UNet's cross-attention masks the padding by."""
         tok = self.tokenizer
         prompt = _strip_prompt(payload.prompt)
         ids_c, w_c = tokenize_weighted(tok, prompt)
@@ -164,12 +184,13 @@ class Engine:
         skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
 
         def cached(raw, ids, w):
-            key = (raw, skip, n)
+            n_enc = ids.shape[0] if ragged else n
+            key = (raw, skip, n_enc)
             hit = self._cond_cache.get(key)
             if hit is not None:
                 self._cond_cache.move_to_end(key)
                 return hit
-            out = self._encode(*pad_chunks(ids, w, n, tok.eos, tok.bos),
+            out = self._encode(*pad_chunks(ids, w, n_enc, tok.eos, tok.bos),
                                skip)
             self._cond_cache[key] = out
             if len(self._cond_cache) > self._COND_CACHE_MAX:
@@ -178,15 +199,59 @@ class Engine:
 
         ctx_c, pooled_c = cached(prompt, ids_c, w_c)
         ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u)
-        return (ctx_u, ctx_c), (pooled_u, pooled_c)
+        if not ragged:
+            return (ctx_u, ctx_c), (pooled_u, pooled_c)
+        width = ids_c.shape[1]
+        ctx_true = (ids_u.shape[0] * width, ids_c.shape[0] * width)
+        return ((pad_encoded_context(ctx_u, n, width),
+                 pad_encoded_context(ctx_c, n, width)),
+                (pooled_u, pooled_c), ctx_true)
+
+    def request_context_chunks(self, payload: GenerationPayload) -> int:
+        """The request's context length in 77-token chunks: the longer of
+        its prompt and its negative prompt. A coalesced group pads every
+        member's conditioning to the group's largest."""
+        tok = self.tokenizer
+        return int(max(
+            tokenize_weighted(tok, _strip_prompt(payload.prompt))[0].shape[0],
+            tokenize_weighted(tok, payload.negative_prompt)[0].shape[0]))
+
+    @staticmethod
+    def _ragged_plan(payload: GenerationPayload) -> Optional[Tuple[int, int]]:
+        """``(true_w, true_h)`` when the payload carries the serving
+        bucketer's ragged marker, else None."""
+        wh = (payload.override_settings or {}).get("ragged_true_wh")
+        if not wh:
+            return None
+        return int(wh[0]), int(wh[1])
+
+    def _latent_hw(self, width: int, height: int) -> Tuple[int, int]:
+        f = self.family.vae_scale_factor
+        return height // f, width // f
+
+    def _true_latent_rows(self, lat_h: int, true_h: int) -> int:
+        """Latent rows that hold a ``true_h``-pixel image in a bucket of
+        ``lat_h`` rows (a partial row still needs its pixels)."""
+        return min(lat_h, -(-true_h // self.family.vae_scale_factor))
 
     # -- denoise -------------------------------------------------------------
 
-    def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int):
+    def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int,
+                         ragged=None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
-        call on ``[uncond; cond]`` rows per evaluation."""
+        call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
+        ``(1, L, D)`` context or one per row.
+
+        ``ragged``: ``(true_rows, ctx_true_u, ctx_true_c)``, ``(batch,)``
+        int device tensors. The CFG doubling repeats ``true_rows`` and puts
+        the two context lengths in the order of the rows."""
         ctx = torch.cat([ctx_u.expand(batch, -1, -1),
                          ctx_c.expand(batch, -1, -1)])
+        ragged_kw = {}
+        if ragged is not None:
+            true_rows, ctx_true_u, ctx_true_c = ragged
+            ragged_kw = {"true_rows": torch.cat([true_rows, true_rows]),
+                         "ctx_true": torch.cat([ctx_true_u, ctx_true_c])}
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
 
@@ -196,7 +261,7 @@ class Engine:
             xin = x * c_in
             tb = torch.full((2 * batch,), float(t), dtype=torch.float32,
                             device=x.device)
-            out = self.unet(torch.cat([xin, xin]), tb, ctx)
+            out = self.unet(torch.cat([xin, xin]), tb, ctx, **ragged_kw)
             out_u, out_c = out.float().chunk(2)
             guided = out_u + cfg * (out_c - out_u)
             if v_pred:
@@ -208,15 +273,19 @@ class Engine:
         return denoise
 
     def _denoise(self, payload: GenerationPayload, x: torch.Tensor,
-                 image_keys: torch.Tensor, conds, job: str) -> torch.Tensor:
+                 image_keys: torch.Tensor, conds, job: str,
+                 ragged=None) -> torch.Tensor:
         """Chunked sampler loop: ``chunk_size`` steps at a time, the
-        interrupt flag and progress checked between chunks."""
+        interrupt flag and progress checked between chunks. ``conds`` is
+        ``(ctx_u, ctx_c)``; ``ragged`` as for :meth:`_make_denoise_fn`."""
         spec = kd.resolve_sampler(payload.sampler_name)
         steps = payload.steps
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
         denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
-                                        x.shape[0])
+                                        x.shape[0], ragged)
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
+        if ragged is not None:
+            step = _zero_tail_rows(step, ragged[0], x.shape[1])
         carry = kd.init_carry(x)
         self.state.begin(job, steps)
         pos = 0
@@ -266,18 +335,43 @@ class Engine:
                     payload.seed_resize_from_w // f)
         return None
 
+    def _init_noise(self, payload: GenerationPayload, start: int,
+                    batch: int, shape: Tuple[int, int, int],
+                    rows: int) -> torch.Tensor:
+        """Init noise ``(batch, h, w, C)`` of images ``[start,
+        start+batch)``. Under ragged dispatch (``rows < h``) it is drawn
+        at the true rows and zero-padded, so the masked tail starts at
+        exactly 0 and a row's noise does not depend on the bucket its
+        request landed in."""
+        h, w, C = shape
+        noise = rng.batch_noise(
+            payload.seed, payload.subseed, payload.subseed_strength, start,
+            batch, (rows, w, C), seed_resize=self._seed_resize_latent(payload),
+            pin_index=payload.same_seed, device=self.device)
+        return noise if rows == h else F.pad(noise, (0, 0, 0, 0, 0, h - rows))
+
     def _run_txt2img(self, payload: GenerationPayload, start: int,
                      count: int, job: str) -> GenerationResult:
         width, height = payload.width, payload.height
-        f = self.family.vae_scale_factor
-        h, w = height // f, width // f
+        h, w = self._latent_hw(width, height)
         C = self.family.vae.latent_channels
         spec = kd.resolve_sampler(payload.sampler_name)
         sigma0 = kd.build_sigmas(spec, self.schedule, payload.steps)[0]
-        conds, _ = self.encode_prompts(payload)
-        out = GenerationResult(parameters=payload.model_dump())
         # groups of batch_size keep the batch dim stable across n_iter
         group = max(1, payload.group_size or payload.batch_size)
+        # ragged solo run: the bucket's shape, the true rows as data
+        ragged_wh = self._ragged_plan(payload)
+        ragged = None
+        if ragged_wh is None:
+            conds, _ = self.encode_prompts(payload)
+            rows = h
+        else:
+            conds, _, ctx_true = self.encode_prompts(payload, ragged=True)
+            rows = self._true_latent_rows(h, ragged_wh[1])
+            ragged = tuple(torch.full((group,), length, dtype=torch.int32,
+                                      device=self.device)
+                           for length in (rows, *ctx_true))
+        out = GenerationResult(parameters=payload.model_dump())
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
             n = min(group, remaining)
@@ -287,14 +381,10 @@ class Engine:
             # row's numbers depend on the batch size (GEMM and convolution
             # algorithms do), not on its position, so a sub-range then
             # reproduces the whole-batch rows exactly.
-            noise = rng.batch_noise(
-                payload.seed, payload.subseed, payload.subseed_strength,
-                pos, group, (h, w, C),
-                seed_resize=self._seed_resize_latent(payload),
-                pin_index=payload.same_seed, device=self.device)
+            noise = self._init_noise(payload, pos, group, (h, w, C), rows)
             latents = self._denoise(payload, noise * sigma0,
                                     self._image_keys(payload, pos, group),
-                                    conds, job)
+                                    conds, job, ragged)
             imgs = self._decode_u8(latents, width, height)[:n]
             self._append_images(out, payload, imgs, pos, width, height)
             pos += n
@@ -329,13 +419,18 @@ class Engine:
         payload.subseed = fix_seed(payload.subseed)
         check_supported(payload)
         count = payload.total_images if count is None else count
-        return self._device_thread.submit(
-            self._generate, payload, start_index, count, job).result()
+        return self.run_on_device(self._run_txt2img, payload, start_index,
+                                  count, job)
 
-    def _generate(self, payload: GenerationPayload, start: int, count: int,
-                  job: str) -> GenerationResult:
+    def run_on_device(self, fn, *args):
+        """``fn(*args)`` on the engine's device thread, in inference mode
+        with the reproducible backend settings; returns its result. The
+        serving dispatcher runs its coalesced groups through here."""
+        return self._device_thread.submit(self._on_device, fn, args).result()
+
+    def _on_device(self, fn, args):
         with torch.inference_mode(), _reproducible(self.device):
-            return self._run_txt2img(payload, start, count, job)
+            return fn(*args)
 
     def txt2img(self, payload: GenerationPayload) -> GenerationResult:
         # top-level request: reset the interrupt latch, expand scripts
@@ -358,6 +453,21 @@ def _reproducible(device: torch.device):
         yield
     finally:
         torch.backends.cudnn.deterministic = prev
+
+
+def _zero_tail_rows(step, true_rows: torch.Tensor, lat_h: int):
+    """``step`` followed by zeroing the latent rows at or past
+    ``true_rows``: ancestral samplers add fresh noise everywhere, and the
+    padded rows must stay exactly 0 into every convolution of the next
+    step."""
+    keep = (torch.arange(lat_h, device=true_rows.device)[None, :]
+            < true_rows[:, None])[:, :, None, None]
+
+    def masked_step(carry, i):
+        carry = step(carry, i)
+        return carry._replace(x=torch.where(keep, carry.x, 0.0))
+
+    return masked_step
 
 
 def _strip_prompt(prompt: str) -> str:

@@ -1,12 +1,13 @@
 """sdapi-v1 HTTP server over a bare PyTorch engine.
 
 Port of the JAX package's ``server/api.py`` for one generation node without
-the fleet: ``POST /sdapi/v1/txt2img`` runs the request on the engine (the JAX
-server's ``_execute`` path for a bare ``Engine``, with no serving
-dispatcher) and answers in webui's response shape; ``GET
+the fleet. As there, a bare engine gets a serving dispatcher in front of it
+(``serving/dispatcher.py``: shape bucketing, request coalescing, ragged
+dispatch) unless ``SDTPU_SERVING=0``; ``POST /sdapi/v1/txt2img`` submits
+through it and answers in webui's response shape. ``GET
 /sdapi/v1/samplers`` lists the samplers the port runs; ``/progress`` and
 ``/interrupt`` read and set the engine's generation state. A request for
-something the slice does not run answers 422. Served by the standard
+something the port does not run answers 422. Served by the standard
 library's ``ThreadingHTTPServer``; ``port=0`` binds a free port.
 """
 
@@ -26,9 +27,15 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     Unsupported,
     apply_scripts,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+    env_flag,
+)
 from stable_diffusion_webui_distributed_tpu_torch.samplers.kdiffusion import (
     SamplerNotPorted,
     ported_sampler_names,
+)
+from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
+    ServingDispatcher,
 )
 
 log = logging.getLogger(__name__)
@@ -51,6 +58,11 @@ class ApiServer:
         self.port = port
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._busy = threading.Lock()  # one generation at a time
+        # continuous-batching front end: shape bucketing + request
+        # coalescing; SDTPU_SERVING=0 calls the engine directly
+        self.dispatcher = None
+        if env_flag("SDTPU_SERVING", True):
+            self.dispatcher = ServingDispatcher(engine)
 
     # -- handlers ------------------------------------------------------------
 
@@ -76,10 +88,15 @@ class ApiServer:
                 raise Unsupported("styles are not ported to the PyTorch "
                                   "server yet")
             payload = apply_scripts(payload)
-            with self._busy:
-                # a bare engine: this request is the top level
-                self.state.begin_request()
-                result = self.engine.generate_range(payload)
+            if self.dispatcher is not None:
+                # the dispatcher serializes execution itself, so that
+                # concurrent compatible requests can merge in its window
+                result = self.dispatcher.submit(payload, job="txt2img")
+            else:
+                with self._busy:
+                    # a bare engine: this request is the top level
+                    self.state.begin_request()
+                    result = self.engine.generate_range(payload)
         except (ValidationError, Unsupported, SamplerNotPorted) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)

@@ -1,0 +1,233 @@
+"""Shape bucketing: a small ladder of shapes and batch sizes.
+
+Port of the JAX package's ``serving/bucketer.py``, a copy but for its
+``from_config`` (the port has no ``ConfigModel`` yet) and its trace span.
+There every novel ``(width, height, batch)`` tuple cost an XLA compile;
+here requests of one bucket share a batch, and a later CUDA graph per
+bucket stays bounded by the ladder. The bucketer pads incoming requests UP
+to a small configured ladder of shapes; the serving layer center-crops the
+finished images back to the requested size, so user output keeps its
+requested dimensions.
+
+Knobs:
+
+- ``SDTPU_BUCKET_LADDER`` — comma list of ``WxH`` shapes, e.g.
+  ``"512x512,640x640,768x768,1024x1024"``.
+- ``SDTPU_BATCH_LADDER`` — comma list of batch sizes, e.g. ``"1,2,4,8"``.
+
+Ragged mode (``SDTPU_RAGGED``, default OFF — the off path is untouched
+byte-for-byte): instead of rounding every request up the full ladder, a
+request matches on WIDTH only and runs at the TALLEST height the ladder
+offers for that width. The padded tail rows are carried as a per-row
+``true_len`` vector and masked inside the attention kernel
+(``ops/ragged_attention.py``), so heterogeneous heights share ONE batch.
+``SDTPU_RAGGED_LADDER`` (same ``WxH`` list syntax) optionally replaces
+the shape ladder with an explicitly coarse one for ragged matching.
+
+Malformed values warn and fall back to the defaults (never raise — a bad
+knob must not take the server down).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+    env_flag,
+    env_parsed,
+)
+
+
+def ragged_enabled() -> bool:
+    """Live read of the ragged-dispatch master knob (SDTPU_RAGGED) — tests
+    and bench phases flip it at runtime."""
+    return env_flag("SDTPU_RAGGED", False)
+
+
+DEFAULT_SHAPE_LADDER: Tuple[Tuple[int, int], ...] = (
+    (512, 512), (640, 640), (768, 768), (1024, 1024))
+DEFAULT_BATCH_LADDER: Tuple[int, ...] = (1, 2, 4, 8)
+
+
+def _parse_shapes(raw: str) -> Optional[List[Tuple[int, int]]]:
+    try:
+        shapes = []
+        for part in raw.split(","):
+            w, h = part.strip().lower().split("x")
+            w, h = int(w), int(h)
+            if w <= 0 or h <= 0:
+                raise ValueError(part)
+            shapes.append((w, h))
+        return shapes or None
+    except (ValueError, AttributeError):
+        return None
+
+
+def _parse_batches(raw: str) -> Optional[List[int]]:
+    try:
+        batches = [int(p.strip()) for p in raw.split(",") if p.strip()]
+        if not batches or any(b <= 0 for b in batches):
+            return None
+        return batches
+    except (ValueError, AttributeError):
+        return None
+
+
+def _shapes_strict(raw: str) -> List[Tuple[int, int]]:
+    shapes = _parse_shapes(raw)
+    if shapes is None:
+        raise ValueError("want a WxH comma list")
+    return shapes
+
+
+def _batches_strict(raw: str) -> List[int]:
+    batches = _parse_batches(raw)
+    if batches is None:
+        raise ValueError("want positive ints, comma-separated")
+    return batches
+
+
+class ShapeBucketer:
+    """Maps raw request shapes onto the configured bucket ladder."""
+
+    def __init__(self,
+                 shapes: Optional[Sequence[Tuple[int, int]]] = None,
+                 batches: Optional[Sequence[int]] = None) -> None:
+        if shapes is None:
+            shapes = env_parsed("SDTPU_BUCKET_LADDER", _shapes_strict,
+                                None, "WxH comma list")
+        if batches is None:
+            batches = env_parsed("SDTPU_BATCH_LADDER", _batches_strict,
+                                 None, "int comma list")
+        # sorted by area so "smallest fitting bucket" is a linear scan
+        self.shapes: List[Tuple[int, int]] = sorted(
+            set(tuple(s) for s in (shapes or DEFAULT_SHAPE_LADDER)),
+            key=lambda s: (s[0] * s[1], s))
+        self.batches: List[int] = sorted(
+            set(int(b) for b in (batches or DEFAULT_BATCH_LADDER)))
+
+    # -- lookups ----------------------------------------------------------
+
+    def bucket_shape(self, width: int,
+                     height: int) -> Optional[Tuple[int, int]]:
+        """Smallest-area ladder entry covering ``(width, height)``; None
+        when nothing on the ladder fits (caller runs the raw shape)."""
+        for bw, bh in self.shapes:
+            if bw >= width and bh >= height:
+                return (bw, bh)
+        return None
+
+    def _ragged_shapes(self) -> List[Tuple[int, int]]:
+        """The ladder ragged matching scans: SDTPU_RAGGED_LADDER when set
+        (an explicitly coarse list), else the regular shape ladder."""
+        shapes = env_parsed("SDTPU_RAGGED_LADDER", _shapes_strict,
+                            None, "WxH comma list")
+        if shapes:
+            return sorted(set(tuple(s) for s in shapes),
+                          key=lambda s: (s[0] * s[1], s))
+        return self.shapes
+
+    def bucket_shape_ragged(self, width: int,
+                            height: int) -> Optional[Tuple[int, int]]:
+        """Ragged bucket: narrowest ladder width covering the request, at
+        the TALLEST height the ladder offers for that width — every height
+        under that ceiling shares the executable, the attention kernel
+        masks the tail rows. None when no width class can hold the
+        request (caller falls back to the classic path)."""
+        shapes = self._ragged_shapes()
+        for bw in sorted({w for w, _ in shapes}):
+            if bw < width:
+                continue
+            bh = max(h for w, h in shapes if w == bw)
+            if bh >= height:
+                return (bw, bh)
+        return None
+
+    def bucket_batch(self, n: int) -> int:
+        """Smallest ladder batch >= n; n itself when the ladder tops out."""
+        for b in self.batches:
+            if b >= n:
+                return b
+        return n
+
+    def padding_ratio(self, width: int, height: int,
+                      batch: Optional[int] = None) -> float:
+        """COMPUTE-padded pixels / requested pixels (1.0 = exact hit or
+        no fit). In ragged mode only the width snap counts — padded tail
+        rows are resident but masked, not computed. ``batch`` (when given)
+        folds batch-ladder padding in: a request that pads alone from
+        ``batch`` images up to the batch bucket pays that factor too;
+        callers whose batch rows fill via coalescing pass None."""
+        if ragged_enabled():
+            b = self.bucket_shape_ragged(width, height)
+            spatial = 1.0 if b is None else b[0] / float(max(1, width))
+        else:
+            b = self.bucket_shape(width, height)
+            spatial = 1.0 if b is None \
+                else (b[0] * b[1]) / float(max(1, width * height))
+        if batch is None:
+            return spatial
+        n = max(1, int(batch))
+        return spatial * (self.bucket_batch(n) / float(n))
+
+    # -- padding / unpadding ----------------------------------------------
+
+    def bucket_payload(self, payload, ragged: bool = False):
+        """Return ``(execution_payload, bucketed: bool)``.
+
+        The execution payload is a copy with ``width``/``height`` padded
+        up to the bucket and ``group_size`` snapped to the batch ladder;
+        the caller keeps the original payload for user-visible metadata.
+        ``bucketed`` is False on an exact shape hit (copy still returned
+        so the group_size snap applies uniformly).
+
+        ``ragged`` (dispatcher-eligible work under SDTPU_RAGGED): match
+        via :meth:`bucket_shape_ragged` and stamp the TRUE requested
+        dimensions into ``override_settings["ragged_true_wh"]`` — the
+        marker the engine's denoise plan and the serving crop key off
+        (consumers read it with ``.get`` only, the ``fleet_degraded``
+        pattern). An exact ragged hit still carries the marker so every
+        eligible request shares the ragged executable rather than minting
+        a classic one."""
+        run = payload.model_copy()
+        if ragged:
+            bucket = self.bucket_shape_ragged(payload.width, payload.height)
+        else:
+            bucket = self.bucket_shape(payload.width, payload.height)
+        bucketed = False
+        if bucket is not None:
+            run.width, run.height = bucket
+            bucketed = bucket != (payload.width, payload.height)
+            if ragged:
+                ov = dict(run.override_settings or {})
+                ov["ragged_true_wh"] = [int(payload.width),
+                                        int(payload.height)]
+                run.override_settings = ov
+        group = max(1, run.group_size or run.batch_size)
+        run.group_size = self.bucket_batch(group)
+        return run, bucketed
+
+    @staticmethod
+    def crop_ragged(img: np.ndarray, width: int, height: int) -> np.ndarray:
+        """Crop a ragged-dispatched (H, W, C) image back to the requested
+        size: rows are TOP-aligned (valid latent rows form a prefix, the
+        masked tail is at the bottom), columns center-cropped like the
+        classic width snap."""
+        ih, iw = img.shape[:2]
+        if (iw, ih) == (width, height):
+            return img
+        x0 = max(0, (iw - width) // 2)
+        return img[:height, x0:x0 + width]
+
+    @staticmethod
+    def crop(img: np.ndarray, width: int, height: int) -> np.ndarray:
+        """Center-crop a (H, W, C) uint8 array back to the requested
+        size (no-op when the image is already that size)."""
+        ih, iw = img.shape[:2]
+        if (iw, ih) == (width, height):
+            return img
+        y0 = max(0, (ih - height) // 2)
+        x0 = max(0, (iw - width) // 2)
+        return img[y0:y0 + height, x0:x0 + width]

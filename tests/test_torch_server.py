@@ -3,6 +3,9 @@
 ``ApiServer(port=0)`` must answer ``POST /sdapi/v1/txt2img`` over HTTP with
 the engine's own images, seeds and infotexts in webui's response shape, list
 the samplers the port runs, and answer 422 for what the slice does not run.
+The server puts its serving dispatcher in front of the engine; its shape
+ladder is set to the requests' 32x32 here (the default would pad them up to
+512x512).
 """
 
 import json
@@ -35,7 +38,9 @@ def engine():
 
 @pytest.fixture(scope="module")
 def server(engine):
-    srv = ApiServer(engine, port=0).start()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SDTPU_BUCKET_LADDER", "32x32")
+        srv = ApiServer(engine, port=0).start()
     yield srv
     srv.stop()
 
