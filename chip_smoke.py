@@ -7,12 +7,15 @@ Phases, each fatal on failure (no phase is caught and passed over):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: kernels K1 and K2 compiled with ``nvcc`` from the repository's
-   sources, one compiler per source, started together;
+   sources, one compiler per source, started together; registers, spills
+   and any serialised ``wgmma`` of the Hopper instantiations reported;
 3. kernels: K1 held against its plain PyTorch version on the card at every
    shape and layout SD1.5 512x512 gives it, in f32 (TF32 off for matmul and
    cuDNN) and in bf16, and timed beside its plain version, PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) and its bound;
+   it) and its bound, with the fraction of the bound reached, the exps'
+   share and the wrapper's host time per launch; every bf16 shape must take
+   the Hopper path (TMA + wgmma);
 4. ragged kernels: K2 the same way at every shape and length the ragged
    serving phase gives it (self-attention and cross-attention), timed
    beside its plain version and SDPA with a boolean key mask (a yardstick
@@ -24,12 +27,13 @@ Phases, each fatal on failure (no phase is caught and passed over):
    its serving dispatcher (512x512 is an exact bucket hit); K1 must be
    launched 320 times per image group and K2 never, repeats must be
    byte-identical and a batch's image 1 must carry image 0 of the next
-   seed's init noise;
+   seed's init noise; every K1 launch must take the Hopper path;
 6. ragged serving: the same server with ``SDTPU_RAGGED=1`` on a 512x768
    bucket gets three concurrent requests of 512x512, 512x640 and 512x768;
    they must run as ONE dispatch, launch K2 640 times (32 per UNet call x
-   20 steps) and K1 never, come back at their sizes, and agree with each
-   request sent alone within a mean of 2 uint8 levels;
+   20 steps, all on the Hopper path) and K1 never, come back at their
+   sizes, and agree with each request sent alone within a mean of 2 uint8
+   levels;
 7. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8. profile: where a warm request's time goes (device time by kernel group
@@ -103,6 +107,17 @@ def ragged_shapes():
     return out
 
 
+# the bf16 design of both kernels, as the kernels line names it
+DESIGN = ("csrc/attention_sm90.cuh: TMA (5-D maps, no swizzle) into a "
+          "4-5 stage mbarrier ring from one producer warp; 2 consumer "
+          "warpgroups (1 where T <= 256) on wgmma m64nNk16 for QK^T "
+          "(smem x smem) and PV (P in registers, V MN-major); QK^T(j) and "
+          "PV(j-1) issued before the softmax of tile j; ping-pong of the "
+          "consumers at D >= 64; softmax max on raw scores, scale folded "
+          "into one FFMA per ex2.approx.ftz; row sums from a ones column "
+          "in V at D % 16 == 8; setmaxnreg 40/232")
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -134,6 +149,63 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time per call with the host's launch overhead taken out:
+    ``iters`` calls captured in one CUDA graph, replayed three times
+    between CUDA events. (Back-to-back eager launches, ``cuda_ms``, time
+    the host instead wherever it takes longer than the kernel.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def host_us(fn, iters: int = 50, windows: int = 5) -> float:
+    """The wrapper's host time per launch: the median over ``windows``
+    windows of ``iters`` launches enqueued back to back on the host clock
+    (the device is not waited for inside a window; it is synchronised
+    before each). The median damps the noise of a host shared with other
+    machines' work."""
+    import statistics
+
+    import torch
+
+    fn()
+    per = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per.append((time.perf_counter() - t0) / iters)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(per)
+
+
+def shape_line(ms: float, bms: float, exp_ms: float, us: float) -> str:
+    return (f"fraction of bound {bms / ms:.3f}, exps share {exp_ms / ms:.3f},"
+            f" host {us:.1f} us per launch")
 
 
 def bound_ms(shape, dtype_name: str):
@@ -176,10 +248,11 @@ def phase_ragged_kernels(ra):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "exp_ms": 0.0}
+    totals = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "library_eager_ms": 0.0, "bound_ms": 0.0, "exp_ms": 0.0}
     max_err = {"f32": 0.0, "bf16": 0.0}
     bound_by = set()
+    host = []
     for shape, s_len, lens, mask_q, calls in ragged_shapes():
         b, t, h, d = shape
         kind = "self" if mask_q else "cross"
@@ -216,27 +289,45 @@ def phase_ragged_kernels(ra):
             del ref
             if name != "bf16":
                 continue
-            ms = cuda_ms(lambda: ra.ragged_attention(
-                q, k, v, lengths, mask_queries=mask_q), 20)
+            path = ra.kernel_path(q, k, v)
+            check(path == "hopper" == ra.launch_path(q, k, v),
+                  f"ragged_attention {shape} {kind} takes the {path} path")
+            def call():
+                return ra.ragged_attention(q, k, v, lengths,
+                                           mask_queries=mask_q)
+
+            eager = cuda_ms(call, 20)
+            ms = graph_ms(call, 20)
+            us = host_us(call)
+            host.append(us)
             plain = cuda_ms(lambda: ra.ragged_attention_reference(
                 q, k, v, lengths, q_true_len=q_true), 5)
             mask = (torch.arange(s_len, device="cuda")[None, :]
                     < lengths[:, None])[:, None, None, :]
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), 20)
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+            lib_eager = cuda_ms(sdpa, 20)
+            lib = graph_ms(sdpa, 20)
             bms, by, exp_ms = ragged_bound_ms(shape, s_len, lens, mask_q,
                                               name)
             bound_by.add(by)
             print(f"kernel ragged_attention {shape} S={s_len} {kind} bf16 "
-                  f"per call: ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                  f"{lib:.4f} bound_ms {bms:.4f} ({by}) exp_ms "
-                  f"{exp_ms:.4f} x{calls} per ragged UNet call")
+                  f"per call: ms {ms:.4f} (eager {eager:.4f}) plain_ms "
+                  f"{plain:.4f} library_ms {lib:.4f} (eager "
+                  f"{lib_eager:.4f}) bound_ms {bms:.4f} ({by}) exp_ms "
+                  f"{exp_ms:.4f} x{calls} per ragged UNet call; "
+                  f"{shape_line(ms, bms, exp_ms, us)}")
             totals["ms"] += calls * ms
+            totals["eager_ms"] += calls * eager
             totals["plain_ms"] += calls * plain
             totals["library_ms"] += calls * lib
+            totals["library_eager_ms"] += calls * lib_eager
             totals["bound_ms"] += calls * bms
             totals["exp_ms"] += calls * exp_ms
+    totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
 
@@ -249,10 +340,11 @@ def phase_kernels(fa):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "exp_ms": 0.0}
+    totals = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "library_eager_ms": 0.0, "bound_ms": 0.0, "exp_ms": 0.0}
     max_err = 0.0
     bound_by = set()
+    host = []
     for shape, calls in MAIN_SHAPES + [(s, 0) for s in EXTRA_SHAPES]:
         b, t, h, d = shape
         for name, dtype in dtypes.items():
@@ -271,27 +363,41 @@ def phase_kernels(fa):
             check(err <= TOLERANCE[name],
                   f"flash_attention {shape} {name} disagrees with the plain "
                   f"version: {err}")
-            if name != "bf16" or calls == 0:
+            if name != "bf16":
+                continue
+            path = fa.kernel_path(q, k, v)
+            check(path == "hopper" == fa.launch_path(q, k, v),
+                  f"flash_attention {shape} takes the {path} path")
+            if calls == 0:
                 continue
             max_err = max(max_err, err)
             iters = 20
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
+            eager = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
+            ms = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
+            us = host_us(lambda: fa.flash_attention(q, k, v))
+            host.append(us)
             plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
                             iters)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                          iters)
+            lib_eager = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+            lib = graph_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
             bms, by, exp_ms = bound_ms(shape, name)
             bound_by.add(by)
             print(f"kernel flash_attention {shape} bf16 per call: ms {ms:.4f}"
-                  f" plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+                  f" (eager {eager:.4f}) plain_ms {plain:.4f} library_ms "
+                  f"{lib:.4f} (eager {lib_eager:.4f}) bound_ms "
                   f"{bms:.4f} ({by}) exp_ms {exp_ms:.4f} x{calls} per UNet "
-                  f"call")
+                  f"call; {shape_line(ms, bms, exp_ms, us)}")
             totals["ms"] += calls * ms
+            totals["eager_ms"] += calls * eager
             totals["plain_ms"] += calls * plain
             totals["library_ms"] += calls * lib
+            totals["library_eager_ms"] += calls * lib_eager
             totals["bound_ms"] += calls * bms
             totals["exp_ms"] += calls * exp_ms
+    totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
 
@@ -353,8 +459,8 @@ def phase_main_path(fa, ra, card_line: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         METRICS.clear()
-        fa.flash_attention.launches = 0
-        ra.ragged_attention.launches = 0
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
         runs = {}
         for tag, extra in (("a", {"seed": 1234, "batch_size": 1}),
                            ("b", {"seed": 1234, "batch_size": 1}),
@@ -366,6 +472,7 @@ def phase_main_path(fa, ra, card_line: str):
                          fa.flash_attention.launches - before)
         peak = torch.cuda.max_memory_allocated()
         total_launches = fa.flash_attention.launches
+        paths = dict(fa.flash_attention.path_launches)
         k2_launches = ra.ragged_attention.launches
     finally:
         server.stop()
@@ -374,6 +481,9 @@ def phase_main_path(fa, ra, card_line: str):
     check(serving["dispatches"] == 3 and serving["bucket_hits"] == 3,
           "the main path did not run as three exact-bucket dispatches")
     check(k2_launches == 0, f"the main path launched K2 {k2_launches} times")
+    print(f"main path: K1 launches by path {json.dumps(paths)}")
+    check(paths["hopper"] == total_launches,
+          f"K1 launches off the Hopper path on the main path: {paths}")
 
     for tag, (lat, resp, launches) in runs.items():
         print(f"main path request ({tag}): latency {lat:.3f} s, "
@@ -407,9 +517,9 @@ def phase_main_path(fa, ra, card_line: str):
                "images_per_minute_batch1": round(60.0 / lat_warm, 3),
                "peak_memory_gib": round(peak / 2**30, 3),
                "k1_launches": total_launches, "k2_launches": k2_launches,
-               "card": card_line}
+               "k1_path_launches": paths, "card": card_line}
     print("main path metrics: " + json.dumps(metrics))
-    return engine, total_launches
+    return engine, total_launches, paths
 
 
 RAGGED_ENV = {"SDTPU_RAGGED": "1", "SDTPU_RAGGED_LADDER": "512x768",
@@ -457,8 +567,8 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         METRICS.clear()
-        fa.flash_attention.launches = 0
-        ra.ragged_attention.launches = 0
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
         threads = [threading.Thread(target=send, args=(i,))
                    for i in range(3)]
         for th in threads:  # in order, well inside the coalesce window
@@ -467,6 +577,7 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
         for th in threads:
             th.join()
         k1, k2 = fa.flash_attention.launches, ra.ragged_attention.launches
+        paths = dict(ra.ragged_attention.path_launches)
         peak = torch.cuda.max_memory_allocated()
         serving = METRICS.summary()
         check(not errors, f"a ragged request failed: {errors}")
@@ -491,6 +602,9 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
           "the three ragged requests did not run as one dispatch")
     check(k2 == K2_LAUNCHES, f"K2 launched {k2} times, want {K2_LAUNCHES}")
     check(k1 == 0, f"K1 launched {k1} times in the ragged phase")
+    print(f"ragged serving: K2 launches by path {json.dumps(paths)}")
+    check(paths["hopper"] == k2,
+          f"K2 launches off the Hopper path in the ragged phase: {paths}")
     check(solo_k2 == 3 * K2_LAUNCHES, f"solo runs launched K2 {solo_k2} "
           f"times, want {3 * K2_LAUNCHES}")
     diffs = []
@@ -517,9 +631,10 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
                "solo_latency_s": [round(x[1], 4) for x in solo],
                "coalesced_vs_solo_mean_abs": [round(x, 4) for x in diffs],
                "peak_memory_gib": round(peak / 2**30, 3),
-               "k2_launches": k2, "k1_launches": k1, "card": card_line}
+               "k2_launches": k2, "k1_launches": k1,
+               "k2_path_launches": paths, "card": card_line}
     print("ragged serving metrics: " + json.dumps(metrics))
-    return k2
+    return k2, paths
 
 
 def phase_reference(engine) -> None:
@@ -560,6 +675,18 @@ KERNEL_GROUPS = (
 )
 
 
+def kernel_group(name: str) -> str:
+    """A kernel's group by its name. K1 and K2 share the Hopper mainloop
+    ``attn_sm90<DP, NC, ragged>``: its last template argument tells them
+    apart (``false``/``Lb0E`` is K1)."""
+    name = name.lower()
+    if "attn_sm90" in name:
+        ragged = ", true>" in name or "lb1e" in name
+        return "K2 ragged_attention" if ragged else "K1 flash_attention"
+    return next((g for g, frags in KERNEL_GROUPS
+                 if any(f in name for f in frags)), "elementwise and other")
+
+
 def device_groups(prof, runs: int) -> dict:
     """Device time (ms per run) by kernel group from a profiler trace."""
     groups: dict = {}
@@ -569,10 +696,7 @@ def device_groups(prof, runs: int) -> dict:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        name = ev.key.lower()
-        group = next((g for g, frags in KERNEL_GROUPS
-                      if any(f in name for f in frags)),
-                     "elementwise and other")
+        group = kernel_group(ev.key)
         groups[group] = groups.get(group, 0.0) + us / runs / 1e3
     return groups
 
@@ -648,25 +772,96 @@ def phase_profile(engine, card_line: str) -> None:
           f"decode (1 x 512x512, f32) {decode_ms:.3f} ms [{card_line}]")
 
 
-def phase_build(*modules) -> None:
-    """Every kernel built at once: one nvcc per source, started together."""
+def ptxas_report(log: str) -> dict:
+    """Per kernel of a ``-Xptxas -v`` log: registers, spill bytes, and
+    whether ptxas serialised its wgmma (C7512 and kin)."""
+    kernels: dict = {}
+    kernel = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line and "'" in line:
+            kernel = line.split("'")[1]
+            kernels.setdefault(kernel, {"registers": 0, "spill_bytes": 0,
+                                        "wgmma_serialized": False})
+        elif "Function properties for" in line:
+            kernel = line.rsplit(" ", 1)[-1]
+            kernels.setdefault(kernel, {"registers": 0, "spill_bytes": 0,
+                                        "wgmma_serialized": False})
+        elif "spill stores" in line and kernel:
+            words = line.replace(",", "").split()
+            kernels[kernel]["spill_bytes"] = (
+                int(words[words.index("spill") - 2])
+                + int(words[words.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and kernel:
+            kernels[kernel]["registers"] = int(
+                line.split("Used ")[1].split(" ")[0])
+        if "wgmma" in line and "serialized" in line and "'" in line:
+            name = line.split("'")[1]
+            kernels.setdefault(name, {"registers": 0, "spill_bytes": 0,
+                                      "wgmma_serialized": False})
+            kernels[name]["wgmma_serialized"] = True
+    return kernels
+
+
+def sm90_instance(mangled: str):
+    """(padded head dim, consumer warpgroups, ragged) of a Hopper kernel's
+    mangled name, or None."""
+    import re
+
+    m = re.search(r"attn_sm90ILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    return None if m is None else (int(m[1]), int(m[2]), m[3] == "1")
+
+
+def sm90_smem_bytes(dp: int, nc: int) -> int:
+    """Dynamic shared memory of one Hopper block (``smem_bytes`` in
+    ``csrc/attention_sm90.cuh``): 128 alignment bytes, the Q tile, the
+    K/V ring (5 stages at DP 48, else 4), one mbarrier per stage and
+    direction and one for Q."""
+    bk = 64 if dp > 128 else 128
+    stages = 5 if dp == 48 else 4
+    return 128 + 64 * nc * dp * 2 + 2 * stages * bk * dp * 2 + (
+        1 + 2 * stages) * 8
+
+
+def phase_build(*modules) -> dict:
+    """Every kernel built at once: one nvcc per source, started together.
+    Returns the Hopper instantiations' registers, shared memory and spills
+    per module, and the build's seconds."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         logs = list(pool.map(lambda m: m.build()[1], modules))
+    seconds = time.perf_counter() - t0
+    out = {"seconds": round(seconds, 2)}
     for mod, log in zip(modules, logs):
-        regs = [int(w) for line in log.splitlines() if "registers" in line
-                for w in [line.split("Used ")[1].split(" ")[0]]]
-        # "Function properties for <kernel>" precedes its spill line
-        spills, kernel = [], ""
-        for line in log.splitlines():
-            if "Function properties for" in line:
-                kernel = line.rsplit(" ", 1)[-1]
-            elif "spill stores" in line and "0 bytes spill stores" not in line:
-                spills.append(f"{kernel} ({line.strip()})")
-        print(f"build: {mod.__name__.rsplit('.', 1)[-1]}: {len(regs)} "
-              f"kernels, max {max(regs, default=0)} registers, "
-              f"{len(spills)} with spills {spills}")
-    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+        name = mod.__name__.rsplit(".", 1)[-1]
+        report = ptxas_report(log)
+        spills = [k for k, r in report.items() if r["spill_bytes"]]
+        print(f"build: {name}: {len(report)} kernels, max "
+              f"{max((r['registers'] for r in report.values()), default=0)}"
+              f" registers, {len(spills)} with spills {spills}")
+        hopper = []
+        for kernel, r in sorted(report.items()):
+            inst = sm90_instance(kernel)
+            if inst is None:
+                continue
+            dp, nc, ragged = inst
+            row = {"dp": dp, "consumer_warpgroups": nc,
+                   "registers": r["registers"],
+                   "smem_bytes": sm90_smem_bytes(dp, nc),
+                   "spill_bytes": r["spill_bytes"],
+                   "wgmma_serialized": r["wgmma_serialized"]}
+            hopper.append(row)
+            print(f"build: {name} attn_sm90<{dp}, {nc}, "
+                  f"{str(ragged).lower()}>: {json.dumps(row)}")
+        if log:
+            check(len(hopper) == 8, f"{name}: {len(hopper)} Hopper "
+                  f"instantiations, want 8")
+            check(not any(r["spill_bytes"] for r in hopper),
+                  f"{name}: a Hopper instantiation spills")
+            check(not any(r["wgmma_serialized"] for r in hopper),
+                  f"{name}: ptxas serialised a Hopper instantiation's wgmma")
+        out[name] = hopper
+    print(f"build: all kernels in {seconds:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -688,11 +883,11 @@ def main() -> int:
     print(f"device: {kind}; nvidia-smi: {card_line}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
-    phase_build(fa, ra)
+    build = phase_build(fa, ra)
     totals, max_err, bound_by = phase_kernels(fa)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
-    engine, launches = phase_main_path(fa, ra, card_line)
-    k2_launches = phase_ragged_serving(engine, fa, ra, card_line)
+    engine, launches, paths = phase_main_path(fa, ra, card_line)
+    k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
 
@@ -711,6 +906,15 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": round(totals["library_ms"], 4),
         "exp_ms": round(totals["exp_ms"], 4),
+        "eager_ms": round(totals["eager_ms"], 4),
+        "library_eager_ms": round(totals["library_eager_ms"], 4),
+        "fraction_of_bound": round(totals["bound_ms"] / totals["ms"], 4),
+        "host_us_per_launch": round(totals["host_us"], 2),
+        "path": "hopper",
+        "path_launches": paths,
+        "design": DESIGN,
+        "instantiations": build["flash_attention"],
+        "build_s": build["seconds"],
         "per": "one UNet call of SD1.5 512x512 with CFG (16 launches), bf16",
     }, {
         "name": "ragged_attention",
@@ -728,6 +932,16 @@ def main() -> int:
         "bound_by": r_bound_by,
         "library_ms": round(r_totals["library_ms"], 4),
         "exp_ms": round(r_totals["exp_ms"], 4),
+        "eager_ms": round(r_totals["eager_ms"], 4),
+        "library_eager_ms": round(r_totals["library_eager_ms"], 4),
+        "fraction_of_bound": round(r_totals["bound_ms"] / r_totals["ms"], 4),
+        "host_us_per_launch": round(r_totals["host_us"], 2),
+        "path": "hopper",
+        "path_launches": r_paths,
+        "design": DESIGN + "; ragged length policy (true_len per row, "
+                  "V tail rows zeroed in shared memory)",
+        "instantiations": build["ragged_attention"],
+        "build_s": build["seconds"],
         "per": "one ragged UNet call of SD1.5 on a 512x768 bucket, batch 4 "
                "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
                "the valid work",

@@ -16,9 +16,11 @@
 // (b = blockIdx.y / H) from the (B,) int32 device tensor itself: no host
 // repeat, no sync, no length in the launch configuration, so one launch
 // serves any mix of lengths. The key loop ends at cdiv(min(true_len, S),
-// 64), which saves the tail's FLOPs; K and V rows past the valid prefix
-// are never read (the tile is zero-filled), so a padded tail, whatever it
-// holds, leaves the output bit for bit unchanged. A query tile that starts
+// keys per tile), which saves the tail's FLOPs; on the general path K and
+// V rows past the valid prefix are never read (the tile is zero-filled),
+// on the Hopper path the V rows of the tail that a TMA box brings in are
+// zeroed before use, so a padded tail, whatever it holds, leaves the
+// output bit for bit unchanged. A query tile that starts
 // at or past the valid prefix writes zeros and exits. Every k-tile the
 // loop reaches holds at least one valid key, so the running max is finite
 // from the first tile on and exp2f(-1e30 - m) underflows to exactly 0:
@@ -28,12 +30,19 @@
 // the valid work only: at SD1.5 512x768 level 0 with CFG and valid rows of
 // 4096/5120/6144 tokens (H = 8, D = 40), 4*40*sum(tl^2)*H = 0.30 TFLOP is
 // 0.31 ms on the tensor cores and sum(tl^2)*H = 1.9 G exps are 0.45 ms on
-// the MUFUs, so the exps bound it. The design is K1's (see there): bf16 on
-// mma.sync m16n8k16 with P kept in registers between the two products,
-// f32 on scalar FMAs. Any T, any S (S = 77*n for cross-attention is not a
-// multiple of 16: the tail tile is masked by S and by true_len at once) and
-// any D <= 256.
+// the MUFUs, so the exps bound it. The design is K1's, in the same
+// mainloop (attention_sm90.cuh, with the ragged length policy): TMA ring,
+// wgmma for both products, the next tile's Q.K^T issued before this
+// tile's softmax. Where the mainloop's TMA boxes bring rows of the padded
+// tail into the last key tile, its consumers zero those V rows in shared
+// memory first, so the tail stays inert. Cross-attention (S = 154 = 77*2,
+// not a multiple of 16): both 128-key tiles of the context fit in the ring
+// and are loaded once per block of 128 queries (half the reads of 64-query
+// blocks), the last masked by min(true_len, S). The general path
+// (mma.sync, as K1's) takes the shapes TMA cannot (see K1's note); f32 runs
+// on scalar FMAs. Any T, any S and any D <= 256.
 
+#include "attention_sm90.cuh"
 #include "attention_tiles.cuh"
 
 using namespace sdt_attn;
@@ -218,6 +227,7 @@ ragged_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // --------------------------------------------------------------- bf16 ----
 
+// The general path (see sm90::sm90_path for the Hopper path's shapes).
 // KS = DP / 16: the head dim padded to DP, in k-steps of 16.
 template <int KS>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -410,6 +420,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int batch, int t_len, int s_len, int heads, int d,
                      Strides sq, Strides sk, Strides sv, float qk_scale,
                      Ragged rg, int dtype, cudaStream_t stream) {
+  if (sm90::sm90_path(q, k, v, batch, t_len, s_len, heads, d, sq, sk, sv,
+                      qk_scale, dtype))
+    return sm90::dispatch<true>(q, k, v, o, batch, t_len, s_len, heads, d, sq,
+                                sk, sv, qk_scale, rg.true_len, rg.mask_q,
+                                stream);
 #define SDT_CASE(N)                                                          \
   case N:                                                                    \
     return dtype == 0                                                        \
@@ -445,4 +460,19 @@ extern "C" int sdt_ragged_attention_fwd(
   return (int)dispatch(q, k, v, o, batch, t_len, s_len, heads, d, sq, sk, sv,
                        scale * kLog2e, rg, dtype,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The path a launch with these arguments takes: 0 = f32, 1 = the general
+// bf16 kernel, 2 = the Hopper (TMA + wgmma) kernel.
+extern "C" int sdt_ragged_attention_path(
+    const void* q, const void* k, const void* v, int batch, int t_len,
+    int s_len, int heads, int d, long long qsb, long long qst, long long qsh,
+    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, float scale, int dtype) {
+  if (dtype == 0) return 0;
+  const Strides sq{qsb, qst, qsh}, sk{ksb, kst, ksh}, sv{vsb, vst, vsh};
+  return sm90::sm90_path(q, k, v, batch, t_len, s_len, heads, d, sq, sk, sv,
+                         scale, dtype)
+             ? 2
+             : 1;
 }

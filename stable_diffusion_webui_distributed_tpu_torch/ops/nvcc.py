@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Mapping, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -29,13 +29,14 @@ def build(source: Path) -> Tuple[Path, str]:
     """Compile ``source`` into a shared library, once per content of it and
     of the headers in ``csrc/``. Returns the library's path and the
     compiler's output (``-Xptxas -v``: registers, shared memory and spills
-    per instantiation; empty when the library was already built)."""
+    per instantiation, kept beside the library for a later call)."""
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     lib = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".ptxas.txt")
     if lib.exists():
-        return lib, ""
+        return lib, log.read_text() if log.exists() else ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -46,34 +47,39 @@ def build(source: Path) -> Tuple[Path, str]:
         raise RuntimeError(f"nvcc failed on {source.name} "
                            f"({proc.returncode}):\n{proc.stdout}"
                            f"{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
 
 
 class KernelLibrary:
-    """One kernel's library: built and loaded at the first call of
-    :meth:`function`, once per process."""
+    """One kernel source's library: built and loaded at the first call of
+    :meth:`function`, once per process. ``symbols`` maps each C entry
+    point to its argument types; each returns an int."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbols: Mapping[str, Sequence]):
         self.source = CSRC / source
-        self._symbol = symbol
-        self._argtypes = list(argtypes)
+        self._symbols = {name: list(args) for name, args in symbols.items()}
         self._lock = threading.Lock()
-        self._fn = None  # written under _lock
+        self._fns = None  # written under _lock
 
     def build(self) -> Tuple[Path, str]:
         return build(self.source)
 
-    def function(self):
-        """The kernel's C entry point, which returns a ``cudaError_t``."""
-        fn = self._fn
-        if fn is not None:
-            return fn
-        with self._lock:
-            if self._fn is None:
-                path, _ = self.build()
-                fn = getattr(ctypes.CDLL(str(path)), self._symbol)
-                fn.argtypes = self._argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+    def function(self, name: str):
+        """The C entry point ``name`` of the library."""
+        fns = self._fns
+        if fns is None:
+            with self._lock:
+                if self._fns is None:
+                    path, _ = self.build()
+                    lib = ctypes.CDLL(str(path))
+                    loaded = {}
+                    for symbol, argtypes in self._symbols.items():
+                        fn = getattr(lib, symbol)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        loaded[symbol] = fn
+                    self._fns = loaded
+                fns = self._fns
+        return fns[name]

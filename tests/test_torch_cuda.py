@@ -11,6 +11,11 @@ Tolerances against the plain f32 version: 2e-5 for f32 inputs (TF32 off;
 the sums run in another order), 1e-2 for bf16 (both round the output to
 bf16, and the kernel also rounds the probabilities to bf16 for the second
 product).
+
+Each launch is also held to its path: the rule of ``kernel_path`` (pure
+Python) must name the path the built library takes, and the wrapper must
+count the launch there. bf16 at the UNets' head dims takes the Hopper
+kernel (TMA + wgmma); the shapes it cannot take go to the general kernel.
 """
 
 import pytest
@@ -30,11 +35,29 @@ def card():
     return torch.device("cuda")
 
 
-def _check(q, k, v):
-    before = fa.flash_attention.launches
-    out = fa.flash_attention(q, k, v)
+def _path_counted(wrapper, launch_path, q, k, v, call, scale=None):
+    """Runs ``call`` once; asserts it launched once, on the path the rule
+    and the library agree on. Returns the output and the path."""
+    path = fa.kernel_path(q, k, v, scale)
+    assert launch_path(q, k, v, scale) == path
+    before = wrapper.launches, dict(wrapper.path_launches)
+    out = call()
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    assert wrapper.launches == before[0] + 1
+    assert wrapper.path_launches[path] == before[1][path] + 1
+    return out, path
+
+
+def _hopper_expected(q):
+    """bf16 at the UNets' head dims, laid out as the tests make them."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in (40, 64, 80, 160)
+            and q.data_ptr() % 16 == 0)
+
+
+def _check(q, k, v):
+    out, path = _path_counted(fa.flash_attention, fa.launch_path, q, k, v,
+                              lambda: fa.flash_attention(q, k, v))
+    assert (path == "hopper") == _hopper_expected(q)
     assert out.shape == q.shape and out.dtype == q.dtype
     ref = fa.flash_attention_reference(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[q.dtype]
@@ -42,11 +65,21 @@ def _check(q, k, v):
 
 
 # (B, T, H, D, S): SD1.5 512x512 with CFG, then ragged edges, head dims that
-# are no multiple of 8 or 16 (the kernel's scalar-load path), and D = 256
+# are no multiple of 8 or 16 (the general kernel's scalar-load path), and
+# D = 256; then the Hopper kernel's edges: S shorter than one key tile,
+# S = 1, S a multiple of the stage ring (5 x 128 keys at D = 40, 4 x 64 at
+# D = 160, twice 4 x 128 at D = 80) and S that fills the ring once and a
+# bit, a long S, T no multiple of 64 or 128, 64-row blocks (T <= 256)
+# beside 128-row ones, and SDXL's head dim 64
 CASES = [(2, 4096, 8, 40, 4096), (2, 1024, 8, 80, 1024),
          (2, 256, 8, 160, 256), (2, 64, 8, 160, 64), (1, 1000, 8, 64, 1000),
          (1, 77, 3, 8, 77), (2, 65, 3, 40, 200), (1, 100, 2, 33, 77),
-         (1, 64, 1, 1, 3), (2, 130, 2, 256, 130)]
+         (1, 64, 1, 1, 3), (2, 130, 2, 256, 130),
+         (2, 300, 2, 40, 50), (1, 200, 2, 80, 1), (1, 500, 2, 40, 640),
+         (1, 300, 2, 160, 256), (1, 300, 2, 80, 1024), (1, 500, 2, 40, 700),
+         (1, 16384, 1, 64, 16384),
+         (2, 1000, 3, 80, 513), (1, 257, 2, 160, 300), (2, 100, 2, 40, 129),
+         (2, 4096, 10, 64, 4096)]
 
 
 @pytest.mark.cuda
@@ -84,6 +117,9 @@ def test_repeat_launch_gives_same_bits(card):
                .to(torch.bfloat16) for _ in range(3))
     assert torch.equal(fa.flash_attention(q, k, v),
                        fa.flash_attention(q, k, v))
+    lens = torch.tensor([4096, 3000], dtype=torch.int32, device=card)
+    assert torch.equal(ra.ragged_attention(q, k, v, lens),
+                       ra.ragged_attention(q, k, v, lens))
 
 
 @pytest.mark.cuda
@@ -112,14 +148,24 @@ RAGGED_CASES = [
     (4, 256, 2, 32, 256, [129, 128, 127, 255], True),
     (2, 100, 2, 33, 77, [50, 77], True),
     (2, 130, 2, 256, 130, [130, 65], False),
+    # the Hopper kernel: query tiles straddling the valid rows, a single
+    # valid row, lengths at and across 128- and 64-key tile edges, and
+    # cross-attention over 154 keys (two 128-key tiles, the last part
+    # masked) at 64- and 128-row blocks
+    (4, 300, 2, 40, 300, [300, 129, 200, 1], True),
+    (4, 1000, 2, 80, 1000, [1000, 640, 257, 130], True),
+    (3, 200, 2, 160, 200, [200, 65, 64], True),
+    (4, 300, 2, 64, 154, [77, 154, 1, 100], False),
+    (2, 200, 2, 40, 154, [154, 77], False),
 ]
 
 
 def _check_ragged(q, k, v, lens, mask_queries):
-    before = ra.ragged_attention.launches
-    out = ra.ragged_attention(q, k, v, lens, mask_queries=mask_queries)
-    torch.cuda.synchronize()
-    assert ra.ragged_attention.launches == before + 1
+    out, path = _path_counted(
+        ra.ragged_attention, ra.launch_path, q, k, v,
+        lambda: ra.ragged_attention(q, k, v, lens,
+                                    mask_queries=mask_queries))
+    assert (path == "hopper") == _hopper_expected(q)
     assert out.shape == q.shape and out.dtype == q.dtype
     ref = ra.ragged_attention_reference(
         q, k, v, lens, q_true_len=lens if mask_queries else None)
@@ -146,6 +192,83 @@ def test_ragged_kernel_matches_plain_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 63, 64, 127])
+@pytest.mark.parametrize("d", [40, 160])
+def test_hopper_padded_tail_is_inert_at_every_offset(card, d, offset):
+    """The Hopper kernel's TMA boxes bring the padded tail's rows into the
+    last key tile; whatever they hold (inf in K, NaN in V) the output is
+    bit for bit the same, wherever in a tile the tail starts (128-key tiles
+    at D = 40, 64-key tiles at D = 160)."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    q, k, v = (torch.randn((2, 512, 2, d), device=card, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    n = 256 + offset
+    lens = torch.tensor([n, 512], dtype=torch.int32, device=card)
+    base = _check_ragged(q, k, v, lens, True)
+    k[0, n:], v[0, n:] = float("inf"), float("nan")
+    for mask_queries in (True, False):
+        out = ra.ragged_attention(q, k, v, lens, mask_queries=mask_queries)
+        assert torch.isfinite(out.float()).all()
+        if mask_queries:
+            assert torch.equal(out, base)
+
+
+@pytest.mark.cuda
+def test_misaligned_base_takes_the_general_path(card):
+    """A view whose base is not 16-byte aligned cannot be a TMA operand: it
+    goes to the general kernel, says so in the counts, and agrees."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    n = 2 * 300 * 2 * 40
+    q, k, v = (torch.randn(n + 1, device=card, generator=gen)
+               .to(torch.bfloat16)[1:].view(2, 300, 2, 40) for _ in range(3))
+    assert q.data_ptr() % 16
+    assert fa.kernel_path(q, k, v) == "general"
+    _check(q, k, v)
+    lens = torch.tensor([300, 150], dtype=torch.int32, device=card)
+    _, path = _path_counted(ra.ragged_attention, ra.launch_path, q, k, v,
+                            lambda: ra.ragged_attention(q, k, v, lens))
+    assert path == "general"
+
+
+@pytest.mark.cuda
+def test_path_rule_matches_the_library(card):
+    """The Python rule names, for each layout, the path the compiled
+    libraries of both kernels choose."""
+    x = torch.zeros((2, 64, 3 * 2 * 40 + 8), device=card,
+                    dtype=torch.bfloat16)
+    layouts = [
+        torch.zeros((2, 64, 2, d), device=card, dtype=dt)
+        for d in (1, 8, 33, 40, 48, 56, 64, 72, 80, 96, 152, 160, 256)
+        for dt in (torch.bfloat16, torch.float32)]
+    y = torch.zeros((2, 64, 3 * 2 * 40 + 4), device=card,
+                    dtype=torch.bfloat16)
+    layouts += [x[..., :80].unflatten(-1, (2, 40)),
+                x[..., 8:88].unflatten(-1, (2, 40)),
+                x[..., 4:84].unflatten(-1, (2, 40)),
+                x[:, :, :240].unflatten(-1, (2, 120))[..., :40],
+                y[..., :80].unflatten(-1, (2, 40))]
+    for q in layouts:
+        for scale in (None, -0.5):
+            want = fa.kernel_path(q, q, q, scale)
+            assert fa.launch_path(q, q, q, scale) == want, (q.shape, scale)
+            assert ra.launch_path(q, q, q, scale) == want, (q.shape, scale)
+
+
+@pytest.mark.cuda
+def test_negative_scale_takes_the_general_path(card):
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v = (torch.randn((2, 300, 2, 40), device=card, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    assert fa.kernel_path(q, k, v, -0.2) == "general"
+    out, path = _path_counted(fa.flash_attention, fa.launch_path, q, k, v,
+                              lambda: fa.flash_attention(q, k, v, -0.2),
+                              scale=-0.2)
+    assert path == "general"
+    ref = fa.flash_attention_reference(q, k, v, -0.2)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[q.dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_ragged_padded_tail_is_inert_on_card(card, dtype):
@@ -161,11 +284,14 @@ def test_ragged_padded_tail_is_inert_on_card(card, dtype):
 
 
 @pytest.mark.cuda
-def test_ragged_full_length_equals_k1(card):
+@pytest.mark.parametrize("shape", [(2, 1024, 8, 80), (2, 4096, 8, 40),
+                                   (2, 256, 8, 160), (1, 300, 2, 64)],
+                         ids=str)
+def test_ragged_full_length_equals_k1(card, shape):
     gen = torch.Generator(device=card).manual_seed(5)
-    q, k, v = (torch.randn((2, 1024, 8, 80), device=card, generator=gen)
+    q, k, v = (torch.randn(shape, device=card, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
-    lens = torch.full((2,), 1024, dtype=torch.int32, device=card)
+    lens = torch.full((shape[0],), shape[1], dtype=torch.int32, device=card)
     assert torch.equal(ra.ragged_attention(q, k, v, lens),
                        fa.flash_attention(q, k, v))
 

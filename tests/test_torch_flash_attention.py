@@ -113,3 +113,67 @@ def test_non_cpu_device_never_falls_back():
     q = torch.empty(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no flash_attention for device"):
         fa.flash_attention(q, q, q)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+# name -> (q, k, v) maker, the path the rule must name
+PATH_CASES = {
+    "f32": (lambda: (torch.zeros(2, 64, 2, 40),) * 3, "f32"),
+    "sd15-d40": (lambda: (_bf16(2, 64, 8, 40),) * 3, "hopper"),
+    "sd15-d80": (lambda: (_bf16(2, 64, 8, 80),) * 3, "hopper"),
+    "sd15-d160": (lambda: (_bf16(2, 64, 8, 160),) * 3, "hopper"),
+    "sdxl-d64": (lambda: (_bf16(2, 64, 10, 64),) * 3, "hopper"),
+    "d56-pads-to-64": (lambda: (_bf16(1, 64, 2, 56),) * 3, "hopper"),
+    "d33-not-a-multiple-of-8": (lambda: (_bf16(1, 64, 2, 33),) * 3,
+                                "general"),
+    "d8-no-instantiation": (lambda: (_bf16(1, 64, 2, 8),) * 3, "general"),
+    "d96-no-instantiation": (lambda: (_bf16(1, 64, 2, 96),) * 3,
+                             "general"),
+    "d256-no-instantiation": (lambda: (_bf16(1, 64, 2, 256),) * 3,
+                              "general"),
+    "fused-qkv-slices": (
+        lambda: tuple(t.unflatten(-1, (8, 40))
+                      for t in _bf16(2, 64, 3 * 320).split(320, dim=-1)),
+        "hopper"),
+    "base-not-16-byte-aligned": (
+        lambda: (_bf16(2 * 64 * 2 * 40 + 1)[1:].view(2, 64, 2, 40),) * 3,
+        "general"),
+    "row-stride-not-16-bytes": (
+        lambda: (_bf16(2, 64, 84)[..., :80].unflatten(-1, (2, 40)),) * 3,
+        "general"),
+    "size-1-dims-any-stride": (
+        lambda: (_bf16(64 * 80).as_strided((1, 64, 2, 40), (3, 80, 40, 1)),)
+        * 3,
+        "hopper"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_kernel_path_rule(case):
+    """Which kernel a card launch takes is a pure function of dtype, shape,
+    strides and alignment: the Hopper kernel (TMA + wgmma) where TMA can
+    address the operands, else the general one. The card tests hold this
+    rule to the built libraries."""
+    make, want = PATH_CASES[case]
+    q, k, v = make()
+    assert fa.kernel_path(q, k, v) == want
+
+
+@pytest.mark.parametrize("scale", [None, 0.125, 0.0, -0.125])
+def test_kernel_path_needs_a_positive_scale(scale):
+    """The Hopper kernel folds the scale into its exps after a max taken on
+    the raw scores, so a scale that is not positive goes to the general
+    kernel."""
+    q = _bf16(1, 64, 2, 40)
+    want = "hopper" if scale is None or scale > 0 else "general"
+    assert fa.kernel_path(q, q, q, scale) == want
+
+
+def test_cpu_launches_count_on_no_path():
+    before = dict(fa.flash_attention.path_launches)
+    port(*qkv(1, 64, 2, 40))
+    assert fa.flash_attention.path_launches == before
+    assert set(before) == set(fa.PATHS)
