@@ -8,14 +8,17 @@ Phases, each fatal on failure (no phase is caught and passed over):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: kernels K1 and K2 compiled with ``nvcc`` from the repository's
    sources, one compiler per source, started together; registers, spills
-   and any serialised ``wgmma`` of the Hopper instantiations reported;
+   and any serialised ``wgmma`` of the Hopper instantiations reported (from
+   ``ptxas -v``), and the shared memory each takes at its launch (from the
+   profiler's trace of one launch of each);
 3. kernels: K1 held against its plain PyTorch version on the card at every
    shape and layout SD1.5 512x512 gives it, in f32 (TF32 off for matmul and
    cuDNN) and in bf16, and timed beside its plain version, PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) and its bound, with the fraction of the bound reached, the exps'
-   share and the wrapper's host time per launch; every bf16 shape must take
-   the Hopper path (TMA + wgmma);
+   it) and its bound: back-to-back eager launches (``ms``) and the device
+   time of a replayed CUDA graph of them (``device_ms``), the fraction of
+   the bound each reaches, the exps' share and the wrapper's host time per
+   launch; every bf16 launch must report the Hopper path (TMA + wgmma);
 4. ragged kernels: K2 the same way at every shape and length the ragged
    serving phase gives it (self-attention and cross-attention), timed
    beside its plain version and SDPA with a boolean key mask (a yardstick
@@ -203,9 +206,30 @@ def host_us(fn, iters: int = 50, windows: int = 5) -> float:
     return 1e6 * statistics.median(per)
 
 
-def shape_line(ms: float, bms: float, exp_ms: float, us: float) -> str:
-    return (f"fraction of bound {bms / ms:.3f}, exps share {exp_ms / ms:.3f},"
-            f" host {us:.1f} us per launch")
+def shape_line(ms: float, device_ms: float, bms: float, exp_ms: float,
+               us: float) -> str:
+    return (f"fraction of bound {bms / ms:.3f} (device {bms / device_ms:.3f})"
+            f", exps share {exp_ms / device_ms:.3f} of device time, host "
+            f"{us:.1f} us per launch")
+
+
+def launched_path(wrapper, call):
+    """Runs ``call`` once; returns its output and the path on which
+    ``wrapper`` counted its one launch (the path its C entry point
+    reported)."""
+    before = dict(wrapper.path_launches)
+    out = call()
+    grown = [p for p, n in wrapper.path_launches.items() if n != before[p]]
+    check(len(grown) == 1 and wrapper.path_launches[grown[0]]
+          == before[grown[0]] + 1,
+          f"{wrapper.__name__}: one call counted launches on {grown}")
+    return out, grown[0]
+
+
+# totals of one kernel per UNet call: eager and device ms of the kernel and
+# of SDPA, the plain version's ms, the bound and the exps' time
+TOTALS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+          "bound_ms", "exp_ms")
 
 
 def bound_ms(shape, dtype_name: str):
@@ -248,8 +272,7 @@ def phase_ragged_kernels(ra):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    totals = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "library_eager_ms": 0.0, "bound_ms": 0.0, "exp_ms": 0.0}
+    totals = dict.fromkeys(TOTALS, 0.0)
     max_err = {"f32": 0.0, "bf16": 0.0}
     bound_by = set()
     host = []
@@ -274,8 +297,12 @@ def phase_ragged_kernels(ra):
                                  generator=gen).to(dtype)
                 k, v = (x.unflatten(-1, (h, d))
                         for x in kv.split(h * d, dim=-1))
-            out = ra.ragged_attention(q, k, v, lengths, mask_queries=mask_q)
+            out, path = launched_path(ra.ragged_attention, lambda: (
+                ra.ragged_attention(q, k, v, lengths, mask_queries=mask_q)))
             torch.cuda.synchronize()
+            want = "hopper" if name == "bf16" else "f32"
+            check(path == want, f"ragged_attention {shape} {kind} {name} "
+                  f"took the {path} path, want {want}")
             ref = ra.ragged_attention_reference(q, k, v, lengths,
                                                 q_true_len=q_true)
             err = (out.float() - ref.float()).abs().max().item()
@@ -289,15 +316,13 @@ def phase_ragged_kernels(ra):
             del ref
             if name != "bf16":
                 continue
-            path = ra.kernel_path(q, k, v)
-            check(path == "hopper" == ra.launch_path(q, k, v),
-                  f"ragged_attention {shape} {kind} takes the {path} path")
+
             def call():
                 return ra.ragged_attention(q, k, v, lengths,
                                            mask_queries=mask_q)
 
-            eager = cuda_ms(call, 20)
-            ms = graph_ms(call, 20)
+            ms = cuda_ms(call, 20)
+            dev = graph_ms(call, 20)
             us = host_us(call)
             host.append(us)
             plain = cuda_ms(lambda: ra.ragged_attention_reference(
@@ -309,24 +334,20 @@ def phase_ragged_kernels(ra):
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
 
-            lib_eager = cuda_ms(sdpa, 20)
-            lib = graph_ms(sdpa, 20)
+            lib = cuda_ms(sdpa, 20)
+            lib_dev = graph_ms(sdpa, 20)
             bms, by, exp_ms = ragged_bound_ms(shape, s_len, lens, mask_q,
                                               name)
             bound_by.add(by)
             print(f"kernel ragged_attention {shape} S={s_len} {kind} bf16 "
-                  f"per call: ms {ms:.4f} (eager {eager:.4f}) plain_ms "
-                  f"{plain:.4f} library_ms {lib:.4f} (eager "
-                  f"{lib_eager:.4f}) bound_ms {bms:.4f} ({by}) exp_ms "
+                  f"per call: ms {ms:.4f} (device {dev:.4f}) plain_ms "
+                  f"{plain:.4f} library_ms {lib:.4f} (device "
+                  f"{lib_dev:.4f}) bound_ms {bms:.4f} ({by}) exp_ms "
                   f"{exp_ms:.4f} x{calls} per ragged UNet call; "
-                  f"{shape_line(ms, bms, exp_ms, us)}")
-            totals["ms"] += calls * ms
-            totals["eager_ms"] += calls * eager
-            totals["plain_ms"] += calls * plain
-            totals["library_ms"] += calls * lib
-            totals["library_eager_ms"] += calls * lib_eager
-            totals["bound_ms"] += calls * bms
-            totals["exp_ms"] += calls * exp_ms
+                  f"{shape_line(ms, dev, bms, exp_ms, us)}")
+            for key, val in zip(TOTALS, (ms, dev, plain, lib, lib_dev, bms,
+                                         exp_ms)):
+                totals[key] += calls * val
     totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
@@ -340,8 +361,7 @@ def phase_kernels(fa):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    totals = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "library_eager_ms": 0.0, "bound_ms": 0.0, "exp_ms": 0.0}
+    totals = dict.fromkeys(TOTALS, 0.0)
     max_err = 0.0
     bound_by = set()
     host = []
@@ -354,8 +374,12 @@ def phase_kernels(fa):
                               generator=gen).to(dtype)
             q, k, v = (x.unflatten(-1, (h, d))
                        for x in qkv.split(h * d, dim=-1))
-            out = fa.flash_attention(q, k, v)
+            out, path = launched_path(fa.flash_attention,
+                                      lambda: fa.flash_attention(q, k, v))
             torch.cuda.synchronize()
+            want = "hopper" if name == "bf16" else "f32"
+            check(path == want, f"flash_attention {shape} {name} took the "
+                  f"{path} path, want {want}")
             ref = fa.flash_attention_reference(q, k, v)
             err = (out.float() - ref.float()).abs().max().item()
             print(f"kernel flash_attention {shape} {name}: max_abs_err "
@@ -363,40 +387,31 @@ def phase_kernels(fa):
             check(err <= TOLERANCE[name],
                   f"flash_attention {shape} {name} disagrees with the plain "
                   f"version: {err}")
-            if name != "bf16":
-                continue
-            path = fa.kernel_path(q, k, v)
-            check(path == "hopper" == fa.launch_path(q, k, v),
-                  f"flash_attention {shape} takes the {path} path")
-            if calls == 0:
+            if name != "bf16" or calls == 0:
                 continue
             max_err = max(max_err, err)
             iters = 20
-            eager = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
-            ms = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
+            dev = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
             us = host_us(lambda: fa.flash_attention(q, k, v))
             host.append(us)
             plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
                             iters)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_eager = cuda_ms(
+            lib = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-            lib = graph_ms(
+            lib_dev = graph_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
             bms, by, exp_ms = bound_ms(shape, name)
             bound_by.add(by)
             print(f"kernel flash_attention {shape} bf16 per call: ms {ms:.4f}"
-                  f" (eager {eager:.4f}) plain_ms {plain:.4f} library_ms "
-                  f"{lib:.4f} (eager {lib_eager:.4f}) bound_ms "
+                  f" (device {dev:.4f}) plain_ms {plain:.4f} library_ms "
+                  f"{lib:.4f} (device {lib_dev:.4f}) bound_ms "
                   f"{bms:.4f} ({by}) exp_ms {exp_ms:.4f} x{calls} per UNet "
-                  f"call; {shape_line(ms, bms, exp_ms, us)}")
-            totals["ms"] += calls * ms
-            totals["eager_ms"] += calls * eager
-            totals["plain_ms"] += calls * plain
-            totals["library_ms"] += calls * lib
-            totals["library_eager_ms"] += calls * lib_eager
-            totals["bound_ms"] += calls * bms
-            totals["exp_ms"] += calls * exp_ms
+                  f"call; {shape_line(ms, dev, bms, exp_ms, us)}")
+            for key, val in zip(TOTALS, (ms, dev, plain, lib, lib_dev, bms,
+                                         exp_ms)):
+                totals[key] += calls * val
     totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
@@ -802,30 +817,75 @@ def ptxas_report(log: str) -> dict:
     return kernels
 
 
-def sm90_instance(mangled: str):
+def sm90_instance(name: str):
     """(padded head dim, consumer warpgroups, ragged) of a Hopper kernel's
-    mangled name, or None."""
+    name, mangled (``ptxas``) or demangled (the profiler), or None."""
     import re
 
-    m = re.search(r"attn_sm90ILi(\d+)ELi(\d+)ELb([01])E", mangled)
-    return None if m is None else (int(m[1]), int(m[2]), m[3] == "1")
+    m = (re.search(r"attn_sm90ILi(\d+)ELi(\d+)ELb([01])E", name)
+         or re.search(r"attn_sm90<(\d+), (\d+), (true|false)>", name))
+    return None if m is None else (int(m[1]), int(m[2]),
+                                   m[3] in ("1", "true"))
 
 
-def sm90_smem_bytes(dp: int, nc: int) -> int:
-    """Dynamic shared memory of one Hopper block (``smem_bytes`` in
-    ``csrc/attention_sm90.cuh``): 128 alignment bytes, the Q tile, the
-    K/V ring (5 stages at DP 48, else 4), one mbarrier per stage and
-    direction and one for Q."""
-    bk = 64 if dp > 128 else 128
-    stages = 5 if dp == 48 else 4
-    return 128 + 64 * nc * dp * 2 + 2 * stages * bk * dp * 2 + (
-        1 + 2 * stages) * 8
+# the head dim that reaches each padded Hopper head dim, and a query length
+# per consumer warpgroup count (two where T > 256)
+SM90_HEAD_DIMS = {48: 40, 64: 64, 80: 80, 160: 160}
+SM90_QUERY_ROWS = {1: 128, 2: 512}
+
+
+def phase_resources(fa, ra) -> dict:
+    """The shared memory of each Hopper instantiation as launched: one
+    small bf16 launch of each through each wrapper, traced with
+    ``torch.profiler`` (CUPTI's kernel record: the static plus the dynamic
+    shared memory of the launch). Returns {(dp, nc, ragged): bytes}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for dp, d in SM90_HEAD_DIMS.items():
+        for nc, t in SM90_QUERY_ROWS.items():
+            q = torch.randn((1, t, 1, d), device="cuda").to(torch.bfloat16)
+            lens = torch.tensor([t], dtype=torch.int32, device="cuda")
+            calls.append((fa.flash_attention, lambda q=q: fa.flash_attention(
+                q, q, q)))
+            calls.append((ra.ragged_attention, lambda q=q, n=lens: (
+                ra.ragged_attention(q, q, q, n))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for wrapper, call in calls:
+            _, path = launched_path(wrapper, call)
+            check(path == "hopper", f"{wrapper.__name__}: a resources "
+                  f"launch took the {path} path")
+        torch.cuda.synchronize()
+    trace = os.path.join(ROOT, "stable_diffusion_webui_distributed_tpu_torch",
+                         "_build", f"resources-{os.getpid()}.json")
+    prof.export_chrome_trace(trace)
+    try:
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(trace)
+    out = {}
+    for ev in events:
+        inst = sm90_instance(ev.get("name", ""))
+        args = ev.get("args", {})
+        if inst is None or ev.get("cat") != "kernel":
+            continue
+        check("shared memory" in args,
+              f"the trace of {ev['name']} has no shared memory: {args}")
+        out[inst] = int(args["shared memory"])
+    want = {(dp, nc, r) for dp in SM90_HEAD_DIMS for nc in SM90_QUERY_ROWS
+            for r in (False, True)}
+    check(set(out) == want, f"traced instantiations {sorted(out)}, want "
+          f"{sorted(want)}")
+    return out
 
 
 def phase_build(*modules) -> dict:
     """Every kernel built at once: one nvcc per source, started together.
-    Returns the Hopper instantiations' registers, shared memory and spills
-    per module, and the build's seconds."""
+    Returns the Hopper instantiations' registers, spills and wgmma
+    serialisation per module (``ptxas -v``), and the build's seconds."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         logs = list(pool.map(lambda m: m.build()[1], modules))
@@ -844,14 +904,11 @@ def phase_build(*modules) -> dict:
             if inst is None:
                 continue
             dp, nc, ragged = inst
-            row = {"dp": dp, "consumer_warpgroups": nc,
+            row = {"dp": dp, "consumer_warpgroups": nc, "ragged": ragged,
                    "registers": r["registers"],
-                   "smem_bytes": sm90_smem_bytes(dp, nc),
                    "spill_bytes": r["spill_bytes"],
                    "wgmma_serialized": r["wgmma_serialized"]}
             hopper.append(row)
-            print(f"build: {name} attn_sm90<{dp}, {nc}, "
-                  f"{str(ragged).lower()}>: {json.dumps(row)}")
         if log:
             check(len(hopper) == 8, f"{name}: {len(hopper)} Hopper "
                   f"instantiations, want 8")
@@ -884,6 +941,15 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
 
     build = phase_build(fa, ra)
+    resources = phase_resources(fa, ra)
+    for name in ("flash_attention", "ragged_attention"):
+        for row in build[name]:
+            row["smem_bytes"] = resources[(row["dp"],
+                                           row["consumer_warpgroups"],
+                                           row["ragged"])]
+            print(f"resources: {name} attn_sm90<{row['dp']}, "
+                  f"{row['consumer_warpgroups']}, "
+                  f"{str(row['ragged']).lower()}>: {json.dumps(row)}")
     totals, max_err, bound_by = phase_kernels(fa)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
@@ -901,14 +967,16 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": round(totals["ms"], 4),
+        "device_ms": round(totals["device_ms"], 4),
         "plain_ms": round(totals["plain_ms"], 4),
         "bound_ms": round(totals["bound_ms"], 4),
         "bound_by": bound_by,
         "library_ms": round(totals["library_ms"], 4),
+        "library_device_ms": round(totals["library_device_ms"], 4),
         "exp_ms": round(totals["exp_ms"], 4),
-        "eager_ms": round(totals["eager_ms"], 4),
-        "library_eager_ms": round(totals["library_eager_ms"], 4),
         "fraction_of_bound": round(totals["bound_ms"] / totals["ms"], 4),
+        "device_fraction_of_bound": round(
+            totals["bound_ms"] / totals["device_ms"], 4),
         "host_us_per_launch": round(totals["host_us"], 2),
         "path": "hopper",
         "path_launches": paths,
@@ -927,14 +995,16 @@ def main() -> int:
         "max_abs_err": r_err["bf16"],
         "max_abs_err_f32": r_err["f32"],
         "ms": round(r_totals["ms"], 4),
+        "device_ms": round(r_totals["device_ms"], 4),
         "plain_ms": round(r_totals["plain_ms"], 4),
         "bound_ms": round(r_totals["bound_ms"], 4),
         "bound_by": r_bound_by,
         "library_ms": round(r_totals["library_ms"], 4),
+        "library_device_ms": round(r_totals["library_device_ms"], 4),
         "exp_ms": round(r_totals["exp_ms"], 4),
-        "eager_ms": round(r_totals["eager_ms"], 4),
-        "library_eager_ms": round(r_totals["library_eager_ms"], 4),
         "fraction_of_bound": round(r_totals["bound_ms"] / r_totals["ms"], 4),
+        "device_fraction_of_bound": round(
+            r_totals["bound_ms"] / r_totals["device_ms"], 4),
         "host_us_per_launch": round(r_totals["host_us"], 2),
         "path": "hopper",
         "path_launches": r_paths,

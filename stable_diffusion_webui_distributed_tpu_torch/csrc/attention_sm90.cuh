@@ -64,7 +64,8 @@
 // kernel's source. Shapes this path cannot take (bf16 with D % 8 != 0, DP
 // not in {48, 64, 80, 160}, a base not 16-byte aligned, a stride that is no
 // multiple of 16 bytes) go to the general mma.sync kernel; sm90_path()
-// chooses before the launch, from shape, strides and alignment alone.
+// chooses before the launch, from shape, strides and alignment alone, and
+// the C entry points return the path they launched (launched()).
 
 #pragma once
 
@@ -699,6 +700,14 @@ inline bool sm90_path(const void* q, const void* k, const void* v, int batch,
   return ok(sq.b, batch) && ok(sq.t, t_len) && ok(sq.h, heads) &&
          ok(sk.b, batch) && ok(sk.t, s_len) && ok(sk.h, heads) &&
          ok(sv.b, batch) && ok(sv.t, s_len) && ok(sv.h, heads);
+}
+
+// What a C entry point returns for a launch that gave err: the path it took
+// (0 = f32, 1 = the general bf16 kernel, 2 = this Hopper kernel), which the
+// wrappers count, or the negated cudaError_t when nothing launched.
+inline int launched(cudaError_t err, int dtype, bool hopper) {
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return hopper ? 2 : dtype == 0 ? 0 : 1;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -419,9 +419,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int batch, int t_len, int s_len, int heads, int d,
                      Strides sq, Strides sk, Strides sv, float qk_scale,
-                     Ragged rg, int dtype, cudaStream_t stream) {
-  if (sm90::sm90_path(q, k, v, batch, t_len, s_len, heads, d, sq, sk, sv,
-                      qk_scale, dtype))
+                     Ragged rg, int dtype, bool hopper, cudaStream_t stream) {
+  if (hopper)
     return sm90::dispatch<true>(q, k, v, o, batch, t_len, s_len, heads, d, sq,
                                 sk, sv, qk_scale, rg.true_len, rg.mask_q,
                                 stream);
@@ -445,7 +444,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // q (B,T,H,D), k/v (B,S,H,D) with element strides (b, t, h) and a contiguous
 // last axis; true_len (B,) int32 on the device; o (B,T,H,D) contiguous.
 // mask_q != 0 writes query rows at or past true_len as 0. dtype 0 = f32,
-// 1 = bf16. Returns the cudaError_t of the launch (0 = launched).
+// 1 = bf16. Returns the path it launched (sm90::launched), or the negated
+// cudaError_t.
 extern "C" int sdt_ragged_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const int* true_len, int batch, int t_len, int s_len, int heads, int d,
@@ -454,25 +454,14 @@ extern "C" int sdt_ragged_attention_fwd(
     long long vsh, float scale, int mask_q, int dtype, void* stream) {
   if (batch < 1 || t_len < 1 || s_len < 1 || heads < 1 || d < 1 ||
       d > kMaxD || batch * heads > 65535 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+    return -(int)cudaErrorInvalidValue;
   const Strides sq{qsb, qst, qsh}, sk{ksb, kst, ksh}, sv{vsb, vst, vsh};
   const Ragged rg{true_len, mask_q != 0};
-  return (int)dispatch(q, k, v, o, batch, t_len, s_len, heads, d, sq, sk, sv,
-                       scale * kLog2e, rg, dtype,
-                       static_cast<cudaStream_t>(stream));
-}
-
-// The path a launch with these arguments takes: 0 = f32, 1 = the general
-// bf16 kernel, 2 = the Hopper (TMA + wgmma) kernel.
-extern "C" int sdt_ragged_attention_path(
-    const void* q, const void* k, const void* v, int batch, int t_len,
-    int s_len, int heads, int d, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, float scale, int dtype) {
-  if (dtype == 0) return 0;
-  const Strides sq{qsb, qst, qsh}, sk{ksb, kst, ksh}, sv{vsb, vst, vsh};
-  return sm90::sm90_path(q, k, v, batch, t_len, s_len, heads, d, sq, sk, sv,
-                         scale, dtype)
-             ? 2
-             : 1;
+  const bool hopper = sm90::sm90_path(q, k, v, batch, t_len, s_len, heads, d,
+                                      sq, sk, sv, scale, dtype);
+  return sm90::launched(
+      dispatch(q, k, v, o, batch, t_len, s_len, heads, d, sq, sk, sv,
+               scale * kLog2e, rg, dtype, hopper,
+               static_cast<cudaStream_t>(stream)),
+      dtype, hopper);
 }

@@ -12,10 +12,11 @@ what the kernel does not take. Only for tensors on the CPU does it compute
 :func:`flash_attention_reference`, the plain PyTorch version the tests and
 ``chip_smoke.py`` hold the kernel against. ``flash_attention.launches``
 counts kernel launches, and ``flash_attention.path_launches`` counts them
-per path (:func:`kernel_path`): bf16 launches go to the Hopper kernel
-(TMA + ``wgmma``) where TMA can address the operands, else to the general
-``mma.sync`` kernel, chosen from shape, strides and alignment before the
-launch.
+per path, as the C entry point reports the path it launched: bf16 launches
+go to the Hopper kernel (TMA + ``wgmma``) where TMA can address the
+operands, else to the general ``mma.sync`` kernel, chosen in C from shape,
+strides, alignment and the scale's sign before the launch (``sm90_path``
+in ``csrc/attention_sm90.cuh``).
 
 The kernel is built with ``nvcc`` from the repository's source at first use
 (:func:`build`), into ``_build/`` beside this package's sources.
@@ -34,23 +35,13 @@ from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-#: head dims, rounded up to 16, that the Hopper kernel is instantiated for
-#: (SD1.5: 40, 80, 160; SD2 and SDXL: 64)
-HOPPER_HEAD_DIMS = (48, 64, 80, 160)
-#: the kernels' paths, as the C entry points ``*_path`` number them
+#: the kernels' paths, numbered as the C entry points return them
 PATHS = ("f32", "general", "hopper")
 
-#: argument types of a ``*_path`` entry point: q, k, v, B, T, S, H, D, the
-#: nine strides, the scale and the dtype
-PATH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                 + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int])
-
-_KERNEL = nvcc.KernelLibrary("flash_attention.cu", {
-    "sdt_flash_attention_fwd":
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "sdt_flash_attention_path": PATH_ARGTYPES,
-})
+_KERNEL = nvcc.KernelLibrary(
+    "flash_attention.cu", "sdt_flash_attention_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -110,52 +101,6 @@ def kernel_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
 
 
-def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: Optional[float] = None) -> str:
-    """Which kernel a launch on these tensors takes, by the rule the CUDA
-    sources apply (``sm90_path`` in ``csrc/attention_sm90.cuh``): "f32";
-    "hopper" for bf16 with ``D % 8 == 0``, D rounded up to 16 in
-    :data:`HOPPER_HEAD_DIMS`, a positive scale (None: the default
-    ``1/sqrt(D)``), every base 16-byte aligned and every (b, t, h) stride
-    of a dim longer than 1 a multiple of 8 elements (16 bytes, TMA's rule);
-    else "general". A pure function of dtype, shape, strides, alignment and
-    the scale's sign."""
-    if q.dtype == torch.float32:
-        return "f32"
-    d = q.shape[-1]
-    if d % 8 or -(-d // 16) * 16 not in HOPPER_HEAD_DIMS:
-        return "general"
-    if scale is not None and not scale > 0:
-        return "general"
-    for x in (q, k, v):
-        if x.data_ptr() % 16:
-            return "general"
-        if any(size != 1 and stride % 8
-               for size, stride in zip(x.shape[:3], x.stride()[:3])):
-            return "general"
-    return "hopper"
-
-
-def compiled_path(library: nvcc.KernelLibrary, symbol: str,
-                  q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: Optional[float] = None) -> str:
-    """The path the built library's ``symbol`` says a launch on these
-    tensors takes (the card tests hold :func:`kernel_path` to it)."""
-    b, t, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    code = library.function(symbol)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, k.shape[1], h, d,
-        *kernel_strides(q, k, v), float(scale), DTYPES[q.dtype])
-    return PATHS[code]
-
-
-def launch_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: Optional[float] = None) -> str:
-    """K1's :func:`compiled_path`."""
-    return compiled_path(_KERNEL, "sdt_flash_attention_path", q, k, v, scale)
-
-
 def current_stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -184,19 +129,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     check_kernel_inputs(q, k, v)
-    fn = _KERNEL.function("sdt_flash_attention_fwd")
-    path = kernel_path(q, k, v, scale)
+    fn = _KERNEL.function()
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with on_device(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, k.shape[1], h, d, *kernel_strides(q, k, v),
-                 float(scale), DTYPES[q.dtype], current_stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    flash_attention.launches += 1
-    flash_attention.path_launches[path] += 1
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, t, k.shape[1], h, d, *kernel_strides(q, k, v),
+                  float(scale), DTYPES[q.dtype], current_stream(q))
+    count_launch(flash_attention, code)
     return out
+
+
+def count_launch(wrapper, code: int) -> None:
+    """Counts a launch of ``wrapper``'s kernel by what its C entry point
+    returned: the path it launched (an index into :data:`PATHS`), or a
+    negated ``cudaError_t``, which raises and counts nothing."""
+    if code < 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError "
+                           f"{-code}")
+    wrapper.launches += 1
+    wrapper.path_launches[PATHS[code]] += 1
 
 
 def reset_launches(fn) -> None:

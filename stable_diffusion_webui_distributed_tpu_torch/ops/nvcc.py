@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Mapping, Sequence, Tuple
+from typing import Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -53,33 +53,29 @@ def build(source: Path) -> Tuple[Path, str]:
 
 
 class KernelLibrary:
-    """One kernel source's library: built and loaded at the first call of
-    :meth:`function`, once per process. ``symbols`` maps each C entry
-    point to its argument types; each returns an int."""
+    """One kernel's library: built and loaded at the first call of
+    :meth:`function`, once per process."""
 
-    def __init__(self, source: str, symbols: Mapping[str, Sequence]):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = CSRC / source
-        self._symbols = {name: list(args) for name, args in symbols.items()}
+        self._symbol = symbol
+        self._argtypes = list(argtypes)
         self._lock = threading.Lock()
-        self._fns = None  # written under _lock
+        self._fn = None  # written under _lock
 
     def build(self) -> Tuple[Path, str]:
         return build(self.source)
 
-    def function(self, name: str):
-        """The C entry point ``name`` of the library."""
-        fns = self._fns
-        if fns is None:
-            with self._lock:
-                if self._fns is None:
-                    path, _ = self.build()
-                    lib = ctypes.CDLL(str(path))
-                    loaded = {}
-                    for symbol, argtypes in self._symbols.items():
-                        fn = getattr(lib, symbol)
-                        fn.argtypes = argtypes
-                        fn.restype = ctypes.c_int
-                        loaded[symbol] = fn
-                    self._fns = loaded
-                fns = self._fns
-        return fns[name]
+    def function(self):
+        """The kernel's C entry point, which returns an int."""
+        fn = self._fn
+        if fn is not None:
+            return fn
+        with self._lock:
+            if self._fn is None:
+                path, _ = self.build()
+                fn = getattr(ctypes.CDLL(str(path)), self._symbol)
+                fn.argtypes = self._argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            return self._fn

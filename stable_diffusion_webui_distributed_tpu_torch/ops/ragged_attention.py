@@ -22,7 +22,7 @@ on the CPU does it compute :func:`ragged_attention_reference`, the plain
 PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
 ``ragged_attention.launches`` counts kernel launches and
 ``ragged_attention.path_launches`` counts them per path, as K1's wrapper
-does (the same rule, :func:`.flash_attention.kernel_path`).
+does (the same rule, in the same header, chooses the path).
 """
 
 from __future__ import annotations
@@ -36,12 +36,10 @@ import torch
 from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     DTYPES,
-    PATH_ARGTYPES,
     check_inputs,
     check_kernel_inputs,
-    compiled_path,
+    count_launch,
     current_stream,
-    kernel_path,
     kernel_strides,
     on_device,
     reset_launches,
@@ -50,12 +48,10 @@ from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
 #: additive mask for padded key positions
 MASK_VALUE = -1e30
 
-_KERNEL = nvcc.KernelLibrary("ragged_attention.cu", {
-    "sdt_ragged_attention_fwd":
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "sdt_ragged_attention_path": PATH_ARGTYPES,
-})
+_KERNEL = nvcc.KernelLibrary(
+    "ragged_attention.cu", "sdt_ragged_attention_fwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def ragged_attention_reference(
@@ -87,12 +83,6 @@ def build() -> Tuple:
     return _KERNEL.build()
 
 
-def launch_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: Optional[float] = None) -> str:
-    """K2's :func:`.flash_attention.compiled_path`."""
-    return compiled_path(_KERNEL, "sdt_ragged_attention_path", q, k, v, scale)
-
-
 def ragged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      true_len: torch.Tensor, scale: Optional[float] = None,
                      mask_queries: bool = True) -> torch.Tensor:
@@ -122,20 +112,16 @@ def ragged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"true_len lies on {true_len.device}, the inputs "
                          f"on {q.device}")
     check_kernel_inputs(q, k, v)
-    fn = _KERNEL.function("sdt_ragged_attention_fwd")
-    path = kernel_path(q, k, v, scale)
+    fn = _KERNEL.function()
     lengths = true_len.to(torch.int32).contiguous()
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with on_device(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lengths.data_ptr(), b, t, k.shape[1], h, d,
-                 *kernel_strides(q, k, v), float(scale), int(mask_queries),
-                 DTYPES[q.dtype], current_stream(q))
-    if err != 0:
-        raise RuntimeError(f"ragged_attention launch failed: cudaError {err}")
-    ragged_attention.launches += 1
-    ragged_attention.path_launches[path] += 1
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lengths.data_ptr(), b, t, k.shape[1], h, d,
+                  *kernel_strides(q, k, v), float(scale), int(mask_queries),
+                  DTYPES[q.dtype], current_stream(q))
+    count_launch(ragged_attention, code)
     return out
 
 

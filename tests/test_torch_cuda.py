@@ -12,10 +12,10 @@ the sums run in another order), 1e-2 for bf16 (both round the output to
 bf16, and the kernel also rounds the probabilities to bf16 for the second
 product).
 
-Each launch is also held to its path: the rule of ``kernel_path`` (pure
-Python) must name the path the built library takes, and the wrapper must
-count the launch there. bf16 at the UNets' head dims takes the Hopper
-kernel (TMA + wgmma); the shapes it cannot take go to the general kernel.
+Each launch is also held to its path: the C entry point returns the path
+it launched, and the wrapper counts the launch there. bf16 at the UNets'
+head dims takes the Hopper kernel (TMA + wgmma); the shapes it cannot take
+go to the general kernel.
 """
 
 import pytest
@@ -35,17 +35,17 @@ def card():
     return torch.device("cuda")
 
 
-def _path_counted(wrapper, launch_path, q, k, v, call, scale=None):
-    """Runs ``call`` once; asserts it launched once, on the path the rule
-    and the library agree on. Returns the output and the path."""
-    path = fa.kernel_path(q, k, v, scale)
-    assert launch_path(q, k, v, scale) == path
+def _path_counted(wrapper, call):
+    """Runs ``call`` once; asserts it launched ``wrapper``'s kernel once, on
+    one path. Returns the output and the path."""
     before = wrapper.launches, dict(wrapper.path_launches)
     out = call()
     torch.cuda.synchronize()
     assert wrapper.launches == before[0] + 1
-    assert wrapper.path_launches[path] == before[1][path] + 1
-    return out, path
+    grown = [p for p, n in wrapper.path_launches.items() if n != before[1][p]]
+    assert len(grown) == 1
+    assert wrapper.path_launches[grown[0]] == before[1][grown[0]] + 1
+    return out, grown[0]
 
 
 def _hopper_expected(q):
@@ -55,7 +55,7 @@ def _hopper_expected(q):
 
 
 def _check(q, k, v):
-    out, path = _path_counted(fa.flash_attention, fa.launch_path, q, k, v,
+    out, path = _path_counted(fa.flash_attention,
                               lambda: fa.flash_attention(q, k, v))
     assert (path == "hopper") == _hopper_expected(q)
     assert out.shape == q.shape and out.dtype == q.dtype
@@ -162,7 +162,7 @@ RAGGED_CASES = [
 
 def _check_ragged(q, k, v, lens, mask_queries):
     out, path = _path_counted(
-        ra.ragged_attention, ra.launch_path, q, k, v,
+        ra.ragged_attention,
         lambda: ra.ragged_attention(q, k, v, lens,
                                     mask_queries=mask_queries))
     assert (path == "hopper") == _hopper_expected(q)
@@ -222,36 +222,52 @@ def test_misaligned_base_takes_the_general_path(card):
     q, k, v = (torch.randn(n + 1, device=card, generator=gen)
                .to(torch.bfloat16)[1:].view(2, 300, 2, 40) for _ in range(3))
     assert q.data_ptr() % 16
-    assert fa.kernel_path(q, k, v) == "general"
+    _, path = _path_counted(fa.flash_attention,
+                            lambda: fa.flash_attention(q, k, v))
+    assert path == "general"
     _check(q, k, v)
     lens = torch.tensor([300, 150], dtype=torch.int32, device=card)
-    _, path = _path_counted(ra.ragged_attention, ra.launch_path, q, k, v,
+    _, path = _path_counted(ra.ragged_attention,
                             lambda: ra.ragged_attention(q, k, v, lens))
     assert path == "general"
 
 
+# head dim -> the path a bf16 launch takes: D % 8 == 0 with D rounded up
+# to 16 in {48, 64, 80, 160} takes the Hopper kernel
+HEAD_DIM_PATHS = {1: "general", 8: "general", 33: "general", 40: "hopper",
+                  48: "hopper", 56: "hopper", 64: "hopper", 72: "hopper",
+                  80: "hopper", 96: "general", 152: "hopper", 160: "hopper",
+                  256: "general"}
+
+
 @pytest.mark.cuda
-def test_path_rule_matches_the_library(card):
-    """The Python rule names, for each layout, the path the compiled
-    libraries of both kernels choose."""
-    x = torch.zeros((2, 64, 3 * 2 * 40 + 8), device=card,
-                    dtype=torch.bfloat16)
-    layouts = [
-        torch.zeros((2, 64, 2, d), device=card, dtype=dt)
-        for d in (1, 8, 33, 40, 48, 56, 64, 72, 80, 96, 152, 160, 256)
-        for dt in (torch.bfloat16, torch.float32)]
-    y = torch.zeros((2, 64, 3 * 2 * 40 + 4), device=card,
-                    dtype=torch.bfloat16)
-    layouts += [x[..., :80].unflatten(-1, (2, 40)),
-                x[..., 8:88].unflatten(-1, (2, 40)),
-                x[..., 4:84].unflatten(-1, (2, 40)),
-                x[:, :, :240].unflatten(-1, (2, 120))[..., :40],
-                y[..., :80].unflatten(-1, (2, 40))]
-    for q in layouts:
+def test_both_kernels_report_the_expected_path(card):
+    """For each layout, K1 and K2 launch on the path TMA's rules give (a
+    16-byte aligned base and strides of multiples of 16 bytes), count it,
+    and a scale that is not positive takes the general kernel."""
+    bf16 = torch.bfloat16
+    x = torch.zeros((2, 64, 3 * 2 * 40 + 8), device=card, dtype=bf16)
+    y = torch.zeros((2, 64, 3 * 2 * 40 + 4), device=card, dtype=bf16)
+    layouts = [(torch.zeros((2, 64, 2, d), device=card, dtype=dt),
+                path if dt == bf16 else "f32")
+               for d, path in HEAD_DIM_PATHS.items()
+               for dt in (bf16, torch.float32)]
+    layouts += [(x[..., :80].unflatten(-1, (2, 40)), "hopper"),
+                (x[..., 8:88].unflatten(-1, (2, 40)), "hopper"),
+                (x[..., 4:84].unflatten(-1, (2, 40)), "general"),
+                (x[:, :, :240].unflatten(-1, (2, 120))[..., :40], "hopper"),
+                (y[..., :80].unflatten(-1, (2, 40)), "general")]
+    lens = torch.full((2,), 64, dtype=torch.int32, device=card)
+    for q, want in layouts:
         for scale in (None, -0.5):
-            want = fa.kernel_path(q, q, q, scale)
-            assert fa.launch_path(q, q, q, scale) == want, (q.shape, scale)
-            assert ra.launch_path(q, q, q, scale) == want, (q.shape, scale)
+            if scale is not None and want == "hopper":
+                want = "general"
+            _, k1 = _path_counted(fa.flash_attention,
+                                  lambda: fa.flash_attention(q, q, q, scale))
+            _, k2 = _path_counted(
+                ra.ragged_attention,
+                lambda: ra.ragged_attention(q, q, q, lens, scale))
+            assert k1 == k2 == want, (q.shape, q.stride(), scale)
 
 
 @pytest.mark.cuda
@@ -259,10 +275,8 @@ def test_negative_scale_takes_the_general_path(card):
     gen = torch.Generator(device=card).manual_seed(8)
     q, k, v = (torch.randn((2, 300, 2, 40), device=card, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
-    assert fa.kernel_path(q, k, v, -0.2) == "general"
-    out, path = _path_counted(fa.flash_attention, fa.launch_path, q, k, v,
-                              lambda: fa.flash_attention(q, k, v, -0.2),
-                              scale=-0.2)
+    out, path = _path_counted(fa.flash_attention,
+                              lambda: fa.flash_attention(q, k, v, -0.2))
     assert path == "general"
     ref = fa.flash_attention_reference(q, k, v, -0.2)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[q.dtype]

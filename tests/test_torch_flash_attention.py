@@ -18,6 +18,7 @@ from stable_diffusion_webui_distributed_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops import flash_attention as fa
+from stable_diffusion_webui_distributed_tpu_torch.ops import ragged_attention as ra
 
 RNG = np.random.default_rng(3)
 
@@ -115,61 +116,34 @@ def test_non_cpu_device_never_falls_back():
         fa.flash_attention(q, q, q)
 
 
-def _bf16(*shape):
-    return torch.zeros(shape, dtype=torch.bfloat16)
+@pytest.fixture(params=["flash_attention", "ragged_attention"])
+def wrapper(request):
+    """A kernel wrapper with its launch counts at 0, restored afterwards."""
+    fn = getattr(fa if request.param == "flash_attention" else ra,
+                 request.param)
+    saved = fn.launches, dict(fn.path_launches)
+    fa.reset_launches(fn)
+    yield fn
+    fn.launches, fn.path_launches = saved
 
 
-# name -> (q, k, v) maker, the path the rule must name
-PATH_CASES = {
-    "f32": (lambda: (torch.zeros(2, 64, 2, 40),) * 3, "f32"),
-    "sd15-d40": (lambda: (_bf16(2, 64, 8, 40),) * 3, "hopper"),
-    "sd15-d80": (lambda: (_bf16(2, 64, 8, 80),) * 3, "hopper"),
-    "sd15-d160": (lambda: (_bf16(2, 64, 8, 160),) * 3, "hopper"),
-    "sdxl-d64": (lambda: (_bf16(2, 64, 10, 64),) * 3, "hopper"),
-    "d56-pads-to-64": (lambda: (_bf16(1, 64, 2, 56),) * 3, "hopper"),
-    "d33-not-a-multiple-of-8": (lambda: (_bf16(1, 64, 2, 33),) * 3,
-                                "general"),
-    "d8-no-instantiation": (lambda: (_bf16(1, 64, 2, 8),) * 3, "general"),
-    "d96-no-instantiation": (lambda: (_bf16(1, 64, 2, 96),) * 3,
-                             "general"),
-    "d256-no-instantiation": (lambda: (_bf16(1, 64, 2, 256),) * 3,
-                              "general"),
-    "fused-qkv-slices": (
-        lambda: tuple(t.unflatten(-1, (8, 40))
-                      for t in _bf16(2, 64, 3 * 320).split(320, dim=-1)),
-        "hopper"),
-    "base-not-16-byte-aligned": (
-        lambda: (_bf16(2 * 64 * 2 * 40 + 1)[1:].view(2, 64, 2, 40),) * 3,
-        "general"),
-    "row-stride-not-16-bytes": (
-        lambda: (_bf16(2, 64, 84)[..., :80].unflatten(-1, (2, 40)),) * 3,
-        "general"),
-    "size-1-dims-any-stride": (
-        lambda: (_bf16(64 * 80).as_strided((1, 64, 2, 40), (3, 80, 40, 1)),)
-        * 3,
-        "hopper"),
-}
+@pytest.mark.parametrize("path", fa.PATHS)
+def test_a_launch_counts_on_the_path_the_library_reports(wrapper, path):
+    """The C entry point chooses the path and returns its index; the
+    wrapper counts the launch there and on no other path."""
+    fa.count_launch(wrapper, fa.PATHS.index(path))
+    assert wrapper.launches == 1
+    assert wrapper.path_launches == {p: int(p == path) for p in fa.PATHS}
 
 
-@pytest.mark.parametrize("case", sorted(PATH_CASES))
-def test_kernel_path_rule(case):
-    """Which kernel a card launch takes is a pure function of dtype, shape,
-    strides and alignment: the Hopper kernel (TMA + wgmma) where TMA can
-    address the operands, else the general one. The card tests hold this
-    rule to the built libraries."""
-    make, want = PATH_CASES[case]
-    q, k, v = make()
-    assert fa.kernel_path(q, k, v) == want
-
-
-@pytest.mark.parametrize("scale", [None, 0.125, 0.0, -0.125])
-def test_kernel_path_needs_a_positive_scale(scale):
-    """The Hopper kernel folds the scale into its exps after a max taken on
-    the raw scores, so a scale that is not positive goes to the general
-    kernel."""
-    q = _bf16(1, 64, 2, 40)
-    want = "hopper" if scale is None or scale > 0 else "general"
-    assert fa.kernel_path(q, q, q, scale) == want
+@pytest.mark.parametrize("code", [-1, -700])
+def test_a_failed_launch_raises_and_counts_nothing(wrapper, code):
+    """A negated cudaError_t from the entry point raises, uncounted."""
+    with pytest.raises(RuntimeError, match=f"{wrapper.__name__} launch "
+                       f"failed: cudaError {-code}$"):
+        fa.count_launch(wrapper, code)
+    assert wrapper.launches == 0
+    assert not any(wrapper.path_launches.values())
 
 
 def test_cpu_launches_count_on_no_path():

@@ -46,7 +46,6 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
 from stable_diffusion_webui_distributed_tpu_torch.ops import ragged_attention as ra
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
-    kernel_path,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
@@ -168,23 +167,6 @@ def test_cpu_tensors_take_the_plain_path_without_a_launch():
     ref = ra.ragged_attention_reference(q, k, v, lens, q_true_len=lens)
     assert ra.ragged_attention.launches == before
     assert torch.equal(out, ref)
-
-
-def test_unet_ragged_layouts_take_the_hopper_path():
-    """K2 chooses its kernel by K1's rule: the UNet's self-attention (slices
-    of the fused QKV projection) and cross-attention (a q projection over
-    slices of the fused KV projection) at SD1.5's head dims take the Hopper
-    kernel in bf16."""
-    assert ra.kernel_path is kernel_path
-    for d in (40, 80, 160):
-        qkv_t = torch.zeros(8, 96, 3 * 8 * d, dtype=torch.bfloat16)
-        q, k, v = (t.unflatten(-1, (8, d))
-                   for t in qkv_t.split(8 * d, dim=-1))
-        assert kernel_path(q, k, v) == "hopper"
-        q = torch.zeros(8, 96, 8, d, dtype=torch.bfloat16)
-        kv = torch.zeros(8, 154, 2 * 8 * d, dtype=torch.bfloat16)
-        k, v = (t.unflatten(-1, (8, d)) for t in kv.split(8 * d, dim=-1))
-        assert kernel_path(q, k, v) == "hopper"
 
 
 def test_cpu_launches_count_on_no_path():
