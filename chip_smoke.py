@@ -37,9 +37,22 @@ Phases, each fatal on failure (no phase is caught and passed over):
    20 steps, all on the Hopper path) and K1 never, come back at their
    sizes, and agree with each request sent alone within a mean of 2 uint8
    levels;
-7. reference: one full-width UNet call on the bf16 card policy against the
+7. fleet: a remote node of the port (``cli serve`` in a child process on
+   the same seeded weights, its config and working directory temporary)
+   and a ``World`` whose master is the main path's engine, served by the
+   port's ``ApiServer``. ``World.benchmark_all`` gives each worker's images
+   per minute; a 4-image request (512x512, 20 steps Euler a, CFG 7) must
+   come back with contiguous seeds from both workers, each infotext ending
+   in its worker's label, each image within a mean of 2 uint8 levels of
+   the same request on the master alone, the master's K1 launches 320 per
+   image group, all on the Hopper path; the same request again must give
+   the same plan and PNG bytes; with the remote terminated, its range is
+   requeued on the master and must give the remote's PNG bytes. Master and
+   remote share one card: the phase measures the fleet's mechanics, not a
+   speed-up;
+8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
-8. profile: where a warm request's time goes (device time by kernel group
+9. profile: where a warm request's time goes (device time by kernel group
    and the device's busy share, from ``torch.profiler``), and the same for
    one UNet call.
 
@@ -54,8 +67,11 @@ import base64
 import io
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -652,6 +668,247 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
     return k2, paths
 
 
+FLEET_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+              "negative_prompt": "blurry", "steps": 20, "width": 512,
+              "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+              "batch_size": 4, "seed": 4321}
+REMOTE_START_S = 300  # the remote node must answer /memory within this
+FLEET_MEAN_TOLERANCE = 2.0  # uint8 levels, fleet image vs master alone
+
+
+def get_json(port: int, route: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_remote(workdir: str, weight_seed: int):
+    """``cli serve`` of the port in a child process: SD1.5 on the same
+    seeded weights as the master, its config file and working directory
+    in ``workdir``. Returns the process, its port and its log's path once
+    its ``/sdapi/v1/memory`` answers."""
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+        HTTPBackend,
+    )
+
+    port = free_port()
+    log_path = os.path.join(workdir, "remote.log")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "stable_diffusion_webui_distributed_tpu_torch.cli", "serve",
+             "--family", "sd15", "--seed", str(weight_seed), "--port",
+             str(port), "--distributed-config",
+             os.path.join(workdir, "remote-config.json")],
+            cwd=workdir, env=env, stdout=log, stderr=subprocess.STDOUT)
+    probe = HTTPBackend("127.0.0.1", port, timeout=5.0)
+    t0 = time.perf_counter()
+    while not probe.reachable():
+        if proc.poll() is not None or \
+                time.perf_counter() - t0 > REMOTE_START_S:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            stop_process(proc)
+            raise SmokeFailure(f"the remote node did not answer within "
+                               f"{REMOTE_START_S} s (exit {proc.poll()}):\n"
+                               f"{tail}")
+        time.sleep(1.0)
+    print(f"fleet: remote node on port {port} answered after "
+          f"{time.perf_counter() - t0:.1f} s")
+    return proc, port, log_path
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def labels_of(resp: dict) -> list:
+    return [t.rsplit(", Worker Label: ", 1)[-1]
+            for t in json.loads(resp["info"])["infotexts"]]
+
+
+def phase_fleet(engine, fa, ra, card_line: str) -> dict:
+    """The fleet: a World over the main path's engine (the master) and a
+    remote node in a child process, on one card."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+        HTTPBackend,
+        LocalBackend,
+        State,
+        WorkerNode,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.world import (
+        World,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    shared = "master and remote share one card"
+    workdir = tempfile.mkdtemp(prefix="fleet-")
+    proc = server = None
+    try:
+        proc, port, log_path = start_remote(workdir, weight_seed=0)
+        world = World(config_path=os.path.join(workdir, "master-config.json"))
+        world.current_model = engine.model_name
+        world.add_worker(WorkerNode("master", LocalBackend(engine),
+                                    master=True))
+        world.add_worker(WorkerNode("remote", HTTPBackend("127.0.0.1", port)))
+        server = ApiServer(world, port=0).start()
+        check(server.dispatcher is None, "a World source took a dispatcher")
+
+        t0 = time.perf_counter()
+        ipm = world.benchmark_all()
+        bp = world.master().benchmark_payload
+        print(f"fleet benchmark: {json.dumps(ipm)} images per minute "
+              f"({bp.width}x{bp.height}, {bp.steps} steps {bp.sampler_name}"
+              f", batch {bp.batch_size}; 2 warm-up + 3 recorded each, "
+              f"master then remote, {shared}) in "
+              f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+        check(set(ipm) == {"master", "remote"} and min(ipm.values()) > 0,
+              f"benchmark gave {ipm}")
+
+        payload = GenerationPayload(**FLEET_BODY)
+        plan = [(j.worker.label, j.batch_size, j.start_index)
+                for j in world.plan(payload)]
+        eta = {j.worker.label: j.worker.eta(payload, batch_size=j.batch_size)
+               for j in world.jobs}
+        print(f"fleet plan: {', '.join(f'{l}:{b}' for l, b, _ in plan)}")
+        check({l for l, _, _ in plan} == {"master", "remote"},
+              f"the plan {plan} does not use both workers")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
+        t = time.perf_counter()
+        first = post(server.port, FLEET_BODY)
+        fleet_wall = time.perf_counter() - t
+        launches = fa.flash_attention.launches
+        paths = dict(fa.flash_attention.path_launches)
+        k2 = ra.ragged_attention.launches
+        jobs = [(j.worker.label, j.batch_size, j.start_index)
+                for j in world.jobs]
+        master_groups = sum(1 for j in world.jobs if j.worker.master)
+        for j in world.jobs:
+            w = j.worker
+            print(f"fleet job {w.label}:{j.batch_size} [{j.start_index}.."
+                  f"{j.start_index + j.batch_size}): ETA {eta[w.label]:.3f}"
+                  f" s, actual {w.response_time:.3f} s, MPE after "
+                  f"{w.cal.mpe():.2f}% [{shared}; {card_line}]")
+        check(jobs == plan, f"executed {jobs}, planned {plan}")
+        seeds = json.loads(first["info"])["all_seeds"]
+        want_seeds = list(range(FLEET_BODY["seed"], FLEET_BODY["seed"] + 4))
+        check(len(first["images"]) == 4 and seeds == want_seeds,
+              f"fleet gave {len(first['images'])} images, seeds {seeds}")
+        want_labels = [l for l, b, _ in plan for _ in range(b)]
+        check(labels_of(first) == want_labels,
+              f"infotext labels {labels_of(first)}, want {want_labels}")
+        print(f"fleet: K1 launches {launches} by path {json.dumps(paths)}, "
+              f"K2 {k2}; master ran {master_groups} image group(s)")
+        check(launches == LAUNCHES_PER_GROUP * master_groups,
+              f"the master launched K1 {launches} times for "
+              f"{master_groups} image group(s)")
+        check(paths["hopper"] == launches, f"K1 off the Hopper path: {paths}")
+        check(k2 == 0, f"the fleet launched K2 {k2} times")
+        master_peak = torch.cuda.max_memory_allocated()
+
+        again = post(server.port, FLEET_BODY)
+        check([(j.worker.label, j.batch_size, j.start_index)
+               for j in world.jobs] == plan, "the repeat changed the plan")
+        check(again["images"] == first["images"],
+              "the repeated fleet request gave other PNG bytes")
+        remote_mem = get_json(port, "/sdapi/v1/memory")["cuda"]
+
+        # the same request on the master alone (remote disabled)
+        world.configure_worker("remote", disabled=True)
+        t = time.perf_counter()
+        alone = post(server.port, FLEET_BODY)
+        alone_wall = time.perf_counter() - t
+        world.configure_worker("remote", disabled=False)
+        check(labels_of(alone) == ["master"] * 4, "master alone: labels")
+        diffs = []
+        for i, (a, b) in enumerate(zip(first["images"], alone["images"])):
+            px, px_alone = png_pixels(a), png_pixels(b)
+            check(px.shape == (512, 512, 3) and float(px.std()) > 1.0,
+                  f"fleet image {i}: shape {px.shape} or constant")
+            diff = np.abs(px.astype(np.int32) - px_alone.astype(np.int32))
+            diffs.append(float(diff.mean()))
+            print(f"fleet image {i} ({want_labels[i]}) vs master alone: "
+                  f"mean abs {diff.mean():.4f}, max {diff.max()} (uint8 "
+                  f"levels)")
+            check(diff.mean() <= FLEET_MEAN_TOLERANCE,
+                  f"fleet image {i} drifted from the master-alone image")
+
+        # the remote dies: its range is requeued on the master
+        stop_process(proc)
+        fa.reset_launches(fa.flash_attention)
+        requeued = post(server.port, FLEET_BODY)
+        remote = world.get_worker("remote")
+        check(remote.current_state() == State.UNAVAILABLE,
+              f"the dead remote is {remote.current_state().name}")
+        check(json.loads(requeued["info"])["all_seeds"] == want_seeds,
+              "requeue: seeds")
+        check(labels_of(requeued) == ["master"] * 4, "requeue: labels")
+        remote_idx = [i for i, l in enumerate(want_labels) if l == "remote"]
+        check(all(requeued["images"][i] == first["images"][i]
+                  for i in remote_idx),
+              "the requeued range is not byte-identical to the remote's")
+        check(remote.health.summary()["requeued_images"] == len(remote_idx),
+              "requeue count")
+        check(fa.flash_attention.launches
+              == LAUNCHES_PER_GROUP * (master_groups + 1),
+              f"requeue: the master launched K1 "
+              f"{fa.flash_attention.launches} times")
+        print(f"fleet requeue: remote UNAVAILABLE, {len(remote_idx)} "
+              f"image(s) requeued on the master, byte-identical to the "
+              f"remote's; master K1 launches {fa.flash_attention.launches}")
+    finally:
+        if server is not None:
+            server.stop()
+        if proc is not None:
+            stop_process(proc)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    metrics = {
+        "ipm": {k: round(v, 3) for k, v in ipm.items()},
+        "plan": {l: b for l, b, _ in plan},
+        "eta_s": {k: round(v, 3) for k, v in eta.items()},
+        "fleet_wall_s": round(fleet_wall, 4),
+        "master_alone_wall_s": round(alone_wall, 4),
+        "fleet_vs_alone_mean_abs": [round(d, 4) for d in diffs],
+        "master_peak_memory_gib": round(master_peak / 2**30, 3),
+        "remote_peak_memory_gib": round(
+            remote_mem["allocated"]["peak"] / 2**30, 3),
+        "k1_launches": launches, "card": card_line, "note": shared,
+    }
+    print(f"fleet: 4-image request {fleet_wall:.3f} s on the fleet, "
+          f"{alone_wall:.3f} s on the master alone ({shared}: no speed-up "
+          f"is claimed) [{card_line}]")
+    print("fleet metrics: " + json.dumps(metrics))
+    return metrics
+
+
 def phase_reference(engine) -> None:
     """One full-width UNet call, bf16 card policy vs the f32 policy on the
     same weights (the UNet's f32 path runs K1 in f32)."""
@@ -954,6 +1211,7 @@ def main() -> int:
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
     k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
+    fleet = phase_fleet(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
 
@@ -965,6 +1223,7 @@ def main() -> int:
         "replaces": "stable_diffusion_webui_distributed_tpu/ops/"
                     "flash_attention.py:30",
         "launches": launches,
+        "fleet_launches": fleet["k1_launches"],
         "max_abs_err": max_err,
         "ms": round(totals["ms"], 4),
         "device_ms": round(totals["device_ms"], 4),

@@ -443,16 +443,24 @@ class Engine:
 def _reproducible(device: torch.device):
     """cuDNN may otherwise pick convolution algorithms whose sums run in a
     different order from one call to the next; a repeated request must give
-    the same image bytes."""
+    the same image bytes. TF32 is held off for the f32 islands (the VAE
+    decoder, conv_out): the flags are process-wide, and a process whose
+    other code left cuDNN's TF32 on would otherwise give other bytes than
+    the fleet node beside it."""
     if device.type != "cuda":
         yield
         return
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    flags = (torch.backends.cudnn, "deterministic", True), \
+        (torch.backends.cudnn, "allow_tf32", False), \
+        (torch.backends.cuda.matmul, "allow_tf32", False)
+    prev = [getattr(obj, name) for obj, name, _ in flags]
+    for obj, name, value in flags:
+        setattr(obj, name, value)
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic = prev
+        for (obj, name, _), value in zip(flags, prev):
+            setattr(obj, name, value)
 
 
 def _zero_tail_rows(step, true_rows: torch.Tensor, lat_h: int):

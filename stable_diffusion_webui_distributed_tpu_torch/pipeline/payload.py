@@ -137,6 +137,17 @@ class GenerationResult(BaseModel):
     # ", Worker Label: x" to infotext at distributed.py:343-349)
     worker_labels: List[str] = Field(default_factory=list)
 
+    def extend(self, other: "GenerationResult") -> None:
+        """Append ``other``'s images and their per-image fields (the
+        World's gallery merge)."""
+        self.images.extend(other.images)
+        self.seeds.extend(other.seeds)
+        self.subseeds.extend(other.subseeds)
+        self.prompts.extend(other.prompts)
+        self.negative_prompts.extend(other.negative_prompts)
+        self.infotexts.extend(other.infotexts)
+        self.worker_labels.extend(other.worker_labels)
+
 
 def apply_scripts(payload: GenerationPayload) -> GenerationPayload:
     """webui script expansion. The JAX package expands "prompt matrix" and

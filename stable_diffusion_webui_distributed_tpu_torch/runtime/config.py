@@ -1,7 +1,7 @@
-"""Environment knobs of the serving layer.
+"""Environment knobs and the distributed config file.
 
-A copy of the env helpers of the JAX package's ``runtime/config.py`` that
-the port's serving layer reads; the knobs keep their names and defaults:
+A copy of the parts of the JAX package's ``runtime/config.py`` that the
+port reads. The knobs keep their names and defaults:
 
 - ``SDTPU_SERVING`` (flag, on): ``ApiServer`` puts a ``ServingDispatcher``
   in front of a bare engine.
@@ -12,16 +12,37 @@ the port's serving layer reads; the knobs keep their names and defaults:
   the shapes and batch sizes requests are padded up to.
 - ``SDTPU_RAGGED`` (flag, off): ragged dispatch; ``SDTPU_RAGGED_LADDER``
   (``WxH`` comma list) optionally replaces the shape ladder for it.
+- ``SDTPU_CONFIG`` (path, ``distributed-config.json``): the fleet's
+  config file when ``--distributed-config`` names none.
+- ``SDTPU_HEARTBEAT_S`` (seconds, 0 = off): the World's ping sweep.
 
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.
+
+The config file (:class:`ConfigModel`) has the JAX package's schema field
+for field, so a file written by either package loads in the other: the
+worker registry with each worker's calibration (images per minute, ETA
+error history, pixel cap), the benchmark payload and the scheduler
+settings. A missing file gives the defaults, a legacy list of workers is
+migrated, and a corrupt or invalid file is renamed aside.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
+import time
 import warnings
-from typing import Optional
+from typing import Dict, List, Optional
+
+from pydantic import BaseModel, Field, field_validator
+
+log = logging.getLogger(__name__)
+
+
+def env_str(name: str, default: str = "") -> str:
+    return os.environ.get(name, default)
 
 
 def env_flag(name: str, default: bool = False) -> bool:
@@ -49,3 +70,127 @@ def env_parsed(name: str, parse, default, what: str = "value"):
 
 def env_float(name: str, default: Optional[float] = None) -> Optional[float]:
     return env_parsed(name, lambda raw: float(raw.strip()), default, "float")
+
+
+#: The benchmark protocol: warm-up samples, then recorded samples.
+WARMUP_SAMPLES = 2
+RECORDED_SAMPLES = 3
+
+
+class BenchmarkPayload(BaseModel):
+    """The fixed calibration workload every worker's ipm is measured on."""
+
+    prompt: str = "A herd of cows grazing at the bottom of a sunny valley"
+    negative_prompt: str = ""
+    steps: int = 20
+    width: int = 512
+    height: int = 512
+    batch_size: int = 1
+    sampler_name: str = "Euler a"
+
+
+class WorkerModel(BaseModel):
+    """One worker's persisted state: its endpoint and its calibration,
+    which survive restarts so scheduling stays warm."""
+
+    address: str = "localhost"
+    port: int = 7860
+    avg_ipm: Optional[float] = None  # images per minute; None = not benchmarked
+    master: bool = False
+    # ETA percent-error history, most recent last
+    eta_percent_error: List[float] = Field(default_factory=list)
+    user: Optional[str] = None
+    password: Optional[str] = None
+    tls: bool = False
+    disabled: bool = False
+    # the most width*height*batch this worker accepts; 0 = uncapped (the
+    # reference's -1 "no limit" is normalised to 0 on load)
+    pixel_cap: int = 0
+    # checkpoint pin: model sync sends this name instead of the fleet's
+    model_override: Optional[str] = None
+    # local devices this backend drives (empty = all; remotes leave it
+    # empty). Kept so that the JAX package's files load unchanged.
+    device_ids: List[int] = Field(default_factory=list)
+
+    @field_validator("pixel_cap")
+    @classmethod
+    def _normalize_pixel_cap(cls, v: int) -> int:
+        return 0 if v <= 0 else v
+
+
+class ConfigModel(BaseModel):
+    """The root of the config file."""
+
+    workers: List[Dict[str, WorkerModel]] = Field(default_factory=list)
+    benchmark_payload: BenchmarkPayload = Field(default_factory=BenchmarkPayload)
+    # seconds of predicted stall tolerated before a worker's images are
+    # deferred to faster ones
+    job_timeout: int = 3
+    enabled: bool = True
+    enabled_i2i: bool = True
+    # deferred workers make "bonus" images in their slack time
+    complement_production: bool = True
+    # a complementary worker too slow for one image gets one at fewer steps
+    step_scaling: bool = False
+    # the master plans and merges but makes no images itself
+    thin_client_mode: bool = False
+    # read by the JAX package (checkpoint registry, mesh, serving ladders,
+    # fleet tier); kept so that either package's file loads in the other
+    model_dir: str = "models"
+    default_model: str = ""
+    mesh_axes: Dict[str, int] = Field(default_factory=dict)
+    bucket_ladder: str = ""
+    batch_ladder: str = ""
+    coalesce_window: Optional[float] = None
+    fleet_enabled: Optional[bool] = None
+
+
+def default_config_path() -> str:
+    return env_str("SDTPU_CONFIG", "distributed-config.json")
+
+
+def load_config(path: Optional[str] = None) -> ConfigModel:
+    """Read and validate the config file. A missing file gives the
+    defaults; a legacy list of worker dicts is migrated; a file that does
+    not parse or validate is renamed aside and the defaults are used."""
+    path = path or default_config_path()
+    if not os.path.exists(path):
+        log.debug("config %s not found, using defaults", path)
+        return ConfigModel()
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            raw = json.load(f)
+    except (json.JSONDecodeError, OSError) as e:
+        return _quarantine(path, "corrupt", e)
+    try:
+        if isinstance(raw, list):
+            log.info("migrating legacy worker-list config %s", path)
+            workers = []
+            for entry in raw:
+                label = entry.pop("label", entry.get("address", "worker"))
+                workers.append({label: WorkerModel(**entry)})
+            return ConfigModel(workers=workers)
+        return ConfigModel(**raw)
+    except Exception as e:  # noqa: BLE001 — any schema error quarantines
+        return _quarantine(path, "invalid", e)
+
+
+def _quarantine(path: str, kind: str, err: Exception) -> ConfigModel:
+    quarantine = f"{path}.{kind}-{int(time.time())}"
+    log.warning("config %s %s (%s); moving to %s", path, kind, err,
+                quarantine)
+    try:
+        os.replace(path, quarantine)
+    except OSError:
+        pass
+    return ConfigModel()
+
+
+def save_config(cfg: ConfigModel, path: Optional[str] = None) -> None:
+    """Write the config atomically (a temporary file, then a rename)."""
+    path = path or default_config_path()
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(cfg.model_dump(), f, indent=2)
+    os.replace(tmp, path)
+    log.debug("config saved to %s", path)

@@ -44,9 +44,11 @@ def test_importing_every_port_module_loads_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("pipeline.engine", "server.api", "serving.dispatcher",
                  "serving.bucketer", "serving.metrics", "runtime.config",
-                 "ops.ragged_attention", "ops.nvcc"):
+                 "ops.ragged_attention", "ops.nvcc", "scheduler.world",
+                 "scheduler.worker", "scheduler.eta", "runtime.flags",
+                 "runtime.daemon", "cli"):
         assert f"{PORT}.{name}" in out["imported"]
-    assert len(out["imported"]) >= 27
+    assert len(out["imported"]) >= 33
     assert out["forbidden"] == []
 
 

@@ -3,12 +3,19 @@
 ``ApiServer(port=0)`` must answer ``POST /sdapi/v1/txt2img`` over HTTP with
 the engine's own images, seeds and infotexts in webui's response shape, list
 the samplers the port runs, and answer 422 for what the slice does not run.
-The server puts its serving dispatcher in front of the engine; its shape
-ladder is set to the requests' 32x32 here (the default would pad them up to
-512x512).
+Over a bare engine the server puts its serving dispatcher in front of it;
+its shape ladder is set to the requests' 32x32 here (the default would pad
+them up to 512x512). Over a ``World`` it serves the fleet without the
+dispatcher, and answers the routes a master's ``HTTPBackend`` and the CLI
+call on a node (memory, options, models, scripts, restart, workers,
+benchmark) in webui's shapes, optionally behind Basic auth. The CLI's
+``workers`` and ``status`` commands work on a config file without a GPU;
+the commands that build an engine raise without one.
 """
 
+import base64
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -21,9 +28,20 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+    config as config_mod,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
     GenerationState,
 )
+from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+    HTTPBackend,
+    LocalBackend,
+    State,
+    StubBackend,
+    WorkerNode,
+)
+from stable_diffusion_webui_distributed_tpu_torch.scheduler.world import World
 from stable_diffusion_webui_distributed_tpu_torch.server.api import ApiServer
 
 BODY = {"prompt": "a cow", "negative_prompt": "ugly", "steps": 3,
@@ -45,11 +63,11 @@ def server(engine):
     srv.stop()
 
 
-def call(server, path, body=None):
+def call(server, path, body=None, headers=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         f"http://127.0.0.1:{server.port}{path}", data=data,
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
             return resp.status, json.loads(resp.read())
@@ -59,6 +77,7 @@ def call(server, path, body=None):
 
 def test_port_zero_binds_a_free_port(server):
     assert server.port > 0
+    assert server.dispatcher is not None  # a bare engine keeps it
 
 
 def test_txt2img_answers_with_the_engines_images(engine, server):
@@ -117,3 +136,228 @@ def test_cli_parser():
     args = cli.build_parser().parse_args(
         ["serve", "--family", "sd15", "--port", "7860"])
     assert (args.family, args.port, args.device) == ("sd15", 7860, None)
+    args = cli.build_parser().parse_args(
+        ["serve", "--seed", "3", "--distributed-config", "f.json",
+         "--thin-client", "--api-auth-user", "u"])
+    assert (args.seed, args.distributed_config, args.thin_client,
+            args.api_auth_user, args.listen) == (3, "f.json", True, "u",
+                                                 "127.0.0.1")
+
+
+# -- a World source ----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fleet_engine():
+    # a World resets the process-wide interrupt state, so its engine
+    # shares it
+    return Engine(TINY, bridge.init_seeded(TINY, 0, device="cpu"),
+                  device="cpu")
+
+
+@pytest.fixture(scope="module")
+def world_server(fleet_engine):
+    world = World()
+    world.add_worker(WorkerNode("master", LocalBackend(fleet_engine),
+                                master=True, avg_ipm=60.0))
+    srv = ApiServer(world, port=0).start()
+    yield srv
+    srv.stop()
+
+
+@pytest.fixture
+def stub_fleet():
+    """A World of two stub remotes, one not yet benchmarked, served."""
+    world = World()
+    world.add_worker(WorkerNode("r1", StubBackend(), avg_ipm=5.0))
+    world.add_worker(WorkerNode(
+        "r2", HTTPBackend("10.9.9.9", 7861, user="u", password="secret")))
+    world.workers[1].backend = StubBackend()
+    srv = ApiServer(world, port=0).start()
+    yield srv
+    srv.stop()
+
+
+def test_world_source_answers_txt2img_without_a_dispatcher(
+        fleet_engine, world_server):
+    assert world_server.dispatcher is None
+    status, resp = call(world_server, "/sdapi/v1/txt2img", BODY)
+    assert status == 200
+    want = fleet_engine.txt2img(GenerationPayload(**BODY))
+    assert resp["images"] == want.images
+    info = json.loads(resp["info"])
+    assert info["all_seeds"] == want.seeds == [5, 6]
+    assert info["infotexts"] == [t + ", Worker Label: master"
+                                 for t in want.infotexts]
+
+
+@pytest.mark.parametrize("extra", [
+    {"sampler_name": "DPM++ 2M"},
+    {"enable_hr": True},
+    {"prompt": "a <lora:x:1> cow"},
+    {"script_name": "prompt matrix"},
+])
+def test_world_refuses_unported_requests_before_fan_out(world_server, extra):
+    master = world_server.source.master()
+    before = master.health.summary()["requests"]
+    status, resp = call(world_server, "/sdapi/v1/txt2img", {**BODY, **extra})
+    assert status == 422 and resp["detail"]
+    assert master.current_state() == State.IDLE
+    assert master.health.summary()["requests"] == before
+
+
+def test_memory_route_has_webuis_shape(world_server):
+    status, resp = call(world_server, "/sdapi/v1/memory")
+    assert status == 200
+    assert set(resp["ram"]) == {"free", "used", "total"}
+    assert resp["ram"]["total"] > 0
+    # a CPU engine has no card: webui's cuda section reads zeros
+    assert resp["cuda"]["system"] == {"free": 0, "used": 0, "total": 0}
+
+
+def test_options_record_the_model_and_sync_the_remotes(stub_fleet):
+    status, resp = call(stub_fleet, "/sdapi/v1/options",
+                        {"sd_model_checkpoint": "m2", "sd_vae": "Automatic",
+                         "distributed_job_timeout": 9,
+                         "step_scaling": True})
+    assert status == 200 and resp == {}
+    world = stub_fleet.source
+    assert world.current_model == "m2" and world.current_vae == ""
+    assert [w.backend.options for w in world.workers] == \
+        [{"model": "m2", "vae": ""}] * 2
+    assert (world.job_timeout, world.step_scaling) == (9.0, True)
+    status, opts = call(stub_fleet, "/sdapi/v1/options")
+    assert opts["sd_model_checkpoint"] == "m2"
+    assert opts["sd_vae"] == "Automatic"
+    status, models = call(stub_fleet, "/sdapi/v1/sd-models")
+    assert [m["model_name"] for m in models] == ["m2"]
+    assert set(models[0]) == {"title", "model_name", "filename", "hash",
+                              "sha256"}
+
+
+def test_script_info_lists_what_the_port_runs(world_server):
+    assert call(world_server, "/sdapi/v1/script-info") == (200, [])
+
+
+def test_internal_workers_rows(stub_fleet):
+    status, rows = call(stub_fleet, "/internal/workers")
+    assert status == 200
+    assert [r["label"] for r in rows] == ["r1", "r2"]
+    assert rows[0]["state"] == "IDLE" and rows[0]["avg_ipm"] == 5.0
+    assert set(rows[0]["health"]) >= {"requests", "failures", "error_rate",
+                                      "requeued_images", "transitions"}
+    assert "password" not in json.dumps(rows)
+
+
+def test_internal_benchmark_runs_a_sweep(stub_fleet):
+    status, resp = call(stub_fleet, "/internal/benchmark",
+                        {"rebenchmark": False})
+    assert status == 200 and resp["started"] is True
+    r2 = stub_fleet.source.get_worker("r2")
+    deadline = time.monotonic() + 30
+    while not r2.cal.benchmarked and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert r2.cal.benchmarked
+    assert len(r2.backend.requests) == 5  # 2 warm-up + 3 recorded
+    assert stub_fleet.source.get_worker("r1").cal.avg_ipm == 5.0
+
+
+def test_internal_benchmark_needs_a_fleet(server):
+    status, resp = call(server, "/internal/benchmark", {})
+    assert status == 400
+    assert call(server, "/internal/workers") == (200, [])
+
+
+def test_basic_auth(fleet_engine):
+    srv = ApiServer(fleet_engine, port=0, user="u", password="p").start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/sdapi/v1/samplers", timeout=30)
+        assert err.value.code == 401
+        assert err.value.headers["WWW-Authenticate"] == "Basic"
+        token = base64.b64encode(b"u:p").decode()
+        status, _ = call(srv, "/sdapi/v1/samplers",
+                         headers={"Authorization": f"Basic {token}"})
+        assert status == 200
+        # a master's backend carries the credentials on every call
+        assert HTTPBackend("127.0.0.1", srv.port, user="u",
+                           password="p").reachable()
+        assert not HTTPBackend("127.0.0.1", srv.port).reachable()
+    finally:
+        srv.stop()
+
+
+def test_server_restart_flags_the_process_and_stops_serving(fleet_engine):
+    srv = ApiServer(World(), port=0).start()
+    port = srv.port
+    assert call(srv, "/sdapi/v1/server-restart", {}) == (200, {})
+    assert srv.restart_requested
+    deadline = time.monotonic() + 10
+    while srv._httpd is not None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert srv._httpd is None
+    assert not HTTPBackend("127.0.0.1", port, timeout=1.0).reachable()
+
+
+# -- the CLI -----------------------------------------------------------------
+
+def run_cli(capsys, *argv):
+    rc = cli.main(list(argv))
+    return rc, capsys.readouterr().out
+
+
+def test_cli_workers_add_list_set_remove(tmp_path, capsys):
+    path = str(tmp_path / "fleet.json")
+    cfg = ("--distributed-config", path)
+    assert run_cli(capsys, "workers", "add", "--label", "r1", "--address",
+                   "10.0.0.2", "--api-port", "7861", "--tls", *cfg)[0] == 0
+    assert run_cli(capsys, "workers", "add", "--label", "r2", *cfg)[0] == 0
+    rc, out = run_cli(capsys, "workers", "list", *cfg)
+    assert rc == 0
+    assert out.split()[:3] == ["r1", "10.0.0.2:7861", "tls"]
+    assert "r2" in out
+    rc, out = run_cli(capsys, "workers", "set", "--label", "r1",
+                      "--pixel-cap", "1048576", "--model-override", "sd15",
+                      "--disable", *cfg)
+    assert rc == 0 and "disabled=True" in out
+    loaded = config_mod.load_config(path)
+    r1 = loaded.workers[0]["r1"]
+    assert (r1.pixel_cap, r1.model_override, r1.disabled, r1.tls) == \
+        (1048576, "sd15", True, True)
+    assert run_cli(capsys, "workers", "remove", "--label", "r2", *cfg) == \
+        (0, "removed 1 worker(s)\n")
+    assert [list(e) for e in config_mod.load_config(path).workers] == \
+        [["r1"]]
+    assert run_cli(capsys, "workers", "set", "--label", "nope", *cfg)[0] == 1
+    assert run_cli(capsys, "workers", "add", *cfg)[0] == 2
+
+
+def test_cli_status_needs_no_gpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "fleet.json")
+    config_mod.save_config(config_mod.ConfigModel(workers=[
+        {"master": config_mod.WorkerModel(master=True, avg_ipm=81.5)},
+        {"r1": config_mod.WorkerModel(address="10.0.0.2", avg_ipm=40.0)},
+        {"r2": config_mod.WorkerModel(disabled=True)},
+    ]), path)
+    rc, out = run_cli(capsys, "status", "--distributed-config", path)
+    assert rc == 0
+    lines = out.splitlines()
+    assert lines[0] == f"config: {path}"
+    assert lines[1].split() == ["master", "(local)", "81.50", "ipm",
+                                "[master]"]
+    assert lines[2].split() == ["r1", "IDLE", "40.00", "ipm"]
+    assert lines[3].split() == ["r2", "DISABLED", "not", "benchmarked"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate", "--prompt", "a cow", "--family", "tiny"],
+    ["benchmark", "--family", "tiny"],
+])
+def test_cli_engine_commands_raise_without_a_gpu(tmp_path, monkeypatch,
+                                                 argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "fleet.json")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + ["--distributed-config", path])
+    assert not (tmp_path / "fleet.json").exists()
