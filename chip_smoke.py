@@ -19,6 +19,10 @@ Phases, each fatal on failure (no phase is caught and passed over):
    time of a replayed CUDA graph of them (``device_ms``), the fraction of
    the bound each reaches, the exps' share and the wrapper's host time per
    launch; every bf16 launch must report the Hopper path (TMA + wgmma);
+   then the same at the five SDXL shapes (1024x1024, batch 8 with CFG,
+   head dim 64), with totals per SDXL base UNet call (70 launches) and per
+   refiner UNet call (44), each shape's bound the larger of its bytes, its
+   products and its exps;
 4. ragged kernels: K2 the same way at every shape and length the ragged
    serving phase gives it (self-attention and cross-attention), timed
    beside its plain version and SDPA with a boolean key mask (a yardstick
@@ -31,6 +35,12 @@ Phases, each fatal on failure (no phase is caught and passed over):
    launched 320 times per image group and K2 never, repeats must be
    byte-identical and a batch's image 1 must carry image 0 of the next
    seed's init noise; every K1 launch must take the Hopper path;
+5b. samplers: the same server and engine get one request (512x512, 20
+   steps, CFG 7, seed 1234) for each of the 18 sampler names; K1 must be
+   launched 16 times per UNet evaluation (20, 39 for the two-evaluation
+   samplers, 21 for PLMS, 3 per attempt for DPM adaptive), all on the
+   Hopper path, K2 never, no latent non-finite and no image constant; a
+   DPM++ SDE request repeated must give the same PNG bytes;
 6. ragged serving: the same server with ``SDTPU_RAGGED=1`` on a 512x768
    bucket gets three concurrent requests of 512x512, 512x640 and 512x768;
    they must run as ONE dispatch, launch K2 640 times (32 per UNet call x
@@ -54,7 +64,18 @@ Phases, each fatal on failure (no phase is caught and passed over):
    same weights on the f32 policy;
 9. profile: where a warm request's time goes (device time by kernel group
    and the device's busy share, from ``torch.profiler``), and the same for
-   one UNet call.
+   one UNet call;
+10. config #2 (the SD1.5 engine freed first): SDXL base and refiner at full
+   width and depth on seeded weights (bf16 card policy) behind the port's
+   server, the base engine handing over to the refiner through its
+   ``engine_provider``; ``bench.py``'s config #2 request (1024x1024, 30
+   steps Euler a, CFG 7, batch 8, seed 4321, the refiner from step 24)
+   must give 8 images with seeds 4321-4328, launch K1 1944 times (70 x 24
+   + 44 x 6), all on the Hopper path, and K2 never; its repeat must give
+   the same PNG bytes, and a batch-1 request of seed 4324 must agree with
+   image 3 within a mean of 2 uint8 levels. Then each SDXL UNet at full
+   width, bf16 against f32 on the same weights (relative error at most
+   5e-2), and where a warm base UNet call at batch 8 spends its time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; it is
 printed only when every phase passed. Without a CUDA device, or without the
@@ -64,6 +85,7 @@ rest of the repository beside this file, the script exits non-zero.
 from __future__ import annotations
 
 import base64
+import gc
 import io
 import json
 import os
@@ -92,6 +114,14 @@ PEAK_EXP = 16 * 132 * 1.98e9
 MAIN_SHAPES = [((2, 4096, 8, 40), 5), ((2, 1024, 8, 80), 5),
                ((2, 256, 8, 160), 5), ((2, 64, 8, 160), 1)]
 EXTRA_SHAPES = [(1, 1000, 8, 64)]  # ragged edges, head dim 64
+# K1 at SDXL 1024x1024, batch 8 with CFG (16 rows, head dim 64), and its
+# launches per UNet call: the base model's levels 1 and 2 (the mid block at
+# level 2's size), the refiner's levels 1 and 2 and its mid block
+SDXL_SHAPES = {
+    "base": [((16, 4096, 10, 64), 10), ((16, 1024, 20, 64), 60)],
+    "refiner": [((16, 4096, 12, 64), 20), ((16, 1024, 24, 64), 20),
+                ((16, 256, 24, 64), 4)],
+}
 TOLERANCE = {"f32": 2e-5, "bf16": 1e-2}  # max abs error vs the plain version
 
 LAUNCHES_PER_GROUP = 16 * 20  # 16 per UNet call x 20 steps
@@ -229,6 +259,11 @@ def shape_line(ms: float, device_ms: float, bms: float, exp_ms: float,
             f"{us:.1f} us per launch")
 
 
+def shape_summary(m: dict) -> str:
+    return shape_line(m["ms"], m["device_ms"], m["bound_ms"], m["exp_ms"],
+                      m["host_us"])
+
+
 def launched_path(wrapper, call):
     """Runs ``call`` once; returns its output and the path on which
     ``wrapper`` counted its one launch (the path its C entry point
@@ -248,18 +283,24 @@ TOTALS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
           "bound_ms", "exp_ms")
 
 
-def bound_ms(shape, dtype_name: str):
-    """The least time for one call: q, k, v read once and o written once
-    over the memory rate, or the two products' FLOPs over the peak rate of
-    their type, whichever is larger. Also returns the time of the softmax's
-    exps on the MUFUs, which the published-peak bound leaves out."""
+def bound_parts(shape, dtype_name: str):
+    """ms for one call at the card's peaks: q, k, v read once and o written
+    once over the memory rate; the two products' FLOPs over the peak rate
+    of their type; the softmax's exps on the MUFUs."""
     b, t, h, d = shape
     elem = 2 if dtype_name == "bf16" else 4
-    t_bytes = 4 * b * t * h * d * elem / PEAK_BYTES
-    t_flops = 4 * b * h * t * t * d / PEAK_FLOPS[dtype_name]
-    t_exp = b * h * t * t / PEAK_EXP
-    by = "bytes" if t_bytes >= t_flops else "operations"
-    return 1e3 * max(t_bytes, t_flops), by, 1e3 * t_exp
+    return {"bytes": 1e3 * 4 * b * t * h * d * elem / PEAK_BYTES,
+            "products": 1e3 * 4 * b * h * t * t * d / PEAK_FLOPS[dtype_name],
+            "exps": 1e3 * b * h * t * t / PEAK_EXP}
+
+
+def bound_ms(shape, dtype_name: str):
+    """The least time for one call: the bytes or the products, whichever
+    takes longer (:func:`bound_parts`). Also returns the time of the
+    exps, which the published-peak bound leaves out."""
+    parts = bound_parts(shape, dtype_name)
+    by = "bytes" if parts["bytes"] >= parts["products"] else "operations"
+    return max(parts["bytes"], parts["products"]), by, parts["exps"]
 
 
 def ragged_bound_ms(shape, s_len: int, lens, mask_q: bool,
@@ -369,68 +410,142 @@ def phase_ragged_kernels(ra):
                              else "bytes")
 
 
-def phase_kernels(fa):
+def k1_shape(fa, shape, gen, timed: bool, iters: int = 20,
+             plain_iters: int = 20):
+    """K1 at one shape and layout, against its plain version in f32 and
+    bf16 (every bf16 launch on the Hopper path). With ``timed``, also the
+    bf16 launch timed: returns (max abs err in bf16, {ms, device_ms,
+    plain_ms, library_ms, library_device_ms, bound_ms, exp_ms, host_us},
+    bound_by), else (max abs err in bf16, None, None)."""
     import torch
     import torch.nn.functional as F
+
+    b, t, h, d = shape
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for name, dtype in dtypes.items():
+        # column slices of one fused QKV projection, as the UNet hands
+        # them to K1
+        qkv = torch.randn((b, t, 3 * h * d), device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = (x.unflatten(-1, (h, d))
+                   for x in qkv.split(h * d, dim=-1))
+        out, path = launched_path(fa.flash_attention,
+                                  lambda: fa.flash_attention(q, k, v))
+        torch.cuda.synchronize()
+        want = "hopper" if name == "bf16" else "f32"
+        check(path == want, f"flash_attention {shape} {name} took the "
+              f"{path} path, want {want}")
+        ref = fa.flash_attention_reference(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        del ref, out
+        print(f"kernel flash_attention {shape} {name}: max_abs_err "
+              f"{err:.3g} (tolerance {TOLERANCE[name]:g})")
+        check(err <= TOLERANCE[name],
+              f"flash_attention {shape} {name} disagrees with the plain "
+              f"version: {err}")
+    if not timed:
+        return err, None, None
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
+    dev = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
+    us = host_us(lambda: fa.flash_attention(q, k, v))
+    plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                    plain_iters)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+    lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                       iters)
+    bms, by, exp_ms = bound_ms(shape, "bf16")
+    return err, dict(zip(TOTALS + ("host_us",), (
+        ms, dev, plain, lib, lib_dev, bms, exp_ms, us))), by
+
+
+def phase_kernels(fa):
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     totals = dict.fromkeys(TOTALS, 0.0)
     max_err = 0.0
     bound_by = set()
     host = []
     for shape, calls in MAIN_SHAPES + [(s, 0) for s in EXTRA_SHAPES]:
-        b, t, h, d = shape
-        for name, dtype in dtypes.items():
-            # column slices of one fused QKV projection, as the UNet
-            # hands them to K1
-            qkv = torch.randn((b, t, 3 * h * d), device="cuda",
-                              generator=gen).to(dtype)
-            q, k, v = (x.unflatten(-1, (h, d))
-                       for x in qkv.split(h * d, dim=-1))
-            out, path = launched_path(fa.flash_attention,
-                                      lambda: fa.flash_attention(q, k, v))
-            torch.cuda.synchronize()
-            want = "hopper" if name == "bf16" else "f32"
-            check(path == want, f"flash_attention {shape} {name} took the "
-                  f"{path} path, want {want}")
-            ref = fa.flash_attention_reference(q, k, v)
-            err = (out.float() - ref.float()).abs().max().item()
-            print(f"kernel flash_attention {shape} {name}: max_abs_err "
-                  f"{err:.3g} (tolerance {TOLERANCE[name]:g})")
-            check(err <= TOLERANCE[name],
-                  f"flash_attention {shape} {name} disagrees with the plain "
-                  f"version: {err}")
-            if name != "bf16" or calls == 0:
-                continue
-            max_err = max(max_err, err)
-            iters = 20
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
-            dev = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
-            us = host_us(lambda: fa.flash_attention(q, k, v))
-            host.append(us)
-            plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                            iters)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = cuda_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-            lib_dev = graph_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-            bms, by, exp_ms = bound_ms(shape, name)
-            bound_by.add(by)
-            print(f"kernel flash_attention {shape} bf16 per call: ms {ms:.4f}"
-                  f" (device {dev:.4f}) plain_ms {plain:.4f} library_ms "
-                  f"{lib:.4f} (device {lib_dev:.4f}) bound_ms "
-                  f"{bms:.4f} ({by}) exp_ms {exp_ms:.4f} x{calls} per UNet "
-                  f"call; {shape_line(ms, dev, bms, exp_ms, us)}")
-            for key, val in zip(TOTALS, (ms, dev, plain, lib, lib_dev, bms,
-                                         exp_ms)):
-                totals[key] += calls * val
+        err, m, by = k1_shape(fa, shape, gen, timed=calls > 0)
+        if m is None:
+            continue
+        max_err = max(max_err, err)
+        host.append(m["host_us"])
+        bound_by.add(by)
+        print(f"kernel flash_attention {shape} bf16 per call: ms "
+              f"{m['ms']:.4f} (device {m['device_ms']:.4f}) plain_ms "
+              f"{m['plain_ms']:.4f} library_ms {m['library_ms']:.4f} "
+              f"(device {m['library_device_ms']:.4f}) bound_ms "
+              f"{m['bound_ms']:.4f} ({by}) exp_ms {m['exp_ms']:.4f} "
+              f"x{calls} per UNet call; {shape_summary(m)}")
+        for key in TOTALS:
+            totals[key] += calls * m[key]
     totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
+
+
+def phase_sdxl_kernels(fa, card_line: str) -> dict:
+    """K1 at every SDXL shape (head dim 64: the ``attn_sm90<64, NC>``
+    instantiations), against its plain version in f32 and bf16, and timed
+    as the SD1.5 shapes are. Totals per base and per refiner UNet call at
+    batch 8 with CFG. At D = 64 the softmax's exps nearly tie the products
+    on their units, so each shape's bound is the largest of its bytes, its
+    products and its exps (:func:`bound_parts`)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"max_abs_err": 0.0}
+    for model, shapes in SDXL_SHAPES.items():
+        totals = dict.fromkeys(TOTALS, 0.0)
+        parts_total = {"bytes": 0.0, "products": 0.0, "exps": 0.0}
+        host, units = [], set()
+        for shape, calls in shapes:
+            err, m, _ = k1_shape(fa, shape, gen, timed=True, plain_iters=3)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            parts = bound_parts(shape, "bf16")
+            unit = max(parts, key=parts.get)
+            m["bound_ms"] = parts[unit]
+            units.add(unit)
+            host.append(m["host_us"])
+            print(f"kernel flash_attention SDXL {model} {shape} bf16 per "
+                  f"call: ms {m['ms']:.4f} (device {m['device_ms']:.4f}) "
+                  f"plain_ms {m['plain_ms']:.4f} library_ms "
+                  f"{m['library_ms']:.4f} (device "
+                  f"{m['library_device_ms']:.4f}) bound_ms "
+                  f"{m['bound_ms']:.4f} (by {unit}; bytes "
+                  f"{parts['bytes']:.4f}, products {parts['products']:.4f}"
+                  f", exps {parts['exps']:.4f}) x{calls} per {model} UNet "
+                  f"call; {shape_summary(m)} [{card_line}]")
+            for key in TOTALS:
+                totals[key] += calls * m[key]
+            for key in parts:
+                parts_total[key] += calls * parts[key]
+        totals["host_us"] = sum(host) / len(host)
+        totals["bound_by"] = ("operations" if units - {"bytes"}
+                              else "bytes")
+        totals["bound_units"] = sorted(units)
+        totals["bound_parts_ms"] = parts_total
+        totals["launches_per_unet_call"] = sum(c for _, c in shapes)
+        print(f"kernel flash_attention SDXL {model} UNet call "
+              f"({totals['launches_per_unet_call']} launches, batch 8 "
+              f"with CFG): ms {totals['ms']:.4f} (device "
+              f"{totals['device_ms']:.4f}) library_ms "
+              f"{totals['library_ms']:.4f} (device "
+              f"{totals['library_device_ms']:.4f}) bound_ms "
+              f"{totals['bound_ms']:.4f} (bytes "
+              f"{parts_total['bytes']:.4f}, products "
+              f"{parts_total['products']:.4f}, exps "
+              f"{parts_total['exps']:.4f}); device fraction of bound "
+              f"{totals['bound_ms'] / totals['device_ms']:.3f}, SDPA's "
+              f"{totals['bound_ms'] / totals['library_device_ms']:.3f} "
+              f"[{card_line}]")
+        out[model] = totals
+    return out
 
 
 def post(port: int, body: dict) -> dict:
@@ -909,27 +1024,138 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
     return metrics
 
 
-def phase_reference(engine) -> None:
-    """One full-width UNet call, bf16 card policy vs the f32 policy on the
-    same weights (the UNet's f32 path runs K1 in f32)."""
+SAMPLER_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+                "negative_prompt": "blurry", "steps": 20, "width": 512,
+                "height": 512, "cfg_scale": 7, "seed": 1234,
+                "batch_size": 1}
+
+
+def unet_evaluations(spec, steps: int, attempts: int) -> int:
+    """UNet evaluations of one request, as the sampler steps' branches give
+    them on a ladder that ends in 0: the 2-evaluation samplers skip their
+    second evaluation on the last step (sigma_next = 0), PLMS probes once
+    more on its first step, and a DPM adaptive attempt evaluates 3 times."""
+    if spec.adaptive:
+        return 3 * attempts
+    if spec.evals_per_step == 2:
+        return 2 * steps - 1
+    if spec.algorithm == "plms":
+        return steps + 1
+    return steps
+
+
+def phase_samplers(engine, fa, ra, card_line: str) -> dict:
+    """Every sampler name through the port's server on the main path's
+    SD1.5 engine: K1 launched 16 times per UNet evaluation, all on the
+    Hopper path, K2 never; no image constant and no latent non-finite; a
+    DPM++ SDE request repeated gives the same PNG bytes."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+        kdiffusion as kd,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    finite = []
+    decode = engine._decode_u8
+
+    def checked_decode(latents, width, height):
+        finite.append(bool(torch.isfinite(latents).all()))
+        return decode(latents, width, height)
+
+    engine._decode_u8 = checked_decode
+    server = ApiServer(engine, port=0).start()
+    rows = {}
+    try:
+        for name, spec in kd.SAMPLERS.items():
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            resp = post(server.port, {**SAMPLER_BODY, "sampler_name": name})
+            lat = time.perf_counter() - t
+            launches = fa.flash_attention.launches
+            paths = dict(fa.flash_attention.path_launches)
+            k2 = ra.ragged_attention.launches
+            attempts = engine.last_adaptive_attempts if spec.adaptive else 0
+            evals = unet_evaluations(spec, SAMPLER_BODY["steps"], attempts)
+            info = json.loads(resp["info"])
+            px = png_pixels(resp["images"][0])
+            rows[name] = {"latency_s": round(lat, 4),
+                          "images_per_minute": round(60.0 / lat, 3),
+                          "unet_evaluations": evals, "k1_launches": launches}
+            if spec.adaptive:
+                rows[name]["attempts"] = attempts
+            print(f"samplers: {name}: latency {lat:.3f} s, "
+                  f"{60.0 / lat:.2f} images per minute, "
+                  f"{evals} UNet evaluations"
+                  + (f" ({attempts} attempts)" if spec.adaptive else "")
+                  + f", K1 launches {launches} by path {json.dumps(paths)}"
+                  f", K2 {k2} [{card_line}]")
+            check(launches == 16 * evals, f"{name}: K1 launched {launches} "
+                  f"times for {evals} UNet evaluations")
+            check(paths["hopper"] == launches,
+                  f"{name}: K1 off the Hopper path: {paths}")
+            check(k2 == 0, f"{name}: K2 launched {k2} times")
+            check(info["all_seeds"] == [SAMPLER_BODY["seed"]],
+                  f"{name}: seeds {info['all_seeds']}")
+            check(f"Sampler: {name}," in info["infotexts"][0],
+                  f"{name}: infotext {info['infotexts'][0]!r}")
+            check(px.shape == (512, 512, 3) and float(px.std()) > 1.0,
+                  f"{name}: image shape {px.shape} or constant")
+            check(all(finite), f"{name}: a latent is not finite")
+            rows[name]["png"] = resp["images"][0]
+        again = post(server.port, {**SAMPLER_BODY,
+                                   "sampler_name": "DPM++ SDE"})
+        check(again["images"][0] == rows["DPM++ SDE"]["png"],
+              "a repeated DPM++ SDE request gave other PNG bytes")
+    finally:
+        server.stop()
+        del engine._decode_u8
+    base = rows["Euler a"]["latency_s"]
+    for row in rows.values():
+        row.pop("png")
+        row["latency_vs_euler_a"] = round(row["latency_s"] / base, 3)
+    print("samplers: a repeated DPM++ SDE request gave the same PNG bytes")
+    print("samplers metrics: " + json.dumps({"samplers": rows,
+                                             "card": card_line}))
+    return rows
+
+
+def unet_rel_error(unet, x, t, ctx, added=None) -> float:
+    """One full-width UNet call on the bf16 card policy against the same
+    weights on the f32 policy (whose UNet runs K1 in f32): the relative
+    error of the bf16 output."""
     import torch
 
     from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
+
+    with torch.device("meta"):
+        f32 = UNet(unet.cfg)
+    f32 = f32.to_empty(device=x.device)
+    f32.load_state_dict(unet.state_dict())
+    kw = {} if added is None else {"added_cond": added}
+    with torch.inference_mode():
+        out16 = unet(x, t, ctx, **kw)
+        out32 = f32.float()(x, t, ctx, **kw)
+    del f32
+    check(tuple(out16.shape) == tuple(x.shape[:3]) + (4,),
+          f"UNet shape {out16.shape}")
+    check(bool(torch.isfinite(out16).all()), "UNet output is not finite")
+    return ((out16 - out32).norm() / out32.norm()).item()
+
+
+def phase_reference(engine) -> None:
+    """One full-width SD1.5 UNet call, bf16 card policy vs the f32 policy
+    on the same weights."""
+    import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((2, 32, 32, 4), device="cuda", generator=gen)
     t = torch.tensor([999.0, 500.0], device="cuda")
     ctx = torch.randn((2, 77, 768), device="cuda", generator=gen)
-    with torch.device("meta"):
-        f32 = UNet(engine.family.unet)
-    f32 = f32.to_empty(device="cuda")
-    f32.load_state_dict(engine.unet.state_dict())
-    with torch.inference_mode():
-        out16 = engine.unet(x, t, ctx)
-        out32 = f32.float()(x, t, ctx)
-    check(tuple(out16.shape) == (2, 32, 32, 4), f"UNet shape {out16.shape}")
-    check(bool(torch.isfinite(out16).all()), "UNet output is not finite")
-    rel = ((out16 - out32).norm() / out32.norm()).item()
+    rel = unet_rel_error(engine.unet, x, t, ctx)
     print(f"reference: full-width UNet bf16 vs f32 relative error {rel:.4g}"
           f" (tolerance 5e-2)")
     check(rel <= 5e-2, "the bf16 UNet disagrees with the f32 UNet")
@@ -1042,6 +1268,234 @@ def phase_profile(engine, card_line: str) -> None:
                  "latents)", ragged_ms, device_groups(prof_r, 3), card_line)
     print(f"profile: text encoder (1 x 77 tokens) {text_ms:.3f} ms, VAE "
           f"decode (1 x 512x512, f32) {decode_ms:.3f} ms [{card_line}]")
+
+
+# BASELINE config #2 (bench.py's payload): SDXL base + refiner, 1024x1024,
+# 30 steps Euler a, the refiner from step int(30 * 0.8) = 24, batch 8
+CONFIG2_REFINER = "sdxl-refiner"
+CONFIG2_BODY = {"steps": 30, "width": 1024, "height": 1024, "cfg_scale": 7,
+                "sampler_name": "Euler a", "batch_size": 8, "seed": 4321,
+                "refiner_checkpoint": CONFIG2_REFINER,
+                "refiner_switch_at": 0.8}
+# K1 per UNet call x the steps of each model: 70 x 24 base + 44 x 6 refiner
+CONFIG2_K1_LAUNCHES = 70 * 24 + 44 * 6
+CONFIG2_MEAN_TOLERANCE = 2.0  # uint8 levels, batch-1 vs batch-8 row
+
+
+def model_tflop(family, lat: int) -> dict:
+    """TFLOP of one UNet row (one image, one CFG half) at ``lat`` x
+    ``lat`` latents and of one VAE decode at that size, counted by
+    ``torch.utils.flop_counter`` (matrix products and convolutions) on
+    meta tensors: nothing is allocated. K1 has no meta kernel, so its
+    plain version, with the same two products, stands in while counting."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stable_diffusion_webui_distributed_tpu_torch.models import (
+        unet as unet_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.vae import (
+        Decoder,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    u = family.unet
+    kernel = unet_mod.flash_attention
+    unet_mod.flash_attention = fa.flash_attention_reference
+    try:
+        with torch.device("meta"):
+            kw = ({"added_cond": torch.zeros(1, u.projection_input_dim)}
+                  if u.addition_embed_dim else {})
+            with FlopCounterMode(display=False) as unet_count:
+                unet_mod.UNet(u)(torch.zeros(1, lat, lat, 4), torch.ones(1),
+                                 torch.zeros(1, 77, u.cross_attention_dim),
+                                 **kw)
+            with FlopCounterMode(display=False) as vae_count:
+                Decoder(family.vae)(torch.zeros(1, lat, lat, 4))
+    finally:
+        unet_mod.flash_attention = kernel
+    return {"unet_row": unet_count.get_total_flops() / 1e12,
+            "vae_decode": vae_count.get_total_flops() / 1e12}
+
+
+def phase_config2(fa, ra, card_line: str) -> dict:
+    """BASELINE config #2 through the port's server: SDXL base and refiner
+    at full width and depth on seeded weights (bf16 card policy), the base
+    engine handing over to the refiner through its ``engine_provider``.
+    Then the two UNets bf16 vs f32, and where a warm base UNet call at
+    batch 8 spends its time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.bridge import (
+        init_seeded,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SDXL_BASE,
+        SDXL_REFINER,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    t0 = time.perf_counter()
+    params = init_seeded(SDXL_REFINER, seed=1, device="cuda",
+                         dtype=torch.bfloat16)
+    refiner = Engine(SDXL_REFINER, params, policy=dtypes.CARD,
+                     model_name=CONFIG2_REFINER, device="cuda")
+    params = init_seeded(SDXL_BASE, seed=0, device="cuda",
+                         dtype=torch.bfloat16)
+    base = Engine(SDXL_BASE, params, policy=dtypes.CARD, device="cuda",
+                  engine_provider=lambda name: (
+                      refiner if name == CONFIG2_REFINER else None))
+    del params
+    torch.cuda.synchronize()
+    print(f"config #2: SDXL base and refiner engines on seeded weights in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
+    bp = BenchmarkPayload()
+    body = {"prompt": bp.prompt, "negative_prompt": bp.negative_prompt,
+            **CONFIG2_BODY}
+    server = ApiServer(base, port=0).start()
+    runs = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        METRICS.clear()
+        for tag, extra in (("first", {}), ("repeat", {}),
+                           ("batch-1", {"seed": body["seed"] + 3,
+                                        "batch_size": 1})):
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            resp = post(server.port, {**body, **extra})
+            runs[tag] = (time.perf_counter() - t, resp,
+                         fa.flash_attention.launches,
+                         dict(fa.flash_attention.path_launches),
+                         ra.ragged_attention.launches)
+            if tag == "repeat":
+                peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+    serving = METRICS.summary()
+    print(f"config #2 dispatcher: {json.dumps(serving)}")
+    for tag, (lat, resp, k1, paths, k2) in runs.items():
+        n = len(resp["images"])
+        print(f"config #2 request ({tag}): latency {lat:.3f} s, {n} "
+              f"image(s), {n * 60.0 / lat:.3f} images per minute, K1 "
+              f"launches {k1} by path {json.dumps(paths)}, K2 {k2} "
+              f"[{card_line}]")
+        check(k1 == CONFIG2_K1_LAUNCHES, f"config #2 ({tag}) launched K1 "
+              f"{k1} times, want {CONFIG2_K1_LAUNCHES}")
+        check(paths["hopper"] == k1, f"config #2 ({tag}): K1 off the "
+              f"Hopper path: {paths}")
+        check(k2 == 0, f"config #2 ({tag}) launched K2 {k2} times")
+    first, again, one = (runs[t][1] for t in ("first", "repeat", "batch-1"))
+    seeds = json.loads(first["info"])["all_seeds"]
+    want_seeds = list(range(body["seed"], body["seed"] + body["batch_size"]))
+    check(len(first["images"]) == body["batch_size"] and seeds == want_seeds,
+          f"config #2 gave {len(first['images'])} images, seeds {seeds}")
+    check(again["images"] == first["images"],
+          "the repeated config #2 request gave other PNG bytes")
+    for i, b64 in enumerate(first["images"]):
+        px = png_pixels(b64)
+        check(px.shape == (body["height"], body["width"], 3)
+              and float(px.std()) > 1.0,
+              f"config #2 image {i}: shape {px.shape} or constant")
+    check(json.loads(one["info"])["all_seeds"] == [body["seed"] + 3],
+          "config #2 batch-1 seed")
+    row = png_pixels(first["images"][3]).astype(np.int32)
+    diff = np.abs(png_pixels(one["images"][0]).astype(np.int32) - row)
+    print(f"config #2: batch-1 image of seed {body['seed'] + 3} vs image 3 "
+          f"of the batch: mean abs {diff.mean():.4f}, max {diff.max()} "
+          f"(uint8 levels)")
+    check(diff.mean() <= CONFIG2_MEAN_TOLERANCE,
+          "the batch-1 image drifted from its row of the batch")
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rel = {}
+    lat = body["width"] // base.family.vae_scale_factor
+    for name, engine in (("base", base), ("refiner", refiner)):
+        cfg = engine.family.unet
+        x = torch.randn((2, lat, lat, 4), device="cuda", generator=gen)
+        t = torch.tensor([999.0, 500.0], device="cuda")
+        ctx = torch.randn((2, 77, cfg.cross_attention_dim), device="cuda",
+                          generator=gen)
+        added = torch.randn((2, cfg.projection_input_dim), device="cuda",
+                            generator=gen)
+        rel[name] = unet_rel_error(engine.unet, x, t, ctx, added)
+        print(f"config #2 reference: full-width SDXL {name} UNet (batch 2, "
+              f"{lat}x{lat} latents) bf16 vs f32 relative error "
+              f"{rel[name]:.4g} (tolerance 5e-2)")
+        check(rel[name] <= 5e-2,
+              f"the bf16 SDXL {name} UNet disagrees with the f32 UNet")
+
+    # a warm base UNet call at batch 8 with CFG, as the request makes it
+    cfg = base.family.unet
+    x = torch.randn((16, lat, lat, 4), device="cuda", generator=gen)
+    t = torch.full((16,), 500.0, device="cuda")
+    ctx = torch.randn((16, 77, cfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    added = torch.randn((16, cfg.projection_input_dim), device="cuda",
+                        generator=gen)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the engine runs
+    with torch.inference_mode():
+        unet_ms = cuda_ms(lambda: base.unet(x, t, ctx, added_cond=added), 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                base.unet(x, t, ctx, added_cond=added)
+            torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = prev
+    groups = device_groups(prof, 2)
+    print_groups(f"SDXL base UNet call (batch 8 with CFG = 16 rows, "
+                 f"{lat}x{lat} latents)", unet_ms, groups, card_line)
+    tflop = {name: model_tflop(engine.family, lat)
+             for name, engine in (("base", base), ("refiner", refiner))}
+    busy_s = sum(groups.values()) / 1e3
+    call_tflop = 16 * tflop["base"]["unet_row"]
+    print(f"config #2 FLOPs (flop counter, meta tensors): UNet row at "
+          f"{lat}x{lat} latents base {tflop['base']['unet_row']:.3f}, "
+          f"refiner {tflop['refiner']['unet_row']:.3f} TFLOP; VAE decode "
+          f"{tflop['base']['vae_decode']:.3f} TFLOP per image; the base "
+          f"UNet call ({call_tflop:.1f} TFLOP) at "
+          f"{call_tflop / busy_s:.1f} TFLOP/s of device time, "
+          f"{call_tflop / busy_s / (PEAK_FLOPS['bf16'] / 1e12):.1%} of the "
+          f"bf16 peak [{card_line}]")
+    warm = runs["repeat"][0]
+    metrics = {"latency_s": {t: round(runs[t][0], 4) for t in runs},
+               "images_per_minute": round(
+                   body["batch_size"] * 60.0 / warm, 3),
+               "peak_memory_gib": round(peak / 2**30, 3),
+               "k1_launches": runs["repeat"][2],
+               "k1_path_launches": runs["repeat"][3],
+               "k2_launches": runs["repeat"][4],
+               "batch1_vs_row_mean_abs": round(float(diff.mean()), 4),
+               "unet_bf16_vs_f32_rel": {k: round(v, 5)
+                                        for k, v in rel.items()},
+               "base_unet_call_ms": round(unet_ms, 3),
+               "base_unet_call_busy_share": round(
+                   sum(groups.values()) / unet_ms, 4),
+               "base_unet_call_device_ms": {
+                   g: round(v, 3) for g, v in groups.items()},
+               "tflop": {m: {k: round(v, 3) for k, v in t.items()}
+                         for m, t in tflop.items()},
+               "card": card_line}
+    print("config #2 metrics: " + json.dumps(metrics))
+    return metrics
 
 
 def ptxas_report(log: str) -> dict:
@@ -1208,12 +1662,21 @@ def main() -> int:
                   f"{row['consumer_warpgroups']}, "
                   f"{str(row['ragged']).lower()}>: {json.dumps(row)}")
     totals, max_err, bound_by = phase_kernels(fa)
+    sdxl = phase_sdxl_kernels(fa, card_line)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
+    samplers = phase_samplers(engine, fa, ra, card_line)
     k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
     fleet = phase_fleet(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
+    del engine  # the SD1.5 engine's memory goes back before SDXL's
+    gc.collect()
+    torch.cuda.empty_cache()
+    config2 = phase_config2(fa, ra, card_line)
+
+    def per_call(key):
+        return {m: round(sdxl[m][key], 4) for m in SDXL_SHAPES}
 
     kernels = [{
         "name": "flash_attention",
@@ -1243,6 +1706,27 @@ def main() -> int:
         "instantiations": build["flash_attention"],
         "build_s": build["seconds"],
         "per": "one UNet call of SD1.5 512x512 with CFG (16 launches), bf16",
+        "sampler_launches": {n: r["k1_launches"]
+                             for n, r in samplers.items()},
+        "sdxl_launches": config2["k1_launches"],
+        "sdxl_ms": per_call("ms"),
+        "sdxl_device_ms": per_call("device_ms"),
+        "sdxl_bound_ms": per_call("bound_ms"),
+        "sdxl_bound_by": {m: sdxl[m]["bound_by"] for m in SDXL_SHAPES},
+        "sdxl_bound_units": {m: sdxl[m]["bound_units"]
+                             for m in SDXL_SHAPES},
+        "sdxl_bound_parts_ms": {m: {k: round(v, 4) for k, v in
+                                    sdxl[m]["bound_parts_ms"].items()}
+                                for m in SDXL_SHAPES},
+        "sdxl_plain_ms": per_call("plain_ms"),
+        "sdxl_library_ms": per_call("library_ms"),
+        "sdxl_library_device_ms": per_call("library_device_ms"),
+        "sdxl_host_us_per_launch": per_call("host_us"),
+        "sdxl_max_abs_err": sdxl["max_abs_err"],
+        "sdxl_per": "one SDXL base UNet call (70 launches) and one refiner "
+                    "UNet call (44 launches) at 1024x1024, batch 8 with "
+                    "CFG, bf16; each shape's bound is the largest of its "
+                    "bytes, products and exps",
     }, {
         "name": "ragged_attention",
         "route": "cuda",

@@ -10,8 +10,9 @@ become ``weight``. The results load with ``strict=True``.
 ``init_seeded`` makes weights with the same names and shapes from a seed,
 drawn as Flax's default initialisers draw them (lecun-normal kernels, zero
 biases, unit norm scales, ``Embed``'s fan-in normal, ``position_embedding``
-at std 0.01), so full-width SD1.5 runs on the card with the statistics of the
-JAX package's random-weight runs. The draws are torch's, not JAX's.
+at std 0.01), so full-width SD1.5 and SDXL base and refiner run on the card
+with the statistics of the JAX package's random-weight runs. The draws are
+torch's, not JAX's.
 """
 
 from __future__ import annotations
@@ -43,14 +44,14 @@ _TRUNC_STD = 0.87962566103423978
 
 def build_modules(family: ModelFamily) -> Dict[str, nn.Module]:
     """The port's modules for a family, keyed like the Flax tree (``vae``
-    is the decoder). Build under ``torch.device("meta")`` to skip
-    allocation."""
+    is the decoder; ``text_encoder_2`` only for a family with a second
+    encoder). Build under ``torch.device("meta")`` to skip allocation."""
+    modules = {"text_encoder": CLIPTextModel(family.text_encoder)}
     if family.text_encoder_2 is not None:
-        raise ValueError(f"{family.name}: the second text encoder (SDXL) is "
-                         f"not ported yet")
-    return {"text_encoder": CLIPTextModel(family.text_encoder),
-            "unet": UNet(family.unet),
-            "vae": Decoder(family.vae)}
+        modules["text_encoder_2"] = CLIPTextModel(family.text_encoder_2)
+    modules["unet"] = UNet(family.unet)
+    modules["vae"] = Decoder(family.vae)
+    return modules
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -79,12 +80,12 @@ def _convert_leaf(path: Tuple[str, ...], value) -> Tuple[str, torch.Tensor]:
 
 
 def flax_to_torch(family: ModelFamily, params: Dict[str, Any]) -> StateDicts:
-    """Flax parameter tree -> ``{"text_encoder", "unet", "vae"}`` state
-    dicts (f32, CPU); ``vae`` holds the decoder's weights only."""
-    if params.get("text_encoder_2") is not None:
-        raise ValueError("the second text encoder (SDXL) is not ported yet")
+    """Flax parameter tree -> the state dicts of :func:`build_modules`
+    (f32, CPU); ``vae`` holds the decoder's weights only."""
     trees = {"text_encoder": params["text_encoder"], "unet": params["unet"],
              "vae": params["vae"]["decoder"]}
+    if family.text_encoder_2 is not None:
+        trees["text_encoder_2"] = params["text_encoder_2"]
     return {name: dict(_convert_leaf(p, v) for p, v in _flatten(tree))
             for name, tree in trees.items()}
 

@@ -1,7 +1,11 @@
-"""Denoising UNet (SD 1.x family), full forward, in PyTorch.
+"""Denoising UNet (SD 1.x and SDXL families), full forward, in PyTorch.
 
 Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` with no
-ControlNet residuals, LoRA, int8 or SDXL added conditioning.
+ControlNet residuals, LoRA or int8. SDXL's added conditioning (pooled text
+and the micro-conditioning time ids, :func:`make_added_cond`) goes through
+``add_fc1``/``add_fc2`` onto the timestep embedding; the per-level
+transformer depths come from the config (SDXL has none at level 0) and
+heads are ``channels // 64`` where the config names no count.
 Submodule and parameter names mirror the Flax tree (``down_0_res_0``,
 ``attn1/qkv`` ...) so ``bridge.flax_to_torch`` maps one onto the other.
 
@@ -294,20 +298,22 @@ class Upsample(nn.Module):
 
 class UNet(nn.Module):
     """The conditional denoiser: ``forward(latents (B,H,W,Cin) NHWC,
-    timesteps (B,) f32, context (B,L,D), true_rows (B,) int, ctx_true (B,)
-    int)`` -> predicted noise ``(B,H,W,Cout)`` f32; the two length vectors
-    are for ragged rows and optional."""
+    timesteps (B,) f32, context (B,L,D), added_cond (B,P), true_rows (B,)
+    int, ctx_true (B,) int)`` -> predicted noise ``(B,H,W,Cout)`` f32.
+    ``added_cond`` is required by an SDXL family and refused by any other;
+    the two length vectors are for ragged rows and optional."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.addition_embed_dim:
-            raise ValueError("SDXL added conditioning is not ported yet")
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         time_dim = 4 * ch0
         ctx_dim = cfg.cross_attention_dim
         self.time_fc1 = Dense(ch0, time_dim)
         self.time_fc2 = Dense(time_dim, time_dim)
+        if cfg.addition_embed_dim:
+            self.add_fc1 = Dense(cfg.projection_input_dim, time_dim)
+            self.add_fc2 = Dense(time_dim, time_dim)
         self.conv_in = Conv(cfg.in_channels, ch0, 3, padding=1)
         n_levels = len(cfg.block_out_channels)
         cur = ch0
@@ -355,20 +361,29 @@ class UNet(nn.Module):
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
+                added_cond: Optional[torch.Tensor] = None,
                 true_rows: Optional[torch.Tensor] = None,
                 ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (added_cond is None) != (not self.cfg.addition_embed_dim):
+            raise ValueError("added_cond is required by an SDXL family and "
+                             "only by one")
         with reproducible_sdpa():
-            return self._forward(latents, timesteps, context, true_rows,
-                                 ctx_true)
+            return self._forward(latents, timesteps, context, added_cond,
+                                 true_rows, ctx_true)
 
     def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                 context: torch.Tensor, true_rows: Optional[torch.Tensor],
+                 context: torch.Tensor, added_cond: Optional[torch.Tensor],
+                 true_rows: Optional[torch.Tensor],
                  ctx_true: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
             timestep_embedding(timesteps, c.block_out_channels[0]).to(dtype))
         temb = self.time_fc2(F.silu(temb))
+        if added_cond is not None:
+            # SDXL micro-conditioning: pooled text ++ fourier(time ids)
+            a = self.add_fc1(added_cond.to(dtype))
+            temb = temb + self.add_fc2(F.silu(a))
         context = context.to(dtype)
         x = self.conv_in(latents.permute(0, 3, 1, 2))
 
@@ -409,3 +424,13 @@ class UNet(nn.Module):
 
         x = F.silu(self.norm_out(x))
         return self.conv_out(x).float().permute(0, 2, 3, 1)
+
+
+def make_added_cond(pooled_text: torch.Tensor, time_ids: torch.Tensor,
+                    addition_time_embed_dim: int) -> torch.Tensor:
+    """SDXL's added conditioning ``(B, P)`` f32: the pooled text ``(B,
+    D)`` followed by each of the ``(B, n)`` time ids' sinusoidal
+    embedding."""
+    b = time_ids.shape[0]
+    emb = timestep_embedding(time_ids.reshape(-1), addition_time_embed_dim)
+    return torch.cat([pooled_text.float(), emb.reshape(b, -1)], dim=-1)

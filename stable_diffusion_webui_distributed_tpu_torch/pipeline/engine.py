@@ -2,10 +2,20 @@
 
 Port of the JAX package's ``pipeline/engine.py`` for the single-prompt
 txt2img path: encode the prompts (CLIP, clip skip, emphasis with the chunk
-mean restored, 77-token chunks joined), draw each image's init noise from
-its seed, denoise with classifier-free guidance over two rows in a chunked
-loop that polls the interrupt between chunks, decode to uint8 pixels, and
+mean restored, 77-token chunks joined; SDXL's two encoders joined on the
+channel axis, the pooled output from the second), draw each image's init
+noise from its seed, denoise with classifier-free guidance over two rows in
+a chunked loop that polls the interrupt between chunks (DPM adaptive: a
+host PID loop that polls it between attempts), decode to uint8 pixels, and
 return base64 PNGs with per-image seeds and infotext.
+
+SDXL: the UNet takes the added conditioning (pooled text and the
+micro-conditioning time ids, :meth:`Engine._added_cond`) per row. A request
+that names a refiner (``refiner_checkpoint``, ``refiner_switch_at < 1``)
+hands its latents, at the switch step, to the engine that
+``engine_provider`` returns for that name, which finishes the sigma ladder
+with its own conditioning; an unknown name runs the base model alone, as in
+the JAX package.
 
 Seed-exact sub-ranges carry over: ``generate_range(payload, start, count)``
 produces images ``[start, start+count)`` of the request, equal to the same
@@ -23,18 +33,19 @@ with per-row contexts and lengths. Lengths stay device tensors, never read
 back to the host.
 
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): img2img, hires fix, the refiner, ControlNet, LoRA tags, per-image
-prompts and scripts, the step cache, other serving precisions, and the
-samplers other than Euler and Euler a.
+422): img2img, inpainting checkpoints, hires fix, ControlNet, LoRA tags,
+per-image prompts and scripts, the step cache, other serving precisions,
+and SDXL under ragged dispatch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import re
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +69,7 @@ from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
     load_tokenizer,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+    make_added_cond,
     norms_to_f32,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
@@ -80,6 +92,8 @@ from stable_diffusion_webui_distributed_tpu_torch.samplers import (
     schedules as sched,
 )
 
+log = logging.getLogger(__name__)
+
 _LORA_TAG = re.compile(r"<lora:([^:>]+)(?::([0-9.+-]+))?(?::([0-9.+-]+))?>")
 
 
@@ -94,7 +108,9 @@ class Engine:
 
     ``params`` are the port's state dicts (``bridge.flax_to_torch`` or
     ``bridge.init_seeded``). ``device`` is ``cuda`` unless named; with none
-    named and no GPU present the constructor raises."""
+    named and no GPU present the constructor raises. ``engine_provider``
+    maps a refiner name to the engine that finishes a request's sigma
+    ladder (None: no refiner)."""
 
     def __init__(
         self,
@@ -107,7 +123,11 @@ class Engine:
         chunk_size: int = 10,
         schedule: Optional[sched.NoiseSchedule] = None,
         device=None,
+        engine_provider: Optional[Callable[[str], Optional["Engine"]]] = None,
     ):
+        if family.inpaint:
+            raise Unsupported(f"{family.name}: inpainting checkpoints are "
+                              f"not ported to the PyTorch engine yet")
         self.device = dtypes.resolve_device(device)
         self.family = family
         self.policy = policy
@@ -128,9 +148,18 @@ class Engine:
         # the norms, the UNet's conv_out and the whole VAE decoder compute
         # in f32
         self.text_encoder = norms_to_f32(loaded["text_encoder"].to(pd).to(cd))
+        # SDXL's second (OpenCLIP bigG) encoder
+        self.text_encoder_2 = (
+            norms_to_f32(loaded["text_encoder_2"].to(pd).to(cd))
+            if "text_encoder_2" in loaded else None)
         self.unet = norms_to_f32(loaded["unet"].to(pd).to(cd))
         self.unet.conv_out.float()
         self.vae = loaded["vae"].to(pd).float()
+        self.engine_provider = engine_provider
+        #: UNet-call attempts of the last DPM adaptive run (3 evaluations
+        #: each), and whether that run stopped at its attempt backstop
+        self.last_adaptive_attempts = 0
+        self._adaptive_incomplete = False
 
         # cross-request conditioning cache (webui's cached_c/cached_uc),
         # keyed on prompt text + clip skip + chunk count
@@ -149,11 +178,16 @@ class Engine:
     def _encode(self, ids: np.ndarray, weights: np.ndarray, skip: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(n_chunks, 77) ids/weights -> (context (1, n*77, D) f32, pooled
-        (1, D) f32): emphasis scales the tokens, the chunk mean is
-        restored, the chunks join along the sequence axis."""
-        ctx, pooled = self.text_encoder(
-            torch.from_numpy(ids).long().to(self.device),
-            skip=skip if skip else None)
+        (1, D') f32): emphasis scales the tokens, the chunk mean is
+        restored, the chunks join along the sequence axis. With a second
+        encoder (SDXL) the two contexts join on the channel axis and the
+        pooled output is the second's, from the first chunk."""
+        ids_t = torch.from_numpy(ids).long().to(self.device)
+        skip_arg = skip if skip else None
+        ctx, pooled = self.text_encoder(ids_t, skip=skip_arg)
+        if self.text_encoder_2 is not None:
+            ctx2, pooled = self.text_encoder_2(ids_t, skip=skip_arg)
+            ctx = torch.cat([ctx.float(), ctx2.float()], dim=-1)
         ctx = ctx.float()
         w = torch.from_numpy(weights).to(self.device)
         orig_mean = ctx.mean(dim=(1, 2), keepdim=True)
@@ -181,6 +215,8 @@ class Engine:
                 + ([payload.context_chunks] if payload.context_chunks
                    else []))
         depth = self.family.text_encoder.num_layers
+        if self.family.text_encoder_2 is not None:
+            depth = min(depth, self.family.text_encoder_2.num_layers)
         skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
 
         def cached(raw, ids, w):
@@ -236,22 +272,54 @@ class Engine:
 
     # -- denoise -------------------------------------------------------------
 
+    def _added_cond(self, pooleds, width: int, height: int,
+                    aesthetic_score: float = 6.0):
+        """SDXL micro-conditioning ``(added_u, added_c)``, one row per
+        pooled row, or None for a family without it. The id count follows
+        from the projection width: 6 for the base model (original, crop and
+        target sizes), 5 for the refiner (sizes and an aesthetic score, 6.0
+        on the positive row and 2.5 on the negative)."""
+        ucfg = self.family.unet
+        if not ucfg.addition_embed_dim:
+            return None
+        pooled_u, pooled_c = pooleds
+        n_ids = (ucfg.projection_input_dim - ucfg.addition_embed_dim) \
+            // ucfg.addition_time_embed_dim
+        if n_ids == 5:
+            ids_c = [height, width, 0, 0, aesthetic_score]
+            ids_u = [height, width, 0, 0, 2.5]
+        else:
+            ids_c = [height, width, 0, 0, height, width][:n_ids]
+            ids_u = ids_c
+
+        def added(pooled, ids):
+            tid = torch.tensor([ids], dtype=torch.float32,
+                               device=pooled.device)
+            return make_added_cond(pooled, tid.expand(pooled.shape[0], -1),
+                                   ucfg.addition_time_embed_dim)
+
+        return added(pooled_u, ids_u), added(pooled_c, ids_c)
+
     def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int,
-                         ragged=None):
+                         ragged=None, added=None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
-        ``(1, L, D)`` context or one per row.
+        ``(1, L, D)`` context or one per row; so is ``added``'s second
+        item (SDXL's added conditioning ``(added_u, added_c)``).
 
         ``ragged``: ``(true_rows, ctx_true_u, ctx_true_c)``, ``(batch,)``
         int device tensors. The CFG doubling repeats ``true_rows`` and puts
         the two context lengths in the order of the rows."""
         ctx = torch.cat([ctx_u.expand(batch, -1, -1),
                          ctx_c.expand(batch, -1, -1)])
-        ragged_kw = {}
+        kw = {}
+        if added is not None:
+            kw["added_cond"] = torch.cat([added[0].expand(batch, -1),
+                                          added[1].expand(batch, -1)])
         if ragged is not None:
             true_rows, ctx_true_u, ctx_true_c = ragged
-            ragged_kw = {"true_rows": torch.cat([true_rows, true_rows]),
-                         "ctx_true": torch.cat([ctx_true_u, ctx_true_c])}
+            kw["true_rows"] = torch.cat([true_rows, true_rows])
+            kw["ctx_true"] = torch.cat([ctx_true_u, ctx_true_c])
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
 
@@ -261,7 +329,7 @@ class Engine:
             xin = x * c_in
             tb = torch.full((2 * batch,), float(t), dtype=torch.float32,
                             device=x.device)
-            out = self.unet(torch.cat([xin, xin]), tb, ctx, **ragged_kw)
+            out = self.unet(torch.cat([xin, xin]), tb, ctx, **kw)
             out_u, out_c = out.float().chunk(2)
             guided = out_u + cfg * (out_c - out_u)
             if v_pred:
@@ -273,30 +341,121 @@ class Engine:
         return denoise
 
     def _denoise(self, payload: GenerationPayload, x: torch.Tensor,
-                 image_keys: torch.Tensor, conds, job: str,
-                 ragged=None) -> torch.Tensor:
-        """Chunked sampler loop: ``chunk_size`` steps at a time, the
-        interrupt flag and progress checked between chunks. ``conds`` is
-        ``(ctx_u, ctx_c)``; ``ragged`` as for :meth:`_make_denoise_fn`."""
+                 image_keys: torch.Tensor, conds, pooleds, job: str,
+                 ragged=None, start_step: int = 0,
+                 end_step: Optional[int] = None) -> torch.Tensor:
+        """Chunked sampler loop over steps ``[start_step, end_step or
+        steps)`` of the request's sigma ladder: ``chunk_size`` steps at a
+        time, the interrupt flag and progress checked between chunks.
+        ``conds`` is ``(ctx_u, ctx_c)``, ``pooleds`` ``(pooled_u,
+        pooled_c)`` (SDXL's added conditioning is made from them at the
+        payload's size); ``ragged`` as for :meth:`_make_denoise_fn`. DPM
+        adaptive runs :meth:`_denoise_adaptive` instead."""
         spec = kd.resolve_sampler(payload.sampler_name)
+        added = self._added_cond(pooleds, payload.width, payload.height)
+        if spec.adaptive:
+            return self._denoise_adaptive(payload, x, conds, added, job,
+                                          start_step, end_step)
         steps = payload.steps
+        end = steps if end_step is None else min(end_step, steps)
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
         denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
-                                        x.shape[0], ragged)
+                                        x.shape[0], ragged, added)
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
         if ragged is not None:
             step = _zero_tail_rows(step, ragged[0], x.shape[1])
         carry = kd.init_carry(x)
-        self.state.begin(job, steps)
-        pos = 0
-        while pos < steps and not self.state.flag.interrupted:
-            end = min(pos + self.chunk_size, steps)
-            for i in range(pos, end):
+        self.state.begin(job, end - start_step)
+        pos = start_step
+        while pos < end and not self.state.flag.interrupted:
+            chunk_end = min(pos + self.chunk_size, end)
+            for i in range(pos, chunk_end):
                 carry = step(carry, i)
-            pos = end
-            self.state.step(pos)
+            pos = chunk_end
+            self.state.step(pos - start_step)
         self.state.finish()
         return carry.x
+
+    def _denoise_adaptive(self, payload: GenerationPayload, x: torch.Tensor,
+                          conds, added, job: str, start_step: int,
+                          end_step: Optional[int]) -> torch.Tensor:
+        """DPM adaptive: the host PID loop over one attempt of 3 UNet
+        evaluations (k-diffusion ``sample_dpm_adaptive``): the step count
+        only sizes the sigma ladder's ends, the controller picks the
+        steps. The interrupt is polled between attempts; progress counts
+        accepted steps against the step count, as webui's bar does."""
+        spec = kd.resolve_sampler(payload.sampler_name)
+        steps = payload.steps
+        sigmas = kd.build_sigmas(spec, self.schedule, steps)
+        end = steps if end_step is None else min(end_step, steps)
+        self.last_adaptive_attempts = 0
+        if start_step >= end:
+            return x
+        sigma_max = float(sigmas[start_step])
+        sig_end = float(sigmas[end])
+        # steps=1 gives [sigma_max, 0]: integrate the schedule's whole range
+        sigma_min = sig_end if sig_end > 0 else max(
+            float(self.schedule.sigma_min),
+            float(sigmas[end - 1]) if end - 1 > start_step else 0.0)
+        if sigma_max <= sigma_min:
+            return x
+        denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
+                                        x.shape[0], added=added)
+        total = end - start_step
+        self.state.begin(job, total)
+
+        def on_accept(xx, sigma, n):
+            self.state.step(min(n, total))
+            return xx
+
+        x_out, info = kd.sample_dpm_adaptive(
+            kd.make_adaptive_attempt(denoise), x, sigma_max, sigma_min,
+            should_stop=lambda: self.state.flag.interrupted,
+            on_accept=on_accept)
+        self.last_adaptive_attempts = info["steps"]
+        log.debug("dpm adaptive: %d accepted / %d rejected steps, %d UNet "
+                  "evaluations", info["n_accept"], info["n_reject"],
+                  info["nfe"])
+        if not info["completed"] and not self.state.flag.interrupted:
+            # the attempt backstop: the latent is partly denoised, and the
+            # image's infotext says so
+            log.warning("dpm adaptive stopped incomplete after %d attempts "
+                        "(%d accepted)", info["steps"], info["n_accept"])
+            self._adaptive_incomplete = True
+        self.state.finish()
+        return x_out
+
+    def _refiner_engine(self, payload: GenerationPayload
+                        ) -> Optional["Engine"]:
+        if not payload.refiner_checkpoint or payload.refiner_switch_at >= 1.0:
+            return None
+        if self.engine_provider is None:
+            return None
+        return self.engine_provider(payload.refiner_checkpoint)
+
+    def _split_denoise(self, payload: GenerationPayload, x: torch.Tensor,
+                       keys: torch.Tensor, conds, pooleds, job: str,
+                       refiner: Optional["Engine"], ref_cond,
+                       ragged=None) -> torch.Tensor:
+        """Denoise the whole ladder, handing over to ``refiner`` (with its
+        own conditioning ``ref_cond``) at step ``int(steps *
+        refiner_switch_at)``, clamped to ``[0, steps - 1]``. The sampler's
+        history starts afresh at the switch; an interrupt during the base
+        phase skips the refiner."""
+        if refiner is None:
+            return self._denoise(payload, x, keys, conds, pooleds, job,
+                                 ragged)
+        steps = payload.steps
+        switch = max(0, min(steps - 1,
+                            int(steps * payload.refiner_switch_at)))
+        if switch > 0:
+            x = self._denoise(payload, x, keys, conds, pooleds, job,
+                              end_step=switch)
+        if self.state.flag.interrupted:
+            return x
+        ref_conds, ref_pooleds = ref_cond
+        return refiner._denoise(payload, x, keys, ref_conds, ref_pooleds,
+                                job + "+refiner", start_step=switch)
 
     # -- decode --------------------------------------------------------------
 
@@ -359,18 +518,24 @@ class Engine:
         sigma0 = kd.build_sigmas(spec, self.schedule, payload.steps)[0]
         # groups of batch_size keep the batch dim stable across n_iter
         group = max(1, payload.group_size or payload.batch_size)
-        # ragged solo run: the bucket's shape, the true rows as data
-        ragged_wh = self._ragged_plan(payload)
+        refiner = self._refiner_engine(payload)
+        # ragged solo run: the bucket's shape, the true rows as data (the
+        # dispatcher never marks a refiner handoff ragged)
+        ragged_wh = None if refiner is not None else \
+            self._ragged_plan(payload)
         ragged = None
         if ragged_wh is None:
-            conds, _ = self.encode_prompts(payload)
+            conds, pooleds = self.encode_prompts(payload)
             rows = h
         else:
-            conds, _, ctx_true = self.encode_prompts(payload, ragged=True)
+            conds, pooleds, ctx_true = self.encode_prompts(payload,
+                                                           ragged=True)
             rows = self._true_latent_rows(h, ragged_wh[1])
             ragged = tuple(torch.full((group,), length, dtype=torch.int32,
                                       device=self.device)
                            for length in (rows, *ctx_true))
+        ref_cond = (refiner.encode_prompts(payload) if refiner is not None
+                    else None)
         out = GenerationResult(parameters=payload.model_dump())
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
@@ -382,18 +547,24 @@ class Engine:
             # algorithms do), not on its position, so a sub-range then
             # reproduces the whole-batch rows exactly.
             noise = self._init_noise(payload, pos, group, (h, w, C), rows)
-            latents = self._denoise(payload, noise * sigma0,
-                                    self._image_keys(payload, pos, group),
-                                    conds, job, ragged)
+            latents = self._split_denoise(
+                payload, noise * sigma0,
+                self._image_keys(payload, pos, group), conds, pooleds, job,
+                refiner, ref_cond, ragged)
+            # the adaptive backstop's mark belongs to this group's images
+            incomplete, self._adaptive_incomplete = \
+                self._adaptive_incomplete, False
             imgs = self._decode_u8(latents, width, height)[:n]
-            self._append_images(out, payload, imgs, pos, width, height)
+            self._append_images(out, payload, imgs, pos, width, height,
+                                incomplete)
             pos += n
             remaining -= n
         return out
 
     def _append_images(self, out: GenerationResult,
                        payload: GenerationPayload, imgs: np.ndarray,
-                       pos: int, width: int, height: int) -> None:
+                       pos: int, width: int, height: int,
+                       incomplete: bool = False) -> None:
         pinned = payload.subseed_strength > 0 or payload.same_seed
         for j, img in enumerate(imgs):
             i = pos + j
@@ -404,9 +575,12 @@ class Engine:
             out.subseeds.append(int(sub_i))
             out.prompts.append(payload.prompt)
             out.negative_prompts.append(payload.negative_prompt)
-            out.infotexts.append(build_infotext(
-                payload, int(seed_i), int(sub_i), self.model_name,
-                width, height))
+            text = build_infotext(payload, int(seed_i), int(sub_i),
+                                  self.model_name, width, height)
+            if incomplete:
+                # DPM adaptive hit its attempt backstop before sigma_min
+                text += ", DPM adaptive: incomplete"
+            out.infotexts.append(text)
             out.worker_labels.append("")
 
     def generate_range(self, payload: GenerationPayload,
@@ -417,10 +591,24 @@ class Engine:
         payload = payload.model_copy()
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
-        check_supported(payload)
+        self.check_supported(payload)
+        self._adaptive_incomplete = False
         count = payload.total_images if count is None else count
         return self.run_on_device(self._run_txt2img, payload, start_index,
                                   count, job)
+
+    def check_supported(self, payload: GenerationPayload) -> None:
+        """:func:`check_supported`, and what this engine's family does not
+        run: SDXL under ragged dispatch (its added conditioning would have
+        to ride per row; the classic run would give another image than the
+        JAX package's ragged one)."""
+        check_supported(payload)
+        if self.family.unet.addition_embed_dim and \
+                self._ragged_plan(payload) is not None and \
+                self._refiner_engine(payload) is None:
+            raise Unsupported(f"{self.family.name}: ragged dispatch of an "
+                              f"SDXL family is not ported to the PyTorch "
+                              f"engine yet")
 
     def run_on_device(self, fn, *args):
         """``fn(*args)`` on the engine's device thread, in inference mode
@@ -496,8 +684,6 @@ def check_supported(payload: GenerationPayload) -> None:
     unsupported = {
         "img2img (init_images)": bool(payload.init_images),
         "hires fix (enable_hr)": payload.enable_hr,
-        "the refiner": bool(payload.refiner_checkpoint)
-        and payload.refiner_switch_at < 1.0,
         "per-image prompts (all_prompts)": bool(payload.all_prompts),
         "ControlNet": "controlnet" in scripts or "ControlNet" in scripts,
         "serving precisions other than bf16": str(
@@ -510,5 +696,4 @@ def check_supported(payload: GenerationPayload) -> None:
     if asked:
         raise Unsupported(f"not ported to the PyTorch engine yet: "
                           f"{', '.join(asked)}")
-    kd.resolve_sampler(payload.sampler_name)
     _strip_prompt(payload.prompt)

@@ -12,8 +12,7 @@ seed-exactly; a failed job's range is requeued on the surviving backends.
 
 The port differs in two places:
 
-- ``plan`` resolves the sampler through the port's ``resolve_sampler``,
-  and ``execute`` holds the request to what the port's engine runs
+- ``execute`` holds the request to what the port's engine runs
   (``check_supported``), so an unported request answers 422 before any
   fan-out instead of demoting the workers it would have failed on;
 - the observability hooks (spans, the journal, the flight recorder, the
@@ -325,8 +324,7 @@ class World:
         """The whole request on the single fastest backend that fits it,
         for DPM adaptive: its step controller reads one error norm over the
         whole batch, so a split would change every pixel. None when no
-        single backend's pixel cap fits the request. (The port does not
-        run DPM adaptive yet, so ``plan`` refuses it before this.)"""
+        single backend's pixel cap fits the request."""
         total = payload.total_images
         px = payload.width * payload.height * total
         fits = [j.worker for j in self.jobs
@@ -347,14 +345,13 @@ class World:
 
     def plan(self, payload: GenerationPayload) -> List[Job]:
         """``make_jobs`` + ``optimize_jobs``. Raises when the request
-        cannot be placed (an empty gallery is an error, not a 200), and
-        ``SamplerNotPorted`` for a sampler the port does not run."""
-        spec = resolve_sampler(payload.sampler_name)
+        cannot be placed (an empty gallery is an error, not a 200). DPM
+        adaptive runs whole on one backend (:meth:`_plan_no_split`)."""
         with self._plan_lock:
             self.make_jobs(payload)
             if not self.jobs:
                 raise RuntimeError("no benchmarked, reachable backends")
-            if spec.adaptive:
+            if resolve_sampler(payload.sampler_name).adaptive:
                 no_split = self._plan_no_split(payload)
                 if no_split is not None:
                     self.jobs = no_split

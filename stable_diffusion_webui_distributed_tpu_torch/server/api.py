@@ -7,7 +7,7 @@ there, a bare engine gets a serving dispatcher in front of it
 dispatch) unless ``SDTPU_SERVING=0``; a World keeps its own scheduler.
 
 Routes, in webui's shapes: ``POST /sdapi/v1/txt2img``; ``GET
-/sdapi/v1/samplers`` (the samplers the port runs); ``GET /sdapi/v1/progress``
+/sdapi/v1/samplers`` (the whole sampler table); ``GET /sdapi/v1/progress``
 and ``POST /sdapi/v1/interrupt``; ``GET /sdapi/v1/memory`` (``ram`` and the
 card's ``cuda`` section); ``GET``/``POST /sdapi/v1/options`` (a POST records
 the model name, and a World fans it out to its remotes: without a
@@ -45,8 +45,7 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag,
 )
 from stable_diffusion_webui_distributed_tpu_torch.samplers.kdiffusion import (
-    SamplerNotPorted,
-    ported_sampler_names,
+    SAMPLERS,
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
     cuda_memory,
@@ -142,13 +141,13 @@ class ApiServer:
                     # a bare engine: this request is the top level
                     self.state.begin_request()
                     result = self.source.generate_range(payload)
-        except (ValidationError, Unsupported, SamplerNotPorted) as e:
+        except (ValidationError, Unsupported) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)
 
     def handle_samplers(self) -> Any:
         return [{"name": n, "aliases": [], "options": {}}
-                for n in ported_sampler_names()]
+                for n in SAMPLERS]
 
     def handle_progress(self) -> Dict[str, Any]:
         p = self.state.progress_snapshot()

@@ -47,9 +47,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
-    check_supported,
-)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
     apply_scripts,
@@ -152,7 +149,7 @@ class ServingDispatcher:
             METRICS.record_request(
                 bucketed, padding_ratio=self.bucketer.padding_ratio(
                     payload.width, payload.height, batch=solo_batch))
-        check_supported(run)
+        self.engine.check_supported(run)
 
         ticket = Ticket(payload, run, job, bucketed, rid)
         with self._lock:
@@ -183,12 +180,16 @@ class ServingDispatcher:
 
     def _coalescable(self, p) -> bool:
         """May this payload share a batch, and run ragged under
-        SDTPU_RAGGED? (LoRA tags, adaptive samplers, ControlNet and the
-        step cache, which the JAX package also keeps out, are not ported:
-        ``check_supported`` rejects them.)"""
+        SDTPU_RAGGED? DPM adaptive runs solo: its step controller reads one
+        error over the whole batch, so a batch mate would change its
+        image. (LoRA tags, ControlNet and the step cache, which the JAX
+        package also keeps out, are not ported: ``check_supported``
+        rejects them.)"""
         if p.init_images or p.enable_hr or p.all_prompts:
             return False
         if p.refiner_checkpoint and p.refiner_switch_at < 1.0:
+            return False
+        if kd.resolve_sampler(p.sampler_name).adaptive:
             return False
         return p.total_images <= self.max_batch
 
@@ -274,7 +275,8 @@ class ServingDispatcher:
             return
         latents = self.engine._denoise(built["rp"], built["x"],
                                        built["keys"], built["ctx"],
-                                       "txt2img", ragged=built["ragged"])
+                                       built["pooled"], "txt2img",
+                                       ragged=built["ragged"])
         imgs = self.engine._decode_u8(latents, built["width"],
                                       built["height"])[:built["b_raw"]]
         self._group_merge(built, imgs)
@@ -308,8 +310,9 @@ class ServingDispatcher:
         # bucket, and the per-row lengths ride into the denoise as vectors
         ragged_mode = engine._ragged_plan(rp) is not None
         counts, noise_parts, key_parts, ctx_rows = [], [], [], []
+        pooled_rows = []
         lengths: List[List[int]] = [[], [], []]  # rows, ctx_true_u, _c
-        ctx_u = None
+        ctx_u = pooled_u = None
         for t in live:
             p = t.run.model_copy()
             p.context_chunks = chunks
@@ -318,23 +321,26 @@ class ServingDispatcher:
             rows = h
             if ragged_mode:
                 rows = engine._true_latent_rows(h, engine._ragged_plan(p)[1])
-                (cu, cc), _, ctx_true = engine.encode_prompts(p, ragged=True)
+                (cu, cc), (pu, pc), ctx_true = engine.encode_prompts(
+                    p, ragged=True)
                 for vec, n in zip(lengths, (rows, *ctx_true)):
                     vec += [n] * n_p
             else:
-                (cu, cc), _ = engine.encode_prompts(p)
+                (cu, cc), (pu, pc) = engine.encode_prompts(p)
             noise_parts.append(engine._init_noise(p, 0, n_p, (h, w, C),
                                                   rows))
             key_parts.append(engine._image_keys(p, 0, n_p))
             ctx_rows.append(cc.expand(n_p, -1, -1))
+            pooled_rows.append(pc.expand(n_p, -1))
             if ctx_u is None:
-                ctx_u = cu  # equal negatives across the key
+                ctx_u, pooled_u = cu, pu  # equal negatives across the key
 
         b_raw = sum(counts)
         b_run = self.bucketer.bucket_batch(b_raw)
         noise = torch.cat(noise_parts)
         keys = torch.cat(key_parts)
         ctx_c = torch.cat(ctx_rows)
+        pooled_c = torch.cat(pooled_rows)
         if b_run > b_raw:
             # pad-and-drop up to the batch bucket: the extra rows repeat
             # the last image and are discarded after decode
@@ -344,6 +350,7 @@ class ServingDispatcher:
                 return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
 
             noise, keys, ctx_c = _pad(noise), _pad(keys), _pad(ctx_c)
+            pooled_c = _pad(pooled_c)
         ragged = None
         if ragged_mode:
             ragged = tuple(torch.tensor(vec, dtype=torch.int32,
@@ -353,7 +360,8 @@ class ServingDispatcher:
                 ragged = tuple(_pad(vec) for vec in ragged)
         return {"live": live, "counts": counts, "rp": rp, "width": width,
                 "height": height, "x": noise * sigma0, "keys": keys,
-                "ctx": (ctx_u, ctx_c), "ragged": ragged,
+                "ctx": (ctx_u, ctx_c), "pooled": (pooled_u, pooled_c),
+                "ragged": ragged,
                 "ragged_mode": ragged_mode, "b_raw": b_raw}
 
     def _group_merge(self, built: Dict, imgs: np.ndarray) -> None:

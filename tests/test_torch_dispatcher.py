@@ -289,13 +289,38 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert METRICS.summary()["dispatches"] == 1
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
-        for extra in ({"sampler_name": "DPM++ 2M"}, {"prompt": "<lora:x:1>"},
-                      {"enable_hr": True}):
+        for extra in ({"alwayson_scripts": {"controlnet": {"args": []}}},
+                      {"prompt": "<lora:x:1>"}, {"enable_hr": True}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
             assert status == 422 and resp["detail"]
     finally:
         server.stop()
+
+
+def test_adaptive_requests_run_solo(engine, monkeypatch):
+    """DPM adaptive reads one error over its whole batch, so two
+    concurrent adaptive requests run as two dispatches (as in the JAX
+    package), each giving its own image as if run alone; a concurrent
+    Euler a request still takes its own."""
+    monkeypatch.delenv("SDTPU_RAGGED", raising=False)
+    disp = ServingDispatcher(
+        engine, bucketer=ShapeBucketer(shapes=[(32, 32)], batches=[1, 2, 4]),
+        window=0.3)
+    payloads = [GenerationPayload(prompt=f"cow {i}", steps=3, width=32,
+                                  height=32, seed=70 + i,
+                                  sampler_name=name)
+                for i, name in enumerate(["DPM adaptive", "DPM adaptive",
+                                          "Euler a"])]
+    assert [disp._coalescable(p) for p in payloads] == [False, False, True]
+    METRICS.clear()
+    got = concurrently(disp.submit, payloads)
+    assert METRICS.summary()["dispatches"] == 3
+    for r, p in zip(got[:2], payloads):
+        want = engine.generate_range(p)
+        assert r.seeds == want.seeds == [p.seed]
+        assert r.images == want.images
+        assert r.infotexts == want.infotexts
 
 
 def test_serving_off_calls_the_engine_directly(engine, monkeypatch):

@@ -37,9 +37,6 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
     GenerationState,
 )
-from stable_diffusion_webui_distributed_tpu_torch.samplers.kdiffusion import (
-    SamplerNotPorted,
-)
 from test_pipeline import init_params
 
 REQUESTS = {
@@ -119,8 +116,8 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"sampler_name": "DPM++ 2M Karras"}, SamplerNotPorted),
-    ({"sampler_name": "DPM adaptive"}, SamplerNotPorted),
+    ({"alwayson_scripts": {"controlnet": {"args": []}}}, Unsupported),
+    ({"override_settings": {"deepcache": 3}}, Unsupported),
     ({"prompt": "a <lora:thing:0.8> cow"}, Unsupported),
     ({"enable_hr": True}, Unsupported),
     ({"init_images": ["x"]}, Unsupported),

@@ -25,6 +25,7 @@ from stable_diffusion_webui_distributed_tpu.pipeline.payload import (
     GenerationPayload as JPayload,
 )
 from stable_diffusion_webui_distributed_tpu.runtime import config as jconfig
+from stable_diffusion_webui_distributed_tpu.samplers import kdiffusion as jkd
 from stable_diffusion_webui_distributed_tpu.scheduler import eta as jeta
 from stable_diffusion_webui_distributed_tpu.scheduler import worker as jworker
 from stable_diffusion_webui_distributed_tpu.scheduler import world as jworld
@@ -187,6 +188,10 @@ def make_world(pkg, spec):
     return world, stubs, payload_cls(**spec["payload"])
 
 
+# every name of the sampler table: DPM adaptive plans whole on one backend
+ALL_SAMPLERS = list(jkd.SAMPLERS)
+
+
 def random_spec(rng: random.Random):
     n = rng.randint(1, 6)
     workers = []
@@ -210,8 +215,7 @@ def random_spec(rng: random.Random):
         "payload": dict(prompt="p", seed=10, width=w, height=h,
                         batch_size=rng.randint(1, 24),
                         steps=rng.choice([10, 20, 40]),
-                        sampler_name=rng.choice(
-                            ["Euler a", "Euler", "DDIM", "Euler Karras"])),
+                        sampler_name=rng.choice(ALL_SAMPLERS)),
     }
 
 
@@ -261,12 +265,33 @@ def test_plan_scenarios_reach_every_phase():
 
 
 def test_plan_refuses_an_unported_sampler_before_planning():
+    """Every sampler plans now; an unported request is refused by
+    ``execute`` before any plan is made or any worker is asked."""
     spec = random_spec(random.Random(3))
     spec["payload"]["sampler_name"] = "DPM++ 2M"
     world, stubs, payload = make_world(PACKAGES["port"], spec)
+    payload.enable_hr = True
     with pytest.raises(ValueError, match="not ported"):
-        world.plan(payload)
+        world.execute(payload)
     assert world.jobs == []
+    assert all(s.requests == [] for s in stubs.values())
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_adaptive_plan_matches_jax_on_random_fleets(chunk):
+    """DPM adaptive runs whole on the fastest backend that fits it (the
+    JAX package's ``_plan_no_split``), and splits only when none does."""
+    rng = random.Random(2000 + chunk)
+    kinds = set()
+    for trial in range(30):
+        spec = random_spec(rng)
+        spec["payload"]["sampler_name"] = "DPM adaptive"
+        want = planned(PACKAGES["jax"], spec)
+        got = planned(PACKAGES["port"], spec)
+        assert got == want, f"trial {trial}: {json.dumps(spec)}"
+        if isinstance(want, list):
+            kinds.add("whole" if len(want) == 1 else "split")
+    assert "whole" in kinds
 
 
 # -- World.execute -----------------------------------------------------------

@@ -2,7 +2,8 @@
 
 ``ApiServer(port=0)`` must answer ``POST /sdapi/v1/txt2img`` over HTTP with
 the engine's own images, seeds and infotexts in webui's response shape, list
-the samplers the port runs, and answer 422 for what the slice does not run.
+the JAX package's 18 samplers, and answer 422 for what the slice does not
+run.
 Over a bare engine the server puts its serving dispatcher in front of it;
 its shape ladder is set to the requests' 32x32 here (the default would pad
 them up to 512x512). Over a ``World`` it serves the fleet without the
@@ -22,6 +23,9 @@ import urllib.request
 import pytest
 import torch
 
+from stable_diffusion_webui_distributed_tpu.samplers.kdiffusion import (
+    SAMPLERS as JAX_SAMPLERS,
+)
 from stable_diffusion_webui_distributed_tpu_torch import bridge, cli
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
@@ -96,13 +100,13 @@ def test_txt2img_answers_with_the_engines_images(engine, server):
 def test_samplers_lists_what_the_port_runs(server):
     status, resp = call(server, "/sdapi/v1/samplers")
     assert status == 200
-    assert [s["name"] for s in resp] == ["Euler a", "Euler", "DDIM",
-                                         "Euler a Karras", "Euler Karras"]
+    assert [s["name"] for s in resp] == list(JAX_SAMPLERS)
+    assert len(resp) == 18
 
 
 @pytest.mark.parametrize("extra", [
-    {"sampler_name": "DPM++ 2M"},
-    {"sampler_name": "DPM adaptive"},
+    {"alwayson_scripts": {"controlnet": {"args": []}}},
+    {"override_settings": {"deepcache": 2}},
     {"prompt": "a <lora:x:1> cow"},
     {"styles": ["cinematic"]},
     {"steps": "many"},
@@ -191,7 +195,7 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
 
 
 @pytest.mark.parametrize("extra", [
-    {"sampler_name": "DPM++ 2M"},
+    {"alwayson_scripts": {"controlnet": {"args": []}}},
     {"enable_hr": True},
     {"prompt": "a <lora:x:1> cow"},
     {"script_name": "prompt matrix"},
