@@ -19,7 +19,9 @@ Phases, each fatal on failure (no phase is caught and passed over):
    time of a replayed CUDA graph of them (``device_ms``), the fraction of
    the bound each reaches, the exps' share and the wrapper's host time per
    launch; every bf16 launch must report the Hopper path (TMA + wgmma);
-   then the same at the five SDXL shapes (1024x1024, batch 8 with CFG,
+   then the same at config #3's four shapes (batch 4 with CFG, 8 rows),
+   with totals per UNet + ControlNet evaluation (23 launches), and at the
+   five SDXL shapes (1024x1024, batch 8 with CFG,
    head dim 64), with totals per SDXL base UNet call (70 launches) and per
    refiner UNet call (44), each shape's bound the larger of its bytes, its
    products and its exps;
@@ -65,6 +67,24 @@ Phases, each fatal on failure (no phase is caught and passed over):
 9. profile: where a warm request's time goes (device time by kernel group
    and the device's busy share, from ``torch.profiler``), and the same for
    one UNet call;
+9b. config #3 on the same server and engine, its ControlNet seeded
+   through the engine's ``controlnet_provider`` as ``canny-bench``:
+   ``bench.py``'s config #3 request to ``POST /sdapi/v1/img2img``
+   (512x512 init image of ``bench.py``'s pattern, 20 steps Euler a, CFG
+   7, batch 4, seed 1, denoising 0.75, one canny unit at weight 1.0) must
+   give 4 images with seeds 1-4 and launch K1 345 times (15 evaluations x
+   (16 UNet + 7 ControlNet)), all on the Hopper path, and K2 never; its
+   repeat the same PNG bytes; the unit at weight 0 the bytes of the
+   request without it (240 launches each) and at weight 1 other bytes; a
+   batch-1 request of seed 3 within a mean of 2 uint8 levels of image 2;
+   an inpaint request (lower half masked, ``mask_blur`` 4, fill 1, no
+   unit) 240 launches and its latent rows far above the mask equal to the
+   init latent (their pixels beside the init image's VAE round trip are
+   reported: the decoder's GroupNorms and mid attention span the whole
+   latent). Then the ControlNet and the VAE encoder at full
+   width, bf16 against f32 on the same weights (relative error at most
+   5e-2), the SDPA backends that take the encoder's bf16 mid attention,
+   where one warm evaluation spends its time, and the encode's time;
 10. config #2 (the SD1.5 engine freed first): SDXL base and refiner at full
    width and depth on seeded weights (bf16 card policy) behind the port's
    server, the base engine handing over to the refiner through its
@@ -122,6 +142,11 @@ SDXL_SHAPES = {
     "refiner": [((16, 4096, 12, 64), 20), ((16, 1024, 24, 64), 20),
                 ((16, 256, 24, 64), 4)],
 }
+# K1 at config #3 (SD1.5 512x512 img2img, batch 4 with CFG = 8 rows), and
+# its launches per UNet + ControlNet evaluation: the UNet's 5, 5, 5, 1 per
+# level and the ControlNet's copy of the down and mid path, 2, 2, 2, 1
+CONFIG3_SHAPES = [((8, 4096, 8, 40), 7), ((8, 1024, 8, 80), 7),
+                  ((8, 256, 8, 160), 7), ((8, 64, 8, 160), 2)]
 TOLERANCE = {"f32": 2e-5, "bf16": 1e-2}  # max abs error vs the plain version
 
 LAUNCHES_PER_GROUP = 16 * 20  # 16 per UNet call x 20 steps
@@ -459,34 +484,68 @@ def k1_shape(fa, shape, gen, timed: bool, iters: int = 20,
         ms, dev, plain, lib, lib_dev, bms, exp_ms, us))), by
 
 
-def phase_kernels(fa):
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def k1_totals(fa, shapes, gen, per: str, label: str = ""):
+    """K1 at each ``(shape, calls)``, checked and (where ``calls``) timed
+    by :func:`k1_shape`; returns the totals over ``calls`` launches of each
+    shape, the largest bf16 error and what bounds them."""
     totals = dict.fromkeys(TOTALS, 0.0)
     max_err = 0.0
     bound_by = set()
     host = []
-    for shape, calls in MAIN_SHAPES + [(s, 0) for s in EXTRA_SHAPES]:
+    for shape, calls in shapes:
         err, m, by = k1_shape(fa, shape, gen, timed=calls > 0)
         if m is None:
             continue
         max_err = max(max_err, err)
         host.append(m["host_us"])
         bound_by.add(by)
-        print(f"kernel flash_attention {shape} bf16 per call: ms "
+        print(f"kernel flash_attention {label}{shape} bf16 per call: ms "
               f"{m['ms']:.4f} (device {m['device_ms']:.4f}) plain_ms "
               f"{m['plain_ms']:.4f} library_ms {m['library_ms']:.4f} "
               f"(device {m['library_device_ms']:.4f}) bound_ms "
               f"{m['bound_ms']:.4f} ({by}) exp_ms {m['exp_ms']:.4f} "
-              f"x{calls} per UNet call; {shape_summary(m)}")
+              f"x{calls} per {per}; {shape_summary(m)}")
         for key in TOTALS:
             totals[key] += calls * m[key]
     totals["host_us"] = sum(host) / len(host)
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
+
+
+def phase_kernels(fa):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return k1_totals(fa, MAIN_SHAPES + [(s, 0) for s in EXTRA_SHAPES], gen,
+                     "UNet call")
+
+
+def phase_config3_kernels(fa, card_line: str) -> dict:
+    """K1 at config #3's four shapes (batch 4 with CFG: 8 rows), checked
+    and timed as the SD1.5 shapes are, with totals per UNet + ControlNet
+    evaluation (23 launches)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    totals, err, by = k1_totals(fa, CONFIG3_SHAPES, gen,
+                                "UNet + ControlNet evaluation",
+                                "config #3 ")
+    totals["max_abs_err"] = err
+    totals["bound_by"] = by
+    totals["launches_per_evaluation"] = sum(c for _, c in CONFIG3_SHAPES)
+    print(f"kernel flash_attention config #3 evaluation "
+          f"({totals['launches_per_evaluation']} launches, batch 4 with "
+          f"CFG): ms {totals['ms']:.4f} (device {totals['device_ms']:.4f})"
+          f" plain_ms {totals['plain_ms']:.4f} library_ms "
+          f"{totals['library_ms']:.4f} (device "
+          f"{totals['library_device_ms']:.4f}) bound_ms "
+          f"{totals['bound_ms']:.4f} ({by}); device fraction of bound "
+          f"{totals['bound_ms'] / totals['device_ms']:.3f}, SDPA's "
+          f"{totals['bound_ms'] / totals['library_device_ms']:.3f} "
+          f"[{card_line}]")
+    return totals
 
 
 def phase_sdxl_kernels(fa, card_line: str) -> dict:
@@ -548,13 +607,13 @@ def phase_sdxl_kernels(fa, card_line: str) -> dict:
     return out
 
 
-def post(port: int, body: dict) -> dict:
+def post(port: int, body: dict, route: str = "txt2img") -> dict:
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/sdapi/v1/txt2img",
+        f"http://127.0.0.1:{port}/sdapi/v1/{route}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
-        check(resp.status == 200, f"txt2img answered {resp.status}")
+        check(resp.status == 200, f"{route} answered {resp.status}")
         return json.loads(resp.read())
 
 
@@ -592,7 +651,8 @@ def phase_main_path(fa, ra, card_line: str):
 
     t0 = time.perf_counter()
     params = init_seeded(SD15, seed=0, device="cuda", dtype=torch.bfloat16)
-    engine = Engine(SD15, params, policy=dtypes.CARD, device="cuda")
+    engine = Engine(SD15, params, policy=dtypes.CARD, device="cuda",
+                    controlnet_provider=seeded_controlnet(SD15))
     del params
     print(f"main path: SD1.5 engine on seeded weights in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1131,14 +1191,11 @@ def unet_rel_error(unet, x, t, ctx, added=None) -> float:
 
     from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
 
-    with torch.device("meta"):
-        f32 = UNet(unet.cfg)
-    f32 = f32.to_empty(device=x.device)
-    f32.load_state_dict(unet.state_dict())
+    f32 = f32_copy(unet, lambda: UNet(unet.cfg))
     kw = {} if added is None else {"added_cond": added}
     with torch.inference_mode():
         out16 = unet(x, t, ctx, **kw)
-        out32 = f32.float()(x, t, ctx, **kw)
+        out32 = f32(x, t, ctx, **kw)
     del f32
     check(tuple(out16.shape) == tuple(x.shape[:3]) + (4,),
           f"UNet shape {out16.shape}")
@@ -1270,6 +1327,375 @@ def phase_profile(engine, card_line: str) -> None:
           f"decode (1 x 512x512, f32) {decode_ms:.3f} ms [{card_line}]")
 
 
+# BASELINE config #3 (bench.py's payload): SD1.5 img2img with one canny
+# ControlNet unit at weight 1.0, 512x512, 20 steps Euler a, CFG 7, batch 4,
+# seed 1, denoising 0.75: the ladder is entered at step 20 - int(0.75 * 20)
+# = 5, so 15 UNet + ControlNet evaluations
+CONFIG3_CN = "canny-bench"
+CONFIG3_SIZE = 512
+CONFIG3_EVALUATIONS = 15
+CONFIG3_K1_LAUNCHES = CONFIG3_EVALUATIONS * (16 + 7)  # 345
+CONFIG3_K1_UNET_ONLY = CONFIG3_EVALUATIONS * 16  # 240: no unit, a mask
+CONFIG3_MEAN_TOLERANCE = 2.0  # uint8 levels
+def seeded_controlnet(family):
+    """A ``controlnet_provider`` that seeds config #3's ControlNet (bf16 on
+    the card) the one time the engine asks for it. Its zero convolutions
+    and hint ``conv_out`` are drawn like any other convolution (Flax starts
+    them at zero), so the unit's effect shows."""
+    def provide(name: str):
+        import torch
+
+        from stable_diffusion_webui_distributed_tpu_torch.bridge import (
+            init_seeded_controlnet,
+        )
+
+        if name != CONFIG3_CN:
+            return None
+        return init_seeded_controlnet(family, seed=2, device="cuda",
+                                      dtype=torch.bfloat16)
+
+    return provide
+
+
+def synth_b64_image(width: int, height: int) -> str:
+    """``bench.py``'s ``_synth_b64_image``: an x / y / x+y ramp pattern,
+    as a base64 PNG (a copy; this script imports nothing of the JAX
+    package)."""
+    import numpy as np
+
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        array_to_b64png,
+    )
+
+    y, x = np.mgrid[0:height, 0:width]
+    img = np.stack([x % 256, y % 256, (x + y) % 256], axis=-1)
+    return array_to_b64png(img.astype(np.uint8))
+
+
+def rel_error(outs16, outs32) -> float:
+    """Relative error of a tuple of bf16 outputs against f32 ones: the norm
+    of the differences over the norm of the f32 outputs."""
+    num = sum(float((a.float() - b).norm()) ** 2
+              for a, b in zip(outs16, outs32))
+    den = sum(float(b.norm()) ** 2 for b in outs32)
+    return (num / den) ** 0.5
+
+
+def f32_copy(module, build):
+    """An f32 copy of ``module`` (built by ``build()`` on the meta device)
+    with the same weights."""
+    import torch
+
+    with torch.device("meta"):
+        copy = build()
+    copy = copy.to_empty(device="cuda")
+    copy.load_state_dict(module.state_dict())
+    return copy.float().eval()
+
+
+def sdpa_backends_for(shape, dtype) -> list:
+    """The ``scaled_dot_product_attention`` backends of
+    ``reproducible_sdpa`` that take a call at ``shape`` (B, H, T, D)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import warnings
+
+    q = torch.randn(shape, device="cuda", dtype=dtype)
+    ok = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                # a refusing backend warns why before it raises
+                warnings.simplefilter("ignore", UserWarning)
+                F.scaled_dot_product_attention(q, q, q)
+            torch.cuda.synchronize()
+            ok.append(backend.name)
+        except RuntimeError:
+            pass
+    return ok
+
+
+def phase_config3(engine, fa, ra, card_line: str) -> dict:
+    """BASELINE config #3 through the port's ``POST /sdapi/v1/img2img`` on
+    the main path's SD1.5 engine, its ControlNet seeded through the
+    engine's ``controlnet_provider``. Then the ControlNet and the VAE
+    encoder bf16 vs f32, where one warm evaluation spends its time, and
+    the encode's time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
+        ControlNet,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.vae import (
+        Encoder,
+        encode,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        window_gates,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+        array_to_b64png,
+        b64png_to_array,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    bp = BenchmarkPayload()
+    size = CONFIG3_SIZE
+    factor = engine.family.vae_scale_factor
+    lat = size // factor
+    init = synth_b64_image(size, size)
+    unit = {"enabled": True, "image": init, "module": "canny",
+            "model": CONFIG3_CN, "weight": 1.0}
+    body = {"prompt": bp.prompt, "steps": 20, "width": size, "height": size,
+            "batch_size": 4, "sampler_name": bp.sampler_name, "seed": 1,
+            "cfg_scale": 7, "init_images": [init],
+            "denoising_strength": 0.75,
+            "alwayson_scripts": {"controlnet": {"args": [unit]}}}
+    no_unit = {k: v for k, v in body.items() if k != "alwayson_scripts"}
+    mask = np.zeros((size, size, 3), np.uint8)
+    mask[size // 2:] = 255  # repaint the lower half
+    requests = [
+        ("first", body, CONFIG3_K1_LAUNCHES),
+        ("repeat", body, CONFIG3_K1_LAUNCHES),
+        ("weight 0", {**body, "alwayson_scripts": {"controlnet": {"args": [
+            {**unit, "weight": 0.0}]}}}, CONFIG3_K1_UNET_ONLY),
+        ("no unit", no_unit, CONFIG3_K1_UNET_ONLY),
+        ("batch-1", {**body, "seed": 3, "batch_size": 1},
+         CONFIG3_K1_LAUNCHES),
+        ("inpaint", {**no_unit, "mask": array_to_b64png(mask),
+                     "mask_blur": 4, "inpainting_fill": 1},
+         CONFIG3_K1_UNET_ONLY),
+    ]
+
+    latents_seen = []
+    decode = engine._decode_u8
+
+    def checked_decode(latents, width, height):
+        latents_seen.append(latents.clone())
+        return decode(latents, width, height)
+
+    engine._decode_u8 = checked_decode
+    server = ApiServer(engine, port=0).start()
+    runs = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for tag, req, want in requests:
+            latents_seen.clear()
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            resp = post(server.port, req, route="img2img")
+            wall = time.perf_counter() - t
+            runs[tag] = (wall, resp, fa.flash_attention.launches,
+                         dict(fa.flash_attention.path_launches),
+                         ra.ragged_attention.launches, latents_seen[-1])
+            if tag == "repeat":
+                peak = torch.cuda.max_memory_allocated()
+            k1, paths, k2 = runs[tag][2:5]
+            n = len(resp["images"])
+            print(f"config #3 request ({tag}): latency {wall:.3f} s, {n} "
+                  f"image(s), {n * 60.0 / wall:.3f} images per minute, K1 "
+                  f"launches {k1} by path {json.dumps(paths)}, K2 {k2} "
+                  f"[{card_line}]")
+            check(k1 == want, f"config #3 ({tag}) launched K1 {k1} times, "
+                  f"want {want}")
+            check(paths["hopper"] == k1,
+                  f"config #3 ({tag}): K1 off the Hopper path: {paths}")
+            check(k2 == 0, f"config #3 ({tag}) launched K2 {k2} times")
+            check(bool(torch.isfinite(latents_seen[-1]).all()),
+                  f"config #3 ({tag}): a latent is not finite")
+            for i, b64 in enumerate(resp["images"]):
+                px = png_pixels(b64)
+                check(px.shape == (size, size, 3) and float(px.std()) > 1.0,
+                      f"config #3 ({tag}) image {i}: shape {px.shape} or "
+                      f"constant")
+    finally:
+        server.stop()
+        del engine._decode_u8
+    first, again = runs["first"][1], runs["repeat"][1]
+    seeds = json.loads(first["info"])["all_seeds"]
+    check(len(first["images"]) == 4 and seeds == [1, 2, 3, 4],
+          f"config #3 gave {len(first['images'])} images, seeds {seeds}")
+    check(again["images"] == first["images"],
+          "the repeated config #3 request gave other PNG bytes")
+    check(runs["weight 0"][1]["images"] == runs["no unit"][1]["images"],
+          "a unit at weight 0 gave other bytes than no unit")
+    check(all(a != b for a, b in zip(first["images"],
+                                     runs["no unit"][1]["images"])),
+          "the unit at weight 1 left an image unchanged")
+    unit_effect = float(np.mean([
+        np.abs(png_pixels(a).astype(np.int32)
+               - png_pixels(b).astype(np.int32)).mean()
+        for a, b in zip(first["images"], runs["no unit"][1]["images"])]))
+    one = runs["batch-1"][1]
+    check(json.loads(one["info"])["all_seeds"] == [3], "config #3 batch-1 "
+          "seed")
+    row = png_pixels(first["images"][2]).astype(np.int32)
+    diff = np.abs(png_pixels(one["images"][0]).astype(np.int32) - row)
+    print(f"config #3: the unit moves the images by {unit_effect:.3f} "
+          f"uint8 levels (mean abs vs no unit); batch-1 image of seed 3 vs "
+          f"image 2 of the batch: mean abs {diff.mean():.4f}, max "
+          f"{diff.max()} (uint8 levels)")
+    check(diff.mean() <= CONFIG3_MEAN_TOLERANCE,
+          "the batch-1 image drifted from its row of the batch")
+
+    # inpaint: the latent rows far above the mask are the init latent
+    # exactly (the pin at sigma 0). Their pixels are reported beside the
+    # init image's VAE round trip, not held to it: the decoder's GroupNorms
+    # and mid attention span the whole latent, so on seeded weights they
+    # move with the repainted half (a mean of 36 levels on the card)
+    init_px = torch.from_numpy(
+        b64png_to_array(init).astype(np.float32) / 255.0)[None].cuda()
+
+    def round_trip():
+        init_lat = engine._encode_images(init_px)
+        return init_lat, engine._decode_u8(init_lat, size, size)
+
+    init_lat, trip = engine.run_on_device(round_trip)
+    inp_lat = runs["inpaint"][5]
+    # latent rows far above the mask: it starts at pixel row size / 2, the
+    # blur (3 box passes of 4 px) widens it by 12 px and the resize to
+    # latent size by one latent row more
+    far = (size // 2 - 16 - 2 * factor) // factor
+    check(torch.equal(inp_lat[:, :far],
+                      init_lat.expand(inp_lat.shape[0], -1, -1, -1)
+                      [:, :far]),
+          "inpaint: the latent far from the mask is not the init latent")
+    trip = trip[0].astype(np.int32)
+    inpaint_diffs = []
+    for b64 in runs["inpaint"][1]["images"]:
+        px = png_pixels(b64).astype(np.int32)
+        inpaint_diffs.append(float(np.abs(px[:factor * far]
+                                          - trip[:factor * far]).mean()))
+    print(f"config #3 inpaint: rows 0-{factor * far - 1} vs the VAE round "
+          f"trip "
+          f"of the init image: mean abs {inpaint_diffs} (uint8 levels)")
+
+    # the ControlNet and the VAE encoder at full width, bf16 vs f32
+    cn = engine._controlnets[CONFIG3_CN]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ucfg = engine.family.unet
+    x = torch.randn((2, lat, lat, 4), device="cuda", generator=gen)
+    t = torch.tensor([999.0, 500.0], device="cuda")
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    hint = torch.rand((2, 8 * lat, 8 * lat, 3), device="cuda",
+                      generator=gen)
+    cn32 = f32_copy(cn, lambda: ControlNet(cn.cfg))
+    enc32 = f32_copy(engine.vae_encoder, lambda: Encoder(engine.family.vae))
+    img = init_px * 2.0 - 1.0
+    with torch.inference_mode():
+        r16, r32 = cn(x, t, ctx, hint), cn32(x, t, ctx, hint)
+        m16, m32 = encode(engine.vae_encoder, img), encode(enc32, img)
+    del cn32, enc32
+    levels = len(ucfg.block_out_channels)
+    want = 1 + levels * ucfg.layers_per_block + (levels - 1) + 1
+    check(len(r16) == want, f"ControlNet gave {len(r16)} residuals, want "
+          f"{want}")
+    check(all(bool(torch.isfinite(r).all()) for r in r16),
+          "a ControlNet residual is not finite")
+    rel = {"controlnet": rel_error(r16, r32),
+           "vae_encoder_mean": rel_error(m16[:1], m32[:1]),
+           "vae_encoder_logvar": rel_error(m16[1:], m32[1:])}
+    per_residual = [round(rel_error([a], [b]), 5) for a, b in zip(r16, r32)]
+    print(f"config #3 reference: full-width ControlNet (batch 2, "
+          f"{lat}x{lat} latents) bf16 vs f32 relative error "
+          f"{rel['controlnet']:.4g} (tolerance 5e-2; per residual "
+          f"{per_residual}); VAE encoder ({size}x{size}) mean "
+          f"{rel['vae_encoder_mean']:.4g}, logvar "
+          f"{rel['vae_encoder_logvar']:.4g}")
+    check(rel["controlnet"] <= 5e-2,
+          "the bf16 ControlNet disagrees with the f32 ControlNet")
+    check(rel["vae_encoder_mean"] <= 5e-2,
+          "the bf16 VAE encoder disagrees with the f32 encoder")
+    mid = engine.family.vae.block_out_channels[-1]
+    tokens = (lat * lat)
+    backends = sdpa_backends_for((1, 1, tokens, mid), torch.bfloat16)
+    print(f"config #3: SDPA backends that take the encoder's bf16 mid "
+          f"attention (1 head, {tokens} tokens, D = {mid}): {backends}")
+    check(bool(backends), "no reproducible SDPA backend takes the encoder's "
+          "mid attention")
+
+    # one warm evaluation (UNet + ControlNet at batch 4 with CFG) and the
+    # encode of one 512x512 image
+    payload = GenerationPayload(**body)
+
+    def evaluation_setup():
+        conds, _ = engine.encode_prompts(payload)
+        controls = engine._prepare_controls(payload, size, size)
+        return engine._make_denoise_fn(
+            *conds, 7.0, 4, controls=controls,
+            gates=lambda i: window_gates(controls, i, 20))
+
+    denoise = engine.run_on_device(evaluation_setup)
+    xe = torch.randn((4, lat, lat, 4), device="cuda", generator=gen)
+    sigma = torch.tensor(3.0)
+
+    def timed():
+        eval_ms = cuda_ms(lambda: denoise(xe, sigma, 10), 5)
+        enc_ms = cuda_ms(lambda: engine._encode_images(init_px), 5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                denoise(xe, sigma, 10)
+            torch.cuda.synchronize()
+        return eval_ms, enc_ms, prof
+
+    eval_ms, enc_ms, prof = engine.run_on_device(timed)
+    groups = device_groups(prof, 3)
+    print_groups(f"config #3 evaluation (UNet + ControlNet, batch 4 with "
+                 f"CFG = 8 rows, {lat}x{lat} latents)", eval_ms, groups,
+                 card_line)
+    print(f"config #3: VAE encode (1 x {size}x{size}, bf16) {enc_ms:.3f} ms "
+          f"[{card_line}]")
+    tflop = model_tflop(engine.family, lat)
+    eval_tflop = 8 * (tflop["unet_row"] + tflop["controlnet_row"])
+    busy_s = sum(groups.values()) / 1e3
+    print(f"config #3 FLOPs (flop counter, meta tensors): UNet row "
+          f"{tflop['unet_row']:.4f}, ControlNet row "
+          f"{tflop['controlnet_row']:.4f} TFLOP at {lat}x{lat} latents; "
+          f"VAE encode {tflop['vae_encode']:.4f}, decode "
+          f"{tflop['vae_decode']:.4f} TFLOP per {size}x{size} image; one "
+          f"evaluation ({eval_tflop:.3f} TFLOP) at "
+          f"{eval_tflop / busy_s:.1f} TFLOP/s of device time [{card_line}]")
+    warm = runs["repeat"][0]
+    metrics = {"latency_s": {t: round(runs[t][0], 4) for t in runs},
+               "latency_warm_s": round(warm, 4),
+               "latency_cold_s": round(runs["first"][0], 4),
+               "images_per_minute": round(4 * 60.0 / warm, 3),
+               "peak_memory_gib": round(peak / 2**30, 3),
+               "k1_launches": {t: runs[t][2] for t in runs},
+               "k1_path_launches": runs["repeat"][3],
+               "k2_launches": runs["repeat"][4],
+               "unit_effect_mean_abs": round(unit_effect, 4),
+               "batch1_vs_row_mean_abs": round(float(diff.mean()), 4),
+               "inpaint_far_vs_round_trip_mean_abs": [
+                   round(d, 4) for d in inpaint_diffs],
+               "bf16_vs_f32_rel": {k: round(v, 5) for k, v in rel.items()},
+               "controlnet_rel_per_residual": per_residual,
+               "encoder_sdpa_backends": backends,
+               "evaluation_ms": round(eval_ms, 3),
+               "evaluation_busy_share": round(busy_s * 1e3 / eval_ms, 4),
+               "evaluation_device_ms": {g: round(v, 3)
+                                        for g, v in groups.items()},
+               "vae_encode_ms": round(enc_ms, 3),
+               "tflop": {k: round(v, 4) for k, v in tflop.items()},
+               "card": card_line}
+    print("config #3 metrics: " + json.dumps(metrics))
+    return metrics
+
+
 # BASELINE config #2 (bench.py's payload): SDXL base + refiner, 1024x1024,
 # 30 steps Euler a, the refiner from step int(30 * 0.8) = 24, batch 8
 CONFIG2_REFINER = "sdxl-refiner"
@@ -1284,40 +1710,56 @@ CONFIG2_MEAN_TOLERANCE = 2.0  # uint8 levels, batch-1 vs batch-8 row
 
 def model_tflop(family, lat: int) -> dict:
     """TFLOP of one UNet row (one image, one CFG half) at ``lat`` x
-    ``lat`` latents and of one VAE decode at that size, counted by
+    ``lat`` latents, of one ControlNet row there (hint at 8 x ``lat``), and
+    of one VAE decode and one VAE encode at that size, counted by
     ``torch.utils.flop_counter`` (matrix products and convolutions) on
     meta tensors: nothing is allocated. K1 has no meta kernel, so its
-    plain version, with the same two products, stands in while counting."""
+    plain version, with the same two products, stands in while counting.
+    ``tools/torch_flops.py`` prints these for any family."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from stable_diffusion_webui_distributed_tpu_torch.models import (
         unet as unet_mod,
     )
+    from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
+        ControlNet,
+    )
     from stable_diffusion_webui_distributed_tpu_torch.models.vae import (
         Decoder,
+        Encoder,
     )
     from stable_diffusion_webui_distributed_tpu_torch.ops import (
         flash_attention as fa,
     )
 
     u = family.unet
+    counts = {}
     kernel = unet_mod.flash_attention
     unet_mod.flash_attention = fa.flash_attention_reference
     try:
         with torch.device("meta"):
-            kw = ({"added_cond": torch.zeros(1, u.projection_input_dim)}
-                  if u.addition_embed_dim else {})
-            with FlopCounterMode(display=False) as unet_count:
-                unet_mod.UNet(u)(torch.zeros(1, lat, lat, 4), torch.ones(1),
-                                 torch.zeros(1, 77, u.cross_attention_dim),
-                                 **kw)
-            with FlopCounterMode(display=False) as vae_count:
-                Decoder(family.vae)(torch.zeros(1, lat, lat, 4))
+            added = ((torch.zeros(1, u.projection_input_dim),)
+                     if u.addition_embed_dim else ())
+            x = torch.zeros(1, lat, lat, 4)
+            t = torch.ones(1)
+            ctx = torch.zeros(1, 77, u.cross_attention_dim)
+            hint = torch.zeros(1, 8 * lat, 8 * lat, 3)
+            side = family.vae_scale_factor * lat
+            image = torch.zeros(1, side, side, 3)
+            for name, run in (
+                    ("unet_row", lambda: unet_mod.UNet(u)(x, t, ctx,
+                                                          *added)),
+                    ("controlnet_row", lambda: ControlNet(u)(
+                        x, t, ctx, hint, *added)),
+                    ("vae_decode", lambda: Decoder(family.vae)(x)),
+                    ("vae_encode", lambda: Encoder(family.vae)(image))):
+                with FlopCounterMode(display=False) as count:
+                    run()
+                counts[name] = count.get_total_flops() / 1e12
     finally:
         unet_mod.flash_attention = kernel
-    return {"unet_row": unet_count.get_total_flops() / 1e12,
-            "vae_decode": vae_count.get_total_flops() / 1e12}
+    return counts
 
 
 def phase_config2(fa, ra, card_line: str) -> dict:
@@ -1662,6 +2104,7 @@ def main() -> int:
                   f"{row['consumer_warpgroups']}, "
                   f"{str(row['ragged']).lower()}>: {json.dumps(row)}")
     totals, max_err, bound_by = phase_kernels(fa)
+    config3_k1 = phase_config3_kernels(fa, card_line)
     sdxl = phase_sdxl_kernels(fa, card_line)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
@@ -1670,6 +2113,7 @@ def main() -> int:
     fleet = phase_fleet(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
+    config3 = phase_config3(engine, fa, ra, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
     torch.cuda.empty_cache()
@@ -1687,7 +2131,7 @@ def main() -> int:
                     "flash_attention.py:30",
         "launches": launches,
         "fleet_launches": fleet["k1_launches"],
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, config3_k1["max_abs_err"]),
         "ms": round(totals["ms"], 4),
         "device_ms": round(totals["device_ms"], 4),
         "plain_ms": round(totals["plain_ms"], 4),
@@ -1708,6 +2152,20 @@ def main() -> int:
         "per": "one UNet call of SD1.5 512x512 with CFG (16 launches), bf16",
         "sampler_launches": {n: r["k1_launches"]
                              for n, r in samplers.items()},
+        "config3_launches": config3["k1_launches"],
+        "config3_ms": round(config3_k1["ms"], 4),
+        "config3_device_ms": round(config3_k1["device_ms"], 4),
+        "config3_plain_ms": round(config3_k1["plain_ms"], 4),
+        "config3_bound_ms": round(config3_k1["bound_ms"], 4),
+        "config3_bound_by": config3_k1["bound_by"],
+        "config3_library_ms": round(config3_k1["library_ms"], 4),
+        "config3_library_device_ms": round(
+            config3_k1["library_device_ms"], 4),
+        "config3_host_us_per_launch": round(config3_k1["host_us"], 2),
+        "config3_max_abs_err": config3_k1["max_abs_err"],
+        "config3_per": "one UNet + ControlNet evaluation of config #3 "
+                       "(SD1.5 img2img 512x512, batch 4 with CFG; 23 "
+                       "launches), bf16",
         "sdxl_launches": config2["k1_launches"],
         "sdxl_ms": per_call("ms"),
         "sdxl_device_ms": per_call("device_ms"),

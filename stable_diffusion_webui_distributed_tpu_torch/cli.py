@@ -5,8 +5,8 @@
 
 ``serve`` serves a ``World`` whose master is the local engine, with the
 remotes of the config file behind it, as the JAX package's ``cli serve``
-does. ``generate`` runs one request through the same World and writes the
-PNGs; ``benchmark`` measures every worker's images per minute; ``ping``,
+does. ``generate`` runs one request through the same World (img2img with
+``--init-image`` and ``--strength``) and writes the PNGs; ``benchmark`` measures every worker's images per minute; ``ping``,
 ``status``, ``interrupt`` and ``workers list|add|remove|set`` operate the
 fleet.
 
@@ -20,6 +20,7 @@ commands that build it raise.
 from __future__ import annotations
 
 import argparse
+import base64
 import logging
 import os
 import sys
@@ -111,10 +112,15 @@ def cmd_generate(args) -> int:
 
     world = _build_world(args)
     w, h = (int(x) for x in args.size.split("x"))
-    result = world.execute(GenerationPayload(
+    payload = GenerationPayload(
         prompt=args.prompt, negative_prompt=args.negative, steps=args.steps,
         width=w, height=h, batch_size=args.num, seed=args.image_seed,
-        sampler_name=args.sampler, cfg_scale=args.cfg))
+        sampler_name=args.sampler, cfg_scale=args.cfg,
+        denoising_strength=args.strength)
+    if args.init_image:
+        with open(args.init_image, "rb") as f:
+            payload.init_images = [base64.b64encode(f.read()).decode()]
+    result = world.execute(payload)
     from PIL import Image
 
     os.makedirs(args.outdir, exist_ok=True)
@@ -242,7 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_serve)
 
     g = sub.add_parser("generate", parents=[common],
-                       help="one txt2img request through the World")
+                       help="one txt2img (or img2img) request through "
+                            "the World")
     g.add_argument("--prompt", required=True)
     g.add_argument("--negative", default="")
     g.add_argument("--steps", type=int, default=20)
@@ -252,6 +259,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the request's seed (-1: random)")
     g.add_argument("--sampler", default="Euler a")
     g.add_argument("--cfg", type=float, default=7.0)
+    g.add_argument("--init-image", default=None,
+                   help="a PNG: run img2img from it")
+    g.add_argument("--strength", type=float, default=0.75,
+                   help="img2img denoising strength")
     g.add_argument("--outdir", default="outputs")
     g.set_defaults(fn=cmd_generate)
 

@@ -1,7 +1,7 @@
 """Denoising UNet (SD 1.x and SDXL families), full forward, in PyTorch.
 
 Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` with no
-ControlNet residuals, LoRA or int8. SDXL's added conditioning (pooled text
+LoRA or int8. SDXL's added conditioning (pooled text
 and the micro-conditioning time ids, :func:`make_added_cond`) goes through
 ``add_fc1``/``add_fc2`` onto the timestep embedding; the per-level
 transformer depths come from the config (SDXL has none at level 0) and
@@ -20,6 +20,10 @@ cross-attention over the 77·n context tokens, which the JAX package left to
 XLA, goes to ``scaled_dot_product_attention`` on the backends of
 :func:`reproducible_sdpa`.
 
+ControlNet residuals (``control_residuals``, from ``models/controlnet.py``,
+NCHW): the last is added to the mid block's output and residual ``i`` to
+skip ``i``, each cast to the activation's dtype first.
+
 Ragged rows (ragged dispatch): ``forward(..., true_rows, ctx_true)`` takes
 ``(B,)`` integer device tensors, the valid latent rows of each batch row
 (padded at the bottom) and its valid context tokens. Each Downsample halves
@@ -35,7 +39,7 @@ the image of the same seed at its own size.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -299,9 +303,11 @@ class Upsample(nn.Module):
 class UNet(nn.Module):
     """The conditional denoiser: ``forward(latents (B,H,W,Cin) NHWC,
     timesteps (B,) f32, context (B,L,D), added_cond (B,P), true_rows (B,)
-    int, ctx_true (B,) int)`` -> predicted noise ``(B,H,W,Cout)`` f32.
-    ``added_cond`` is required by an SDXL family and refused by any other;
-    the two length vectors are for ragged rows and optional."""
+    int, ctx_true (B,) int, control_residuals)`` -> predicted noise
+    ``(B,H,W,Cout)`` f32. ``added_cond`` is required by an SDXL family and
+    refused by any other; the two length vectors are for ragged rows and
+    optional; ``control_residuals`` (one per skip, then the mid residual,
+    NCHW) are ControlNet's and optional."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -363,18 +369,22 @@ class UNet(nn.Module):
                 context: torch.Tensor,
                 added_cond: Optional[torch.Tensor] = None,
                 true_rows: Optional[torch.Tensor] = None,
-                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ctx_true: Optional[torch.Tensor] = None,
+                control_residuals: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         if (added_cond is None) != (not self.cfg.addition_embed_dim):
             raise ValueError("added_cond is required by an SDXL family and "
                              "only by one")
         with reproducible_sdpa():
             return self._forward(latents, timesteps, context, added_cond,
-                                 true_rows, ctx_true)
+                                 true_rows, ctx_true, control_residuals)
 
     def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, added_cond: Optional[torch.Tensor],
                  true_rows: Optional[torch.Tensor],
-                 ctx_true: Optional[torch.Tensor]) -> torch.Tensor:
+                 ctx_true: Optional[torch.Tensor],
+                 control_residuals: Optional[Sequence[torch.Tensor]]
+                 ) -> torch.Tensor:
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
@@ -411,6 +421,8 @@ class UNet(nn.Module):
         if self.mid_attn is not None:
             x = self.mid_attn(x, context, rows[-1], ctx_true)
         x = self.mid_res_1(x, temb)
+        if control_residuals is not None:
+            x, skips = control_residuals_added(x, skips, control_residuals)
 
         for level in reversed(range(n_levels)):
             for i in range(c.layers_per_block + 1):
@@ -424,6 +436,18 @@ class UNet(nn.Module):
 
         x = F.silu(self.norm_out(x))
         return self.conv_out(x).float().permute(0, 2, 3, 1)
+
+
+def control_residuals_added(x: torch.Tensor, skips: list,
+                            residuals: Sequence[torch.Tensor]):
+    """The mid output and the skips with ControlNet's residuals added: the
+    last residual to ``x``, residual ``i`` to skip ``i``, each cast to the
+    activation's dtype first."""
+    if len(residuals) != len(skips) + 1:
+        raise ValueError(f"expected {len(skips) + 1} control residuals, got "
+                         f"{len(residuals)}")
+    x = x + residuals[-1].to(x.dtype)
+    return x, [s + r.to(s.dtype) for s, r in zip(skips, residuals[:-1])]
 
 
 def make_added_cond(pooled_text: torch.Tensor, time_ids: torch.Tensor,

@@ -1,7 +1,7 @@
-"""The generation engine: the txt2img slice in PyTorch.
+"""The generation engine: txt2img, img2img and inpainting in PyTorch.
 
-Port of the JAX package's ``pipeline/engine.py`` for the single-prompt
-txt2img path: encode the prompts (CLIP, clip skip, emphasis with the chunk
+Port of the JAX package's ``pipeline/engine.py`` for single-prompt
+requests: encode the prompts (CLIP, clip skip, emphasis with the chunk
 mean restored, 77-token chunks joined; SDXL's two encoders joined on the
 channel axis, the pooled output from the second), draw each image's init
 noise from its seed, denoise with classifier-free guidance over two rows in
@@ -17,6 +17,25 @@ hands its latents, at the switch step, to the engine that
 with its own conditioning; an unknown name runs the base model alone, as in
 the JAX package.
 
+img2img (``init_images``): the init image is VAE-encoded once and noised to
+the sigma of step ``steps - int(min(strength, 0.999) * steps)``, where the
+ladder is entered. With a ``mask`` (white = repaint), blurred by
+``mask_blur`` and taken down to latent size, the region outside it is
+pinned after every step to the init latent noised to the next sigma;
+``inpainting_fill`` chooses what the masked region starts from. An
+inpainting family (9 UNet input channels) gets the mask and the encoded
+masked image as extra channels, a blank conditioning when there is no
+mask. A masked request runs the base model alone.
+
+ControlNet (``alwayson_scripts["controlnet"]``): each enabled unit's image
+goes through its preprocessor on the host; its ControlNet, loaded once per
+name from ``controlnet_provider``, sees the bare 4-channel latent and the
+hint at every step whose ``(step + 0.5) / steps`` lies in the unit's
+guidance window; the residuals, scaled by the unit's weight and summed over
+units in f32, are added to the UNet's skips. A step outside every window
+runs no ControlNet. A unit whose model the provider lacks is skipped with a
+warning, as in the JAX package.
+
 Seed-exact sub-ranges carry over: ``generate_range(payload, start, count)``
 produces images ``[start, start+count)`` of the request, equal to the same
 rows of the whole-batch run, because every draw is keyed by
@@ -30,12 +49,12 @@ attention past each row's valid prefix (kernel K2), and the rows past it
 are re-zeroed after every sampler step. The serving dispatcher builds such
 batches from several requests and hands them to :meth:`Engine._denoise`
 with per-row contexts and lengths. Lengths stay device tensors, never read
-back to the host.
+back to the host. ControlNet, inpainting families and refiner handoffs
+never run ragged.
 
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): img2img, inpainting checkpoints, hires fix, ControlNet, LoRA tags,
-per-image prompts and scripts, the step cache, other serving precisions,
-and SDXL under ragged dispatch.
+422): hires fix, LoRA tags, per-image prompts and scripts, the step cache,
+other serving precisions, and SDXL under ragged dispatch.
 """
 
 from __future__ import annotations
@@ -45,7 +64,7 @@ import logging
 import re
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +80,10 @@ from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     ModelFamily,
 )
+from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
+    ControlNet,
+    run_preprocessor,
+)
 from stable_diffusion_webui_distributed_tpu_torch.models.prompt import (
     pad_chunks,
     tokenize_weighted,
@@ -72,12 +95,19 @@ from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
     make_added_cond,
     norms_to_f32,
 )
+from stable_diffusion_webui_distributed_tpu_torch.models.vae import encode
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.image import (
+    box_blur,
+    resize_bilinear,
+    resize_image,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
     Unsupported,
     apply_scripts,
     array_to_b64png,
+    b64png_to_array,
     build_infotext,
     fix_seed,
 )
@@ -96,6 +126,10 @@ log = logging.getLogger(__name__)
 
 _LORA_TAG = re.compile(r"<lora:([^:>]+)(?::([0-9.+-]+))?(?::([0-9.+-]+))?>")
 
+#: one ControlNet unit as the denoiser takes it: (module, hint (1,H,W,3) f32
+#: on the device, weight, guidance start, guidance end)
+Control = Tuple[torch.nn.Module, torch.Tensor, float, float, float]
+
 
 def _load(module: torch.nn.Module, state_dict, device) -> torch.nn.Module:
     module = module.to_empty(device=device)
@@ -110,7 +144,9 @@ class Engine:
     ``bridge.init_seeded``). ``device`` is ``cuda`` unless named; with none
     named and no GPU present the constructor raises. ``engine_provider``
     maps a refiner name to the engine that finishes a request's sigma
-    ladder (None: no refiner)."""
+    ladder (None: no refiner); ``controlnet_provider`` maps a unit's model
+    name to a ControlNet state dict (``bridge.controlnet_flax_to_torch`` or
+    ``bridge.init_seeded_controlnet``; None: unknown)."""
 
     def __init__(
         self,
@@ -124,10 +160,9 @@ class Engine:
         schedule: Optional[sched.NoiseSchedule] = None,
         device=None,
         engine_provider: Optional[Callable[[str], Optional["Engine"]]] = None,
+        controlnet_provider: Optional[
+            Callable[[str], Optional[Dict[str, torch.Tensor]]]] = None,
     ):
-        if family.inpaint:
-            raise Unsupported(f"{family.name}: inpainting checkpoints are "
-                              f"not ported to the PyTorch engine yet")
         self.device = dtypes.resolve_device(device)
         self.family = family
         self.policy = policy
@@ -146,7 +181,7 @@ class Engine:
         pd, cd = policy.param_dtype, policy.compute_dtype
         # weights are stored in param_dtype and computed in compute_dtype;
         # the norms, the UNet's conv_out and the whole VAE decoder compute
-        # in f32
+        # in f32; the VAE encoder computes in compute_dtype
         self.text_encoder = norms_to_f32(loaded["text_encoder"].to(pd).to(cd))
         # SDXL's second (OpenCLIP bigG) encoder
         self.text_encoder_2 = (
@@ -155,7 +190,13 @@ class Engine:
         self.unet = norms_to_f32(loaded["unet"].to(pd).to(cd))
         self.unet.conv_out.float()
         self.vae = loaded["vae"].to(pd).float()
+        self.vae_encoder = norms_to_f32(loaded["vae_encoder"].to(pd).to(cd))
         self.engine_provider = engine_provider
+        self.controlnet_provider = controlnet_provider
+        # ControlNets by unit model name, each loaded to the device once
+        self._controlnets: Dict[str, torch.nn.Module] = {}
+        # an inpainting family's blank conditioning per (batch, w, h)
+        self._blank_cond_cache: Dict[Tuple[int, int, int], torch.Tensor] = {}
         #: UNet-call attempts of the last DPM adaptive run (3 evaluations
         #: each), and whether that run stopped at its attempt backstop
         self.last_adaptive_attempts = 0
@@ -301,7 +342,9 @@ class Engine:
         return added(pooled_u, ids_u), added(pooled_c, ids_c)
 
     def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int,
-                         ragged=None, added=None):
+                         ragged=None, added=None,
+                         controls: Sequence[Control] = (), gates=None,
+                         inpaint_cond: Optional[torch.Tensor] = None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
         ``(1, L, D)`` context or one per row; so is ``added``'s second
@@ -309,7 +352,16 @@ class Engine:
 
         ``ragged``: ``(true_rows, ctx_true_u, ctx_true_c)``, ``(batch,)``
         int device tensors. The CFG doubling repeats ``true_rows`` and puts
-        the two context lengths in the order of the rows."""
+        the two context lengths in the order of the rows.
+
+        ``controls``: ControlNet units; each runs on the bare latent rows
+        with its hint over both CFG halves, and its residuals, cast to f32
+        and multiplied by its gate, are summed over units. A unit's gate
+        is ``gates(step)[k]`` (:func:`window_gates` on the fixed grid,
+        :func:`adaptive_gates` under DPM adaptive); a unit gated to 0 is
+        not run. ``inpaint_cond``:
+        an inpainting family's ``(batch, h, w, 1 + C)`` extra UNet input
+        channels, the same for both CFG halves."""
         ctx = torch.cat([ctx_u.expand(batch, -1, -1),
                          ctx_c.expand(batch, -1, -1)])
         kw = {}
@@ -320,6 +372,10 @@ class Engine:
             true_rows, ctx_true_u, ctx_true_c = ragged
             kw["true_rows"] = torch.cat([true_rows, true_rows])
             kw["ctx_true"] = torch.cat([ctx_true_u, ctx_true_c])
+        hints = [torch.cat([hint.expand(batch, -1, -1, -1)] * 2)
+                 for _, hint, *_ in controls]
+        inp2 = (None if inpaint_cond is None
+                else torch.cat([inpaint_cond, inpaint_cond]))
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
 
@@ -329,7 +385,20 @@ class Engine:
             xin = x * c_in
             tb = torch.full((2 * batch,), float(t), dtype=torch.float32,
                             device=x.device)
-            out = self.unet(torch.cat([xin, xin]), tb, ctx, **kw)
+            both = torch.cat([xin, xin])
+            residuals = None
+            for (module, *_), hint2, gate in zip(
+                    controls, hints, gates(step) if controls else ()):
+                if gate == 0.0:
+                    continue
+                rs = module(both, tb, ctx, hint2, kw.get("added_cond"))
+                rs = [r.float() * gate for r in rs]
+                residuals = rs if residuals is None else [
+                    a + b for a, b in zip(residuals, rs)]
+            unet_in = both if inp2 is None else torch.cat(
+                [both, inp2.to(both.dtype)], dim=-1)
+            out = self.unet(unet_in, tb, ctx, control_residuals=residuals,
+                            **kw)
             out_u, out_c = out.float().chunk(2)
             guided = out_u + cfg * (out_c - out_u)
             if v_pred:
@@ -343,27 +412,38 @@ class Engine:
     def _denoise(self, payload: GenerationPayload, x: torch.Tensor,
                  image_keys: torch.Tensor, conds, pooleds, job: str,
                  ragged=None, start_step: int = 0,
-                 end_step: Optional[int] = None) -> torch.Tensor:
+                 end_step: Optional[int] = None,
+                 controls: Sequence[Control] = (), mask=None,
+                 inpaint_cond: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
         """Chunked sampler loop over steps ``[start_step, end_step or
         steps)`` of the request's sigma ladder: ``chunk_size`` steps at a
         time, the interrupt flag and progress checked between chunks.
         ``conds`` is ``(ctx_u, ctx_c)``, ``pooleds`` ``(pooled_u,
         pooled_c)`` (SDXL's added conditioning is made from them at the
-        payload's size); ``ragged`` as for :meth:`_make_denoise_fn`. DPM
-        adaptive runs :meth:`_denoise_adaptive` instead."""
+        payload's size); ``ragged``, ``controls`` and ``inpaint_cond`` as
+        for :meth:`_make_denoise_fn`, the ControlNet windows over the
+        request's ``steps``. ``mask``: ``(mask_lat (1,h,w,1), init_lat)``,
+        whose unmasked region is pinned after every step to ``init_lat``
+        noised to the next sigma. DPM adaptive runs
+        :meth:`_denoise_adaptive` instead."""
         spec = kd.resolve_sampler(payload.sampler_name)
         added = self._added_cond(pooleds, payload.width, payload.height)
         if spec.adaptive:
-            return self._denoise_adaptive(payload, x, conds, added, job,
-                                          start_step, end_step)
+            return self._denoise_adaptive(payload, x, image_keys, conds,
+                                          added, job, start_step, end_step,
+                                          controls, mask, inpaint_cond)
         steps = payload.steps
         end = steps if end_step is None else min(end_step, steps)
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
-        denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
-                                        x.shape[0], ragged, added)
+        denoise = self._make_denoise_fn(
+            *conds, payload.cfg_scale, x.shape[0], ragged, added, controls,
+            lambda i: window_gates(controls, i, steps), inpaint_cond)
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
         if ragged is not None:
             step = _zero_tail_rows(step, ragged[0], x.shape[1])
+        if mask is not None:
+            step = _pin_unmasked(step, sigmas, image_keys, *mask)
         carry = kd.init_carry(x)
         self.state.begin(job, end - start_step)
         pos = start_step
@@ -377,13 +457,22 @@ class Engine:
         return carry.x
 
     def _denoise_adaptive(self, payload: GenerationPayload, x: torch.Tensor,
-                          conds, added, job: str, start_step: int,
-                          end_step: Optional[int]) -> torch.Tensor:
+                          image_keys: torch.Tensor, conds, added, job: str,
+                          start_step: int, end_step: Optional[int],
+                          controls: Sequence[Control] = (), mask=None,
+                          inpaint_cond: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
         """DPM adaptive: the host PID loop over one attempt of 3 UNet
         evaluations (k-diffusion ``sample_dpm_adaptive``): the step count
         only sizes the sigma ladder's ends, the controller picks the
         steps. The interrupt is polled between attempts; progress counts
-        accepted steps against the step count, as webui's bar does."""
+        accepted steps against the step count, as webui's bar does.
+
+        ControlNet units are gated per attempt on the host, as the JAX
+        package gates them (:func:`adaptive_gates`). With a ``mask`` the
+        unmasked region is pinned after each accepted step, its noise
+        keyed ``fold_in(fold_in(k, 2_000_000), n)``, and once more at
+        sigma 0 when the run completes the ladder."""
         spec = kd.resolve_sampler(payload.sampler_name)
         steps = payload.steps
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
@@ -399,19 +488,34 @@ class Engine:
             float(sigmas[end - 1]) if end - 1 > start_step else 0.0)
         if sigma_max <= sigma_min:
             return x
-        denoise = self._make_denoise_fn(*conds, payload.cfg_scale,
-                                        x.shape[0], added=added)
+        gates_now: List[float] = []
+        denoise = self._make_denoise_fn(
+            *conds, payload.cfg_scale, x.shape[0], added=added,
+            controls=controls, gates=lambda step: gates_now,
+            inpaint_cond=inpaint_cond)
+        attempt = kd.make_adaptive_attempt(denoise)
+
+        def attempt_fn(xx, x_prev, s, h, rtol, atol):
+            gates_now[:] = adaptive_gates(controls, sigmas, float(s))
+            return attempt(xx, x_prev, s, h, rtol, atol)
+
         total = end - start_step
         self.state.begin(job, total)
 
         def on_accept(xx, sigma, n):
             self.state.step(min(n, total))
+            if mask is not None:
+                xx = _adaptive_pin(xx, image_keys, *mask, sigma, n)
             return xx
 
         x_out, info = kd.sample_dpm_adaptive(
-            kd.make_adaptive_attempt(denoise), x, sigma_max, sigma_min,
+            attempt_fn, x, sigma_max, sigma_min,
             should_stop=lambda: self.state.flag.interrupted,
             on_accept=on_accept)
+        if mask is not None and info["completed"] and end == steps:
+            # the last pin at sigma 0: the protected region comes back as
+            # the clean init latent, as the fixed-grid loop's last step
+            x_out = _adaptive_pin(x_out, image_keys, *mask, 0.0, 0)
         self.last_adaptive_attempts = info["steps"]
         log.debug("dpm adaptive: %d accepted / %d rejected steps, %d UNet "
                   "evaluations", info["n_accept"], info["n_reject"],
@@ -436,21 +540,28 @@ class Engine:
     def _split_denoise(self, payload: GenerationPayload, x: torch.Tensor,
                        keys: torch.Tensor, conds, pooleds, job: str,
                        refiner: Optional["Engine"], ref_cond,
-                       ragged=None) -> torch.Tensor:
-        """Denoise the whole ladder, handing over to ``refiner`` (with its
-        own conditioning ``ref_cond``) at step ``int(steps *
-        refiner_switch_at)``, clamped to ``[0, steps - 1]``. The sampler's
-        history starts afresh at the switch; an interrupt during the base
-        phase skips the refiner."""
+                       ragged=None, start_step: int = 0,
+                       controls: Sequence[Control] = (),
+                       inpaint_cond: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """Denoise steps ``[start_step, steps)``, handing over to
+        ``refiner`` (with its own conditioning ``ref_cond``, and no
+        ControlNet or inpainting channels) at step ``int(steps *
+        refiner_switch_at)``, clamped to ``[start_step, steps - 1]``. The
+        sampler's history starts afresh at the switch; an interrupt during
+        the base phase skips the refiner."""
         if refiner is None:
             return self._denoise(payload, x, keys, conds, pooleds, job,
-                                 ragged)
+                                 ragged, start_step=start_step,
+                                 controls=controls,
+                                 inpaint_cond=inpaint_cond)
         steps = payload.steps
-        switch = max(0, min(steps - 1,
-                            int(steps * payload.refiner_switch_at)))
-        if switch > 0:
+        switch = max(start_step, min(steps - 1,
+                                     int(steps * payload.refiner_switch_at)))
+        if switch > start_step:
             x = self._denoise(payload, x, keys, conds, pooleds, job,
-                              end_step=switch)
+                              start_step=start_step, end_step=switch,
+                              controls=controls, inpaint_cond=inpaint_cond)
         if self.state.flag.interrupted:
             return x
         ref_conds, ref_pooleds = ref_cond
@@ -474,6 +585,140 @@ class Engine:
             px = torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0) * 255.0 + 0.5
             out.append(px.to(torch.uint8).cpu().numpy())
         return np.concatenate(out)
+
+    # -- ControlNet ----------------------------------------------------------
+
+    def _controlnet(self, name: str) -> Optional[torch.nn.Module]:
+        """The ControlNet named ``name``, loaded to the device on first use
+        from ``controlnet_provider`` (stored in the policy's param dtype,
+        computing in its compute dtype with f32 norms); None when the
+        provider has no such model."""
+        module = self._controlnets.get(name)
+        if module is not None:
+            return module
+        sd = (self.controlnet_provider(name) if self.controlnet_provider
+              else None)
+        if sd is None:
+            return None
+        with torch.device("meta"):
+            module = ControlNet(self.family.unet)
+        module = _load(module, sd, self.device)
+        module = norms_to_f32(module.to(self.policy.param_dtype)
+                              .to(self.policy.compute_dtype))
+        self._controlnets[name] = module
+        return module
+
+    def _prepare_controls(self, payload: GenerationPayload, width: int,
+                          height: int) -> Tuple[Control, ...]:
+        """The request's units for the denoiser: each unit's image through
+        its preprocessor and resized to 8x the latent size, on the device.
+        A unit whose model the provider lacks is skipped with a
+        warning."""
+        controls = []
+        lat_h, lat_w = self._latent_hw(width, height)
+        for u in parse_controlnet_units(payload):
+            name = u.get("model", "")
+            module = self._controlnet(name)
+            if module is None:
+                log.warning("controlnet model '%s' not found; unit skipped",
+                            name)
+                continue
+            mask = b64png_to_array(u["mask"]) if u.get("mask") else None
+            processed = run_preprocessor(u.get("module", "none"),
+                                         b64png_to_array(u["image"]),
+                                         mask=mask)
+            processed = resize_image(np.asarray(processed, np.float32),
+                                     lat_w * 8, lat_h * 8)
+            hint = torch.from_numpy(np.ascontiguousarray(processed))
+            controls.append((module, hint[None].to(self.device),
+                             float(u.get("weight", 1.0)),
+                             float(u.get("guidance_start", 0.0)),
+                             float(u.get("guidance_end", 1.0))))
+        return tuple(controls)
+
+    # -- image conditioning --------------------------------------------------
+
+    def _encode_images(self, images: torch.Tensor) -> torch.Tensor:
+        """Images (B,H,W,3) f32 in [0, 1] -> the latent mean (B,h,w,C) f32,
+        scaled by the VAE's scaling factor."""
+        mean, _ = encode(self.vae_encoder, images * 2.0 - 1.0)
+        return mean.float() * self.family.vae.scaling_factor
+
+    def _blank_inpaint_cond(self, batch: int, width: int,
+                            height: int) -> torch.Tensor:
+        """An inpainting family's conditioning without a mask: a
+        repaint-everything mask and the encoded mid-gray image, (batch, h,
+        w, 1 + C), cached per ``(batch, width, height)``."""
+        key = (batch, width, height)
+        cached = self._blank_cond_cache.get(key)
+        if cached is not None:
+            return cached
+        h, w = self._latent_hw(width, height)
+        gray = torch.full((1, height, width, 3), 0.5, device=self.device)
+        lat = self._encode_images(gray)
+        mask = torch.ones((1, h, w, 1), device=self.device)
+        cond = torch.cat([mask, lat], dim=-1).repeat(batch, 1, 1, 1)
+        self._blank_cond_cache[key] = cond
+        return cond
+
+    def _masked_inpaint_cond(self, batch: int, width: int, height: int,
+                             init: np.ndarray, mask_pixels: np.ndarray
+                             ) -> torch.Tensor:
+        """An inpainting family's conditioning for a mask: the rounded
+        mask at latent size and the encoded init image with the masked
+        region mid-gray."""
+        h, w = self._latent_hw(width, height)
+        m = np.round(np.clip(mask_pixels, 0.0, 1.0))
+        masked = init * (1.0 - m) + 0.5 * m
+        lat = self._encode_images(
+            torch.from_numpy(np.ascontiguousarray(masked))[None]
+            .to(self.device)).repeat(batch, 1, 1, 1)
+        mask_lat = np.round(resize_bilinear(m, (h, w, 1)))
+        mask_lat = torch.from_numpy(mask_lat)[None].to(self.device)
+        return torch.cat([mask_lat.repeat(batch, 1, 1, 1), lat], dim=-1)
+
+    def _inpaint_mask(self, payload: GenerationPayload, width: int,
+                      height: int) -> Tuple[torch.Tensor, np.ndarray]:
+        """``(mask_lat (1,h,w,1) on the device, mask_pixels (H,W,1))``:
+        the payload's mask at the request's size, blurred by ``mask_blur``
+        for the latent mask (``clip(m * 1.02, 0, 1)`` keeps its core at 1)
+        and kept sharp for an inpainting family's conditioning."""
+        h, w = self._latent_hw(width, height)
+        m = b64png_to_array(payload.mask).astype(np.float32) / 255.0
+        m = resize_image(m, width, height)[..., :1]
+        mask_pixels = m
+        if payload.mask_blur > 0:
+            m = box_blur(m, payload.mask_blur)
+        mask_lat = torch.from_numpy(resize_bilinear(m, (h, w, 1)))
+        mask_lat = torch.clamp(mask_lat[None].to(self.device) * 1.02,
+                               0.0, 1.0)
+        return mask_lat, mask_pixels
+
+    def _apply_inpaint_fill(self, payload: GenerationPayload,
+                            init_lat: torch.Tensor,
+                            mask_lat: Optional[torch.Tensor],
+                            keys: torch.Tensor) -> torch.Tensor:
+        """webui's ``inpainting_fill`` for the masked region: 1 keeps the
+        original (the default), 0 fills it with the unmasked region's mean,
+        2 with unit-variance latent noise keyed ``fold_in(k, 3_000_000)``,
+        3 with zeros."""
+        fill = payload.inpainting_fill
+        if mask_lat is None or fill == 1:
+            return init_lat
+        m = mask_lat
+        if fill == 3:
+            return init_lat * (1.0 - m)
+        if fill == 2:
+            extra = rng.normal(rng.fold_in(keys, 3_000_000),
+                               init_lat.shape[1:])
+            return init_lat * (1.0 - m) + m * extra
+        if fill == 0:
+            keep = torch.clamp((1.0 - m).sum(dim=(1, 2), keepdim=True),
+                               min=1e-6)
+            mean = (init_lat * (1.0 - m)).sum(dim=(1, 2),
+                                              keepdim=True) / keep
+            return init_lat * (1.0 - m) + m * mean
+        return init_lat
 
     # -- requests ------------------------------------------------------------
 
@@ -518,10 +763,13 @@ class Engine:
         sigma0 = kd.build_sigmas(spec, self.schedule, payload.steps)[0]
         # groups of batch_size keep the batch dim stable across n_iter
         group = max(1, payload.group_size or payload.batch_size)
+        controls = self._prepare_controls(payload, width, height)
         refiner = self._refiner_engine(payload)
         # ragged solo run: the bucket's shape, the true rows as data (the
-        # dispatcher never marks a refiner handoff ragged)
-        ragged_wh = None if refiner is not None else \
+        # dispatcher never marks a refiner handoff, ControlNet or an
+        # inpainting family ragged)
+        ragged_wh = None if (refiner is not None or controls
+                             or self.family.inpaint) else \
             self._ragged_plan(payload)
         ragged = None
         if ragged_wh is None:
@@ -536,6 +784,8 @@ class Engine:
                            for length in (rows, *ctx_true))
         ref_cond = (refiner.encode_prompts(payload) if refiner is not None
                     else None)
+        inp = (self._blank_inpaint_cond(group, width, height)
+               if self.family.inpaint else None)
         out = GenerationResult(parameters=payload.model_dump())
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
@@ -550,16 +800,85 @@ class Engine:
             latents = self._split_denoise(
                 payload, noise * sigma0,
                 self._image_keys(payload, pos, group), conds, pooleds, job,
-                refiner, ref_cond, ragged)
-            # the adaptive backstop's mark belongs to this group's images
-            incomplete, self._adaptive_incomplete = \
-                self._adaptive_incomplete, False
-            imgs = self._decode_u8(latents, width, height)[:n]
-            self._append_images(out, payload, imgs, pos, width, height,
-                                incomplete)
+                refiner, ref_cond, ragged, controls=controls,
+                inpaint_cond=inp)
+            self._finish_group(out, payload, latents, pos, n)
             pos += n
             remaining -= n
         return out
+
+    def _run_img2img(self, payload: GenerationPayload, start: int,
+                     count: int, job: str) -> GenerationResult:
+        """img2img and inpainting (the JAX package's ``_run_img2img``):
+        the init image encoded once at batch 1, each group's rows entering
+        the sigma ladder at step ``steps - t_enc`` from it; a masked
+        request runs the base model alone, pinned outside its mask."""
+        width, height = payload.width, payload.height
+        h, w = self._latent_hw(width, height)
+        C = self.family.vae.latent_channels
+        spec = kd.resolve_sampler(payload.sampler_name)
+        sigmas = kd.build_sigmas(spec, self.schedule, payload.steps)
+        # webui: t_enc = int(min(strength, 0.999) * steps)
+        t_enc = int(min(payload.denoising_strength, 0.999) * payload.steps)
+        start_step = payload.steps - t_enc
+        init = b64png_to_array(payload.init_images[0]).astype(
+            np.float32) / 255.0
+        init = resize_image(init, width, height)
+        controls = self._prepare_controls(payload, width, height)
+        masked = payload.mask is not None
+        refiner = None if masked else self._refiner_engine(payload)
+        conds, pooleds = self.encode_prompts(payload)
+        ref_cond = (refiner.encode_prompts(payload) if refiner is not None
+                    else None)
+        mask_lat = mask_pixels = None
+        if masked:
+            mask_lat, mask_pixels = self._inpaint_mask(payload, width,
+                                                       height)
+        group = max(1, payload.group_size or payload.batch_size)
+        inp = None
+        if self.family.inpaint:
+            inp = (self._masked_inpaint_cond(group, width, height, init,
+                                             mask_pixels) if masked
+                   else self._blank_inpaint_cond(group, width, height))
+        # one frame for every row: encoded once, at batch 1
+        init_lat1 = self._encode_images(
+            torch.from_numpy(np.ascontiguousarray(init))[None]
+            .to(self.device))
+        out = GenerationResult(parameters=payload.model_dump())
+        pos, remaining = start, count
+        while remaining > 0 and not self.state.flag.interrupted:
+            n = min(group, remaining)
+            # pad-and-drop, as in txt2img
+            keys = self._image_keys(payload, pos, group)
+            init_lat = self._apply_inpaint_fill(
+                payload, init_lat1.repeat(group, 1, 1, 1), mask_lat, keys)
+            noise = self._init_noise(payload, pos, group, (h, w, C), h)
+            x = init_lat + noise * sigmas[start_step]
+            if masked:
+                latents = self._denoise(
+                    payload, x, keys, conds, pooleds, job,
+                    start_step=start_step, controls=controls,
+                    mask=(mask_lat, init_lat), inpaint_cond=inp)
+            else:
+                latents = self._split_denoise(
+                    payload, x, keys, conds, pooleds, job, refiner,
+                    ref_cond, start_step=start_step, controls=controls,
+                    inpaint_cond=inp)
+            self._finish_group(out, payload, latents, pos, n)
+            pos += n
+            remaining -= n
+        return out
+
+    def _finish_group(self, out: GenerationResult,
+                      payload: GenerationPayload, latents: torch.Tensor,
+                      pos: int, n: int) -> None:
+        """Decode a group's latents and append its first ``n`` images."""
+        # the adaptive backstop's mark belongs to this group's images
+        incomplete, self._adaptive_incomplete = \
+            self._adaptive_incomplete, False
+        imgs = self._decode_u8(latents, payload.width, payload.height)[:n]
+        self._append_images(out, payload, imgs, pos, payload.width,
+                            payload.height, incomplete)
 
     def _append_images(self, out: GenerationResult,
                        payload: GenerationPayload, imgs: np.ndarray,
@@ -587,15 +906,16 @@ class Engine:
                        start_index: int = 0, count: Optional[int] = None,
                        job: str = "txt2img") -> GenerationResult:
         """Produce images ``[start_index, start_index+count)`` of the
-        request (the unit of a seed-exact batch split)."""
+        request (the unit of a seed-exact batch split): img2img when it
+        carries ``init_images``, else txt2img."""
         payload = payload.model_copy()
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
         self.check_supported(payload)
         self._adaptive_incomplete = False
         count = payload.total_images if count is None else count
-        return self.run_on_device(self._run_txt2img, payload, start_index,
-                                  count, job)
+        run = self._run_img2img if payload.init_images else self._run_txt2img
+        return self.run_on_device(run, payload, start_index, count, job)
 
     def check_supported(self, payload: GenerationPayload) -> None:
         """:func:`check_supported`, and what this engine's family does not
@@ -625,6 +945,11 @@ class Engine:
         self.state.begin_request()
         return self.generate_range(apply_scripts(payload), 0, None,
                                    "txt2img")
+
+    def img2img(self, payload: GenerationPayload) -> GenerationResult:
+        self.state.begin_request()
+        return self.generate_range(apply_scripts(payload), 0, None,
+                                   "img2img")
 
 
 @contextlib.contextmanager
@@ -666,6 +991,92 @@ def _zero_tail_rows(step, true_rows: torch.Tensor, lat_h: int):
     return masked_step
 
 
+def parse_controlnet_units(payload: GenerationPayload) -> List[Dict]:
+    """The enabled units of ``alwayson_scripts`` (key ``controlnet`` or
+    ``ControlNet``), each with its ``image`` and ``mask`` resolved: the
+    flat ``image`` / ``input_image`` fields, or the Mikubill dict form
+    ``{"image": ..., "mask": ...}``, whose mask feeds the inpaint
+    preprocessor. A unit without an image is left out."""
+    scripts = payload.alwayson_scripts or {}
+    for key in ("controlnet", "ControlNet"):
+        if key not in scripts:
+            continue
+        units = []
+        for u in scripts[key].get("args", []):
+            if not isinstance(u, dict) or not u.get("enabled", True):
+                continue
+            image = u.get("image") or u.get("input_image")
+            mask = u.get("mask")
+            if isinstance(image, dict):
+                mask = image.get("mask") or mask
+                image = image.get("image")
+            if not image:
+                continue
+            units.append({**u, "image": image, "mask": mask})
+        return units
+    return []
+
+
+def _pin_unmasked(step, sigmas: torch.Tensor, keys: torch.Tensor,
+                  mask_lat: torch.Tensor, init_lat: torch.Tensor):
+    """``step`` followed by pinning the region outside the mask to the init
+    latent noised to the next sigma: ``mask * x + (1 - mask) * (init +
+    n * sigmas[i + 1])``, ``n`` keyed ``fold_in(k, 1_000_000 + i)`` per
+    image."""
+    def masked_step(carry, i):
+        carry = step(carry, i)
+        noise = rng.normal(rng.fold_in(keys, 1_000_000 + i),
+                           init_lat.shape[1:])
+        return carry._replace(
+            x=_pin(carry.x, mask_lat, init_lat, noise, sigmas[i + 1]))
+
+    return masked_step
+
+
+def _adaptive_pin(x: torch.Tensor, keys: torch.Tensor,
+                  mask_lat: torch.Tensor, init_lat: torch.Tensor,
+                  sigma: float, n: int) -> torch.Tensor:
+    """DPM adaptive's pin after accepted step ``n`` at ``sigma``: as
+    :func:`_pin_unmasked`, the noise keyed ``fold_in(fold_in(k,
+    2_000_000), n)``, apart from the fixed-grid loop's keys."""
+    noise = rng.normal(rng.fold_in(rng.fold_in(keys, 2_000_000), n),
+                       init_lat.shape[1:])
+    return _pin(x, mask_lat, init_lat, noise,
+                torch.tensor(sigma, dtype=torch.float32))
+
+
+def _pin(x: torch.Tensor, mask_lat: torch.Tensor, init_lat: torch.Tensor,
+         noise: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """``x`` inside the mask, ``init_lat`` noised to ``sigma`` outside."""
+    return mask_lat * x + (1 - mask_lat) * (init_lat + noise * sigma)
+
+
+def window_gates(controls: Sequence[Control], step: int,
+                 total_steps: int) -> List[float]:
+    """Each unit's gate at sampler step ``step``: its weight where ``(step
+    + 0.5) / total_steps`` lies in its guidance window, else 0, in f32 as
+    the JAX package computes it in the graph."""
+    frac = (np.float32(step) + np.float32(0.5)) / np.float32(total_steps)
+    return [float(np.float32(w)) if np.float32(lo) <= frac <= np.float32(hi)
+            else 0.0 for _, _, w, lo, hi in controls]
+
+
+def adaptive_gates(controls: Sequence[Control], sigmas: torch.Tensor,
+                   s: float) -> List[float]:
+    """Each unit's gate for a DPM adaptive attempt from position ``s``,
+    as the JAX package gates them on the host: ``s`` (the attempt's
+    ``-log(sigma)``) is located on the ascending sigma ladder
+    (``searchsorted``), the index turned into ``(i + 0.5) / steps`` and
+    the unit's weight kept where that lies in its window."""
+    ladder = sigmas.numpy().astype(np.float64)[::-1].copy()
+    n = len(sigmas) - 1
+    j = int(np.searchsorted(ladder, s, side="left"))
+    idx = min(max(n - j, 0), max(n - 1, 0))
+    frac = (idx + 0.5) / max(n, 1)
+    return [float(np.float32(w)) if lo <= frac <= hi else 0.0
+            for _, _, w, lo, hi in controls]
+
+
 def _strip_prompt(prompt: str) -> str:
     """The JAX package strips ``<lora:...>`` tags before tokenizing and
     collapses the whitespace they leave; the port has no LoRA, so a tag
@@ -680,12 +1091,9 @@ def check_supported(payload: GenerationPayload) -> None:
     """Raise :class:`Unsupported` for what this slice does not run, rather
     than answer with an image the JAX package would not make."""
     ov: Dict = payload.override_settings or {}
-    scripts = payload.alwayson_scripts or {}
     unsupported = {
-        "img2img (init_images)": bool(payload.init_images),
         "hires fix (enable_hr)": payload.enable_hr,
         "per-image prompts (all_prompts)": bool(payload.all_prompts),
-        "ControlNet": "controlnet" in scripts or "ControlNet" in scripts,
         "serving precisions other than bf16": str(
             payload.precision or ov.get("precision") or "bf16") != "bf16",
         "the step cache (deepcache)": int(ov.get("deepcache", 1) or 1) > 1,

@@ -45,6 +45,7 @@ import torch
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
+    Unsupported,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
@@ -546,11 +547,15 @@ class LocalBackend:
         raise RuntimeError("local master cannot restart itself")
 
     def load_options(self, model: str, vae: str = "") -> None:
-        # no checkpoint registry yet: a model sync records the name only
-        self.engine.model_name = model or self.engine.model_name
+        # no checkpoint registry yet: the engine serves its own model and
+        # its checkpoint's VAE, and a sync to anything else fails
+        if (model and model != self.engine.model_name) or vae:
+            raise Unsupported(f"cannot switch to model {model!r}, VAE "
+                              f"{vae!r}: the PyTorch engine serves "
+                              f"{self.engine.model_name!r} only")
 
     def script_info(self) -> List[str]:
-        return []  # the port runs no webui script yet
+        return ["controlnet"]  # ControlNet units run in the engine
 
     def available_models(self) -> List[str]:
         return [self.engine.model_name]

@@ -6,15 +6,18 @@ there, a bare engine gets a serving dispatcher in front of it
 (``serving/dispatcher.py``: shape bucketing, request coalescing, ragged
 dispatch) unless ``SDTPU_SERVING=0``; a World keeps its own scheduler.
 
-Routes, in webui's shapes: ``POST /sdapi/v1/txt2img``; ``GET
+Routes, in webui's shapes: ``POST /sdapi/v1/txt2img`` and ``POST
+/sdapi/v1/img2img`` (which needs ``init_images``); ``GET
 /sdapi/v1/samplers`` (the whole sampler table); ``GET /sdapi/v1/progress``
 and ``POST /sdapi/v1/interrupt``; ``GET /sdapi/v1/memory`` (``ram`` and the
-card's ``cuda`` section); ``GET``/``POST /sdapi/v1/options`` (a POST records
-the model name, and a World fans it out to its remotes: without a
-checkpoint registry, a model sync is by name only); ``GET
-/sdapi/v1/sd-models``; ``GET /sdapi/v1/script-info`` (what the port runs:
-no script yet); ``POST /sdapi/v1/server-restart``; ``GET /internal/workers``
-and ``POST /internal/benchmark`` for a World. A request for something the
+card's ``cuda`` section); ``GET``/``POST /sdapi/v1/options`` (a POST
+records the options, and a World fans a model or VAE change out to its
+remotes; without a checkpoint registry a node switches to no other model,
+so a model name other than the one it serves, or a VAE of its own, answers
+422 and changes nothing); ``GET /sdapi/v1/sd-models``; ``GET
+/sdapi/v1/script-info`` (the scripts the port runs: ControlNet); ``POST
+/sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
+/internal/benchmark`` for a World. A request for something the
 port does not run answers 422. Optional Basic auth. Served by the standard
 library's ``ThreadingHTTPServer``; ``port=0`` binds a free port.
 """
@@ -48,6 +51,7 @@ from stable_diffusion_webui_distributed_tpu_torch.samplers.kdiffusion import (
     SAMPLERS,
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+    State,
     cuda_memory,
 )
 from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
@@ -55,6 +59,10 @@ from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
 )
 
 log = logging.getLogger(__name__)
+
+#: seconds a World without a local engine waits for its workers' model
+#: lists (asked all at once) before it checks a model name
+MODEL_LIST_TIMEOUT = 2.0
 
 
 class ApiError(Exception):
@@ -123,8 +131,18 @@ class ApiServer:
                 "info": json.dumps(info)}
 
     def handle_txt2img(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        return self._generate(body, "txt2img")
+
+    def handle_img2img(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        return self._generate(body, "img2img")
+
+    def _generate(self, body: Dict[str, Any], job: str) -> Dict[str, Any]:
+        """A generation request through the World, the dispatcher or the
+        bare engine."""
         try:
             payload = GenerationPayload(**body)
+            if job == "img2img" and not payload.init_images:
+                raise Unsupported("img2img requires init_images")
             if payload.styles:
                 raise Unsupported("styles are not ported to the PyTorch "
                                   "server yet")
@@ -135,12 +153,12 @@ class ApiServer:
             elif self.dispatcher is not None:
                 # the dispatcher serializes execution itself, so that
                 # concurrent compatible requests can merge in its window
-                result = self.dispatcher.submit(payload, job="txt2img")
+                result = self.dispatcher.submit(payload, job=job)
             else:
                 with self._busy:
                     # a bare engine: this request is the top level
                     self.state.begin_request()
-                    result = self.source.generate_range(payload)
+                    result = self.source.generate_range(payload, job=job)
         except (ValidationError, Unsupported) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)
@@ -193,9 +211,11 @@ class ApiServer:
     def handle_options_post(self, body: Dict[str, Any]) -> Dict[str, Any]:
         """Record the options; a model or VAE change fans out to a World's
         remotes, and scheduler settings (bare or ``distributed_``-prefixed)
-        apply live to it."""
+        apply live to it. A model or VAE this node cannot serve answers 422
+        before anything is recorded or fanned out."""
         model = body.get("sd_model_checkpoint")
         vae = body.get("sd_vae")
+        self._check_servable(model, vae)
         if model:
             self.options["sd_model_checkpoint"] = model
         if (model or vae is not None) and hasattr(self.source, "sync_models"):
@@ -223,15 +243,66 @@ class ApiServer:
                 self.options[k] = v
         return {}
 
+    def _served_models(self) -> Optional[set]:
+        """The model names this node serves: its engine's, or for a World
+        without a local engine the names its workers list (None when none
+        answers: nothing to check against). The workers are asked all at
+        once, those the last ping found unavailable not at all, and a list
+        that takes longer than :data:`MODEL_LIST_TIMEOUT` is not waited
+        for."""
+        engine = self._engine()
+        if engine is not None:
+            return {engine.model_name}
+        names: set = set()
+        lock = threading.Lock()
+
+        def ask(w):
+            try:
+                listed = w.backend.available_models()
+            except Exception:  # noqa: BLE001 — an unreachable worker
+                log.debug("worker %s lists no models", w.label)
+                return
+            with lock:
+                names.update(listed)
+
+        threads = [threading.Thread(target=ask, args=(w,), daemon=True)
+                   for w in self.source.workers_snapshot()
+                   if w.current_state() != State.UNAVAILABLE]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + MODEL_LIST_TIMEOUT
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        with lock:
+            return set(names) or None
+
+    def _check_servable(self, model: Optional[str],
+                        vae: Optional[str]) -> None:
+        """Until a checkpoint registry lands, a node switches to no other
+        model and loads no standalone VAE: a request for either would be
+        answered with another model's images."""
+        if vae is not None and vae not in ("Automatic", "None", ""):
+            raise ApiError(422, f"sd_vae {vae!r}: the PyTorch node serves "
+                                f"its checkpoint's own VAE only")
+        if not model:
+            return
+        served = self._served_models()
+        if served is not None and model not in served:
+            raise ApiError(422, f"sd_model_checkpoint {model!r}: this node "
+                                f"serves {sorted(served)} and has no "
+                                f"checkpoint registry yet")
+
     def handle_sd_models(self) -> Any:
-        name = self.options.get("sd_model_checkpoint") or "unknown"
+        """The models this node serves (``unknown`` when it cannot tell)."""
+        names = sorted(self._served_models() or {
+            self.options.get("sd_model_checkpoint") or "unknown"})
         return [{"title": name, "model_name": name, "filename": "",
-                 "hash": None, "sha256": None}]
+                 "hash": None, "sha256": None} for name in names]
 
     def handle_script_info(self) -> Any:
-        # a master strips the alwayson-script args a node does not list;
-        # the port runs no webui script yet
-        return []
+        # a master strips the alwayson-script args a node does not list
+        return [{"name": "controlnet", "is_alwayson": True,
+                 "is_img2img": True, "args": []}]
 
     def handle_server_restart(self) -> Dict[str, Any]:
         """Flag the serving process to re-exec itself (the CLI's ``serve``
@@ -276,6 +347,7 @@ class ApiServer:
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
+            ("POST", "/sdapi/v1/img2img"): self.handle_img2img,
             ("GET", "/sdapi/v1/samplers"): self.handle_samplers,
             ("GET", "/sdapi/v1/progress"): self.handle_progress,
             ("POST", "/sdapi/v1/interrupt"): self.handle_interrupt,

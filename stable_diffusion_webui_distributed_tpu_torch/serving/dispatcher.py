@@ -47,6 +47,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+    parse_controlnet_units,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
     apply_scripts,
@@ -182,14 +185,19 @@ class ServingDispatcher:
         """May this payload share a batch, and run ragged under
         SDTPU_RAGGED? DPM adaptive runs solo: its step controller reads one
         error over the whole batch, so a batch mate would change its
-        image. (LoRA tags, ControlNet and the step cache, which the JAX
-        package also keeps out, are not ported: ``check_supported``
-        rejects them.)"""
+        image. ControlNet units and an inpainting family's extra channels
+        ride no coalesced batch, as in the JAX package. (LoRA tags and the
+        step cache, which it also keeps out, are not ported:
+        ``check_supported`` rejects them.)"""
         if p.init_images or p.enable_hr or p.all_prompts:
             return False
         if p.refiner_checkpoint and p.refiner_switch_at < 1.0:
             return False
         if kd.resolve_sampler(p.sampler_name).adaptive:
+            return False
+        if parse_controlnet_units(p):
+            return False
+        if self.engine.family.inpaint:
             return False
         return p.total_images <= self.max_batch
 

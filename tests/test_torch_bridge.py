@@ -2,7 +2,7 @@
 ``bridge.init_seeded``.
 
 The Flax tree that ``test_pipeline.init_params`` builds must load into the
-port's CLIP, UNet and VAE decoder with ``strict=True``, with each tensor in
+port's CLIP, UNet and VAE decoder and encoder with ``strict=True``, with each tensor in
 the port's layout. ``init_seeded`` must give the same names and shapes, drawn
 with the statistics of Flax's default initialisers.
 """
@@ -36,7 +36,8 @@ def seeded():
     return bridge.init_seeded(TINY, seed=0, device="cpu")
 
 
-@pytest.mark.parametrize("component", ["text_encoder", "unet", "vae"])
+@pytest.mark.parametrize("component", ["text_encoder", "unet", "vae",
+                                       "vae_encoder"])
 def test_flax_tree_loads_strict(converted, component):
     module = bridge.build_modules(TINY)[component]
     missing, unexpected = module.load_state_dict(converted[component],
@@ -59,7 +60,8 @@ def test_layouts_transposed(flax_params, converted):
                                   gn)
 
 
-@pytest.mark.parametrize("component", ["text_encoder", "unet", "vae"])
+@pytest.mark.parametrize("component", ["text_encoder", "unet", "vae",
+                                       "vae_encoder"])
 def test_seeded_names_and_shapes(converted, seeded, component):
     want = {n: tuple(t.shape) for n, t in converted[component].items()}
     got = {n: tuple(t.shape) for n, t in seeded[component].items()}
@@ -87,7 +89,7 @@ def test_seeded_statistics_match_flax(converted, seeded):
     position embedding at 0.01. Per-tensor std within 15% wherever a tensor
     holds enough values to say so."""
     checked = 0
-    for comp in ("text_encoder", "unet", "vae"):
+    for comp in ("text_encoder", "unet", "vae", "vae_encoder"):
         for name, flax_t in converted[comp].items():
             ours = seeded[comp][name].numpy()
             theirs = flax_t.numpy()

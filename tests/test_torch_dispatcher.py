@@ -52,7 +52,10 @@ from stable_diffusion_webui_distributed_tpu.serving.metrics import (
     METRICS as JAX_METRICS,
 )
 from stable_diffusion_webui_distributed_tpu_torch import bridge
-from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
+from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+    TINY,
+    TINY_INPAINT,
+)
 from stable_diffusion_webui_distributed_tpu_torch.ops import (
     flash_attention as fa,
 )
@@ -62,6 +65,7 @@ from stable_diffusion_webui_distributed_tpu_torch.ops import (
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
+    array_to_b64png,
     b64png_to_array,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
@@ -289,7 +293,7 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert METRICS.summary()["dispatches"] == 1
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
-        for extra in ({"alwayson_scripts": {"controlnet": {"args": []}}},
+        for extra in ({"override_settings": {"deepcache": 2}},
                       {"prompt": "<lora:x:1>"}, {"enable_hr": True}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
@@ -321,6 +325,50 @@ def test_adaptive_requests_run_solo(engine, monkeypatch):
         assert r.seeds == want.seeds == [p.seed]
         assert r.images == want.images
         assert r.infotexts == want.infotexts
+
+
+def _unit_scripts():
+    hint = np.zeros((64, 64, 3), np.uint8)
+    hint[16:48, 16:48] = 255
+    return {"controlnet": {"args": [{"enabled": True, "module": "canny",
+                                     "image": array_to_b64png(hint),
+                                     "model": "cn"}]}}
+
+
+@pytest.mark.parametrize("kind", ["controlnet", "inpainting-family",
+                                  "img2img"])
+def test_controlnet_and_inpainting_work_bypass_coalescing(kind,
+                                                          monkeypatch):
+    """ControlNet units and an inpainting family's extra input channels
+    ride no coalesced batch, and img2img bypasses the bucketer (as in the
+    JAX package): two concurrent such requests run as two dispatches,
+    each giving the image it gives alone."""
+    monkeypatch.delenv("SDTPU_RAGGED", raising=False)
+    family = TINY_INPAINT if kind == "inpainting-family" else TINY
+    cn = bridge.init_seeded_controlnet(family, 1, device="cpu")
+    engine = Engine(family, bridge.init_seeded(family, 0, device="cpu"),
+                    chunk_size=4, state=GenerationState(), device="cpu",
+                    controlnet_provider=lambda name: cn)
+    disp = ServingDispatcher(
+        engine, bucketer=ShapeBucketer(shapes=[(32, 32)], batches=[1, 2, 4]),
+        window=0.3)
+    extra = {"controlnet": {"alwayson_scripts": _unit_scripts()},
+             "inpainting-family": {},
+             "img2img": {"init_images": [_unit_scripts()["controlnet"]
+                                         ["args"][0]["image"]]}}[kind]
+    payloads = [GenerationPayload(prompt=f"cow {i}", steps=2, width=32,
+                                  height=32, seed=80 + i, **extra)
+                for i in range(2)]
+    assert not any(disp._coalescable(p) for p in payloads)
+    METRICS.clear()
+    got = concurrently(disp.submit, payloads)
+    summary = METRICS.summary()
+    assert summary["dispatches"] == 2
+    assert summary["bucket_bypasses"] == (2 if kind == "img2img" else 0)
+    for r, p in zip(got, payloads):
+        want = engine.generate_range(p)
+        assert r.seeds == want.seeds == [p.seed]
+        assert r.images == want.images
 
 
 def test_serving_off_calls_the_engine_directly(engine, monkeypatch):

@@ -116,11 +116,11 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"alwayson_scripts": {"controlnet": {"args": []}}}, Unsupported),
+    ({"all_prompts": ["a cow", "a horse"]}, Unsupported),
     ({"override_settings": {"deepcache": 3}}, Unsupported),
     ({"prompt": "a <lora:thing:0.8> cow"}, Unsupported),
     ({"enable_hr": True}, Unsupported),
-    ({"init_images": ["x"]}, Unsupported),
+    ({"precision": "int8"}, Unsupported),
     ({"script_name": "prompt matrix"}, Unsupported),
 ])
 def test_unported_requests_raise(port, extra, error):

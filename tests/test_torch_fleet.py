@@ -11,7 +11,10 @@ gives the first run's PNG bytes. Across the wire both ways: the JAX
 package's ``HTTPBackend`` drives the port's server, and the port's drives
 the JAX package's ``ApiServer`` over a JAX World, with seeds and infotexts
 intact. Every server here serves a World, so no dispatcher pads TINY up to
-its 512x512 ladder.
+its 512x512 ladder. An img2img request with a ControlNet unit is split the
+same way: the remote node lists ``controlnet`` in its script info, so the
+master forwards the unit, and each image is within 1 level of the JAX
+engine's with the same unit.
 """
 
 import jax
@@ -19,6 +22,9 @@ import numpy as np
 import pytest
 
 from stable_diffusion_webui_distributed_tpu.models.configs import TINY as JTINY
+from stable_diffusion_webui_distributed_tpu.models.controlnet import (
+    convert_controlnet,
+)
 from stable_diffusion_webui_distributed_tpu.pipeline.engine import (
     Engine as JaxEngine,
 )
@@ -36,6 +42,7 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
+    array_to_b64png,
     b64png_to_array,
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
@@ -46,12 +53,27 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.world import World
 from stable_diffusion_webui_distributed_tpu_torch.server.api import ApiServer
+from test_adapters import make_ldm_controlnet
 from test_pipeline import init_params
 
 REQUEST = dict(prompt="a cow (jumping:1.2)", negative_prompt="blurry",
                steps=3, width=64, height=64, batch_size=3, seed=42,
                subseed=7)
 IPM = 60.0  # preset speeds: no benchmark runs in these tests
+CN = "cn-fleet"
+
+
+def _pattern(h, w):
+    y, x = np.mgrid[0:h, 0:w]
+    return np.stack([(x * 5) % 256, (y * 3) % 256, (x * y) % 256],
+                    -1).astype(np.uint8)
+
+
+IMG2IMG_CN = dict(REQUEST, denoising_strength=0.6,
+                  init_images=[array_to_b64png(_pattern(64, 64))],
+                  alwayson_scripts={"controlnet": {"args": [{
+                      "enabled": True, "module": "canny", "model": CN,
+                      "image": array_to_b64png(_pattern(48, 48))}]}})
 
 
 @pytest.fixture(scope="module")
@@ -70,10 +92,23 @@ def reference(jax_engine):
 
 
 @pytest.fixture(scope="module")
-def engines(params):
+def cn_tree():
+    return jax.device_get(convert_controlnet(make_ldm_controlnet(JTINY.unet),
+                                             JTINY.unet))
+
+
+@pytest.fixture(scope="module")
+def engines(params, cn_tree):
     sd = bridge.flax_to_torch(TINY, params)
-    return (Engine(TINY, sd, chunk_size=2, device="cpu"),
-            Engine(TINY, sd, chunk_size=2, device="cpu"))
+    cn = bridge.controlnet_flax_to_torch(cn_tree)
+
+    def provider(name):
+        return cn if name == CN else None
+
+    return (Engine(TINY, sd, chunk_size=2, device="cpu",
+                   controlnet_provider=provider),
+            Engine(TINY, sd, chunk_size=2, device="cpu",
+                   controlnet_provider=provider))
 
 
 def master_world(engine) -> World:
@@ -119,14 +154,15 @@ def assert_matches_reference(result, reference, labels, served_by=None):
 
 def test_fleet_matches_the_jax_engine(engines, remote, reference):
     world = fleet(engines[0], remote.port)
-    world.current_model = "tiny-fleet"  # synced to the remote first
+    # synced to the remote first: the one model the remote node serves
+    world.current_model = engines[1].model_name
     result = world.execute(GenerationPayload(**REQUEST))
     assert_matches_reference(result, reference,
                              ["master", "master", "remote"],
                              [None, None, "master"])
     assert [(j.worker.label, j.batch_size, j.start_index)
             for j in world.jobs] == [("master", 2, 0), ("remote", 1, 2)]
-    assert remote.options["sd_model_checkpoint"] == "tiny-fleet"
+    assert remote.options["sd_model_checkpoint"] == "tiny"
     assert all(w.current_state() == State.IDLE for w in world.workers)
 
 
@@ -143,6 +179,25 @@ def test_requeue_after_the_remote_stops_gives_the_same_images(
     assert world.get_worker("remote").health.summary()[
         "requeued_images"] == 1
     assert_matches_reference(again, reference, ["master"] * 3)
+
+
+def test_img2img_controlnet_split_keeps_the_units(params, cn_tree, engines,
+                                                  remote):
+    world = fleet(engines[0], remote.port)
+    node = world.get_worker("remote")
+    assert node.reachable() and node.supported_scripts == ["controlnet"]
+    payload = GenerationPayload(**IMG2IMG_CN)
+    assert node.filter_payload_scripts(payload) is payload  # nothing cut
+    result = world.execute(payload)
+    want = JaxEngine(JTINY, params, controlnet_provider=lambda n: (
+        cn_tree if n == CN else None)).img2img(JPayload(**IMG2IMG_CN))
+    assert_matches_reference(result, want, ["master", "master", "remote"],
+                             [None, None, "master"])
+    # the unit ran on both workers: without it every image is another
+    plain = engines[0].img2img(GenerationPayload(**{
+        k: v for k, v in IMG2IMG_CN.items() if k != "alwayson_scripts"}))
+    for got, other in zip(pixels(result.images), pixels(plain.images)):
+        assert np.abs(got - other).mean() > 1.0
 
 
 def test_jax_http_backend_drives_the_port_server(remote, reference):

@@ -46,9 +46,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "serving.bucketer", "serving.metrics", "runtime.config",
                  "ops.ragged_attention", "ops.nvcc", "scheduler.world",
                  "scheduler.worker", "scheduler.eta", "runtime.flags",
-                 "runtime.daemon", "cli"):
+                 "runtime.daemon", "cli", "models.controlnet",
+                 "pipeline.image"):
         assert f"{PORT}.{name}" in out["imported"]
-    assert len(out["imported"]) >= 33
+    assert len(out["imported"]) >= 35
     assert out["forbidden"] == []
 
 

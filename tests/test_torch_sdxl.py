@@ -106,8 +106,9 @@ def modules(flax_params):
 
 
 @pytest.mark.parametrize("name,components", [
-    ("tiny-xl", ["text_encoder", "text_encoder_2", "unet", "vae"]),
-    ("tiny-refiner", ["text_encoder", "unet", "vae"]),
+    ("tiny-xl", ["text_encoder", "text_encoder_2", "unet", "vae",
+                 "vae_encoder"]),
+    ("tiny-refiner", ["text_encoder", "unet", "vae", "vae_encoder"]),
 ])
 def test_flax_trees_load_strict(flax_params, name, components):
     fam = FAMILIES[name][1]

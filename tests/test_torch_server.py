@@ -16,6 +16,7 @@ the commands that build an engine raise without one.
 
 import base64
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -31,6 +32,8 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
+    Unsupported,
+    array_to_b64png,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     config as config_mod,
@@ -46,7 +49,10 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
     WorkerNode,
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.world import World
-from stable_diffusion_webui_distributed_tpu_torch.server.api import ApiServer
+from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+    MODEL_LIST_TIMEOUT,
+    ApiServer,
+)
 
 BODY = {"prompt": "a cow", "negative_prompt": "ugly", "steps": 3,
         "width": 32, "height": 32, "seed": 5, "subseed": 9, "batch_size": 2}
@@ -97,6 +103,42 @@ def test_txt2img_answers_with_the_engines_images(engine, server):
     assert resp["parameters"]["prompt"] == "a cow"
 
 
+def _init_image():
+    import numpy as np
+
+    y, x = np.mgrid[0:32, 0:32]
+    return array_to_b64png(np.stack([x * 8, y * 8, (x + y) * 4], -1)
+                           .astype(np.uint8))
+
+
+@pytest.mark.parametrize("source", ["server", "world_server"])
+def test_img2img_without_init_images_answers_422(request, source):
+    srv = request.getfixturevalue(source)
+    status, resp = call(srv, "/sdapi/v1/img2img", BODY)
+    assert status == 422 and "init_images" in resp["detail"]
+
+
+def test_img2img_answers_with_the_engines_images(engine, server):
+    body = {**BODY, "init_images": [_init_image()],
+            "denoising_strength": 0.5}
+    status, resp = call(server, "/sdapi/v1/img2img", body)
+    assert status == 200
+    want = engine.img2img(GenerationPayload(**body))
+    assert resp["images"] == want.images
+    info = json.loads(resp["info"])
+    assert info["all_seeds"] == want.seeds == [5, 6]
+    assert info["infotexts"] == want.infotexts
+    assert "Denoising strength: 0.5" in info["infotexts"][0]
+
+
+def test_world_answers_img2img(fleet_engine, world_server):
+    body = {**BODY, "init_images": [_init_image()], "batch_size": 1}
+    status, resp = call(world_server, "/sdapi/v1/img2img", body)
+    assert status == 200
+    want = fleet_engine.img2img(GenerationPayload(**body))
+    assert resp["images"] == want.images
+
+
 def test_samplers_lists_what_the_port_runs(server):
     status, resp = call(server, "/sdapi/v1/samplers")
     assert status == 200
@@ -105,7 +147,7 @@ def test_samplers_lists_what_the_port_runs(server):
 
 
 @pytest.mark.parametrize("extra", [
-    {"alwayson_scripts": {"controlnet": {"args": []}}},
+    {"all_prompts": ["a cow", "a horse"]},
     {"override_settings": {"deepcache": 2}},
     {"prompt": "a <lora:x:1> cow"},
     {"styles": ["cinematic"]},
@@ -118,7 +160,7 @@ def test_unported_or_invalid_requests_answer_422(server, extra):
 
 
 def test_unknown_route_answers_404(server):
-    status, _ = call(server, "/sdapi/v1/img2img", BODY)
+    status, _ = call(server, "/sdapi/v1/extra-single-image", BODY)
     assert status == 404
 
 
@@ -195,7 +237,7 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
 
 
 @pytest.mark.parametrize("extra", [
-    {"alwayson_scripts": {"controlnet": {"args": []}}},
+    {"override_settings": {"cfg_cutoff": 0.5}},
     {"enable_hr": True},
     {"prompt": "a <lora:x:1> cow"},
     {"script_name": "prompt matrix"},
@@ -219,27 +261,105 @@ def test_memory_route_has_webuis_shape(world_server):
 
 
 def test_options_record_the_model_and_sync_the_remotes(stub_fleet):
+    # a World without a local engine serves the models its workers list
     status, resp = call(stub_fleet, "/sdapi/v1/options",
-                        {"sd_model_checkpoint": "m2", "sd_vae": "Automatic",
+                        {"sd_model_checkpoint": "stub-model",
+                         "sd_vae": "Automatic",
                          "distributed_job_timeout": 9,
                          "step_scaling": True})
     assert status == 200 and resp == {}
     world = stub_fleet.source
-    assert world.current_model == "m2" and world.current_vae == ""
+    assert world.current_model == "stub-model" and world.current_vae == ""
     assert [w.backend.options for w in world.workers] == \
-        [{"model": "m2", "vae": ""}] * 2
+        [{"model": "stub-model", "vae": ""}] * 2
     assert (world.job_timeout, world.step_scaling) == (9.0, True)
     status, opts = call(stub_fleet, "/sdapi/v1/options")
-    assert opts["sd_model_checkpoint"] == "m2"
+    assert opts["sd_model_checkpoint"] == "stub-model"
     assert opts["sd_vae"] == "Automatic"
     status, models = call(stub_fleet, "/sdapi/v1/sd-models")
-    assert [m["model_name"] for m in models] == ["m2"]
+    assert [m["model_name"] for m in models] == ["stub-model"]
     assert set(models[0]) == {"title", "model_name", "filename", "hash",
                               "sha256"}
 
 
+def test_options_do_not_wait_on_a_stalled_or_unavailable_worker(stub_fleet):
+    """A World without a local engine asks its workers for their models
+    all at once, skips one the last ping found down, and waits no longer
+    than MODEL_LIST_TIMEOUT for one that does not answer."""
+    world = stub_fleet.source
+    release = threading.Event()
+    asked = []
+
+    def stalled():
+        asked.append("r1")
+        release.wait(30)
+        return ["stub-model"]
+
+    def down():
+        asked.append("r3")
+        return ["other-model"]
+
+    world.workers[0].backend.available_models = stalled
+    world.add_worker(WorkerNode("r3", StubBackend()))
+    world.workers[2].backend.available_models = down
+    world.workers[2].set_state(State.UNAVAILABLE)
+    try:
+        t0 = time.monotonic()
+        status, _ = call(stub_fleet, "/sdapi/v1/options",
+                         {"sd_model_checkpoint": "stub-model"})
+        took = time.monotonic() - t0
+        assert status == 200
+        status, resp = call(stub_fleet, "/sdapi/v1/options",
+                            {"sd_model_checkpoint": "other-model"})
+        assert status == 422 and resp["detail"]
+    finally:
+        release.set()
+    assert took < MODEL_LIST_TIMEOUT + 5.0
+    assert "r3" not in asked
+
+
+@pytest.mark.parametrize("body", [
+    {"sd_model_checkpoint": "sdxl-base"},
+    {"sd_vae": "vae-ft-mse-840000.safetensors"},
+    {"sd_model_checkpoint": "tiny", "sd_vae": "kl-f8-anime.ckpt",
+     "CLIP_stop_at_last_layers": 2},
+])
+def test_options_refuse_a_model_the_node_cannot_serve(world_server,
+                                                     fleet_engine, body):
+    """Without a checkpoint registry a node switches to no other model and
+    loads no standalone VAE: such a request answers 422 and changes
+    nothing, neither the options nor the engine nor the fleet."""
+    world = world_server.source
+    before = call(world_server, "/sdapi/v1/options")[1]
+    fleet_before = (world.current_model, world.current_vae)
+    status, resp = call(world_server, "/sdapi/v1/options", body)
+    assert status == 422 and resp["detail"]
+    assert call(world_server, "/sdapi/v1/options")[1] == before
+    assert fleet_engine.model_name == "tiny"
+    assert (world.current_model, world.current_vae) == fleet_before
+    status, models = call(world_server, "/sdapi/v1/sd-models")
+    assert [m["model_name"] for m in models] == ["tiny"]
+    status, resp = call(world_server, "/sdapi/v1/options",
+                        {"sd_model_checkpoint": "tiny", "sd_vae": "None"})
+    assert status == 200
+
+
+def test_local_backend_refuses_another_model(fleet_engine):
+    backend = LocalBackend(fleet_engine)
+    backend.load_options("tiny", "")
+    for model, vae in (("sd15", ""), ("tiny", "vae.pt")):
+        with pytest.raises(Unsupported):
+            backend.load_options(model, vae)
+    assert fleet_engine.model_name == "tiny"
+
+
 def test_script_info_lists_what_the_port_runs(world_server):
-    assert call(world_server, "/sdapi/v1/script-info") == (200, [])
+    status, scripts = call(world_server, "/sdapi/v1/script-info")
+    assert status == 200
+    assert [s["name"] for s in scripts] == ["controlnet"]
+    assert scripts[0]["is_alwayson"] and scripts[0]["is_img2img"]
+    master = world_server.source.master()
+    assert master.backend.script_info() == ["controlnet"]
 
 
 def test_internal_workers_rows(stub_fleet):
