@@ -95,7 +95,26 @@ Phases, each fatal on failure (no phase is caught and passed over):
    the same PNG bytes, and a batch-1 request of seed 4324 must agree with
    image 3 within a mean of 2 uint8 levels. Then each SDXL UNet at full
    width, bf16 against f32 on the same weights (relative error at most
-   5e-2), and where a warm base UNet call at batch 8 spends its time.
+   5e-2), and where a warm base UNet call at batch 8 spends its time;
+11. config #4 on config #2's base engine (its refiner dropped): three
+   rank-16 adapters covering every resolvable kohya key of SDXL, written
+   by this script to a temporary ``Lora/`` directory and served through a
+   ``ModelRegistry``; ``bench.py``'s config #4 request (its prompt with
+   ``<lora:bench{0,1,2}:0.8>``, 1024x1024, 30 steps Euler a, CFG 7, batch
+   4, seed 1). The merged path: tagless, LoRA, the LoRA repeat (the same
+   PNG bytes, no second merge), tagless again (the tagless bytes: the
+   merge undone exactly), the adapters at weight 0 (the tagless bytes);
+   the engine's applied and skipped counts equal the port's
+   ``merge_lora`` on CPU tensors; the merged bf16 UNet against f32 with
+   the same merge (relative error at most 5e-2). The traced path
+   (``SDTPU_LORA_TRACED=1``, cell r64s4): the LoRA request against the
+   merged one at mean PSNR >= 28 dB and SSIM >= 0.985, then two batch-2
+   requests with different sets in that cell, each alone and then
+   concurrently: one dispatch, each image within a mean of 2 uint8 levels
+   of its solo run. K1 is launched 2100 times (70 x 30) by every request,
+   all on the Hopper path, K2 never. Three warm base UNet calls at 8 rows
+   are profiled: tagless, merged and traced. The kernels phase also times
+   K1 at config #4's two shapes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; it is
 printed only when every phase passed. Without a CUDA device, or without the
@@ -548,18 +567,19 @@ def phase_config3_kernels(fa, card_line: str) -> dict:
     return totals
 
 
-def phase_sdxl_kernels(fa, card_line: str) -> dict:
+def phase_sdxl_kernels(fa, card_line: str, models=None) -> dict:
     """K1 at every SDXL shape (head dim 64: the ``attn_sm90<64, NC>``
     instantiations), against its plain version in f32 and bf16, and timed
-    as the SD1.5 shapes are. Totals per base and per refiner UNet call at
-    batch 8 with CFG. At D = 64 the softmax's exps nearly tie the products
-    on their units, so each shape's bound is the largest of its bytes, its
-    products and its exps (:func:`bound_parts`)."""
+    as the SD1.5 shapes are. Totals per UNet call of each of ``models``
+    (default: base and refiner at batch 8 with CFG). At D = 64 the
+    softmax's exps nearly tie the products on their units, so each shape's
+    bound is the largest of its bytes, its products and its exps
+    (:func:`bound_parts`)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {"max_abs_err": 0.0}
-    for model, shapes in SDXL_SHAPES.items():
+    for model, shapes in (models or SDXL_SHAPES).items():
         totals = dict.fromkeys(TOTALS, 0.0)
         parts_total = {"bytes": 0.0, "products": 0.0, "exps": 0.0}
         host, units = [], set()
@@ -591,8 +611,8 @@ def phase_sdxl_kernels(fa, card_line: str) -> dict:
         totals["bound_parts_ms"] = parts_total
         totals["launches_per_unet_call"] = sum(c for _, c in shapes)
         print(f"kernel flash_attention SDXL {model} UNet call "
-              f"({totals['launches_per_unet_call']} launches, batch 8 "
-              f"with CFG): ms {totals['ms']:.4f} (device "
+              f"({totals['launches_per_unet_call']} launches, "
+              f"{shapes[0][0][0]} rows): ms {totals['ms']:.4f} (device "
               f"{totals['device_ms']:.4f}) library_ms "
               f"{totals['library_ms']:.4f} (device "
               f"{totals['library_device_ms']:.4f}) bound_ms "
@@ -1183,15 +1203,16 @@ def phase_samplers(engine, fa, ra, card_line: str) -> dict:
     return rows
 
 
-def unet_rel_error(unet, x, t, ctx, added=None) -> float:
+def unet_rel_error(unet, x, t, ctx, added=None, f32=None) -> float:
     """One full-width UNet call on the bf16 card policy against the same
-    weights on the f32 policy (whose UNet runs K1 in f32): the relative
-    error of the bf16 output."""
+    weights on the f32 policy (whose UNet runs K1 in f32), or against
+    ``f32``: the relative error of the bf16 output."""
     import torch
 
     from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
 
-    f32 = f32_copy(unet, lambda: UNet(unet.cfg))
+    if f32 is None:
+        f32 = f32_copy(unet, lambda: UNet(unet.cfg))
     kw = {} if added is None else {"added_cond": added}
     with torch.inference_mode():
         out16 = unet(x, t, ctx, **kw)
@@ -1937,6 +1958,484 @@ def phase_config2(fa, ra, card_line: str) -> dict:
                          for m, t in tflop.items()},
                "card": card_line}
     print("config #2 metrics: " + json.dumps(metrics))
+    # config #4 runs on this base engine, without the refiner
+    base.engine_provider = None
+    return metrics, base
+
+
+# BASELINE config #4 (bench.py:403-414, sdxl_lora_stack_b4_ipm): SDXL base
+# with three stacked adapters at 0.8, 1024x1024, 30 steps Euler a, CFG 7,
+# batch 4, seed 1. The adapters are written by this script: rank 16, alpha
+# 16, one module for every resolvable kohya key of SDXL (the UNet's q, k,
+# v, out, ff and proj_in/out; both text encoders' q, k, v, out_proj, fc1
+# and fc2), as a trained adapter carries. bench.py's touches the input
+# blocks' q projections only.
+CONFIG4_ADAPTERS = ("bench0", "bench1", "bench2")
+CONFIG4_RANK = 16
+# |up @ down| / |W| of one adapter at weight 1, about: down ~ N(0, 1/in),
+# up ~ N(0, s^2/rank), against lecun-normal weights of std ~1/sqrt(in)
+CONFIG4_SCALE = 0.1
+CONFIG4_BODY = {"steps": 30, "width": 1024, "height": 1024, "cfg_scale": 7,
+                "sampler_name": "Euler a", "batch_size": 4, "seed": 1}
+CONFIG4_K1_LAUNCHES = 70 * 30  # 70 per base UNet call x 30 steps
+# K1 per base UNet call at batch 4 with CFG (8 rows)
+CONFIG4_SHAPES = {"config #4 base": [((8, 4096, 10, 64), 10),
+                                     ((8, 1024, 20, 64), 60)]}
+# rank 16 on q, k and v of a fused site: effective rank 48, the 64 rung;
+# three adapters, the 4-slot rung
+CONFIG4_CELL = (64, 4)
+CONFIG4_MEAN_TOLERANCE = 2.0  # uint8 levels, coalesced vs solo
+# the registry's adapter cache must hold the three adapters (3 x 217.5
+# MiB in f32): at the default 256 MB they evict each other, each lookup
+# reloads a new dict, and the traced path rebuilds its set on every one
+CONFIG4_LORA_CACHE_MB = "1024"
+CONFIG4_PSNR, CONFIG4_SSIM = 28.0, 0.985  # tests/quality.py's floors
+
+
+def ldm_attention_blocks(cfg):
+    """``[(kohya block name, channels, depth)]`` of a UNet config in ldm's
+    numbering (input blocks from 1 with a downsample block after each
+    level but the last, the middle block, output blocks from 0)."""
+    levels = list(zip(cfg.block_out_channels, cfg.down_blocks))
+    out, n = [], 1
+    for level, (ch, depth) in enumerate(levels):
+        for _ in range(cfg.layers_per_block):
+            if depth is not None:
+                out.append((f"input_blocks_{n}_1", ch, depth))
+            n += 1
+        n += level < len(levels) - 1
+    if cfg.mid_block_depth is not None:
+        out.append(("middle_block_1", levels[-1][0], cfg.mid_block_depth))
+    n = 0
+    for level in reversed(range(len(levels))):
+        ch, depth = levels[level]
+        for _ in range(cfg.layers_per_block + 1):
+            if depth is not None:
+                out.append((f"output_blocks_{n}_1", ch, depth))
+            n += 1
+    return out
+
+
+def full_coverage_adapter(family, rank: int, seed: int, scale: float):
+    """A kohya adapter with a module for every resolvable key of
+    ``family``: ``lora_down`` (rank, in) ~ N(0, 1/in), ``lora_up`` (out,
+    rank) ~ N(0, scale^2/rank), alpha = rank."""
+    import numpy as np
+
+    cfg = family.unet
+    ctx = cfg.cross_attention_dim
+    mods = []
+    for block, c, depth in ldm_attention_blocks(cfg):
+        base = f"lora_unet_{block}_"
+        mods += [(base + "proj_in", c, c), (base + "proj_out", c, c)]
+        for j in range(depth):
+            t = f"{base}transformer_blocks_{j}_"
+            mods += [(t + f"attn1_to_{x}", c, c) for x in ("q", "k", "v")]
+            mods += [(t + "attn1_to_out_0", c, c), (t + "attn2_to_q", c, c),
+                     (t + "attn2_to_k", ctx, c), (t + "attn2_to_v", ctx, c),
+                     (t + "attn2_to_out_0", c, c),
+                     (t + "ff_net_0_proj", c, 8 * c),
+                     (t + "ff_net_2", 4 * c, c)]
+    for prefix, te in (("lora_te1", family.text_encoder),
+                       ("lora_te2", family.text_encoder_2)):
+        h, i_dim = te.hidden_size, te.intermediate_size
+        for layer in range(te.num_layers):
+            t = f"{prefix}_text_model_encoder_layers_{layer}_"
+            mods += [(t + f"self_attn_{x}_proj", h, h)
+                     for x in ("q", "k", "v", "out")]
+            mods += [(t + "mlp_fc1", h, i_dim), (t + "mlp_fc2", i_dim, h)]
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for module, i_dim, o_dim in mods:
+        sd[f"{module}.lora_down.weight"] = rng.standard_normal(
+            (rank, i_dim), dtype=np.float32) / np.float32(i_dim ** 0.5)
+        sd[f"{module}.lora_up.weight"] = rng.standard_normal(
+            (o_dim, rank), dtype=np.float32) * np.float32(
+                scale / rank ** 0.5)
+        sd[f"{module}.alpha"] = np.asarray(rank, np.float32)
+    return sd, len(mods)
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file of f32 arrays: the 8-byte little-endian
+    header length, the JSON header, the raw little-endian bytes."""
+    import struct
+
+    import numpy as np
+
+    header, blobs, offset = {}, [], 0
+    for name, arr in tensors.items():
+        a = np.ascontiguousarray(arr, dtype="<f4")
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        blobs.append(a.tobytes())
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two uint8 images (99 when identical), as
+    ``tests/quality.py`` computes it."""
+    import numpy as np
+
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                  ** 2)
+    return 99.0 if mse == 0 else float(10.0 * np.log10(255.0 ** 2 / mse))
+
+
+def ssim(a, b, window: int = 7) -> float:
+    """Mean local SSIM of two uint8 images (luma, uniform window), as
+    ``tests/quality.py`` computes it."""
+    import numpy as np
+
+    luma = np.array([0.299, 0.587, 0.114])
+    ga, gb = (np.asarray(x, np.float64) @ luma for x in (a, b))
+    wa = np.lib.stride_tricks.sliding_window_view(ga, (window, window))
+    wb = np.lib.stride_tricks.sliding_window_view(gb, (window, window))
+    mu_a, mu_b = wa.mean(axis=(-1, -2)), wb.mean(axis=(-1, -2))
+    var_a, var_b = wa.var(axis=(-1, -2)), wb.var(axis=(-1, -2))
+    cov = (wa * wb).mean(axis=(-1, -2)) - mu_a * mu_b
+    c1, c2 = (0.01 * 255.0) ** 2, (0.03 * 255.0) ** 2
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))
+    return float(s.mean())
+
+
+def config4_latent(engine) -> int:
+    return CONFIG4_BODY["width"] // engine.family.vae_scale_factor
+
+
+def unet_call_profile(engine, gen, what: str, card_line: str,
+                      lora=None) -> dict:
+    """One warm SDXL base UNet call at 8 rows (batch 4 with CFG, 128x128
+    latents), timed with CUDA events and traced: device time by kernel
+    group and the busy share. ``lora``: a traced tree for every row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = engine.family.unet
+    lat = config4_latent(engine)
+    x = torch.randn((8, lat, lat, 4), device="cuda", generator=gen)
+    t = torch.full((8,), 500.0, device="cuda")
+    ctx = torch.randn((8, 77, cfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    kw = {"added_cond": torch.randn((8, cfg.projection_input_dim),
+                                    device="cuda", generator=gen)}
+    if lora is not None:
+        kw["lora"] = lora
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the engine runs
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: engine.unet(x, t, ctx, **kw), 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                engine.unet(x, t, ctx, **kw)
+            torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = prev
+    groups = device_groups(prof, 2)
+    print_groups(f"config #4 {what} SDXL base UNet call (batch 4 with CFG "
+                 f"= 8 rows, {lat}x{lat} latents)", ms, groups, card_line)
+    busy = sum(groups.values())
+    return {"wall_ms": round(ms, 3), "device_ms": round(busy, 3),
+            "busy_share": round(busy / ms, 4),
+            "device_ms_by_group": {g: round(v, 3)
+                                   for g, v in groups.items()}}
+
+
+def merged_rel_error(engine, adapters: dict, weight: float, gen) -> float:
+    """The engine's bf16 merged UNet against an f32 UNet with the same
+    merge: the pristine weights in f32, each adapter added in f32 by the
+    port's ``merge_lora``, rounded nowhere (the engine rounds the same
+    sums to bf16 once)."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models import (
+        lora as lora_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
+
+    leaves = {"unet": {k: v.float() for k, v in
+                       engine.unet.state_dict().items()}}
+    for (comp, key), pristine in engine._pristine.items():
+        if comp == "unet":
+            leaves["unet"][key] = pristine.float()
+    for name in CONFIG4_ADAPTERS:
+        leaves, _, _ = lora_mod.merge_lora(leaves, adapters[name], weight,
+                                           engine.family)
+    with torch.device("meta"):
+        f32 = UNet(engine.unet.cfg)
+    f32 = f32.to_empty(device="cuda")
+    f32.load_state_dict(leaves["unet"])
+    del leaves
+    f32 = f32.float().eval()
+    cfg = engine.family.unet
+    lat = config4_latent(engine)
+    x = torch.randn((2, lat, lat, 4), device="cuda", generator=gen)
+    t = torch.tensor([999.0, 500.0], device="cuda")
+    ctx = torch.randn((2, 77, cfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    added = torch.randn((2, cfg.projection_input_dim), device="cuda",
+                        generator=gen)
+    return unet_rel_error(engine.unet, x, t, ctx, added, f32=f32)
+
+
+def phase_config4(base, fa, ra, card_line: str) -> dict:
+    """BASELINE config #4 through the port's server: SDXL base (config
+    #2's engine) with three full-coverage rank-16 adapters written to a
+    temporary ``Lora/`` directory and served by a ``ModelRegistry``. The
+    merged path (default) and the traced path (``SDTPU_LORA_TRACED=1``);
+    exactness of the merge and its undoing, the counts against the port's
+    ``merge_lora`` on CPU tensors, the traced path against the merged one,
+    two traced requests with different sets in one dispatch, bf16 vs f32
+    with the same merge, and three warm UNet calls profiled."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models import (
+        lora as lora_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+        ModelRegistry,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    family = base.family
+    workdir = tempfile.mkdtemp(prefix="config4-")
+    os.makedirs(os.path.join(workdir, "Lora"))
+    t0 = time.perf_counter()
+    adapters, n_modules = {}, 0
+    for i, name in enumerate(CONFIG4_ADAPTERS):
+        adapters[name], n_modules = full_coverage_adapter(
+            family, CONFIG4_RANK, seed=i, scale=CONFIG4_SCALE)
+        write_safetensors(os.path.join(workdir, "Lora",
+                                       f"{name}.safetensors"),
+                          adapters[name])
+    nbytes = sum(a.nbytes for a in adapters[CONFIG4_ADAPTERS[0]].values())
+    print(f"config #4: three adapters of {n_modules} modules each (rank "
+          f"{CONFIG4_RANK}, {nbytes / 2**20:.1f} MiB) written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    saved = {k: os.environ.get(k) for k in (
+        "SDTPU_LORA_TRACED", "SDTPU_COALESCE_WINDOW", "SDTPU_LORA_CACHE_MB")}
+    os.environ.pop("SDTPU_LORA_TRACED", None)
+    os.environ["SDTPU_COALESCE_WINDOW"] = "0.5"
+    os.environ["SDTPU_LORA_CACHE_MB"] = CONFIG4_LORA_CACHE_MB
+    registry = ModelRegistry(workdir)
+    check(sorted(registry.available_loras()) == list(CONFIG4_ADAPTERS),
+          f"registry lists {registry.available_loras()}")
+    base.lora_provider = registry.lora_provider
+
+    bp = BenchmarkPayload()
+    tags = " ".join(f"<lora:{n}:0.8>" for n in CONFIG4_ADAPTERS)
+    body = {"prompt": bp.prompt, **CONFIG4_BODY}
+    lora_body = {**body, "prompt": f"{bp.prompt} {tags}"}
+    zero_body = {**body, "prompt": bp.prompt + " " + " ".join(
+        f"<lora:{n}:0>" for n in CONFIG4_ADAPTERS)}
+    pair = [{**lora_body, "batch_size": 2},
+            {**body, "batch_size": 2, "seed": 5,
+             "prompt": f"{bp.prompt} <lora:bench2:0.6> <lora:bench0:0.5> "
+                       f"<lora:bench1:0.9>"}]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    runs, profiles = {}, {}
+    server = ApiServer(base, port=0, registry=registry).start()
+
+    def run(tag, b):
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
+        t = time.perf_counter()
+        resp = post(server.port, b)
+        runs[tag] = (time.perf_counter() - t, resp,
+                     fa.flash_attention.launches,
+                     dict(fa.flash_attention.path_launches),
+                     ra.ragged_attention.launches)
+        return resp
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiles["tagless"] = unet_call_profile(base, gen, "tagless",
+                                                card_line)
+        run("tagless", body)
+        merges, merge_s = base._lora_merge_total, base._lora_merge_seconds
+        run("merged (cold)", lora_body)
+        merge_s = base._lora_merge_seconds - merge_s
+        check(base._lora_merge_total - merges == 3,
+              f"{base._lora_merge_total - merges} merges, want 3")
+        counts = base.last_lora_counts
+        run("merged", lora_body)
+        check(base._lora_merge_total - merges == 3,
+              "the identical repeat merged again")
+        peaks = {"merged": torch.cuda.max_memory_allocated()}
+        rel = merged_rel_error(base, adapters, 0.8, gen)
+        profiles["merged"] = unet_call_profile(base, gen, "merged",
+                                               card_line)
+        run("tagless again", body)
+        check(not base._pristine, "the tagless request left a merge")
+        run("weight 0", zero_body)
+        os.environ["SDTPU_LORA_TRACED"] = "1"
+        merges = base._lora_merge_total
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run("traced", lora_body)
+        build_s = base.last_traced_build_seconds
+        ts = base._traced_lora
+        check(ts is not None and (ts.rank_bucket, ts.slots) == CONFIG4_CELL,
+              f"traced cell {ts and (ts.rank_bucket, ts.slots)}, want "
+              f"{CONFIG4_CELL}")
+        profiles["traced"] = unet_call_profile(
+            base, gen, "traced", card_line,
+            lora=lora_mod.broadcast_set(ts, 8)["unet"])
+        solo = [run(f"traced solo {i}", b) for i, b in enumerate(pair)]
+        check(base._lora_merge_total == merges, "the traced path merged")
+        METRICS.clear()
+        fa.reset_launches(fa.flash_attention)
+        results, errors = [None, None], []
+
+        def send(i):
+            try:
+                results[i] = post(server.port, pair[i])
+            except Exception as e:  # noqa: BLE001 — fails the phase below
+                errors.append(e)
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(2)]
+        t = time.perf_counter()
+        for th in threads:  # in order, well inside the coalesce window
+            th.start()
+            time.sleep(0.05)
+        for th in threads:
+            th.join()
+        pair_s = time.perf_counter() - t
+        pair_k1 = fa.flash_attention.launches
+        pair_paths = dict(fa.flash_attention.path_launches)
+        serving = METRICS.summary()
+        peaks["traced"] = torch.cuda.max_memory_allocated()
+        check(not errors, f"a coalesced traced request failed: {errors}")
+    finally:
+        server.stop()
+        base.lora_provider = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    for tag, (lat, resp, k1, paths, k2) in runs.items():
+        n = len(resp["images"])
+        print(f"config #4 request ({tag}): latency {lat:.3f} s, {n} "
+              f"image(s), {n * 60.0 / lat:.3f} images per minute, K1 "
+              f"launches {k1} by path {json.dumps(paths)}, K2 {k2} "
+              f"[{card_line}]")
+        check(k1 == CONFIG4_K1_LAUNCHES, f"config #4 ({tag}) launched K1 "
+              f"{k1} times, want {CONFIG4_K1_LAUNCHES}")
+        check(paths["hopper"] == k1, f"config #4 ({tag}): K1 off the "
+              f"Hopper path: {paths}")
+        check(k2 == 0, f"config #4 ({tag}) launched K2 {k2} times")
+        for i, b64 in enumerate(resp["images"]):
+            px = png_pixels(b64)
+            check(px.shape == (CONFIG4_BODY["height"],
+                               CONFIG4_BODY["width"], 3)
+                  and float(px.std()) > 1.0,
+                  f"config #4 ({tag}) image {i}: shape {px.shape} or "
+                  f"constant")
+    img = {tag: runs[tag][1]["images"] for tag in runs}
+    seeds = json.loads(runs["merged"][1]["info"])["all_seeds"]
+    check(seeds == [1, 2, 3, 4], f"config #4 seeds {seeds}")
+    check(tags in json.loads(runs["merged"][1]["info"])["infotexts"][0],
+          "config #4 infotext lost the tags")
+    check(img["merged"] == img["merged (cold)"],
+          "the repeated config #4 request gave other PNG bytes")
+    check(img["tagless again"] == img["tagless"],
+          "a tagless request after the merge gave other bytes: the merge "
+          "was not undone exactly")
+    check(img["weight 0"] == img["tagless"],
+          "the adapters at weight 0 gave other bytes than no adapters")
+    check(img["merged"] != img["tagless"],
+          "the adapters did not change the image")
+
+    t = time.perf_counter()
+    cpu = {comp: {k: torch.zeros(v.shape) for k, v in leaves.items()
+                  if v.dim() == 2}
+           for comp, leaves in base._lora_leaves.items()}
+    want = [0, 0]
+    for name in CONFIG4_ADAPTERS:
+        _, applied, skipped = lora_mod.merge_lora(cpu, adapters[name], 0.8,
+                                                  family)
+        want[0] += applied
+        want[1] += skipped
+    del cpu
+    print(f"config #4 counts: the engine applied {counts[0]} and skipped "
+          f"{counts[1]} modules; merge_lora on CPU tensors {want[0]} and "
+          f"{want[1]} ({time.perf_counter() - t:.1f} s)")
+    check(tuple(counts) == tuple(want) == (3 * n_modules, 0),
+          "the engine's merge counts disagree with merge_lora's")
+    print(f"config #4 reference: the merged bf16 SDXL base UNet (batch 2, "
+          f"{config4_latent(base)}^2 latents) vs f32 with the same merge: "
+          f"relative error {rel:.4g} (tolerance 5e-2)")
+    check(rel <= 5e-2, "the merged bf16 UNet disagrees with the f32 one")
+
+    q_psnr = float(np.mean([psnr(png_pixels(a), png_pixels(b)) for a, b in
+                            zip(img["traced"], img["merged"])]))
+    q_ssim = float(np.mean([ssim(png_pixels(a), png_pixels(b)) for a, b in
+                            zip(img["traced"], img["merged"])]))
+    print(f"config #4 traced vs merged: mean PSNR {q_psnr:.3f} dB (floor "
+          f"{CONFIG4_PSNR}), mean SSIM {q_ssim:.5f} (floor {CONFIG4_SSIM})")
+    check(q_psnr >= CONFIG4_PSNR and q_ssim >= CONFIG4_SSIM,
+          "the traced path drifted from the merged one")
+
+    print(f"config #4 dispatcher (two traced batch-2 requests, two sets "
+          f"in one cell): {json.dumps(serving)}; {pair_s:.3f} s, K1 "
+          f"launches {pair_k1} by path {json.dumps(pair_paths)}")
+    check(serving["dispatches"] == 1 and serving["coalesced_requests"] == 2,
+          "the two traced requests did not run as one dispatch")
+    check(pair_k1 == CONFIG4_K1_LAUNCHES and pair_paths["hopper"] == pair_k1,
+          f"the coalesced pair launched K1 {pair_k1} times ({pair_paths})")
+    pair_diffs = []
+    for i, (got, alone) in enumerate(zip(results, solo)):
+        check(json.loads(got["info"])["all_seeds"]
+              == json.loads(alone["info"])["all_seeds"],
+              f"coalesced request {i} seeds")
+        for a, b in zip(got["images"], alone["images"]):
+            d = np.abs(png_pixels(a).astype(np.int32)
+                       - png_pixels(b).astype(np.int32))
+            pair_diffs.append(round(float(d.mean()), 4))
+            print(f"config #4 coalesced request {i} vs its solo run: mean "
+                  f"abs {d.mean():.4f}, max {d.max()} (uint8 levels)")
+            check(d.mean() <= CONFIG4_MEAN_TOLERANCE,
+                  f"coalesced request {i} drifted from its solo run")
+
+    warm = runs["merged"][0]
+    metrics = {"latency_s": {t: round(runs[t][0], 4) for t in runs},
+               "images_per_minute": round(4 * 60.0 / warm, 3),
+               "traced_images_per_minute": round(
+                   4 * 60.0 / runs["traced"][0], 3),
+               "merge_seconds": round(merge_s, 4),
+               "traced_build_seconds": round(build_s, 4),
+               "peak_memory_gib": {k: round(v / 2**30, 3)
+                                   for k, v in peaks.items()},
+               "applied_skipped": list(counts),
+               "k1_launches": {t: runs[t][2] for t in runs},
+               "traced_vs_merged": {"psnr": round(q_psnr, 3),
+                                    "ssim": round(q_ssim, 5)},
+               "coalesced_vs_solo_mean_abs": pair_diffs,
+               "coalesced_pair_s": round(pair_s, 4),
+               "merged_unet_bf16_vs_f32_rel": round(rel, 5),
+               "unet_call": profiles, "card": card_line}
+    print("config #4 metrics: " + json.dumps(metrics))
     return metrics
 
 
@@ -2106,6 +2605,9 @@ def main() -> int:
     totals, max_err, bound_by = phase_kernels(fa)
     config3_k1 = phase_config3_kernels(fa, card_line)
     sdxl = phase_sdxl_kernels(fa, card_line)
+    config4_k1 = phase_sdxl_kernels(fa, card_line, CONFIG4_SHAPES)
+    config4_k1 = {"max_abs_err": config4_k1["max_abs_err"],
+                  **config4_k1["config #4 base"]}
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
     samplers = phase_samplers(engine, fa, ra, card_line)
@@ -2117,7 +2619,9 @@ def main() -> int:
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
     torch.cuda.empty_cache()
-    config2 = phase_config2(fa, ra, card_line)
+    config2, base = phase_config2(fa, ra, card_line)
+    config4 = phase_config4(base, fa, ra, card_line)
+    del base
 
     def per_call(key):
         return {m: round(sdxl[m][key], 4) for m in SDXL_SHAPES}
@@ -2185,6 +2689,21 @@ def main() -> int:
                     "UNet call (44 launches) at 1024x1024, batch 8 with "
                     "CFG, bf16; each shape's bound is the largest of its "
                     "bytes, products and exps",
+        "config4_launches": config4["k1_launches"],
+        "config4_ms": round(config4_k1["ms"], 4),
+        "config4_device_ms": round(config4_k1["device_ms"], 4),
+        "config4_plain_ms": round(config4_k1["plain_ms"], 4),
+        "config4_bound_ms": round(config4_k1["bound_ms"], 4),
+        "config4_bound_by": config4_k1["bound_by"],
+        "config4_library_ms": round(config4_k1["library_ms"], 4),
+        "config4_library_device_ms": round(
+            config4_k1["library_device_ms"], 4),
+        "config4_host_us_per_launch": round(config4_k1["host_us"], 2),
+        "config4_max_abs_err": config4_k1["max_abs_err"],
+        "config4_per": "one SDXL base UNet call of config #4 (1024x1024, "
+                       "batch 4 with CFG = 8 rows; 70 launches), bf16; "
+                       "each shape's bound is the largest of its bytes, "
+                       "products and exps",
     }, {
         "name": "ragged_attention",
         "route": "cuda",

@@ -14,7 +14,9 @@ Weights are seeded random weights (``bridge.init_seeded``) until a
 checkpoint loader is ported; the fallback tokenizer stands in for CLIP's
 vocabulary. The engine runs on ``cuda`` with the card policy (bf16) unless
 ``--device cpu`` is given (f32 there); with no GPU and no ``--device`` the
-commands that build it raise.
+commands that build it raise. LoRA adapters come from ``<--model-dir>/Lora``
+(or ``lora``; default: the config file's ``model_dir``) through the port's
+``ModelRegistry``, and ``POST /sdapi/v1/refresh-loras`` rescans them.
 """
 
 from __future__ import annotations
@@ -40,9 +42,13 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 
 
 def _build_world(args, require_local: bool = True):
-    """The World of the config file, with the master ``WorkerNode`` over
-    the local engine in front (carrying its persisted calibration) unless
-    ``require_local`` is False (``status``, ``ping``)."""
+    """The World of the config file and the adapter registry of its model
+    directory, with the master ``WorkerNode`` over the local engine in
+    front (carrying its persisted calibration) unless ``require_local``
+    is False (``status``, ``ping``: no engine, no registry)."""
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+        ModelRegistry,
+    )
     from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
         LocalBackend,
         WorkerNode,
@@ -51,9 +57,12 @@ def _build_world(args, require_local: bool = True):
         World,
     )
 
-    engine = _build_engine(args) if require_local else None
     path = args.distributed_config or config_mod.default_config_path()
     cfg = config_mod.load_config(path)
+    registry = engine = None
+    if require_local:
+        registry = ModelRegistry(args.model_dir or cfg.model_dir)
+        engine = _build_engine(args, registry.lora_provider)
     world = World.from_config(
         cfg, config_path=path,
         verify_tls=not args.distributed_skip_verify_remotes)
@@ -68,10 +77,10 @@ def _build_world(args, require_local: bool = True):
             eta_percent_error=cal.eta_percent_error if cal else None,
             pixel_cap=cal.pixel_cap if cal else 0,
         ), front=True)  # the master leads the gallery
-    return world
+    return world, registry
 
 
-def _build_engine(args):
+def _build_engine(args, lora_provider=None):
     from stable_diffusion_webui_distributed_tpu_torch import bridge
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
         Engine,
@@ -82,7 +91,8 @@ def _build_engine(args):
     family = FAMILIES[args.family]
     params = bridge.init_seeded(family, args.seed, device,
                                 policy.param_dtype)
-    return Engine(family, params, policy=policy, device=device)
+    return Engine(family, params, policy=policy, device=device,
+                  lora_provider=lora_provider)
 
 
 def cmd_serve(args) -> int:
@@ -90,8 +100,9 @@ def cmd_serve(args) -> int:
         ApiServer,
     )
 
-    world = _build_world(args)
-    server = ApiServer(world, host=args.listen, port=args.port,
+    world, registry = _build_world(args)
+    server = ApiServer(world, registry=registry, host=args.listen,
+                       port=args.port,
                        user=args.api_auth_user,
                        password=args.api_auth_password)
     server.serve_forever()
@@ -110,7 +121,7 @@ def cmd_generate(args) -> int:
         b64png_to_array,
     )
 
-    world = _build_world(args)
+    world, _ = _build_world(args)
     w, h = (int(x) for x in args.size.split("x"))
     payload = GenerationPayload(
         prompt=args.prompt, negative_prompt=args.negative, steps=args.steps,
@@ -133,7 +144,7 @@ def cmd_generate(args) -> int:
 
 
 def cmd_benchmark(args) -> int:
-    world = _build_world(args)
+    world, _ = _build_world(args)
     speeds = world.benchmark_all(rebenchmark=args.rebenchmark)
     for label, ipm in sorted(speeds.items(), key=lambda kv: -kv[1]):
         print(f"{label:24s} {ipm:8.2f} ipm")
@@ -144,7 +155,7 @@ def cmd_benchmark(args) -> int:
 
 
 def cmd_ping(args) -> int:
-    world = _build_world(args, require_local=False)
+    world, _ = _build_world(args, require_local=False)
     results = world.ping_workers(indiscriminate=True)
     for label, ok in results.items():
         print(f"{label:24s} {'reachable' if ok else 'UNREACHABLE'}")
@@ -153,7 +164,7 @@ def cmd_ping(args) -> int:
 
 
 def cmd_status(args) -> int:
-    world = _build_world(args, require_local=False)
+    world, _ = _build_world(args, require_local=False)
     print(f"config: {world.config_path}")
     master = world.master_calibration()
     if master is not None:

@@ -1,12 +1,14 @@
 """CLIP / OpenCLIP text encoders in PyTorch.
 
-Port of the JAX package's ``models/clip.py`` without LoRA and textual
-inversion: fused QKV projection, pre-LN layers with f32 LayerNorm, an
+Port of the JAX package's ``models/clip.py`` without textual inversion:
+fused QKV projection, pre-LN layers with f32 LayerNorm, an
 additive causal mask of -1e9, webui's clip-skip rule (the final LayerNorm
 re-applied to a skipped hidden state where ``layernorm_skipped``) and the
 EOS-position pooled output. CLIP attention went through XLA's
 ``dot_product_attention`` in the JAX package, not a Pallas kernel, so here it
-goes through ``scaled_dot_product_attention``.
+goes through ``scaled_dot_product_attention``. A traced LoRA tree
+(``lora``: ``layer_{i}`` / ``attn`` / ``qkv``..., ``models/lora.py``) adds
+its delta at the Dense sites it names.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from torch import nn
 
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     CLIPTextConfig,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.lora import (
+    apply_site,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
     Dense,
@@ -43,15 +48,18 @@ class CLIPAttention(nn.Module):
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size)
         self.out_proj = Dense(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                lora: Optional[dict] = None) -> torch.Tensor:
         B, T, C = x.shape
         head_dim = C // self.num_heads
+        qkv = apply_site(self.qkv(x), x, lora, "qkv")
         q, k, v = (t.unflatten(-1, (self.num_heads, head_dim)).transpose(1, 2)
-                   for t in self.qkv(x).split(C, dim=-1))
+                   for t in qkv.split(C, dim=-1))
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask.to(q.dtype),
             scale=1.0 / math.sqrt(head_dim))
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, C))
+        out = out.transpose(1, 2).reshape(B, T, C)
+        return apply_site(self.out_proj(out), out, lora, "out_proj")
 
 
 class CLIPLayer(nn.Module):
@@ -64,16 +72,21 @@ class CLIPLayer(nn.Module):
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.fc2(_act(self.act, self.fc1(self.ln2(x))))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                lora: Optional[dict] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask,
+                          None if lora is None else lora.get("attn"))
+        h = self.ln2(x)
+        f = _act(self.act, apply_site(self.fc1(h), h, lora, "fc1"))
+        return x + apply_site(self.fc2(f), f, lora, "fc2")
 
 
 class CLIPTextModel(nn.Module):
     """Causal text transformer; ``forward(input_ids (B,T), skip)`` returns
     ``(context, pooled)``: the hidden states fed to cross-attention, taken
     ``skip`` layers before the end, and the final layer's EOS-position
-    embedding (projected where ``projection_dim`` is set)."""
+    embedding (projected where ``projection_dim`` is set). ``lora`` is a
+    traced adapter tree shared by every row."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -88,13 +101,15 @@ class CLIPTextModel(nn.Module):
             Dense(cfg.hidden_size, cfg.projection_dim, bias=False)
             if cfg.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor, skip: Optional[int] = None
+    def forward(self, input_ids: torch.Tensor, skip: Optional[int] = None,
+                lora: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         with reproducible_sdpa():
-            return self._forward(input_ids, skip)
+            return self._forward(input_ids, skip,
+                                 {} if lora is None else lora)
 
-    def _forward(self, input_ids: torch.Tensor, skip: Optional[int]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _forward(self, input_ids: torch.Tensor, skip: Optional[int],
+                 lora: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.cfg
         skip = c.default_skip if skip is None else skip
         if not 0 <= skip < c.num_layers:
@@ -107,7 +122,7 @@ class CLIPTextModel(nn.Module):
                             diagonal=1)[None, None]
         hidden = None
         for i in range(c.num_layers):
-            x = getattr(self, f"layer_{i}")(x, causal)
+            x = getattr(self, f"layer_{i}")(x, causal, lora.get(f"layer_{i}"))
             if i == c.num_layers - 1 - skip:
                 hidden = x
         final = self.final_ln(x)

@@ -1,7 +1,7 @@
 """Denoising UNet (SD 1.x and SDXL families), full forward, in PyTorch.
 
-Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` with no
-LoRA or int8. SDXL's added conditioning (pooled text
+Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` without
+int8. SDXL's added conditioning (pooled text
 and the micro-conditioning time ids, :func:`make_added_cond`) goes through
 ``add_fc1``/``add_fc2`` onto the timestep embedding; the per-level
 transformer depths come from the config (SDXL has none at level 0) and
@@ -23,6 +23,12 @@ XLA, goes to ``scaled_dot_product_attention`` on the backends of
 ControlNet residuals (``control_residuals``, from ``models/controlnet.py``,
 NCHW): the last is added to the mid block's output and residual ``i`` to
 skip ``i``, each cast to the activation's dtype first.
+
+Traced LoRA (``lora``, ``models/lora.py``): a per-row factor tree along the
+module paths (``down_{l}_attn_{i}`` / ``mid_attn`` / ``up_{l}_attn_{i}``,
+``block_{i}``, ``attn1``...); each Dense site it names adds its delta to
+the projection's output, computed from the projection's input. Without it
+the forward runs the same ops as before.
 
 Ragged rows (ragged dispatch): ``forward(..., true_rows, ctx_true)`` takes
 ``(B,)`` integer device tensors, the valid latent rows of each batch row
@@ -48,6 +54,9 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     UNetConfig,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.lora import (
+    apply_site,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -195,23 +204,27 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
-                true_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                true_len: Optional[torch.Tensor] = None,
+                lora: Optional[dict] = None) -> torch.Tensor:
         B, T, C = x.shape
         heads = self.num_heads
         scale = 1.0 / math.sqrt(C // heads)
         if context is None:
             # column slices of the fused projection, read in place by the
             # kernel
+            qkv = apply_site(self.qkv(x), x, lora, "qkv")
             q, k, v = (t.unflatten(-1, (heads, C // heads))
-                       for t in self.qkv(x).split(C, dim=-1))
+                       for t in qkv.split(C, dim=-1))
             if true_len is None:
                 out = flash_attention(q, k, v, scale=scale)
             else:
                 out = ragged_attention(q, k, v, true_len, scale=scale)
         else:
-            q = self.q(x).unflatten(-1, (heads, C // heads))
+            q = apply_site(self.q(x), x, lora, "q").unflatten(
+                -1, (heads, C // heads))
+            kv = apply_site(self.kv(context), context, lora, "kv")
             k, v = (t.unflatten(-1, (heads, C // heads))
-                    for t in self.kv(context).split(C, dim=-1))
+                    for t in kv.split(C, dim=-1))
             if true_len is None:
                 out = F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -219,7 +232,8 @@ class Attention(nn.Module):
             else:
                 out = ragged_attention(q, k, v, true_len, scale=scale,
                                        mask_queries=False)
-        return self.out_proj(out.reshape(B, T, C))
+        out = out.reshape(B, T, C)
+        return apply_site(self.out_proj(out), out, lora, "out_proj")
 
 
 class GEGLU(nn.Module):
@@ -227,8 +241,9 @@ class GEGLU(nn.Module):
         super().__init__()
         self.proj = Dense(dim, 2 * dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, g = self.proj(x).chunk(2, dim=-1)
+    def forward(self, x: torch.Tensor,
+                lora: Optional[dict] = None) -> torch.Tensor:
+        a, g = apply_site(self.proj(x), x, lora, "proj").chunk(2, dim=-1)
         return a * F.gelu(g, approximate="tanh")
 
 
@@ -247,10 +262,15 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 true_len: Optional[torch.Tensor] = None,
-                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn1(self.ln1(x), true_len=true_len)
-        x = x + self.attn2(self.ln2(x), context, true_len=ctx_true)
-        return x + self.ff_out(self.geglu(self.ln3(x)))
+                ctx_true: Optional[torch.Tensor] = None,
+                lora: Optional[dict] = None) -> torch.Tensor:
+        sub = {} if lora is None else lora
+        x = x + self.attn1(self.ln1(x), true_len=true_len,
+                           lora=sub.get("attn1"))
+        x = x + self.attn2(self.ln2(x), context, true_len=ctx_true,
+                           lora=sub.get("attn2"))
+        g = self.geglu(self.ln3(x), lora=sub.get("geglu"))
+        return x + apply_site(self.ff_out(g), g, lora, "ff_out")
 
 
 class SpatialTransformer(nn.Module):
@@ -270,16 +290,21 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 true_rows: Optional[torch.Tensor] = None,
-                ctx_true: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ctx_true: Optional[torch.Tensor] = None,
+                lora: Optional[dict] = None) -> torch.Tensor:
         _, _, H, W = x.shape
         # row-major flatten: a valid prefix of true_rows rows is a valid
         # prefix of true_rows * W tokens
         true_len = (None if true_rows is None
                     else torch.clamp(true_rows, max=H) * W)
-        h = self.proj_in(to_tokens(self.norm(x)))
+        sub = {} if lora is None else lora
+        hn = to_tokens(self.norm(x))
+        h = apply_site(self.proj_in(hn), hn, lora, "proj_in")
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context, true_len, ctx_true)
-        return x + from_tokens(self.proj_out(h), H, W)
+            h = getattr(self, f"block_{i}")(h, context, true_len, ctx_true,
+                                            sub.get(f"block_{i}"))
+        return x + from_tokens(
+            apply_site(self.proj_out(h), h, lora, "proj_out"), H, W)
 
 
 class Downsample(nn.Module):
@@ -303,11 +328,12 @@ class Upsample(nn.Module):
 class UNet(nn.Module):
     """The conditional denoiser: ``forward(latents (B,H,W,Cin) NHWC,
     timesteps (B,) f32, context (B,L,D), added_cond (B,P), true_rows (B,)
-    int, ctx_true (B,) int, control_residuals)`` -> predicted noise
+    int, ctx_true (B,) int, control_residuals, lora)`` -> predicted noise
     ``(B,H,W,Cout)`` f32. ``added_cond`` is required by an SDXL family and
     refused by any other; the two length vectors are for ragged rows and
     optional; ``control_residuals`` (one per skip, then the mid residual,
-    NCHW) are ControlNet's and optional."""
+    NCHW) are ControlNet's and optional; ``lora`` is a traced adapter
+    tree with ``[B, S, ...]`` leaves and optional."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -370,21 +396,22 @@ class UNet(nn.Module):
                 added_cond: Optional[torch.Tensor] = None,
                 true_rows: Optional[torch.Tensor] = None,
                 ctx_true: Optional[torch.Tensor] = None,
-                control_residuals: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                control_residuals: Optional[Sequence[torch.Tensor]] = None,
+                lora: Optional[dict] = None) -> torch.Tensor:
         if (added_cond is None) != (not self.cfg.addition_embed_dim):
             raise ValueError("added_cond is required by an SDXL family and "
                              "only by one")
         with reproducible_sdpa():
             return self._forward(latents, timesteps, context, added_cond,
-                                 true_rows, ctx_true, control_residuals)
+                                 true_rows, ctx_true, control_residuals,
+                                 {} if lora is None else lora)
 
     def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, added_cond: Optional[torch.Tensor],
                  true_rows: Optional[torch.Tensor],
                  ctx_true: Optional[torch.Tensor],
-                 control_residuals: Optional[Sequence[torch.Tensor]]
-                 ) -> torch.Tensor:
+                 control_residuals: Optional[Sequence[torch.Tensor]],
+                 lora: dict) -> torch.Tensor:
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
@@ -411,7 +438,8 @@ class UNet(nn.Module):
                 x = getattr(self, f"down_{level}_res_{i}")(x, temb)
                 if depth is not None:
                     x = getattr(self, f"down_{level}_attn_{i}")(
-                        x, context, rows[level], ctx_true)
+                        x, context, rows[level], ctx_true,
+                        lora.get(f"down_{level}_attn_{i}"))
                 skips.append(x)
             if level < n_levels - 1:
                 x = getattr(self, f"down_{level}_ds")(x)
@@ -419,7 +447,8 @@ class UNet(nn.Module):
 
         x = self.mid_res_0(x, temb)
         if self.mid_attn is not None:
-            x = self.mid_attn(x, context, rows[-1], ctx_true)
+            x = self.mid_attn(x, context, rows[-1], ctx_true,
+                              lora.get("mid_attn"))
         x = self.mid_res_1(x, temb)
         if control_residuals is not None:
             x, skips = control_residuals_added(x, skips, control_residuals)
@@ -430,7 +459,8 @@ class UNet(nn.Module):
                 x = getattr(self, f"up_{level}_res_{i}")(x, temb)
                 if c.down_blocks[level] is not None:
                     x = getattr(self, f"up_{level}_attn_{i}")(
-                        x, context, rows[level], ctx_true)
+                        x, context, rows[level], ctx_true,
+                        lora.get(f"up_{level}_attn_{i}"))
             if level > 0:
                 x = getattr(self, f"up_{level}_us")(x)
 

@@ -52,16 +52,27 @@ with per-row contexts and lengths. Lengths stay device tensors, never read
 back to the host. ControlNet, inpainting families and refiner handoffs
 never run ragged.
 
+LoRA (``<lora:name:w[:te_w]>`` tags, adapters from ``lora_provider``): the
+tags are stripped before tokenizing and kept in the infotext. By default the
+adapters are merged into the weights (:meth:`Engine.set_loras`): each leaf
+they touch is kept pristine and rewritten as ``(pristine.float() + w *
+delta).to(dtype)``, so removing them restores the pristine bytes. Under
+``SDTPU_LORA_TRACED=1`` they resolve to a traced set (``models/lora.py``)
+whose factors ride into the text encoders and the UNet with the weights
+left pristine; a set past the rank or slot ladder, or a DPM adaptive
+request, takes the merged path instead, as in the JAX package.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): hires fix, LoRA tags, per-image prompts and scripts, the step cache,
-other serving precisions, and SDXL under ragged dispatch.
+422): hires fix, per-image prompts and scripts, the step cache, other
+serving precisions, and SDXL under ragged dispatch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
-import re
+import threading
+import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -79,6 +90,9 @@ from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     ModelFamily,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models import (
+    lora as lora_mod,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
     ControlNet,
@@ -124,8 +138,6 @@ from stable_diffusion_webui_distributed_tpu_torch.samplers import (
 
 log = logging.getLogger(__name__)
 
-_LORA_TAG = re.compile(r"<lora:([^:>]+)(?::([0-9.+-]+))?(?::([0-9.+-]+))?>")
-
 #: one ControlNet unit as the denoiser takes it: (module, hint (1,H,W,3) f32
 #: on the device, weight, guidance start, guidance end)
 Control = Tuple[torch.nn.Module, torch.Tensor, float, float, float]
@@ -146,7 +158,9 @@ class Engine:
     maps a refiner name to the engine that finishes a request's sigma
     ladder (None: no refiner); ``controlnet_provider`` maps a unit's model
     name to a ControlNet state dict (``bridge.controlnet_flax_to_torch`` or
-    ``bridge.init_seeded_controlnet``; None: unknown)."""
+    ``bridge.init_seeded_controlnet``; None: unknown); ``lora_provider``
+    maps an adapter name to its kohya state dict (``ModelRegistry.
+    lora_provider``; None: no adapters)."""
 
     def __init__(
         self,
@@ -162,6 +176,7 @@ class Engine:
         engine_provider: Optional[Callable[[str], Optional["Engine"]]] = None,
         controlnet_provider: Optional[
             Callable[[str], Optional[Dict[str, torch.Tensor]]]] = None,
+        lora_provider: Optional[Callable[[str], Optional[Dict]]] = None,
     ):
         self.device = dtypes.resolve_device(device)
         self.family = family
@@ -202,6 +217,34 @@ class Engine:
         self.last_adaptive_attempts = 0
         self._adaptive_incomplete = False
 
+        # LoRA. _active_loras latches () (pristine) or the (specs,
+        # provider generation) pair the last merge ran for, missing names
+        # included, so an identical repeat is a no-op until a rescan bumps
+        # the generation. _pristine holds each merged leaf's pristine
+        # weight; _traced_lora is the active traced set (None: none), with
+        # an LRU of built sets by (specs, generation).
+        self.lora_provider = lora_provider
+        self._lora_leaves = {
+            name: dict(module.named_parameters())
+            for name, module in (("unet", self.unet),
+                                 ("text_encoder", self.text_encoder),
+                                 ("text_encoder_2", self.text_encoder_2))
+            if module is not None}
+        self._active_loras: Tuple = ()
+        self._pristine: Dict[Tuple[str, str], torch.Tensor] = {}
+        self._traced_lora: Optional[lora_mod.TracedSet] = None
+        # the dispatcher asks for sets from its request threads
+        self._traced_lock = threading.Lock()
+        self._traced_cache: "OrderedDict[Tuple, lora_mod.TracedSet]" = \
+            OrderedDict()  # guarded-by: _traced_lock
+        self._TRACED_CACHE_MAX = 8
+        #: merges run (one per adapter), their seconds, and the modules
+        #: the last merge applied and skipped
+        self._lora_merge_total = 0
+        self._lora_merge_seconds = 0.0
+        self.last_lora_counts = (0, 0)
+        self.last_traced_build_seconds = 0.0
+
         # cross-request conditioning cache (webui's cached_c/cached_uc),
         # keyed on prompt text + clip skip + chunk count
         self._cond_cache: "OrderedDict[Tuple, Tuple]" = OrderedDict()
@@ -222,12 +265,17 @@ class Engine:
         (1, D') f32): emphasis scales the tokens, the chunk mean is
         restored, the chunks join along the sequence axis. With a second
         encoder (SDXL) the two contexts join on the channel axis and the
-        pooled output is the second's, from the first chunk."""
+        pooled output is the second's, from the first chunk. An active
+        traced set whose factors touch a text encoder adds its deltas."""
         ids_t = torch.from_numpy(ids).long().to(self.device)
         skip_arg = skip if skip else None
-        ctx, pooled = self.text_encoder(ids_t, skip=skip_arg)
+        ts = self._traced_lora
+        te = ts.tree if ts is not None and ts.te_content else {}
+        ctx, pooled = self.text_encoder(ids_t, skip=skip_arg,
+                                        lora=te.get("text_encoder"))
         if self.text_encoder_2 is not None:
-            ctx2, pooled = self.text_encoder_2(ids_t, skip=skip_arg)
+            ctx2, pooled = self.text_encoder_2(
+                ids_t, skip=skip_arg, lora=te.get("text_encoder_2"))
             ctx = torch.cat([ctx.float(), ctx2.float()], dim=-1)
         ctx = ctx.float()
         w = torch.from_numpy(weights).to(self.device)
@@ -249,7 +297,7 @@ class Engine:
         ctx_true_c)`` gives the valid context tokens of each half, which
         the UNet's cross-attention masks the padding by."""
         tok = self.tokenizer
-        prompt = _strip_prompt(payload.prompt)
+        prompt = lora_mod.extract_lora_tags(payload.prompt)[0]
         ids_c, w_c = tokenize_weighted(tok, prompt)
         ids_u, w_u = tokenize_weighted(tok, payload.negative_prompt)
         n = max([ids_c.shape[0], ids_u.shape[0]]
@@ -261,8 +309,10 @@ class Engine:
         skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
 
         def cached(raw, ids, w):
+            # merges clear the cache; a traced set's text-encoder factors
+            # key it by their content
             n_enc = ids.shape[0] if ragged else n
-            key = (raw, skip, n_enc)
+            key = (raw, skip, n_enc, self.traced_te_content())
             hit = self._cond_cache.get(key)
             if hit is not None:
                 self._cond_cache.move_to_end(key)
@@ -290,7 +340,9 @@ class Engine:
         member's conditioning to the group's largest."""
         tok = self.tokenizer
         return int(max(
-            tokenize_weighted(tok, _strip_prompt(payload.prompt))[0].shape[0],
+            tokenize_weighted(
+                tok, lora_mod.extract_lora_tags(payload.prompt)[0])[0]
+            .shape[0],
             tokenize_weighted(tok, payload.negative_prompt)[0].shape[0]))
 
     @staticmethod
@@ -344,7 +396,8 @@ class Engine:
     def _make_denoise_fn(self, ctx_u, ctx_c, cfg_scale: float, batch: int,
                          ragged=None, added=None,
                          controls: Sequence[Control] = (), gates=None,
-                         inpaint_cond: Optional[torch.Tensor] = None):
+                         inpaint_cond: Optional[torch.Tensor] = None,
+                         lora: Optional[Dict] = None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
         ``(1, L, D)`` context or one per row; so is ``added``'s second
@@ -361,7 +414,10 @@ class Engine:
         :func:`adaptive_gates` under DPM adaptive); a unit gated to 0 is
         not run. ``inpaint_cond``:
         an inpainting family's ``(batch, h, w, 1 + C)`` extra UNet input
-        channels, the same for both CFG halves."""
+        channels, the same for both CFG halves. ``lora``: a traced adapter
+        tree with ``[batch, S, ...]`` leaves for the UNet, doubled for the
+        two CFG halves (the ControlNet runs without it, as in the JAX
+        package)."""
         ctx = torch.cat([ctx_u.expand(batch, -1, -1),
                          ctx_c.expand(batch, -1, -1)])
         kw = {}
@@ -372,6 +428,8 @@ class Engine:
             true_rows, ctx_true_u, ctx_true_c = ragged
             kw["true_rows"] = torch.cat([true_rows, true_rows])
             kw["ctx_true"] = torch.cat([ctx_true_u, ctx_true_c])
+        if lora is not None:
+            kw["lora"] = lora_mod.double_rows(lora)
         hints = [torch.cat([hint.expand(batch, -1, -1, -1)] * 2)
                  for _, hint, *_ in controls]
         inp2 = (None if inpaint_cond is None
@@ -414,8 +472,8 @@ class Engine:
                  ragged=None, start_step: int = 0,
                  end_step: Optional[int] = None,
                  controls: Sequence[Control] = (), mask=None,
-                 inpaint_cond: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 inpaint_cond: Optional[torch.Tensor] = None,
+                 lora: Optional[Dict] = None) -> torch.Tensor:
         """Chunked sampler loop over steps ``[start_step, end_step or
         steps)`` of the request's sigma ladder: ``chunk_size`` steps at a
         time, the interrupt flag and progress checked between chunks.
@@ -425,10 +483,16 @@ class Engine:
         for :meth:`_make_denoise_fn`, the ControlNet windows over the
         request's ``steps``. ``mask``: ``(mask_lat (1,h,w,1), init_lat)``,
         whose unmasked region is pinned after every step to ``init_lat``
-        noised to the next sigma. DPM adaptive runs
-        :meth:`_denoise_adaptive` instead."""
+        noised to the next sigma. ``lora``: a per-row traced UNet tree
+        (the dispatcher's :func:`~..models.lora.stack_row_sets`); None
+        takes the engine's active traced set, if any, for every row. DPM
+        adaptive runs :meth:`_denoise_adaptive` instead (never with a
+        traced set: such requests take the merged path)."""
         spec = kd.resolve_sampler(payload.sampler_name)
         added = self._added_cond(pooleds, payload.width, payload.height)
+        if lora is None and self._traced_lora is not None:
+            lora = lora_mod.broadcast_set(self._traced_lora,
+                                          x.shape[0])["unet"]
         if spec.adaptive:
             return self._denoise_adaptive(payload, x, image_keys, conds,
                                           added, job, start_step, end_step,
@@ -438,7 +502,7 @@ class Engine:
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
         denoise = self._make_denoise_fn(
             *conds, payload.cfg_scale, x.shape[0], ragged, added, controls,
-            lambda i: window_gates(controls, i, steps), inpaint_cond)
+            lambda i: window_gates(controls, i, steps), inpaint_cond, lora)
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
         if ragged is not None:
             step = _zero_tail_rows(step, ragged[0], x.shape[1])
@@ -914,8 +978,14 @@ class Engine:
         self.check_supported(payload)
         self._adaptive_incomplete = False
         count = payload.total_images if count is None else count
+        return self.run_on_device(self._generate, payload, start_index,
+                                  count, job)
+
+    def _generate(self, payload: GenerationPayload, start: int, count: int,
+                  job: str) -> GenerationResult:
+        self._apply_prompt_loras(payload)
         run = self._run_img2img if payload.init_images else self._run_txt2img
-        return self.run_on_device(run, payload, start_index, count, job)
+        return run(payload, start, count, job)
 
     def check_supported(self, payload: GenerationPayload) -> None:
         """:func:`check_supported`, and what this engine's family does not
@@ -939,6 +1009,149 @@ class Engine:
     def _on_device(self, fn, args):
         with torch.inference_mode(), _reproducible(self.device):
             return fn(*args)
+
+    # -- LoRA ---------------------------------------------------------------
+
+    def _lora_provider_gen(self) -> int:
+        """The provider's reload generation (``ModelRegistry.
+        lora_generation``, bumped by ``/refresh-loras``); 0 for a plain
+        callable."""
+        owner = getattr(self.lora_provider, "__self__", None)
+        return int(getattr(owner, "lora_generation", 0) or 0)
+
+    def set_loras(self, specs) -> None:
+        """Merge a stack of ``(name, unet_weight, te_weight)`` adapters into
+        the weights, from the pristine ones. Each touched leaf becomes
+        ``(pristine.float() + sum of w * delta).to(dtype)``, the adapters
+        added in order in f32; a leaf the new stack leaves alone gets its
+        pristine bytes back. The resolved outcome is latched, skipped names
+        included, with the provider's generation: an identical repeat is a
+        no-op, and a rescan retries. Clears the conditioning cache."""
+        key = tuple(specs)
+        gen = self._lora_provider_gen()
+        if self._active_loras == () and not key:
+            return  # pristine engine, empty request: nothing to undo
+        if self._active_loras == (key, gen):
+            return
+        if not key and self._active_loras[0] == ():
+            # already pristine, older generation: a rescan cannot change
+            # "no adapters"
+            self._active_loras = ((), gen)
+            return
+        t0 = time.perf_counter()
+        by_leaf: Dict[Tuple[str, str], list] = {}
+        merged = applied = skipped = 0
+        for name, weight, te_weight in specs:
+            sd = self.lora_provider(name) if self.lora_provider else None
+            if sd is None:
+                log.warning("lora '%s' not found; skipping", name)
+                continue
+            patches, a, sk = lora_mod.resolve_lora(
+                sd, self.family, lora_mod.shape_getter(self._lora_leaves))
+            for p in patches:
+                w = te_weight if p.component.startswith("text_encoder") \
+                    else weight
+                by_leaf.setdefault((p.component, p.key), []).append((p, w))
+            merged += 1
+            applied += a
+            skipped += sk
+        with torch.no_grad():
+            for leaf in [k for k in self._pristine if k not in by_leaf]:
+                comp, name = leaf
+                self._lora_leaves[comp][name].copy_(self._pristine.pop(leaf))
+            for (comp, name), patches in by_leaf.items():
+                param = self._lora_leaves[comp][name]
+                pristine = self._pristine.get((comp, name))
+                if pristine is None:
+                    pristine = param.detach().clone()
+                    self._pristine[(comp, name)] = pristine
+                param.copy_(lora_mod.merge_leaf(pristine, patches))
+        self._active_loras = (key, gen)
+        self.last_lora_counts = (applied, skipped)
+        if merged:
+            if self.device.type == "cuda":
+                # the merge's time is the device's, not its enqueue
+                torch.cuda.synchronize(self.device)
+            self._lora_merge_total += merged
+            self._lora_merge_seconds += time.perf_counter() - t0
+            log.debug("lora: %d adapter(s) merged, %d module(s) applied, "
+                      "%d skipped", merged, applied, skipped)
+        # the text encoders' weights changed: conditioning computed under
+        # the old merge is stale
+        self._cond_cache.clear()
+
+    def _traced_set_for(self, specs: Tuple) -> Optional[lora_mod.TracedSet]:
+        """The traced set for a spec tuple, or None when it cannot ride the
+        ladders (the caller then takes the merged path). Cached by (specs,
+        provider generation); a hit is served only while each adapter's
+        state dict is still the provider's own, so a file edited on disk
+        (reloaded to a new dict) rebuilds it."""
+        with self._traced_lock:
+            return self._traced_set_locked(tuple(specs))
+
+    def _traced_set_locked(self, specs: Tuple
+                           ) -> Optional[lora_mod.TracedSet]:
+        key = (specs, self._lora_provider_gen())
+        ts = self._traced_cache.get(key)
+        if ts is not None:
+            if self.lora_provider is not None and all(
+                    self.lora_provider(name) is src
+                    for (name, _w, _tw), src in zip(ts.specs, ts.srcs)):
+                self._traced_cache.move_to_end(key)
+                return ts
+            del self._traced_cache[key]
+        t0 = time.perf_counter()
+        ts = lora_mod.build_traced_set(specs, self.lora_provider,
+                                       self.family, self._lora_leaves,
+                                       self.device,
+                                       self.policy.compute_dtype)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_traced_build_seconds = time.perf_counter() - t0
+        if ts is None:
+            return None
+        self._traced_cache[key] = ts
+        if len(self._traced_cache) > self._TRACED_CACHE_MAX:
+            self._traced_cache.popitem(last=False)
+        return ts
+
+    def traced_te_content(self) -> str:
+        """Content address of the active traced set's text-encoder
+        factors; "" when none is active or it touches no text encoder (the
+        conditioning is then the adapterless one)."""
+        ts = self._traced_lora
+        return ts.te_content if ts is not None and ts.te_content else ""
+
+    def traced_content_for_payload(self, payload: GenerationPayload) -> str:
+        """Content address of the traced set this payload would run under;
+        "" on the merged path."""
+        if not lora_mod.traced_enabled():
+            return ""
+        _, tags = lora_mod.extract_lora_tags(payload.prompt)
+        if not tags or kd.resolve_sampler(payload.sampler_name).adaptive:
+            return ""
+        ts = self._traced_set_for(tuple(tags))
+        return ts.content if ts is not None else ""
+
+    def _apply_prompt_loras(self, payload: GenerationPayload) -> None:
+        """Activate the adapters the prompt names (the payload keeps its
+        tags for the infotext). Under ``SDTPU_LORA_TRACED`` they resolve to
+        a traced set and any merge is undone first; a set the ladders
+        cannot hold, and a DPM adaptive request (whose attempt takes no
+        factors), take the merged path, as in the JAX package."""
+        _, tags = lora_mod.extract_lora_tags(payload.prompt)
+        if lora_mod.traced_enabled() and not kd.resolve_sampler(
+                payload.sampler_name).adaptive:
+            ts = self._traced_set_for(tuple(tags)) if tags else None
+            if ts is not None or not tags:
+                if self._active_loras:
+                    # the traced deltas assume the pristine weights
+                    self.set_loras(())
+                self._traced_lora = ts
+                return
+        self._traced_lora = None
+        if tags or self._active_loras:
+            self.set_loras(tags)
 
     def txt2img(self, payload: GenerationPayload) -> GenerationResult:
         # top-level request: reset the interrupt latch, expand scripts
@@ -1077,16 +1290,6 @@ def adaptive_gates(controls: Sequence[Control], sigmas: torch.Tensor,
             for _, _, w, lo, hi in controls]
 
 
-def _strip_prompt(prompt: str) -> str:
-    """The JAX package strips ``<lora:...>`` tags before tokenizing and
-    collapses the whitespace they leave; the port has no LoRA, so a tag
-    raises."""
-    if _LORA_TAG.search(prompt):
-        raise Unsupported("LoRA tags are not ported to the PyTorch engine "
-                          "yet")
-    return re.sub(r"\s{2,}", " ", prompt).strip()
-
-
 def check_supported(payload: GenerationPayload) -> None:
     """Raise :class:`Unsupported` for what this slice does not run, rather
     than answer with an image the JAX package would not make."""
@@ -1104,4 +1307,3 @@ def check_supported(payload: GenerationPayload) -> None:
     if asked:
         raise Unsupported(f"not ported to the PyTorch engine yet: "
                           f"{', '.join(asked)}")
-    _strip_prompt(payload.prompt)

@@ -1,7 +1,7 @@
 """The fleet's command-line flags, as the JAX package's ``runtime/flags.py``
-names them (``--mesh`` and ``--model-dir`` wait for multi-GPU and the
-checkpoint registry). ``add_flags`` also works on a host application's
-parser."""
+names them (``--mesh`` waits for multi-GPU; ``--model-dir`` holds the
+adapters under ``Lora/`` until the checkpoint registry lands).
+``add_flags`` also works on a host application's parser."""
 
 from __future__ import annotations
 
@@ -24,6 +24,10 @@ def add_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         "--thin-client", action="store_true",
         help="exclude the local engine from planning: coordinate remotes "
         "only")
+    group.add_argument(
+        "--model-dir", type=str, default=None,
+        help="model directory: LoRA adapters under Lora/ or lora/ "
+        "(default: the config file's model_dir)")
     group.add_argument("--listen", type=str, default="127.0.0.1",
                        help="API bind host")
     group.add_argument("--port", type=int, default=7860, help="API bind port")

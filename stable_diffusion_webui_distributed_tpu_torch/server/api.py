@@ -16,6 +16,8 @@ remotes; without a checkpoint registry a node switches to no other model,
 so a model name other than the one it serves, or a VAE of its own, answers
 422 and changes nothing); ``GET /sdapi/v1/sd-models``; ``GET
 /sdapi/v1/script-info`` (the scripts the port runs: ControlNet); ``POST
+/sdapi/v1/refresh-loras`` (rescans the ``registry``'s adapter directories;
+``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
 /internal/benchmark`` for a World. A request for something the
 port does not run answers 422. Optional Basic auth. Served by the standard
@@ -74,11 +76,14 @@ class ApiError(Exception):
 
 class ApiServer:
     """One generation node's REST surface over ``source`` (a ``World`` or
-    an ``Engine``)."""
+    an ``Engine``); ``registry`` is the ``ModelRegistry`` whose adapters
+    the engine's ``lora_provider`` serves (None: nothing to rescan)."""
 
     def __init__(self, source, host: str = "127.0.0.1", port: int = 7860,
-                 user: Optional[str] = None, password: Optional[str] = None):
+                 user: Optional[str] = None, password: Optional[str] = None,
+                 registry=None):
         self.source = source
+        self.registry = registry
         self.state = getattr(source, "state", None) or interrupt_mod.STATE
         self.host = host
         self.port = port
@@ -304,6 +309,13 @@ class ApiServer:
         return [{"name": "controlnet", "is_alwayson": True,
                  "is_img2img": True, "args": []}]
 
+    def handle_refresh_loras(self) -> Dict[str, Any]:
+        """Rescan the adapter directories: a file added since is served,
+        and the engine's latch retries the names it skipped."""
+        if self.registry is not None:
+            self.registry.refresh()
+        return {}
+
     def handle_server_restart(self) -> Dict[str, Any]:
         """Flag the serving process to re-exec itself (the CLI's ``serve``
         does) and stop serving."""
@@ -356,6 +368,7 @@ class ApiServer:
             ("POST", "/sdapi/v1/options"): self.handle_options_post,
             ("GET", "/sdapi/v1/sd-models"): self.handle_sd_models,
             ("GET", "/sdapi/v1/script-info"): self.handle_script_info,
+            ("POST", "/sdapi/v1/refresh-loras"): self.handle_refresh_loras,
             ("POST", "/sdapi/v1/server-restart"): self.handle_server_restart,
             ("GET", "/internal/workers"): self.handle_workers,
             ("POST", "/internal/benchmark"): self.handle_benchmark,

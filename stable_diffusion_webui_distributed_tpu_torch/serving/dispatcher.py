@@ -24,6 +24,14 @@ its true latent rows and context length as device vectors, the attention
 kernel masks the padded tail (kernel K2), and each image is cropped back
 to its top-aligned true size.
 
+LoRA: a request whose adapters are merged into the weights runs solo (a
+merge changes the weights under every row). Under ``SDTPU_LORA_TRACED``
+a request's adapters resolve to a traced set, and its (rank bucket, slot
+count) cell joins the group key: requests with different adapters in one
+cell share a batch, each member's set installed before its prompts are
+encoded and its rows carrying its own factors into the UNet
+(``models/lora.py`` ``stack_row_sets``).
+
 Per-request cancellation: ``cancel(request_id)`` marks one ticket; the
 batch keeps running, the cancelled requester's images are dropped at split
 time and no other requester is affected.
@@ -34,7 +42,7 @@ run solo under the same execution lock, still shape-bucketed.
 Not ported yet (ROADMAP item 17): the fleet gate with quotas and
 admission, the result, embed and prefix caches, the journal, Prometheus,
 spans, perf ledger, TSDB and watchdog, the warm pool, the stage-graph
-executor, traced-LoRA grouping and the chaos hook.
+executor and the chaos hook.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch.models import (
+    lora as lora_mod,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
     parse_controlnet_units,
 )
@@ -181,17 +192,37 @@ class ServingDispatcher:
 
     # -- grouping ----------------------------------------------------------
 
+    def _traced_rowspec(self, p):
+        """The traced-LoRA cell of a payload: ``(0, 0)`` without tags, the
+        ``(rank_bucket, slots)`` of its traced set when
+        ``SDTPU_LORA_TRACED`` serves its tags, None when they take the
+        merged path (the gate off, DPM adaptive, a set past the
+        ladders)."""
+        if "<lora:" not in (p.prompt or ""):
+            return (0, 0)
+        if not lora_mod.traced_enabled():
+            return None
+        _, tags = lora_mod.extract_lora_tags(p.prompt or "")
+        if not tags:
+            return (0, 0)
+        if kd.resolve_sampler(p.sampler_name).adaptive:
+            return None
+        ts = self.engine._traced_set_for(tuple(tags))
+        return None if ts is None else (ts.rank_bucket, ts.slots)
+
     def _coalescable(self, p) -> bool:
         """May this payload share a batch, and run ragged under
         SDTPU_RAGGED? DPM adaptive runs solo: its step controller reads one
         error over the whole batch, so a batch mate would change its
-        image. ControlNet units and an inpainting family's extra channels
-        ride no coalesced batch, as in the JAX package. (LoRA tags and the
-        step cache, which it also keeps out, are not ported:
-        ``check_supported`` rejects them.)"""
+        image. Merged LoRA adapters, ControlNet units and an inpainting
+        family's extra channels ride no coalesced batch, as in the JAX
+        package. (The step cache, which it also keeps out, is not ported:
+        ``check_supported`` rejects it.)"""
         if p.init_images or p.enable_hr or p.all_prompts:
             return False
         if p.refiner_checkpoint and p.refiner_switch_at < 1.0:
+            return False
+        if "<lora:" in (p.prompt or "") and self._traced_rowspec(p) is None:
             return False
         if kd.resolve_sampler(p.sampler_name).adaptive:
             return False
@@ -201,15 +232,18 @@ class ServingDispatcher:
             return False
         return p.total_images <= self.max_batch
 
-    @staticmethod
-    def _group_key(run) -> tuple:
+    def _group_key(self, run) -> tuple:
         # the ragged marker joins as a bool, NOT the true shape: shapes of
         # one bucket coalescing is the point, but a ragged and a classic
-        # request at the same bucket run different denoise loops
+        # request at the same bucket run different denoise loops. The
+        # traced-LoRA cell is the last two axes ((0, 0) without tags);
+        # the adapter names never enter the key
+        rs = self._traced_rowspec(run) or (0, 0)
         return ("txt2img", run.sampler_name, int(run.steps),
                 int(run.width), int(run.height), float(run.cfg_scale),
                 run.negative_prompt or "", int(run.clip_skip or 0),
-                bool((run.override_settings or {}).get("ragged_true_wh")))
+                bool((run.override_settings or {}).get("ragged_true_wh")),
+                int(rs[0]), int(rs[1]))
 
     def _run_grouped(self, ticket: Ticket) -> None:
         key = self._group_key(ticket.run)
@@ -284,7 +318,8 @@ class ServingDispatcher:
         latents = self.engine._denoise(built["rp"], built["x"],
                                        built["keys"], built["ctx"],
                                        built["pooled"], "txt2img",
-                                       ragged=built["ragged"])
+                                       ragged=built["ragged"],
+                                       lora=built["lora"])
         imgs = self.engine._decode_u8(latents, built["width"],
                                       built["height"])[:built["b_raw"]]
         self._group_merge(built, imgs)
@@ -309,6 +344,10 @@ class ServingDispatcher:
         spec = kd.resolve_sampler(rp.sampler_name)
         sigma0 = kd.build_sigmas(spec, engine.schedule, rp.steps)[0]
         engine.state.begin_request()
+        # undoes any merge; a traced group's sets are installed per member
+        engine._apply_prompt_loras(rp)
+        traced = g.key[-2:] != (0, 0)
+        row_sets: List[lora_mod.TracedSet] = []
 
         # context length pinned to the group max so every merged request
         # pads its conditioning identically
@@ -319,13 +358,23 @@ class ServingDispatcher:
         ragged_mode = engine._ragged_plan(rp) is not None
         counts, noise_parts, key_parts, ctx_rows = [], [], [], []
         pooled_rows = []
+        uncond = []  # each member's (ctx_u, pooled_u, images)
         lengths: List[List[int]] = [[], [], []]  # rows, ctx_true_u, _c
-        ctx_u = pooled_u = None
         for t in live:
             p = t.run.model_copy()
             p.context_chunks = chunks
             n_p = p.total_images
             counts.append(n_p)
+            if traced:
+                # this member's set, before its encode: its text-encoder
+                # factors apply to its own conditioning
+                _, tags = lora_mod.extract_lora_tags(p.prompt or "")
+                ts = engine._traced_set_for(tuple(tags))
+                if ts is None:
+                    raise RuntimeError(f"traced LoRA set for {tags!r} no "
+                                       f"longer resolvable at dispatch")
+                engine._traced_lora = ts
+                row_sets += [ts] * n_p
             rows = h
             if ragged_mode:
                 rows = engine._true_latent_rows(h, engine._ragged_plan(p)[1])
@@ -340,8 +389,7 @@ class ServingDispatcher:
             key_parts.append(engine._image_keys(p, 0, n_p))
             ctx_rows.append(cc.expand(n_p, -1, -1))
             pooled_rows.append(pc.expand(n_p, -1))
-            if ctx_u is None:
-                ctx_u, pooled_u = cu, pu  # equal negatives across the key
+            uncond.append((cu, pu, n_p))
 
         b_raw = sum(counts)
         b_run = self.bucketer.bucket_batch(b_raw)
@@ -349,6 +397,13 @@ class ServingDispatcher:
         keys = torch.cat(key_parts)
         ctx_c = torch.cat(ctx_rows)
         pooled_c = torch.cat(pooled_rows)
+        # the negative prompt is a group-key axis, so one encode serves
+        # every row; but each traced member encoded it through its own
+        # text-encoder factors, so there each row keeps its member's
+        ctx_u, pooled_u = uncond[0][:2]
+        if traced:
+            ctx_u = torch.cat([u.expand(n, -1, -1) for u, _, n in uncond])
+            pooled_u = torch.cat([p.expand(n, -1) for _, p, n in uncond])
         if b_run > b_raw:
             # pad-and-drop up to the batch bucket: the extra rows repeat
             # the last image and are discarded after decode
@@ -359,6 +414,8 @@ class ServingDispatcher:
 
             noise, keys, ctx_c = _pad(noise), _pad(keys), _pad(ctx_c)
             pooled_c = _pad(pooled_c)
+            if traced:
+                ctx_u, pooled_u = _pad(ctx_u), _pad(pooled_u)
         ragged = None
         if ragged_mode:
             ragged = tuple(torch.tensor(vec, dtype=torch.int32,
@@ -366,10 +423,13 @@ class ServingDispatcher:
                            for vec in lengths)
             if b_run > b_raw:
                 ragged = tuple(_pad(vec) for vec in ragged)
+        # each row's factors; the pad rows repeat the last member's set
+        lora = (lora_mod.stack_row_sets(row_sets, b_run)["unet"]
+                if traced else None)
         return {"live": live, "counts": counts, "rp": rp, "width": width,
                 "height": height, "x": noise * sigma0, "keys": keys,
                 "ctx": (ctx_u, ctx_c), "pooled": (pooled_u, pooled_c),
-                "ragged": ragged,
+                "ragged": ragged, "lora": lora,
                 "ragged_mode": ragged_mode, "b_raw": b_raw}
 
     def _group_merge(self, built: Dict, imgs: np.ndarray) -> None:

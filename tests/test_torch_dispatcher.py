@@ -294,12 +294,32 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
         for extra in ({"override_settings": {"deepcache": 2}},
-                      {"prompt": "<lora:x:1>"}, {"enable_hr": True}):
+                      {"all_prompts": ["a", "b"]}, {"enable_hr": True}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
             assert status == 422 and resp["detail"]
     finally:
         server.stop()
+
+
+def test_merged_lora_request_runs_solo(engine, monkeypatch):
+    """A request whose adapters are merged into the weights shares no
+    batch (as in the JAX package); an unknown adapter is skipped, so its
+    image is the tagless request's."""
+    monkeypatch.delenv("SDTPU_RAGGED", raising=False)
+    monkeypatch.delenv("SDTPU_LORA_TRACED", raising=False)
+    disp = ServingDispatcher(
+        engine, bucketer=ShapeBucketer(shapes=[(32, 32)], batches=[1, 2, 4]),
+        window=0.3)
+    payloads = [GenerationPayload(prompt=p, steps=2, width=32, height=32,
+                                  seed=90)
+                for p in ("a <lora:x:1> cow", "a cow")]
+    assert [disp._coalescable(p) for p in payloads] == [False, True]
+    METRICS.clear()
+    got = concurrently(disp.submit, payloads)
+    assert METRICS.summary()["dispatches"] == 2
+    assert got[0].images == got[1].images
+    assert "<lora:x:1>" in got[0].infotexts[0]
 
 
 def test_adaptive_requests_run_solo(engine, monkeypatch):

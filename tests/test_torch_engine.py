@@ -118,7 +118,7 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
 @pytest.mark.parametrize("extra,error", [
     ({"all_prompts": ["a cow", "a horse"]}, Unsupported),
     ({"override_settings": {"deepcache": 3}}, Unsupported),
-    ({"prompt": "a <lora:thing:0.8> cow"}, Unsupported),
+    ({"override_settings": {"cfg_cutoff": 0.5}}, Unsupported),
     ({"enable_hr": True}, Unsupported),
     ({"precision": "int8"}, Unsupported),
     ({"script_name": "prompt matrix"}, Unsupported),
@@ -130,6 +130,19 @@ def test_unported_requests_raise(port, extra, error):
             **extra}
     with pytest.raises(error):
         port.txt2img(GenerationPayload(**body))
+
+
+def test_lora_tags_are_served(port):
+    """A ``<lora:...>`` tag is served, not refused: stripped before
+    tokenizing and kept in the infotext; an adapter the engine cannot find
+    is skipped, so the image is the tagless one."""
+    body = {"prompt": "a cow", "steps": 2, "width": 32, "height": 32,
+            "seed": 3}
+    plain = port.txt2img(GenerationPayload(**body))
+    tagged = port.txt2img(GenerationPayload(
+        **{**body, "prompt": "a <lora:thing:0.8> cow"}))
+    assert tagged.images == plain.images
+    assert "a <lora:thing:0.8> cow" in tagged.infotexts[0]
 
 
 def test_interrupt_stops_between_chunks(params):

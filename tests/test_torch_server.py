@@ -149,7 +149,7 @@ def test_samplers_lists_what_the_port_runs(server):
 @pytest.mark.parametrize("extra", [
     {"all_prompts": ["a cow", "a horse"]},
     {"override_settings": {"deepcache": 2}},
-    {"prompt": "a <lora:x:1> cow"},
+    {"enable_hr": True},
     {"styles": ["cinematic"]},
     {"steps": "many"},
 ])
@@ -157,6 +157,21 @@ def test_unported_or_invalid_requests_answer_422(server, extra):
     status, resp = call(server, "/sdapi/v1/txt2img", {**BODY, **extra})
     assert status == 422
     assert resp["detail"]
+
+
+def test_lora_requests_are_served(server):
+    """A ``<lora:...>`` tag answers 200; an adapter the engine cannot find
+    is skipped, so the images are the tagless ones, and the infotext keeps
+    the tag."""
+    status, plain = call(server, "/sdapi/v1/txt2img", BODY)
+    assert status == 200
+    status, resp = call(server, "/sdapi/v1/txt2img",
+                        {**BODY, "prompt": "a <lora:x:1> cow"})
+    assert status == 200
+    assert resp["images"] == plain["images"]
+    assert "<lora:x:1>" in json.loads(resp["info"])["infotexts"][0]
+    # no registry behind this server: a rescan has nothing to do
+    assert call(server, "/sdapi/v1/refresh-loras", {}) == (200, {})
 
 
 def test_unknown_route_answers_404(server):
@@ -239,7 +254,7 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
 @pytest.mark.parametrize("extra", [
     {"override_settings": {"cfg_cutoff": 0.5}},
     {"enable_hr": True},
-    {"prompt": "a <lora:x:1> cow"},
+    {"all_prompts": ["a cow", "a horse"]},
     {"script_name": "prompt matrix"},
 ])
 def test_world_refuses_unported_requests_before_fan_out(world_server, extra):
@@ -249,6 +264,15 @@ def test_world_refuses_unported_requests_before_fan_out(world_server, extra):
     assert status == 422 and resp["detail"]
     assert master.current_state() == State.IDLE
     assert master.health.summary()["requests"] == before
+
+
+def test_world_serves_lora_requests(world_server, fleet_engine):
+    body = {**BODY, "prompt": "a <lora:x:1> cow"}
+    status, resp = call(world_server, "/sdapi/v1/txt2img", body)
+    assert status == 200
+    want = fleet_engine.txt2img(GenerationPayload(**BODY))
+    assert resp["images"] == want.images
+    assert "<lora:x:1>" in json.loads(resp["info"])["infotexts"][0]
 
 
 def test_memory_route_has_webuis_shape(world_server):
