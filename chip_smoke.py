@@ -114,7 +114,26 @@ Phases, each fatal on failure (no phase is caught and passed over):
    of its solo run. K1 is launched 2100 times (70 x 30) by every request,
    all on the Hopper path, K2 never. Three warm base UNet calls at 8 rows
    are profiled: tagless, merged and traced. The kernels phase also times
-   K1 at config #4's two shapes.
+   K1 at config #4's two shapes;
+12. config #5 on the same base engine: ``bench.py``'s config #5 request
+   (its prompt, 1024x1024, 30 steps Euler a, CFG 7, batch 1, seed 1, the
+   hires fix with ``hr_upscaler`` "Latent", ``hr_scale`` 2.0, denoising
+   0.7: a second pass of 21 steps at 2048x2048) must give one 2048x2048
+   image of seed 1, launch K1 3570 times (70 x (30 + 21)), all on the
+   Hopper path, K2 never, no latent non-finite; its repeat the same PNG
+   bytes. An x4plus-shaped RRDBNet (nf 64, gc 32, nb 23) on seeded weights,
+   written by this script to a temporary ``ESRGAN/`` directory and served
+   by a ``ModelRegistry``, named as ``hr_upscaler``: a 2048x2048 image
+   whose bytes differ from the latent path's, the same bytes again on a
+   repeat, 3570 launches; a name that resolves to no file gives the
+   latent path's bytes. Then the stages (the latent resize, the f32
+   2048x2048 decode with its peak memory and the SDPA backend of its mid
+   attention, the ESRGAN stage: decode, RRDBNet and lanczos3 shrink,
+   encode), a second-pass UNet call bf16 vs f32 (relative error at most
+   5e-2), the RRDBNet on the card vs the CPU at a 128x128 input (relative
+   error at most 1e-4), and where a warm UNet call of each pass spends
+   its device time. The kernels phase also times K1 at config #5's four
+   shapes, the plain version of T = 16384 in query chunks.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; it is
 printed only when every phase passed. Without a CUDA device, or without the
@@ -167,6 +186,10 @@ SDXL_SHAPES = {
 CONFIG3_SHAPES = [((8, 4096, 8, 40), 7), ((8, 1024, 8, 80), 7),
                   ((8, 256, 8, 160), 7), ((8, 64, 8, 160), 2)]
 TOLERANCE = {"f32": 2e-5, "bf16": 1e-2}  # max abs error vs the plain version
+# the plain version runs in query chunks whose f32 scores stay under this:
+# every shape up to SDXL's at batch 8 in one chunk, config #5's T = 16384
+# (21.5 GB of scores whole) in two
+PLAIN_SCORE_BYTES = 16 * 2**30
 
 LAUNCHES_PER_GROUP = 16 * 20  # 16 per UNet call x 20 steps
 
@@ -242,6 +265,21 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def once_ms(fn) -> float:
+    """One call of an already warm ``fn`` between CUDA events, for stages
+    too long to repeat."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -454,6 +492,21 @@ def phase_ragged_kernels(ra):
                              else "bytes")
 
 
+def plain_attention(fa, q, k, v):
+    """K1's plain version, ``flash_attention_reference``, over query
+    chunks of at most :data:`PLAIN_SCORE_BYTES` of f32 scores each (rows of
+    softmax attention are independent, so the chunks give the same rows
+    as one call)."""
+    import torch
+
+    b, t, h, _ = q.shape
+    rows = max(1, PLAIN_SCORE_BYTES // (4 * b * h * k.shape[1]))
+    if rows >= t:
+        return fa.flash_attention_reference(q, k, v)
+    return torch.cat([fa.flash_attention_reference(q[:, i:i + rows], k, v)
+                      for i in range(0, t, rows)], dim=1)
+
+
 def k1_shape(fa, shape, gen, timed: bool, iters: int = 20,
              plain_iters: int = 20):
     """K1 at one shape and layout, against its plain version in f32 and
@@ -479,7 +532,7 @@ def k1_shape(fa, shape, gen, timed: bool, iters: int = 20,
         want = "hopper" if name == "bf16" else "f32"
         check(path == want, f"flash_attention {shape} {name} took the "
               f"{path} path, want {want}")
-        ref = fa.flash_attention_reference(q, k, v)
+        ref = plain_attention(fa, q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         del ref, out
         print(f"kernel flash_attention {shape} {name}: max_abs_err "
@@ -492,8 +545,7 @@ def k1_shape(fa, shape, gen, timed: bool, iters: int = 20,
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters)
     dev = graph_ms(lambda: fa.flash_attention(q, k, v), iters)
     us = host_us(lambda: fa.flash_attention(q, k, v))
-    plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                    plain_iters)
+    plain = cuda_ms(lambda: plain_attention(fa, q, k, v), plain_iters)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
     lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
@@ -1414,9 +1466,11 @@ def f32_copy(module, build):
     return copy.float().eval()
 
 
-def sdpa_backends_for(shape, dtype) -> list:
+def sdpa_backends_for(shape, dtype, first: bool = False) -> list:
     """The ``scaled_dot_product_attention`` backends of
-    ``reproducible_sdpa`` that take a call at ``shape`` (B, H, T, D)."""
+    ``reproducible_sdpa`` that take a call at ``shape`` (B, H, T, D); with
+    ``first``, only the first of them in its order of preference (the one
+    a call there takes)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1434,6 +1488,8 @@ def sdpa_backends_for(shape, dtype) -> list:
                 F.scaled_dot_product_attention(q, q, q)
             torch.cuda.synchronize()
             ok.append(backend.name)
+            if first:
+                break
         except RuntimeError:
             pass
     return ok
@@ -2112,20 +2168,21 @@ def config4_latent(engine) -> int:
 
 
 def unet_call_profile(engine, gen, what: str, card_line: str,
-                      lora=None) -> dict:
-    """One warm SDXL base UNet call at 8 rows (batch 4 with CFG, 128x128
-    latents), timed with CUDA events and traced: device time by kernel
+                      lora=None, rows: int = 8, lat=None) -> dict:
+    """One warm SDXL base UNet call at ``rows`` rows (default 8: config
+    #4's batch 4 with CFG) and ``lat`` x ``lat`` latents (default config
+    #4's 128), timed with CUDA events and traced: device time by kernel
     group and the busy share. ``lora``: a traced tree for every row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cfg = engine.family.unet
-    lat = config4_latent(engine)
-    x = torch.randn((8, lat, lat, 4), device="cuda", generator=gen)
-    t = torch.full((8,), 500.0, device="cuda")
-    ctx = torch.randn((8, 77, cfg.cross_attention_dim), device="cuda",
+    lat = lat or config4_latent(engine)
+    x = torch.randn((rows, lat, lat, 4), device="cuda", generator=gen)
+    t = torch.full((rows,), 500.0, device="cuda")
+    ctx = torch.randn((rows, 77, cfg.cross_attention_dim), device="cuda",
                       generator=gen)
-    kw = {"added_cond": torch.randn((8, cfg.projection_input_dim),
+    kw = {"added_cond": torch.randn((rows, cfg.projection_input_dim),
                                     device="cuda", generator=gen)}
     if lora is not None:
         kw["lora"] = lora
@@ -2139,8 +2196,8 @@ def unet_call_profile(engine, gen, what: str, card_line: str,
             torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = prev
     groups = device_groups(prof, 2)
-    print_groups(f"config #4 {what} SDXL base UNet call (batch 4 with CFG "
-                 f"= 8 rows, {lat}x{lat} latents)", ms, groups, card_line)
+    print_groups(f"{what} SDXL base UNet call ({rows} rows, {lat}x{lat} "
+                 f"latents)", ms, groups, card_line)
     busy = sum(groups.values())
     return {"wall_ms": round(ms, 3), "device_ms": round(busy, 3),
             "busy_share": round(busy / ms, 4),
@@ -2266,7 +2323,8 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        profiles["tagless"] = unet_call_profile(base, gen, "tagless",
+        profiles["tagless"] = unet_call_profile(base, gen,
+                                                "config #4 tagless",
                                                 card_line)
         run("tagless", body)
         merges, merge_s = base._lora_merge_total, base._lora_merge_seconds
@@ -2280,7 +2338,8 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
               "the identical repeat merged again")
         peaks = {"merged": torch.cuda.max_memory_allocated()}
         rel = merged_rel_error(base, adapters, 0.8, gen)
-        profiles["merged"] = unet_call_profile(base, gen, "merged",
+        profiles["merged"] = unet_call_profile(base, gen,
+                                               "config #4 merged",
                                                card_line)
         run("tagless again", body)
         check(not base._pristine, "the tagless request left a merge")
@@ -2296,7 +2355,7 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
               f"traced cell {ts and (ts.rank_bucket, ts.slots)}, want "
               f"{CONFIG4_CELL}")
         profiles["traced"] = unet_call_profile(
-            base, gen, "traced", card_line,
+            base, gen, "config #4 traced", card_line,
             lora=lora_mod.broadcast_set(ts, 8)["unet"])
         solo = [run(f"traced solo {i}", b) for i, b in enumerate(pair)]
         check(base._lora_merge_total == merges, "the traced path merged")
@@ -2436,6 +2495,294 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
                "merged_unet_bf16_vs_f32_rel": round(rel, 5),
                "unet_call": profiles, "card": card_line}
     print("config #4 metrics: " + json.dumps(metrics))
+    return metrics
+
+
+# BASELINE config #5 (bench.py:415-428, sdxl_hires_2pass_ipm): SDXL base
+# txt2img at 1024x1024, 30 steps Euler a, CFG 7, batch 1, seed 1, then the
+# hires fix: latent bilinear x2 to 2048x2048 and a second pass of
+# int(0.7 * 30) = 21 steps from step 9
+CONFIG5_BODY = {"steps": 30, "width": 1024, "height": 1024, "cfg_scale": 7,
+                "sampler_name": "Euler a", "batch_size": 1, "seed": 1,
+                "enable_hr": True, "hr_scale": 2.0, "hr_upscaler": "Latent",
+                "denoising_strength": 0.7}
+CONFIG5_SIZE = 2048
+CONFIG5_SECOND_PASS = int(0.7 * 30)
+CONFIG5_K1_LAUNCHES = 70 * (30 + CONFIG5_SECOND_PASS)  # 3570
+# K1 per base UNet call of each pass (batch 1 with CFG = 2 rows): the
+# first at 1024x1024 (128x128 latents), the second at 2048x2048
+# (256x256 latents: level 1 is T = 16384)
+CONFIG5_SHAPES = {
+    "config #5 first pass": [((2, 4096, 10, 64), 10),
+                             ((2, 1024, 20, 64), 60)],
+    "config #5 second pass": [((2, 16384, 10, 64), 10),
+                              ((2, 4096, 20, 64), 60)],
+}
+# the image-space upscaler: an x4plus-shaped RRDBNet (RealESRGAN_x4plus's
+# widths) on seeded weights, written by this script; no trained upscaler
+# is in the repository
+CONFIG5_UPSCALER = "bench_x4plus"
+CONFIG5_RRDB = {"nf": 64, "gc": 32, "nb": 23}
+CONFIG5_RRDB_CHECK = 128  # input side of the card-vs-CPU RRDBNet check
+
+
+def seeded_rrdbnet(seed: int) -> dict:
+    """An x4plus-shaped RRDBNet state dict (numpy f32) from ``seed``:
+    lecun-normal convolutions, those inside the residual dense blocks
+    scaled by 0.1 as BasicSR initialises them, zero biases."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.esrgan import (
+        RRDBNet,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in
+                  RRDBNet(**CONFIG5_RRDB).state_dict().items()}
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith(".bias"):
+            sd[name] = torch.zeros(shape)
+            continue
+        fan_in = shape[1] * shape[2] * shape[3]
+        std = (0.1 if name.startswith("body.") else 1.0) / fan_in ** 0.5
+        sd[name] = torch.randn(shape, generator=gen) * std
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def phase_config5(base, fa, ra, card_line: str) -> dict:
+    """BASELINE config #5 through the port's server on config #2's SDXL
+    base engine: the latent path (bench.py's request, a repeat), the
+    image-space path through a seeded x4plus-shaped RRDBNet served by a
+    ``ModelRegistry`` from a temporary ``ESRGAN/`` (a request, a repeat)
+    and a name that resolves to no file (the latent path's bytes). Then
+    the 2048x2048 f32 decode (its time, peak memory and SDPA backend), the
+    ESRGAN stage's time, a second-pass UNet call bf16 vs f32, the RRDBNet
+    on the card vs the CPU, and where a warm second-pass UNet call spends
+    its device time."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models import esrgan
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+        ModelRegistry,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    # config #4's traced factor sets are not needed any more
+    base._traced_cache.clear()
+    base._traced_lora = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="config5-")
+    os.makedirs(os.path.join(workdir, "ESRGAN"))
+    t0 = time.perf_counter()
+    rrdb = seeded_rrdbnet(seed=5)
+    write_safetensors(os.path.join(workdir, "ESRGAN",
+                                   f"{CONFIG5_UPSCALER}.safetensors"), rrdb)
+    print(f"config #5: an x4plus-shaped RRDBNet ({CONFIG5_RRDB}, "
+          f"{sum(v.size for v in rrdb.values()) / 1e6:.2f} M weights) "
+          f"written in {time.perf_counter() - t0:.2f} s")
+    registry = ModelRegistry(workdir, device="cuda")
+    check(list(registry.available_upscalers()) == [CONFIG5_UPSCALER],
+          f"registry lists {registry.available_upscalers()}")
+    base.upscaler_provider = registry.upscaler_provider
+
+    bp = BenchmarkPayload()
+    body = {"prompt": bp.prompt, **CONFIG5_BODY}
+    requests = (("latent (cold)", body), ("latent", body),
+                ("esrgan (cold)", {**body, "hr_upscaler": CONFIG5_UPSCALER}),
+                ("esrgan", {**body, "hr_upscaler": CONFIG5_UPSCALER}),
+                ("unresolved name", {**body, "hr_upscaler": "R-ESRGAN 4x+"}))
+    runs, finite, peaks = {}, [], {}
+    decode = base._decode_u8
+
+    def checked_decode(latents, width, height):
+        finite.append(bool(torch.isfinite(latents).all()))
+        return decode(latents, width, height)
+
+    base._decode_u8 = checked_decode
+    server = ApiServer(base, port=0, registry=registry).start()
+    try:
+        for tag, b in requests:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            resp = post(server.port, b)
+            runs[tag] = (time.perf_counter() - t, resp,
+                         fa.flash_attention.launches,
+                         dict(fa.flash_attention.path_launches),
+                         ra.ragged_attention.launches)
+            peaks[tag] = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+        del base._decode_u8
+    check(all(finite) and len(finite) == len(requests),
+          f"config #5: a latent is not finite ({finite})")
+    for tag, (lat, resp, k1, paths, k2) in runs.items():
+        print(f"config #5 request ({tag}): latency {lat:.3f} s, "
+              f"{60.0 / lat:.3f} images per minute, peak memory "
+              f"{peaks[tag] / 2**30:.3f} GiB, K1 launches {k1} by path "
+              f"{json.dumps(paths)}, K2 {k2} [{card_line}]")
+        check(k1 == CONFIG5_K1_LAUNCHES, f"config #5 ({tag}) launched K1 "
+              f"{k1} times, want {CONFIG5_K1_LAUNCHES}")
+        check(paths["hopper"] == k1, f"config #5 ({tag}): K1 off the "
+              f"Hopper path: {paths}")
+        check(k2 == 0, f"config #5 ({tag}) launched K2 {k2} times")
+        info = json.loads(resp["info"])
+        check(len(resp["images"]) == 1 and info["all_seeds"] == [1],
+              f"config #5 ({tag}): {len(resp['images'])} images, seeds "
+              f"{info['all_seeds']}")
+        check(f"Size: {CONFIG5_SIZE}x{CONFIG5_SIZE}" in info["infotexts"][0],
+              f"config #5 ({tag}) infotext {info['infotexts'][0]!r}")
+        px = png_pixels(resp["images"][0])
+        check(px.shape == (CONFIG5_SIZE, CONFIG5_SIZE, 3)
+              and float(px.std()) > 1.0,
+              f"config #5 ({tag}): image shape {px.shape} or constant")
+    img = {tag: runs[tag][1]["images"][0] for tag in runs}
+    check(img["latent"] == img["latent (cold)"],
+          "the repeated config #5 request gave other PNG bytes")
+    check(img["esrgan"] == img["esrgan (cold)"],
+          "the repeated image-space request gave other PNG bytes")
+    check(img["esrgan"] != img["latent"],
+          "the image-space upscaler gave the latent path's bytes")
+    check(img["unresolved name"] == img["latent"],
+          "an unresolved upscaler name gave other bytes than 'Latent'")
+    esrgan_vs_latent = float(np.abs(
+        png_pixels(img["esrgan"]).astype(np.int32)
+        - png_pixels(img["latent"]).astype(np.int32)).mean())
+    print(f"config #5: repeats byte-identical; the image-space path differs "
+          f"from the latent path by a mean of {esrgan_vs_latent:.3f} uint8 "
+          f"levels; the unresolved name gave the latent path's bytes")
+
+    # the stages of the hires fix, each warm, on the engine's thread
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f = base.family.vae_scale_factor
+    lat1, lat2 = CONFIG5_BODY["width"] // f, CONFIG5_SIZE // f
+    upscale = registry.upscaler_provider(CONFIG5_UPSCALER)
+    base_payload = GenerationPayload(**body)
+    esrgan_payload = GenerationPayload(**{**body,
+                                          "hr_upscaler": CONFIG5_UPSCALER})
+
+    def stages():
+        z1 = torch.randn((1, lat1, lat1, 4), device="cuda", generator=gen)
+        z2 = torch.randn((1, lat2, lat2, 4), device="cuda", generator=gen)
+        out = {"latent_resize_ms": cuda_ms(
+            lambda: base._upscale_latents(
+                base_payload, z1, CONFIG5_SIZE, CONFIG5_SIZE), 3)}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["decode_ms"] = once_ms(lambda: base._decode(z2))
+        out["decode_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                  - before) / 2**30
+        pixels = base._decode(z1)
+        out["decode_1024_ms"] = once_ms(lambda: base._decode(z1))
+        out["rrdbnet_ms"] = once_ms(
+            lambda: upscale(pixels, CONFIG5_SIZE, CONFIG5_SIZE))
+        big = upscale(pixels, CONFIG5_SIZE, CONFIG5_SIZE)
+        out["encode_ms"] = once_ms(lambda: base._encode_images(big))
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out["esrgan_stage_ms"] = once_ms(
+            lambda: base._upscale_latents(esrgan_payload, z1, CONFIG5_SIZE,
+                                          CONFIG5_SIZE))
+        out["esrgan_stage_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                        - before) / 2**30
+        return out
+
+    st = base.run_on_device(stages)
+    mid = base.family.vae.block_out_channels[-1]
+    backend = sdpa_backends_for((1, 1, lat2 * lat2, mid), torch.float32,
+                                first=True)
+    print(f"config #5 stages: latent resize {st['latent_resize_ms']:.3f} "
+          f"ms; f32 VAE decode at {CONFIG5_SIZE}x{CONFIG5_SIZE} "
+          f"{st['decode_ms']:.1f} ms (peak +{st['decode_peak_gib']:.3f} "
+          f"GiB; its mid attention, 1 head of {lat2 * lat2} tokens at D = "
+          f"{mid} in f32, on SDPA's {backend}); the ESRGAN stage "
+          f"{st['esrgan_stage_ms']:.1f} ms (peak +"
+          f"{st['esrgan_stage_peak_gib']:.3f} GiB): decode {lat1 * f}x"
+          f"{lat1 * f} "
+          f"{st['decode_1024_ms']:.1f}, RRDBNet x4 and the lanczos3 shrink "
+          f"to {CONFIG5_SIZE}x{CONFIG5_SIZE} {st['rrdbnet_ms']:.1f}, "
+          f"encode {st['encode_ms']:.1f} ms [{card_line}]")
+    check(bool(backend), "no reproducible SDPA backend takes the 2048x2048 "
+          "decode's mid attention")
+
+    # reference checks: a second-pass UNet call bf16 vs f32, the RRDBNet
+    # on the card vs the CPU
+    cfg = base.family.unet
+    x = torch.randn((2, lat2, lat2, 4), device="cuda", generator=gen)
+    t = torch.tensor([999.0, 500.0], device="cuda")
+    ctx = torch.randn((2, 77, cfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    added = torch.randn((2, cfg.projection_input_dim), device="cuda",
+                        generator=gen)
+    rel = unet_rel_error(base.unet, x, t, ctx, added)
+    del x
+    print(f"config #5 reference: the second pass's SDXL base UNet (batch 2,"
+          f" {lat2}x{lat2} latents) bf16 vs f32 relative error {rel:.4g} "
+          f"(tolerance 5e-2)")
+    check(rel <= 5e-2, "the bf16 UNet at 2048x2048 disagrees with f32")
+    sd = esrgan.convert_esrgan(rrdb)
+    img = torch.rand((1, CONFIG5_RRDB_CHECK, CONFIG5_RRDB_CHECK, 3),
+                     generator=torch.Generator().manual_seed(3))
+    card_model = esrgan.esrgan_module(sd, "cuda")
+    cpu_model = esrgan.esrgan_module(sd, "cpu")
+    t = time.perf_counter()
+    out_card = base.run_on_device(lambda: card_model(img.cuda()).cpu())
+    with torch.inference_mode():
+        out_cpu = cpu_model(img)
+    rrdb_rel = ((out_card - out_cpu).norm() / out_cpu.norm()).item()
+    del card_model, cpu_model
+    print(f"config #5 reference: RRDBNet {CONFIG5_RRDB} at "
+          f"{CONFIG5_RRDB_CHECK}x{CONFIG5_RRDB_CHECK}, f32 on the card "
+          f"(TF32 off) vs the CPU: relative error {rrdb_rel:.3g} (tolerance "
+          f"1e-4; {time.perf_counter() - t:.1f} s)")
+    check(rrdb_rel <= 1e-4, "the RRDBNet on the card disagrees with the CPU")
+
+    profile_2048 = unet_call_profile(base, gen, "config #5 second-pass",
+                                     card_line, rows=2, lat=lat2)
+    profile_1024 = unet_call_profile(base, gen, "config #5 first-pass",
+                                     card_line, rows=2, lat=lat1)
+    tflop = model_tflop(base.family, lat2)
+    busy_s = profile_2048["device_ms"] / 1e3
+    call_tflop = 2 * tflop["unet_row"]
+    print(f"config #5 FLOPs (flop counter, meta tensors): UNet row at "
+          f"{lat2}x{lat2} latents {tflop['unet_row']:.3f} TFLOP, VAE decode "
+          f"{tflop['vae_decode']:.3f} and encode {tflop['vae_encode']:.3f} "
+          f"TFLOP per {CONFIG5_SIZE}x{CONFIG5_SIZE} image; the second-pass "
+          f"UNet call ({call_tflop:.2f} TFLOP) at "
+          f"{call_tflop / busy_s:.1f} TFLOP/s of device time [{card_line}]")
+    shutil.rmtree(workdir, ignore_errors=True)
+    base.upscaler_provider = None
+    warm = runs["latent"][0]
+    metrics = {"latency_s": {t: round(runs[t][0], 4) for t in runs},
+               "images_per_minute": round(60.0 / warm, 3),
+               "peak_memory_gib": {t: round(v / 2**30, 3)
+                                   for t, v in peaks.items()},
+               "k1_launches": {t: runs[t][2] for t in runs},
+               "esrgan_vs_latent_mean_abs": round(esrgan_vs_latent, 4),
+               "stages_ms": {k: round(v, 3) for k, v in st.items()},
+               "decode_sdpa_backend": backend,
+               "unet_2048_bf16_vs_f32_rel": round(rel, 5),
+               "rrdbnet_card_vs_cpu_rel": float(f"{rrdb_rel:.4g}"),
+               "second_pass_unet_call": profile_2048,
+               "first_pass_unet_call": profile_1024,
+               "tflop_2048": {k: round(v, 3) for k, v in tflop.items()},
+               "card": card_line}
+    print("config #5 metrics: " + json.dumps(metrics))
     return metrics
 
 
@@ -2608,6 +2955,7 @@ def main() -> int:
     config4_k1 = phase_sdxl_kernels(fa, card_line, CONFIG4_SHAPES)
     config4_k1 = {"max_abs_err": config4_k1["max_abs_err"],
                   **config4_k1["config #4 base"]}
+    config5_k1 = phase_sdxl_kernels(fa, card_line, CONFIG5_SHAPES)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
     samplers = phase_samplers(engine, fa, ra, card_line)
@@ -2621,10 +2969,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     config2, base = phase_config2(fa, ra, card_line)
     config4 = phase_config4(base, fa, ra, card_line)
+    config5 = phase_config5(base, fa, ra, card_line)
     del base
 
-    def per_call(key):
-        return {m: round(sdxl[m][key], 4) for m in SDXL_SHAPES}
+    def per_call(key, totals=sdxl, models=SDXL_SHAPES):
+        return {m: round(totals[m][key], 4) for m in models}
+
+    def per_pass(key):
+        return per_call(key, config5_k1, CONFIG5_SHAPES)
 
     kernels = [{
         "name": "flash_attention",
@@ -2704,6 +3056,25 @@ def main() -> int:
                        "batch 4 with CFG = 8 rows; 70 launches), bf16; "
                        "each shape's bound is the largest of its bytes, "
                        "products and exps",
+        "config5_launches": config5["k1_launches"],
+        "config5_ms": per_pass("ms"),
+        "config5_device_ms": per_pass("device_ms"),
+        "config5_plain_ms": per_pass("plain_ms"),
+        "config5_bound_ms": per_pass("bound_ms"),
+        "config5_bound_by": {m: config5_k1[m]["bound_by"]
+                             for m in CONFIG5_SHAPES},
+        "config5_bound_units": {m: config5_k1[m]["bound_units"]
+                                for m in CONFIG5_SHAPES},
+        "config5_library_ms": per_pass("library_ms"),
+        "config5_library_device_ms": per_pass("library_device_ms"),
+        "config5_host_us_per_launch": per_pass("host_us"),
+        "config5_max_abs_err": config5_k1["max_abs_err"],
+        "config5_per": "one SDXL base UNet call of each pass of config #5 "
+                       "(batch 1 with CFG = 2 rows; 70 launches): the "
+                       "first at 1024x1024, the second at 2048x2048 (T = "
+                       "16384 at level 1), 30 and 21 calls a request, "
+                       "bf16; each shape's bound is the largest of its "
+                       "bytes, products and exps",
     }, {
         "name": "ragged_attention",
         "route": "cuda",

@@ -18,6 +18,8 @@ A ControlNet's weights travel on their own: ``controlnet_flax_to_torch``
 converts the JAX package's ControlNet tree and ``init_seeded_controlnet``
 seeds one, zero convolutions included (drawn like any other convolution,
 where Flax starts them at zero, so a seeded unit has a visible effect).
+``esrgan_flax_to_torch`` converts the JAX package's RRDBNet tree (the hires
+fix's image-space upscaler) to the port's per-block state dict.
 """
 
 from __future__ import annotations
@@ -115,6 +117,21 @@ def controlnet_flax_to_torch(params: Dict[str, Any]
     """The JAX package's ControlNet parameter tree -> the state dict of
     ``models.controlnet.ControlNet`` (f32, CPU)."""
     return _convert_tree(params)
+
+
+def esrgan_flax_to_torch(params: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX package's RRDBNet tree (``convert_esrgan``: HWIO kernels,
+    the blocks stacked along axis 0 of ``body``) -> the state dict of
+    ``models.esrgan.RRDBNet`` (f32, CPU), one ``body.N`` per block."""
+    flat = {k: v for k, v in params.items() if k != "body"}
+    nb = int(np.shape(params["body"]["rdb1"]["conv1"]["bias"])[0])
+    for i in range(nb):
+        flat[f"body.{i}"] = {
+            rdb: {conv: {leaf: np.asarray(v)[i] for leaf, v in p.items()}
+                  for conv, p in convs.items()}
+            for rdb, convs in params["body"].items()}
+    return _convert_tree(flat)
 
 
 def _init_param(module: nn.Module, name: str, shape: torch.Size,

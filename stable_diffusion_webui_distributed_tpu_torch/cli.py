@@ -6,7 +6,7 @@
 ``serve`` serves a ``World`` whose master is the local engine, with the
 remotes of the config file behind it, as the JAX package's ``cli serve``
 does. ``generate`` runs one request through the same World (img2img with
-``--init-image`` and ``--strength``) and writes the PNGs; ``benchmark`` measures every worker's images per minute; ``ping``,
+``--init-image`` and ``--strength``, the hires fix with ``--hires``) and writes the PNGs; ``benchmark`` measures every worker's images per minute; ``ping``,
 ``status``, ``interrupt`` and ``workers list|add|remove|set`` operate the
 fleet.
 
@@ -16,7 +16,10 @@ vocabulary. The engine runs on ``cuda`` with the card policy (bf16) unless
 ``--device cpu`` is given (f32 there); with no GPU and no ``--device`` the
 commands that build it raise. LoRA adapters come from ``<--model-dir>/Lora``
 (or ``lora``; default: the config file's ``model_dir``) through the port's
-``ModelRegistry``, and ``POST /sdapi/v1/refresh-loras`` rescans them.
+``ModelRegistry``, and ``POST /sdapi/v1/refresh-loras`` rescans them;
+the hires fix's image-space upscalers (RRDBNet ``.safetensors`` or
+``.pth`` files) come from its ``ESRGAN``, ``RealESRGAN`` or ``upscalers``
+directory the same way.
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 
 
 def _build_world(args, require_local: bool = True):
-    """The World of the config file and the adapter registry of its model
-    directory, with the master ``WorkerNode`` over the local engine in
+    """The World of the config file and the adapter and upscaler registry
+    of its model directory, with the master ``WorkerNode`` over the local engine in
     front (carrying its persisted calibration) unless ``require_local``
     is False (``status``, ``ping``: no engine, no registry)."""
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
@@ -61,8 +64,9 @@ def _build_world(args, require_local: bool = True):
     cfg = config_mod.load_config(path)
     registry = engine = None
     if require_local:
-        registry = ModelRegistry(args.model_dir or cfg.model_dir)
-        engine = _build_engine(args, registry.lora_provider)
+        registry = ModelRegistry(args.model_dir or cfg.model_dir,
+                                 device=args.device)
+        engine = _build_engine(args, registry)
     world = World.from_config(
         cfg, config_path=path,
         verify_tls=not args.distributed_skip_verify_remotes)
@@ -80,7 +84,7 @@ def _build_world(args, require_local: bool = True):
     return world, registry
 
 
-def _build_engine(args, lora_provider=None):
+def _build_engine(args, registry):
     from stable_diffusion_webui_distributed_tpu_torch import bridge
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
         Engine,
@@ -92,7 +96,8 @@ def _build_engine(args, lora_provider=None):
     params = bridge.init_seeded(family, args.seed, device,
                                 policy.param_dtype)
     return Engine(family, params, policy=policy, device=device,
-                  lora_provider=lora_provider)
+                  lora_provider=registry.lora_provider,
+                  upscaler_provider=registry.upscaler_provider)
 
 
 def cmd_serve(args) -> int:
@@ -127,6 +132,7 @@ def cmd_generate(args) -> int:
         prompt=args.prompt, negative_prompt=args.negative, steps=args.steps,
         width=w, height=h, batch_size=args.num, seed=args.image_seed,
         sampler_name=args.sampler, cfg_scale=args.cfg,
+        enable_hr=args.hires, hr_scale=args.hires_scale,
         denoising_strength=args.strength)
     if args.init_image:
         with open(args.init_image, "rb") as f:
@@ -273,7 +279,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--init-image", default=None,
                    help="a PNG: run img2img from it")
     g.add_argument("--strength", type=float, default=0.75,
-                   help="img2img denoising strength")
+                   help="img2img (or hires second pass) denoising strength")
+    g.add_argument("--hires", action="store_true",
+                   help="hires fix: a second pass at --hires-scale")
+    g.add_argument("--hires-scale", type=float, default=2.0)
     g.add_argument("--outdir", default="outputs")
     g.set_defaults(fn=cmd_generate)
 

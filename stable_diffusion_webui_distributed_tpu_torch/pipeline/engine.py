@@ -62,9 +62,22 @@ whose factors ride into the text encoders and the UNet with the weights
 left pristine; a set past the rank or slot ladder, or a DPM adaptive
 request, takes the merged path instead, as in the JAX package.
 
+Hires fix (``enable_hr``, the JAX package's ``_hires_pass``): after each
+group's denoise, the latents go to the target size (``hr_resize_x/y``, else
+``hr_scale`` times the request's, floored to the VAE factor) and get a
+second denoise of ``hr_second_pass_steps`` (default ``steps``) from step
+``steps2 - int(min(strength, 0.999) * steps2)``, re-noised there with
+noise keyed ``fold_in(k, 2_000_000)`` per image. A latent upscaler name
+resizes the latents on the device (:func:`~.image.resize_device`); a name
+that ``upscaler_provider`` resolves to an RRDBNet decodes to f32 pixels,
+upscales them (``models/esrgan.py``) and encodes them again; any other name
+falls back to latent bilinear with a warning. ControlNet hints, an
+inpainting family's blank conditioning and the refiner switch apply inside
+the second pass as well.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): hires fix, per-image prompts and scripts, the step cache, other
-serving precisions, and SDXL under ragged dispatch.
+422): per-image prompts and scripts, the step cache, other serving
+precisions, and SDXL under ragged dispatch.
 """
 
 from __future__ import annotations
@@ -112,7 +125,9 @@ from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
 from stable_diffusion_webui_distributed_tpu_torch.models.vae import encode
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.image import (
     box_blur,
+    latent_resize_method,
     resize_bilinear,
+    resize_device,
     resize_image,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
@@ -126,6 +141,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     fix_seed,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes, rng
+from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+    env_int,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
 )
@@ -160,7 +178,10 @@ class Engine:
     name to a ControlNet state dict (``bridge.controlnet_flax_to_torch`` or
     ``bridge.init_seeded_controlnet``; None: unknown); ``lora_provider``
     maps an adapter name to its kohya state dict (``ModelRegistry.
-    lora_provider``; None: no adapters)."""
+    lora_provider``; None: no adapters); ``upscaler_provider`` maps a
+    hires upscaler name to ``upscale(imgs, target_w, target_h)`` on the
+    engine's device (``ModelRegistry.upscaler_provider``; None: latent
+    upscalers only)."""
 
     def __init__(
         self,
@@ -177,6 +198,8 @@ class Engine:
         controlnet_provider: Optional[
             Callable[[str], Optional[Dict[str, torch.Tensor]]]] = None,
         lora_provider: Optional[Callable[[str], Optional[Dict]]] = None,
+        upscaler_provider: Optional[
+            Callable[[str], Optional[Callable]]] = None,
     ):
         self.device = dtypes.resolve_device(device)
         self.family = family
@@ -208,6 +231,7 @@ class Engine:
         self.vae_encoder = norms_to_f32(loaded["vae_encoder"].to(pd).to(cd))
         self.engine_provider = engine_provider
         self.controlnet_provider = controlnet_provider
+        self.upscaler_provider = upscaler_provider
         # ControlNets by unit model name, each loaded to the device once
         self._controlnets: Dict[str, torch.nn.Module] = {}
         # an inpainting family's blank conditioning per (batch, w, h)
@@ -638,17 +662,95 @@ class Engine:
     #: the f32 decoder's scratch (the JAX package's _DECODE_PIXEL_BUDGET)
     _DECODE_PIXEL_BUDGET = 1024 * 1024
 
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents (B,h,w,C) -> f32 pixels (B,H,W,3) in [0, 1] on the
+        device."""
+        imgs = self.vae(latents / self.family.vae.scaling_factor)
+        return torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0)
+
     def _decode_u8(self, latents: torch.Tensor, width: int,
                    height: int) -> np.ndarray:
         """Latents (B,h,w,C) -> uint8 pixels (B,H,W,3) on the host."""
         per = max(1, self._DECODE_PIXEL_BUDGET // max(1, width * height))
-        scale = self.family.vae.scaling_factor
         out = []
         for s in range(0, latents.shape[0], per):
-            imgs = self.vae(latents[s:s + per] / scale)
-            px = torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0) * 255.0 + 0.5
+            px = self._decode(latents[s:s + per]) * 255.0 + 0.5
             out.append(px.to(torch.uint8).cpu().numpy())
         return np.concatenate(out)
+
+    # -- hires fix -----------------------------------------------------------
+
+    def _hires_target(self, payload: GenerationPayload) -> Tuple[int, int]:
+        """The second pass's ``(width, height)``: ``hr_resize_x/y`` when
+        both are set, else ``hr_scale`` times the request's size, floored
+        to the VAE factor."""
+        if payload.hr_resize_x and payload.hr_resize_y:
+            tw, th = payload.hr_resize_x, payload.hr_resize_y
+        else:
+            tw = int(payload.width * payload.hr_scale)
+            th = int(payload.height * payload.hr_scale)
+        f = self.family.vae_scale_factor
+        return (tw // f) * f, (th // f) * f
+
+    def _upscale_latents(self, payload: GenerationPayload,
+                         latents: torch.Tensor, tw: int,
+                         th: int) -> torch.Tensor:
+        """The first pass's latents at the target size. An upscaler name
+        without "latent" that ``upscaler_provider`` resolves goes through
+        pixels: decoded in f32, upscaled, encoded again, in micro-batches
+        of ``min(budget // (w*h), budget // (tw*th))`` rows under
+        ``SDTPU_DECODE_PIXELS``. Else the latents are resized on the
+        device by :func:`~.image.latent_resize_method`'s kernel."""
+        name = payload.hr_upscaler or "Latent"
+        upscale = None
+        if "latent" not in name.lower() and self.upscaler_provider:
+            upscale = self.upscaler_provider(name)
+        if upscale is None:
+            f = self.family.vae_scale_factor
+            return resize_device(latents, th // f, tw // f,
+                                 latent_resize_method(payload.hr_upscaler))
+        budget = env_int("SDTPU_DECODE_PIXELS", self._DECODE_PIXEL_BUDGET)
+        per = min(max(1, budget // max(1, payload.width * payload.height)),
+                  max(1, budget // max(1, tw * th)))
+        return torch.cat([
+            self._encode_images(upscale(self._decode(latents[s:s + per]),
+                                        tw, th))
+            for s in range(0, latents.shape[0], per)])
+
+    def _hires_pass(self, payload: GenerationPayload, latents: torch.Tensor,
+                    keys: torch.Tensor, conds, pooleds, job: str,
+                    refiner: Optional["Engine"], ref_cond
+                    ) -> Tuple[torch.Tensor, int, int]:
+        """The hires fix's second pass over a group's latents (JAX
+        ``Engine._hires_pass``): upscaled (:meth:`_upscale_latents`),
+        noised with fresh per-image noise keyed ``fold_in(k, 2_000_000)``
+        (apart from the init and ancestral streams) to the sigma of step
+        ``start2 = steps2 - int(min(strength, 0.999) * steps2)``, and
+        denoised from there at the target size, the ControlNet hints and an
+        inpainting family's blank conditioning made at that size, the
+        refiner switching at ``int(steps2 * refiner_switch_at)``. Returns
+        ``(latents, target width, target height)``."""
+        tw, th = self._hires_target(payload)
+        steps2 = payload.hr_second_pass_steps or payload.steps
+        spec = kd.resolve_sampler(payload.sampler_name)
+        sigmas2 = kd.build_sigmas(spec, self.schedule, steps2)
+        t_enc = int(min(payload.denoising_strength, 0.999) * steps2)
+        start2 = steps2 - t_enc
+        up = self._upscale_latents(payload, latents, tw, th)
+        noise = rng.normal(rng.fold_in(keys, 2_000_000), up.shape[1:])
+        x = up + noise * sigmas2[start2]
+        # the second pass's own steps and size: the sampler ladder, the
+        # ControlNet windows and SDXL's added conditioning read them
+        hires = payload.model_copy(update={"steps": steps2, "width": tw,
+                                           "height": th})
+        controls = self._prepare_controls(payload, tw, th)
+        inp = (self._blank_inpaint_cond(x.shape[0], tw, th)
+               if self.family.inpaint else None)
+        latents = self._split_denoise(hires, x, keys, conds, pooleds,
+                                      job + "+hr", refiner, ref_cond,
+                                      start_step=start2, controls=controls,
+                                      inpaint_cond=inp)
+        return latents, tw, th
 
     # -- ControlNet ----------------------------------------------------------
 
@@ -861,12 +963,18 @@ class Engine:
             # algorithms do), not on its position, so a sub-range then
             # reproduces the whole-batch rows exactly.
             noise = self._init_noise(payload, pos, group, (h, w, C), rows)
+            keys = self._image_keys(payload, pos, group)
             latents = self._split_denoise(
-                payload, noise * sigma0,
-                self._image_keys(payload, pos, group), conds, pooleds, job,
+                payload, noise * sigma0, keys, conds, pooleds, job,
                 refiner, ref_cond, ragged, controls=controls,
                 inpaint_cond=inp)
-            self._finish_group(out, payload, latents, pos, n)
+            out_w, out_h = width, height
+            if payload.enable_hr and not self.state.flag.interrupted:
+                # the whole group's rows, pad-and-drop as above
+                latents, out_w, out_h = self._hires_pass(
+                    payload, latents, keys, conds, pooleds, job, refiner,
+                    ref_cond)
+            self._finish_group(out, payload, latents, pos, n, out_w, out_h)
             pos += n
             remaining -= n
         return out
@@ -928,21 +1036,23 @@ class Engine:
                     payload, x, keys, conds, pooleds, job, refiner,
                     ref_cond, start_step=start_step, controls=controls,
                     inpaint_cond=inp)
-            self._finish_group(out, payload, latents, pos, n)
+            self._finish_group(out, payload, latents, pos, n, width,
+                               height)
             pos += n
             remaining -= n
         return out
 
     def _finish_group(self, out: GenerationResult,
                       payload: GenerationPayload, latents: torch.Tensor,
-                      pos: int, n: int) -> None:
-        """Decode a group's latents and append its first ``n`` images."""
+                      pos: int, n: int, width: int, height: int) -> None:
+        """Decode a group's latents of a ``width`` x ``height`` image and
+        append its first ``n`` images."""
         # the adaptive backstop's mark belongs to this group's images
         incomplete, self._adaptive_incomplete = \
             self._adaptive_incomplete, False
-        imgs = self._decode_u8(latents, payload.width, payload.height)[:n]
-        self._append_images(out, payload, imgs, pos, payload.width,
-                            payload.height, incomplete)
+        imgs = self._decode_u8(latents, width, height)[:n]
+        self._append_images(out, payload, imgs, pos, width, height,
+                            incomplete)
 
     def _append_images(self, out: GenerationResult,
                        payload: GenerationPayload, imgs: np.ndarray,
@@ -1295,7 +1405,6 @@ def check_supported(payload: GenerationPayload) -> None:
     than answer with an image the JAX package would not make."""
     ov: Dict = payload.override_settings or {}
     unsupported = {
-        "hires fix (enable_hr)": payload.enable_hr,
         "per-image prompts (all_prompts)": bool(payload.all_prompts),
         "serving precisions other than bf16": str(
             payload.precision or ov.get("precision") or "bf16") != "bf16",

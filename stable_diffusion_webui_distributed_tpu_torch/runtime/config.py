@@ -68,6 +68,10 @@ def env_parsed(name: str, parse, default, what: str = "value"):
         return default
 
 
+def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
+    return env_parsed(name, lambda raw: int(raw.strip()), default, "int")
+
+
 def env_float(name: str, default: Optional[float] = None) -> Optional[float]:
     return env_parsed(name, lambda raw: float(raw.strip()), default, "float")
 

@@ -294,7 +294,7 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
         for extra in ({"override_settings": {"deepcache": 2}},
-                      {"all_prompts": ["a", "b"]}, {"enable_hr": True}):
+                      {"all_prompts": ["a", "b"]}, {"precision": "int8"}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
             assert status == 422 and resp["detail"]

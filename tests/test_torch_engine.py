@@ -119,7 +119,7 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
     ({"all_prompts": ["a cow", "a horse"]}, Unsupported),
     ({"override_settings": {"deepcache": 3}}, Unsupported),
     ({"override_settings": {"cfg_cutoff": 0.5}}, Unsupported),
-    ({"enable_hr": True}, Unsupported),
+    ({"override_settings": {"precision": "int8"}}, Unsupported),
     ({"precision": "int8"}, Unsupported),
     ({"script_name": "prompt matrix"}, Unsupported),
 ])

@@ -270,7 +270,7 @@ def test_plan_refuses_an_unported_sampler_before_planning():
     spec = random_spec(random.Random(3))
     spec["payload"]["sampler_name"] = "DPM++ 2M"
     world, stubs, payload = make_world(PACKAGES["port"], spec)
-    payload.enable_hr = True
+    payload.precision = "int8"
     with pytest.raises(ValueError, match="not ported"):
         world.execute(payload)
     assert world.jobs == []

@@ -149,7 +149,7 @@ def test_samplers_lists_what_the_port_runs(server):
 @pytest.mark.parametrize("extra", [
     {"all_prompts": ["a cow", "a horse"]},
     {"override_settings": {"deepcache": 2}},
-    {"enable_hr": True},
+    {"override_settings": {"cfg_cutoff": 0.5}},
     {"styles": ["cinematic"]},
     {"steps": "many"},
 ])
@@ -253,7 +253,7 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
 
 @pytest.mark.parametrize("extra", [
     {"override_settings": {"cfg_cutoff": 0.5}},
-    {"enable_hr": True},
+    {"precision": "int8"},
     {"all_prompts": ["a cow", "a horse"]},
     {"script_name": "prompt matrix"},
 ])
