@@ -133,7 +133,28 @@ Phases, each fatal on failure (no phase is caught and passed over):
    5e-2), the RRDBNet on the card vs the CPU at a 128x128 input (relative
    error at most 1e-4), and where a warm UNet call of each pass spends
    its device time. The kernels phase also times K1 at config #5's four
-   shapes, the plain version of T = 16384 in query chunks.
+   shapes, the plain version of T = 16384 in query chunks;
+13. checkpoints (every earlier engine freed): seeded SD1.5 and SDXL base
+   weights, a second seed's VAE (bare ``encoder.``/``decoder.`` keys) and a
+   seeded ControlNet written as f16 ldm files (``tools/torch_ldm_writer.py``)
+   to a temporary model directory (about 19 GB with the converted-params
+   caches; its free space is printed, and it is removed at the end),
+   served by a World, ``ModelRegistry`` and ``ApiServer`` built as ``cli
+   serve`` builds them. SD1.5's cold activation (read, convert, cache,
+   copy) is timed, its host peak held under twice the file's size;
+   config #1's request must give the PNG bytes of an engine built from the
+   same weights rounded through f16 (320 K1 launches, all Hopper, K2
+   never); ``sd_vae`` through ``POST /sdapi/v1/options`` changes the bytes
+   and "Automatic" gives them back; config #3's unit at batch 1 naming its
+   ControlNet file gives the bytes of the same weights through
+   ``controlnet_provider`` (345 launches). Then the SDXL base file,
+   ``refresh-checkpoints`` (``sd-models`` lists both), a switch to it (idle
+   allocated memory within 1 GiB above its parameters: SD1.5's came back),
+   a 1024x1024 30-step request against its f16-rounded engine (2100
+   launches), and a switch back that restores SD1.5 from the cache in
+   less time than the cold activation, with the first bytes. One
+   ``checkpoints: {...}`` line holds the sizes, times, host memory, idle
+   memory, byte checks and launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; it is
 printed only when every phase passed. Without a CUDA device, or without the
@@ -2112,27 +2133,37 @@ def full_coverage_adapter(family, rank: int, seed: int, scale: float):
     return sd, len(mods)
 
 
-def write_safetensors(path: str, tensors: dict) -> None:
-    """A ``.safetensors`` file of f32 arrays: the 8-byte little-endian
-    header length, the JSON header, the raw little-endian bytes."""
+def write_safetensors(path: str, tensors: dict, dtype: str = "F32") -> int:
+    """A ``.safetensors`` file of ``tensors`` (numpy arrays, or torch
+    tensors on any device) stored as ``dtype`` ("F32" or "F16"), written
+    one tensor at a time: the 8-byte little-endian header length, the JSON
+    header, the raw little-endian bytes. Returns the file's size."""
     import struct
 
     import numpy as np
 
-    header, blobs, offset = {}, [], 0
+    np_dtype = np.dtype({"F32": "<f4", "F16": "<f2"}[dtype])
+    header, offset = {}, 0
     for name, arr in tensors.items():
-        a = np.ascontiguousarray(arr, dtype="<f4")
-        header[name] = {"dtype": "F32", "shape": list(a.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        blobs.append(a.tobytes())
-        offset += a.nbytes
+        nbytes = int(np.prod(arr.shape, dtype=np.int64)) * np_dtype.itemsize
+        header[name] = {"dtype": dtype, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for blob in blobs:
-            f.write(blob)
+        for arr in tensors.values():
+            if hasattr(arr, "detach"):  # a torch tensor: cast where it is
+                import torch
+
+                arr = arr.detach().to({"F32": torch.float32,
+                                       "F16": torch.float16}[dtype]).cpu()
+                arr = arr.numpy()
+            f.write(np.ascontiguousarray(arr, dtype=np_dtype).reshape(-1)
+                    .data)
+    return 8 + len(raw) + offset
 
 
 def psnr(a, b) -> float:
@@ -2786,6 +2817,360 @@ def phase_config5(base, fa, ra, card_line: str) -> dict:
     return metrics
 
 
+CKPT_SD15 = "sd15-seeded"
+CKPT_SDXL = "sdxl-seeded"
+CKPT_VAE = "alt"
+CKPT_CN = "canny-seeded"
+CKPT_SEED = 9  # the weights' seeds: SD1.5, its VAE +1, the ControlNet +2
+CKPT_SD15_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+                  "negative_prompt": "blurry", "steps": 20, "width": 512,
+                  "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+                  "seed": 1234, "batch_size": 1}
+CKPT_SDXL_BODY = {**CKPT_SD15_BODY, "steps": 30, "width": 1024,
+                  "height": 1024, "seed": 1}
+CKPT_SDXL_K1_LAUNCHES = 70 * 30  # 70 per base UNet call x 30 steps
+CKPT_IDLE_SLACK = 2**30  # idle memory above the engine's parameters
+CKPT_RSS_FACTOR = 2.0  # the cold activation's host peak over the file
+
+
+def rss_kib() -> int:
+    """This process's resident set, KiB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise SmokeFailure("no VmRSS in /proc/self/status")
+
+
+def host_window(fn):
+    """``fn()`` timed on the host clock (the device synchronised), with the
+    host memory it took: ``(result, seconds, {"peak_rss_growth_gib",
+    "ru_maxrss_growth_gib"})``. The peak is the largest RSS a thread reads
+    every 5 ms over the RSS at the window's start; ``ru_maxrss`` is the
+    process's lifetime peak, so its growth reads 0 once an earlier phase
+    went higher."""
+    import resource
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    rss0 = rss_kib()
+    peak = [rss0]
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss_kib())
+            done.wait(0.005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    ru0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    sampler.start()
+    t = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        done.set()
+        sampler.join()
+    ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - ru0
+    return out, seconds, {
+        "peak_rss_growth_gib": round((peak[0] - rss0) / 2**20, 4),
+        "ru_maxrss_growth_gib": round(ru / 2**20, 4)}
+
+
+def param_bytes(engine) -> int:
+    """Bytes of every module's parameters of an engine on the card."""
+    mods = [engine.text_encoder, engine.text_encoder_2, engine.unet,
+            engine.vae, engine.vae_encoder]
+    return sum(p.numel() * p.element_size() for m in mods if m is not None
+               for p in m.parameters())
+
+
+def idle_allocated() -> int:
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def rounded_f16(sds: dict, device=None) -> dict:
+    """State dicts rounded through f16 (what an f16 checkpoint holds), on
+    ``device`` (default: where they are)."""
+    import torch
+
+    return {c: {k: v.to(device or v.device, torch.float16)
+                for k, v in sd.items()} for c, sd in sds.items()}
+
+
+def phase_checkpoints(fa, ra, card_line: str) -> dict:
+    """The checkpoint registry and the ldm converter on the card, with every
+    earlier engine freed. Seeded SD1.5 and SDXL base weights, a second
+    seed's VAE and a seeded ControlNet are written as f16 ldm files
+    (``tools/torch_ldm_writer.py``) to a temporary model directory, served
+    by a World, a ``ModelRegistry`` and an ``ApiServer`` built as ``cli
+    serve`` builds them. SD1.5's cold activation (read, convert, cache,
+    copy to the card) is timed with the host memory it takes; config #1's
+    request must give the PNG bytes of an engine built from the same
+    weights rounded through f16 (320 K1 launches, all Hopper); the VAE
+    switched by ``POST /sdapi/v1/options`` changes them and "Automatic"
+    gives them back; a ControlNet unit naming its file gives the bytes of
+    the same weights handed in through ``controlnet_provider`` (345
+    launches). Then the SDXL base file, ``refresh-checkpoints``, a switch
+    to it (the SD1.5 engine's memory back: idle allocation within 1 GiB
+    above SDXL's parameters), a 1024x1024 request against its f16-rounded
+    engine (2100 launches), and a switch back that restores SD1.5 from the
+    converted-params cache faster than the cold activation, with step 4's
+    bytes."""
+    import logging
+    import sys as _sys
+
+    import torch
+
+    _sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_ldm_writer as ldm_writer
+
+    from stable_diffusion_webui_distributed_tpu_torch import bridge, cli
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SD15,
+        SDXL_BASE,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+        config as config_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    baseline = idle_allocated()
+    workdir = tempfile.mkdtemp(prefix="checkpoints-")
+    free = shutil.disk_usage(workdir).free
+    print(f"checkpoints: model directory {workdir}, {free / 2**30:.1f} GiB "
+          f"free; baseline allocated {baseline / 2**30:.3f} GiB")
+    out = {"card": card_line, "files": {}, "launches": {}, "bytes_equal": {}}
+    restored = []
+
+    class CacheHits(logging.Handler):
+        def emit(self, record):
+            if "restored from the cache" in record.getMessage():
+                restored.append(record.args[0])
+
+    hits = CacheHits()
+    reg_log = logging.getLogger(
+        "stable_diffusion_webui_distributed_tpu_torch.pipeline.registry")
+    level = reg_log.level
+    reg_log.addHandler(hits)
+    reg_log.setLevel(logging.INFO)
+    server = None
+    try:
+        # step 2: the SD1.5 side's files, f16, in the ldm layout
+        def write(sub, name, tensors):
+            d = os.path.join(workdir, sub)
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"{name}.safetensors")
+            t = time.perf_counter()
+            size = write_safetensors(path, tensors, "F16")
+            out["files"][name] = {"bytes": size, "write_s": round(
+                time.perf_counter() - t, 3)}
+            return size
+
+        sds = bridge.init_seeded(SD15, CKPT_SEED, device="cuda")
+        sd15_size = write("", CKPT_SD15, ldm_writer.to_ldm(SD15, sds))
+        sd15_ref = rounded_f16(sds)
+        del sds
+        vae_sds = bridge.init_seeded(SD15, CKPT_SEED + 1, device="cuda")
+        write("VAE", CKPT_VAE, ldm_writer.vae_to_ldm(SD15, vae_sds))
+        del vae_sds
+        cn = bridge.init_seeded_controlnet(SD15, CKPT_SEED + 2,
+                                           device="cuda")
+        write("ControlNet", CKPT_CN, ldm_writer.controlnet_to_ldm(
+            SD15.unet, cn))
+        cn_ref = {k: v.half() for k, v in cn.items()}
+        del cn
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"checkpoints: files written: {json.dumps(out['files'])}")
+
+        # step 3: the World, the registry and the server as cli serve
+        # builds them; the cold activation is SD1.5's
+        cfg_path = os.path.join(workdir, "fleet.json")
+        config_mod.save_config(config_mod.ConfigModel(workers=[
+            {"master": config_mod.WorkerModel(master=True,
+                                              avg_ipm=60.0)}]), cfg_path)
+        args = cli.build_parser().parse_args(
+            ["serve", "--model-dir", workdir, "--distributed-config",
+             cfg_path])
+        (world, registry), cold_s, cold_mem = host_window(
+            lambda: cli._build_world(args))
+        check(registry.current_name == CKPT_SD15
+              and registry.engine.family.name == "sd15",
+              f"cli serve activated {registry.current_name!r}")
+        check(registry.engine.device.type == "cuda", "the engine is not on "
+              "the card")
+        check(cold_mem["peak_rss_growth_gib"] * 2**30
+              < CKPT_RSS_FACTOR * sd15_size,
+              f"the cold activation took {cold_mem} of host memory for a "
+              f"{sd15_size / 2**30:.2f} GiB file")
+        out["sd15_cold"] = {"seconds": round(cold_s, 3), **cold_mem}
+        print(f"checkpoints: SD1.5 cold activation {cold_s:.3f} s, host "
+              f"{json.dumps(cold_mem)} [{card_line}]")
+        server = ApiServer(world, registry=registry, port=0).start()
+
+        def request(tag, body, want_k1, route="txt2img"):
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            resp = post(server.port, body, route=route)
+            wall = time.perf_counter() - t
+            k1 = fa.flash_attention.launches
+            paths = dict(fa.flash_attention.path_launches)
+            k2 = ra.ragged_attention.launches
+            out["launches"][tag] = k1
+            print(f"checkpoints request ({tag}): latency {wall:.3f} s, K1 "
+                  f"launches {k1} by path {json.dumps(paths)}, K2 {k2} "
+                  f"[{card_line}]")
+            check(k1 == want_k1, f"checkpoints ({tag}) launched K1 {k1} "
+                  f"times, want {want_k1}")
+            check(paths["hopper"] == k1,
+                  f"checkpoints ({tag}): K1 off the Hopper path: {paths}")
+            check(k2 == 0, f"checkpoints ({tag}) launched K2 {k2} times")
+            check(len(resp["images"]) == 1, f"checkpoints ({tag}): "
+                  f"{len(resp['images'])} images")
+            px = png_pixels(resp["images"][0])
+            check(px.shape == (body["height"], body["width"], 3)
+                  and float(px.std()) > 1.0,
+                  f"checkpoints ({tag}): image shape {px.shape} or constant")
+            return resp["images"][0]
+
+        def options(body):
+            t = time.perf_counter()
+            resp = post(server.port, body, route="options")
+            return resp, time.perf_counter() - t
+
+        # step 4: config #1 against the f16-rounded seeded engine
+        sd15_png = request("sd15", CKPT_SD15_BODY, LAUNCHES_PER_GROUP)
+        ref = Engine(SD15, sd15_ref, policy=dtypes.CARD, device="cuda",
+                     model_name=CKPT_SD15)
+        del sd15_ref
+        want = ref.txt2img(GenerationPayload(**CKPT_SD15_BODY)).images[0]
+        out["bytes_equal"]["sd15 vs f16-rounded engine"] = sd15_png == want
+        check(sd15_png == want, "the SD1.5 checkpoint's PNG differs from "
+              "the f16-rounded seeded engine's")
+
+        # step 5: a standalone VAE, then the checkpoint's own again
+        options({"sd_vae": CKPT_VAE})
+        alt_png = request("sd15 + vae", CKPT_SD15_BODY, LAUNCHES_PER_GROUP)
+        options({"sd_vae": "Automatic"})
+        own_png = request("sd15 vae automatic", CKPT_SD15_BODY,
+                          LAUNCHES_PER_GROUP)
+        out["bytes_equal"]["vae override vs own"] = alt_png == sd15_png
+        out["bytes_equal"]["automatic vs own"] = own_png == sd15_png
+        check(alt_png != sd15_png, "the standalone VAE did not change the "
+              "PNG bytes")
+        check(own_png == sd15_png, "'Automatic' did not give the "
+              "checkpoint's own VAE's bytes back")
+
+        # step 6: config #3's unit naming its ControlNet file, batch 1
+        init = synth_b64_image(CKPT_SD15_BODY["width"],
+                               CKPT_SD15_BODY["height"])
+        cn_body = {**CKPT_SD15_BODY, "seed": 1, "init_images": [init],
+                   "denoising_strength": 0.75,
+                   "alwayson_scripts": {"controlnet": {"args": [{
+                       "enabled": True, "image": init, "module": "canny",
+                       "model": CKPT_CN, "weight": 1.0}]}}}
+        cn_png = request("sd15 + controlnet file", cn_body,
+                         CONFIG3_K1_LAUNCHES, route="img2img")
+        ref.controlnet_provider = \
+            lambda name: cn_ref if name == CKPT_CN else None
+        want = ref.img2img(GenerationPayload(**cn_body)).images[0]
+        out["bytes_equal"]["controlnet file vs provider"] = cn_png == want
+        check(cn_png == want, "the ControlNet named by its file gave other "
+              "bytes than the same weights through controlnet_provider")
+        del ref, cn_ref
+        out["sd15_idle_gib"] = round(
+            (idle_allocated() - baseline) / 2**30, 4)
+
+        # step 7: the SDXL base file, a rescan, a switch
+        sds = bridge.init_seeded(SDXL_BASE, CKPT_SEED, device="cuda")
+        write("", CKPT_SDXL, ldm_writer.to_ldm(SDXL_BASE, sds))
+        sdxl_ref = rounded_f16(sds, "cpu")
+        del sds
+        gc.collect()
+        torch.cuda.empty_cache()
+        post(server.port, {}, route="refresh-checkpoints")
+        listed = sorted(m["model_name"] for m in get_json(
+            server.port, "/sdapi/v1/sd-models"))
+        check(listed == sorted([CKPT_SD15, CKPT_SDXL]),
+              f"sd-models lists {listed}")
+        _, sdxl_s, sdxl_mem = host_window(
+            lambda: options({"sd_model_checkpoint": CKPT_SDXL}))
+        check(registry.current_name == CKPT_SDXL
+              and registry.engine.family.name == "sdxl-base",
+              f"the switch left {registry.current_name!r} active")
+        sdxl_params = param_bytes(registry.engine)
+        idle = idle_allocated() - baseline
+        out["sdxl_cold"] = {"seconds": round(sdxl_s, 3), **sdxl_mem}
+        out["sdxl_idle_gib"] = round(idle / 2**30, 4)
+        out["sdxl_param_gib"] = round(sdxl_params / 2**30, 4)
+        print(f"checkpoints: SDXL cold activation (the switch) "
+              f"{sdxl_s:.3f} s, host {json.dumps(sdxl_mem)}; idle "
+              f"allocated {idle / 2**30:.3f} GiB above the baseline, SDXL "
+              f"parameters {sdxl_params / 2**30:.3f} GiB [{card_line}]")
+        check(idle <= sdxl_params + CKPT_IDLE_SLACK,
+              "the SD1.5 engine's memory did not come back after the "
+              "switch")
+        sdxl_png = request("sdxl", CKPT_SDXL_BODY, CKPT_SDXL_K1_LAUNCHES)
+        ref = Engine(SDXL_BASE, sdxl_ref, policy=dtypes.CARD,
+                     device="cuda", model_name=CKPT_SDXL)
+        del sdxl_ref
+        want = ref.txt2img(GenerationPayload(**CKPT_SDXL_BODY)).images[0]
+        del ref
+        out["bytes_equal"]["sdxl vs f16-rounded engine"] = sdxl_png == want
+        check(sdxl_png == want, "the SDXL checkpoint's PNG differs from "
+              "the f16-rounded seeded engine's")
+
+        # step 8: back to SD1.5, from the converted-params cache
+        restored.clear()
+        _, cached_s, cached_mem = host_window(
+            lambda: options({"sd_model_checkpoint": CKPT_SD15}))
+        check(restored == [CKPT_SD15],
+              f"the switch back did not restore from the cache: {restored}")
+        idle = idle_allocated() - baseline
+        sd15_params = param_bytes(registry.engine)
+        out["sd15_cached"] = {"seconds": round(cached_s, 3), **cached_mem}
+        out["sd15_back_idle_gib"] = round(idle / 2**30, 4)
+        out["sd15_param_gib"] = round(sd15_params / 2**30, 4)
+        print(f"checkpoints: SD1.5 cached activation {cached_s:.3f} s "
+              f"(cold {cold_s:.3f}), host {json.dumps(cached_mem)}; idle "
+              f"allocated {idle / 2**30:.3f} GiB [{card_line}]")
+        check(cached_s < cold_s, "the cached activation was not faster "
+              "than the cold one")
+        check(idle <= sd15_params + CKPT_IDLE_SLACK,
+              "the SDXL engine's memory did not come back after the switch")
+        back_png = request("sd15 again", CKPT_SD15_BODY, LAUNCHES_PER_GROUP)
+        out["bytes_equal"]["sd15 from the cache vs step 4"] = \
+            back_png == sd15_png
+        check(back_png == sd15_png, "SD1.5 from the cache gave other bytes")
+    finally:
+        reg_log.removeHandler(hits)
+        reg_log.setLevel(level)
+        if server is not None:
+            server.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("checkpoints: " + json.dumps(out))
+    return out
+
+
 def ptxas_report(log: str) -> dict:
     """Per kernel of a ``-Xptxas -v`` log: registers, spill bytes, and
     whether ptxas serialised its wgmma (C7512 and kin)."""
@@ -2970,7 +3355,10 @@ def main() -> int:
     config2, base = phase_config2(fa, ra, card_line)
     config4 = phase_config4(base, fa, ra, card_line)
     config5 = phase_config5(base, fa, ra, card_line)
-    del base
+    del base  # every engine freed before the checkpoints' own
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoints = phase_checkpoints(fa, ra, card_line)
 
     def per_call(key, totals=sdxl, models=SDXL_SHAPES):
         return {m: round(totals[m][key], 4) for m in models}
@@ -3069,6 +3457,7 @@ def main() -> int:
         "config5_library_device_ms": per_pass("library_device_ms"),
         "config5_host_us_per_launch": per_pass("host_us"),
         "config5_max_abs_err": config5_k1["max_abs_err"],
+        "checkpoint_launches": checkpoints["launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "
                        "(batch 1 with CFG = 2 rows; 70 launches): the "
                        "first at 1024x1024, the second at 2048x2048 (T = "

@@ -10,16 +10,22 @@ does. ``generate`` runs one request through the same World (img2img with
 ``status``, ``interrupt`` and ``workers list|add|remove|set`` operate the
 fleet.
 
-Weights are seeded random weights (``bridge.init_seeded``) until a
-checkpoint loader is ported; the fallback tokenizer stands in for CLIP's
-vocabulary. The engine runs on ``cuda`` with the card policy (bf16) unless
-``--device cpu`` is given (f32 there); with no GPU and no ``--device`` the
-commands that build it raise. LoRA adapters come from ``<--model-dir>/Lora``
-(or ``lora``; default: the config file's ``model_dir``) through the port's
-``ModelRegistry``, and ``POST /sdapi/v1/refresh-loras`` rescans them;
-the hires fix's image-space upscalers (RRDBNet ``.safetensors`` or
-``.pth`` files) come from its ``ESRGAN``, ``RealESRGAN`` or ``upscalers``
-directory the same way.
+The model directory (``--model-dir``, default: the config file's
+``model_dir``) is served through the port's ``ModelRegistry``: when it
+holds checkpoints (``.safetensors``, ``.ckpt``, ``.pt`` at its top, a
+``<file>.json`` sidecar naming a family where the keys cannot), the
+config's ``default_model`` is activated if it is one of them, else the
+first, and ``POST /sdapi/v1/options`` switches among them; when it holds
+none, the engine has seeded random weights of ``--family`` and
+``--seed`` (``bridge.init_seeded``). Standalone VAEs come from its
+``VAE`` directory, ControlNets from ``ControlNet``, LoRA adapters from
+``Lora`` and the hires fix's RRDBNet upscalers from ``ESRGAN``,
+``RealESRGAN`` or ``upscalers``; ``POST /sdapi/v1/refresh-checkpoints``
+and ``/refresh-loras`` rescan. The tokenizer is CLIP's BPE where the
+directory holds ``vocab.json`` and ``merges.txt``, else a fallback. The
+engine runs on ``cuda`` with the card policy (bf16) unless ``--device
+cpu`` is given (f32 there); with no GPU and no ``--device`` the commands
+that build it raise.
 """
 
 from __future__ import annotations
@@ -45,10 +51,13 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 
 
 def _build_world(args, require_local: bool = True):
-    """The World of the config file and the adapter and upscaler registry
-    of its model directory, with the master ``WorkerNode`` over the local engine in
-    front (carrying its persisted calibration) unless ``require_local``
-    is False (``status``, ``ping``: no engine, no registry)."""
+    """The World of the config file and the registry of its model
+    directory, with the master ``WorkerNode`` in front (carrying its
+    persisted calibration), whose ``LocalBackend`` follows the registry's
+    active engine: the config's ``default_model`` or the first checkpoint,
+    or seeded weights when the directory holds none. With
+    ``require_local`` False (``status``, ``ping``): no engine, no
+    registry."""
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
         ModelRegistry,
     )
@@ -62,20 +71,26 @@ def _build_world(args, require_local: bool = True):
 
     path = args.distributed_config or config_mod.default_config_path()
     cfg = config_mod.load_config(path)
-    registry = engine = None
+    registry = None
     if require_local:
         registry = ModelRegistry(args.model_dir or cfg.model_dir,
                                  device=args.device)
-        engine = _build_engine(args, registry)
+        names = list(registry.available())
+        if names:
+            registry.activate(cfg.default_model if cfg.default_model in names
+                              else names[0])
+        else:
+            engine = _seeded_engine(args, registry)
+            registry.register_engine(engine.model_name, engine)
     world = World.from_config(
         cfg, config_path=path,
         verify_tls=not args.distributed_skip_verify_remotes)
     world.thin_client_mode = bool(args.thin_client)
-    if engine is not None:
-        world.current_model = engine.model_name
+    if registry is not None:
+        world.current_model = registry.current_name
         cal = world.master_calibration()
         world.add_worker(WorkerNode(
-            "master", LocalBackend(engine), master=True,
+            "master", LocalBackend(registry=registry), master=True,
             benchmark_payload=cfg.benchmark_payload,
             avg_ipm=cal.avg_ipm if cal else None,
             eta_percent_error=cal.eta_percent_error if cal else None,
@@ -84,7 +99,9 @@ def _build_world(args, require_local: bool = True):
     return world, registry
 
 
-def _build_engine(args, registry):
+def _seeded_engine(args, registry):
+    """An engine of seeded random weights of ``--family``, with the
+    registry's providers."""
     from stable_diffusion_webui_distributed_tpu_torch import bridge
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
         Engine,
@@ -97,6 +114,7 @@ def _build_engine(args, registry):
                                 policy.param_dtype)
     return Engine(family, params, policy=policy, device=device,
                   lora_provider=registry.lora_provider,
+                  controlnet_provider=registry.controlnet_provider,
                   upscaler_provider=registry.upscaler_provider)
 
 

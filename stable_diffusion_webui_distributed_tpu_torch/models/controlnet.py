@@ -11,6 +11,8 @@ mirror the Flax tree so ``bridge.controlnet_flax_to_torch`` maps one onto
 the other. Flax initialises the zero convolutions and the hint's
 ``conv_out`` to zeros; ``bridge.init_seeded_controlnet`` draws them like any
 other convolution, so seeded residuals are not zero.
+:func:`convert_controlnet` maps an ldm ControlNet checkpoint
+(``control_model.*``) onto the same names.
 
 The preprocessors ("modules" in a unit's payload) are numpy, a copy of the
 JAX package's: a unit's image goes through them on the host, and they give
@@ -22,13 +24,14 @@ bit-equal with OpenCV's).
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stable_diffusion_webui_distributed_tpu_torch.models import convert
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     UNetConfig,
 )
@@ -167,6 +170,72 @@ class ControlNet(nn.Module):
         x = self.mid_res_1(x, temb)
         residuals.append(self.mid_out(x))
         return tuple(residuals)
+
+
+# --------------------------------------------------------------------------
+# ldm checkpoint conversion (control_model.* layout)
+# --------------------------------------------------------------------------
+
+def convert_controlnet(sd, cfg: UNetConfig, prefix: str = "control_model"
+                       ) -> Dict[str, torch.Tensor]:
+    """An ldm ControlNet checkpoint (a mapping of tensors) -> the state
+    dict of :class:`ControlNet` for a UNet of ``cfg``: the hint block,
+    ``zero_convs``, ``middle_block_out`` and, for SDXL, ``label_emb``. A
+    key the layout needs that the checkpoint lacks raises
+    ``convert.MissingKeys``."""
+    p = convert._Puller(sd)
+    out: Dict = {
+        "time_fc1": convert._linear(p, f"{prefix}.time_embed.0"),
+        "time_fc2": convert._linear(p, f"{prefix}.time_embed.2"),
+        "conv_in": convert._conv(p, f"{prefix}.input_blocks.0.0"),
+        "mid_out": convert._conv(p, f"{prefix}.middle_block_out.0"),
+    }
+    if cfg.addition_embed_dim:
+        out["add_fc1"] = convert._linear(p, f"{prefix}.label_emb.0.0")
+        out["add_fc2"] = convert._linear(p, f"{prefix}.label_emb.0.2")
+
+    hint: Dict = {}
+    for i in range(len(HINT_CHANNELS)):
+        hint[f"conv_{i}"] = convert._conv(
+            p, f"{prefix}.input_hint_block.{2 * i}")
+    hint["conv_out"] = convert._conv(
+        p, f"{prefix}.input_hint_block.{2 * len(HINT_CHANNELS)}")
+    out["hint"] = hint
+
+    levels = list(zip(cfg.block_out_channels, cfg.down_blocks))
+    out["zero_conv_0"] = convert._conv(p, f"{prefix}.zero_convs.0.0")
+    n = 1
+    prev = cfg.block_out_channels[0]
+    for level, (ch, depth) in enumerate(levels):
+        for i in range(cfg.layers_per_block):
+            key = f"{prefix}.input_blocks.{n}"
+            out[f"down_{level}_res_{i}"] = convert._res_block(
+                p, f"{key}.0", has_skip=prev != ch)
+            if depth is not None:
+                out[f"down_{level}_attn_{i}"] = convert._transformer(
+                    p, f"{key}.1", depth)
+            out[f"zero_conv_{n}"] = convert._conv(
+                p, f"{prefix}.zero_convs.{n}.0")
+            prev = ch
+            n += 1
+        if level < len(levels) - 1:
+            out[f"down_{level}_ds"] = {"conv": convert._conv(
+                p, f"{prefix}.input_blocks.{n}.0.op")}
+            out[f"zero_conv_{n}"] = convert._conv(
+                p, f"{prefix}.zero_convs.{n}.0")
+            n += 1
+
+    out["mid_res_0"] = convert._res_block(p, f"{prefix}.middle_block.0",
+                                          False)
+    idx = 1
+    if cfg.mid_block_depth is not None:
+        out["mid_attn"] = convert._transformer(
+            p, f"{prefix}.middle_block.1", cfg.mid_block_depth)
+        idx = 2
+    out["mid_res_1"] = convert._res_block(
+        p, f"{prefix}.middle_block.{idx}", False)
+    p.finish("controlnet")
+    return convert._flatten(out)
 
 
 # --------------------------------------------------------------------------

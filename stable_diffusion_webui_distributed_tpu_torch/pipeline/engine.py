@@ -75,6 +75,10 @@ falls back to latent bilinear with a warning. ControlNet hints, an
 inpainting family's blank conditioning and the refiner switch apply inside
 the second pass as well.
 
+A standalone VAE (webui's ``sd_vae``, :meth:`Engine.set_vae`) replaces the
+checkpoint's decoder and encoder, which are kept aside and come back
+exactly with ``set_vae(None)``.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
 422): per-image prompts and scripts, the step cache, other serving
 precisions, and SDXL under ragged dispatch.
@@ -122,7 +126,11 @@ from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
     make_added_cond,
     norms_to_f32,
 )
-from stable_diffusion_webui_distributed_tpu_torch.models.vae import encode
+from stable_diffusion_webui_distributed_tpu_torch.models.vae import (
+    Decoder,
+    Encoder,
+    encode,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.image import (
     box_blur,
     latent_resize_method,
@@ -161,8 +169,13 @@ log = logging.getLogger(__name__)
 Control = Tuple[torch.nn.Module, torch.Tensor, float, float, float]
 
 
-def _load(module: torch.nn.Module, state_dict, device) -> torch.nn.Module:
-    module = module.to_empty(device=device)
+def _load(module: torch.nn.Module, state_dict, device,
+          dtype: torch.dtype) -> torch.nn.Module:
+    """A module built on the meta device, its weights copied from
+    ``state_dict`` (any dtype, any device) into ``dtype`` on ``device``
+    one tensor at a time: no copy of the whole model in another dtype
+    exists on the way."""
+    module = module.to(dtype).to_empty(device=device)
     module.load_state_dict(state_dict, strict=True)
     return module.requires_grad_(False).eval()
 
@@ -214,21 +227,24 @@ class Engine:
 
         with torch.device("meta"):
             modules = build_modules(family)
-        loaded = {name: _load(m, params[name], self.device)
-                  for name, m in modules.items()}
         pd, cd = policy.param_dtype, policy.compute_dtype
+        loaded = {name: _load(m, params[name], self.device, pd)
+                  for name, m in modules.items()}
         # weights are stored in param_dtype and computed in compute_dtype;
         # the norms, the UNet's conv_out and the whole VAE decoder compute
         # in f32; the VAE encoder computes in compute_dtype
-        self.text_encoder = norms_to_f32(loaded["text_encoder"].to(pd).to(cd))
+        self.text_encoder = norms_to_f32(loaded["text_encoder"].to(cd))
         # SDXL's second (OpenCLIP bigG) encoder
         self.text_encoder_2 = (
-            norms_to_f32(loaded["text_encoder_2"].to(pd).to(cd))
+            norms_to_f32(loaded["text_encoder_2"].to(cd))
             if "text_encoder_2" in loaded else None)
-        self.unet = norms_to_f32(loaded["unet"].to(pd).to(cd))
+        self.unet = norms_to_f32(loaded["unet"].to(cd))
         self.unet.conv_out.float()
-        self.vae = loaded["vae"].to(pd).float()
-        self.vae_encoder = norms_to_f32(loaded["vae_encoder"].to(pd).to(cd))
+        self.vae, self.vae_encoder = self._vae_policy(loaded["vae"],
+                                                      loaded["vae_encoder"])
+        # the checkpoint's own VAE while set_vae's override is applied
+        self._checkpoint_vae: Optional[Tuple[torch.nn.Module,
+                                             torch.nn.Module]] = None
         self.engine_provider = engine_provider
         self.controlnet_provider = controlnet_provider
         self.upscaler_provider = upscaler_provider
@@ -752,6 +768,45 @@ class Engine:
                                       inpaint_cond=inp)
         return latents, tw, th
 
+    # -- VAE override --------------------------------------------------------
+
+    def _vae_policy(self, decoder: torch.nn.Module, encoder: torch.nn.Module
+                    ) -> Tuple[torch.nn.Module, torch.nn.Module]:
+        """Loaded VAE modules under the policy: the decoder computes in f32,
+        the encoder in the compute dtype with f32 norms."""
+        return (decoder.float(),
+                norms_to_f32(encoder.to(self.policy.compute_dtype)))
+
+    def set_vae(self, params: Optional[StateDicts]) -> None:
+        """Apply a standalone VAE (webui's ``sd_vae``; ``params`` holds
+        ``vae`` and ``vae_encoder`` state dicts, ``models/convert.py``
+        ``convert_vae``), or restore the checkpoint's own with None: its
+        modules are kept aside while an override is applied, so restoring
+        gives its bytes back exactly. The swap runs on the device thread,
+        so a request in flight finishes with the VAE it started with.
+        Clears the inpainting conditioning cache, which the VAE makes."""
+        if params is None:
+            new = self._checkpoint_vae
+            if new is None:
+                return
+        else:
+            with torch.device("meta"):
+                dec, enc = Decoder(self.family.vae), Encoder(self.family.vae)
+            pd = self.policy.param_dtype
+            new = self._vae_policy(_load(dec, params["vae"], self.device, pd),
+                                   _load(enc, params["vae_encoder"],
+                                         self.device, pd))
+
+        def swap():
+            if self._checkpoint_vae is None:
+                self._checkpoint_vae = (self.vae, self.vae_encoder)
+            self.vae, self.vae_encoder = new
+            if params is None:
+                self._checkpoint_vae = None
+            self._blank_cond_cache.clear()
+
+        self._device_thread.submit(swap).result()
+
     # -- ControlNet ----------------------------------------------------------
 
     def _controlnet(self, name: str) -> Optional[torch.nn.Module]:
@@ -768,9 +823,8 @@ class Engine:
             return None
         with torch.device("meta"):
             module = ControlNet(self.family.unet)
-        module = _load(module, sd, self.device)
-        module = norms_to_f32(module.to(self.policy.param_dtype)
-                              .to(self.policy.compute_dtype))
+        module = _load(module, sd, self.device, self.policy.param_dtype)
+        module = norms_to_f32(module.to(self.policy.compute_dtype))
         self._controlnets[name] = module
         return module
 

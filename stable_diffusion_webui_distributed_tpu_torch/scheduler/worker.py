@@ -527,10 +527,23 @@ def cuda_memory(device: torch.device) -> Dict[str, Any]:
 
 class LocalBackend:
     """The in-process ``Engine`` (the master). A range runs through the
-    engine's ``generate_range``, so on the engine's own device thread."""
+    engine's ``generate_range``, so on the engine's own device thread.
 
-    def __init__(self, engine):
-        self.engine = engine
+    With a ``registry`` (``pipeline/registry.py`` ``ModelRegistry``) the
+    backend follows the registry's active engine, so a model switch takes
+    effect with the next range, while a range in flight finishes on the
+    engine it started on; ``load_options`` switches through the registry
+    and ``available_models`` lists its checkpoints. Without one it serves
+    ``engine`` alone and refuses any other model."""
+
+    def __init__(self, engine=None, registry=None):
+        self._engine = engine
+        self.registry = registry
+
+    @property
+    def engine(self):
+        return self.registry.engine if self.registry is not None \
+            else self._engine
 
     def generate(self, payload, start_index, count):
         return self.engine.generate_range(
@@ -547,17 +560,30 @@ class LocalBackend:
         raise RuntimeError("local master cannot restart itself")
 
     def load_options(self, model: str, vae: str = "") -> None:
-        # no checkpoint registry yet: the engine serves its own model and
-        # its checkpoint's VAE, and a sync to anything else fails
-        if (model and model != self.engine.model_name) or vae:
-            raise Unsupported(f"cannot switch to model {model!r}, VAE "
-                              f"{vae!r}: the PyTorch engine serves "
-                              f"{self.engine.model_name!r} only")
+        """Switch to checkpoint ``model`` and apply VAE ``vae`` ("" is the
+        checkpoint's own). Without a registry, anything but the served
+        model and its own VAE fails, as does a name the registry lacks."""
+        registry = self.registry
+        if registry is None:
+            if (model and model != self.engine.model_name) or vae:
+                raise Unsupported(f"cannot switch to model {model!r}, VAE "
+                                  f"{vae!r}: the PyTorch engine serves "
+                                  f"{self.engine.model_name!r} only")
+            return
+        if model and model != registry.current_name:
+            if registry.checkpoint_path(model) is None:
+                raise Unsupported(f"no checkpoint {model!r} in "
+                                  f"{registry.model_dir!r}")
+            registry.activate(model)
+        if not registry.set_vae(vae or ""):
+            raise Unsupported(f"no VAE {vae!r} in {registry.model_dir!r}")
 
     def script_info(self) -> List[str]:
         return ["controlnet"]  # ControlNet units run in the engine
 
     def available_models(self) -> List[str]:
+        if self.registry is not None:
+            return self.registry.model_names()
         return [self.engine.model_name]
 
     def memory_info(self) -> Dict[str, Any]:

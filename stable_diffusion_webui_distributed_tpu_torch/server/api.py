@@ -12,11 +12,14 @@ Routes, in webui's shapes: ``POST /sdapi/v1/txt2img`` and ``POST
 and ``POST /sdapi/v1/interrupt``; ``GET /sdapi/v1/memory`` (``ram`` and the
 card's ``cuda`` section); ``GET``/``POST /sdapi/v1/options`` (a POST
 records the options, and a World fans a model or VAE change out to its
-remotes; without a checkpoint registry a node switches to no other model,
-so a model name other than the one it serves, or a VAE of its own, answers
-422 and changes nothing); ``GET /sdapi/v1/sd-models``; ``GET
-/sdapi/v1/script-info`` (the scripts the port runs: ControlNet); ``POST
-/sdapi/v1/refresh-loras`` (rescans the ``registry``'s adapter directories;
+remotes; a World whose local backend follows the ``registry`` switches
+its checkpoint and standalone VAE there, blocking until the new engine is
+built; any other node switches to no other model, and a model or VAE name
+the node cannot serve answers 422 and changes nothing); ``GET
+/sdapi/v1/sd-models`` (the registry's checkpoint files, or the served
+models); ``GET /sdapi/v1/script-info`` (the scripts the port runs:
+ControlNet); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
+/sdapi/v1/refresh-loras`` (rescan the ``registry``'s directories;
 ``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
 /internal/benchmark`` for a World. A request for something the
@@ -42,6 +45,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
     Unsupported,
     apply_scripts,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+    AUTOMATIC_VAES,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
@@ -76,8 +82,10 @@ class ApiError(Exception):
 
 class ApiServer:
     """One generation node's REST surface over ``source`` (a ``World`` or
-    an ``Engine``); ``registry`` is the ``ModelRegistry`` whose adapters
-    the engine's ``lora_provider`` serves (None: nothing to rescan)."""
+    an ``Engine``); ``registry`` is the ``ModelRegistry`` whose files the
+    engine's providers serve (None: nothing to rescan). Models switch
+    through it when a World's local backend follows it (``cli serve``
+    builds it so)."""
 
     def __init__(self, source, host: str = "127.0.0.1", port: int = 7860,
                  user: Optional[str] = None, password: Optional[str] = None,
@@ -214,13 +222,25 @@ class ApiServer:
         return dict(self.options)
 
     def handle_options_post(self, body: Dict[str, Any]) -> Dict[str, Any]:
-        """Record the options; a model or VAE change fans out to a World's
-        remotes, and scheduler settings (bare or ``distributed_``-prefixed)
-        apply live to it. A model or VAE this node cannot serve answers 422
-        before anything is recorded or fanned out."""
+        """Record the options; switch the checkpoint and the standalone VAE
+        where the node's engine follows the registry (a blocking load, as
+        webui's; the standing ``sd_vae`` applies to a new engine too); fan a
+        model or VAE change out to a World's remotes, and apply scheduler
+        settings (bare or ``distributed_``-prefixed) live to it. A model or
+        VAE this node cannot serve answers 422 before anything is recorded,
+        loaded or fanned out."""
         model = body.get("sd_model_checkpoint")
         vae = body.get("sd_vae")
         self._check_servable(model, vae)
+        registry = self._switching_registry()
+        if registry is not None and (model or vae is not None):
+            # after the fleet request in flight, whose engine is dropped
+            with self._busy:
+                if model:
+                    registry.activate(model)
+                standing = vae if vae is not None else \
+                    self.options.get("sd_vae", "")
+                registry.set_vae(standing or "")
         if model:
             self.options["sd_model_checkpoint"] = model
         if (model or vae is not None) and hasattr(self.source, "sync_models"):
@@ -248,13 +268,27 @@ class ApiServer:
                 self.options[k] = v
         return {}
 
+    def _switching_registry(self):
+        """The registry when a local backend of the World follows it (its
+        model switch then reaches the engine that generates), else None."""
+        if self.registry is None or not hasattr(self.source,
+                                                "workers_snapshot"):
+            return None
+        for w in self.source.workers_snapshot():
+            if getattr(w.backend, "registry", None) is self.registry:
+                return self.registry
+        return None
+
     def _served_models(self) -> Optional[set]:
-        """The model names this node serves: its engine's, or for a World
-        without a local engine the names its workers list (None when none
-        answers: nothing to check against). The workers are asked all at
-        once, those the last ping found unavailable not at all, and a list
-        that takes longer than :data:`MODEL_LIST_TIMEOUT` is not waited
-        for."""
+        """The model names this node serves: the switching registry's, its
+        engine's, or for a World without a local engine the names its
+        workers list (None when none answers: nothing to check against).
+        The workers are asked all at once, those the last ping found
+        unavailable not at all, and a list that takes longer than
+        :data:`MODEL_LIST_TIMEOUT` is not waited for."""
+        registry = self._switching_registry()
+        if registry is not None:
+            return set(registry.model_names())
         engine = self._engine()
         if engine is not None:
             return {engine.model_name}
@@ -283,22 +317,37 @@ class ApiServer:
 
     def _check_servable(self, model: Optional[str],
                         vae: Optional[str]) -> None:
-        """Until a checkpoint registry lands, a node switches to no other
-        model and loads no standalone VAE: a request for either would be
-        answered with another model's images."""
-        if vae is not None and vae not in ("Automatic", "None", ""):
-            raise ApiError(422, f"sd_vae {vae!r}: the PyTorch node serves "
-                                f"its checkpoint's own VAE only")
+        """A model must be one the node serves (a checkpoint of the
+        switching registry, which takes file names too); a standalone VAE
+        needs the switching registry and one of its VAE files. Anything
+        else would be answered with another model's images."""
+        registry = self._switching_registry()
+        if vae is not None and vae not in AUTOMATIC_VAES:
+            if registry is None:
+                raise ApiError(422, f"sd_vae {vae!r}: this node serves its "
+                                    f"checkpoint's own VAE only")
+            if registry.vae_path(vae) is None:
+                raise ApiError(422, f"sd_vae {vae!r}: no such VAE in "
+                                    f"{sorted(registry.available_vaes())}")
         if not model:
+            return
+        if registry is not None and registry.checkpoint_path(model):
             return
         served = self._served_models()
         if served is not None and model not in served:
             raise ApiError(422, f"sd_model_checkpoint {model!r}: this node "
-                                f"serves {sorted(served)} and has no "
-                                f"checkpoint registry yet")
+                                f"serves {sorted(served)}")
 
     def handle_sd_models(self) -> Any:
-        """The models this node serves (``unknown`` when it cannot tell)."""
+        """The switching registry's checkpoints (the active engine first
+        when no file has it), else the models this node serves
+        (``unknown`` when it cannot tell)."""
+        registry = self._switching_registry()
+        if registry is not None:
+            paths = registry.available()
+            return [{"title": name, "model_name": name,
+                     "filename": paths.get(name, ""), "hash": None,
+                     "sha256": None} for name in registry.model_names()]
         names = sorted(self._served_models() or {
             self.options.get("sd_model_checkpoint") or "unknown"})
         return [{"title": name, "model_name": name, "filename": "",
@@ -309,9 +358,10 @@ class ApiServer:
         return [{"name": "controlnet", "is_alwayson": True,
                  "is_img2img": True, "args": []}]
 
-    def handle_refresh_loras(self) -> Dict[str, Any]:
-        """Rescan the adapter directories: a file added since is served,
-        and the engine's latch retries the names it skipped."""
+    def handle_refresh(self) -> Dict[str, Any]:
+        """Rescan the registry's directories: a checkpoint, VAE, ControlNet
+        or adapter added since is served, and the engine's latch retries
+        the adapter names it skipped."""
         if self.registry is not None:
             self.registry.refresh()
         return {}
@@ -368,7 +418,8 @@ class ApiServer:
             ("POST", "/sdapi/v1/options"): self.handle_options_post,
             ("GET", "/sdapi/v1/sd-models"): self.handle_sd_models,
             ("GET", "/sdapi/v1/script-info"): self.handle_script_info,
-            ("POST", "/sdapi/v1/refresh-loras"): self.handle_refresh_loras,
+            ("POST", "/sdapi/v1/refresh-checkpoints"): self.handle_refresh,
+            ("POST", "/sdapi/v1/refresh-loras"): self.handle_refresh,
             ("POST", "/sdapi/v1/server-restart"): self.handle_server_restart,
             ("GET", "/internal/workers"): self.handle_workers,
             ("POST", "/internal/benchmark"): self.handle_benchmark,
@@ -484,4 +535,4 @@ def _worker_dict(w) -> Dict[str, Any]:
 def _vae_for_sync(vae: str) -> str:
     """'Automatic'/'None' mean "the checkpoint's own": empty on the
     wire."""
-    return "" if vae in ("Automatic", "None") else (vae or "")
+    return "" if vae in AUTOMATIC_VAES else (vae or "")

@@ -1,10 +1,12 @@
-"""The port stands alone: no JAX, no Flax, nothing of the JAX package.
+"""The port stands alone: no JAX, no Flax, nothing of the JAX package,
+and no ``safetensors`` package (the card's machine has none: the port reads
+the format itself).
 
 A fresh interpreter imports every module of the port; afterwards neither
-``jax``, ``flax`` nor any module of ``stable_diffusion_webui_distributed_tpu``
-may be loaded. A scan of the sources (the port's and ``chip_smoke.py``)
-asserts the same of every import statement, including imports inside
-functions.
+``jax``, ``flax``, ``safetensors`` nor any module of
+``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
+sources (the port's and ``chip_smoke.py``) asserts the same of every import
+statement, including imports inside functions.
 """
 
 import ast
@@ -18,7 +20,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = "stable_diffusion_webui_distributed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "stable_diffusion_webui_distributed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "safetensors",
+             "stable_diffusion_webui_distributed_tpu")
 
 PROBE = f"""
 import importlib, json, pkgutil, sys
@@ -47,7 +50,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "ops.ragged_attention", "ops.nvcc", "scheduler.world",
                  "scheduler.worker", "scheduler.eta", "runtime.flags",
                  "runtime.daemon", "cli", "models.controlnet",
-                 "pipeline.image"):
+                 "pipeline.image", "models.convert", "models.safetensors_io",
+                 "pipeline.registry"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 35
     assert out["forbidden"] == []
