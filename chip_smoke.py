@@ -58,10 +58,29 @@ Phases, each fatal on failure (no phase is caught and passed over):
    in its worker's label, each image within a mean of 2 uint8 levels of
    the same request on the master alone, the master's K1 launches 320 per
    image group, all on the Hopper path; the same request again must give
-   the same plan and PNG bytes; with the remote terminated, its range is
-   requeued on the master and must give the remote's PNG bytes. Master and
-   remote share one card: the phase measures the fleet's mechanics, not a
-   speed-up;
+   the same plan and PNG bytes; a prompts-from-file request of 4 lines at
+   batch_size 2, the last past 75 tokens, must be split 2+2 with the
+   master's range (short lines only) pinned to the request-wide 2 chunks,
+   320 K1 launches on the master, each image within a mean of 2 uint8
+   levels of the same request on the master alone; with the remote
+   terminated, its range is requeued on the master and must give the
+   remote's PNG bytes. Master and remote share one card: the phase
+   measures the fleet's mechanics, not a speed-up;
+7b. scripts on the same engine, with a temporary model directory of
+   seeded embeddings (``tok``: 2 x 768 ``emb_params``; ``neg.pt``: 3 x 768
+   ``string_to_param``; ``tok_exact``: the engine's own token rows of a
+   two-token word) and a ``styles.csv``, served by a ``ModelRegistry`` and
+   the port's ``ApiServer``: ``GET /sdapi/v1/embeddings`` lists the three
+   with their vector counts; ``tok_exact`` gives the spelled-out word's
+   conditioning (``torch.equal``) and pixels; ``tok`` and ``neg`` change
+   the image; a prompt matrix of 4 at batch_size 1 (1280 K1 launches)
+   gives each prompt's solo pixels, at batch_size 2 (640) rows within a
+   mean of 2 levels of those; prompts from file with ``checkbox_iterate``
+   (960) each line's solo pixels at its seed; ``styles`` the expanded
+   prompt's pixels; an X/Y/Z plot of Steps {10, 20} x CFG {5, 7} (960)
+   one grid and four cells equal to each request alone. Every request's
+   K1 launches are exact, all on the Hopper path, K2 none; the text
+   encoder is timed per pass and per group;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 9. profile: where a warm request's time goes (device time by kernel group
@@ -95,7 +114,9 @@ Phases, each fatal on failure (no phase is caught and passed over):
    the same PNG bytes, and a batch-1 request of seed 4324 must agree with
    image 3 within a mean of 2 uint8 levels. Then each SDXL UNet at full
    width, bf16 against f32 on the same weights (relative error at most
-   5e-2), and where a warm base UNet call at batch 8 spends its time;
+   5e-2), and where a warm base UNet call at batch 8 spends its time; a
+   dual ``clip_l``/``clip_g`` embedding of the base engine's own token rows
+   of a word gives that word's conditioning exactly (no image);
 11. config #4 on config #2's base engine (its refiner dropped): three
    rank-16 adapters covering every resolvable kohya key of SDXL, written
    by this script to a temporary ``Lora/`` directory and served through a
@@ -1108,12 +1129,68 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
               "the repeated fleet request gave other PNG bytes")
         remote_mem = get_json(port, "/sdapi/v1/memory")["cuda"]
 
-        # the same request on the master alone (remote disabled)
+        # per-image prompts across the fleet: 4 lines, the last past 75
+        # tokens, at batch_size 2; the master's range holds short lines
+        # only, so only the request-wide pin gives them 2 chunks
+        backend = world.master().backend
+        pins = []
+
+        def recording(p, start, count, _orig=backend.generate):
+            pins.append(p.context_chunks)
+            return _orig(p, start, count)
+
+        backend.generate = recording
+        try:
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            t = time.perf_counter()
+            file_first = post(server.port, FLEET_FILE_BODY)
+            file_wall = time.perf_counter() - t
+        finally:
+            del backend.generate
+        file_jobs = [(j.worker.label, j.batch_size, j.start_index)
+                     for j in world.jobs]
+        file_k1 = fa.flash_attention.launches
+        print(f"fleet prompts from file: plan {file_jobs}, pinned "
+              f"context_chunks {pins}, K1 launches {file_k1} by path "
+              f"{json.dumps(fa.flash_attention.path_launches)}, "
+              f"{file_wall:.3f} s [{shared}; {card_line}]")
+        check(file_jobs == [("master", 2, 0), ("remote", 2, 2)],
+              f"the prompts-from-file request was planned {file_jobs}")
+        check(pins == [2], f"the master's range was pinned {pins}, want 2 "
+                           f"chunks")
+        check(json.loads(file_first["info"])["all_prompts"]
+              == FLEET_FILE_BODY["script_args"][2].split("\n"),
+              "the prompts-from-file images carry other prompts")
+        check(file_k1 == LAUNCHES_PER_GROUP
+              and fa.flash_attention.path_launches["hopper"] == file_k1
+              and ra.ragged_attention.launches == 0,
+              f"prompts from file: the master launched K1 {file_k1} times")
+
+        # the same requests on the master alone (remote disabled)
         world.configure_worker("remote", disabled=True)
         t = time.perf_counter()
         alone = post(server.port, FLEET_BODY)
         alone_wall = time.perf_counter() - t
+        fa.reset_launches(fa.flash_attention)
+        t = time.perf_counter()
+        file_alone = post(server.port, FLEET_FILE_BODY)
+        file_alone_wall = time.perf_counter() - t
+        check(fa.flash_attention.launches == 2 * LAUNCHES_PER_GROUP,
+              f"prompts from file alone: K1 {fa.flash_attention.launches}")
         world.configure_worker("remote", disabled=False)
+        file_diffs = []
+        for i, (a, b) in enumerate(zip(file_first["images"],
+                                       file_alone["images"])):
+            diff = np.abs(png_pixels(a).astype(np.int32)
+                          - png_pixels(b).astype(np.int32))
+            file_diffs.append(float(diff.mean()))
+            check(diff.mean() <= FLEET_MEAN_TOLERANCE,
+                  f"prompts from file: fleet image {i} drifted from the "
+                  f"master-alone image")
+        print(f"fleet prompts from file vs master alone: mean abs "
+              f"{[round(d, 4) for d in file_diffs]}; master alone "
+              f"{file_alone_wall:.3f} s [{card_line}]")
         check(labels_of(alone) == ["master"] * 4, "master alone: labels")
         diffs = []
         for i, (a, b) in enumerate(zip(first["images"], alone["images"])):
@@ -1165,6 +1242,11 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
         "fleet_wall_s": round(fleet_wall, 4),
         "master_alone_wall_s": round(alone_wall, 4),
         "fleet_vs_alone_mean_abs": [round(d, 4) for d in diffs],
+        "prompts_from_file": {
+            "fleet_wall_s": round(file_wall, 4),
+            "master_alone_wall_s": round(file_alone_wall, 4),
+            "context_chunks": pins[0], "master_k1_launches": file_k1,
+            "fleet_vs_alone_mean_abs": [round(d, 4) for d in file_diffs]},
         "master_peak_memory_gib": round(master_peak / 2**30, 3),
         "remote_peak_memory_gib": round(
             remote_mem["allocated"]["peak"] / 2**30, 3),
@@ -1175,6 +1257,310 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
           f"is claimed) [{card_line}]")
     print("fleet metrics: " + json.dumps(metrics))
     return metrics
+
+
+SCRIPTS_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+                "negative_prompt": "blurry", "steps": 20, "width": 512,
+                "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+                "seed": 777}
+SCRIPTS_WORD = "snowy owl"  # two fallback-tokenizer tokens
+SCRIPTS_MATRIX = "a cat|red|in snow"
+SCRIPTS_FILE = ["a cat on a windowsill", "a red barn in a field",
+                "a lighthouse in snow"]
+SCRIPTS_XYZ = {"x_axis": "Steps", "x_values": "10,20",
+               "y_axis": "CFG Scale", "y_values": "5,7"}
+SCRIPTS_XYZ_K1 = 16 * (10 + 20) * 2  # 960
+SCRIPTS_MEAN_TOLERANCE = 2.0  # uint8 levels, group-2 row vs group-1 image
+SCRIPTS_STYLES = ("name,prompt,negative_prompt\n"
+                  "st,\"{prompt}, in snow, highly detailed\",ugly\n")
+#: a line of 96 tokens: a prompts-from-file request past one chunk
+SCRIPTS_LONG_LINE = " ".join(
+    ["a detailed painting of a quiet harbor town at sunrise with boats"] * 8)
+FLEET_FILE_BODY = {**FLEET_BODY, "batch_size": 2,
+                   "script_name": "prompts from file or textbox",
+                   "script_args": [False, False, "\n".join(
+                       SCRIPTS_FILE[:2] + ["a lighthouse at dusk",
+                                           SCRIPTS_LONG_LINE])]}
+
+
+def above_word(tok, word: str) -> str:
+    """A context word whose fallback-tokenizer id is larger than every id
+    of ``word``: CLIP pools at the largest id, so the pooled row then sits
+    on that word in a prompt and in its spelled-out twin alike."""
+    top = max(tok.encode(word))
+    return next(w for w in (f"z{i}" for i in range(100000))
+                if tok.encode(w)[0] > top)
+
+
+def word_rows(module, tok, word: str):
+    """The token-embedding rows of ``word`` as f32 numpy (the card's
+    bf16 rows are exact in f32)."""
+    import torch
+
+    ids = torch.tensor(tok.encode(word), device=module.token_embedding
+                       .weight.device)
+    return module.token_embedding.weight[ids].float().cpu().numpy()
+
+
+def write_script_dir(root: str, engine, seed: int) -> None:
+    """A model directory for the scripts phase: ``embeddings/tok`` (2 x
+    768, ``emb_params``), ``embeddings/neg.pt`` (3 x 768,
+    ``string_to_param``), ``embeddings/tok_exact`` (the engine's own rows
+    of :data:`SCRIPTS_WORD`) and a ``styles.csv``."""
+    import numpy as np
+    import torch
+
+    emb = os.path.join(root, "embeddings")
+    os.makedirs(emb)
+    rng = np.random.default_rng(seed)
+    h = engine.family.text_encoder.hidden_size
+    write_safetensors(os.path.join(emb, "tok.safetensors"), {
+        "emb_params": rng.standard_normal((2, h)).astype(np.float32) * 0.02})
+    torch.save({"string_to_param": {"*": torch.from_numpy(
+        rng.standard_normal((3, h)).astype(np.float32) * 0.02)}},
+        os.path.join(emb, "neg.pt"))
+    write_safetensors(os.path.join(emb, "tok_exact.safetensors"), {
+        "emb_params": word_rows(engine.text_encoder, engine.tokenizer,
+                                SCRIPTS_WORD)})
+    with open(os.path.join(root, "styles.csv"), "w") as f:
+        f.write(SCRIPTS_STYLES)
+
+
+def phase_scripts(engine, fa, ra, card_line: str) -> dict:
+    """Textual inversion, per-image prompts and the script layer on the
+    main path's SD1.5 engine, with a temporary model directory served by a
+    ``ModelRegistry`` and the port's ``ApiServer``. Every request's K1
+    launches are counted from 0 and must be exact, all on the Hopper path,
+    K2 none; images are compared as decoded pixels."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+        ModelRegistry,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    walls: dict = {}
+
+    def run(tag: str, want_k1: int, fn):
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
+        t = time.perf_counter()
+        out = fn()
+        walls[tag] = time.perf_counter() - t
+        k1 = fa.flash_attention.launches
+        paths = dict(fa.flash_attention.path_launches)
+        check(k1 == want_k1, f"scripts ({tag}): K1 launched {k1} times, "
+                             f"want {want_k1}")
+        check(paths["hopper"] == k1, f"scripts ({tag}): K1 off the Hopper "
+                                     f"path: {paths}")
+        check(ra.ragged_attention.launches == 0,
+              f"scripts ({tag}): K2 launched")
+        launches[tag] = k1
+        return out
+
+    def txt2img(tag, want_k1, **kw):
+        return run(tag, want_k1, lambda: engine.txt2img(
+            GenerationPayload(**{**SCRIPTS_BODY, **kw})))
+
+    def same(a: str, b: str) -> bool:
+        return np.array_equal(png_pixels(a), png_pixels(b))
+
+    workdir = tempfile.mkdtemp(prefix="scripts-")
+    server = None
+    saved_store = engine.embedding_store
+    try:
+        write_script_dir(workdir, engine, seed=SCRIPTS_BODY["seed"])
+        registry = ModelRegistry(workdir, device="cuda")
+        engine.embedding_store = registry.embedding_store
+        server = ApiServer(engine, port=0, registry=registry).start()
+        listed = get_json(server.port, "/sdapi/v1/embeddings")
+        vectors = {n: e["vectors"] for n, e in listed["loaded"].items()}
+        print(f"scripts: GET /sdapi/v1/embeddings: {json.dumps(vectors)}, "
+              f"skipped {sorted(listed['skipped'])}")
+        check(vectors == {"tok": 2, "neg": 3, "tok_exact": 2}
+              and not listed["skipped"], f"embeddings listed {listed}")
+
+        # the embedding of a word's own rows gives the word's conditioning
+        ctx = above_word(engine.tokenizer, SCRIPTS_WORD)
+        exact = {"prompt": f"a photograph of a tok_exact {ctx}",
+                 "negative_prompt": f"tok_exact {ctx}"}
+        spelled = {"prompt": f"a photograph of a {SCRIPTS_WORD} {ctx}",
+                   "negative_prompt": f"{SCRIPTS_WORD} {ctx}"}
+        conds = [engine.run_on_device(engine.encode_prompts,
+                                      GenerationPayload(**b))
+                 for b in (exact, spelled)]
+        check(all(torch.equal(a, b) for a, b in
+                  zip((*conds[0][0], *conds[0][1]),
+                      (*conds[1][0], *conds[1][1]))),
+              "tok_exact's conditioning is not the spelled-out word's")
+        got = txt2img("embedding exact", LAUNCHES_PER_GROUP, **exact)
+        want = txt2img("spelled out", LAUNCHES_PER_GROUP, **spelled)
+        check(same(got.images[0], want.images[0]),
+              "tok_exact's pixels are not the spelled-out word's")
+
+        # seeded embeddings change the image
+        emb_req = {"prompt": "a photograph of tok riding a horse",
+                   "negative_prompt": "neg, blurry"}
+        with_emb = txt2img("embedding request", LAUNCHES_PER_GROUP,
+                           **emb_req)
+        engine.embedding_store = None
+        unknown = txt2img("unknown words", LAUNCHES_PER_GROUP, **emb_req)
+        engine.embedding_store = registry.embedding_store
+        check(not same(with_emb.images[0], unknown.images[0]),
+              "the embeddings did not change the image")
+        print(f"scripts: embedding request {walls['embedding request']:.3f}"
+              f" s (unknown words {walls['unknown words']:.3f} s) "
+              f"[{card_line}]")
+
+        # prompt matrix: group 1, each image its prompt's solo image
+        matrix = {"prompt": SCRIPTS_MATRIX, "script_name": "prompt matrix"}
+        g1 = txt2img("matrix group 1", 4 * LAUNCHES_PER_GROUP, batch_size=1,
+                     **matrix)
+        check(len(g1.images) == 4 and len(set(g1.seeds)) == 1,
+              f"matrix: {len(g1.images)} images, seeds {g1.seeds}")
+        for i, prompt in enumerate(g1.prompts):
+            solo = txt2img(f"matrix solo {i}", LAUNCHES_PER_GROUP,
+                           prompt=prompt)
+            check(same(g1.images[i], solo.images[0]),
+                  f"matrix image {i} ({prompt!r}) is not its solo image")
+        g2 = txt2img("matrix group 2", 2 * LAUNCHES_PER_GROUP, batch_size=2,
+                     **matrix)
+        check(g2.prompts == g1.prompts, "matrix group 2: prompts")
+        g2_diffs = []
+        for i, (a, b) in enumerate(zip(g2.images, g1.images)):
+            d = np.abs(png_pixels(a).astype(np.int32)
+                       - png_pixels(b).astype(np.int32))
+            g2_diffs.append(float(d.mean()))
+            check(d.mean() <= SCRIPTS_MEAN_TOLERANCE,
+                  f"matrix group 2 image {i} drifted from group 1's")
+        print(f"scripts: prompt matrix of 4: group 1 "
+              f"{walls['matrix group 1']:.3f} s, group 2 "
+              f"{walls['matrix group 2']:.3f} s; group 2 vs group 1 mean "
+              f"abs {[round(d, 4) for d in g2_diffs]} [{card_line}]")
+
+        # prompts from file, checkbox_iterate on: seeds s, s+1, s+2
+        seed = SCRIPTS_BODY["seed"]
+        pf = txt2img("prompts from file", 3 * LAUNCHES_PER_GROUP,
+                     script_name="prompts from file or textbox",
+                     script_args=[True, False, "\n".join(SCRIPTS_FILE)])
+        check(pf.prompts == SCRIPTS_FILE
+              and pf.seeds == [seed, seed + 1, seed + 2],
+              f"prompts from file: {pf.prompts} {pf.seeds}")
+        for i, line in enumerate(SCRIPTS_FILE):
+            solo = txt2img(f"file solo {i}", LAUNCHES_PER_GROUP, prompt=line,
+                           seed=seed + i)
+            check(same(pf.images[i], solo.images[0]),
+                  f"prompts from file: image {i} is not its solo image")
+
+        # styles through the server (its dispatcher on both sides)
+        styled = run("styled", LAUNCHES_PER_GROUP, lambda: post(
+            server.port, {**SCRIPTS_BODY, "styles": ["st"]}))
+        expanded = run("style expanded", LAUNCHES_PER_GROUP, lambda: post(
+            server.port, {**SCRIPTS_BODY, "prompt": SCRIPTS_BODY["prompt"]
+                          + ", in snow, highly detailed",
+                          "negative_prompt": "blurry, ugly"}))
+        check(same(styled["images"][0], expanded["images"][0]),
+              "the styled request is not the expanded prompt's image")
+
+        # X/Y/Z plot through the server: 1 grid and 4 cells
+        grid = run("x/y/z grid", SCRIPTS_XYZ_K1, lambda: post(
+            server.port, {**SCRIPTS_BODY, "script_name": "x/y/z plot",
+                          "script_args": [SCRIPTS_XYZ]}))
+        check(len(grid["images"]) == 5, f"x/y/z gave "
+                                         f"{len(grid['images'])} images")
+        gpx = png_pixels(grid["images"][0])
+        check(gpx.shape[0] >= 1024 and gpx.shape[1] >= 1024,
+              f"x/y/z grid shape {gpx.shape}")
+        for i, (cfg, steps) in enumerate([(5, 10), (5, 20), (7, 10),
+                                          (7, 20)]):
+            cell = txt2img(f"x/y/z cell {i}", 16 * steps, steps=steps,
+                           cfg_scale=cfg)
+            check(same(grid["images"][1 + i], cell.images[0]),
+                  f"x/y/z cell {i} is not the same request alone")
+        print(f"scripts: x/y/z 2x2 grid {walls['x/y/z grid']:.3f} s "
+              f"[{card_line}]")
+
+        # the text encoder: one pass, and one group of two prompts
+        tok = engine.tokenizer
+        from stable_diffusion_webui_distributed_tpu_torch.models.prompt \
+            import tokenize_weighted
+
+        ids, w = tokenize_weighted(tok, SCRIPTS_BODY["prompt"])
+        pair = GenerationPayload(**SCRIPTS_BODY)
+
+        def group_encode():
+            engine._cond_cache.clear()
+            engine.encode_prompts(pair, prompts=SCRIPTS_FILE[:2])
+
+        with torch.inference_mode():
+            te_ms = cuda_ms(lambda: engine._encode(ids, w, 0), 10)
+            group_ms = cuda_ms(group_encode, 10)
+        print(f"scripts: text encoder {te_ms:.3f} ms a pass, "
+              f"{group_ms:.3f} ms a group of 2 prompts and the negative "
+              f"[{card_line}]")
+    finally:
+        engine.embedding_store = saved_store
+        engine._cond_cache.clear()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    metrics = {"wall_s": {k: round(v, 4) for k, v in walls.items()},
+               "k1_launches": launches,
+               "matrix_group2_vs_group1_mean_abs": [round(d, 4)
+                                                    for d in g2_diffs],
+               "text_encoder_ms": round(te_ms, 4),
+               "text_encoder_group_ms": round(group_ms, 4),
+               "phase_s": round(time.perf_counter() - t_phase, 3),
+               "card": card_line}
+    print("scripts metrics: " + json.dumps(metrics))
+    return metrics
+
+
+def phase_scripts_sdxl(base, card_line: str) -> None:
+    """SDXL textual inversion on config #2's base engine: an embedding of
+    a word's clip_l and clip_g rows gives the word's conditioning exactly
+    (both contexts and both pooled rows); no image."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.embeddings \
+        import EmbeddingStore
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+
+    workdir = tempfile.mkdtemp(prefix="scripts-xl-")
+    saved_store = base.embedding_store
+    try:
+        write_safetensors(os.path.join(workdir, "tok_exact.safetensors"), {
+            "clip_l": word_rows(base.text_encoder, base.tokenizer,
+                                SCRIPTS_WORD),
+            "clip_g": word_rows(base.text_encoder_2, base.tokenizer,
+                                SCRIPTS_WORD)})
+        base.embedding_store = EmbeddingStore(workdir)
+        ctx = above_word(base.tokenizer, SCRIPTS_WORD)
+        conds = [base.run_on_device(base.encode_prompts, GenerationPayload(
+            prompt=f"a photograph of a {w} {ctx}",
+            negative_prompt=f"{w} {ctx}"))
+            for w in ("tok_exact", SCRIPTS_WORD)]
+        parts = [(*c[0], *c[1]) for c in conds]
+        check(all(torch.equal(a, b) for a, b in zip(*parts)),
+              "SDXL: tok_exact's conditioning is not the word's")
+        print(f"scripts: SDXL dual-encoder embedding of the word's rows "
+              f"gives its conditioning exactly (contexts "
+              f"{tuple(parts[0][1].shape)}, pooled "
+              f"{tuple(parts[0][3].shape)}) [{card_line}]")
+    finally:
+        base.embedding_store = saved_store
+        base._cond_cache.clear()
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 SAMPLER_BODY = {"prompt": "a photograph of an astronaut riding a horse",
@@ -3346,6 +3732,7 @@ def main() -> int:
     samplers = phase_samplers(engine, fa, ra, card_line)
     k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
     fleet = phase_fleet(engine, fa, ra, card_line)
+    scripts = phase_scripts(engine, fa, ra, card_line)
     phase_reference(engine)
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
@@ -3353,6 +3740,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     config2, base = phase_config2(fa, ra, card_line)
+    phase_scripts_sdxl(base, card_line)
     config4 = phase_config4(base, fa, ra, card_line)
     config5 = phase_config5(base, fa, ra, card_line)
     del base  # every engine freed before the checkpoints' own
@@ -3458,6 +3846,9 @@ def main() -> int:
         "config5_host_us_per_launch": per_pass("host_us"),
         "config5_max_abs_err": config5_k1["max_abs_err"],
         "checkpoint_launches": checkpoints["launches"],
+        "scripts_launches": scripts["k1_launches"],
+        "fleet_prompts_from_file_launches":
+            fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "
                        "(batch 1 with CFG = 2 rows; 70 launches): the "
                        "first at 1024x1024, the second at 2048x2048 (T = "

@@ -6,7 +6,11 @@
 ``serve`` serves a ``World`` whose master is the local engine, with the
 remotes of the config file behind it, as the JAX package's ``cli serve``
 does. ``generate`` runs one request through the same World (img2img with
-``--init-image`` and ``--strength``, the hires fix with ``--hires``) and writes the PNGs; ``benchmark`` measures every worker's images per minute; ``ping``,
+``--init-image`` and ``--strength``, the hires fix with ``--hires``,
+styles of the model directory's ``styles.csv`` with ``--style``, an X/Y/Z
+plot with ``--xyz-x/--xyz-y/--xyz-z "AXIS: VALUES"``, one World request
+per cell) and writes the PNGs; ``benchmark`` measures every worker's
+images per minute; ``ping``,
 ``status``, ``interrupt`` and ``workers list|add|remove|set`` operate the
 fleet.
 
@@ -19,9 +23,11 @@ first, and ``POST /sdapi/v1/options`` switches among them; when it holds
 none, the engine has seeded random weights of ``--family`` and
 ``--seed`` (``bridge.init_seeded``). Standalone VAEs come from its
 ``VAE`` directory, ControlNets from ``ControlNet``, LoRA adapters from
-``Lora`` and the hires fix's RRDBNet upscalers from ``ESRGAN``,
-``RealESRGAN`` or ``upscalers``; ``POST /sdapi/v1/refresh-checkpoints``
-and ``/refresh-loras`` rescan. The tokenizer is CLIP's BPE where the
+``Lora``, the hires fix's RRDBNet upscalers from ``ESRGAN``,
+``RealESRGAN`` or ``upscalers``, and textual-inversion embeddings from
+``embeddings`` (or ``embeddings/`` beside the directory); ``serve``
+expands a request's ``styles`` from its ``styles.csv``; ``POST
+/sdapi/v1/refresh-checkpoints`` and ``/refresh-loras`` rescan. The tokenizer is CLIP's BPE where the
 directory holds ``vocab.json`` and ``merges.txt``, else a fallback. The
 engine runs on ``cuda`` with the card policy (bf16) unless ``--device
 cpu`` is given (f32 there); with no GPU and no ``--device`` the commands
@@ -115,7 +121,8 @@ def _seeded_engine(args, registry):
     return Engine(family, params, policy=policy, device=device,
                   lora_provider=registry.lora_provider,
                   controlnet_provider=registry.controlnet_provider,
-                  upscaler_provider=registry.upscaler_provider)
+                  upscaler_provider=registry.upscaler_provider,
+                  embedding_store=registry.embedding_store)
 
 
 def cmd_serve(args) -> int:
@@ -144,18 +151,43 @@ def cmd_generate(args) -> int:
         b64png_to_array,
     )
 
-    world, _ = _build_world(args)
+    world, registry = _build_world(args)
     w, h = (int(x) for x in args.size.split("x"))
     payload = GenerationPayload(
         prompt=args.prompt, negative_prompt=args.negative, steps=args.steps,
         width=w, height=h, batch_size=args.num, seed=args.image_seed,
         sampler_name=args.sampler, cfg_scale=args.cfg,
         enable_hr=args.hires, hr_scale=args.hires_scale,
-        denoising_strength=args.strength)
+        denoising_strength=args.strength, styles=args.style or [])
     if args.init_image:
         with open(args.init_image, "rb") as f:
             payload.init_images = [base64.b64encode(f.read()).decode()]
-    result = world.execute(payload)
+    if payload.styles:
+        from stable_diffusion_webui_distributed_tpu_torch.pipeline.styles \
+            import apply_styles, load_styles
+
+        apply_styles(payload, load_styles(
+            os.path.join(registry.model_dir, "styles.csv")))
+    xyz_opts = {}
+    for prefix, spec in (("x", args.xyz_x), ("y", args.xyz_y),
+                         ("z", args.xyz_z)):
+        if spec:
+            axis, _, vals = spec.partition(":")
+            xyz_opts[f"{prefix}_axis"] = axis.strip()
+            xyz_opts[f"{prefix}_values"] = vals.strip()
+    if xyz_opts:
+        from stable_diffusion_webui_distributed_tpu_torch.pipeline.xyz import (
+            run_xyz,
+        )
+        from stable_diffusion_webui_distributed_tpu_torch.samplers \
+            .kdiffusion import SAMPLERS
+
+        payload.script_name = "x/y/z plot"
+        payload.script_args = [xyz_opts]
+        result = run_xyz(payload, world.execute,
+                         known_samplers=list(SAMPLERS))
+    else:
+        result = world.execute(payload)
     from PIL import Image
 
     os.makedirs(args.outdir, exist_ok=True)
@@ -301,6 +333,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--hires", action="store_true",
                    help="hires fix: a second pass at --hires-scale")
     g.add_argument("--hires-scale", type=float, default=2.0)
+    g.add_argument("--style", action="append", default=None,
+                   help="a style of the model directory's styles.csv "
+                        "(repeatable)")
+    g.add_argument("--xyz-x", default=None, metavar='"AXIS: VALUES"',
+                   help='X/Y/Z plot x axis, e.g. "Steps: 10,20,30"')
+    g.add_argument("--xyz-y", default=None, metavar='"AXIS: VALUES"')
+    g.add_argument("--xyz-z", default=None, metavar='"AXIS: VALUES"')
     g.add_argument("--outdir", default="outputs")
     g.set_defaults(fn=cmd_generate)
 

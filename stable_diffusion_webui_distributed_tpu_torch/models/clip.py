@@ -1,14 +1,15 @@
 """CLIP / OpenCLIP text encoders in PyTorch.
 
-Port of the JAX package's ``models/clip.py`` without textual inversion:
-fused QKV projection, pre-LN layers with f32 LayerNorm, an
+Port of the JAX package's ``models/clip.py``: fused QKV projection, pre-LN layers with f32 LayerNorm, an
 additive causal mask of -1e9, webui's clip-skip rule (the final LayerNorm
 re-applied to a skipped hidden state where ``layernorm_skipped``) and the
 EOS-position pooled output. CLIP attention went through XLA's
 ``dot_product_attention`` in the JAX package, not a Pallas kernel, so here it
 goes through ``scaled_dot_product_attention``. A traced LoRA tree
 (``lora``: ``layer_{i}`` / ``attn`` / ``qkv``..., ``models/lora.py``) adds
-its delta at the Dense sites it names.
+its delta at the Dense sites it names. Textual inversion replaces the
+token-embedding rows that ``inject_mask`` marks with ``inject_values``
+(``models/embeddings.py``), before the position embedding.
 """
 
 from __future__ import annotations
@@ -86,7 +87,10 @@ class CLIPTextModel(nn.Module):
     ``(context, pooled)``: the hidden states fed to cross-attention, taken
     ``skip`` layers before the end, and the final layer's EOS-position
     embedding (projected where ``projection_dim`` is set). ``lora`` is a
-    traced adapter tree shared by every row."""
+    traced adapter tree shared by every row. ``inject_values`` (B, T, H)
+    and ``inject_mask`` (B, T, 1), 1 where a placeholder is, replace token
+    rows with textual-inversion vectors: ``tok * (1 - m) + v * m`` in the
+    encoder's dtype."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -102,22 +106,30 @@ class CLIPTextModel(nn.Module):
             if cfg.projection_dim else None)
 
     def forward(self, input_ids: torch.Tensor, skip: Optional[int] = None,
-                lora: Optional[dict] = None
+                lora: Optional[dict] = None,
+                inject_values: Optional[torch.Tensor] = None,
+                inject_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         with reproducible_sdpa():
             return self._forward(input_ids, skip,
-                                 {} if lora is None else lora)
+                                 {} if lora is None else lora,
+                                 inject_values, inject_mask)
 
     def _forward(self, input_ids: torch.Tensor, skip: Optional[int],
-                 lora: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                 lora: dict, inject_values: Optional[torch.Tensor],
+                 inject_mask: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.cfg
         skip = c.default_skip if skip is None else skip
         if not 0 <= skip < c.num_layers:
             raise ValueError(f"skip={skip} exceeds depth {c.num_layers}")
         B, T = input_ids.shape
         dtype = self.token_embedding.weight.dtype
-        x = self.token_embedding(input_ids) \
-            + self.position_embedding[None, :T].to(dtype)
+        tok = self.token_embedding(input_ids)
+        if inject_values is not None:
+            m = inject_mask.to(dtype)
+            tok = tok * (1.0 - m) + inject_values.to(dtype) * m
+        x = tok + self.position_embedding[None, :T].to(dtype)
         causal = torch.triu(torch.full((T, T), -1e9, device=x.device),
                             diagonal=1)[None, None]
         hidden = None

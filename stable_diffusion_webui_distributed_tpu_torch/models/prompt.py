@@ -14,12 +14,15 @@ This module owns it natively:
 - Per-token weights scale the encoded embeddings, then the chunk mean is
   restored (webui's emphasis implementation: scaling must not shift the
   overall magnitude the UNet was trained to expect).
+- Textual-inversion names become placeholder runs whose rows the text
+  encoder replaces (:func:`tokenize_with_embeddings`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Tuple
+from collections.abc import Mapping
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -96,34 +99,98 @@ def tokenize_weighted(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Prompt -> (ids (n_chunks, 77), weights (n_chunks, 77)).
 
-    The JAX package's ``tokenize_with_embeddings`` without textual-inversion
-    embeddings. Unlimited-length prompts: content tokens flow into as many
-    77-token windows as needed (capped at ``max_chunks``), each wrapped in
-    BOS/EOS; BOS/EOS/padding carry weight 1.0. ``BREAK`` starts a new chunk.
+    Unlimited-length prompts: content tokens flow into as many 77-token
+    windows as needed (capped at ``max_chunks``), each wrapped in BOS/EOS;
+    BOS/EOS/padding carry weight 1.0. ``BREAK`` starts a new chunk.
     """
-    chunks: List[Tuple[List[int], List[float]]] = [([], [])]
-    for seg, w in parse_prompt_attention(text):
+    ids, weights, _ = tokenize_with_embeddings(tokenizer, text, None,
+                                               max_chunks)
+    return ids, weights
+
+
+def tokenize_with_embeddings(
+    tokenizer,
+    text: str,
+    embeddings: Optional[Mapping[str, int]],
+    max_chunks: int = 8,
+) -> Tuple[np.ndarray, np.ndarray, List[Tuple[int, int, str, int]]]:
+    """``tokenize_weighted`` plus textual-inversion placeholders.
+
+    ``embeddings`` maps lowercase embedding names to their vector counts
+    (``models/embeddings.py`` ``EmbeddingStore.vector_counts``). A mention
+    of a name (whole word, case-insensitive, longest name first; a name
+    followed by ``-`` does not match) emits that many placeholder tokens
+    (id 0; the text encoder replaces their rows with the learned vectors)
+    and returns their places as ``(chunk_row, column, name,
+    vector_index)``. A run of vectors that does not fit the current chunk
+    opens the next one; a name whose file cannot be loaded keeps its text.
+    """
+    segments = parse_prompt_attention(text)
+    emb_re = None
+    if embeddings:
+        names = sorted(embeddings, key=len, reverse=True)
+        emb_re = re.compile(
+            r"(?<![\w-])(" + "|".join(re.escape(n) for n in names)
+            + r")(?![\w-])", re.IGNORECASE)
+
+    flat_ids: List[int] = []
+    flat_w: List[float] = []
+    flat_inj: List[Optional[Tuple[str, int]]] = []
+    chunks: List[Tuple[List[int], List[float], List]] = []
+
+    def flush():
+        nonlocal flat_ids, flat_w, flat_inj
+        chunks.append((flat_ids, flat_w, flat_inj))
+        flat_ids, flat_w, flat_inj = [], [], []
+
+    def emit(tid: int, w: float, inj=None):
+        if len(flat_ids) >= CHUNK_CONTENT:
+            flush()
+        flat_ids.append(tid)
+        flat_w.append(w)
+        flat_inj.append(inj)
+
+    for seg, w in segments:
         if seg == "BREAK" and w == -1.0:
-            chunks.append(([], []))
+            flush()
             continue
-        for tid in tokenizer.encode(seg) if seg else ():
-            if len(chunks[-1][0]) >= CHUNK_CONTENT:
-                chunks.append(([], []))
-            chunks[-1][0].append(tid)
-            chunks[-1][1].append(w)
-    chunks = chunks[:max_chunks]
+        parts = emb_re.split(seg) if emb_re else [seg]
+        for i, part in enumerate(parts):
+            if emb_re and i % 2 == 1:  # a matched embedding name
+                name = part.lower()
+                n_vec = embeddings.get(name, 0)
+                if n_vec <= 0:  # unloadable file: keep the literal text
+                    for tid in tokenizer.encode(part):
+                        emit(tid, w)
+                    continue
+                # the run stays in one chunk (webui opens a new window);
+                # a run longer than a whole chunk splits unavoidably
+                if flat_ids and n_vec <= CHUNK_CONTENT \
+                        and len(flat_ids) + n_vec > CHUNK_CONTENT:
+                    flush()
+                for vec in range(n_vec):
+                    emit(0, w, (name, vec))
+            elif part:
+                for tid in tokenizer.encode(part):
+                    emit(tid, w)
+    flush()
+    chunks = chunks[:max_chunks] or [([], [], [])]
 
     n = len(chunks)
     bos = getattr(tokenizer, "bos", 49406)
     eos = getattr(tokenizer, "eos", 49407)
     ids = np.full((n, CHUNK_CONTENT + 2), eos, np.int32)
     weights = np.ones((n, CHUNK_CONTENT + 2), np.float32)
-    for row, (cid, cw) in enumerate(chunks):
+    injections: List[Tuple[int, int, str, int]] = []
+    for row, (cid, cw, cinj) in enumerate(chunks):
         ids[row, 0] = bos
         ids[row, 1:1 + len(cid)] = cid
         ids[row, 1 + len(cid)] = eos
         weights[row, 1:1 + len(cw)] = cw
-    return ids, weights
+        for col, inj in enumerate(cinj):
+            if inj is not None:
+                injections.append((row, col + 1, inj[0], inj[1]))
+    return ids, weights, injections
 
 
 def pad_chunks(a: np.ndarray, wa: np.ndarray, n: int, eos: int,

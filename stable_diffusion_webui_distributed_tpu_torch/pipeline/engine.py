@@ -1,9 +1,9 @@
 """The generation engine: txt2img, img2img and inpainting in PyTorch.
 
-Port of the JAX package's ``pipeline/engine.py`` for single-prompt
-requests: encode the prompts (CLIP, clip skip, emphasis with the chunk
-mean restored, 77-token chunks joined; SDXL's two encoders joined on the
-channel axis, the pooled output from the second), draw each image's init
+Port of the JAX package's ``pipeline/engine.py``: encode the prompts
+(CLIP, clip skip, emphasis with the chunk mean restored, 77-token chunks
+joined; SDXL's two encoders joined on the channel axis, the pooled output
+from the second), draw each image's init
 noise from its seed, denoise with classifier-free guidance over two rows in
 a chunked loop that polls the interrupt between chunks (DPM adaptive: a
 host PID loop that polls it between attempts), decode to uint8 pixels, and
@@ -79,9 +79,22 @@ A standalone VAE (webui's ``sd_vae``, :meth:`Engine.set_vae`) replaces the
 checkpoint's decoder and encoder, which are kept aside and come back
 exactly with ``set_vae(None)``.
 
+Per-image prompts (``all_prompts``, which the prompt-matrix and
+prompts-from-file scripts fill, ``payload.apply_scripts``): each group's
+rows get their own prompts' conditioning (:meth:`Engine._group_conds`),
+every distinct prompt encoded once and padded to the request-wide chunk
+count (``context_chunks``, pinned over every row before a fleet slices
+the request), and each image carries its own prompt in ``prompts`` and
+its infotext. Such a request never runs ragged.
+
+Textual inversion (``embedding_store``, ``models/embeddings.py``): a
+prompt's embedding names become placeholder tokens whose token-embedding
+rows the text encoders replace with the learned vectors; the conditioning
+cache keys on the store's generation, so a rescan serves nothing stale.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): per-image prompts and scripts, the step cache, other serving
-precisions, and SDXL under ragged dispatch.
+422): the step cache, other serving precisions, and SDXL under ragged
+dispatch.
 """
 
 from __future__ import annotations
@@ -115,9 +128,14 @@ from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
     ControlNet,
     run_preprocessor,
 )
+from stable_diffusion_webui_distributed_tpu_torch.models.embeddings import (
+    EmbeddingStore,
+    build_injection_arrays,
+)
 from stable_diffusion_webui_distributed_tpu_torch.models.prompt import (
+    CHUNK_CONTENT,
     pad_chunks,
-    tokenize_weighted,
+    tokenize_with_embeddings,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
     load_tokenizer,
@@ -194,7 +212,9 @@ class Engine:
     lora_provider``; None: no adapters); ``upscaler_provider`` maps a
     hires upscaler name to ``upscale(imgs, target_w, target_h)`` on the
     engine's device (``ModelRegistry.upscaler_provider``; None: latent
-    upscalers only)."""
+    upscalers only); ``embedding_store`` resolves the textual-inversion
+    names prompts mention (``ModelRegistry.embedding_store``; None:
+    none)."""
 
     def __init__(
         self,
@@ -213,6 +233,7 @@ class Engine:
         lora_provider: Optional[Callable[[str], Optional[Dict]]] = None,
         upscaler_provider: Optional[
             Callable[[str], Optional[Callable]]] = None,
+        embedding_store: Optional[EmbeddingStore] = None,
     ):
         self.device = dtypes.resolve_device(device)
         self.family = family
@@ -248,6 +269,7 @@ class Engine:
         self.engine_provider = engine_provider
         self.controlnet_provider = controlnet_provider
         self.upscaler_provider = upscaler_provider
+        self.embedding_store = embedding_store
         # ControlNets by unit model name, each loaded to the device once
         self._controlnets: Dict[str, torch.nn.Module] = {}
         # an inpainting family's blank conditioning per (batch, w, h)
@@ -286,7 +308,8 @@ class Engine:
         self.last_traced_build_seconds = 0.0
 
         # cross-request conditioning cache (webui's cached_c/cached_uc),
-        # keyed on prompt text + clip skip + chunk count
+        # keyed on prompt text + clip skip + chunk count + the embedding
+        # store's generation
         self._cond_cache: "OrderedDict[Tuple, Tuple]" = OrderedDict()
         self._COND_CACHE_MAX = 64
         # Every generation runs on this one thread, whichever thread asks.
@@ -299,23 +322,29 @@ class Engine:
 
     # -- text conditioning -------------------------------------------------
 
-    def _encode(self, ids: np.ndarray, weights: np.ndarray, skip: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _encode(self, ids: np.ndarray, weights: np.ndarray, skip: int,
+                inject=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(n_chunks, 77) ids/weights -> (context (1, n*77, D) f32, pooled
         (1, D') f32): emphasis scales the tokens, the chunk mean is
         restored, the chunks join along the sequence axis. With a second
         encoder (SDXL) the two contexts join on the channel axis and the
         pooled output is the second's, from the first chunk. An active
-        traced set whose factors touch a text encoder adds its deltas."""
+        traced set whose factors touch a text encoder adds its deltas.
+        ``inject``: ``(mask, values_l, values_g)`` device tensors of
+        :meth:`_injection`, the textual-inversion rows of each encoder."""
         ids_t = torch.from_numpy(ids).long().to(self.device)
         skip_arg = skip if skip else None
         ts = self._traced_lora
         te = ts.tree if ts is not None and ts.te_content else {}
+        mask, val_l, val_g = inject if inject is not None else (None,) * 3
         ctx, pooled = self.text_encoder(ids_t, skip=skip_arg,
-                                        lora=te.get("text_encoder"))
+                                        lora=te.get("text_encoder"),
+                                        inject_values=val_l,
+                                        inject_mask=mask)
         if self.text_encoder_2 is not None:
             ctx2, pooled = self.text_encoder_2(
-                ids_t, skip=skip_arg, lora=te.get("text_encoder_2"))
+                ids_t, skip=skip_arg, lora=te.get("text_encoder_2"),
+                inject_values=val_g, inject_mask=mask)
             ctx = torch.cat([ctx.float(), ctx2.float()], dim=-1)
         ctx = ctx.float()
         w = torch.from_numpy(weights).to(self.device)
@@ -327,63 +356,129 @@ class Engine:
         ctx = ctx * ratio
         return ctx.reshape(1, -1, ctx.shape[-1]), pooled[:1].float()
 
-    def encode_prompts(self, payload: GenerationPayload, ragged: bool = False):
-        """``((ctx_u, ctx_c), (pooled_u, pooled_c))`` for the request's one
-        prompt and its negative prompt, padded to one chunk count.
+    def _embedding_counts(self):
+        """``{name: n_vectors}`` for the tokenizer, or None with no store
+        or an empty directory."""
+        if self.embedding_store is None:
+            return None
+        counts = self.embedding_store.vector_counts()
+        return counts or None
+
+    def _injection(self, injections, n_chunks: int):
+        """A prompt's placeholders -> ``(mask, values_l, values_g)`` on the
+        device for :meth:`_encode`, or None when none is injected (an
+        all-zero mask would give the same conditioning)."""
+        if not injections:
+            return None
+        enc2 = self.family.text_encoder_2
+        mask, val_l, val_g = build_injection_arrays(
+            injections, n_chunks, CHUNK_CONTENT + 2, self.embedding_store,
+            self.family.text_encoder.hidden_size,
+            enc2.hidden_size if enc2 is not None else 0)
+        if not mask.any():
+            return None
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in (mask, val_l, val_g))
+
+    def encode_prompts(self, payload: GenerationPayload, prompts=None,
+                       ragged: bool = False):
+        """``((ctx_u, ctx_c), (pooled_u, pooled_c))`` for the request's
+        prompt and its negative prompt, padded to one chunk count: the
+        longest of them, and at least ``payload.context_chunks``.
+
+        ``prompts``: one prompt per image (per-image prompts); ``ctx_c``
+        and ``pooled_c`` then have a row each, every distinct prompt
+        encoded once. Textual-inversion names resolve against the
+        embedding store.
 
         ``ragged``: each prompt is encoded at its own chunk count (so one
         cache entry serves it in any group) and the encoded rows are
         zero-padded to the request's; a third item ``(ctx_true_u,
         ctx_true_c)`` gives the valid context tokens of each half, which
-        the UNet's cross-attention masks the padding by."""
+        the UNet's cross-attention masks the padding by (one prompt
+        only)."""
         tok = self.tokenizer
-        prompt = lora_mod.extract_lora_tags(payload.prompt)[0]
-        ids_c, w_c = tokenize_weighted(tok, prompt)
-        ids_u, w_u = tokenize_weighted(tok, payload.negative_prompt)
-        n = max([ids_c.shape[0], ids_u.shape[0]]
+        counts = self._embedding_counts()
+        prompt_list = [payload.prompt] if prompts is None else list(prompts)
+        cleaned = [lora_mod.extract_lora_tags(p)[0] for p in prompt_list]
+        toks = {c: tokenize_with_embeddings(tok, c, counts)
+                for c in dict.fromkeys(cleaned)}
+        ids_u, w_u, inj_u = tokenize_with_embeddings(
+            tok, payload.negative_prompt, counts)
+        # cond and uncond agree on the context length; context_chunks
+        # floors it at the request-wide maximum, so an image's
+        # conditioning does not depend on its group or its worker's range
+        n = max([t[0].shape[0] for t in toks.values()] + [ids_u.shape[0]]
                 + ([payload.context_chunks] if payload.context_chunks
                    else []))
         depth = self.family.text_encoder.num_layers
         if self.family.text_encoder_2 is not None:
             depth = min(depth, self.family.text_encoder_2.num_layers)
         skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
+        store_gen = (self.embedding_store.generation
+                     if self.embedding_store is not None else 0)
 
-        def cached(raw, ids, w):
+        def cached(raw, ids, w, inj):
             # merges clear the cache; a traced set's text-encoder factors
-            # key it by their content
+            # key it by their content, a rescan of the embeddings by the
+            # store's generation
             n_enc = ids.shape[0] if ragged else n
-            key = (raw, skip, n_enc, self.traced_te_content())
+            key = (raw, skip, n_enc, store_gen, self.traced_te_content())
             hit = self._cond_cache.get(key)
             if hit is not None:
                 self._cond_cache.move_to_end(key)
                 return hit
             out = self._encode(*pad_chunks(ids, w, n_enc, tok.eos, tok.bos),
-                               skip)
+                               skip, self._injection(inj, n_enc))
             self._cond_cache[key] = out
             if len(self._cond_cache) > self._COND_CACHE_MAX:
                 self._cond_cache.popitem(last=False)
             return out
 
-        ctx_c, pooled_c = cached(prompt, ids_c, w_c)
-        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u)
+        encoded = {c: cached(c, *t) for c, t in toks.items()}
+        ctx_c, pooled_c = encoded[cleaned[0]]
+        if len(cleaned) > 1:
+            ctx_c = torch.cat([encoded[c][0] for c in cleaned])
+            pooled_c = torch.cat([encoded[c][1] for c in cleaned])
+        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u, inj_u)
         if not ragged:
             return (ctx_u, ctx_c), (pooled_u, pooled_c)
-        width = ids_c.shape[1]
-        ctx_true = (ids_u.shape[0] * width, ids_c.shape[0] * width)
+        width = ids_u.shape[1]
+        ctx_true = (ids_u.shape[0] * width,
+                    toks[cleaned[0]][0].shape[0] * width)
         return ((pad_encoded_context(ctx_u, n, width),
                  pad_encoded_context(ctx_c, n, width)),
                 (pooled_u, pooled_c), ctx_true)
 
     def request_context_chunks(self, payload: GenerationPayload) -> int:
-        """The request's context length in 77-token chunks: the longer of
-        its prompt and its negative prompt. A coalesced group pads every
-        member's conditioning to the group's largest."""
+        """The request's context length in 77-token chunks: the longest of
+        every ``all_prompts`` row (else its prompt) and its negative
+        prompt, embeddings counted. A fleet pins it into
+        ``payload.context_chunks`` before slicing the request, and a
+        coalesced group pads every member's conditioning to the group's
+        largest."""
         tok = self.tokenizer
-        return int(max(
-            tokenize_weighted(
-                tok, lora_mod.extract_lora_tags(payload.prompt)[0])[0]
-            .shape[0],
-            tokenize_weighted(tok, payload.negative_prompt)[0].shape[0]))
+        counts = self._embedding_counts()
+        prompts = list(payload.all_prompts or [payload.prompt])
+        lengths = [tokenize_with_embeddings(
+            tok, lora_mod.extract_lora_tags(p)[0], counts)[0].shape[0]
+            for p in prompts]
+        lengths.append(tokenize_with_embeddings(
+            tok, payload.negative_prompt, counts)[0].shape[0])
+        return int(max(lengths))
+
+    def _group_conds(self, payload: GenerationPayload, pos: int, n: int,
+                     refiner: Optional["Engine"]):
+        """Per-row conditioning of images ``[pos, pos+n)`` of a request
+        with ``all_prompts``, and the refiner's; pad-and-drop rows past
+        the list repeat its last prompt (their images are dropped)."""
+        prompts = list(payload.all_prompts[pos:pos + n]) or [payload.prompt]
+        while len(prompts) < n:
+            prompts.append(prompts[-1])
+        conds, pooleds = self.encode_prompts(payload, prompts=prompts)
+        ref_cond = (refiner.encode_prompts(payload, prompts=prompts)
+                    if refiner is not None else None)
+        return conds, pooleds, ref_cond
 
     @staticmethod
     def _ragged_plan(payload: GenerationPayload) -> Optional[Tuple[int, int]]:
@@ -986,14 +1081,17 @@ class Engine:
         controls = self._prepare_controls(payload, width, height)
         refiner = self._refiner_engine(payload)
         # ragged solo run: the bucket's shape, the true rows as data (the
-        # dispatcher never marks a refiner handoff, ControlNet or an
-        # inpainting family ragged)
-        ragged_wh = None if (refiner is not None or controls
+        # dispatcher never marks per-image prompts, a refiner handoff,
+        # ControlNet or an inpainting family ragged)
+        per_image = bool(payload.all_prompts)
+        ragged_wh = None if (per_image or refiner is not None or controls
                              or self.family.inpaint) else \
             self._ragged_plan(payload)
         ragged = None
+        conds = pooleds = ref_cond = None
         if ragged_wh is None:
-            conds, pooleds = self.encode_prompts(payload)
+            if not per_image:
+                conds, pooleds = self.encode_prompts(payload)
             rows = h
         else:
             conds, pooleds, ctx_true = self.encode_prompts(payload,
@@ -1002,8 +1100,8 @@ class Engine:
             ragged = tuple(torch.full((group,), length, dtype=torch.int32,
                                       device=self.device)
                            for length in (rows, *ctx_true))
-        ref_cond = (refiner.encode_prompts(payload) if refiner is not None
-                    else None)
+        if refiner is not None and not per_image:
+            ref_cond = refiner.encode_prompts(payload)
         inp = (self._blank_inpaint_cond(group, width, height)
                if self.family.inpaint else None)
         out = GenerationResult(parameters=payload.model_dump())
@@ -1018,6 +1116,9 @@ class Engine:
             # reproduces the whole-batch rows exactly.
             noise = self._init_noise(payload, pos, group, (h, w, C), rows)
             keys = self._image_keys(payload, pos, group)
+            if per_image:
+                conds, pooleds, ref_cond = self._group_conds(
+                    payload, pos, group, refiner)
             latents = self._split_denoise(
                 payload, noise * sigma0, keys, conds, pooleds, job,
                 refiner, ref_cond, ragged, controls=controls,
@@ -1053,9 +1154,12 @@ class Engine:
         controls = self._prepare_controls(payload, width, height)
         masked = payload.mask is not None
         refiner = None if masked else self._refiner_engine(payload)
-        conds, pooleds = self.encode_prompts(payload)
-        ref_cond = (refiner.encode_prompts(payload) if refiner is not None
-                    else None)
+        per_image = bool(payload.all_prompts)
+        conds = pooleds = ref_cond = None
+        if not per_image:
+            conds, pooleds = self.encode_prompts(payload)
+            ref_cond = (refiner.encode_prompts(payload)
+                        if refiner is not None else None)
         mask_lat = mask_pixels = None
         if masked:
             mask_lat, mask_pixels = self._inpaint_mask(payload, width,
@@ -1080,6 +1184,9 @@ class Engine:
                 payload, init_lat1.repeat(group, 1, 1, 1), mask_lat, keys)
             noise = self._init_noise(payload, pos, group, (h, w, C), h)
             x = init_lat + noise * sigmas[start_step]
+            if per_image:
+                conds, pooleds, ref_cond = self._group_conds(
+                    payload, pos, group, refiner)
             if masked:
                 latents = self._denoise(
                     payload, x, keys, conds, pooleds, job,
@@ -1120,10 +1227,14 @@ class Engine:
             out.images.append(array_to_b64png(img))
             out.seeds.append(int(seed_i))
             out.subseeds.append(int(sub_i))
-            out.prompts.append(payload.prompt)
+            prompt_i = payload.prompt
+            if payload.all_prompts and i < len(payload.all_prompts):
+                prompt_i = payload.all_prompts[i]
+            out.prompts.append(prompt_i)
             out.negative_prompts.append(payload.negative_prompt)
             text = build_infotext(payload, int(seed_i), int(sub_i),
-                                  self.model_name, width, height)
+                                  self.model_name, width, height,
+                                  prompt_override=prompt_i)
             if incomplete:
                 # DPM adaptive hit its attempt backstop before sigma_min
                 text += ", DPM adaptive: incomplete"
@@ -1141,6 +1252,11 @@ class Engine:
         payload.subseed = fix_seed(payload.subseed)
         self.check_supported(payload)
         self._adaptive_incomplete = False
+        if payload.all_prompts and payload.context_chunks is None:
+            # a whole request (a range from a fleet arrives with its
+            # master's pin): the request-wide context length, so that an
+            # image's conditioning does not depend on its group
+            payload.context_chunks = self.request_context_chunks(payload)
         count = payload.total_images if count is None else count
         return self.run_on_device(self._generate, payload, start_index,
                                   count, job)
@@ -1459,7 +1575,6 @@ def check_supported(payload: GenerationPayload) -> None:
     than answer with an image the JAX package would not make."""
     ov: Dict = payload.override_settings or {}
     unsupported = {
-        "per-image prompts (all_prompts)": bool(payload.all_prompts),
         "serving precisions other than bf16": str(
             payload.precision or ov.get("precision") or "bf16") != "bf16",
         "the step cache (deepcache)": int(ov.get("deepcache", 1) or 1) > 1,

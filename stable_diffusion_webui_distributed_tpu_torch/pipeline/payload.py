@@ -2,9 +2,9 @@
 
 Port of the JAX package's ``pipeline/payload.py``: the same payload and
 result models (a webui client hits either package unchanged), seeds,
-infotext, and PNG encode/decode with PIL. Script expansion is where the
-slices differ: the port's engine runs the single-prompt path only, so every
-named script raises :class:`Unsupported` (HTTP 422).
+infotext, PNG encode/decode with PIL, and the expansion of webui's prompt
+matrix and prompts-from-file scripts into per-image prompts
+(:func:`apply_scripts`).
 """
 
 from __future__ import annotations
@@ -149,13 +149,65 @@ class GenerationResult(BaseModel):
         self.worker_labels.extend(other.worker_labels)
 
 
-def apply_scripts(payload: GenerationPayload) -> GenerationPayload:
-    """webui script expansion. The JAX package expands "prompt matrix" and
-    "prompts from file or textbox" into per-image prompts; the port has no
-    per-image-prompt path yet, so any named script raises."""
-    if payload.script_name.strip():
-        raise Unsupported(f"script {payload.script_name!r} is not ported to "
-                          f"the PyTorch engine yet")
+def expand_prompt_matrix(prompt: str) -> List[str]:
+    """webui's prompt-matrix grammar: ``base|opt1|opt2`` -> one prompt per
+    subset of the options, in binary-counter order (index i holds option
+    j when bit j of i is set): 2^n prompts. More than 10 options raise
+    ``ValueError`` (1024 images already)."""
+    parts = [p.strip() for p in prompt.split("|")]
+    base, options = parts[0], parts[1:]
+    if len(options) > 10:
+        raise ValueError(
+            f"prompt matrix with {len(options)} options would generate "
+            f"2^{len(options)} images; the limit is 10 options (1024)")
+    out = []
+    for i in range(1 << len(options)):
+        chosen = [options[j] for j in range(len(options)) if i & (1 << j)]
+        out.append(", ".join([base] + chosen) if chosen else base)
+    return out
+
+
+def apply_scripts(payload: "GenerationPayload") -> "GenerationPayload":
+    """Expand webui's selectable scripts into the payload; idempotent, so
+    every entry point (World, server, engine) may call it.
+
+    ``prompt matrix``: the prompt's ``|`` options expand into
+    ``all_prompts``, one image per combination at one seed
+    (``same_seed``); the user's ``batch_size`` becomes the group size.
+
+    ``prompts from file or textbox``: one image per non-empty line of the
+    script's text (the last non-empty string of ``script_args``; lines
+    starting with ``#`` are comments); every line at the request's seed
+    unless ``checkbox_iterate`` (the first boolean argument) advances it
+    per line.
+
+    Any other script passes through unchanged, as in the JAX package."""
+    if payload.all_prompts:
+        return payload  # already expanded
+    script = payload.script_name.strip().lower()
+    if script == "prompt matrix" and "|" in payload.prompt:
+        payload = payload.model_copy()
+        payload.all_prompts = expand_prompt_matrix(payload.prompt)
+        payload.group_size = max(1, payload.batch_size)
+        payload.batch_size = len(payload.all_prompts)
+        payload.n_iter = 1
+        payload.same_seed = True
+    elif script == "prompts from file or textbox":
+        # webui's run(checkbox_iterate, checkbox_iterate_batches,
+        # prompt_txt): the text rides last
+        args = payload.script_args or []
+        text = next((a for a in reversed(args)
+                     if isinstance(a, str) and a.strip()), "")
+        iterate = bool(next((a for a in args if isinstance(a, bool)), False))
+        lines = [ln.strip() for ln in text.splitlines()]
+        lines = [ln for ln in lines if ln and not ln.startswith("#")]
+        if lines:
+            payload = payload.model_copy()
+            payload.all_prompts = lines
+            payload.group_size = max(1, payload.batch_size)
+            payload.batch_size = len(lines)
+            payload.n_iter = 1
+            payload.same_seed = not iterate
     return payload
 
 
@@ -190,11 +242,12 @@ def b64png_to_array(data: str) -> np.ndarray:
 
 
 def build_infotext(payload: GenerationPayload, seed: int, subseed: int,
-                   model_name: str = "", width: int = 0, height: int = 0
-                   ) -> str:
+                   model_name: str = "", width: int = 0, height: int = 0,
+                   prompt_override: Optional[str] = None) -> str:
     """webui-format generation parameters text (the string the reference
-    rewrites per gallery image at distributed.py:343-349)."""
-    lines = [payload.prompt]
+    rewrites per gallery image at distributed.py:343-349).
+    ``prompt_override``: this image's own prompt (per-image prompts)."""
+    lines = [payload.prompt if prompt_override is None else prompt_override]
     if payload.negative_prompt:
         lines.append(f"Negative prompt: {payload.negative_prompt}")
     fields = [

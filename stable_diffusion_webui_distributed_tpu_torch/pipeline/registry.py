@@ -25,10 +25,13 @@ hires fix's RRDBNet upscalers in ``ESRGAN/``, ``RealESRGAN/`` or
 case and punctuation ignored, an exact canonical match first; a file that
 fails to load is logged and gives None, so the engine falls back to the
 latent path, as in the JAX package). Each scan takes the lower-case
-directory name too.
+directory name too. Textual-inversion embeddings come from
+``<model_dir>/embeddings``, else ``embeddings/`` beside the model
+directory (webui's layout), through one ``EmbeddingStore`` that every
+engine the registry builds holds and that :meth:`ModelRegistry.refresh`
+rescans in place.
 
-Left out: textual-inversion embeddings (ROADMAP queue 1, item 5) and the
-``mesh`` argument (multi-GPU, item 11).
+Left out: the ``mesh`` argument (multi-GPU, ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
     convert_controlnet,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models.embeddings import (
+    EmbeddingStore,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.lora import load_lora
 from stable_diffusion_webui_distributed_tpu_torch.models.safetensors_io import (
@@ -128,6 +134,9 @@ class ModelRegistry:
         #: the active checkpoint's name ("" before the first activation)
         self.current_name = ""
         self._lock = threading.Lock()
+        #: the textual-inversion embeddings, one store for the registry's
+        #: lifetime (engines hold it; refresh() rescans it in place)
+        self.embedding_store: Optional[EmbeddingStore] = None
         self.refresh()
 
     def _scan(self, subdirs, suffixes) -> Dict[str, str]:
@@ -146,8 +155,9 @@ class ModelRegistry:
     def refresh(self) -> Dict[str, str]:
         """Rescan the model directory (webui's ``/refresh-checkpoints`` and
         ``/refresh-loras``, which the reference fans out to every worker)
-        and drop the converted caches, whose files may have been replaced
-        on disk. Returns the checkpoints' ``{name: path}``."""
+        and its embeddings, and drop the converted caches, whose files may
+        have been replaced on disk. Returns the checkpoints' ``{name:
+        path}``."""
         self._paths = self._scan(("",), CHECKPOINT_EXTENSIONS)
         self._lora_paths = self._scan(LORA_DIRS, (".safetensors",))
         self._vae_paths = self._scan(VAE_DIRS, (".safetensors",))
@@ -160,6 +170,18 @@ class ModelRegistry:
         self._controlnet_cache.clear()
         self._upscaler_cache.clear()
         self.lora_generation += 1
+        emb_dir = None
+        for cand in (os.path.join(self.model_dir, "embeddings"),
+                     os.path.join(os.path.dirname(
+                         self.model_dir.rstrip(os.sep)) or ".",
+                         "embeddings")):
+            if os.path.isdir(cand):
+                emb_dir = cand
+                break
+        if self.embedding_store is None:
+            self.embedding_store = EmbeddingStore(emb_dir)
+        else:
+            self.embedding_store.rescan(emb_dir)
         return dict(self._paths)
 
     def available(self) -> Dict[str, str]:
@@ -389,7 +411,8 @@ class ModelRegistry:
             engine_provider=self.secondary_engine,
             controlnet_provider=self.controlnet_provider,
             lora_provider=self.lora_provider,
-            upscaler_provider=self.upscaler_provider)
+            upscaler_provider=self.upscaler_provider,
+            embedding_store=self.embedding_store)
 
     def activate(self, name: str):
         """Make checkpoint ``name`` the active engine and return it. The

@@ -7,7 +7,11 @@ there, a bare engine gets a serving dispatcher in front of it
 dispatch) unless ``SDTPU_SERVING=0``; a World keeps its own scheduler.
 
 Routes, in webui's shapes: ``POST /sdapi/v1/txt2img`` and ``POST
-/sdapi/v1/img2img`` (which needs ``init_images``); ``GET
+/sdapi/v1/img2img`` (which needs ``init_images``), each request's
+``styles`` expanded from ``<model_dir>/styles.csv`` and its script
+(prompt matrix, prompts from file) expanded before anything runs; an
+X/Y/Z plot bypasses the dispatcher and runs one generation per cell
+(``pipeline/xyz.py``), each through the World on a fleet; ``GET
 /sdapi/v1/samplers`` (the whole sampler table); ``GET /sdapi/v1/progress``
 and ``POST /sdapi/v1/interrupt``; ``GET /sdapi/v1/memory`` (``ram`` and the
 card's ``cuda`` section); ``GET``/``POST /sdapi/v1/options`` (a POST
@@ -17,8 +21,10 @@ its checkpoint and standalone VAE there, blocking until the new engine is
 built; any other node switches to no other model, and a model or VAE name
 the node cannot serve answers 422 and changes nothing); ``GET
 /sdapi/v1/sd-models`` (the registry's checkpoint files, or the served
-models); ``GET /sdapi/v1/script-info`` (the scripts the port runs:
-ControlNet); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
+models); ``GET /sdapi/v1/embeddings`` (the registry's textual-inversion
+files); ``GET /sdapi/v1/script-info``
+(the scripts the port runs: ControlNet, prompt matrix, prompts from file
+or textbox, X/Y/Z plot); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
 /sdapi/v1/refresh-loras`` (rescan the ``registry``'s directories;
 ``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
@@ -32,10 +38,11 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from pydantic import ValidationError
@@ -48,6 +55,14 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
     AUTOMATIC_VAES,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.styles import (
+    apply_styles,
+    load_styles,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.xyz import (
+    is_xyz,
+    run_xyz,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
@@ -110,6 +125,8 @@ class ApiServer:
         self._busy = threading.Lock()  # one fleet request at a time
         self._benchmarking = threading.Lock()
         self.restart_requested = False
+        # styles.csv by (path, mtime)
+        self._styles_cache: Tuple = ((None, None), {})
         # continuous-batching front end for a bare engine; a World keeps
         # its fleet scheduler; SDTPU_SERVING=0 calls the engine directly
         self.dispatcher = None
@@ -149,29 +166,67 @@ class ApiServer:
     def handle_img2img(self, body: Dict[str, Any]) -> Dict[str, Any]:
         return self._generate(body, "img2img")
 
+    def _apply_styles(self, payload: GenerationPayload) -> None:
+        """Expand the payload's style names from the registry's
+        ``styles.csv`` (the working directory's without a registry),
+        read again when its mtime changes."""
+        if not payload.styles:
+            return
+        path = os.path.join(getattr(self.registry, "model_dir", "."),
+                            "styles.csv")
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            mtime = None
+        if self._styles_cache[0] != (path, mtime):
+            self._styles_cache = ((path, mtime), load_styles(path))
+        apply_styles(payload, self._styles_cache[1])
+
+    def _execute(self, payload: GenerationPayload,
+                 job: str = "txt2img") -> GenerationResult:
+        """One generation through the World, or the bare engine as the
+        top-level request."""
+        if hasattr(self.source, "execute"):
+            return self.source.execute(payload)  # resets the latch
+        self.state.begin_request()
+        return self.source.generate_range(apply_scripts(payload), job=job)
+
+    def _run_scripted(self, payload: GenerationPayload,
+                      job: str) -> GenerationResult:
+        """An X/Y/Z plot runs one full generation per cell; anything else
+        one generation."""
+        if is_xyz(payload):
+            try:
+                return run_xyz(payload, lambda p: self._execute(p, job),
+                               known_samplers=list(SAMPLERS))
+            except ValueError as e:
+                raise ApiError(422, str(e))
+        return self._execute(payload, job)
+
     def _generate(self, body: Dict[str, Any], job: str) -> Dict[str, Any]:
-        """A generation request through the World, the dispatcher or the
-        bare engine."""
+        """A generation request: styles and scripts expanded, then through
+        the dispatcher (an X/Y/Z plot on ``txt2img`` bypasses it, as in the
+        JAX package), the World or the bare engine."""
         try:
             payload = GenerationPayload(**body)
             if job == "img2img" and not payload.init_images:
                 raise Unsupported("img2img requires init_images")
-            if payload.styles:
-                raise Unsupported("styles are not ported to the PyTorch "
-                                  "server yet")
-            payload = apply_scripts(payload)
-            if hasattr(self.source, "execute"):
-                with self._busy:
-                    result = self.source.execute(payload)  # resets the latch
-            elif self.dispatcher is not None:
+            self._apply_styles(payload)
+            # expanded before anything runs, so that invalid input (a
+            # prompt matrix past its cap) answers 422; the World's and the
+            # engine's expansion of the result changes nothing
+            try:
+                payload = apply_scripts(payload)
+            except ValueError as e:
+                raise ApiError(422, str(e))
+            if self.dispatcher is not None and not (
+                    job == "txt2img" and is_xyz(payload)):
                 # the dispatcher serializes execution itself, so that
                 # concurrent compatible requests can merge in its window
                 result = self.dispatcher.submit(payload, job=job)
             else:
                 with self._busy:
-                    # a bare engine: this request is the top level
-                    self.state.begin_request()
-                    result = self.source.generate_range(payload, job=job)
+                    result = self._run_scripted(payload, job)
         except (ValidationError, Unsupported) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)
@@ -353,10 +408,40 @@ class ApiServer:
         return [{"title": name, "model_name": name, "filename": "",
                  "hash": None, "sha256": None} for name in names]
 
+    def handle_embeddings(self) -> Dict[str, Any]:
+        """webui's ``GET /sdapi/v1/embeddings``: the loaded embeddings
+        with their width and vector count, an unloadable file under
+        ``skipped``: the registry's store (none without a registry)."""
+        loaded: Dict[str, Any] = {}
+        skipped: Dict[str, Any] = {}
+        store = getattr(self.registry, "embedding_store", None)
+        if store is not None:
+            for name in store.names():
+                e = store.lookup(name)
+                if e is None:
+                    skipped[name] = {}
+                    continue
+                loaded[name] = {
+                    "step": None, "sd_checkpoint": None,
+                    "sd_checkpoint_name": None,
+                    "shape": int(e.clip_l.shape[1]),
+                    "vectors": int(e.n_vectors),
+                }
+        return {"loaded": loaded, "skipped": skipped}
+
     def handle_script_info(self) -> Any:
-        # a master strips the alwayson-script args a node does not list
-        return [{"name": "controlnet", "is_alwayson": True,
-                 "is_img2img": True, "args": []}]
+        # a master strips the alwayson-script args a node does not list;
+        # the selectable scripts expand here (payload.apply_scripts, xyz)
+        return [
+            {"name": "controlnet", "is_alwayson": True, "is_img2img": True,
+             "args": []},
+            {"name": "prompt matrix", "is_alwayson": False,
+             "is_img2img": False, "args": []},
+            {"name": "prompts from file or textbox", "is_alwayson": False,
+             "is_img2img": False, "args": []},
+            {"name": "x/y/z plot", "is_alwayson": False,
+             "is_img2img": True, "args": []},
+        ]
 
     def handle_refresh(self) -> Dict[str, Any]:
         """Rescan the registry's directories: a checkpoint, VAE, ControlNet
@@ -417,6 +502,7 @@ class ApiServer:
             ("GET", "/sdapi/v1/options"): self.handle_options_get,
             ("POST", "/sdapi/v1/options"): self.handle_options_post,
             ("GET", "/sdapi/v1/sd-models"): self.handle_sd_models,
+            ("GET", "/sdapi/v1/embeddings"): self.handle_embeddings,
             ("GET", "/sdapi/v1/script-info"): self.handle_script_info,
             ("POST", "/sdapi/v1/refresh-checkpoints"): self.handle_refresh,
             ("POST", "/sdapi/v1/refresh-loras"): self.handle_refresh,

@@ -294,10 +294,22 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
         for extra in ({"override_settings": {"deepcache": 2}},
-                      {"all_prompts": ["a", "b"]}, {"precision": "int8"}):
+                      {"precision": "int8"}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
             assert status == 422 and resp["detail"]
+        # per-image prompts run solo: one dispatch of one request
+        before = METRICS.summary()
+        status, resp = call(server.port, "/sdapi/v1/txt2img",
+                            {**body, "all_prompts": ["a", "b"],
+                             "batch_size": 2})
+        assert status == 200 and len(resp["images"]) == 2
+        assert json.loads(resp["info"])["all_prompts"] == ["a", "b"]
+        after = METRICS.summary()
+        assert after["dispatches"] == before["dispatches"] + 1
+        assert after["coalesced_requests"] == \
+            before["coalesced_requests"] + 1
+        assert after["coalesced_dispatches"] == before["coalesced_dispatches"]
     finally:
         server.stop()
 

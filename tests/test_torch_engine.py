@@ -116,12 +116,10 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"all_prompts": ["a cow", "a horse"]}, Unsupported),
     ({"override_settings": {"deepcache": 3}}, Unsupported),
     ({"override_settings": {"cfg_cutoff": 0.5}}, Unsupported),
     ({"override_settings": {"precision": "int8"}}, Unsupported),
     ({"precision": "int8"}, Unsupported),
-    ({"script_name": "prompt matrix"}, Unsupported),
 ])
 def test_unported_requests_raise(port, extra, error):
     """What the slice does not run raises; it never answers with an image

@@ -185,7 +185,9 @@ def test_img2img_controlnet_split_keeps_the_units(params, cn_tree, engines,
                                                   remote):
     world = fleet(engines[0], remote.port)
     node = world.get_worker("remote")
-    assert node.reachable() and node.supported_scripts == ["controlnet"]
+    assert node.reachable() and node.supported_scripts == [
+        "controlnet", "prompt matrix", "prompts from file or textbox",
+        "x/y/z plot"]
     payload = GenerationPayload(**IMG2IMG_CN)
     assert node.filter_payload_scripts(payload) is payload  # nothing cut
     result = world.execute(payload)

@@ -147,10 +147,8 @@ def test_samplers_lists_what_the_port_runs(server):
 
 
 @pytest.mark.parametrize("extra", [
-    {"all_prompts": ["a cow", "a horse"]},
     {"override_settings": {"deepcache": 2}},
     {"override_settings": {"cfg_cutoff": 0.5}},
-    {"styles": ["cinematic"]},
     {"steps": "many"},
 ])
 def test_unported_or_invalid_requests_answer_422(server, extra):
@@ -254,8 +252,6 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
 @pytest.mark.parametrize("extra", [
     {"override_settings": {"cfg_cutoff": 0.5}},
     {"precision": "int8"},
-    {"all_prompts": ["a cow", "a horse"]},
-    {"script_name": "prompt matrix"},
 ])
 def test_world_refuses_unported_requests_before_fan_out(world_server, extra):
     master = world_server.source.master()
@@ -380,8 +376,11 @@ def test_local_backend_refuses_another_model(fleet_engine):
 def test_script_info_lists_what_the_port_runs(world_server):
     status, scripts = call(world_server, "/sdapi/v1/script-info")
     assert status == 200
-    assert [s["name"] for s in scripts] == ["controlnet"]
+    assert [s["name"] for s in scripts] == [
+        "controlnet", "prompt matrix", "prompts from file or textbox",
+        "x/y/z plot"]
     assert scripts[0]["is_alwayson"] and scripts[0]["is_img2img"]
+    assert not any(s["is_alwayson"] for s in scripts[1:])
     master = world_server.source.master()
     assert master.backend.script_info() == ["controlnet"]
 
