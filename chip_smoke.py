@@ -37,6 +37,23 @@ Phases, each fatal on failure (no phase is caught and passed over):
    launched 320 times per image group and K2 never, repeats must be
    byte-identical and a batch's image 1 must carry image 0 of the next
    seed's init noise; every K1 launch must take the Hopper path;
+5a. warmup: on a second SD1.5 engine of the same seeded weights, the
+   warmup sweep (``serving/warmup.py``) over the main path's ladder
+   (512x512 at batch 1 and 2) must capture two CUDA graphs of the UNet
+   evaluation and a second sweep none, each sweep launching K1 640 times
+   (its replays counted), all on the Hopper path; then 12 warm config #1
+   requests graphed and 12 eager on that engine, in turns, each with 320
+   K1 launches, the repeats of each arm the same PNG bytes and the arms
+   the same bytes or a mean within 2 uint8 levels: their p50, min and
+   max, one profiled request and one UNet evaluation of each arm (wall,
+   device time by kernel group, busy share), the graphs' memory and the
+   phase's peak; freed, the engine gives its memory and its graphs' pool
+   back. Every phase runs with graphs on: each UNet evaluation replays
+   the graph of its shape, captured at its first call, and the exact
+   launch counts below include the replays. A request whose shapes ran
+   before must capture no graph: the main path's repeat, all 18 samplers,
+   the repeats of configs #2 and #3, config #4's merged, tagless and
+   second traced requests and config #5's warm requests;
 5b. samplers: the same server and engine get one request (512x512, 20
    steps, CFG 7, seed 1234) for each of the 18 sampler names; K1 must be
    launched 16 times per UNet evaluation (20, 39 for the two-evaluation
@@ -177,8 +194,10 @@ Phases, each fatal on failure (no phase is caught and passed over):
    ``checkpoints: {...}`` line holds the sizes, times, host memory, idle
    memory, byte checks and launches.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; it is
-printed only when every phase passed. Without a CUDA device, or without the
+Before the kernels line it prints each phase's peak device memory beside
+the parent's and the run's total time. The last line of standard output is
+``{"ok": true, "device": {...}}``; it is printed only when every phase
+passed. Without a CUDA device, or without the
 rest of the repository beside this file, the script exits non-zero.
 """
 
@@ -274,6 +293,40 @@ DESIGN = ("csrc/attention_sm90.cuh: TMA (5-D maps, no swizzle) into a "
           "consumers at D >= 64; softmax max on raw scores, scale folded "
           "into one FFMA per ex2.approx.ftz; row sums from a ones column "
           "in V at D % 16 == 8; setmaxnreg 40/232")
+
+
+#: peak device memory (bytes) per phase of this run (note_peak), printed
+#: beside the parent's
+PEAKS: dict = {}
+#: the same phases' peaks (GiB) in this script's run on the parent commit
+#: (eeba9ce, from a git archive; NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_PEAK_GIB = {"main path": 3.658, "ragged": 4.42, "fleet": 3.659,
+                   "config #3": 5.842, "config #2": 15.659,
+                   "config #4 merged": 15.201, "config #4 traced": 24.737,
+                   "config #5": 18.968}
+
+
+def note_peak(phase: str, peak: int) -> None:
+    PEAKS[phase] = max(PEAKS.get(phase, 0), peak)
+
+
+def captures() -> int:
+    """CUDA graphs every engine of this process has captured since the
+    serving metrics were last cleared (``runtime/graphs.py``)."""
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    return sum(METRICS.summary()["compiles"].values())
+
+
+def check_replayed(phase: str, captured: dict, warm) -> None:
+    """Prints the graphs each request captured; the ``warm`` requests, whose
+    shapes ran before, must have captured none (every evaluation replayed)."""
+    print(f"{phase}: CUDA graphs captured per request {json.dumps(captured)}")
+    for tag in warm:
+        check(captured[tag] == 0, f"{phase} ({tag}) captured "
+              f"{captured[tag]} graph(s): an evaluation did not replay")
 
 
 class SmokeFailure(RuntimeError):
@@ -781,16 +834,18 @@ def phase_main_path(fa, ra, card_line: str):
         METRICS.clear()
         fa.reset_launches(fa.flash_attention)
         fa.reset_launches(ra.ragged_attention)
-        runs = {}
+        runs, captured = {}, {}
         for tag, extra in (("a", {"seed": 1234, "batch_size": 1}),
                            ("b", {"seed": 1234, "batch_size": 1}),
                            ("c", {"seed": 1233, "batch_size": 2})):
-            before = fa.flash_attention.launches
+            before, graphs0 = fa.flash_attention.launches, captures()
             t = time.perf_counter()
             resp = post(server.port, {**base, **extra})
             runs[tag] = (time.perf_counter() - t, resp,
                          fa.flash_attention.launches - before)
+            captured[tag] = captures() - graphs0
         peak = torch.cuda.max_memory_allocated()
+        note_peak("main path", peak)
         total_launches = fa.flash_attention.launches
         paths = dict(fa.flash_attention.path_launches)
         k2_launches = ra.ragged_attention.launches
@@ -802,6 +857,7 @@ def phase_main_path(fa, ra, card_line: str):
           "the main path did not run as three exact-bucket dispatches")
     check(k2_launches == 0, f"the main path launched K2 {k2_launches} times")
     print(f"main path: K1 launches by path {json.dumps(paths)}")
+    check_replayed("main path", captured, ["b"])
     check(paths["hopper"] == total_launches,
           f"K1 launches off the Hopper path on the main path: {paths}")
 
@@ -840,6 +896,239 @@ def phase_main_path(fa, ra, card_line: str):
                "k1_path_launches": paths, "card": card_line}
     print("main path metrics: " + json.dumps(metrics))
     return engine, total_launches, paths
+
+WARMUP_LADDER = ([(512, 512)], [1, 2])  # the main path's bucket and batches
+WARMUP_REPEATS = 12  # warm config #1 requests per arm, graphed and eager
+WARMUP_MEMORY_SLACK = 256 * 2**20  # bytes left allocated by a freed engine
+WARMUP_MEAN_TOLERANCE = 2.0  # uint8 levels, graphed vs eager request
+
+
+def phase_warmup(fa, ra, card_line: str) -> dict:
+    """Warmup and CUDA graphs on config #1, on an engine of the main path's
+    seeded weights built for this phase and freed at its end. The sweep
+    (``serving/warmup.py``) over the main path's ladder (512x512 at batch 1
+    and 2, 20 steps Euler a) must capture one graph per batch (two) and a
+    second sweep none, each sweep launching K1 320 times per point, all on
+    the Hopper path (the replays counted). Then warm config #1 requests
+    through the port's server, graphed and eager on the same engine in
+    turns: each must launch K1 320 times; the repeats of each arm must give
+    the same PNG bytes, and the two arms the same bytes or a mean within 2
+    uint8 levels. It prints both arms' p50, min and max, one profiled
+    request of each arm (device time by kernel group and the busy share),
+    one UNet evaluation of each arm (CFG rows, timed with CUDA events and
+    profiled), the sweep's graph memory and the phase's peak. Freed, the
+    engine must give back its memory, its graphs' pool with it."""
+    import statistics
+    import weakref
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.bridge import (
+        init_seeded,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SD15,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+    from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+        kdiffusion as kd,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+        ShapeBucketer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.warmup import (
+        warmup_engine,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_seeded(SD15, seed=0, device="cuda", dtype=torch.bfloat16)
+    engine = Engine(SD15, params, policy=dtypes.CARD, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    engine_bytes = torch.cuda.memory_allocated() - allocated0
+
+    ladder = ShapeBucketer(*WARMUP_LADDER)
+    points = len(ladder.shapes) * len(ladder.batches)
+    METRICS.clear()
+    reports = []
+    for sweep in ("first", "second"):
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
+        t = time.perf_counter()
+        report = warmup_engine(engine, ladder)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        reports.append(report)
+        k1, paths = fa.flash_attention.launches, \
+            dict(fa.flash_attention.path_launches)
+        print(f"warmup: {sweep} sweep {json.dumps(report)}, wall {wall:.3f} "
+              f"s, K1 launches {k1} by path {json.dumps(paths)}, K2 "
+              f"{ra.ragged_attention.launches} [{card_line}]")
+        check(k1 == points * LAUNCHES_PER_GROUP and paths["hopper"] == k1
+              and ra.ragged_attention.launches == 0,
+              f"the {sweep} sweep launched K1 {k1} times ({paths}), want "
+              f"{points * LAUNCHES_PER_GROUP} on the Hopper path")
+    check(reports[0]["steps"] == 20 and reports[0]["sampler"] == "Euler a"
+          and reports[0]["buckets"] == [(*ladder.shapes[0], nb)
+                                        for nb in ladder.batches],
+          f"the sweep ran {reports[0]}")
+    check(reports[0]["stage_builds"] == {"unet": points},
+          f"the first sweep captured {reports[0]['stage_builds']}")
+    check(reports[1]["stage_builds"] == {},
+          f"the second sweep captured {reports[1]['stage_builds']}")
+    torch.cuda.synchronize()
+    graph_bytes = torch.cuda.memory_allocated() - allocated0 - engine_bytes
+    graph_reserved = torch.cuda.memory_reserved() - reserved0
+
+    (width, height), = ladder.shapes
+    body = {"prompt": "a photograph of an astronaut riding a horse",
+            "negative_prompt": "blurry", "steps": 20, "width": width,
+            "height": height, "cfg_scale": 7, "sampler_name": "Euler a",
+            "seed": 1234, "batch_size": 1}
+    arms = ("graphed", "eager")
+    lat = {arm: [] for arm in arms}
+    pngs = {arm: set() for arm in arms}
+    server = ApiServer(engine, port=0).start()
+    try:
+        for i in range(WARMUP_REPEATS):
+            for arm in (arms if i % 2 == 0 else arms[::-1]):
+                engine.cuda_graphs = arm == "graphed"
+                before = fa.flash_attention.launches
+                t = time.perf_counter()
+                resp = post(server.port, body)
+                lat[arm].append(time.perf_counter() - t)
+                launches = fa.flash_attention.launches - before
+                check(launches == LAUNCHES_PER_GROUP,
+                      f"one {arm} request launched K1 {launches} times")
+                pngs[arm].add(resp["images"][0])
+    finally:
+        server.stop()
+        engine.cuda_graphs = True
+    for arm in arms:
+        ms = [1e3 * v for v in lat[arm]]
+        print(f"warmup: config #1 request, {arm}, {len(ms)} warm requests: "
+              f"p50 {statistics.median(ms):.1f} ms, min {min(ms):.1f}, max "
+              f"{max(ms):.1f} ({', '.join(f'{v:.1f}' for v in ms)}) "
+              f"[{card_line}]")
+        check(len(pngs[arm]) == 1, f"the {arm} repeats gave "
+              f"{len(pngs[arm])} different PNGs")
+    graphed_png, eager_png = pngs["graphed"].pop(), pngs["eager"].pop()
+    diff = np.abs(png_pixels(graphed_png).astype(np.int32)
+                  - png_pixels(eager_png).astype(np.int32))
+    same = graphed_png == eager_png
+    print("warmup: graphed vs eager request: "
+          + ("the same PNG bytes" if same else
+             f"other bytes, mean abs {diff.mean():.4f}, max {diff.max()} "
+             f"(uint8 levels)"))
+    check(diff.mean() <= WARMUP_MEAN_TOLERANCE,
+          "the graphed request drifted from the eager request")
+
+    payload = GenerationPayload(**body)
+    busy = {}
+    for arm in arms:
+        engine.cuda_graphs = arm == "graphed"
+        engine.generate_range(payload)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.generate_range(payload)
+            torch.cuda.synchronize()
+            request_ms = 1e3 * (time.perf_counter() - t0)
+        groups = device_groups(prof, 1)
+        busy[arm] = (request_ms, sum(groups.values()))
+        print_groups(f"config #1 request, {arm}", request_ms, groups,
+                     card_line)
+        if arm == "graphed" and "K1 flash_attention" not in groups:
+            print("warmup: the profiler shows the replays without their "
+                  "kernels; the kernel groups are the eager request's")
+
+    sigmas = kd.build_sigmas(kd.resolve_sampler("Euler a"), engine.schedule,
+                             20)
+    lat_h, lat_w = engine._latent_hw(width, height)
+
+    def evaluation(arm):
+        # one UNet evaluation (CFG rows) as the sampler makes it, warm
+        engine.cuda_graphs = arm == "graphed"
+        conds, _ = engine.encode_prompts(payload)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn((1, lat_h, lat_w, engine.family.vae.latent_channels),
+                        device="cuda", generator=gen)
+        denoise = engine._make_denoise_fn(*conds, 7.0, 1)
+        ms = cuda_ms(lambda: denoise(x, sigmas[10], 10), 10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                denoise(x, sigmas[10], 10)
+            torch.cuda.synchronize()
+        return ms, device_groups(prof, 3)
+
+    evals = {}
+    for arm in arms:
+        evals[arm] = engine.run_on_device(evaluation, arm)
+        print_groups(f"UNet evaluation (batch 2 = CFG, {lat_w}x{lat_h} "
+                     f"latents), {arm}", *evals[arm], card_line)
+    engine.cuda_graphs = True
+    peak = torch.cuda.max_memory_allocated()
+    note_peak("warmup", peak)
+
+    ref = weakref.ref(engine)
+    del engine, server
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(ref() is None, "the warmup phase's engine outlived its references")
+    left = torch.cuda.memory_allocated() - allocated0
+    left_reserved = torch.cuda.memory_reserved() - reserved0
+    print(f"warmup: memory: engine {engine_bytes / 2**30:.3f} GiB, the "
+          f"sweep's graphs {graph_bytes / 2**20:.1f} MiB allocated "
+          f"({graph_reserved / 2**30:.3f} GiB reserved with the engine), "
+          f"phase peak {peak / 2**30:.3f} GiB; after the engine is freed "
+          f"{left / 2**20:.1f} MiB allocated, {left_reserved / 2**20:.1f} "
+          f"MiB reserved above the phase's start [{card_line}]")
+    check(left <= WARMUP_MEMORY_SLACK and left_reserved <= WARMUP_MEMORY_SLACK,
+          "the freed engine's memory (its graphs' pool) did not come back")
+    metrics = {
+        "sweep_wall_s": [r["wall_s"] for r in reports],
+        "stage_builds": [r["stage_builds"] for r in reports],
+        "request_ms": {arm: {"p50": round(1e3 * statistics.median(lat[arm]),
+                                          3),
+                             "min": round(1e3 * min(lat[arm]), 3),
+                             "max": round(1e3 * max(lat[arm]), 3)}
+                       for arm in arms},
+        "request_busy": {arm: {"wall_ms": round(w, 3),
+                               "device_ms": round(d, 3),
+                               "share": round(d / w, 4)}
+                         for arm, (w, d) in busy.items()},
+        "evaluation": {arm: {"wall_ms": round(ms, 3),
+                             "device_ms": round(sum(g.values()), 3),
+                             "share": round(sum(g.values()) / ms, 4)}
+                       for arm, (ms, g) in evals.items()},
+        "graphed_vs_eager_png": "equal" if same else round(diff.mean(), 4),
+        "graph_mib": round(graph_bytes / 2**20, 1),
+        "peak_memory_gib": round(peak / 2**30, 3),
+        "phase_s": round(time.perf_counter() - t_phase, 3),
+        "card": card_line,
+    }
+    print("warmup metrics: " + json.dumps(metrics))
+    return metrics
 
 
 RAGGED_ENV = {"SDTPU_RAGGED": "1", "SDTPU_RAGGED_LADDER": "512x768",
@@ -899,6 +1188,7 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
         k1, k2 = fa.flash_attention.launches, ra.ragged_attention.launches
         paths = dict(ra.ragged_attention.path_launches)
         peak = torch.cuda.max_memory_allocated()
+        note_peak("ragged", peak)
         serving = METRICS.summary()
         check(not errors, f"a ragged request failed: {errors}")
         solo = []
@@ -1121,6 +1411,7 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
         check(paths["hopper"] == launches, f"K1 off the Hopper path: {paths}")
         check(k2 == 0, f"the fleet launched K2 {k2} times")
         master_peak = torch.cuda.max_memory_allocated()
+        note_peak("fleet", master_peak)
 
         again = post(server.port, FLEET_BODY)
         check([(j.worker.label, j.batch_size, j.start_index)
@@ -1606,13 +1897,15 @@ def phase_samplers(engine, fa, ra, card_line: str) -> dict:
 
     engine._decode_u8 = checked_decode
     server = ApiServer(engine, port=0).start()
-    rows = {}
+    rows, captured = {}, {}
     try:
         for name, spec in kd.SAMPLERS.items():
             fa.reset_launches(fa.flash_attention)
             fa.reset_launches(ra.ragged_attention)
+            graphs0 = captures()
             t = time.perf_counter()
             resp = post(server.port, {**SAMPLER_BODY, "sampler_name": name})
+            captured[name] = captures() - graphs0
             lat = time.perf_counter() - t
             launches = fa.flash_attention.launches
             paths = dict(fa.flash_attention.path_launches)
@@ -1645,6 +1938,9 @@ def phase_samplers(engine, fa, ra, card_line: str) -> dict:
                   f"{name}: image shape {px.shape} or constant")
             check(all(finite), f"{name}: a latent is not finite")
             rows[name]["png"] = resp["images"][0]
+        # the main path captured the batch-1 evaluation: every sampler's
+        # evaluations (DPM adaptive's attempts too) replay it
+        check_replayed("samplers", captured, list(captured))
         again = post(server.port, {**SAMPLER_BODY,
                                    "sampler_name": "DPM++ SDE"})
         check(again["images"][0] == rows["DPM++ SDE"]["png"],
@@ -1971,7 +2267,7 @@ def phase_config3(engine, fa, ra, card_line: str) -> dict:
 
     engine._decode_u8 = checked_decode
     server = ApiServer(engine, port=0).start()
-    runs = {}
+    runs, captured = {}, {}
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1979,14 +2275,17 @@ def phase_config3(engine, fa, ra, card_line: str) -> dict:
             latents_seen.clear()
             fa.reset_launches(fa.flash_attention)
             fa.reset_launches(ra.ragged_attention)
+            graphs0 = captures()
             t = time.perf_counter()
             resp = post(server.port, req, route="img2img")
             wall = time.perf_counter() - t
+            captured[tag] = captures() - graphs0
             runs[tag] = (wall, resp, fa.flash_attention.launches,
                          dict(fa.flash_attention.path_launches),
                          ra.ragged_attention.launches, latents_seen[-1])
             if tag == "repeat":
                 peak = torch.cuda.max_memory_allocated()
+                note_peak("config #3", peak)
             k1, paths, k2 = runs[tag][2:5]
             n = len(resp["images"])
             print(f"config #3 request ({tag}): latency {wall:.3f} s, {n} "
@@ -2008,6 +2307,7 @@ def phase_config3(engine, fa, ra, card_line: str) -> dict:
     finally:
         server.stop()
         del engine._decode_u8
+    check_replayed("config #3", captured, ["repeat"])
     first, again = runs["first"][1], runs["repeat"][1]
     seeds = json.loads(first["info"])["all_seeds"]
     check(len(first["images"]) == 4 and seeds == [1, 2, 3, 4],
@@ -2296,7 +2596,7 @@ def phase_config2(fa, ra, card_line: str) -> dict:
     body = {"prompt": bp.prompt, "negative_prompt": bp.negative_prompt,
             **CONFIG2_BODY}
     server = ApiServer(base, port=0).start()
-    runs = {}
+    runs, captured = {}, {}
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2306,18 +2606,23 @@ def phase_config2(fa, ra, card_line: str) -> dict:
                                         "batch_size": 1})):
             fa.reset_launches(fa.flash_attention)
             fa.reset_launches(ra.ragged_attention)
+            graphs0 = captures()
             t = time.perf_counter()
             resp = post(server.port, {**body, **extra})
+            captured[tag] = captures() - graphs0
             runs[tag] = (time.perf_counter() - t, resp,
                          fa.flash_attention.launches,
                          dict(fa.flash_attention.path_launches),
                          ra.ragged_attention.launches)
             if tag == "repeat":
                 peak = torch.cuda.max_memory_allocated()
+                note_peak("config #2", peak)
     finally:
         server.stop()
     serving = METRICS.summary()
     print(f"config #2 dispatcher: {json.dumps(serving)}")
+    # the repeat replays the base's and the refiner's graphs
+    check_replayed("config #2", captured, ["repeat"])
     for tag, (lat, resp, k1, paths, k2) in runs.items():
         n = len(resp["images"])
         print(f"config #2 request ({tag}): latency {lat:.3f} s, {n} "
@@ -2723,14 +3028,16 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
              "prompt": f"{bp.prompt} <lora:bench2:0.6> <lora:bench0:0.5> "
                        f"<lora:bench1:0.9>"}]
     gen = torch.Generator(device="cuda").manual_seed(8)
-    runs, profiles = {}, {}
+    runs, profiles, captured = {}, {}, {}
     server = ApiServer(base, port=0, registry=registry).start()
 
     def run(tag, b):
         fa.reset_launches(fa.flash_attention)
         fa.reset_launches(ra.ragged_attention)
+        graphs0 = captures()
         t = time.perf_counter()
         resp = post(server.port, b)
+        captured[tag] = captures() - graphs0
         runs[tag] = (time.perf_counter() - t, resp,
                      fa.flash_attention.launches,
                      dict(fa.flash_attention.path_launches),
@@ -2754,6 +3061,7 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
         check(base._lora_merge_total - merges == 3,
               "the identical repeat merged again")
         peaks = {"merged": torch.cuda.max_memory_allocated()}
+        note_peak("config #4 merged", peaks["merged"])
         rel = merged_rel_error(base, adapters, 0.8, gen)
         profiles["merged"] = unet_call_profile(base, gen,
                                                "config #4 merged",
@@ -2799,6 +3107,7 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
         pair_paths = dict(fa.flash_attention.path_launches)
         serving = METRICS.summary()
         peaks["traced"] = torch.cuda.max_memory_allocated()
+        note_peak("config #4 traced", peaks["traced"])
         check(not errors, f"a coalesced traced request failed: {errors}")
     finally:
         server.stop()
@@ -2810,6 +3119,12 @@ def phase_config4(base, fa, ra, card_line: str) -> dict:
                 os.environ[k] = v
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # a merge rewrites the weights in place, so the merged and tagless
+    # requests replay one graph; a second set of the traced cell replays
+    # the first's with its own factors
+    check_replayed("config #4", captured, ["merged (cold)", "merged",
+                                           "tagless again", "weight 0",
+                                           "traced solo 1"])
     for tag, (lat, resp, k1, paths, k2) in runs.items():
         n = len(resp["images"])
         print(f"config #4 request ({tag}): latency {lat:.3f} s, {n} "
@@ -3020,7 +3335,7 @@ def phase_config5(base, fa, ra, card_line: str) -> dict:
                 ("esrgan (cold)", {**body, "hr_upscaler": CONFIG5_UPSCALER}),
                 ("esrgan", {**body, "hr_upscaler": CONFIG5_UPSCALER}),
                 ("unresolved name", {**body, "hr_upscaler": "R-ESRGAN 4x+"}))
-    runs, finite, peaks = {}, [], {}
+    runs, finite, peaks, captured = {}, [], {}, {}
     decode = base._decode_u8
 
     def checked_decode(latents, width, height):
@@ -3035,18 +3350,24 @@ def phase_config5(base, fa, ra, card_line: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launches(fa.flash_attention)
             fa.reset_launches(ra.ragged_attention)
+            graphs0 = captures()
             t = time.perf_counter()
             resp = post(server.port, b)
+            captured[tag] = captures() - graphs0
             runs[tag] = (time.perf_counter() - t, resp,
                          fa.flash_attention.launches,
                          dict(fa.flash_attention.path_launches),
                          ra.ragged_attention.launches)
             peaks[tag] = torch.cuda.max_memory_allocated()
+            note_peak("config #5", peaks[tag])
     finally:
         server.stop()
         del base._decode_u8
     check(all(finite) and len(finite) == len(requests),
           f"config #5: a latent is not finite ({finite})")
+    # both passes of the warm requests replay
+    check_replayed("config #5", captured, ["latent", "esrgan",
+                                           "unresolved name"])
     for tag, (lat, resp, k1, paths, k2) in runs.items():
         print(f"config #5 request ({tag}): latency {lat:.3f} s, "
               f"{60.0 / lat:.3f} images per minute, peak memory "
@@ -3692,6 +4013,7 @@ def phase_build(*modules) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3729,6 +4051,7 @@ def main() -> int:
     config5_k1 = phase_sdxl_kernels(fa, card_line, CONFIG5_SHAPES)
     r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
+    warmup = phase_warmup(fa, ra, card_line)
     samplers = phase_samplers(engine, fa, ra, card_line)
     k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
     fleet = phase_fleet(engine, fa, ra, card_line)
@@ -3846,6 +4169,7 @@ def main() -> int:
         "config5_host_us_per_launch": per_pass("host_us"),
         "config5_max_abs_err": config5_k1["max_abs_err"],
         "checkpoint_launches": checkpoints["launches"],
+        "warmup": warmup,
         "scripts_launches": scripts["k1_launches"],
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
@@ -3887,6 +4211,12 @@ def main() -> int:
                "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
                "the valid work",
     }]
+    print("peak memory per phase, GiB (this run; the parent's final run): "
+          + json.dumps({phase: [round(peak / 2**30, 3),
+                                PARENT_PEAK_GIB.get(phase)]
+                        for phase, peak in PEAKS.items()}))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s [{card_line}]")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

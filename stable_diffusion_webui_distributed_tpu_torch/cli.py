@@ -5,7 +5,9 @@
 
 ``serve`` serves a ``World`` whose master is the local engine, with the
 remotes of the config file behind it, as the JAX package's ``cli serve``
-does. ``generate`` runs one request through the same World (img2img with
+does; under ``SDTPU_WARMUP`` it first sweeps the local engine's bucket
+ladder (``serving/warmup.py``) and prints the report to stderr.
+``generate`` runs one request through the same World (img2img with
 ``--init-image`` and ``--strength``, the hires fix with ``--hires``,
 styles of the model directory's ``styles.csv`` with ``--style``, an X/Y/Z
 plot with ``--xyz-x/--xyz-y/--xyz-z "AXIS: VALUES"``, one World request
@@ -135,6 +137,23 @@ def cmd_serve(args) -> int:
                        port=args.port,
                        user=args.api_auth_user,
                        password=args.api_auth_password)
+    if config_mod.env_flag("SDTPU_WARMUP"):
+        # capture the ladder's UNet graphs on the local engine before the
+        # first request (serving/warmup.py)
+        from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+            ShapeBucketer,
+        )
+        from stable_diffusion_webui_distributed_tpu_torch.serving.warmup import (
+            warmup_engine,
+        )
+
+        for w in world.workers:
+            eng = getattr(w.backend, "engine", None)
+            if eng is not None:
+                report = warmup_engine(eng,
+                                       ShapeBucketer.from_config(world.cfg))
+                print(f"serve: warmup {report}", file=sys.stderr)
+                break
     server.serve_forever()
     if server.restart_requested:
         # /sdapi/v1/server-restart relaunches the node

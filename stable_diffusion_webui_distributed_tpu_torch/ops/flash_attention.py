@@ -16,7 +16,10 @@ per path, as the C entry point reports the path it launched: bf16 launches
 go to the Hopper kernel (TMA + ``wgmma``) where TMA can address the
 operands, else to the general ``mma.sync`` kernel, chosen in C from shape,
 strides, alignment and the scale's sign before the launch (``sm90_path``
-in ``csrc/attention_sm90.cuh``).
+in ``csrc/attention_sm90.cuh``). A replayed CUDA graph launches its
+kernels without this module's Python: the graph layer
+(``runtime/graphs.py``) adds the launches it counted at capture to both
+counts on every replay (:func:`add_launches`).
 
 The kernel is built with ``nvcc`` from the repository's source at first use
 (:func:`build`), into ``_build/`` beside this package's sources.
@@ -27,7 +30,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -155,6 +158,15 @@ def reset_launches(fn) -> None:
     """Sets a kernel wrapper's launch counts (total and per path) to 0."""
     fn.launches = 0
     fn.path_launches = dict.fromkeys(PATHS, 0)
+
+
+def add_launches(fn, launches: int, path_launches: Dict[str, int]) -> None:
+    """Adds launches that ran without passing through ``fn``'s Python: the
+    kernels of a replayed CUDA graph (``runtime/graphs.py``), counted when
+    the graph was captured."""
+    fn.launches += launches
+    for path, n in path_launches.items():
+        fn.path_launches[path] += n
 
 
 reset_launches(flash_attention)

@@ -92,6 +92,12 @@ prompt's embedding names become placeholder tokens whose token-embedding
 rows the text encoders replace with the learned vectors; the conditioning
 cache keys on the store's generation, so a rescan serves nothing stale.
 
+On the card every UNet evaluation (the ControlNet units and the UNet)
+replays a CUDA graph per input signature (``runtime/graphs.py``), captured
+at the signature's first call or by the warmup sweep
+(``serving/warmup.py``); the samplers' step math, the interrupt and
+progress loop and DPM adaptive's host loop stay eager.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
 422): the step cache, other serving precisions, and SDXL under ragged
 dispatch.
@@ -100,6 +106,7 @@ dispatch.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import threading
 import time
@@ -167,6 +174,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     fix_seed,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes, rng
+from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+    graphs as graphs_mod,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
 )
@@ -214,7 +224,10 @@ class Engine:
     engine's device (``ModelRegistry.upscaler_provider``; None: latent
     upscalers only); ``embedding_store`` resolves the textual-inversion
     names prompts mention (``ModelRegistry.embedding_store``; None:
-    none)."""
+    none). ``cuda_graphs``: on the card, each UNet evaluation replays a
+    CUDA graph captured at its shape's first call (``runtime/graphs.py``;
+    the attribute may be switched between requests to time the eager path
+    beside it). CPU tensors always run eagerly."""
 
     def __init__(
         self,
@@ -234,6 +247,7 @@ class Engine:
         upscaler_provider: Optional[
             Callable[[str], Optional[Callable]]] = None,
         embedding_store: Optional[EmbeddingStore] = None,
+        cuda_graphs: bool = True,
     ):
         self.device = dtypes.resolve_device(device)
         self.family = family
@@ -278,6 +292,9 @@ class Engine:
         #: each), and whether that run stopped at its attempt backstop
         self.last_adaptive_attempts = 0
         self._adaptive_incomplete = False
+        # the captured UNet evaluations, dropped with the engine
+        self.cuda_graphs = cuda_graphs
+        self._graphs = graphs_mod.GraphCache()
 
         # LoRA. _active_loras latches () (pristine) or the (specs,
         # provider generation) pair the last merge ran for, missing names
@@ -306,6 +323,9 @@ class Engine:
         self._lora_merge_seconds = 0.0
         self.last_lora_counts = (0, 0)
         self.last_traced_build_seconds = 0.0
+        #: the warmup sweep's traced-LoRA ladder cell (rank bucket, slots),
+        #: served by an all-zero stand-in set (``serving/warmup.py``)
+        self._warmup_lora: Optional[Tuple[int, int]] = None
 
         # cross-request conditioning cache (webui's cached_c/cached_uc),
         # keyed on prompt text + clip skip + chunk count + the embedding
@@ -552,46 +572,72 @@ class Engine:
         channels, the same for both CFG halves. ``lora``: a traced adapter
         tree with ``[batch, S, ...]`` leaves for the UNet, doubled for the
         two CFG halves (the ControlNet runs without it, as in the JAX
-        package)."""
-        ctx = torch.cat([ctx_u.expand(batch, -1, -1),
-                         ctx_c.expand(batch, -1, -1)])
-        kw = {}
+        package).
+
+        Each evaluation (the units that run and the UNet) goes through the
+        engine's graph cache (``runtime/graphs.py``) while ``cuda_graphs``
+        is on: on the card it replays the graph of its inputs' signature,
+        captured at the first call. The timestep and the gates are scalars
+        of the graph, the conditioning its per-run inputs, the latent rows
+        its per-call input. The sampler's step math stays eager."""
+        run = {"ctx": torch.cat([ctx_u.expand(batch, -1, -1),
+                                 ctx_c.expand(batch, -1, -1)])}
         if added is not None:
-            kw["added_cond"] = torch.cat([added[0].expand(batch, -1),
-                                          added[1].expand(batch, -1)])
+            run["added_cond"] = torch.cat([added[0].expand(batch, -1),
+                                           added[1].expand(batch, -1)])
         if ragged is not None:
             true_rows, ctx_true_u, ctx_true_c = ragged
-            kw["true_rows"] = torch.cat([true_rows, true_rows])
-            kw["ctx_true"] = torch.cat([ctx_true_u, ctx_true_c])
+            run["true_rows"] = torch.cat([true_rows, true_rows])
+            run["ctx_true"] = torch.cat([ctx_true_u, ctx_true_c])
+        for k, (_, hint, *_) in enumerate(controls):
+            run[f"hint_{k}"] = torch.cat([hint.expand(batch, -1, -1, -1)] * 2)
+        if inpaint_cond is not None:
+            run["inpaint"] = torch.cat([inpaint_cond, inpaint_cond])
         if lora is not None:
-            kw["lora"] = lora_mod.double_rows(lora)
-        hints = [torch.cat([hint.expand(batch, -1, -1, -1)] * 2)
-                 for _, hint, *_ in controls]
-        inp2 = (None if inpaint_cond is None
-                else torch.cat([inpaint_cond, inpaint_cond]))
+            run.update(graphs_mod.flatten(lora_mod.double_rows(lora), "lora"))
+        modules = [module for module, *_ in controls]
+        kind = "unet" if ragged is None else "ragged"
+        binding = self._graphs.binding()
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
+
+        def evaluate(active, run, call, scalars):
+            # the UNet at timestep scalars[0] over [uncond; cond] rows, with
+            # the residuals of the units in ``active``, unit active[j]'s
+            # scaled by scalars[1 + j]
+            tb = scalars[:1].expand(2 * batch)
+            both = torch.cat([call["x"], call["x"]])
+            residuals = None
+            for j, k in enumerate(active):
+                rs = modules[k](both, tb, run["ctx"], run[f"hint_{k}"],
+                                run.get("added_cond"))
+                rs = [r.float() * scalars[1 + j] for r in rs]
+                residuals = rs if residuals is None else [
+                    a + b for a, b in zip(residuals, rs)]
+            unet_in = both if "inpaint" not in run else torch.cat(
+                [both, run["inpaint"].to(both.dtype)], dim=-1)
+            return self.unet(unet_in, tb, run["ctx"],
+                             added_cond=run.get("added_cond"),
+                             true_rows=run.get("true_rows"),
+                             ctx_true=run.get("ctx_true"),
+                             control_residuals=residuals,
+                             lora=graphs_mod.unflatten(run, "lora"))
 
         def denoise(x, sigma, step):
             c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
             t = self.schedule.sigma_to_t(sigma)
-            xin = x * c_in
-            tb = torch.full((2 * batch,), float(t), dtype=torch.float32,
-                            device=x.device)
-            both = torch.cat([xin, xin])
-            residuals = None
-            for (module, *_), hint2, gate in zip(
-                    controls, hints, gates(step) if controls else ()):
-                if gate == 0.0:
-                    continue
-                rs = module(both, tb, ctx, hint2, kw.get("added_cond"))
-                rs = [r.float() * gate for r in rs]
-                residuals = rs if residuals is None else [
-                    a + b for a, b in zip(residuals, rs)]
-            unet_in = both if inp2 is None else torch.cat(
-                [both, inp2.to(both.dtype)], dim=-1)
-            out = self.unet(unet_in, tb, ctx, control_residuals=residuals,
-                            **kw)
+            call = {"x": x * c_in}
+            unit_gates = gates(step) if controls else ()
+            active = tuple(k for k, g in enumerate(unit_gates) if g != 0.0)
+            scalars = [float(t)] + [unit_gates[k] for k in active]
+            fn = functools.partial(evaluate, active)
+            if self.cuda_graphs:
+                tag = (kind, tuple((k, id(modules[k])) for k in active))
+                out = self._graphs.run(tag, kind, fn, run, call, scalars,
+                                       binding)
+            else:
+                out = fn(run, call,
+                         graphs_mod.scalar_tensor(scalars, x.device))
             out_u, out_c = out.float().chunk(2)
             guided = out_u + cfg * (out_c - out_u)
             if v_pred:
@@ -1423,6 +1469,13 @@ class Engine:
         if lora_mod.traced_enabled() and not kd.resolve_sampler(
                 payload.sampler_name).adaptive:
             ts = self._traced_set_for(tuple(tags)) if tags else None
+            if ts is None and not tags and self._warmup_lora is not None:
+                # the warmup sweep: an all-zero stand-in set at an explicit
+                # ladder cell captures the graphs every set of that cell
+                # replays (its factors are per-run graph inputs)
+                ts = lora_mod.zero_set(self._lora_leaves, self.family,
+                                       *self._warmup_lora, self.device,
+                                       self.policy.compute_dtype)
             if ts is not None or not tags:
                 if self._active_loras:
                     # the traced deltas assume the pristine weights

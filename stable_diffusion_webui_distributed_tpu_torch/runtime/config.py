@@ -16,6 +16,21 @@ port reads. The knobs keep their names and defaults:
   config file when ``--distributed-config`` names none.
 - ``SDTPU_HEARTBEAT_S`` (seconds, 0 = off): the World's ping sweep.
 
+Warmup knobs (``serving/warmup.py``; README "Warmup and CUDA graphs"):
+
+- ``SDTPU_WARMUP`` (flag, off): ``cli serve`` sweeps the local engine's
+  bucket ladder before it takes traffic, capturing the CUDA graph of every
+  UNet evaluation the ladder's requests make; ``0`` makes
+  ``warmup_engine`` skip (it runs when called otherwise).
+- ``SDTPU_WARMUP_STEPS`` (int, 20) and ``SDTPU_WARMUP_SAMPLER`` (``Euler
+  a``): the request each ladder point runs. A graph's signature does not
+  hold the step count; a sampler or size outside the sweep captures at
+  its first request instead.
+- ``SDTPU_WARMUP_LORA`` (comma ``rXsY`` list, default "" = none): the
+  traced-LoRA ladder cells the sweep also captures, with all-zero
+  stand-in sets (under ``SDTPU_LORA_TRACED``): every adapter bucketed into
+  a warmed cell replays its graphs.
+
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.
 

@@ -1,13 +1,12 @@
 """Shape bucketing: a small ladder of shapes and batch sizes.
 
 Port of the JAX package's ``serving/bucketer.py``, a copy but for its
-``from_config`` (the port has no ``ConfigModel`` yet) and its trace span.
-There every novel ``(width, height, batch)`` tuple cost an XLA compile;
-here requests of one bucket share a batch, and a later CUDA graph per
-bucket stays bounded by the ladder. The bucketer pads incoming requests UP
-to a small configured ladder of shapes; the serving layer center-crops the
-finished images back to the requested size, so user output keeps its
-requested dimensions.
+trace span. There every novel ``(width, height, batch)`` tuple cost an XLA
+compile; here requests of one bucket share a batch, and the CUDA graphs of
+the UNet evaluations (``runtime/graphs.py``) stay bounded by the ladder.
+The bucketer pads incoming requests UP to a small configured ladder of
+shapes; the serving layer center-crops the finished images back to the
+requested size, so user output keeps its requested dimensions.
 
 Knobs:
 
@@ -30,6 +29,7 @@ knob must not take the server down).
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +37,7 @@ import numpy as np
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag,
     env_parsed,
+    env_str,
 )
 
 
@@ -107,6 +108,28 @@ class ShapeBucketer:
             key=lambda s: (s[0] * s[1], s))
         self.batches: List[int] = sorted(
             set(int(b) for b in (batches or DEFAULT_BATCH_LADDER)))
+
+    @classmethod
+    def from_config(cls, cfg) -> "ShapeBucketer":
+        """Build from :class:`~..runtime.config.ConfigModel` string fields
+        (the environment wins; an unparseable value warns and takes the
+        default ladder)."""
+        shapes = batches = None
+        raw_s = env_str("SDTPU_BUCKET_LADDER") \
+            or getattr(cfg, "bucket_ladder", "")
+        raw_b = env_str("SDTPU_BATCH_LADDER") \
+            or getattr(cfg, "batch_ladder", "")
+        if raw_s:
+            shapes = _parse_shapes(raw_s)
+            if shapes is None:
+                warnings.warn(f"bucket_ladder={raw_s!r} unparseable; "
+                              "using default ladder", stacklevel=2)
+        if raw_b:
+            batches = _parse_batches(raw_b)
+            if batches is None:
+                warnings.warn(f"batch_ladder={raw_b!r} unparseable; "
+                              "using default ladder", stacklevel=2)
+        return cls(shapes=shapes, batches=batches)
 
     # -- lookups ----------------------------------------------------------
 

@@ -5,18 +5,21 @@ Port of the JAX package's ``serving/metrics.py``. A single process-wide
 requests came in, how often a request's shape landed exactly on a bucket,
 was padded up to one or bypassed bucketing, how many requests each device
 dispatch carried (the coalesce factor), how long requests waited in the
-coalesce queue, and how much padding the buckets cost. Everything here is
-host-side counting, safe to assert in CPU tests.
+coalesce queue, and how much padding the buckets cost; and, where the JAX
+package counted XLA compiles by stage kind, the CUDA graphs the engines
+captured, by kind (``runtime/graphs.py``: ``"unet"``, with or without
+ControlNet units, and ``"ragged"``). Everything here is host-side counting,
+safe to assert in CPU tests.
 
-Left out: the JAX package's XLA compile and cache-hit counts, its AOT
-artifact loads and its XLA cost-analysis FLOP totals, which have no
-meaning for eager PyTorch, and the per-precision mix (the port serves bf16
-only).
+Left out: the JAX package's cache-hit counts, its AOT artifact loads and
+its XLA cost-analysis FLOP totals, which have no meaning for eager PyTorch,
+and the per-precision mix (the port serves bf16 only).
 """
 
 from __future__ import annotations
 
 import threading
+from collections import defaultdict
 from typing import Dict
 
 
@@ -29,6 +32,9 @@ class DispatchMetrics:
 
     def clear(self) -> None:
         with self._lock:
+            #: graph kind -> CUDA graphs captured (the JAX package's XLA
+            #: compiles by stage kind)
+            self.compiles: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
             self.requests = 0  # guarded-by: _lock
             #: request shape already equal to its bucket
             self.bucket_hits = 0  # guarded-by: _lock
@@ -47,6 +53,10 @@ class DispatchMetrics:
             #: sum of (bucket px / requested px) per bucketed request
             self.padding_ratio_total = 0.0  # guarded-by: _lock
             self.padding_ratio_count = 0  # guarded-by: _lock
+
+    def record_compile(self, kind: str) -> None:
+        with self._lock:
+            self.compiles[str(kind)] += 1
 
     def record_request(self, bucketed: bool, bypassed: bool = False,
                        padding_ratio: float = 1.0) -> None:
@@ -78,6 +88,7 @@ class DispatchMetrics:
         with self._lock:
             total_buckets = self.bucket_hits + self.bucket_misses
             return {
+                "compiles": dict(self.compiles),
                 "requests": self.requests,
                 "bucket_hits": self.bucket_hits,
                 "bucket_misses": self.bucket_misses,
