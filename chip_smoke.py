@@ -100,6 +100,30 @@ Phases, each fatal on failure (no phase is caught and passed over):
    encoder is timed per pass and per group;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
+8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
+   and int8_conv at config #1's shapes (a level-0 ``qkv``, a ``kv`` over
+   the context, a 3x3 conv at 64x64x320, a stride-2 Downsample, a 1x1
+   skip), their int32 accumulators equal to the CPU plain version's over
+   the same codes and their outputs to the same dequantization, timed
+   (quantize passes, int8 product) beside bf16 matmul or cuDNN; the
+   full-width UNet at int8 and int8+conv against f32, within the same
+   error measured on the CPU plus 5e-2; config #1 requests at bf16, int8,
+   int8+conv, cadence 3, cadence 3 with a cutoff at sigma 1.5 and int8 with
+   cadence 3, each first then 5 warm: K1 launches exact (320, or
+   ``plan_schedule``'s count at cadence 3: 191), all on the Hopper path,
+   the engine's evaluations equal to ``plan_schedule``'s, the graphs
+   captured by kind (none by a repeat, none at a new cadence or cutoff),
+   the same PNG bytes on every repeat, a bf16 request after the int8 ones
+   the first bf16 bytes, each lever's p50 and its PSNR and SSIM against
+   bf16 (under 99 dB: each lever engaged); one graphed evaluation at
+   each precision and one deep and one reuse evaluation profiled by
+   kernel group, with the FLOP shares of a deep and a reuse row; a ragged
+   pair (512x512 and 512x640 on the 512x768 bucket) at bf16 and twice at
+   int8, one dispatch each, 640 K2 launches each, all Hopper, the int8
+   bytes equal on the repeat. After config #2, one SDXL base request
+   (1024x1024, 30 steps, batch 1) at bf16, int8 and cadence 3 on its base
+   engine, each repeated: K1 2100, 2100 and 700 (a reuse evaluation runs
+   no attention), the same bytes, no capture on the repeat;
 9. profile: where a warm request's time goes (device time by kernel group
    and the device's busy share, from ``torch.profiler``), and the same for
    one UNet call;
@@ -377,21 +401,30 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+_GRAPH_STREAMS: dict = {}
+
+
 def graph_ms(fn, iters: int) -> float:
     """Device time per call with the host's launch overhead taken out:
     ``iters`` calls captured in one CUDA graph, replayed three times
     between CUDA events. (Back-to-back eager launches, ``cuda_ms``, time
-    the host instead wherever it takes longer than the kernel.)"""
+    the host instead wherever it takes longer than the kernel.) Every call
+    warms up and captures on one side stream: cuBLASLt keeps a workspace
+    for each stream it meets for the life of the process, which a stream
+    per call would add to every later phase's peak memory."""
     import torch
 
-    side = torch.cuda.Stream()
+    device = torch.cuda.current_device()
+    if device not in _GRAPH_STREAMS:
+        _GRAPH_STREAMS[device] = torch.cuda.Stream(device)
+    side = _GRAPH_STREAMS[device]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -2103,6 +2136,663 @@ def phase_profile(engine, card_line: str) -> None:
           f"decode (1 x 512x512, f32) {decode_ms:.3f} ms [{card_line}]")
 
 
+# -- the per-request cost ladder: int8 and the step cache (PR 12) -------------
+
+#: config #1's int8 products, held against their plain versions: (name,
+#: kind, activation shape, weight shape, stride, padding). Activations NCHW
+#: for the convolutions, as the UNet holds them.
+LADDER_OPS = (
+    ("qkv, level 0 (2 x 4096 tokens, 320 -> 960)", "dot", (2 * 4096, 320),
+     (960, 320), 1, 0),
+    ("kv, context (2 x 77 tokens, 768 -> 640)", "dot", (2 * 77, 768),
+     (640, 768), 1, 0),
+    ("conv 3x3 (64x64x320)", "conv", (2, 320, 64, 64), (320, 320, 3, 3), 1,
+     1),
+    ("Downsample 3x3 stride 2 (64x64x320)", "conv", (2, 320, 64, 64),
+     (320, 320, 3, 3), 2, 1),
+    ("skip 1x1 (32x32, 320 -> 640)", "conv", (2, 320, 32, 32),
+     (640, 320, 1, 1), 1, 0),
+)
+#: a mid-ladder sigma: a 20-step Euler a request truncates from step 10
+LADDER_CUTOFF = 1.5
+LADDER_SIZE = 512  # config #1's width and height
+LADDER_LEVERS = {
+    "bf16": {},
+    "int8": {"precision": "int8"},
+    "int8+conv": {"precision": "int8+conv"},
+    "cadence 3": {"override_settings": {"deepcache": 3}},
+    "cadence 3 + cutoff": {"override_settings": {
+        "deepcache": 3, "cfg_cutoff": LADDER_CUTOFF}},
+    "int8 + cadence 3": {"precision": "int8",
+                         "override_settings": {"deepcache": 3}},
+}
+LADDER_REPEATS = 5  # warm requests per lever for its p50
+#: the JAX package's quality floors against bf16 (tests/test_quality_int8.py;
+#: tests/test_stepcache.py): held on the TINY families by the CPU tests,
+#: printed here beside the seeded full-width numbers
+LADDER_FLOORS = {"int8": (20.0, 0.6), "cache": (20.0, 0.5)}
+LADDER_RAGGED_SIZES = [(512, 512), (512, 640)]
+LADDER_SDXL_BODY = {"steps": 30, "width": 1024, "height": 1024,
+                    "cfg_scale": 7, "sampler_name": "Euler a",
+                    "batch_size": 1, "seed": 4321}
+LADDER_SDXL_LEVERS = ("bf16", "int8", "cadence 3")
+
+
+def k1_per_evaluation(cfg, mode=None) -> int:
+    """K1 launches of one UNet evaluation: one per transformer block of
+    the levels it runs (``mode``: None, "deep" or "reuse", models/unet.py's
+    split at ``CACHE_SPLIT``)."""
+    from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+        CACHE_SPLIT,
+    )
+
+    n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+    depth = [d or 0 for d in cfg.down_blocks]
+    down = range(CACHE_SPLIT) if mode == "reuse" else range(n)
+    up = (range(CACHE_SPLIT) if mode == "reuse" else
+          range(CACHE_SPLIT if mode == "deep" else 0, n))
+    k1 = sum(lpb * depth[lv] for lv in down)
+    k1 += sum((lpb + 1) * depth[lv] for lv in up)
+    if mode != "reuse":
+        k1 += cfg.mid_block_depth or 0
+    return k1
+
+
+def ladder_expected(engine, body: dict):
+    """(K1 launches, evaluations by kind or None) of a txt2img request
+    of one image group: ``stepcache.plan_schedule`` over the engine's
+    chunks, each evaluation kind's launches from the config."""
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        stepcache,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+        kdiffusion as kd,
+    )
+
+    p = GenerationPayload(**body)
+    spec = kd.resolve_sampler(p.sampler_name)
+    sc = stepcache.resolve(p)
+    cfg = engine.family.unet
+    if not sc.active:
+        return k1_per_evaluation(cfg) * unet_evaluations(
+            spec, p.steps, 0), None
+    chunks = [(pos, min(engine.chunk_size, p.steps - pos), True)
+              for pos in range(0, p.steps, engine.chunk_size)]
+    stop = stepcache.cutoff_step(
+        kd.build_sigmas(spec, engine.schedule, p.steps).numpy(),
+        sc.cutoff_sigma)
+    counts = stepcache.plan_schedule(chunks, sc.cadence, stop,
+                                     spec.evals_per_step, p.steps)
+    k1 = (counts["full_evals"] * k1_per_evaluation(cfg)
+          + (counts["deep_full"] + counts["deep_trunc"])
+          * k1_per_evaluation(cfg, "deep")
+          + (counts["reuse_full_evals"] + counts["reuse_trunc_evals"])
+          * k1_per_evaluation(cfg, "reuse"))
+    return k1, counts
+
+
+def ladder_ops(card_line: str) -> dict:
+    """int8_dot and int8_conv at config #1's shapes on the card: the int32
+    accumulators identical to the CPU plain version over the same codes,
+    the outputs equal to the same dequantization in f32 on the CPU, the
+    codes against the CPU's quantization of the same inputs; each op's
+    device time (a replayed CUDA graph) split into its quantize passes and
+    its int8 product, beside the bf16 ``torch.matmul`` or cuDNN
+    convolution."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_diffusion_webui_distributed_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, kind, xs, ws, stride, pad in LADDER_OPS:
+        x = torch.randn(xs, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (0.05 * torch.randn(ws, device="cuda", generator=gen)).to(
+            torch.bfloat16)
+        o = ws[0]
+        if kind == "dot":
+            dims_x, dims_w = -1, 1
+
+            def op(x=x, w=w):
+                return quant.int8_dot(x, w, accumulators=True)
+
+            def library(x=x, w=w):
+                return torch.matmul(x, w.t())
+        else:
+            dims_x, dims_w = (1, 2, 3), (1, 2, 3)
+
+            def op(x=x, w=w, s=stride, p=pad):
+                return quant.int8_conv(x, w, (s, s), (p, p),
+                                       accumulators=True)
+
+            def library(x=x, w=w, s=stride, p=pad):
+                return F.conv2d(x, w, stride=s, padding=p)
+        with torch.inference_mode():
+            out, acc = op()
+            xq, s_x = quant.quantize(x, dims_x)
+            wq, s_w = quant.quantize(w, dims_w)
+            if kind == "dot":
+                a, b = xq, wq.t()
+            else:
+                a, ho, wo = quant.conv_patches(xq, ws[2:], (stride, stride),
+                                               (pad, pad))
+                b = wq.reshape(o, -1).t()
+            ref = quant.int8_mm_reference(a.cpu(), b.cpu())
+            check(torch.equal(acc.cpu(), ref), f"int8 {name}: the card's "
+                  f"int32 accumulators differ from the plain version's")
+            sx, sw = s_x.cpu(), s_w.cpu().reshape(-1)
+            if kind == "dot":
+                want = ref.float() * sx * sw
+            else:
+                want = (ref.reshape(xs[0], ho, wo, o).float()
+                        * sx.reshape(-1, 1, 1, 1) * sw).permute(0, 3, 1, 2)
+            err = float((out.cpu() - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30))
+            check(err <= 1e-6, f"int8 {name}: the output differs from its "
+                  f"dequantization on the CPU by {err:.3g} (relative)")
+            codes_cpu = quant.quantize(x.cpu(), dims_x)[0]
+            flipped = int((codes_cpu != xq.cpu()).sum())
+            mm_a, mm_b = a.contiguous(), b
+
+            def quantize_only(x=x, w=w, dx=dims_x, dw=dims_w):
+                return quant.quantize(x, dx), quant.quantize(w, dw)
+
+            def mm_only(a=mm_a, b=mm_b):
+                return quant.int8_mm(a, b)
+
+            times = {k: graph_ms(fn, 10) for k, fn in (
+                ("int8_ms", lambda: op()[0]), ("quantize_ms", quantize_only),
+                ("int8_mm_ms", mm_only), ("bf16_library_ms", library))}
+        rows[name] = {"max_rel_err": err, "codes_differing": flipped,
+                      **{k: round(v, 4) for k, v in times.items()}}
+        print(f"cost ladder: int8 {name}: accumulators equal to the plain "
+              f"version's, output rel err {err:.3g}, {flipped} codes differ "
+              f"from the CPU's quantization; device ms: int8 "
+              f"{times['int8_ms']:.4f} (quantize {times['quantize_ms']:.4f},"
+              f" int8 product {times['int8_mm_ms']:.4f}), bf16 "
+              f"{'matmul' if kind == 'dot' else 'cuDNN conv'} "
+              f"{times['bf16_library_ms']:.4f} [{card_line}]")
+    return rows
+
+
+def ladder_reference(engine, card_line: str) -> dict:
+    """One full-width SD1.5 UNet call at int8 and int8+conv on the card
+    against the f32 call on the same weights, bounded by the same error
+    measured on the CPU (the port's plain int8 path in f32 against f32,
+    the card's weights in f32) plus ``phase_reference``'s bf16 tolerance.
+    (The JAX package's int8 error at full width is not measured: its
+    tests run TINY on the CPU, where both packages' int8 errors are held,
+    ``tests/test_torch_quant.py``.)"""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        precision,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, 32, 32, 4), device="cuda", generator=gen)
+    t = torch.tensor([999.0, 500.0], device="cuda")
+    ctx = torch.randn((2, 77, engine.unet.cfg.cross_attention_dim),
+                      device="cuda", generator=gen)
+    names = ("int8", "int8+conv")
+    f32 = f32_copy(engine.unet, lambda: UNet(engine.unet.cfg))
+    card = {}
+    with torch.inference_mode():
+        ref = f32(x, t, ctx)
+        for name in names:
+            out = engine.unet(x, t, ctx, precision=precision.from_name(name))
+            check(bool(torch.isfinite(out).all()), f"{name} UNet output is "
+                  f"not finite")
+            card[name] = float((out - ref).norm() / ref.norm())
+    cpu_sd = {k: v.cpu() for k, v in f32.state_dict().items()}
+    del f32, ref
+    with torch.device("meta"):
+        cpu = UNet(engine.unet.cfg)
+    cpu = cpu.to_empty(device="cpu")
+    cpu.load_state_dict(cpu_sd)
+    del cpu_sd
+    t0 = time.perf_counter()
+    host = {}
+    with torch.inference_mode():
+        xc, tc, cc = x.cpu(), t.cpu(), ctx.cpu()
+        ref_c = cpu.eval()(xc, tc, cc)
+        for name in names:
+            out = cpu(xc, tc, cc, precision=precision.from_name(name))
+            host[name] = float((out - ref_c).norm() / ref_c.norm())
+    del cpu
+    out = {}
+    for name in names:
+        bound = host[name] + 5e-2
+        print(f"cost ladder: full-width UNet {name} vs f32: card {card[name]:.4g}"
+              f" (bf16 card policy), CPU {host[name]:.4g} (f32, the plain "
+              f"int8 products); bound {bound:.4g} [{card_line}]")
+        check(card[name] <= bound, f"the card's {name} UNet drifted past "
+              f"the CPU's int8 error plus the bf16 tolerance")
+        out[name] = {"card_rel_err": round(card[name], 5),
+                     "cpu_rel_err": round(host[name], 5)}
+    print(f"cost ladder: the CPU's full-width calls took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def ladder_requests(engine, fa, ra, card_line: str) -> dict:
+    """Config #1 requests through the port's server at each lever, warm
+    and graphed: K1 launches exact (``ladder_expected``) and all on the
+    Hopper path, the engine's evaluation counts equal to
+    ``plan_schedule``'s, the captures by kind (none on a repeat, none at a
+    new cadence or cutoff), the same PNG bytes on every repeat, a bf16
+    request after the int8 ones the first bf16 bytes; each lever's p50 of
+    warm requests and its PSNR and SSIM against bf16."""
+    import statistics
+
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.ops import quant
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    base = {"prompt": "a photograph of an astronaut riding a horse",
+            "negative_prompt": "blurry", "steps": 20, "width": LADDER_SIZE,
+            "height": LADDER_SIZE, "cfg_scale": 7, "sampler_name": "Euler a",
+            "seed": 1234, "batch_size": 1}
+    server = ApiServer(engine, port=0).start()
+    rows, images = {}, {}
+
+    def request(body):
+        kinds0 = dict(METRICS.summary()["compiles"])
+        k1_0, hop0 = (fa.flash_attention.launches,
+                      fa.flash_attention.path_launches["hopper"])
+        k2_0, q0 = ra.ragged_attention.launches, quant.int8_mm.launches
+        t = time.perf_counter()
+        resp = post(server.port, body)
+        lat = time.perf_counter() - t
+        kinds = {k: v - kinds0.get(k, 0)
+                 for k, v in METRICS.summary()["compiles"].items()
+                 if v != kinds0.get(k, 0)}
+        return resp, lat, {
+            "k1": fa.flash_attention.launches - k1_0,
+            "hopper": fa.flash_attention.path_launches["hopper"] - hop0,
+            "k2": ra.ragged_attention.launches - k2_0,
+            "int8_mm": quant.int8_mm.launches - q0, "captured": kinds}
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for lever, extra in LADDER_LEVERS.items():
+            body = {**base, **extra}
+            want_k1, want_evals = ladder_expected(engine, body)
+            first, _, c0 = request(body)
+            evals = engine.last_step_evals
+            lats, counts = [], [c0]
+            for _ in range(LADDER_REPEATS):
+                resp, lat, c = request(body)
+                lats.append(lat)
+                counts.append(c)
+                check(resp["images"] == first["images"], f"cost ladder "
+                      f"({lever}): a repeat gave other PNG bytes")
+            for c in counts:
+                check(c["k1"] == want_k1, f"cost ladder ({lever}): K1 "
+                      f"launched {c['k1']} times, want {want_k1}")
+                check(c["hopper"] == c["k1"] and c["k2"] == 0,
+                      f"cost ladder ({lever}): launches off K1's Hopper "
+                      f"path or on K2: {c}")
+                check((c["int8_mm"] > 0) == ("int8" in lever),
+                      f"cost ladder ({lever}): {c['int8_mm']} int8 "
+                      f"products")
+            for c in counts[1:]:
+                check(not c["captured"], f"cost ladder ({lever}): a warm "
+                      f"request captured {c['captured']}")
+            check(evals == want_evals, f"cost ladder ({lever}): the "
+                  f"engine ran {evals}, plan_schedule gives {want_evals}")
+            images[lever] = png_pixels(first["images"][0])
+            rows[lever] = {
+                "k1_launches": want_k1, "evaluations": evals,
+                "int8_products": counts[-1]["int8_mm"],
+                "first_captures": c0["captured"],
+                "p50_ms": round(1e3 * statistics.median(lats), 3),
+                "min_ms": round(1e3 * min(lats), 3),
+                "max_ms": round(1e3 * max(lats), 3)}
+            print(f"cost ladder request ({lever}): K1 {want_k1} a request, "
+                  f"all Hopper; int8 products {counts[-1]['int8_mm']}; "
+                  f"graphs captured by the first {json.dumps(c0['captured'])}"
+                  f", by {LADDER_REPEATS} repeats none; the same bytes; "
+                  f"p50 {rows[lever]['p50_ms']:.1f} ms [{card_line}]")
+        # a new cadence and cutoff on the warm bucket capture nothing
+        body = {**base, "override_settings": {"deepcache": 4,
+                                              "cfg_cutoff": 2.5}}
+        want_k1, want_evals = ladder_expected(engine, body)
+        _, _, c = request(body)
+        check(not c["captured"] and c["k1"] == want_k1,
+              f"cost ladder: cadence 4 with cutoff 2.5 captured "
+              f"{c['captured']} or launched K1 {c['k1']} times (want "
+              f"{want_k1})")
+        rows["cadence 4 + cutoff 2.5"] = {"k1_launches": want_k1,
+                                          "captured": c["captured"]}
+        # the precision is in the graph's tag: bf16 after int8 is bf16
+        resp, _, c = request({**base})
+        check(png_pixels(resp["images"][0]).tobytes()
+              == images["bf16"].tobytes() and not c["captured"],
+              "cost ladder: a bf16 request after the int8 ones did not "
+              "give the bf16 bytes by replay")
+        peak = torch.cuda.max_memory_allocated()
+        note_peak("cost ladder", peak)
+    finally:
+        server.stop()
+    for lever in LADDER_LEVERS:
+        if lever == "bf16":
+            continue
+        db, s = psnr(images[lever], images["bf16"]), ssim(images[lever],
+                                                          images["bf16"])
+        floor = LADDER_FLOORS["cache" if "cadence" in lever else "int8"]
+        rows[lever].update(psnr_db=round(db, 3), ssim=round(s, 4))
+        print(f"cost ladder: {lever} vs bf16: PSNR {db:.2f} dB, SSIM "
+              f"{s:.4f} (the CPU tests' floors on TINY: {floor[0]} dB, "
+              f"{floor[1]}); p50 {rows[lever]['p50_ms']:.1f} ms vs bf16 "
+              f"{rows['bf16']['p50_ms']:.1f} ms [{card_line}]")
+        check(db < 99.0, f"cost ladder: {lever} gave the bf16 image: the "
+              f"lever did not engage")
+    rows["peak_memory_gib"] = round(peak / 2**30, 3)
+    return rows
+
+
+def ladder_group(name: str) -> str:
+    """A kernel's group in the int8 profile: the int8 products and the
+    quantize passes (abs max, divide, round) apart from
+    :func:`kernel_group`'s."""
+    low = name.lower()
+    if any(f in low for f in ("s8", "i8", "imma", "int8", "igemm")) and \
+            "attn_sm90" not in low:
+        return "int8 GEMM"
+    if any(f in low for f in ("abs", "round", "maxops", "max_", "div")):
+        return "quantize passes"
+    return kernel_group(name)
+
+
+def ladder_profile(engine, card_line: str) -> dict:
+    """One graphed evaluation (CFG rows, 64x64 latents) at bf16, int8 and
+    int8+conv, and one deep and one reuse evaluation at bf16: CUDA-event
+    time and device time by kernel group (:func:`ladder_group`), with the
+    FLOP shares of a deep and a reuse row (``model_tflop``,
+    ``tools/torch_flops.py``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+        deep_cache_shape,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        engine as engine_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        precision,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+        kdiffusion as kd,
+    )
+
+    payload = GenerationPayload(
+        prompt="a photograph of an astronaut riding a horse",
+        negative_prompt="blurry", steps=20, width=LADDER_SIZE,
+        height=LADDER_SIZE)
+    sigmas = kd.build_sigmas(kd.resolve_sampler("Euler a"), engine.schedule,
+                             20)
+    lat = engine._latent_hw(LADDER_SIZE, LADDER_SIZE)[0]
+
+    def evaluation(name, mode):
+        conds, _ = engine.encode_prompts(payload)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn((1, lat, lat, 4), device="cuda", generator=gen)
+        spec = precision.from_name(name)
+        if mode is None:
+            denoise = engine._make_denoise_fn(*conds, 7.0, 1, precision=spec)
+
+            def fn():
+                return denoise(x, sigmas[10], 10)
+        else:
+            cache = engine_mod._StepCache(torch.zeros(
+                deep_cache_shape(engine.family.unet, 2, lat, lat),
+                dtype=engine.policy.compute_dtype, device="cuda"), 3, 20)
+            _, refresh, reuse = engine._make_denoise_fn(
+                *conds, 7.0, 1, precision=spec, cache=cache)
+            refresh(x, sigmas[10], 10)
+
+            def fn():
+                if mode == "deep":
+                    return refresh(x, sigmas[10], 10)
+                return reuse(x, sigmas[10], 10)
+        ms = cuda_ms(fn, 10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        groups: dict = {}
+        names: dict = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if not us:
+                continue
+            g = ladder_group(ev.key)
+            groups[g] = groups.get(g, 0.0) + us / 3 / 1e3
+            names[ev.key] = names.get(ev.key, 0.0) + us / 3 / 1e3
+        return ms, groups, names
+
+    out = {}
+    for name, mode in (("bf16", None), ("int8", None), ("int8+conv", None),
+                       ("bf16", "deep"), ("bf16", "reuse")):
+        ms, groups, names = engine.run_on_device(evaluation, name, mode)
+        what = f"{name} {mode or 'plain'} evaluation (CFG rows, {lat}x{lat})"
+        print_groups(what, ms, groups, card_line)
+        if name == "int8" and mode is None:
+            top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+            print("cost ladder: int8 evaluation's largest kernels: " +
+                  json.dumps([[k[:90], round(v, 4)] for k, v in top]))
+        out[f"{name} {mode or 'plain'}"] = {
+            "wall_ms": round(ms, 4),
+            "device_ms": round(sum(groups.values()), 4),
+            "groups_ms": {g: round(v, 4) for g, v in groups.items()}}
+    plain = out["bf16 plain"]["groups_ms"]
+    for name in ("int8", "int8+conv"):
+        g = out[f"{name} plain"]["groups_ms"]
+        extra = {k: round(g.get(k, 0.0) - plain.get(k, 0.0), 4)
+                 for k in set(g) | set(plain)}
+        out[f"{name} plain"]["over_bf16_ms"] = extra
+        print(f"cost ladder: the {name} evaluation over bf16's, device ms "
+              f"by group: {json.dumps(extra)} [{card_line}]")
+    tflop = model_tflop(engine.family, lat)
+    shares = {m: round(tflop[f"unet_{m}_row"] / tflop["unet_row"], 4)
+              for m in ("deep", "reuse")}
+    print(f"cost ladder: FLOP shares of a plain row (model_tflop): deep "
+          f"{shares['deep']}, reuse {shares['reuse']} "
+          f"({tflop['unet_row']:.4f} TFLOP a plain row)")
+    out["flop_share"] = shares
+    return out
+
+
+def ladder_ragged(engine, fa, ra, card_line: str) -> dict:
+    """A coalesced ragged pair (512x512 and 512x640 on the 512x768 bucket,
+    ``phase_ragged_serving``'s setting) at bf16, then twice at int8: one
+    dispatch each, K2 launches equal at both precisions, all on the Hopper
+    path, K1 none, the int8 bytes equal on the repeat."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.ops import quant
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    saved = {k: os.environ.get(k) for k in RAGGED_ENV}
+    os.environ.update(RAGGED_ENV)
+    server, runs = None, []
+    try:
+        server = ApiServer(engine, port=0).start()
+        for prec in ("bf16", "int8", "int8"):
+            bodies = [{"prompt": f"a photograph of an astronaut riding a "
+                                 f"horse, view {i}",
+                       "negative_prompt": "blurry", "steps": 20, "width": w,
+                       "height": h, "cfg_scale": 7, "sampler_name": "Euler a",
+                       "seed": 77 + i, "precision": prec}
+                      for i, (w, h) in enumerate(LADDER_RAGGED_SIZES)]
+            results, errors = [None] * 2, []
+
+            def send(i, bodies=bodies, results=results, errors=errors):
+                try:
+                    results[i] = post(server.port, bodies[i])
+                except Exception as e:  # noqa: BLE001 — checked below
+                    errors.append(e)
+
+            METRICS.clear()
+            k1, k2 = fa.flash_attention.launches, ra.ragged_attention.launches
+            hop, q0 = (ra.ragged_attention.path_launches["hopper"],
+                       quant.int8_mm.launches)
+            t = time.perf_counter()
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(2)]
+            for th in threads:
+                th.start()
+                time.sleep(0.05)
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t
+            check(not errors, f"a ragged {prec} request failed: {errors}")
+            s = METRICS.summary()
+            runs.append({
+                "precision": prec, "wall_s": round(wall, 3),
+                "dispatches": s["dispatches"],
+                "requests": s["coalesced_requests"],
+                "precision_mix": s["precision"],
+                "k2": ra.ragged_attention.launches - k2,
+                "k2_hopper": ra.ragged_attention.path_launches["hopper"] - hop,
+                "k1": fa.flash_attention.launches - k1,
+                "int8_mm": quant.int8_mm.launches - q0,
+                "images": [r["images"][0] for r in results]})
+    finally:
+        if server is not None:
+            server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    for r in runs:
+        check(r["dispatches"] == 1 and r["requests"] == 2,
+              f"the ragged {r['precision']} pair ran as {r['dispatches']} "
+              f"dispatches")
+        check(r["precision_mix"] == {r["precision"]: {"dispatches": 1,
+                                                      "requests": 2}},
+              f"ragged pair dispatch mix {r['precision_mix']}")
+        check(r["k2"] == K2_LAUNCHES and r["k2_hopper"] == r["k2"]
+              and r["k1"] == 0, f"ragged {r['precision']} pair: K2 "
+              f"{r['k2']} ({r['k2_hopper']} Hopper), K1 {r['k1']}")
+        check((r["int8_mm"] > 0) == (r["precision"] == "int8"),
+              f"ragged {r['precision']} pair: {r['int8_mm']} int8 products")
+    check(runs[1]["images"] == runs[2]["images"],
+          "the ragged int8 pair's repeat gave other PNG bytes")
+    check(runs[1]["images"] != runs[0]["images"],
+          "the ragged int8 pair gave the bf16 bytes")
+    out = [{k: v for k, v in r.items() if k != "images"} for r in runs]
+    print(f"cost ladder: ragged pair bf16 / int8 / int8 repeat: "
+          f"{json.dumps(out)} [{card_line}]")
+    return {"runs": out}
+
+
+def phase_cost_ladder(engine, fa, ra, card_line: str) -> dict:
+    """The per-request cost ladder on the main path's SD1.5 engine: int8
+    (``ops/quant.py``) and the step cache (``pipeline/stepcache.py``). The
+    int8 ops against their plain versions, the int8 UNet against f32, the
+    config #1 requests at each lever, a profile of the int8 and the cached
+    evaluations, and a ragged pair at int8. One ``cost ladder metrics``
+    line holds the numbers."""
+    t0 = time.perf_counter()
+    metrics = {"ops": ladder_ops(card_line),
+               "reference": ladder_reference(engine, card_line),
+               "requests": ladder_requests(engine, fa, ra, card_line),
+               "profile": ladder_profile(engine, card_line),
+               "ragged": ladder_ragged(engine, fa, ra, card_line)}
+    metrics["phase_s"] = round(time.perf_counter() - t0, 2)
+    metrics["card"] = card_line
+    print("cost ladder metrics: " + json.dumps(metrics))
+    return metrics
+
+
+def phase_cost_ladder_sdxl(base, fa, ra, card_line: str) -> dict:
+    """One SDXL base request (1024x1024, 30 steps Euler a, CFG 7, batch 1,
+    no refiner) on config #2's base engine at bf16, int8 and cadence 3,
+    each with a repeat: K1 launches exact (SDXL's top level has no
+    attention, so a reuse evaluation launches none), all on the Hopper
+    path, the same PNG bytes on the repeat, the warm request's time."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    bp = BenchmarkPayload()
+    body0 = {"prompt": bp.prompt, "negative_prompt": bp.negative_prompt,
+             **LADDER_SDXL_BODY}
+    server = ApiServer(base, port=0).start()
+    rows, images = {}, {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for lever in LADDER_SDXL_LEVERS:
+            body = {**body0, **LADDER_LEVERS[lever]}
+            want_k1, want_evals = ladder_expected(base, body)
+            got = []
+            for _ in range(2):
+                k1, hop = (fa.flash_attention.launches,
+                           fa.flash_attention.path_launches["hopper"])
+                g0 = captures()
+                t = time.perf_counter()
+                resp = post(server.port, body)
+                got.append((time.perf_counter() - t, resp,
+                            fa.flash_attention.launches - k1,
+                            fa.flash_attention.path_launches["hopper"] - hop,
+                            captures() - g0))
+            for lat, resp, n, nh, _ in got:
+                check(n == want_k1 and nh == n, f"SDXL cost ladder "
+                      f"({lever}): K1 {n} ({nh} Hopper), want {want_k1}")
+            check(got[0][1]["images"] == got[1][1]["images"],
+                  f"SDXL cost ladder ({lever}): the repeat gave other bytes")
+            check(got[1][4] == 0, f"SDXL cost ladder ({lever}): the repeat "
+                  f"captured {got[1][4]} graph(s)")
+            check(base.last_step_evals == want_evals, f"SDXL cost ladder "
+                  f"({lever}): the engine ran {base.last_step_evals}")
+            images[lever] = png_pixels(got[0][1]["images"][0])
+            rows[lever] = {"k1_launches": want_k1,
+                           "warm_s": round(got[1][0], 3),
+                           "first_s": round(got[0][0], 3)}
+        note_peak("cost ladder SDXL", torch.cuda.max_memory_allocated())
+    finally:
+        server.stop()
+    for lever in LADDER_SDXL_LEVERS[1:]:
+        rows[lever]["psnr_db"] = round(psnr(images[lever], images["bf16"]), 3)
+        check(rows[lever]["psnr_db"] < 99.0, f"SDXL cost ladder ({lever}) "
+              f"gave the bf16 image")
+    print(f"cost ladder SDXL metrics: {json.dumps(rows)} [{card_line}]")
+    return rows
+
+
 # BASELINE config #3 (bench.py's payload): SD1.5 img2img with one canny
 # ControlNet unit at weight 1.0, 512x512, 20 steps Euler a, CFG 7, batch 4,
 # seed 1, denoising 0.75: the ladder is entered at step 20 - int(0.75 * 20)
@@ -2494,8 +3184,9 @@ CONFIG2_MEAN_TOLERANCE = 2.0  # uint8 levels, batch-1 vs batch-8 row
 
 def model_tflop(family, lat: int) -> dict:
     """TFLOP of one UNet row (one image, one CFG half) at ``lat`` x
-    ``lat`` latents, of one ControlNet row there (hint at 8 x ``lat``), and
-    of one VAE decode and one VAE encode at that size, counted by
+    ``lat`` latents, of the step cache's deep and reuse rows there, of one
+    ControlNet row there (hint at 8 x ``lat``), and of one VAE decode and
+    one VAE encode at that size, counted by
     ``torch.utils.flop_counter`` (matrix products and convolutions) on
     meta tensors: nothing is allocated. K1 has no meta kernel, so its
     plain version, with the same two products, stands in while counting.
@@ -2531,9 +3222,14 @@ def model_tflop(family, lat: int) -> dict:
             hint = torch.zeros(1, 8 * lat, 8 * lat, 3)
             side = family.vae_scale_factor * lat
             image = torch.zeros(1, side, side, 3)
+            deep = torch.zeros(unet_mod.deep_cache_shape(u, 1, lat, lat))
             for name, run in (
                     ("unet_row", lambda: unet_mod.UNet(u)(x, t, ctx,
                                                           *added)),
+                    ("unet_deep_row", lambda: unet_mod.UNet(u)(
+                        x, t, ctx, *added, cache_mode="deep")),
+                    ("unet_reuse_row", lambda: unet_mod.UNet(u)(
+                        x, t, ctx, *added, cache=deep, cache_mode="reuse")),
                     ("controlnet_row", lambda: ControlNet(u)(
                         x, t, ctx, hint, *added)),
                     ("vae_decode", lambda: Decoder(family.vae)(x)),
@@ -4057,6 +4753,7 @@ def main() -> int:
     fleet = phase_fleet(engine, fa, ra, card_line)
     scripts = phase_scripts(engine, fa, ra, card_line)
     phase_reference(engine)
+    cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
@@ -4064,6 +4761,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     config2, base = phase_config2(fa, ra, card_line)
     phase_scripts_sdxl(base, card_line)
+    cost_ladder_sdxl = phase_cost_ladder_sdxl(base, fa, ra, card_line)
     config4 = phase_config4(base, fa, ra, card_line)
     config5 = phase_config5(base, fa, ra, card_line)
     del base  # every engine freed before the checkpoints' own
@@ -4171,6 +4869,13 @@ def main() -> int:
         "checkpoint_launches": checkpoints["launches"],
         "warmup": warmup,
         "scripts_launches": scripts["k1_launches"],
+        "cost_ladder_launches": {
+            lever: row["k1_launches"]
+            for lever, row in cost_ladder["requests"].items()
+            if isinstance(row, dict)},
+        "cost_ladder_sdxl_launches": {
+            lever: row["k1_launches"]
+            for lever, row in cost_ladder_sdxl.items()},
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "
@@ -4207,6 +4912,9 @@ def main() -> int:
                   "V tail rows zeroed in shared memory)",
         "instantiations": build["ragged_attention"],
         "build_s": build["seconds"],
+        "cost_ladder_launches": {
+            r["precision"]: r["k2"]
+            for r in cost_ladder["ragged"]["runs"]},
         "per": "one ragged UNet call of SD1.5 on a 512x768 bucket, batch 4 "
                "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
                "the valid work",

@@ -76,7 +76,10 @@ class ControlNet(nn.Module):
     """``forward(latents (B,h,w,4) NHWC, timesteps (B,), context (B,L,D),
     hint (B,8h,8w,3) NHWC, added_cond (B,P) for an SDXL family)`` -> one
     residual per UNet skip and then the mid residual, each NCHW in the
-    compute dtype (the UNet's inner layout, where they are added)."""
+    compute dtype (the UNet's inner layout, where they are added).
+    ``precision`` as for ``UNet.forward``: a unit at ``int8`` quantizes
+    its copy of the blocks too (the hint embedder, ``conv_in`` and the
+    zero convolutions stay in the card policy, as in the JAX package)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -128,17 +131,21 @@ class ControlNet(nn.Module):
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, hint: torch.Tensor,
-                added_cond: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, ...]:
+                added_cond: Optional[torch.Tensor] = None,
+                precision=None) -> Tuple[torch.Tensor, ...]:
         if (added_cond is None) != (not self.cfg.addition_embed_dim):
             raise ValueError("added_cond is required by an SDXL family and "
                              "only by one")
+        quant = (bool(getattr(precision, "quant_linears", False)),
+                 bool(getattr(precision, "quant_convs", False)))
         with reproducible_sdpa():
             return self._forward(latents, timesteps, context, hint,
-                                 added_cond)
+                                 added_cond, quant)
 
-    def _forward(self, latents, timesteps, context, hint, added_cond):
+    def _forward(self, latents, timesteps, context, hint, added_cond,
+                 quant):
         c = self.cfg
+        ql, qc = quant
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
             timestep_embedding(timesteps, c.block_out_channels[0]).to(dtype))
@@ -155,19 +162,20 @@ class ControlNet(nn.Module):
         n_levels = len(c.block_out_channels)
         for level, depth in enumerate(c.down_blocks):
             for i in range(c.layers_per_block):
-                x = getattr(self, f"down_{level}_res_{i}")(x, temb)
+                x = getattr(self, f"down_{level}_res_{i}")(x, temb, qc)
                 if depth is not None:
-                    x = getattr(self, f"down_{level}_attn_{i}")(x, context)
+                    x = getattr(self, f"down_{level}_attn_{i}")(
+                        x, context, lora=None, ql=ql)
                 residuals.append(getattr(self, f"zero_conv_{n}")(x))
                 n += 1
             if level < n_levels - 1:
-                x = getattr(self, f"down_{level}_ds")(x)
+                x = getattr(self, f"down_{level}_ds")(x, qc)
                 residuals.append(getattr(self, f"zero_conv_{n}")(x))
                 n += 1
-        x = self.mid_res_0(x, temb)
+        x = self.mid_res_0(x, temb, qc)
         if self.mid_attn is not None:
-            x = self.mid_attn(x, context)
-        x = self.mid_res_1(x, temb)
+            x = self.mid_attn(x, context, lora=None, ql=ql)
+        x = self.mid_res_1(x, temb, qc)
         residuals.append(self.mid_out(x))
         return tuple(residuals)
 

@@ -1,11 +1,10 @@
-"""Denoising UNet (SD 1.x and SDXL families), full forward, in PyTorch.
+"""Denoising UNet (SD 1.x and SDXL families) in PyTorch.
 
-Port of the JAX package's ``models/unet.py`` for ``cache_mode=None`` without
-int8. SDXL's added conditioning (pooled text
-and the micro-conditioning time ids, :func:`make_added_cond`) goes through
-``add_fc1``/``add_fc2`` onto the timestep embedding; the per-level
-transformer depths come from the config (SDXL has none at level 0) and
-heads are ``channels // 64`` where the config names no count.
+Port of the JAX package's ``models/unet.py``. SDXL's added conditioning
+(pooled text and the micro-conditioning time ids, :func:`make_added_cond`)
+goes through ``add_fc1``/``add_fc2`` onto the timestep embedding; the
+per-level transformer depths come from the config (SDXL has none at level
+0) and heads are ``channels // 64`` where the config names no count.
 Submodule and parameter names mirror the Flax tree (``down_0_res_0``,
 ``attn1/qkv`` ...) so ``bridge.flax_to_torch`` maps one onto the other.
 
@@ -30,6 +29,21 @@ module paths (``down_{l}_attn_{i}`` / ``mid_attn`` / ``up_{l}_attn_{i}``,
 the projection's output, computed from the projection's input. Without it
 the forward runs the same ops as before.
 
+Serving precision (``precision``, ``pipeline/precision.py``): a forward
+argument threaded down as ``lora`` is, so every precision shares one set
+of weights. At ``int8`` the transformer linears (``proj_in``, ``qkv``,
+``q``, ``kv``, ``out_proj``, GEGLU's ``proj``, ``ff_out``, ``proj_out``)
+run W8A8 (``ops/quant.py``), at ``int8+conv`` also the ResBlock convs and
+skips, the Downsamples and the Upsamples; the time and added-conditioning
+MLPs, ``conv_in``, ``conv_out`` and the norms stay in the card policy. A
+traced LoRA delta is added after the quantized product.
+
+Step cache (``cache_mode``, ``pipeline/stepcache.py``): the levels from
+:data:`CACHE_SPLIT` down and the mid block are the deep part. A ``"deep"``
+call returns the hidden state after the split level's Upsample, a
+``"reuse"`` call runs only the shallow levels from it. On SD1.5 a deep
+call makes 13 of the plain call's 16 self-attentions, a reuse call 5.
+
 Ragged rows (ragged dispatch): ``forward(..., true_rows, ctx_true)`` takes
 ``(B,)`` integer device tensors, the valid latent rows of each batch row
 (padded at the bottom) and its valid context tokens. Each Downsample halves
@@ -45,7 +59,7 @@ the image of the same seed at its own size.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +74,10 @@ from stable_diffusion_webui_distributed_tpu_torch.models.lora import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     flash_attention,
+)
+from stable_diffusion_webui_distributed_tpu_torch.ops.quant import (
+    int8_conv,
+    int8_dot,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.ragged_attention import (
     ragged_attention,
@@ -84,16 +102,30 @@ def reproducible_sdpa():
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in its weight's dtype (Flax ``Dense``
-    with ``dtype`` = the policy's compute dtype)."""
+    with ``dtype`` = the policy's compute dtype). ``quant``: the W8A8
+    product of ``ops/quant.py`` from the same weight (JAX ``QuantDense``):
+    the input quantized as it comes, the bias added in f32, the output in
+    the weight's dtype."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if quant:
+            out = int8_dot(x, self.weight)
+            if self.bias is not None:
+                out = out + self.bias.float()
+            return out.to(self.weight.dtype)
         return F.linear(_cast(x, self.weight.dtype), self.weight, self.bias)
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its weight's dtype."""
+    """``nn.Conv2d`` that computes in its weight's dtype; ``quant`` as for
+    :class:`Dense` (JAX ``QuantConv``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if quant:
+            out = int8_conv(x, self.weight, self.stride, self.padding)
+            if self.bias is not None:
+                out = out + self.bias.float()[:, None, None]
+            return out.to(self.weight.dtype)
         return super().forward(_cast(x, self.weight.dtype))
 
 
@@ -176,12 +208,13 @@ class ResBlock(nn.Module):
         self.skip = (Conv(in_channels, out_channels, 1)
                      if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                qc: bool = False) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)), qc)
         h = h + self.time_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(self.norm2(h)), qc)
         if self.skip is not None:
-            x = self.skip(x)
+            x = self.skip(x, qc)
         return (x.float() + h).to(h.dtype)
 
 
@@ -205,14 +238,15 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 true_len: Optional[torch.Tensor] = None,
-                lora: Optional[dict] = None) -> torch.Tensor:
+                lora: Optional[dict] = None,
+                ql: bool = False) -> torch.Tensor:
         B, T, C = x.shape
         heads = self.num_heads
         scale = 1.0 / math.sqrt(C // heads)
         if context is None:
             # column slices of the fused projection, read in place by the
             # kernel
-            qkv = apply_site(self.qkv(x), x, lora, "qkv")
+            qkv = apply_site(self.qkv(x, ql), x, lora, "qkv")
             q, k, v = (t.unflatten(-1, (heads, C // heads))
                        for t in qkv.split(C, dim=-1))
             if true_len is None:
@@ -220,9 +254,9 @@ class Attention(nn.Module):
             else:
                 out = ragged_attention(q, k, v, true_len, scale=scale)
         else:
-            q = apply_site(self.q(x), x, lora, "q").unflatten(
+            q = apply_site(self.q(x, ql), x, lora, "q").unflatten(
                 -1, (heads, C // heads))
-            kv = apply_site(self.kv(context), context, lora, "kv")
+            kv = apply_site(self.kv(context, ql), context, lora, "kv")
             k, v = (t.unflatten(-1, (heads, C // heads))
                     for t in kv.split(C, dim=-1))
             if true_len is None:
@@ -233,7 +267,7 @@ class Attention(nn.Module):
                 out = ragged_attention(q, k, v, true_len, scale=scale,
                                        mask_queries=False)
         out = out.reshape(B, T, C)
-        return apply_site(self.out_proj(out), out, lora, "out_proj")
+        return apply_site(self.out_proj(out, ql), out, lora, "out_proj")
 
 
 class GEGLU(nn.Module):
@@ -241,9 +275,9 @@ class GEGLU(nn.Module):
         super().__init__()
         self.proj = Dense(dim, 2 * dim_out)
 
-    def forward(self, x: torch.Tensor,
-                lora: Optional[dict] = None) -> torch.Tensor:
-        a, g = apply_site(self.proj(x), x, lora, "proj").chunk(2, dim=-1)
+    def forward(self, x: torch.Tensor, lora: Optional[dict] = None,
+                ql: bool = False) -> torch.Tensor:
+        a, g = apply_site(self.proj(x, ql), x, lora, "proj").chunk(2, dim=-1)
         return a * F.gelu(g, approximate="tanh")
 
 
@@ -263,14 +297,15 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 true_len: Optional[torch.Tensor] = None,
                 ctx_true: Optional[torch.Tensor] = None,
-                lora: Optional[dict] = None) -> torch.Tensor:
+                lora: Optional[dict] = None,
+                ql: bool = False) -> torch.Tensor:
         sub = {} if lora is None else lora
         x = x + self.attn1(self.ln1(x), true_len=true_len,
-                           lora=sub.get("attn1"))
+                           lora=sub.get("attn1"), ql=ql)
         x = x + self.attn2(self.ln2(x), context, true_len=ctx_true,
-                           lora=sub.get("attn2"))
-        g = self.geglu(self.ln3(x), lora=sub.get("geglu"))
-        return x + apply_site(self.ff_out(g), g, lora, "ff_out")
+                           lora=sub.get("attn2"), ql=ql)
+        g = self.geglu(self.ln3(x), lora=sub.get("geglu"), ql=ql)
+        return x + apply_site(self.ff_out(g, ql), g, lora, "ff_out")
 
 
 class SpatialTransformer(nn.Module):
@@ -291,7 +326,8 @@ class SpatialTransformer(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 true_rows: Optional[torch.Tensor] = None,
                 ctx_true: Optional[torch.Tensor] = None,
-                lora: Optional[dict] = None) -> torch.Tensor:
+                lora: Optional[dict] = None,
+                ql: bool = False) -> torch.Tensor:
         _, _, H, W = x.shape
         # row-major flatten: a valid prefix of true_rows rows is a valid
         # prefix of true_rows * W tokens
@@ -299,12 +335,12 @@ class SpatialTransformer(nn.Module):
                     else torch.clamp(true_rows, max=H) * W)
         sub = {} if lora is None else lora
         hn = to_tokens(self.norm(x))
-        h = apply_site(self.proj_in(hn), hn, lora, "proj_in")
+        h = apply_site(self.proj_in(hn, ql), hn, lora, "proj_in")
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, context, true_len, ctx_true,
-                                            sub.get(f"block_{i}"))
+                                            sub.get(f"block_{i}"), ql)
         return x + from_tokens(
-            apply_site(self.proj_out(h), h, lora, "proj_out"), H, W)
+            apply_site(self.proj_out(h, ql), h, lora, "proj_out"), H, W)
 
 
 class Downsample(nn.Module):
@@ -312,8 +348,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = Conv(channels, channels, 3, stride=2, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, qc: bool = False) -> torch.Tensor:
+        return self.conv(x, qc)
 
 
 class Upsample(nn.Module):
@@ -321,8 +357,31 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv(channels, channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(upsample_nearest(x))
+    def forward(self, x: torch.Tensor, qc: bool = False) -> torch.Tensor:
+        return self.conv(upsample_nearest(x), qc)
+
+
+#: The level at which the step cache splits the UNet (JAX
+#: ``models/unet.py``): levels below it are shallow (run every step), the
+#: levels from it down and the mid block deep (run on refresh steps only,
+#: reused in between). Split 1 caches everything below the top level.
+CACHE_SPLIT = 1
+
+
+def cache_supported(cfg: UNetConfig) -> bool:
+    """The step cache needs at least one level below the split."""
+    return len(cfg.block_out_channels) > CACHE_SPLIT
+
+
+def deep_cache_shape(cfg: UNetConfig, batch: int, lat_h: int,
+                     lat_w: int) -> Tuple[int, int, int, int]:
+    """The cached deep feature's NHWC shape: the up path's hidden state
+    right after the split level's Upsample (each Downsample halves the
+    size rounding up; the Upsample doubles it)."""
+    h, w = lat_h, lat_w
+    for _ in range(CACHE_SPLIT):
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return (batch, 2 * h, 2 * w, cfg.block_out_channels[CACHE_SPLIT])
 
 
 class UNet(nn.Module):
@@ -333,7 +392,16 @@ class UNet(nn.Module):
     refused by any other; the two length vectors are for ragged rows and
     optional; ``control_residuals`` (one per skip, then the mid residual,
     NCHW) are ControlNet's and optional; ``lora`` is a traced adapter
-    tree with ``[B, S, ...]`` leaves and optional."""
+    tree with ``[B, S, ...]`` leaves and optional.
+
+    ``precision``: a ``pipeline/precision.py`` spec (None: bf16), whose
+    ``quant_linears`` runs the transformer linears and ``quant_convs`` the
+    ResBlock, Downsample and Upsample convs as W8A8 products of the same
+    weights. ``cache_mode`` (the step cache): ``"deep"`` runs the whole
+    down path, the mid block and the up levels from ``CACHE_SPLIT`` down,
+    and returns the NHWC hidden state after the split level's Upsample;
+    ``"reuse"`` runs the shallow down levels (without their last
+    Downsample) and the shallow up levels from ``cache``, that state."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -397,22 +465,44 @@ class UNet(nn.Module):
                 true_rows: Optional[torch.Tensor] = None,
                 ctx_true: Optional[torch.Tensor] = None,
                 control_residuals: Optional[Sequence[torch.Tensor]] = None,
-                lora: Optional[dict] = None) -> torch.Tensor:
+                lora: Optional[dict] = None, precision=None,
+                cache: Optional[torch.Tensor] = None,
+                cache_mode: Optional[str] = None) -> torch.Tensor:
         if (added_cond is None) != (not self.cfg.addition_embed_dim):
             raise ValueError("added_cond is required by an SDXL family and "
                              "only by one")
+        if cache_mode not in (None, "deep", "reuse"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if cache_mode is not None:
+            if not cache_supported(self.cfg):
+                raise ValueError("the step cache needs a level below "
+                                 "CACHE_SPLIT")
+            if true_rows is not None or ctx_true is not None:
+                raise ValueError("ragged rows run the plain forward only")
+            if control_residuals is not None:
+                raise ValueError("ControlNet residuals need the plain "
+                                 "forward")
+            if (cache is None) != (cache_mode == "deep"):
+                raise ValueError("the reuse mode, and only it, takes the "
+                                 "cached feature")
+        quant = (bool(getattr(precision, "quant_linears", False)),
+                 bool(getattr(precision, "quant_convs", False)))
         with reproducible_sdpa():
             return self._forward(latents, timesteps, context, added_cond,
                                  true_rows, ctx_true, control_residuals,
-                                 {} if lora is None else lora)
+                                 {} if lora is None else lora, quant, cache,
+                                 cache_mode)
 
     def _forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, added_cond: Optional[torch.Tensor],
                  true_rows: Optional[torch.Tensor],
                  ctx_true: Optional[torch.Tensor],
                  control_residuals: Optional[Sequence[torch.Tensor]],
-                 lora: dict) -> torch.Tensor:
+                 lora: dict, quant: Tuple[bool, bool],
+                 cache: Optional[torch.Tensor],
+                 cache_mode: Optional[str]) -> torch.Tensor:
         c = self.cfg
+        ql, qc = quant
         dtype = self.conv_in.weight.dtype
         temb = self.time_fc1(
             timestep_embedding(timesteps, c.block_out_channels[0]).to(dtype))
@@ -425,6 +515,12 @@ class UNet(nn.Module):
         x = self.conv_in(latents.permute(0, 3, 1, 2))
 
         n_levels = len(c.block_out_channels)
+        split = CACHE_SPLIT
+        # the reuse mode runs the shallow levels only, without the last
+        # shallow Downsample: its output feeds the split level's down
+        # blocks and, as a skip, its up blocks, both in the cached part
+        down_levels = split if cache_mode == "reuse" else n_levels
+        last_ds = split - 1 if cache_mode == "reuse" else n_levels - 1
         # valid rows per level: each stride-2 Downsample halves them,
         # rounding up, like the spatial size
         rows = [None] * n_levels
@@ -433,36 +529,50 @@ class UNet(nn.Module):
             for level in range(1, n_levels):
                 rows[level] = (rows[level - 1] + 1) // 2
         skips = [x]
-        for level, depth in enumerate(c.down_blocks):
+        for level in range(down_levels):
+            depth = c.down_blocks[level]
             for i in range(c.layers_per_block):
-                x = getattr(self, f"down_{level}_res_{i}")(x, temb)
+                x = getattr(self, f"down_{level}_res_{i}")(x, temb, qc)
                 if depth is not None:
                     x = getattr(self, f"down_{level}_attn_{i}")(
                         x, context, rows[level], ctx_true,
-                        lora.get(f"down_{level}_attn_{i}"))
+                        lora.get(f"down_{level}_attn_{i}"), ql)
                 skips.append(x)
-            if level < n_levels - 1:
-                x = getattr(self, f"down_{level}_ds")(x)
+            if level < last_ds:
+                x = getattr(self, f"down_{level}_ds")(x, qc)
                 skips.append(x)
 
-        x = self.mid_res_0(x, temb)
-        if self.mid_attn is not None:
-            x = self.mid_attn(x, context, rows[-1], ctx_true,
-                              lora.get("mid_attn"))
-        x = self.mid_res_1(x, temb)
+        if cache_mode != "reuse":
+            x = self.mid_res_0(x, temb, qc)
+            if self.mid_attn is not None:
+                x = self.mid_attn(x, context, rows[-1], ctx_true,
+                                  lora.get("mid_attn"), ql)
+            x = self.mid_res_1(x, temb, qc)
         if control_residuals is not None:
             x, skips = control_residuals_added(x, skips, control_residuals)
 
-        for level in reversed(range(n_levels)):
+        # the deep mode stops after the split level's Upsample and returns
+        # the hidden state there; the reuse mode starts from it
+        if cache_mode == "reuse":
+            x = cache.permute(0, 3, 1, 2).to(dtype)
+            levels = range(split - 1, -1, -1)
+        else:
+            stop = split if cache_mode == "deep" else 0
+            levels = range(n_levels - 1, stop - 1, -1)
+        for level in levels:
             for i in range(c.layers_per_block + 1):
                 x = torch.cat([x, skips.pop()], dim=1)
-                x = getattr(self, f"up_{level}_res_{i}")(x, temb)
+                x = getattr(self, f"up_{level}_res_{i}")(x, temb, qc)
                 if c.down_blocks[level] is not None:
                     x = getattr(self, f"up_{level}_attn_{i}")(
                         x, context, rows[level], ctx_true,
-                        lora.get(f"up_{level}_attn_{i}"))
+                        lora.get(f"up_{level}_attn_{i}"), ql)
             if level > 0:
-                x = getattr(self, f"up_{level}_us")(x)
+                x = getattr(self, f"up_{level}_us")(x, qc)
+        if cache_mode == "deep":
+            # NHWC, as the JAX package returns it; the shallow skips are
+            # left unconsumed by design
+            return x.permute(0, 2, 3, 1)
 
         x = F.silu(self.norm_out(x))
         return self.conv_out(x).float().permute(0, 2, 3, 1)

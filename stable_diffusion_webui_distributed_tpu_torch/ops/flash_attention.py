@@ -155,9 +155,11 @@ def count_launch(wrapper, code: int) -> None:
 
 
 def reset_launches(fn) -> None:
-    """Sets a kernel wrapper's launch counts (total and per path) to 0."""
+    """Sets a kernel wrapper's launch counts (total and per path: its own
+    paths, the attention kernels' by default) to 0."""
     fn.launches = 0
-    fn.path_launches = dict.fromkeys(PATHS, 0)
+    fn.path_launches = dict.fromkeys(
+        getattr(fn, "path_launches", None) or PATHS, 0)
 
 
 def add_launches(fn, launches: int, path_launches: Dict[str, int]) -> None:

@@ -98,9 +98,21 @@ at the signature's first call or by the warmup sweep
 (``serving/warmup.py``); the samplers' step math, the interrupt and
 progress loop and DPM adaptive's host loop stay eager.
 
+Serving precision (``precision`` or ``override_settings.precision``,
+``pipeline/precision.py``): resolved once per range and passed to every
+UNet and ControlNet evaluation, DPM adaptive's attempts, img2img,
+inpainting, hires and the refiner included; ``int8`` runs the transformer
+linears as W8A8 products of the same weights, ``int8+conv`` the convs too.
+
+Step cache (``override_settings.deepcache`` / ``cfg_cutoff``,
+``pipeline/stepcache.py``): the deep UNet part is refreshed every
+``cadence`` steps and reused in between, and past the CFG cutoff only the
+cond rows run (:meth:`Engine._denoise`). Ragged dispatch and DPM adaptive
+take no cache; a chunk with an active ControlNet unit runs the plain
+evaluation.
+
 What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): the step cache, other serving precisions, and SDXL under ragged
-dispatch.
+422): SDXL under ragged dispatch.
 """
 
 from __future__ import annotations
@@ -148,6 +160,8 @@ from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
     load_tokenizer,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
+    cache_supported,
+    deep_cache_shape,
     make_added_cond,
     norms_to_f32,
 )
@@ -163,6 +177,10 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.image import (
     resize_device,
     resize_image,
 )
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+    precision as precision_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -280,6 +298,13 @@ class Engine:
         # the checkpoint's own VAE while set_vae's override is applied
         self._checkpoint_vae: Optional[Tuple[torch.nn.Module,
                                              torch.nn.Module]] = None
+        # the serving precision of a request that names none: the policy's
+        # own flags (pipeline/precision.py)
+        self._default_precision = precision_mod.policy_default(policy)
+        #: evaluations by kind of the last denoise range that ran the step
+        #: cache (``stepcache.plan_schedule``'s keys), None when it ran
+        #: without it
+        self.last_step_evals: Optional[Dict[str, int]] = None
         self.engine_provider = engine_provider
         self.controlnet_provider = controlnet_provider
         self.upscaler_provider = upscaler_provider
@@ -552,7 +577,10 @@ class Engine:
                          ragged=None, added=None,
                          controls: Sequence[Control] = (), gates=None,
                          inpaint_cond: Optional[torch.Tensor] = None,
-                         lora: Optional[Dict] = None):
+                         lora: Optional[Dict] = None,
+                         precision: Optional[
+                             precision_mod.PrecisionSpec] = None,
+                         cache: Optional["_StepCache"] = None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
         ``(1, L, D)`` context or one per row; so is ``added``'s second
@@ -572,14 +600,27 @@ class Engine:
         channels, the same for both CFG halves. ``lora``: a traced adapter
         tree with ``[batch, S, ...]`` leaves for the UNet, doubled for the
         two CFG halves (the ControlNet runs without it, as in the JAX
-        package).
+        package). ``precision``: the serving precision of the UNet and the
+        units (None: the policy's default).
 
         Each evaluation (the units that run and the UNet) goes through the
         engine's graph cache (``runtime/graphs.py``) while ``cuda_graphs``
         is on: on the card it replays the graph of its inputs' signature,
         captured at the first call. The timestep and the gates are scalars
         of the graph, the conditioning its per-run inputs, the latent rows
-        its per-call input. The sampler's step math stays eager."""
+        its per-call input. The graph's tag holds the precision's flags
+        and the cache mode, which the inputs' signatures do not tell
+        apart. The sampler's step math stays eager.
+
+        ``cache`` (a :class:`_StepCache`): the result is ``(denoise,
+        refresh, reuse)``. ``refresh(x, sigma, step)`` runs the deep
+        evaluation at the step's entry latent and copies it into the
+        cache (its output lives in the graphs' pool, which the next replay
+        may overwrite); ``reuse`` is ``denoise`` over the shallow levels
+        from the cache. From ``cache.cfg_stop`` on both run the cond rows
+        only (the refresh mirrors them into both halves of the cache)."""
+        prec = precision if precision is not None \
+            else self._default_precision
         run = {"ctx": torch.cat([ctx_u.expand(batch, -1, -1),
                                  ctx_c.expand(batch, -1, -1)])}
         if added is not None:
@@ -610,7 +651,7 @@ class Engine:
             residuals = None
             for j, k in enumerate(active):
                 rs = modules[k](both, tb, run["ctx"], run[f"hint_{k}"],
-                                run.get("added_cond"))
+                                run.get("added_cond"), precision=prec)
                 rs = [r.float() * scalars[1 + j] for r in rs]
                 residuals = rs if residuals is None else [
                     a + b for a, b in zip(residuals, rs)]
@@ -621,32 +662,113 @@ class Engine:
                              true_rows=run.get("true_rows"),
                              ctx_true=run.get("ctx_true"),
                              control_residuals=residuals,
-                             lora=graphs_mod.unflatten(run, "lora"))
+                             lora=graphs_mod.unflatten(run, "lora"),
+                             precision=prec)
 
-        def denoise(x, sigma, step):
-            c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
-            t = self.schedule.sigma_to_t(sigma)
-            call = {"x": x * c_in}
-            unit_gates = gates(step) if controls else ()
-            active = tuple(k for k, g in enumerate(unit_gates) if g != 0.0)
-            scalars = [float(t)] + [unit_gates[k] for k in active]
-            fn = functools.partial(evaluate, active)
+        def graphed(tag, kind, fn, run, call, scalars, binding):
             if self.cuda_graphs:
-                tag = (kind, tuple((k, id(modules[k])) for k in active))
-                out = self._graphs.run(tag, kind, fn, run, call, scalars,
-                                       binding)
-            else:
-                out = fn(run, call,
-                         graphs_mod.scalar_tensor(scalars, x.device))
-            out_u, out_c = out.float().chunk(2)
-            guided = out_u + cfg * (out_c - out_u)
+                return self._graphs.run(tag, kind, fn, run, call, scalars,
+                                        binding)
+            return fn(run, call,
+                      graphs_mod.scalar_tensor(scalars, call["x"].device))
+
+        def x0(x, sigma, guided):
             if v_pred:
                 c_skip = 1.0 / (sigma**2 + 1.0)
                 c_out = sigma / torch.sqrt(sigma**2 + 1.0)
                 return x * c_skip - guided * c_out
             return x - sigma * guided
 
-        return denoise
+        def prep(x, sigma):
+            c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
+            return x * c_in, float(self.schedule.sigma_to_t(sigma))
+
+        def denoise(x, sigma, step):
+            xin, t = prep(x, sigma)
+            unit_gates = gates(step) if controls else ()
+            active = tuple(k for k, g in enumerate(unit_gates) if g != 0.0)
+            scalars = [t] + [unit_gates[k] for k in active]
+            tag = (kind, prec.flags, tuple((k, id(modules[k]))
+                                           for k in active))
+            out = graphed(tag, kind, functools.partial(evaluate, active),
+                          run, {"x": xin}, scalars, binding)
+            if cache is not None:
+                cache.count("full_evals")
+            out_u, out_c = out.float().chunk(2)
+            return x0(x, sigma, out_u + cfg * (out_c - out_u))
+
+        if cache is None:
+            return denoise
+
+        # the cond rows alone, for the evaluations past the CFG cutoff
+        run_c = {"ctx": ctx_c.expand(batch, -1, -1)}
+        if added is not None:
+            run_c["added_cond"] = added[1].expand(batch, -1)
+        if inpaint_cond is not None:
+            run_c["inpaint"] = inpaint_cond
+        if lora is not None:
+            run_c.update(graphs_mod.flatten(lora, "lora"))
+        binding_c = self._graphs.binding()
+
+        def evaluate_cached(mode, full, run, call, scalars):
+            # the UNet in cache mode ``mode`` over [uncond; cond] rows
+            # (``full``) or the cond rows, the reuse mode from call["cache"]
+            x = call["x"]
+            if full:
+                x = torch.cat([x, x])
+            tb = scalars[:1].expand(x.shape[0])
+            if "inpaint" in run:
+                x = torch.cat([x, run["inpaint"].to(x.dtype)], dim=-1)
+            return self.unet(x, tb, run["ctx"],
+                             added_cond=run.get("added_cond"),
+                             lora=graphs_mod.unflatten(run, "lora"),
+                             precision=prec, cache=call.get("cache"),
+                             cache_mode=mode)
+
+        def cached_eval(mode, trunc, call, t):
+            name = mode + ("-trunc" if trunc else "")
+            return graphed((name, prec.flags), name,
+                           functools.partial(evaluate_cached, mode,
+                                             not trunc),
+                           run_c if trunc else run, call, [t],
+                           binding_c if trunc else binding)
+
+        def refresh(x, sigma, step):
+            xin, t = prep(x, sigma)
+            trunc = step >= cache.cfg_stop
+            deep = cached_eval("deep", trunc, {"x": xin}, t)
+            if trunc:
+                cache.buf[:batch].copy_(deep)
+                cache.buf[batch:].copy_(deep)
+            else:
+                cache.buf.copy_(deep)
+            cache.valid = True
+            cache.count("refreshes")
+            cache.count("deep_trunc" if trunc else "deep_full")
+
+        def reuse(x, sigma, step):
+            xin, t = prep(x, sigma)
+            trunc = step >= cache.cfg_stop
+            call = {"x": xin,
+                    "cache": cache.buf[batch:] if trunc else cache.buf}
+            out = cached_eval("reuse", trunc, call, t).float()
+            if trunc:
+                cache.count("reuse_trunc_evals")
+                return x0(x, sigma, out)
+            cache.count("reuse_full_evals")
+            out_u, out_c = out.chunk(2)
+            return x0(x, sigma, out_u + cfg * (out_c - out_u))
+
+        return denoise, refresh, reuse
+
+    def _precision_for(self, payload: GenerationPayload
+                       ) -> precision_mod.PrecisionSpec:
+        """The request's serving precision, resolved once per range; the
+        policy's default rung keeps the policy's own flags."""
+        prec = precision_mod.resolve(payload, self.policy)
+        if prec.name == self._default_precision.name:
+            return self._default_precision
+        return prec
 
     def _denoise(self, payload: GenerationPayload, x: torch.Tensor,
                  image_keys: torch.Tensor, conds, pooleds, job: str,
@@ -668,44 +790,103 @@ class Engine:
         (the dispatcher's :func:`~..models.lora.stack_row_sets`); None
         takes the engine's active traced set, if any, for every row. DPM
         adaptive runs :meth:`_denoise_adaptive` instead (never with a
-        traced set: such requests take the merged path)."""
+        traced set: such requests take the merged path).
+
+        The request's serving precision applies to every evaluation. Its
+        step cache (``pipeline/stepcache.py``; not under ragged dispatch,
+        not on a family without a level below the split) runs as the JAX
+        package's step-cache chunks, as host decisions around the
+        evaluations: the range starts with an invalid cache; before a
+        step that finds it invalid or whose index the cadence divides,
+        the deep part is refreshed from the step's entry latent, and every
+        evaluation of the step (Heun's midpoint too) reuses it. A chunk
+        in which a ControlNet unit is active runs the plain evaluation and
+        invalidates the cache. The cadence and the cutoff are host data:
+        a new value captures no graph."""
         spec = kd.resolve_sampler(payload.sampler_name)
         added = self._added_cond(pooleds, payload.width, payload.height)
+        prec = self._precision_for(payload)
+        self.last_step_evals = None
         if lora is None and self._traced_lora is not None:
             lora = lora_mod.broadcast_set(self._traced_lora,
                                           x.shape[0])["unet"]
         if spec.adaptive:
             return self._denoise_adaptive(payload, x, image_keys, conds,
                                           added, job, start_step, end_step,
-                                          controls, mask, inpaint_cond)
+                                          controls, mask, inpaint_cond, prec)
         steps = payload.steps
         end = steps if end_step is None else min(end_step, steps)
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
-        denoise = self._make_denoise_fn(
+        sc = stepcache.resolve(payload)
+        cache = None
+        if sc.active and ragged is None and \
+                cache_supported(self.family.unet):
+            # [uncond; cond] deep rows in the compute dtype
+            cache = _StepCache(
+                torch.zeros(deep_cache_shape(self.family.unet,
+                                             2 * x.shape[0], x.shape[1],
+                                             x.shape[2]),
+                            dtype=self.policy.compute_dtype,
+                            device=x.device),
+                sc.cadence, stepcache.cutoff_step(sigmas.numpy(),
+                                                  sc.cutoff_sigma))
+        fns = self._make_denoise_fn(
             *conds, payload.cfg_scale, x.shape[0], ragged, added, controls,
-            lambda i: window_gates(controls, i, steps), inpaint_cond, lora)
+            lambda i: window_gates(controls, i, steps), inpaint_cond, lora,
+            prec, cache)
+        denoise = fns if cache is None else fns[0]
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
+        cached_step = None
+        if cache is not None:
+            _, refresh, reuse = fns
+            reuse_step = kd.make_sampler_step(spec, reuse, sigmas,
+                                              image_keys)
+
+            def cached_step(carry, i):
+                if not cache.valid or i % cache.cadence == 0:
+                    refresh(carry.x, sigmas[i], i)
+                return reuse_step(carry, i)
+
         if ragged is not None:
             step = _zero_tail_rows(step, ragged[0], x.shape[1])
         if mask is not None:
+            # the same pinning noise on either path: the cadence must not
+            # move an inpaint request's draws
             step = _pin_unmasked(step, sigmas, image_keys, *mask)
+            if cached_step is not None:
+                cached_step = _pin_unmasked(cached_step, sigmas, image_keys,
+                                            *mask)
         carry = kd.init_carry(x)
         self.state.begin(job, end - start_step)
         pos = start_step
         while pos < end and not self.state.flag.interrupted:
             chunk_end = min(pos + self.chunk_size, end)
+            run_step = step
+            if cache is not None:
+                # a unit active anywhere in the chunk feeds the deep
+                # blocks: the plain evaluation runs, and the cache is stale
+                lo = (pos + 0.5) / steps
+                hi = (chunk_end - 0.5) / steps
+                if any(c[3] <= hi and c[4] >= lo for c in controls):
+                    cache.valid = False
+                else:
+                    run_step = cached_step
             for i in range(pos, chunk_end):
-                carry = step(carry, i)
+                carry = run_step(carry, i)
             pos = chunk_end
             self.state.step(pos - start_step)
         self.state.finish()
+        if cache is not None:
+            self.last_step_evals = cache.counts
         return carry.x
 
     def _denoise_adaptive(self, payload: GenerationPayload, x: torch.Tensor,
                           image_keys: torch.Tensor, conds, added, job: str,
                           start_step: int, end_step: Optional[int],
                           controls: Sequence[Control] = (), mask=None,
-                          inpaint_cond: Optional[torch.Tensor] = None
+                          inpaint_cond: Optional[torch.Tensor] = None,
+                          precision: Optional[
+                              precision_mod.PrecisionSpec] = None
                           ) -> torch.Tensor:
         """DPM adaptive: the host PID loop over one attempt of 3 UNet
         evaluations (k-diffusion ``sample_dpm_adaptive``): the step count
@@ -717,7 +898,9 @@ class Engine:
         package gates them (:func:`adaptive_gates`). With a ``mask`` the
         unmasked region is pinned after each accepted step, its noise
         keyed ``fold_in(fold_in(k, 2_000_000), n)``, and once more at
-        sigma 0 when the run completes the ladder."""
+        sigma 0 when the run completes the ladder. Every attempt runs at
+        the request's ``precision``; the step cache does not apply (as in
+        the JAX package, whose attempt executable takes none)."""
         spec = kd.resolve_sampler(payload.sampler_name)
         steps = payload.steps
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
@@ -737,7 +920,7 @@ class Engine:
         denoise = self._make_denoise_fn(
             *conds, payload.cfg_scale, x.shape[0], added=added,
             controls=controls, gates=lambda step: gates_now,
-            inpaint_cond=inpaint_cond)
+            inpaint_cond=inpaint_cond, precision=precision)
         attempt = kd.make_adaptive_attempt(denoise)
 
         def attempt_fn(xx, x_prev, s, h, rtol, atol):
@@ -1314,11 +1497,10 @@ class Engine:
         return run(payload, start, count, job)
 
     def check_supported(self, payload: GenerationPayload) -> None:
-        """:func:`check_supported`, and what this engine's family does not
-        run: SDXL under ragged dispatch (its added conditioning would have
-        to ride per row; the classic run would give another image than the
-        JAX package's ragged one)."""
-        check_supported(payload)
+        """Raise :class:`Unsupported` (HTTP 422) for what this engine's
+        family does not run: SDXL under ragged dispatch (its added
+        conditioning would have to ride per row; the classic run would give
+        another image than the JAX package's ragged one)."""
         if self.family.unet.addition_embed_dim and \
                 self._ragged_plan(payload) is not None and \
                 self._refiner_engine(payload) is None:
@@ -1498,6 +1680,26 @@ class Engine:
                                    "img2img")
 
 
+class _StepCache:
+    """One denoise range's deep-feature cache: the ``[uncond; cond]``
+    rows of the deep feature (``buf``, outside the graphs' pool), whether
+    they are valid, the refresh cadence, the first CFG-truncated step and
+    the range's evaluations by kind (``stepcache.plan_schedule``'s
+    keys)."""
+
+    def __init__(self, buf: torch.Tensor, cadence: int, cfg_stop: int):
+        self.buf = buf
+        self.valid = False
+        self.cadence = cadence
+        self.cfg_stop = cfg_stop
+        self.counts = dict.fromkeys(
+            ("full_evals", "reuse_full_evals", "reuse_trunc_evals",
+             "deep_full", "deep_trunc", "refreshes"), 0)
+
+    def count(self, kind: str) -> None:
+        self.counts[kind] += 1
+
+
 @contextlib.contextmanager
 def _reproducible(device: torch.device):
     """cuDNN may otherwise pick convolution algorithms whose sums run in a
@@ -1621,20 +1823,3 @@ def adaptive_gates(controls: Sequence[Control], sigmas: torch.Tensor,
     frac = (idx + 0.5) / max(n, 1)
     return [float(np.float32(w)) if lo <= frac <= hi else 0.0
             for _, _, w, lo, hi in controls]
-
-
-def check_supported(payload: GenerationPayload) -> None:
-    """Raise :class:`Unsupported` for what this slice does not run, rather
-    than answer with an image the JAX package would not make."""
-    ov: Dict = payload.override_settings or {}
-    unsupported = {
-        "serving precisions other than bf16": str(
-            payload.precision or ov.get("precision") or "bf16") != "bf16",
-        "the step cache (deepcache)": int(ov.get("deepcache", 1) or 1) > 1,
-        "CFG truncation (cfg_cutoff)": float(ov.get("cfg_cutoff", 0)
-                                             or 0) > 0,
-    }
-    asked = [name for name, on in unsupported.items() if on]
-    if asked:
-        raise Unsupported(f"not ported to the PyTorch engine yet: "
-                          f"{', '.join(asked)}")

@@ -30,6 +30,25 @@ Warmup knobs (``serving/warmup.py``; README "Warmup and CUDA graphs"):
   traced-LoRA ladder cells the sweep also captures, with all-zero
   stand-in sets (under ``SDTPU_LORA_TRACED``): every adapter bucketed into
   a warmed cell replays its graphs.
+- ``SDTPU_WARMUP_PRECISIONS`` (comma list, default "" = the policy's
+  default only): the serving precisions the sweep also captures at every
+  point (``bf16,int8`` warms the int8 graphs too); a precision is an axis
+  of the graph tag.
+
+Cost levers (``pipeline/precision.py``, ``pipeline/stepcache.py``; README
+"Per-request cost levers"), each the default a request's own setting
+overrides:
+
+- ``SDTPU_UNET_INT8`` / ``SDTPU_UNET_INT8_CONV`` (flags, off): the card
+  policy's default serving precision, ``int8`` / ``int8+conv``
+  (``runtime/dtypes.py``); per request: ``precision`` or
+  ``override_settings.precision``.
+- ``SDTPU_DEEPCACHE`` (int, 1 = off): the deep-feature refresh cadence,
+  rounded down onto ``stepcache.CADENCE_LADDER`` (1/2/3/4/6/8); per
+  request: ``override_settings.deepcache``.
+- ``SDTPU_CFG_CUTOFF`` (float sigma, 0 = off): from the first step whose
+  sigma lies below it the unconditional half is dropped; per request:
+  ``override_settings.cfg_cutoff``.
 
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.

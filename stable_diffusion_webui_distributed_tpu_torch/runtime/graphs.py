@@ -9,8 +9,9 @@ each evaluation (the ControlNet units and the UNet) per input signature
 into a ``torch.cuda.CUDAGraph`` and replays it after that.
 
 **Key.** A call names its tensor inputs. The key is the caller's tag (the
-kind, and which ControlNet modules run at which unit positions: a unit
-gated to 0 is not in the graph) with the ``(name, shape, dtype, layout)``
+kind, the serving precision's flags, the step cache's mode, and which
+ControlNet modules run at which unit positions: a unit gated to 0 is not
+in the graph) with the ``(name, shape, dtype, layout)``
 of every input and the number of scalars. The names and shapes carry the
 rest: ragged or not (``true_rows``), the inpainting channels, SDXL's added
 conditioning and the traced-LoRA cell (the factor leaves' slot and rank
@@ -71,6 +72,7 @@ from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     add_launches,
     flash_attention,
 )
+from stable_diffusion_webui_distributed_tpu_torch.ops.quant import int8_mm
 from stable_diffusion_webui_distributed_tpu_torch.ops.ragged_attention import (
     ragged_attention,
 )
@@ -78,8 +80,9 @@ from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
     METRICS,
 )
 
-#: the kernel wrappers whose launches a replay adds
-COUNTED = (flash_attention, ragged_attention)
+#: the wrappers whose launches a replay adds: the attention kernels and
+#: the int8 products
+COUNTED = (flash_attention, ragged_attention, int8_mm)
 #: bytes of static inputs and outputs a cache keeps before a capture drops
 #: its least recently used entries
 STATIC_BUDGET = 4 * 2**30

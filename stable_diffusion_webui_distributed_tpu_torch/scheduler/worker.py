@@ -42,6 +42,9 @@ from typing import Any, Deque, Dict, List, Optional, Protocol, Tuple
 
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+    precision as precision_mod,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -271,8 +274,18 @@ class WorkerNode:
 
     def eta(self, payload, batch_size: Optional[int] = None,
             steps: Optional[int] = None) -> float:
+        # the payload's serving precision scales the compute part, so a
+        # fleet predicts each request at its own speed
         return eta_mod.predict_eta(self.cal, payload, self.benchmark_payload,
-                                   batch_size=batch_size, steps=steps)
+                                   batch_size=batch_size, steps=steps,
+                                   precision=self._payload_precision(payload))
+
+    @staticmethod
+    def _payload_precision(payload) -> str:
+        """The payload's resolved precision for the ETA: its own fields
+        only (a remote backend's environment defaults are not visible
+        here, so an unnamed precision calibrates as bf16)."""
+        return precision_mod.resolve(payload).name
 
     # -- request lifecycle --------------------------------------------------
 
@@ -312,7 +325,11 @@ class WorkerNode:
         self.response_time = elapsed
         self.health.record_result(True, elapsed)
         if predicted is not None:
-            eta_mod.record_eta_error(self.cal, predicted, elapsed)
+            # an int8 sample refines the int8 factor only, never the bf16
+            # MPE window
+            eta_mod.record_eta_error(
+                self.cal, predicted, elapsed,
+                precision=self._payload_precision(payload))
         self.set_state(State.IDLE)
         return result
 

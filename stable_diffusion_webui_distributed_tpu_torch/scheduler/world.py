@@ -10,15 +10,9 @@ grow per request as backends fail and reconnect. Jobs carry an explicit
 concatenation in index order and every backend reproduces its images
 seed-exactly; a failed job's range is requeued on the surviving backends.
 
-The port differs in two places:
-
-- ``execute`` holds the request to what the port's engine runs
-  (``check_supported``), so an unported request answers 422 before any
-  fan-out instead of demoting the workers it would have failed on;
-- the observability hooks (spans, the journal, the flight recorder, the
-  hang watchdog, federation and push registration) and the chaos hook are
-  left out: they are ROADMAP items 17 and 20. So is the operator's
-  ``sync*`` user script.
+The port leaves out the observability hooks (spans, the journal, the flight recorder, the
+hang watchdog, federation and push registration) and the chaos hook: they
+are ROADMAP items 17 and 20. So is the operator's ``sync*`` user script.
 """
 
 from __future__ import annotations
@@ -28,9 +22,6 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
-    check_supported,
-)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -382,7 +373,6 @@ class World:
         payload = payload.model_copy()
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
-        check_supported(payload)
         if payload.all_prompts and payload.context_chunks is None:
             # the request-wide context length, pinned before slicing so an
             # image's conditioning does not depend on its worker's slice

@@ -58,6 +58,10 @@ import torch
 from stable_diffusion_webui_distributed_tpu_torch.models import (
     lora as lora_mod,
 )
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+    precision as precision_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
     parse_controlnet_units,
 )
@@ -153,7 +157,7 @@ class ServingDispatcher:
             run, bucketed = payload.model_copy(), False
             METRICS.record_request(False, bypassed=True)
         else:
-            ragged = ragged_enabled() and self._coalescable(payload)
+            ragged = ragged_enabled() and self._ragged_eligible(payload)
             run, bucketed = self.bucketer.bucket_payload(payload,
                                                          ragged=ragged)
             # batch-ladder padding folds into the ratio only for work that
@@ -216,8 +220,7 @@ class ServingDispatcher:
         error over the whole batch, so a batch mate would change its
         image. Merged LoRA adapters, ControlNet units and an inpainting
         family's extra channels ride no coalesced batch, as in the JAX
-        package. (The step cache, which it also keeps out, is not ported:
-        ``check_supported`` rejects it.)"""
+        package."""
         if p.init_images or p.enable_hr or p.all_prompts:
             return False
         if p.refiner_checkpoint and p.refiner_switch_at < 1.0:
@@ -232,18 +235,41 @@ class ServingDispatcher:
             return False
         return p.total_images <= self.max_batch
 
+    def _ragged_eligible(self, p) -> bool:
+        """May this payload run ragged (SDTPU_RAGGED)? A coalescable one
+        without an active step cache: the deep feature's rows assume the
+        dense layout, so a request with a cadence or a cutoff keeps its
+        classic bucket."""
+        if stepcache.resolve(p).active:
+            return False
+        return self._coalescable(p)
+
+    def _precision_name(self, run) -> str:
+        """A request's resolved serving precision: the group key's last
+        axis and the dispatch mix's label."""
+        # self may be None (the tests call _group_key unbound) or hold no
+        # engine: the bf16 default either way
+        policy = getattr(getattr(self, "engine", None), "policy", None)
+        return precision_mod.resolve(run, policy).name
+
     def _group_key(self, run) -> tuple:
-        # the ragged marker joins as a bool, NOT the true shape: shapes of
-        # one bucket coalescing is the point, but a ragged and a classic
-        # request at the same bucket run different denoise loops. The
-        # traced-LoRA cell is the last two axes ((0, 0) without tags);
-        # the adapter names never enter the key
-        rs = self._traced_rowspec(run) or (0, 0)
+        # The JAX package's axes in its order. The step cache's cadence
+        # and cutoff join: a group runs one denoise loop. The ragged
+        # marker joins as a bool, NOT the true shape: shapes of one bucket
+        # coalescing is the point, but a ragged and a classic request at
+        # the same bucket run different denoise loops. The traced-LoRA
+        # cell is key[-3:-1] ((0, 0) without tags; the adapter names never
+        # enter the key) and the resolved precision the last axis: int8
+        # and bf16 requests never share a batch.
+        sc = stepcache.resolve(run)
+        rs = ServingDispatcher._traced_rowspec(self, run) or (0, 0)
         return ("txt2img", run.sampler_name, int(run.steps),
                 int(run.width), int(run.height), float(run.cfg_scale),
                 run.negative_prompt or "", int(run.clip_skip or 0),
+                sc.cadence, sc.cutoff_sigma,
                 bool((run.override_settings or {}).get("ragged_true_wh")),
-                int(rs[0]), int(rs[1]))
+                int(rs[0]), int(rs[1]),
+                ServingDispatcher._precision_name(self, run))
 
     def _run_grouped(self, ticket: Ticket) -> None:
         key = self._group_key(ticket.run)
@@ -298,7 +324,8 @@ class ServingDispatcher:
                     ticket.result = self._empty_result(ticket)
                     return
                 METRICS.record_queue_wait(time.monotonic() - ticket.enqueued)
-                METRICS.record_dispatch(1)
+                METRICS.record_dispatch(
+                    1, precision=self._precision_name(ticket.run))
                 result = engine.generate_range(ticket.run, 0, None,
                                                ticket.job)
                 if ticket.bucketed:
@@ -335,7 +362,7 @@ class ServingDispatcher:
                 t.result = self._empty_result(t)
         if not live:
             return None
-        METRICS.record_dispatch(len(live))
+        METRICS.record_dispatch(len(live), precision=g.key[-1])
 
         rp = live[0].run.model_copy()
         width, height = rp.width, rp.height
@@ -346,7 +373,7 @@ class ServingDispatcher:
         engine.state.begin_request()
         # undoes any merge; a traced group's sets are installed per member
         engine._apply_prompt_loras(rp)
-        traced = g.key[-2:] != (0, 0)
+        traced = g.key[-3:-1] != (0, 0)
         row_sets: List[lora_mod.TracedSet] = []
 
         # context length pinned to the group max so every merged request

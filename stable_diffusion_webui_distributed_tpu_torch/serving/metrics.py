@@ -8,12 +8,14 @@ dispatch carried (the coalesce factor), how long requests waited in the
 coalesce queue, and how much padding the buckets cost; and, where the JAX
 package counted XLA compiles by stage kind, the CUDA graphs the engines
 captured, by kind (``runtime/graphs.py``: ``"unet"``, with or without
-ControlNet units, and ``"ragged"``). Everything here is host-side counting,
-safe to assert in CPU tests.
+ControlNet units, ``"ragged"``, and the step cache's ``"deep"``,
+``"deep-trunc"``, ``"reuse"`` and ``"reuse-trunc"``); and the dispatches
+and requests of each serving precision (``pipeline/precision.py``).
+Everything here is host-side counting, safe to assert in CPU tests.
 
 Left out: the JAX package's cache-hit counts, its AOT artifact loads and
-its XLA cost-analysis FLOP totals, which have no meaning for eager PyTorch,
-and the per-precision mix (the port serves bf16 only).
+its XLA cost-analysis FLOP totals, which have no meaning for eager PyTorch
+(the FLOP pricer is ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ class DispatchMetrics:
             #: sum of (bucket px / requested px) per bucketed request
             self.padding_ratio_total = 0.0  # guarded-by: _lock
             self.padding_ratio_count = 0  # guarded-by: _lock
+            #: resolved precision name -> dispatches / requests carried
+            #: ("" = the caller did not say)
+            self.precision_dispatches: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
+            self.precision_requests: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
 
     def record_compile(self, kind: str) -> None:
         with self._lock:
@@ -72,12 +78,15 @@ class DispatchMetrics:
             self.padding_ratio_total += float(padding_ratio)
             self.padding_ratio_count += 1
 
-    def record_dispatch(self, n_requests: int) -> None:
+    def record_dispatch(self, n_requests: int, precision: str = "") -> None:
         with self._lock:
             self.dispatches += 1
             self.coalesced_requests += int(n_requests)
             if n_requests >= 2:
                 self.coalesced_dispatches += 1
+            if precision:
+                self.precision_dispatches[str(precision)] += 1
+                self.precision_requests[str(precision)] += int(n_requests)
 
     def record_queue_wait(self, seconds: float) -> None:
         with self._lock:
@@ -106,6 +115,15 @@ class DispatchMetrics:
                 "avg_padding_ratio": (self.padding_ratio_total
                                       / self.padding_ratio_count
                                       if self.padding_ratio_count else None),
+                # the per-precision dispatch mix
+                "precision": {
+                    name: {
+                        "dispatches": self.precision_dispatches.get(name, 0),
+                        "requests": self.precision_requests.get(name, 0),
+                    }
+                    for name in sorted(set(self.precision_dispatches)
+                                       | set(self.precision_requests))
+                },
             }
 
 

@@ -17,11 +17,17 @@ traced-LoRA ladder cells under ``SDTPU_LORA_TRACED``: an all-zero stand-in
 set per cell captures the graphs every adapter bucketed into that cell
 replays (its factors are per-run graph inputs).
 
-Not ported yet: ``SDTPU_WARMUP_PRECISIONS`` and ``_warmup_precisions``
-wait for the serving-precision ladder (int8), and a non-empty value raises
-:class:`~..pipeline.payload.Unsupported` rather than being ignored; the
-report's ``xla_cache_dir`` and ``aot`` block wait for the compiled-artifact
-store. Graphs live in process memory, so a restarted server sweeps again.
+``SDTPU_WARMUP_PRECISIONS`` (comma-separated, default "" = the policy's
+default only) adds serving-precision rungs (``pipeline/precision.py``):
+``bf16,int8`` also captures the int8 graphs of every point, which an int8
+request of that shape replays (a precision is an axis of the graph tag).
+The sweep captures no step-cache graph: a bucket's first request with a
+cadence or a cutoff captures them, and they serve every cadence and cutoff
+after it.
+
+Not ported yet: the report's ``xla_cache_dir`` and ``aot`` block wait for
+the compiled-artifact store. Graphs live in process memory, so a restarted
+server sweeps again.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ from typing import Dict, List, Optional
 from stable_diffusion_webui_distributed_tpu_torch.models import (
     lora as lora_mod,
 )
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+    precision as precision_mod,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
-    Unsupported,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
@@ -47,6 +55,22 @@ from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
 from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
     METRICS,
 )
+
+
+def _warmup_precisions() -> List[str]:
+    """Precision rungs to sweep, bucketed onto the ladder ("" = the
+    engine policy's default): the one empty entry unless
+    SDTPU_WARMUP_PRECISIONS names more."""
+    raw = env_str("SDTPU_WARMUP_PRECISIONS", "")
+    if not raw.strip():
+        return [""]
+    out: List[str] = []
+    for part in raw.split(","):
+        name = precision_mod.bucket_precision(part, "")
+        entry = name if part.strip() else ""
+        if entry not in out:
+            out.append(entry)
+    return out or [""]
 
 
 def _warmup_lora_cells() -> List[Optional[tuple]]:
@@ -80,21 +104,17 @@ def _warmup_lora_cells() -> List[Optional[tuple]]:
 def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
                   steps: Optional[int] = None,
                   sampler: Optional[str] = None) -> Dict:
-    """Run one generation per ``(shape, batch[, LoRA cell])`` point of the
-    ladder; returns the JAX package's report: the points, the steps and
-    sampler, the LoRA cells, the graphs the sweep captured by kind
-    (``stage_builds``) and its wall time."""
+    """Run one generation per ``(shape, batch[, precision][, LoRA cell])``
+    point of the ladder; returns the JAX package's report: the points, the
+    steps and sampler, the precisions, the LoRA cells, the graphs the
+    sweep captured by kind (``stage_builds``) and its wall time."""
     if env_str("SDTPU_WARMUP") == "0":
         return {"skipped": True, "reason": "SDTPU_WARMUP=0"}
-    rungs = env_str("SDTPU_WARMUP_PRECISIONS", "")
-    if rungs.strip():
-        raise Unsupported(f"SDTPU_WARMUP_PRECISIONS={rungs!r}: serving "
-                          f"precision rungs are not ported to the PyTorch "
-                          f"engine yet")
     bucketer = bucketer or ShapeBucketer()
     steps = steps if steps is not None else env_int("SDTPU_WARMUP_STEPS", 20)
     sampler = sampler or env_str("SDTPU_WARMUP_SAMPLER", "Euler a")
 
+    precisions = _warmup_precisions()
     lora_cells = _warmup_lora_cells()
     before = dict(METRICS.summary()["compiles"])
     t0 = time.monotonic()
@@ -102,17 +122,21 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
     try:
         for bw, bh in bucketer.shapes:
             for nb in bucketer.batches:
-                for cell in lora_cells:
-                    engine._warmup_lora = cell
-                    payload = GenerationPayload(
-                        prompt="", steps=steps, width=bw, height=bh,
-                        batch_size=nb, sampler_name=sampler, seed=0)
-                    engine.state.begin_request()
-                    engine.generate_range(payload, 0, None, "warmup")
-                    point = [bw, bh, nb]
-                    if cell is not None:
-                        point.append("r%ds%d" % cell)
-                    warmed.append(tuple(point))
+                for prec in precisions:
+                    for cell in lora_cells:
+                        engine._warmup_lora = cell
+                        payload = GenerationPayload(
+                            prompt="", steps=steps, width=bw, height=bh,
+                            batch_size=nb, sampler_name=sampler, seed=0,
+                            precision=prec)
+                        engine.state.begin_request()
+                        engine.generate_range(payload, 0, None, "warmup")
+                        point = [bw, bh, nb]
+                        if prec != "":
+                            point.append(prec)
+                        if cell is not None:
+                            point.append("r%ds%d" % cell)
+                        warmed.append(tuple(point))
     finally:
         engine._warmup_lora = None
         engine._traced_lora = None
@@ -124,7 +148,7 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
         "buckets": warmed,
         "steps": steps,
         "sampler": sampler,
-        "precisions": [""],
+        "precisions": precisions,
         "lora_cells": ["r%ds%d" % c for c in lora_cells if c is not None],
         "stage_builds": built,
         "wall_s": round(time.monotonic() - t0, 2),

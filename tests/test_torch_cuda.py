@@ -1,5 +1,7 @@
 """Kernels K1 and K2 on the card: each CUDA kernel against its plain
-PyTorch version.
+PyTorch version; and the int8 products of ``ops/quant.py``
+(``torch._int_mm``, padded where it needs) against their exact plain
+products.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry
 the ``cuda`` marker and skip without one. The file imports no JAX, so it
@@ -318,3 +320,40 @@ def test_ragged_rejects_what_the_kernel_cannot_take(card):
     with pytest.raises(ValueError, match="f32 or bf16"):
         ra.ragged_attention(q.half(), q.half(), q.half(),
                             torch.tensor([8, 8], device=card))
+
+
+# -- the int8 products (ops/quant.py) on the card ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 320, 960), (154, 768, 640),
+                                   (5, 37, 19), (16, 6, 8), (33, 2880, 7)])
+def test_int8_mm_equals_the_plain_products_on_card(card, m, k, n):
+    """``torch._int_mm`` with its operands zero-padded where it needs (more
+    than 16 rows, sizes multiples of 8): the exact int32 products."""
+    from stable_diffusion_webui_distributed_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=card,
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=card,
+                      generator=gen)
+    before = quant.int8_mm.launches
+    got = quant.int8_mm(a, w.t())
+    assert quant.int8_mm.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.cpu(),
+                       quant.int8_mm_reference(a.cpu(), w.t().cpu()))
+
+
+@pytest.mark.cuda
+def test_int8_conv_on_card_equals_the_cpu(card):
+    from stable_diffusion_webui_distributed_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, 13, 9, 11), device=card, generator=gen)
+    w = torch.randn((7, 13, 3, 3), device=card, generator=gen)
+    out, acc = quant.int8_conv(x, w, (2, 2), (1, 1), accumulators=True)
+    ref, ref_acc = quant.int8_conv(x.cpu(), w.cpu(), (2, 2), (1, 1),
+                                   accumulators=True)
+    assert torch.equal(acc.cpu(), ref_acc)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-6, atol=0)

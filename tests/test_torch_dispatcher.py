@@ -293,11 +293,17 @@ def test_server_answers_through_the_dispatcher(engine, monkeypatch):
         assert METRICS.summary()["dispatches"] == 1
         assert pixels(resp["images"][0]).shape == (24, 32, 3)  # cropped
         assert "Size: 32x24" in json.loads(resp["info"])["infotexts"][0]
+        # the cost levers are served, each dispatch labelled with its
+        # resolved precision
         for extra in ({"override_settings": {"deepcache": 2}},
                       {"precision": "int8"}):
             status, resp = call(server.port, "/sdapi/v1/txt2img",
                                 {**body, **extra})
-            assert status == 422 and resp["detail"]
+            assert status == 200
+            assert pixels(resp["images"][0]).shape == (24, 32, 3)
+        assert METRICS.summary()["precision"] == {
+            "bf16": {"dispatches": 2, "requests": 2},
+            "int8": {"dispatches": 1, "requests": 1}}
         # per-image prompts run solo: one dispatch of one request
         before = METRICS.summary()
         status, resp = call(server.port, "/sdapi/v1/txt2img",

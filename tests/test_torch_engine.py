@@ -31,7 +31,6 @@ from stable_diffusion_webui_distributed_tpu_torch.ops import flash_attention
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
-    Unsupported,
     b64png_to_array,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
@@ -115,19 +114,23 @@ def test_engine_without_device_raises_when_no_gpu(params, monkeypatch):
         Engine(TINY, bridge.init_seeded(TINY, 0, device="cpu"))
 
 
-@pytest.mark.parametrize("extra,error", [
-    ({"override_settings": {"deepcache": 3}}, Unsupported),
-    ({"override_settings": {"cfg_cutoff": 0.5}}, Unsupported),
-    ({"override_settings": {"precision": "int8"}}, Unsupported),
-    ({"precision": "int8"}, Unsupported),
+@pytest.mark.parametrize("extra", [
+    {"override_settings": {"deepcache": 3}},
+    {"override_settings": {"cfg_cutoff": 0.5}},
+    {"override_settings": {"precision": "int8"}},
+    {"precision": "int8"},
 ])
-def test_unported_requests_raise(port, extra, error):
-    """What the slice does not run raises; it never answers with an image
-    the JAX package would not make."""
+def test_cost_levers_are_served(port, extra):
+    """The step cache, CFG truncation and int8, which earlier slices
+    refused, are served, and each engages (other bytes than the plain
+    request's; their parity with the JAX package is
+    ``test_torch_stepcache.py``'s and ``test_torch_quant.py``'s)."""
     body = {"prompt": "a cow", "steps": 2, "width": 32, "height": 32,
-            **extra}
-    with pytest.raises(error):
-        port.txt2img(GenerationPayload(**body))
+            "seed": 3}
+    plain = port.txt2img(GenerationPayload(**body))
+    got = port.txt2img(GenerationPayload(**body, **extra))
+    assert len(got.images) == 1 and got.seeds == plain.seeds
+    assert got.images != plain.images
 
 
 def test_lora_tags_are_served(port):

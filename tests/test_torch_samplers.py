@@ -20,14 +20,11 @@ import jax.numpy as jnp
 
 from stable_diffusion_webui_distributed_tpu.runtime import rng as jrng
 from stable_diffusion_webui_distributed_tpu.samplers import kdiffusion as jkd
+from stable_diffusion_webui_distributed_tpu.pipeline import (
+    stepcache as jstepcache,
+)
 from stable_diffusion_webui_distributed_tpu.samplers import schedules as jsched
-from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
-    check_supported,
-)
-from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
-    GenerationPayload,
-    Unsupported,
-)
+from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.runtime import rng
 from stable_diffusion_webui_distributed_tpu_torch.samplers import kdiffusion as kd
 from stable_diffusion_webui_distributed_tpu_torch.samplers import schedules
@@ -143,14 +140,19 @@ def test_unknown_name_falls_back_to_euler_a_as_in_jax():
 
 
 @pytest.mark.parametrize("name", sorted(set(kd.SAMPLERS) - set(FIRST_SLICE)))
-def test_unported_samplers_raise(name):
-    """Every sampler runs now; what the port still does not run raises
-    whatever the sampler, and is never answered by another path."""
-    check_supported(GenerationPayload(prompt="a cow", sampler_name=name))
-    with pytest.raises(Unsupported, match="step cache"):
-        check_supported(GenerationPayload(
-            prompt="a cow", sampler_name=name,
-            override_settings={"deepcache": 2}))
+def test_step_cache_plans_every_sampler(name):
+    """Every sampler runs with the step cache: its evaluations per step
+    are the JAX package's, and so is the schedule the step cache plans
+    from them (a two-evaluation sampler's last step makes one)."""
+    spec, jspec = kd.resolve_sampler(name), jkd.resolve_sampler(name)
+    assert spec.evals_per_step == jspec.evals_per_step
+    assert spec.adaptive == (name == "DPM adaptive")
+    chunks = [(0, 4, True), (4, 4, False), (8, 4, True)]
+    for cadence, stop in [(1, 12), (3, 6), (8, 0)]:
+        assert stepcache.plan_schedule(
+            chunks, cadence, stop, spec.evals_per_step, 12) == \
+            jstepcache.plan_schedule(chunks, cadence, stop,
+                                     jspec.evals_per_step, 12)
 
 
 # -- DPM adaptive -------------------------------------------------------------

@@ -264,17 +264,24 @@ def test_plan_scenarios_reach_every_phase():
                          "uneven"}
 
 
-def test_plan_refuses_an_unported_sampler_before_planning():
-    """Every sampler plans now; an unported request is refused by
-    ``execute`` before any plan is made or any worker is asked."""
-    spec = random_spec(random.Random(3))
-    spec["payload"]["sampler_name"] = "DPM++ 2M"
-    world, stubs, payload = make_world(PACKAGES["port"], spec)
-    payload.precision = "int8"
-    with pytest.raises(ValueError, match="not ported"):
-        world.execute(payload)
-    assert world.jobs == []
-    assert all(s.requests == [] for s in stubs.values())
+@pytest.mark.parametrize("precision", ["int8", "int8+conv", "w8a8"])
+def test_plan_at_each_precision_matches_jax(precision):
+    """A request's serving precision scales every worker's ETA by its
+    factor: the plans, and the ETAs the planner reads, are the JAX
+    package's at each rung."""
+    rng = random.Random(3000)
+    for trial in range(12):
+        spec = random_spec(rng)
+        spec["payload"]["precision"] = precision
+        assert planned(PACKAGES["port"], spec) == \
+            planned(PACKAGES["jax"], spec), f"trial {trial}"
+        etas = {}
+        for name, pkg in PACKAGES.items():
+            world, _, payload = make_world(pkg, spec)
+            etas[name] = [w.eta(payload) for w in world.workers_snapshot()
+                          if w.cal.benchmarked]
+        assert all(close(a, b) for a, b in zip(etas["jax"], etas["port"]))
+        assert len(etas["jax"]) == len(etas["port"])
 
 
 @pytest.mark.parametrize("chunk", range(4))

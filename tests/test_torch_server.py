@@ -33,6 +33,7 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     Unsupported,
+    b64png_to_array,
     array_to_b64png,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
@@ -147,14 +148,34 @@ def test_samplers_lists_what_the_port_runs(server):
 
 
 @pytest.mark.parametrize("extra", [
-    {"override_settings": {"deepcache": 2}},
-    {"override_settings": {"cfg_cutoff": 0.5}},
+    {"width": "wide"},
+    {"override_settings": "fast"},
     {"steps": "many"},
 ])
 def test_unported_or_invalid_requests_answer_422(server, extra):
     status, resp = call(server, "/sdapi/v1/txt2img", {**BODY, **extra})
     assert status == 422
     assert resp["detail"]
+
+
+@pytest.mark.parametrize("extra", [
+    {"override_settings": {"deepcache": 2}},
+    {"override_settings": {"deepcache": 8}},
+    {"override_settings": {"cfg_cutoff": 0.5}},
+    {"precision": "int8"},
+    {"precision": "int8+conv"},
+])
+def test_cost_levers_answer_200(server, engine, extra):
+    """The step cache, CFG truncation and both int8 rungs answer 200 with
+    the engine's own images for the request (through the dispatcher's
+    group path: within 1 level, as a coalesced image)."""
+    status, resp = call(server, "/sdapi/v1/txt2img", {**BODY, **extra})
+    assert status == 200
+    want = engine.txt2img(GenerationPayload(**BODY, **extra))
+    assert len(resp["images"]) == len(want.images) == 2
+    for got, ref in zip(resp["images"], want.images):
+        diff = b64png_to_array(got).astype(int) - b64png_to_array(ref)
+        assert abs(diff).max() <= 1
 
 
 def test_lora_requests_are_served(server):
@@ -253,13 +274,17 @@ def test_world_source_answers_txt2img_without_a_dispatcher(
     {"override_settings": {"cfg_cutoff": 0.5}},
     {"precision": "int8"},
 ])
-def test_world_refuses_unported_requests_before_fan_out(world_server, extra):
+def test_world_serves_cost_levers(world_server, fleet_engine, extra):
+    """The World fans a lever's request out like any other: the master
+    runs it and its images are the engine's for the same request."""
     master = world_server.source.master()
     before = master.health.summary()["requests"]
     status, resp = call(world_server, "/sdapi/v1/txt2img", {**BODY, **extra})
-    assert status == 422 and resp["detail"]
+    assert status == 200
+    want = fleet_engine.txt2img(GenerationPayload(**BODY, **extra))
+    assert resp["images"] == want.images
     assert master.current_state() == State.IDLE
-    assert master.health.summary()["requests"] == before
+    assert master.health.summary()["requests"] == before + 1
 
 
 def test_world_serves_lora_requests(world_server, fleet_engine):

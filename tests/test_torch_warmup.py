@@ -3,11 +3,11 @@
 ``serving/warmup.py``: the traced-LoRA cells parsed from
 ``SDTPU_WARMUP_LORA`` and the sweep's report (its points, steps, sampler,
 precisions and cells, and the payloads each point runs) must equal the JAX
-package's for the same ladder and knobs; ``SDTPU_WARMUP=0`` skips without
+package's for the same ladder and knobs, the precision rungs of
+``SDTPU_WARMUP_PRECISIONS`` included; ``SDTPU_WARMUP=0`` skips without
 touching the engine. The port's report has the JAX package's keys but
 ``xla_cache_dir`` and the ``aot`` block, which wait for the compiled-
-artifact store, and a non-empty ``SDTPU_WARMUP_PRECISIONS`` raises until the
-serving-precision ladder is ported.
+artifact store.
 
 ``runtime/graphs.py``: on the CPU the cache runs with a stand-in capture
 backend (``Stub``: the "graph" is the function, replayed on the static
@@ -62,7 +62,6 @@ from stable_diffusion_webui_distributed_tpu_torch.ops import (
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
-    Unsupported,
     b64png_to_array,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import graphs
@@ -133,7 +132,8 @@ class RecordingEngine:
         self.calls.append((payload.prompt, payload.steps, payload.width,
                            payload.height, payload.batch_size,
                            payload.sampler_name, payload.seed,
-                           self._warmup_lora, start, count, job))
+                           payload.precision, self._warmup_lora, start,
+                           count, job))
 
 
 class Untouchable:
@@ -172,6 +172,9 @@ def test_lora_cells_match_jax(monkeypatch, traced, raw, want):
     (([(32, 32)], [2]), {"SDTPU_LORA_TRACED": "1",
                          "SDTPU_WARMUP_LORA": "r16s1,r64s3"},
      {"steps": 4, "sampler": "Euler"}),
+    (([(32, 32)], [1, 2]), {"SDTPU_WARMUP_PRECISIONS": ",int8+conv,int8",
+                            "SDTPU_LORA_TRACED": "1",
+                            "SDTPU_WARMUP_LORA": "r16s1"}, {"steps": 2}),
 ])
 def test_report_and_points_match_jax(monkeypatch, no_xla_cache, ladder, env,
                                      kwargs):
@@ -198,10 +201,19 @@ def test_disabled_sweep_touches_nothing(monkeypatch, no_xla_cache):
     assert got == {"skipped": True, "reason": "SDTPU_WARMUP=0"}
 
 
-def test_precision_rungs_are_refused(monkeypatch):
-    monkeypatch.setenv("SDTPU_WARMUP_PRECISIONS", "bf16,int8")
-    with pytest.raises(Unsupported, match="SDTPU_WARMUP_PRECISIONS.*int8"):
-        warmup.warmup_engine(Untouchable())
+@pytest.mark.parametrize("raw,want", [
+    ("int8", ["int8"]),
+    (",int8", ["", "int8"]),
+    ("bf16,int8", ["bf16", "int8"]),
+    ("w8a8, INT8-conv,int8,nonsense", ["int8", "int8+conv", ""]),
+    ("", [""]),
+])
+def test_precision_rungs_match_jax(monkeypatch, raw, want):
+    """``SDTPU_WARMUP_PRECISIONS`` gives the JAX package's rungs: each
+    bucketed onto the ladder, "" the policy's default."""
+    monkeypatch.setenv("SDTPU_WARMUP_PRECISIONS", raw)
+    assert warmup._warmup_precisions() == \
+        jax_warmup._warmup_precisions() == want
 
 
 def test_metrics_count_captures_as_jax_counts_compiles():
