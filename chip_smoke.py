@@ -29,7 +29,10 @@ Phases, each fatal on failure (no phase is caught and passed over):
    serving phase gives it (self-attention and cross-attention), timed
    beside its plain version and SDPA with a boolean key mask (a yardstick
    that leaves the padded query rows un-zeroed), its bound counted on the
-   valid work only;
+   valid work only; then at the ragged SDXL phase's shapes (head dim 64:
+   (8, 5120, 10, 64) with true lengths 4096 / 4608 / 5120 and (8, 1280,
+   20, 64), each self and cross over 77 context tokens), with totals per
+   ragged SDXL base UNet call (140 launches);
 5. main path: the port's ``ApiServer`` over SD1.5 at full width on seeded
    random weights (bf16 card policy) answers three ``POST
    /sdapi/v1/txt2img`` requests (512x512, 20 steps, Euler a, CFG 7) through
@@ -98,6 +101,18 @@ Phases, each fatal on failure (no phase is caught and passed over):
    one grid and four cells equal to each request alone. Every request's
    K1 launches are exact, all on the Hopper path, K2 none; the text
    encoder is timed per pass and per group;
+7c. caches (``SDTPU_CACHE=1`` for this phase alone, on the same server
+   and engine): two requests sharing their negative prompt (the second
+   has one negative embed hit), the first prompt again (a hit on each
+   half); that first request repeated: answered with 0 dispatches and 0 K1
+   launches and its bytes; three concurrent identical requests: one
+   generation (320 K1 launches), 2 single-flight followers, the same
+   bytes; two prefix pairs of 20-step requests (``denoising_strength`` 0.4
+   / 0.7, then CFG cutoffs 1.0 / 0.5), the first member capturing at step
+   10 and the second resuming there with 160 K1 launches (180 with the
+   cutoffs: a deep and a reuse evaluation a step), no graph
+   captured and the bytes of its fresh run with the cache off (both wall
+   times printed); ``GET /internal/cache`` printed;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
@@ -158,6 +173,17 @@ Phases, each fatal on failure (no phase is caught and passed over):
    5e-2), and where a warm base UNet call at batch 8 spends its time; a
    dual ``clip_l``/``clip_g`` embedding of the base engine's own token rows
    of a word gives that word's conditioning exactly (no image);
+10b. ragged SDXL on that base engine (``SDTPU_RAGGED=1``, a 1024x1280
+   ragged ladder, batch ladder 1,2,4,8, window 0.5 s, set and restored):
+   three concurrent requests of 1024x1024, 1024x1152 and 1024x1280 (30
+   steps Euler a, CFG 7, batch 1, their own seeds) must run as one dispatch
+   of 3, launch K2 4200 times (both attentions of the 70 transformer blocks
+   x 30 steps), all on the Hopper path at head dim 64, and K1 never, and
+   come back at their sizes; each alone (4200 each) within a mean of 2
+   uint8 levels; the group again with the same PNG bytes and no graph
+   captured; one ragged base UNet call at the group's 8 rows bf16 vs f32
+   (relative error at most 5e-2), and its device time by kernel group with
+   K2's share;
 11. config #4 on config #2's base engine (its refiner dropped): three
    rank-16 adapters covering every resolvable kohya key of SDXL, written
    by this script to a temporary ``Lora/`` directory and served through a
@@ -288,24 +314,58 @@ RAGGED_ROWS = [64, 80, 96, 96]
 RAGGED_CTX = [77, 77, 77, 77, 154, 77, 77, 77]  # [uncond rows; cond rows]
 K2_LAUNCHES = 32 * 20  # 16 self + 16 cross per UNet call x 20 steps
 RAGGED_MEAN_TOLERANCE = 2.0  # uint8 levels, coalesced vs solo
+# SD1.5's attention levels as (level, heads, head dim, K2 calls per UNet
+# call): levels 0-2 five each, the mid block one at level 3's size
+SD15_RAGGED_LEVELS = [(0, 8, 40, 5), (1, 8, 80, 5), (2, 8, 160, 5),
+                      (3, 8, 160, 1)]
+
+# The ragged SDXL phase (config #2's base engine): three requests of
+# 1024x1024, 1024x1152 and 1024x1280 on one 1024x1280 bucket, the group
+# padded to batch 4 (the last row repeated), CFG doubling it to 8 rows.
+# Latent rows of each row at level 0 (128 x 160 bucket latents); every
+# prompt and negative prompt takes one chunk (77 context tokens).
+SDXL_RAGGED_SIZES = [(1024, 1024), (1024, 1152), (1024, 1280)]
+SDXL_RAGGED_ROWS = [128, 144, 160, 160]
+SDXL_RAGGED_ENV = {"SDTPU_RAGGED": "1", "SDTPU_RAGGED_LADDER": "1024x1280",
+                   "SDTPU_BATCH_LADDER": "1,2,4,8",
+                   "SDTPU_COALESCE_WINDOW": "0.5"}
+# SDXL base's attention: level 1 (heads 10) in 2 down and 3 up blocks of
+# depth 2 = 10 transformer blocks, level 2 (heads 20) in 2 down and 3 up
+# blocks of depth 10 and the mid block's 10 = 60; head dim 64 throughout
+SDXL_RAGGED_LEVELS = [(1, 10, 64, 10), (2, 20, 64, 60)]
+# both attentions of each of the 70 transformer blocks go to K2, per UNet
+# call, and Euler a runs one call a step
+SDXL_K2_LAUNCHES = 2 * 70 * 30
+SDXL_RAGGED_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+                    "negative_prompt": "blurry", "steps": 30,
+                    "cfg_scale": 7, "sampler_name": "Euler a",
+                    "batch_size": 1}
 
 
-def ragged_shapes():
+def ragged_shapes(rows=RAGGED_ROWS, lat_w: int = 64,
+                  levels=SD15_RAGGED_LEVELS, ctx=RAGGED_CTX):
     """(shape (B,T,H,D), S, lengths, mask_queries, calls per UNet call) of
-    every K2 launch of one ragged UNet call: levels 0-2 five each, the mid
-    block one, self-attention then cross-attention."""
+    every K2 launch of one ragged UNet call with CFG, self-attention then
+    cross-attention per level: ``rows`` the latent rows of each image row
+    at level 0 (the tallest is the bucket's), halved up per level; ``ctx``
+    the valid context tokens of each CFG row (the longest is S)."""
     out = []
-    for level, (d, calls) in enumerate([(40, 5), (80, 5), (160, 5),
-                                        (160, 1)]):
-        rows = list(RAGGED_ROWS)
+    b = 2 * len(rows)
+    for level, heads, d, calls in levels:
+        lv = list(rows)
         for _ in range(level):
-            rows = [(r + 1) // 2 for r in rows]
-        width = 64 >> level
-        t = 96 * 64 >> (2 * level)
-        out.append(((8, t, 8, d), t, [r * width for r in rows] * 2, True,
+            lv = [(r + 1) // 2 for r in lv]
+        width = lat_w >> level
+        t = max(lv) * width
+        out.append(((b, t, heads, d), t, [r * width for r in lv] * 2, True,
                     calls))
-        out.append(((8, t, 8, d), 154, RAGGED_CTX, False, calls))
+        out.append(((b, t, heads, d), max(ctx), list(ctx), False, calls))
     return out
+
+
+def sdxl_ragged_shapes():
+    """:func:`ragged_shapes` of the ragged SDXL phase's UNet call."""
+    return ragged_shapes(SDXL_RAGGED_ROWS, 128, SDXL_RAGGED_LEVELS, [77] * 8)
 
 
 # the bf16 design of both kernels, as the kernels line names it
@@ -530,10 +590,12 @@ def ragged_bound_ms(shape, s_len: int, lens, mask_q: bool,
     return 1e3 * max(t_bytes, t_flops), by, 1e3 * t_exp
 
 
-def phase_ragged_kernels(ra):
+def phase_ragged_kernels(ra, shapes=None, what: str = "ragged UNet call",
+                         card_line: str = ""):
     """K2 against its plain version in f32 and bf16 at every launch of one
-    ragged UNet call, then timed (bf16) beside its plain version and SDPA
-    with a boolean key mask."""
+    ragged UNet call (``shapes``, default the SD1.5 ragged serving phase's;
+    ``what`` names the call), then timed (bf16) beside its plain version
+    and SDPA with a boolean key mask."""
     import torch
     import torch.nn.functional as F
 
@@ -543,7 +605,7 @@ def phase_ragged_kernels(ra):
     max_err = {"f32": 0.0, "bf16": 0.0}
     bound_by = set()
     host = []
-    for shape, s_len, lens, mask_q, calls in ragged_shapes():
+    for shape, s_len, lens, mask_q, calls in shapes or ragged_shapes():
         b, t, h, d = shape
         kind = "self" if mask_q else "cross"
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -610,12 +672,23 @@ def phase_ragged_kernels(ra):
                   f"per call: ms {ms:.4f} (device {dev:.4f}) plain_ms "
                   f"{plain:.4f} library_ms {lib:.4f} (device "
                   f"{lib_dev:.4f}) bound_ms {bms:.4f} ({by}) exp_ms "
-                  f"{exp_ms:.4f} x{calls} per ragged UNet call; "
-                  f"{shape_line(ms, dev, bms, exp_ms, us)}")
+                  f"{exp_ms:.4f} x{calls} per {what}; "
+                  f"{shape_line(ms, dev, bms, exp_ms, us)} {card_line}")
             for key, val in zip(TOTALS, (ms, dev, plain, lib, lib_dev, bms,
                                          exp_ms)):
                 totals[key] += calls * val
     totals["host_us"] = sum(host) / len(host)
+    totals["launches_per_unet_call"] = 2 * sum(
+        calls for *_, mask_q, calls in shapes or ragged_shapes() if mask_q)
+    print(f"kernel ragged_attention {what} "
+          f"({totals['launches_per_unet_call']} launches): ms "
+          f"{totals['ms']:.4f} (device {totals['device_ms']:.4f}) plain_ms "
+          f"{totals['plain_ms']:.4f} library_ms {totals['library_ms']:.4f} "
+          f"(device {totals['library_device_ms']:.4f}) bound_ms "
+          f"{totals['bound_ms']:.4f}; device fraction of bound "
+          f"{totals['bound_ms'] / totals['device_ms']:.3f}, SDPA's "
+          f"{totals['bound_ms'] / totals['library_device_ms']:.3f} "
+          f"{card_line}")
     return totals, max_err, ("operations" if "operations" in bound_by
                              else "bytes")
 
@@ -1164,6 +1237,45 @@ def phase_warmup(fa, ra, card_line: str) -> dict:
     return metrics
 
 
+def env_set(values: dict) -> dict:
+    """Set ``values`` in the environment; returns what to restore."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    return saved
+
+
+def env_restore(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def concurrent_posts(port: int, bodies) -> tuple:
+    """``bodies`` posted together, in order 50 ms apart (well inside a
+    coalesce window): (responses, latencies in s); fails on an error."""
+    results, latency, errors = [None] * len(bodies), [0.0] * len(bodies), []
+
+    def send(i):
+        try:
+            t = time.perf_counter()
+            results[i] = post(port, bodies[i])
+            latency[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errors.append(e)
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+        time.sleep(0.05)
+    for th in threads:
+        th.join()
+    check(not errors, f"a concurrent request failed: {errors}")
+    return results, latency
+
+
 RAGGED_ENV = {"SDTPU_RAGGED": "1", "SDTPU_RAGGED_LADDER": "512x768",
               "SDTPU_BATCH_LADDER": "1,2,4,8",
               "SDTPU_COALESCE_WINDOW": "0.5"}
@@ -1189,20 +1301,9 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
                "negative_prompt": "blurry", "steps": 20, "width": w,
                "height": h, "cfg_scale": 7, "sampler_name": "Euler a",
                "seed": 1234 + i} for i, (w, h) in enumerate(RAGGED_SIZES)]
-    results, latency, errors = [None] * 3, [0.0] * 3, []
-
-    def send(i):
-        try:
-            t = time.perf_counter()
-            results[i] = post(server.port, bodies[i])
-            latency[i] = time.perf_counter() - t
-        except Exception as e:  # noqa: BLE001 — fails the phase below
-            errors.append(e)
-
     # the ladders are read when the server is made, the ragged knobs on
     # every request: all of them stay set for the whole phase
-    saved = {k: os.environ.get(k) for k in RAGGED_ENV}
-    os.environ.update(RAGGED_ENV)
+    saved = env_set(RAGGED_ENV)
     server = None
     try:
         server = ApiServer(engine, port=0).start()
@@ -1211,19 +1312,12 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
         METRICS.clear()
         fa.reset_launches(fa.flash_attention)
         fa.reset_launches(ra.ragged_attention)
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(3)]
-        for th in threads:  # in order, well inside the coalesce window
-            th.start()
-            time.sleep(0.05)
-        for th in threads:
-            th.join()
+        results, latency = concurrent_posts(server.port, bodies)
         k1, k2 = fa.flash_attention.launches, ra.ragged_attention.launches
         paths = dict(ra.ragged_attention.path_launches)
         peak = torch.cuda.max_memory_allocated()
         note_peak("ragged", peak)
         serving = METRICS.summary()
-        check(not errors, f"a ragged request failed: {errors}")
         solo = []
         for body in bodies:
             t = time.perf_counter()
@@ -1232,11 +1326,7 @@ def phase_ragged_serving(engine, fa, ra, card_line: str) -> int:
     finally:
         if server is not None:
             server.stop()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        env_restore(saved)
 
     print(f"ragged serving dispatcher: {json.dumps(serving)}")
     print(f"ragged serving: K2 launches {k2}, K1 launches {k1}; solo runs: "
@@ -1848,6 +1938,191 @@ def phase_scripts(engine, fa, ra, card_line: str) -> dict:
     return metrics
 
 
+# The caches phase (SDTPU_CACHE=1 for the phase alone) on the main path's
+# engine: config #1's request shape, and two prefix pairs of 20-step
+# requests that capture at step 10, the chunk boundary (chunk_size 10)
+CACHES_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+               "negative_prompt": "blurry", "steps": 20, "width": 512,
+               "height": 512, "cfg_scale": 7, "sampler_name": "Euler a"}
+# two CFG cutoffs whose stop steps on the 20-step Euler a ladder are 13 and
+# 16, both past the capture at step 10 (a request without a cutoff shares
+# no prefix with one that has one: the step cache's activity is keyed)
+CACHES_CUTOFFS = (1.0, 0.5)
+CACHES_PREFIX_STEP = 10
+
+
+def phase_caches(engine, fa, ra, card_line: str) -> dict:
+    """The caching tier through the port's server on the main path's
+    engine, ``SDTPU_CACHE=1`` set for the phase and unset after it:
+
+    - embed: two requests sharing their negative prompt (the second has
+      one negative hit), then the first prompt again (a hit on each half);
+    - result: a repeat answered with no dispatch and no K1 launch, with
+      the first run's bytes; three concurrent identical requests run one
+      generation (320 K1 launches), two followers join it, all three get
+      the same bytes;
+    - prefix: two pairs of 20-step requests, each first member capturing
+      at step 10 and the second resuming there (160 K1 launches, no graph
+      captured) with the bytes of the same request run with the cache off:
+      ``denoising_strength`` 0.4 / 0.7 (inert on txt2img, in the result key
+      but not the prefix key), then two CFG cutoffs (whose steps run a deep
+      and a reuse evaluation each: 180 K1 launches from step 10).
+
+    ``GET /internal/cache`` is printed."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch import cache
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    server = ApiServer(engine, port=0).start()
+    out = {"card": card_line}
+
+    def run(body, tag):
+        """One request: its response, wall time, K1 launches, dispatches
+        and graphs captured."""
+        METRICS.clear()
+        fa.reset_launches(fa.flash_attention)
+        graphs0 = captures()
+        t = time.perf_counter()
+        resp = post(server.port, body)
+        wall = time.perf_counter() - t
+        row = {"wall_s": round(wall, 4), "k1": fa.flash_attention.launches,
+               "hopper": fa.flash_attention.path_launches.get("hopper", 0),
+               "dispatches": METRICS.summary()["dispatches"],
+               "captured": captures() - graphs0}
+        print(f"caches ({tag}): {json.dumps(row)} [{card_line}]")
+        check(row["hopper"] == row["k1"], f"caches ({tag}): K1 off the "
+              f"Hopper path")
+        out[tag] = row
+        return resp, row
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the fresh runs the resumed ones are held to, with the gate off
+        os.environ.pop("SDTPU_CACHE", None)
+        pair1 = [{**CACHES_BODY, "seed": 4301, "denoising_strength": ds}
+                 for ds in (0.4, 0.7)]
+        pair2 = [{**CACHES_BODY, "seed": 4302,
+                  "override_settings": {"cfg_cutoff": c}}
+                 for c in CACHES_CUTOFFS]
+        # each twice: the first may capture graphs, the second is the
+        # warm fresh run the resumed one is timed beside (the same bytes)
+        fresh = []
+        for n, pair in ((1, pair1), (2, pair2)):
+            first_run, _ = run(pair[1], f"prefix pair {n} fresh, cache off, "
+                               f"first")
+            again_run, _ = run(pair[1], f"prefix pair {n} fresh, cache off")
+            check(again_run["images"] == first_run["images"],
+                  f"caches: prefix pair {n}'s fresh request repeated gave "
+                  f"other PNG bytes")
+            fresh.append(again_run)
+        fresh1, fresh2 = fresh
+
+        os.environ["SDTPU_CACHE"] = "1"
+        cache.clear_all()
+        # embed
+        a = {**CACHES_BODY, "seed": 4201}
+        b = {**CACHES_BODY, "seed": 4202, "prompt": "a red barn in a field"}
+        c = {**a, "seed": 4203}
+        first, _ = run(a, "embed: first request")
+        embed = [cache.embed_layer.summary()]
+        run(b, "embed: shared negative prompt")
+        embed.append(cache.embed_layer.summary())
+        run(c, "embed: repeated prompt")
+        embed.append(cache.embed_layer.summary())
+        halves = [(e["positive"]["hits"], e["negative"]["hits"])
+                  for e in embed]
+        print(f"caches: embed (positive, negative) hits after each request "
+              f"{halves}")
+        check(halves == [(0, 0), (0, 1), (1, 2)],
+              f"caches: embed hits {halves}, want [(0, 0), (0, 1), (1, 2)]")
+        out["embed_hits"] = halves
+
+        # result dedupe: a repeat, then three concurrent identical requests
+        again, row = run(a, "result: repeat")
+        check(row["dispatches"] == 0 and row["k1"] == 0,
+              f"caches: the repeat dispatched {row['dispatches']} times, "
+              f"K1 {row['k1']}")
+        check(again["images"] == first["images"],
+              "caches: the result hit gave other PNG bytes")
+        flights0 = cache.FLIGHTS.stats()
+        METRICS.clear()
+        fa.reset_launches(fa.flash_attention)
+        t = time.perf_counter()
+        same = {**CACHES_BODY, "seed": 4204}
+        resps, lat = concurrent_posts(server.port, [same] * 3)
+        flights = cache.FLIGHTS.stats()
+        row = {"wall_s": round(time.perf_counter() - t, 4),
+               "latency_s": [round(x, 4) for x in lat],
+               "k1": fa.flash_attention.launches,
+               "dispatches": METRICS.summary()["dispatches"],
+               "led": flights["led"] - flights0["led"],
+               "joined": flights["joined"] - flights0["joined"]}
+        print(f"caches (result: three concurrent identical requests): "
+              f"{json.dumps(row)} [{card_line}]")
+        check(row["k1"] == LAUNCHES_PER_GROUP and row["dispatches"] == 1,
+              f"caches: three identical requests ran {row['dispatches']} "
+              f"dispatches, K1 {row['k1']}")
+        check(row["led"] == 1 and row["joined"] == 2,
+              f"caches: single-flight led {row['led']}, joined "
+              f"{row['joined']}, want 1 and 2")
+        check(all(r["images"] == resps[0]["images"] for r in resps),
+              "caches: the three identical requests got other bytes")
+        out["single_flight"] = row
+
+        # prefix sharing
+        for n, (pair, fresh) in enumerate(((pair1, fresh1),
+                                           (pair2, fresh2)), 1):
+            p0 = cache.prefix_layer.summary()
+            run(pair[0], f"prefix pair {n}: capture")
+            p1 = cache.prefix_layer.summary()
+            resumed, row = run(pair[1], f"prefix pair {n}: resume")
+            p2 = cache.prefix_layer.summary()
+            check(p1["captured"] - p0["captured"] == 1,
+                  f"caches: prefix pair {n} captured nothing")
+            check(p2["resumed"] - p1["resumed"] == 1,
+                  f"caches: prefix pair {n} did not resume")
+            # every step of either pair launches the same: 16 (one plain
+            # evaluation) or, with a cutoff, 18 (a deep evaluation, 13,
+            # and a reuse one, 5, ``k1_per_evaluation``)
+            full = ladder_expected(engine, pair[1])[0]
+            fresh_k1 = out[f"prefix pair {n} fresh, cache off"]["k1"]
+            want = full * (pair[1]["steps"] - CACHES_PREFIX_STEP) \
+                // pair[1]["steps"]
+            check(fresh_k1 == full, f"caches: the fresh request of pair {n} "
+                  f"launched K1 {fresh_k1} times, want {full}")
+            check(row["k1"] == want, f"caches: the resumed request of pair "
+                  f"{n} launched K1 {row['k1']} times, want {want}")
+            check(row["captured"] == 0, f"caches: the resumed request of "
+                  f"pair {n} captured a graph")
+            check(resumed["images"] == fresh["images"],
+                  f"caches: the resumed request of pair {n} gave other PNG "
+                  f"bytes than its fresh run")
+            print(f"caches: prefix pair {n} resumed at step "
+                  f"{CACHES_PREFIX_STEP} in {row['wall_s']:.3f} s, fresh "
+                  f"{out[f'prefix pair {n} fresh, cache off']['wall_s']:.3f}"
+                  f" s, the same PNG bytes [{card_line}]")
+        out["peak_memory_gib"] = round(
+            torch.cuda.max_memory_allocated() / 2**30, 3)
+        note_peak("caches", torch.cuda.max_memory_allocated())
+        summary = get_json(server.port, "/internal/cache")
+        print("caches: GET /internal/cache " + json.dumps(summary))
+        check(summary["enabled"] is True, "caches: the route says disabled")
+        out["summary"] = summary
+    finally:
+        server.stop()
+        os.environ.pop("SDTPU_CACHE", None)
+        cache.clear_all()
+    print("caches metrics: " + json.dumps(out))
+    return out
+
+
 def phase_scripts_sdxl(base, card_line: str) -> None:
     """SDXL textual inversion on config #2's base engine: an embedding of
     a word's clip_l and clip_g rows gives the word's conditioning exactly
@@ -1991,17 +2266,18 @@ def phase_samplers(engine, fa, ra, card_line: str) -> dict:
     return rows
 
 
-def unet_rel_error(unet, x, t, ctx, added=None, f32=None) -> float:
+def unet_rel_error(unet, x, t, ctx, added=None, f32=None, **extra) -> float:
     """One full-width UNet call on the bf16 card policy against the same
     weights on the f32 policy (whose UNet runs K1 in f32), or against
-    ``f32``: the relative error of the bf16 output."""
+    ``f32``: the relative error of the bf16 output. ``extra``: more UNet
+    arguments (a ragged call's ``true_rows`` and ``ctx_true``)."""
     import torch
 
     from stable_diffusion_webui_distributed_tpu_torch.models.unet import UNet
 
     if f32 is None:
         f32 = f32_copy(unet, lambda: UNet(unet.cfg))
-    kw = {} if added is None else {"added_cond": added}
+    kw = dict(extra) if added is None else {"added_cond": added, **extra}
     with torch.inference_mode():
         out16 = unet(x, t, ctx, **kw)
         out32 = f32(x, t, ctx, **kw)
@@ -3427,6 +3703,175 @@ def phase_config2(fa, ra, card_line: str) -> dict:
     return metrics, base
 
 
+def phase_ragged_sdxl(base, fa, ra, card_line: str) -> dict:
+    """SDXL under ragged dispatch on config #2's base engine: three
+    concurrent requests of three heights on one 1024x1280 bucket through
+    the port's server must run as one dispatch with K2's exact launches
+    (``SDXL_K2_LAUNCHES``: both attentions of the 70 transformer blocks x
+    30 steps), all on the Hopper path at head dim 64, and K1 none; each
+    request alone within a mean of 2 uint8 levels; the group again with the
+    same PNG bytes. Then one ragged base UNet call at the group's 8 rows,
+    bf16 against f32 on the same weights, and where its device time goes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    bodies = [{**SDXL_RAGGED_BODY, "width": w, "height": h, "seed": 77 + i,
+               "prompt": f"{SDXL_RAGGED_BODY['prompt']}, view {i}"}
+              for i, (w, h) in enumerate(SDXL_RAGGED_SIZES)]
+    saved = env_set(SDXL_RAGGED_ENV)
+    server = None
+    runs = {}
+    try:
+        server = ApiServer(base, port=0).start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for tag in ("group", "solo", "group again"):
+            METRICS.clear()
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            graphs0 = captures()
+            t = time.perf_counter()
+            if tag == "solo":
+                resps, lat = [], []
+                for body in bodies:
+                    t1 = time.perf_counter()
+                    resps.append(post(server.port, body))
+                    lat.append(time.perf_counter() - t1)
+            else:
+                resps, lat = concurrent_posts(server.port, bodies)
+            runs[tag] = {"resps": resps, "latency_s": lat,
+                         "wall_s": time.perf_counter() - t,
+                         "k1": fa.flash_attention.launches,
+                         "k2": ra.ragged_attention.launches,
+                         "k2_paths": dict(ra.ragged_attention.path_launches),
+                         "captured": captures() - graphs0,
+                         "serving": METRICS.summary()}
+        peak = torch.cuda.max_memory_allocated()
+        note_peak("ragged SDXL", peak)
+    finally:
+        if server is not None:
+            server.stop()
+        env_restore(saved)
+
+    for tag, r in runs.items():
+        print(f"ragged SDXL ({tag}): wall {r['wall_s']:.3f} s, latency "
+              f"{[round(x, 3) for x in r['latency_s']]} s, dispatches "
+              f"{r['serving']['dispatches']}, coalesced requests "
+              f"{r['serving']['coalesced_requests']}, K2 launches {r['k2']} "
+              f"by path {json.dumps(r['k2_paths'])}, K1 {r['k1']}, graphs "
+              f"captured {r['captured']} [{card_line}]")
+        n = 1 if tag != "solo" else len(bodies)
+        check(r["k1"] == 0, f"ragged SDXL ({tag}) launched K1 {r['k1']} "
+              f"times")
+        check(r["k2"] == n * SDXL_K2_LAUNCHES, f"ragged SDXL ({tag}) "
+              f"launched K2 {r['k2']} times, want {n * SDXL_K2_LAUNCHES}")
+        check(r["k2_paths"].get("hopper") == r["k2"],
+              f"ragged SDXL ({tag}): K2 off the Hopper path: "
+              f"{r['k2_paths']}")
+    for tag in ("group", "group again"):
+        s = runs[tag]["serving"]
+        check(s["dispatches"] == 1 and s["coalesced_requests"] == 3,
+              f"ragged SDXL ({tag}): the three requests did not run as one "
+              f"dispatch: {json.dumps(s)}")
+    check(runs["solo"]["serving"]["dispatches"] == 3,
+          "ragged SDXL: the solo requests did not run alone")
+    check(runs["group again"]["captured"] == 0,
+          "ragged SDXL: the repeated group captured a graph")
+    group, solo, again = (runs[t]["resps"]
+                          for t in ("group", "solo", "group again"))
+    diffs = []
+    for i, (w, h) in enumerate(SDXL_RAGGED_SIZES):
+        info = json.loads(group[i]["info"])
+        check(info["all_seeds"] == [bodies[i]["seed"]],
+              f"ragged SDXL request {i} seeds")
+        check(f"Size: {w}x{h}" in info["infotexts"][0],
+              f"ragged SDXL request {i} infotext lacks Size: {w}x{h}")
+        check(again[i]["images"] == group[i]["images"],
+              f"ragged SDXL request {i}: the repeated group gave other PNG "
+              f"bytes")
+        px, px_solo = (png_pixels(r["images"][0]) for r in (group[i],
+                                                           solo[i]))
+        check(px.shape == px_solo.shape == (h, w, 3),
+              f"ragged SDXL request {i}: image shape {px.shape}, solo "
+              f"{px_solo.shape}")
+        check(float(px.std()) > 1.0,
+              f"ragged SDXL request {i}: image is (near) constant")
+        diff = np.abs(px.astype(np.int32) - px_solo.astype(np.int32))
+        diffs.append(float(diff.mean()))
+        print(f"ragged SDXL request {w}x{h}: coalesced vs solo mean abs "
+              f"{diff.mean():.4f}, max {diff.max()} (uint8 levels)")
+        check(diff.mean() <= RAGGED_MEAN_TOLERANCE,
+              f"ragged SDXL request {i}: coalesced image drifted from its "
+              f"solo run")
+
+    # one ragged base UNet call as the group makes it: 8 rows (4 with CFG)
+    # of 160x128 latents, each row's true rows and 77 context tokens
+    cfg = base.family.unet
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((8, 160, 128, 4), device="cuda", generator=gen)
+    t = torch.full((8,), 500.0, device="cuda")
+    ctx = torch.randn((8, 77, cfg.cross_attention_dim), device="cuda",
+                      generator=gen)
+    added = torch.randn((8, cfg.projection_input_dim), device="cuda",
+                        generator=gen)
+    ragged = {"true_rows": torch.tensor(SDXL_RAGGED_ROWS * 2, device="cuda"),
+              "ctx_true": torch.full((8,), 77, device="cuda")}
+    keep = (torch.arange(160, device="cuda")[None, :]
+            < ragged["true_rows"][:, None])[:, :, None, None]
+    x = torch.where(keep, x, 0.0)
+    rel = unet_rel_error(base.unet, x, t, ctx, added, **ragged)
+    print(f"ragged SDXL reference: base UNet call (8 rows, 160x128 bucket "
+          f"latents, ragged) bf16 vs f32 relative error {rel:.4g} "
+          f"(tolerance 5e-2)")
+    check(rel <= 5e-2, "the bf16 ragged SDXL UNet disagrees with the f32 "
+          "UNet")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the engine runs
+    with torch.inference_mode():
+        def call():
+            return base.unet(x, t, ctx, added_cond=added, **ragged)
+
+        unet_ms = cuda_ms(call, 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = prev
+    groups = device_groups(prof, 2)
+    print_groups("ragged SDXL base UNet call (8 rows = 4 with CFG, 160x128 "
+                 "bucket latents)", unet_ms, groups, card_line)
+    k2_ms = groups.get("K2 ragged_attention", 0.0)
+    busy = sum(groups.values())
+    metrics = {"group_wall_s": round(runs["group"]["wall_s"], 4),
+               "group_latency_s": [round(x, 4)
+                                   for x in runs["group"]["latency_s"]],
+               "group_again_wall_s": round(runs["group again"]["wall_s"], 4),
+               "solo_latency_s": [round(x, 4)
+                                  for x in runs["solo"]["latency_s"]],
+               "coalesced_vs_solo_mean_abs": [round(x, 4) for x in diffs],
+               "peak_memory_gib": round(peak / 2**30, 3),
+               "k2_launches": runs["group"]["k2"],
+               "k2_path_launches": runs["group"]["k2_paths"],
+               "k1_launches": runs["group"]["k1"],
+               "graphs_captured": {t: r["captured"] for t, r in runs.items()},
+               "unet_bf16_vs_f32_rel": round(rel, 5),
+               "unet_call_ms": round(unet_ms, 3),
+               "unet_call_device_ms": {g: round(v, 3)
+                                       for g, v in groups.items()},
+               "k2_share_of_device_time": round(k2_ms / busy, 4),
+               "card": card_line}
+    print("ragged SDXL metrics: " + json.dumps(metrics))
+    return metrics
+
+
 # BASELINE config #4 (bench.py:403-414, sdxl_lora_stack_b4_ipm): SDXL base
 # with three stacked adapters at 0.8, 1024x1024, 30 steps Euler a, CFG 7,
 # batch 4, seed 1. The adapters are written by this script: rank 16, alpha
@@ -4745,13 +5190,17 @@ def main() -> int:
     config4_k1 = {"max_abs_err": config4_k1["max_abs_err"],
                   **config4_k1["config #4 base"]}
     config5_k1 = phase_sdxl_kernels(fa, card_line, CONFIG5_SHAPES)
-    r_totals, r_err, r_bound_by = phase_ragged_kernels(ra)
+    r_totals, r_err, r_bound_by = phase_ragged_kernels(
+        ra, card_line=card_line)
+    sdxl_r_totals, sdxl_r_err, sdxl_r_bound_by = phase_ragged_kernels(
+        ra, sdxl_ragged_shapes(), "ragged SDXL base UNet call", card_line)
     engine, launches, paths = phase_main_path(fa, ra, card_line)
     warmup = phase_warmup(fa, ra, card_line)
     samplers = phase_samplers(engine, fa, ra, card_line)
     k2_launches, r_paths = phase_ragged_serving(engine, fa, ra, card_line)
     fleet = phase_fleet(engine, fa, ra, card_line)
     scripts = phase_scripts(engine, fa, ra, card_line)
+    caches = phase_caches(engine, fa, ra, card_line)
     phase_reference(engine)
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
@@ -4760,6 +5209,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     config2, base = phase_config2(fa, ra, card_line)
+    ragged_sdxl = phase_ragged_sdxl(base, fa, ra, card_line)
     phase_scripts_sdxl(base, card_line)
     cost_ladder_sdxl = phase_cost_ladder_sdxl(base, fa, ra, card_line)
     config4 = phase_config4(base, fa, ra, card_line)
@@ -4869,6 +5319,9 @@ def main() -> int:
         "checkpoint_launches": checkpoints["launches"],
         "warmup": warmup,
         "scripts_launches": scripts["k1_launches"],
+        "caches_launches": {
+            tag: row["k1"] for tag, row in caches.items()
+            if isinstance(row, dict) and "k1" in row},
         "cost_ladder_launches": {
             lever: row["k1_launches"]
             for lever, row in cost_ladder["requests"].items()
@@ -4918,6 +5371,16 @@ def main() -> int:
         "per": "one ragged UNet call of SD1.5 on a 512x768 bucket, batch 4 "
                "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
                "the valid work",
+        "sdxl_launches": ragged_sdxl["k2_launches"],
+        "sdxl_path_launches": ragged_sdxl["k2_path_launches"],
+        "sdxl_max_abs_err": sdxl_r_err["bf16"],
+        "sdxl_max_abs_err_f32": sdxl_r_err["f32"],
+        **{f"sdxl_{key}": round(sdxl_r_totals[key], 4) for key in TOTALS},
+        "sdxl_bound_by": sdxl_r_bound_by,
+        "sdxl_host_us_per_launch": round(sdxl_r_totals["host_us"], 2),
+        "sdxl_per": "one ragged SDXL base UNet call on a 1024x1280 bucket, "
+                    "batch 4 with CFG (140 launches: 70 self, 70 cross, "
+                    "head dim 64), bf16; bound on the valid work",
     }]
     print("peak memory per phase, GiB (this run; the parent's final run): "
           + json.dumps({phase: [round(peak / 2**30, 3),

@@ -42,6 +42,18 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name}")
 
 
+def tower_fingerprint(cfg: Optional[CLIPTextConfig]) -> tuple:
+    """Architecture identity of one text tower for the embed cache's keys
+    (JAX ``models/clip.py`` ``tower_fingerprint``): every field that
+    changes the hidden states; no tower (None) gives the empty tuple, so
+    SD1.x and SDXL keys cannot alias."""
+    if cfg is None:
+        return ()
+    return (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+            cfg.num_layers, cfg.num_heads, cfg.max_length, cfg.hidden_act,
+            cfg.projection_dim, cfg.default_skip, cfg.layernorm_skipped)
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()

@@ -49,8 +49,10 @@ attention past each row's valid prefix (kernel K2), and the rows past it
 are re-zeroed after every sampler step. The serving dispatcher builds such
 batches from several requests and hands them to :meth:`Engine._denoise`
 with per-row contexts and lengths. Lengths stay device tensors, never read
-back to the host. ControlNet, inpainting families and refiner handoffs
-never run ragged.
+back to the host. ControlNet, inpainting families, the hires fix and refiner
+handoffs never run ragged. SDXL's added conditioning rides on every row;
+its time ids are the bucket's size, which the bucketer wrote into the
+payload, not the request's true size (as in the JAX package).
 
 LoRA (``<lora:name:w[:te_w]>`` tags, adapters from ``lora_provider``): the
 tags are stripped before tokenizing and kept in the infotext. By default the
@@ -111,8 +113,14 @@ cond rows run (:meth:`Engine._denoise`). Ragged dispatch and DPM adaptive
 take no cache; a chunk with an active ControlNet unit runs the plain
 evaluation.
 
-What this slice does not run raises :class:`~.payload.Unsupported` (HTTP
-422): SDXL under ragged dispatch.
+The caching tier (``SDTPU_CACHE=1``, ``cache/``): the process-wide embed
+store replaces the engine's conditioning cache (:meth:`Engine.
+encode_prompts`), and a plain txt2img range of a single-group request
+captures its sampler carry at a chunk boundary for a later request with the
+same prefix key to resume from (``cache/prefix.py``, :meth:`Engine.
+_denoise`). ``_model_epoch`` (bumped by a LoRA merge or a VAE swap) and
+``_cond_epoch`` (a LoRA merge) enter the keys, so an entry computed under
+older weights is never served.
 """
 
 from __future__ import annotations
@@ -133,6 +141,15 @@ import torch.nn.functional as F
 from stable_diffusion_webui_distributed_tpu_torch.bridge import (
     StateDicts,
     build_modules,
+)
+from stable_diffusion_webui_distributed_tpu_torch.cache import (
+    embed as embed_cache,
+)
+from stable_diffusion_webui_distributed_tpu_torch.cache import (
+    keys as cache_keys,
+)
+from stable_diffusion_webui_distributed_tpu_torch.cache import (
+    prefix as cache_prefix,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
     pad_encoded_context,
@@ -184,7 +201,6 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
-    Unsupported,
     apply_scripts,
     array_to_b64png,
     b64png_to_array,
@@ -272,6 +288,11 @@ class Engine:
         self.policy = policy
         self.model_name = model_name or family.name
         self.state = state or interrupt_mod.STATE
+        # the caching tier's weight epochs (cache/keys.py
+        # model_fingerprint): a LoRA merge bumps both, a VAE swap the model
+        # epoch, so content-addressed entries of older weights retire
+        self._model_epoch = 0
+        self._cond_epoch = 0
         self.chunk_size = max(1, chunk_size)
         self.schedule = schedule or sched.sd_schedule(
             prediction_type=family.prediction_type)
@@ -462,19 +483,29 @@ class Engine:
         skip = min(12, depth - 1, max(0, int(payload.clip_skip or 0)))
         store_gen = (self.embedding_store.generation
                      if self.embedding_store is not None else 0)
+        shared = cache_keys.enabled()
 
-        def cached(raw, ids, w, inj):
+        def cached(raw, ids, w, inj, negative=False):
             # merges clear the cache; a traced set's text-encoder factors
             # key it by their content, a rescan of the embeddings by the
-            # store's generation
+            # store's generation. With SDTPU_CACHE the process-wide store
+            # replaces it, its keys holding the same facts.
             n_enc = ids.shape[0] if ragged else n
+
+            def fresh():
+                return self._encode(
+                    *pad_chunks(ids, w, n_enc, tok.eos, tok.bos), skip,
+                    self._injection(inj, n_enc))
+
+            if shared:
+                return embed_cache.lookup_or_encode(self, raw, skip, n_enc,
+                                                    negative, fresh)
             key = (raw, skip, n_enc, store_gen, self.traced_te_content())
             hit = self._cond_cache.get(key)
             if hit is not None:
                 self._cond_cache.move_to_end(key)
                 return hit
-            out = self._encode(*pad_chunks(ids, w, n_enc, tok.eos, tok.bos),
-                               skip, self._injection(inj, n_enc))
+            out = fresh()
             self._cond_cache[key] = out
             if len(self._cond_cache) > self._COND_CACHE_MAX:
                 self._cond_cache.popitem(last=False)
@@ -485,7 +516,8 @@ class Engine:
         if len(cleaned) > 1:
             ctx_c = torch.cat([encoded[c][0] for c in cleaned])
             pooled_c = torch.cat([encoded[c][1] for c in cleaned])
-        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u, inj_u)
+        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u, inj_u,
+                                 negative=True)
         if not ragged:
             return (ctx_u, ctx_c), (pooled_u, pooled_c)
         width = ids_u.shape[1]
@@ -802,7 +834,16 @@ class Engine:
         evaluation of the step (Heun's midpoint too) reuses it. A chunk
         in which a ControlNet unit is active runs the plain evaluation and
         invalidates the cache. The cadence and the cutoff are host data:
-        a new value captures no graph."""
+        a new value captures no graph.
+
+        Prefix sharing (``SDTPU_CACHE``, ``cache/prefix.py``), under the
+        JAX package's conditions: a txt2img range from step 0 with no
+        mask, inpainting channels, ControlNet unit or ragged rows, of a
+        request whose images form one group. It resumes from a stored
+        carry of its prefix key (the loop entering at that step with the
+        step cache invalid, so it refreshes there as the continuous run
+        does), else captures its carry at the first chunk boundary that
+        ``stepcache.prefix_boundary`` allows."""
         spec = kd.resolve_sampler(payload.sampler_name)
         added = self._added_cond(pooleds, payload.width, payload.height)
         prec = self._precision_for(payload)
@@ -818,6 +859,7 @@ class Engine:
         end = steps if end_step is None else min(end_step, steps)
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
         sc = stepcache.resolve(payload)
+        cfg_stop = stepcache.cutoff_step(sigmas.numpy(), sc.cutoff_sigma)
         cache = None
         if sc.active and ragged is None and \
                 cache_supported(self.family.unet):
@@ -828,8 +870,7 @@ class Engine:
                                              x.shape[2]),
                             dtype=self.policy.compute_dtype,
                             device=x.device),
-                sc.cadence, stepcache.cutoff_step(sigmas.numpy(),
-                                                  sc.cutoff_sigma))
+                sc.cadence, cfg_stop)
         fns = self._make_denoise_fn(
             *conds, payload.cfg_scale, x.shape[0], ragged, added, controls,
             lambda i: window_gates(controls, i, steps), inpaint_cond, lora,
@@ -857,8 +898,27 @@ class Engine:
                 cached_step = _pin_unmasked(cached_step, sigmas, image_keys,
                                             *mask)
         carry = kd.init_carry(x)
+        prefix = None
+        if (job == "txt2img" and start_step == 0 and mask is None
+                and inpaint_cond is None and not controls and end > 0
+                and ragged is None and cache_keys.enabled()):
+            ts = self._traced_lora
+            prefix = cache_prefix.plan(
+                self, payload, batch=x.shape[0], width=payload.width,
+                height=payload.height, steps=steps, end=end,
+                cadence=sc.cadence if cache is not None else 1,
+                sc_active=cache is not None, precision=prec.name,
+                cfg_stop=cfg_stop, lora=ts.content if ts is not None else "")
         self.state.begin(job, end - start_step)
         pos = start_step
+        if prefix is not None and prefix.resume is not None:
+            # the stored carry, copied back to the device: the loop enters
+            # at step k with the step cache invalid
+            pos, leaves = prefix.resume
+            carry = kd.Carry(*(
+                torch.tensor(a, device=x.device) if a.ndim else a.item()
+                for a in leaves))
+            self.state.step(pos)
         while pos < end and not self.state.flag.interrupted:
             chunk_end = min(pos + self.chunk_size, end)
             run_step = step
@@ -875,6 +935,8 @@ class Engine:
                 carry = run_step(carry, i)
             pos = chunk_end
             self.state.step(pos - start_step)
+            if prefix is not None:
+                cache_prefix.maybe_capture(prefix, pos, carry)
         self.state.finish()
         if cache is not None:
             self.last_step_evals = cache.counts
@@ -1108,7 +1170,8 @@ class Engine:
         modules are kept aside while an override is applied, so restoring
         gives its bytes back exactly. The swap runs on the device thread,
         so a request in flight finishes with the VAE it started with.
-        Clears the inpainting conditioning cache, which the VAE makes."""
+        Clears the inpainting conditioning cache, which the VAE makes, and
+        bumps ``_model_epoch``."""
         if params is None:
             new = self._checkpoint_vae
             if new is None:
@@ -1128,6 +1191,8 @@ class Engine:
             if params is None:
                 self._checkpoint_vae = None
             self._blank_cond_cache.clear()
+            # the decoded bytes change: retire the cached results
+            self._model_epoch += 1
 
         self._device_thread.submit(swap).result()
 
@@ -1310,10 +1375,13 @@ class Engine:
         controls = self._prepare_controls(payload, width, height)
         refiner = self._refiner_engine(payload)
         # ragged solo run: the bucket's shape, the true rows as data (the
-        # dispatcher never marks per-image prompts, a refiner handoff,
-        # ControlNet or an inpainting family ragged)
+        # dispatcher never marks per-image prompts, the hires fix, a
+        # refiner handoff, ControlNet or an inpainting family ragged; a
+        # hand-made marker on such work runs the classic path, as in the
+        # JAX package)
         per_image = bool(payload.all_prompts)
-        ragged_wh = None if (per_image or refiner is not None or controls
+        ragged_wh = None if (per_image or payload.enable_hr
+                             or refiner is not None or controls
                              or self.family.inpaint) else \
             self._ragged_plan(payload)
         ragged = None
@@ -1497,16 +1565,9 @@ class Engine:
         return run(payload, start, count, job)
 
     def check_supported(self, payload: GenerationPayload) -> None:
-        """Raise :class:`Unsupported` (HTTP 422) for what this engine's
-        family does not run: SDXL under ragged dispatch (its added
-        conditioning would have to ride per row; the classic run would give
-        another image than the JAX package's ragged one)."""
-        if self.family.unet.addition_embed_dim and \
-                self._ragged_plan(payload) is not None and \
-                self._refiner_engine(payload) is None:
-            raise Unsupported(f"{self.family.name}: ragged dispatch of an "
-                              f"SDXL family is not ported to the PyTorch "
-                              f"engine yet")
+        """Raise :class:`Unsupported` (HTTP 422) for what this engine does
+        not run, before a request joins a group. Every payload the JAX
+        engine runs is ported, so nothing is refused here."""
 
     def run_on_device(self, fn, *args):
         """``fn(*args)`` on the engine's device thread, in inference mode
@@ -1534,7 +1595,8 @@ class Engine:
         added in order in f32; a leaf the new stack leaves alone gets its
         pristine bytes back. The resolved outcome is latched, skipped names
         included, with the provider's generation: an identical repeat is a
-        no-op, and a rescan retries. Clears the conditioning cache."""
+        no-op, and a rescan retries. Clears the conditioning cache and
+        bumps both epochs."""
         key = tuple(specs)
         gen = self._lora_provider_gen()
         if self._active_loras == () and not key:
@@ -1585,8 +1647,10 @@ class Engine:
             log.debug("lora: %d adapter(s) merged, %d module(s) applied, "
                       "%d skipped", merged, applied, skipped)
         # the text encoders' weights changed: conditioning computed under
-        # the old merge is stale
+        # the old merge is stale, and so is every content-addressed entry
         self._cond_cache.clear()
+        self._cond_epoch += 1
+        self._model_epoch += 1
 
     def _traced_set_for(self, specs: Tuple) -> Optional[lora_mod.TracedSet]:
         """The traced set for a spec tuple, or None when it cannot ride the

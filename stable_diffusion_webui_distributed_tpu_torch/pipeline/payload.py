@@ -222,6 +222,16 @@ def fix_seed(seed: Optional[int]) -> int:
     return int(seed) % 2**32
 
 
+def canonical_dump(payload: "GenerationPayload") -> Dict[str, Any]:
+    """The payload as a fingerprint-stable dict, which the cache keys hash
+    (JAX ``pipeline/payload.py`` ``canonical_dump``): the pydantic dump
+    gives every declared field (an omitted default equals a spelled-out
+    one) in declaration order, and the ``extra="allow"`` fields ride
+    along, since an unknown field might change what runs. Hashed only
+    after ``fix_seed`` and ``apply_scripts``."""
+    return payload.model_dump()
+
+
 def array_to_b64png(img: np.ndarray) -> str:
     """(H,W,3) uint8 -> base64 PNG string (PIL)."""
     from PIL import Image

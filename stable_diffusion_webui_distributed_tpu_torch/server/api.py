@@ -28,7 +28,9 @@ or textbox, X/Y/Z plot); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
 /sdapi/v1/refresh-loras`` (rescan the ``registry``'s directories;
 ``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
-/internal/benchmark`` for a World. A request for something the
+/internal/benchmark`` for a World; ``GET /internal/cache`` (the caching
+tier's summary, ``{"enabled": false}`` unless ``SDTPU_CACHE=1``). A
+request for something the
 port does not run answers 422. Optional Basic auth. Served by the standard
 library's ``ThreadingHTTPServer``; ``port=0`` binds a free port.
 """
@@ -47,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from pydantic import ValidationError
 
+from stable_diffusion_webui_distributed_tpu_torch import cache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -491,6 +494,13 @@ class ApiServer:
                          name="benchmark-sweep").start()
         return {"started": True}
 
+    def handle_cache(self) -> Dict[str, Any]:
+        """The caching tier's counts per layer (``cache.summary``), or
+        ``{"enabled": False}`` with the gate off."""
+        if not cache.enabled():
+            return {"enabled": False}
+        return cache.summary()
+
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
@@ -509,6 +519,7 @@ class ApiServer:
             ("POST", "/sdapi/v1/server-restart"): self.handle_server_restart,
             ("GET", "/internal/workers"): self.handle_workers,
             ("POST", "/internal/benchmark"): self.handle_benchmark,
+            ("GET", "/internal/cache"): self.handle_cache,
         }
 
     # -- HTTP ----------------------------------------------------------------

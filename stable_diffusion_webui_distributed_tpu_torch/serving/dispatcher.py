@@ -39,10 +39,18 @@ time and no other requester is affected.
 Requests that cannot merge (more images than the largest batch bucket)
 run solo under the same execution lock, still shape-bucketed.
 
-Not ported yet (ROADMAP item 17): the fleet gate with quotas and
-admission, the result, embed and prefix caches, the journal, Prometheus,
-spans, perf ledger, TSDB and watchdog, the warm pool, the stage-graph
-executor and the chaos hook.
+Result cache (``SDTPU_CACHE``, ``cache/``): at admission, before
+bucketing, a repeat of a payload is answered with a copy of the stored
+result, and identical concurrent requests elect one leader that generates
+while the others wait for its result (single-flight). A hit records no
+request, dispatch or queue wait. Only a complete result is stored. The
+stored bytes are those of the run that filled the entry, which may have
+been coalesced (see ``cache/__init__.py``).
+
+Not ported yet: the fleet gate with quotas and admission, the journal
+(and with it the cache layers' events), Prometheus, spans, perf ledger,
+TSDB and watchdog, the warm pool, the stage-graph executor and the chaos
+hook.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch import cache
 from stable_diffusion_webui_distributed_tpu_torch.models import (
     lora as lora_mod,
 )
@@ -146,12 +155,39 @@ class ServingDispatcher:
         Called concurrently from HTTP handler threads; compatible callers
         arriving within one coalesce window share a device batch. What the
         engine does not run raises here, before the request can join a
-        group."""
+        group. With ``SDTPU_CACHE`` the result cache answers first."""
         payload = apply_scripts(payload.model_copy())
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
         rid = str(getattr(payload, "request_id", "") or uuid.uuid4().hex)
+        if not cache.enabled():
+            return self._run(payload, job, rid).result
+        # the traced set's content joins the key (resolvable before its
+        # adapters are applied); "" on the merged path, whose merges move
+        # the model fingerprint's epoch
+        key = cache.keys.result_key(
+            payload, cache.keys.model_fingerprint(self.engine), job,
+            lora=self.engine.traced_content_for_payload(payload))
+        _, cached, flight = cache.result_acquire(key)
+        if cached is not None:
+            return cached.model_copy(deep=True)
+        try:
+            ticket = self._run(payload, job, rid)
+            if self._cacheable(ticket):
+                # the store keeps its own copy: the caller may change the
+                # one it is handed
+                cache.result_publish(key, flight,
+                                     ticket.result.model_copy(deep=True))
+                flight = None
+            return ticket.result
+        finally:
+            if flight is not None:
+                # failed, cancelled or partial: the followers elect again
+                cache.result_abandon(key, flight)
 
+    def _run(self, payload, job: str, rid: str) -> Ticket:
+        """Bucket, group and run one admitted request; its ticket holds
+        the result. Raises the request's error."""
         bypass = bool(payload.init_images or payload.enable_hr)
         if bypass:
             run, bucketed = payload.model_copy(), False
@@ -182,7 +218,15 @@ class ServingDispatcher:
                 self._tickets.pop(rid, None)
         if ticket.error is not None:
             raise ticket.error
-        return ticket.result
+        return ticket
+
+    @staticmethod
+    def _cacheable(ticket: Ticket) -> bool:
+        """Only a complete result enters the result cache: a cancelled or
+        interrupted run returns fewer images than its payload asked for."""
+        r = ticket.result
+        return (r is not None and not ticket.cancelled.is_set()
+                and len(r.images) == ticket.payload.total_images)
 
     def cancel(self, request_id: str) -> bool:
         """Cancel ONE queued or running request; its images are dropped at

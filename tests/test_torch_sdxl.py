@@ -9,15 +9,11 @@ dual encode must agree within 2e-5 (the tolerance of
 ``tests/test_torch_models.py``); TINY_XL txt2img and the TINY_XL ->
 TINY_REFINER handoff at ``refiner_switch_at=0.5`` must give the JAX
 engine's seeds and infotext and pixels within 1 uint8 level. A switch of
-1.0 gives the base image, an unknown refiner name runs the base model
-alone, and an SDXL request that the dispatcher would run ragged answers
-422.
+1.0 gives the base image, and an unknown refiner name runs the base model
+alone. SDXL under ragged dispatch: ``tests/test_torch_ragged_sdxl.py``.
 """
 
-import json
 import threading
-import urllib.error
-import urllib.request
 
 import numpy as np
 import pytest
@@ -64,7 +60,6 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
     GenerationState,
 )
-from stable_diffusion_webui_distributed_tpu_torch.server.api import ApiServer
 from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
     ShapeBucketer,
 )
@@ -350,22 +345,3 @@ def test_coalesced_sdxl_rows_keep_their_own_conditioning(port_engines,
         assert got.infotexts == want.infotexts
         assert np.abs(pixels(got.images[0])
                       - pixels(want.images[0])).max() <= 1
-
-
-def test_ragged_sdxl_answers_422(port_engines, monkeypatch):
-    monkeypatch.setenv("SDTPU_RAGGED", "1")
-    monkeypatch.setenv("SDTPU_BUCKET_LADDER", "32x32")
-    monkeypatch.setenv("SDTPU_BATCH_LADDER", "1,2")
-    server = ApiServer(port_engines[0], port=0).start()
-    try:
-        body = dict(BASE_REQUEST, height=24, batch_size=1)
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{server.port}/sdapi/v1/txt2img",
-            data=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req, timeout=120)
-        assert err.value.code == 422
-        assert "ragged" in json.loads(err.value.read())["detail"]
-    finally:
-        server.stop()
