@@ -113,6 +113,33 @@ Phases, each fatal on failure (no phase is caught and passed over):
    cutoffs: a deep and a reuse evaluation a step), no graph
    captured and the bytes of its fresh run with the cache off (both wall
    times printed); ``GET /internal/cache`` printed;
+7d. the fleet gate (``phase_fleet_gate``) on a config #1 engine of the main
+   path's seeded weights, graphed, the caching tier off: a batch-class
+   request of 8 images (seed 500) and, 0.3 s after it takes the device,
+   an interactive one (seed 501), with ``SDTPU_FLEET`` off and then on
+   (quantum 0.25 s): both walls, the time from the interactive arrival to
+   the batch job's yield, at least one preemption with the gate on and
+   none off, 320 + 320 K1 launches in each arm (all Hopper), no graph
+   captured, and each request's unpreempted PNG bytes; the same with the
+   batch request at cadence 3. Quotas (6 images a minute, burst 2): a
+   tenant's third request answers 429 with ``Retry-After`` >= 1, no
+   dispatch, no K1 launch. Admission, calibrated by ``World.
+   benchmark_all``: a request at 0.8x its predicted wall degraded (its
+   rung, prediction, wall and K1 count from the step-cache plan), one at
+   0.05 s refused with 429 and its quota refunded, one that only the int8
+   rung meets degraded to int8 under the 0.55 prior, the learned int8
+   factor after each int8 sample, and the rung no longer offered once the
+   factor reaches 1. The warm pool (``SDTPU_POOL=1``, size 2, residents
+   built from the seeded weights and warmed by ``warmup_engine``): each
+   spawn's seconds and memory, two concurrent requests on the 512x512 and
+   512x768 buckets on different residents, one payload's bytes on each
+   resident, a kill and its heal, then an autoscaler (up 0.5 s, down 0.05
+   s, no cooldown) over the per-class queue-wait histograms: a burst of 6
+   batch requests of 4 images gives an ``up`` the pool executes, an idle
+   window a ``down`` (a retirement that frees the resident's engine and
+   gives its weights' memory back; its thread's cuBLAS workspaces stay
+   with PyTorch), both listed ``executed`` by ``GET /internal/autoscale``;
+   every engine of the phase freed at its end;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
@@ -254,6 +281,7 @@ rest of the repository beside this file, the script exits non-zero.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import gc
 import io
 import json
@@ -266,6 +294,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2120,6 +2149,648 @@ def phase_caches(engine, fa, ra, card_line: str) -> dict:
         os.environ.pop("SDTPU_CACHE", None)
         cache.clear_all()
     print("caches metrics: " + json.dumps(out))
+    return out
+
+
+FLEET_GATE_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+                   "negative_prompt": "blurry", "steps": 20, "width": 512,
+                   "height": 512, "cfg_scale": 7, "sampler_name": "Euler a"}
+FLEET_GATE_BATCH = {**FLEET_GATE_BODY, "batch_size": 8, "seed": 500,
+                    "priority_class": "batch", "tenant": "t-batch"}
+FLEET_GATE_INTERACTIVE = {**FLEET_GATE_BODY, "seed": 501,
+                          "tenant": "t-interactive"}
+FLEET_GATE_ARRIVAL_S = 0.3  # the interactive arrival after the batch starts
+FLEET_GATE_QUANTUM_S = "0.25"
+FLEET_GATE_QUOTA = {"SDTPU_QUOTA_IPM": "6", "SDTPU_QUOTA_BURST": "2"}
+FLEET_GATE_POOL_LADDER = ([(512, 512), (512, 768)], [1])
+FLEET_GATE_MEAN_TOLERANCE = 2.0  # uint8 levels, one payload on two residents
+FLEET_GATE_INT8_SAMPLES = 8  # int8 samples at most, until the factor >= 1
+
+
+def post_status(port: int, body: dict) -> tuple:
+    """``POST /sdapi/v1/txt2img``: (status, headers, JSON body), an HTTP
+    error answered rather than raised."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/sdapi/v1/txt2img",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
+
+
+def levels(a_b64: str, b_b64: str) -> tuple:
+    """(mean, max) uint8 levels between two PNGs' pixels."""
+    import numpy as np
+
+    d = np.abs(png_pixels(a_b64).astype(np.int32)
+               - png_pixels(b_b64).astype(np.int32))
+    return round(float(d.mean()), 4), int(d.max())
+
+
+def fleet_pair(server, engine, fa, batch: dict, arm: str,
+               card_line: str) -> dict:
+    """The batch request, then the interactive one 0.3 s after the batch
+    took the device (the gate's running class with the fleet on, the
+    execution lock off): walls, the time from the interactive arrival to
+    the batch job's yield, preemptions, K1 launches and graphs captured."""
+    disp = server.dispatcher
+    yields = []
+    if disp.fleet is not None:
+        gate_yield = disp.fleet.yield_device
+
+        def timed_yield(entry):
+            yields.append(time.perf_counter())
+            gate_yield(entry)
+
+        disp.fleet.yield_device = timed_yield
+
+        def running():
+            return disp.fleet.summary()["running_class"] == "batch"
+    else:
+        def running():
+            return disp._exec_lock.locked()
+
+    fa.reset_launches(fa.flash_attention)
+    graphs0 = captures()
+    box = {}
+
+    def send(tag, body):
+        t = time.perf_counter()
+        box[tag] = post(server.port, body)
+        box[tag + "_s"] = time.perf_counter() - t
+
+    tb = threading.Thread(target=send, args=("batch", batch))
+    tb.start()
+    deadline = time.perf_counter() + 120
+    while not running():
+        check(time.perf_counter() < deadline, f"fleet gate ({arm}): the "
+              f"batch request never took the device")
+        time.sleep(0.002)
+    time.sleep(FLEET_GATE_ARRIVAL_S)
+    arrival = time.perf_counter()
+    ti = threading.Thread(target=send,
+                          args=("interactive", FLEET_GATE_INTERACTIVE))
+    ti.start()
+    for th in (tb, ti):
+        th.join(timeout=600)
+        check(not th.is_alive(), f"fleet gate ({arm}): a request hung")
+    check("batch" in box and "interactive" in box,
+          f"fleet gate ({arm}): a request failed")
+    row = {"interactive_wall_s": round(box["interactive_s"], 4),
+           "batch_wall_s": round(box["batch_s"], 4),
+           "yield_after_arrival_s": (round(yields[0] - arrival, 4)
+                                     if yields else None),
+           "preemptions": (disp.fleet.preemption_count()
+                           if disp.fleet is not None else 0),
+           "k1": fa.flash_attention.launches,
+           "hopper": fa.flash_attention.path_launches.get("hopper", 0),
+           "captured": captures() - graphs0}
+    if disp.fleet is not None:
+        disp.fleet.yield_device = gate_yield
+    print(f"fleet gate ({arm}): {json.dumps(row)} [{card_line}]")
+    check(row["hopper"] == row["k1"], f"fleet gate ({arm}): K1 off the "
+          f"Hopper path")
+    check(row["captured"] == 0, f"fleet gate ({arm}): a graph was captured")
+    return row, box["batch"], box["interactive"]
+
+
+def fleet_preemption(engine, fa, card_line: str) -> dict:
+    """Preemption: the pair with the gate off, then on, and on again with
+    the batch request at cadence 3, each held to its requests' solo
+    bytes."""
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+
+    out = {}
+    solo = {}
+
+    def alone(tag, body, server):
+        first = post(server.port, body)
+        again = post(server.port, body)
+        check(again["images"] == first["images"], f"fleet gate: {tag} "
+              f"repeated gave other PNG bytes")
+        solo[tag] = again["images"]
+
+    cadence3 = {**FLEET_GATE_BATCH, "override_settings": {"deepcache": 3}}
+    full = LAUNCHES_PER_GROUP
+    c3_k1 = ladder_expected(engine, cadence3)[0]
+    for arm, fleet_on in (("gate off", False), ("gate on", True)):
+        os.environ.pop("SDTPU_FLEET", None)
+        if fleet_on:
+            os.environ["SDTPU_FLEET"] = "1"
+        server = ApiServer(engine, port=0).start()
+        try:
+            check((server.dispatcher.fleet is not None) == fleet_on,
+                  f"fleet gate ({arm}): the dispatcher's gate is wrong")
+            if not fleet_on:
+                # the solo runs (graphs captured here) every pair is held to
+                alone("batch", FLEET_GATE_BATCH, server)
+                alone("interactive", FLEET_GATE_INTERACTIVE, server)
+                alone("batch cadence 3", cadence3, server)
+            row, b, i = fleet_pair(server, engine, fa, FLEET_GATE_BATCH,
+                                   arm, card_line)
+            check(row["k1"] == 2 * full, f"fleet gate ({arm}): K1 "
+                  f"{row['k1']}, want {2 * full}")
+            check(b["images"] == solo["batch"], f"fleet gate ({arm}): the "
+                  f"batch request gave other PNG bytes than alone")
+            check(i["images"] == solo["interactive"], f"fleet gate ({arm}):"
+                  f" the interactive request gave other PNG bytes")
+            if fleet_on:
+                check(row["preemptions"] >= 1, "fleet gate: the batch job "
+                      "was never preempted")
+                row3, b3, i3 = fleet_pair(server, engine, fa, cadence3,
+                                          "gate on, cadence 3", card_line)
+                check(row3["preemptions"] > row["preemptions"],
+                      "fleet gate: the cadence-3 batch job was never "
+                      "preempted")
+                check(row3["k1"] == c3_k1 + full, f"fleet gate (cadence "
+                      f"3): K1 {row3['k1']}, want {c3_k1 + full}")
+                check(b3["images"] == solo["batch cadence 3"], "fleet gate:"
+                      " the preempted cadence-3 batch request gave other "
+                      "PNG bytes than alone")
+                check(i3["images"] == solo["interactive"], "fleet gate: "
+                      "the interactive request (cadence 3 pair) gave other "
+                      "PNG bytes")
+                out["gate on, cadence 3"] = row3
+            else:
+                check(row["preemptions"] == 0, "fleet gate: preempted with "
+                      "the gate off")
+            out[arm] = row
+        finally:
+            server.stop()
+            os.environ.pop("SDTPU_FLEET", None)
+    print(f"fleet gate: the interactive request took "
+          f"{out['gate on']['interactive_wall_s']:.3f} s with the gate, "
+          f"{out['gate off']['interactive_wall_s']:.3f} s without; the "
+          f"batch job yielded {out['gate on']['yield_after_arrival_s']:.3f}"
+          f" s after it arrived; the preempted batch requests (bf16, "
+          f"cadence 3) gave their solo bytes [{card_line}]")
+    return out
+
+
+def fleet_admission(engine, fa, card_line: str) -> tuple:
+    """Quotas and ETA-SLO admission through one fleet-gated server."""
+    import copy
+
+    from stable_diffusion_webui_distributed_tpu_torch.fleet.admission import (
+        cadence_speedup,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import eta
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+        LocalBackend,
+        WorkerNode,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.world import (
+        World,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    saved = env_set({"SDTPU_FLEET": "1", **FLEET_GATE_QUOTA})
+    server = ApiServer(engine, port=0).start()
+    workdir = tempfile.mkdtemp(prefix="fleet-gate-")
+    disp = server.dispatcher
+    quotas, adm = {}, {}
+    try:
+        # quotas: three 1-image requests of one tenant back to back
+        body = {**FLEET_GATE_BODY, "tenant": "t-quota"}
+        statuses = []
+        for n in range(3):
+            METRICS.clear()
+            fa.reset_launches(fa.flash_attention)
+            status, headers, resp = post_status(server.port,
+                                                {**body, "seed": 502 + n})
+            statuses.append(status)
+        retry = int(headers.get("Retry-After", "0"))
+        quotas = {"statuses": statuses, "retry_after_s": retry,
+                  "detail": resp.get("detail"),
+                  "dispatches": METRICS.summary()["dispatches"],
+                  "k1": fa.flash_attention.launches}
+        print(f"fleet gate (quotas, 6 images/min, burst 2): "
+              f"{json.dumps(quotas)} [{card_line}]")
+        check(statuses == [200, 200, 429] and retry >= 1,
+              f"fleet gate: quota statuses {statuses}, Retry-After {retry}")
+        check(quotas["dispatches"] == 0 and quotas["k1"] == 0,
+              "fleet gate: the throttled request was dispatched")
+
+        # the degrade rungs' graphs (bf16 and int8 step cache), as a node
+        # warmed with SDTPU_WARMUP_PRECISIONS=bf16,int8 holds them
+        for prec in ("bf16", "int8"):
+            engine.txt2img(GenerationPayload(
+                **{**FLEET_GATE_BODY, "steps": 4, "seed": 9,
+                   "precision": prec,
+                   "override_settings": {"deepcache": 3}}))
+        world = World(config_path=os.path.join(workdir, "config.json"))
+        world.current_model = engine.model_name
+        world.add_worker(WorkerNode("master", LocalBackend(engine),
+                                    master=True))
+        t0 = time.perf_counter()
+        ipm = world.benchmark_all()
+        master = world.master()
+        cal, bp = master.cal, master.benchmark_payload
+        disp.set_calibration(cal, bp)
+        adm["benchmark"] = {"ipm": round(ipm["master"], 4),
+                            "seconds": round(time.perf_counter() - t0, 3)}
+        print(f"fleet gate: calibrated by World.benchmark_all "
+              f"({bp.width}x{bp.height}, {bp.steps} steps, 2 warm-up + 3 "
+              f"recorded): {ipm['master']:.2f} images per minute "
+              f"[{card_line}]")
+        METRICS.clear()  # the wait term: half the coalesce window
+
+        def verdict(body):
+            p = GenerationPayload(**body)
+            pol = disp.fleet.policy.resolve(p.priority_class)
+            if p.slo_s:
+                pol = dataclasses.replace(pol, slo_s=p.slo_s)
+            return disp.admission.decide(p, pol, disp.eta_overhead(p))
+
+        def run(tag, body):
+            # the wait term as the dispatcher will read it: no waits yet
+            METRICS.clear()
+            d = verdict(body)
+            fa.reset_launches(fa.flash_attention)
+            t = time.perf_counter()
+            status, headers, resp = post_status(server.port, body)
+            wall = time.perf_counter() - t
+            row = {"status": status, "action": d.action,
+                   "overrides": d.overrides, "steps": d.steps,
+                   "predicted_s": round(d.predicted_s or 0.0, 4),
+                   "slo_s": body.get("slo_s"), "wall_s": round(wall, 4),
+                   "met_slo": bool(body.get("slo_s"))
+                   and wall <= body["slo_s"],
+                   "dispatches": METRICS.summary()["dispatches"],
+                   "k1": fa.flash_attention.launches,
+                   "hopper": fa.flash_attention.path_launches.get("hopper",
+                                                                  0)}
+            if status == 200:
+                ov = resp["parameters"].get("override_settings") or {}
+                row["fleet_degraded"] = ov.get("fleet_degraded")
+                plan = {**FLEET_GATE_BODY,
+                        "steps": resp["parameters"]["steps"],
+                        "override_settings": {
+                            k: v for k, v in ov.items()
+                            if k in ("deepcache", "cfg_cutoff")}}
+                row["k1_plan"] = ladder_expected(engine, plan)[0]
+                check(row["k1"] == row["k1_plan"] == row["hopper"],
+                      f"fleet gate ({tag}): K1 {row['k1']} (Hopper "
+                      f"{row['hopper']}), the plan's {row['k1_plan']}")
+            else:
+                row["retry_after_s"] = int(headers.get("Retry-After", "0"))
+            print(f"fleet gate (admission, {tag}): {json.dumps(row)} "
+                  f"[{card_line}]")
+            return d, row, resp
+
+        p0 = GenerationPayload(**FLEET_GATE_BODY)
+        ov0 = disp.eta_overhead(p0)
+        predicted = eta.admission_eta(cal, p0, benchmark=bp, **ov0)
+        d, row, resp = run("0.8x the prediction", {
+            **FLEET_GATE_BODY, "seed": 510, "tenant": "t-degrade",
+            "slo_s": 0.8 * predicted})
+        check(row["status"] == 200 and d.action == "degrade"
+              and row["fleet_degraded"], f"fleet gate: the request at 0.8x "
+              f"its prediction was not degraded: {row}")
+        row["predicted_undegraded_s"] = round(predicted, 4)
+        adm["degrade"] = row
+
+        d, row, _ = run("slo 0.05 s", {**FLEET_GATE_BODY, "seed": 511,
+                                       "tenant": "t-reject", "slo_s": 0.05})
+        bucket = disp.quotas._bucket("t-reject")
+        row["quota_left"] = round(bucket.available(), 4)
+        check(row["status"] == 429 and row["retry_after_s"] >= 1
+              and row["dispatches"] == 0 and row["k1"] == 0,
+              f"fleet gate: the 0.05 s request was not refused: {row}")
+        check(row["quota_left"] >= disp.quotas.burst - 1e-6,
+              "fleet gate: the refused request kept its quota tokens")
+        adm["reject"] = row
+
+        # an SLO only the int8 rung meets: between the few-step rung and
+        # the int8 rung at the current factor
+        wait = ov0["queue_wait"]
+        few = disp.admission.fewstep
+        c12 = eta.admission_eta(cal, p0, benchmark=bp, steps=few,
+                                **ov0) - wait
+        s3 = cadence_speedup(3)
+        prior = cal.precision_factor("int8")
+        slo8 = wait + c12 * s3 * (1.0 + prior) / 2.0
+        int8_body = {**FLEET_GATE_BODY, "seed": 512, "tenant": "t-int8",
+                     "slo_s": slo8}
+        d, row, _ = run("int8 rung", int8_body)
+        check(d.action == "degrade" and d.overrides.get("precision")
+              == "int8" and row["status"] == 200,
+              f"fleet gate: the int8-only SLO was not degraded to int8: "
+              f"{row}")
+        factors = [prior]
+        eta.record_eta_error(cal, d.predicted_s, row["wall_s"], "int8")
+        factors.append(cal.precision_factor("int8"))
+        row["prior"] = prior
+        adm["int8"] = row
+        # more int8 samples (the degraded request's own settings, as a
+        # batch-class request without an SLO) until the factor reaches 1
+        sample_body = {**FLEET_GATE_BODY, "steps": d.steps or 20,
+                       "priority_class": "batch",
+                       "override_settings": dict(d.overrides)}
+        samples = [row["wall_s"]]
+        n = 1
+        while n < 2 or (factors[-1] < 1.0 and n < FLEET_GATE_INT8_SAMPLES):
+            f = cal.precision_factor("int8")
+            pred = (eta.admission_eta(cal, p0, benchmark=bp,
+                                      steps=d.steps, **ov0) - wait) \
+                * s3 * f + wait
+            METRICS.clear()
+            t = time.perf_counter()
+            status, _, _ = post_status(server.port, {
+                **sample_body, "seed": 513 + n, "tenant": f"t-int8-{n}"})
+            wall = time.perf_counter() - t
+            check(status == 200, "fleet gate: an int8 sample failed")
+            samples.append(round(wall, 4))
+            eta.record_eta_error(cal, pred, wall, "int8")
+            factors.append(cal.precision_factor("int8"))
+            n += 1
+        again = verdict(int8_body)
+        shown_on = "the learned calibration"
+        if factors[-1] < 1.0:
+            # not reached in the samples taken: shown on a copy at 1
+            held = copy.deepcopy(cal)
+            held.precision_scale["int8"] = 1.0
+            keep = disp.admission.calibration
+            disp.admission.calibration = held
+            again = verdict(int8_body)
+            disp.admission.calibration = keep
+            shown_on = "a copy with the factor at 1"
+        adm["int8_factors"] = [round(x, 4) for x in factors]
+        adm["int8_sample_walls_s"] = samples
+        adm["int8_after"] = {"action": again.action,
+                             "overrides": again.overrides,
+                             "shown_on": shown_on}
+        print(f"fleet gate: learned int8 factor after each sample "
+              f"{adm['int8_factors']} (prior {prior}); the int8-only SLO "
+              f"then: {again.action} {again.overrides} ({shown_on}) "
+              f"[{card_line}]")
+        check(again.overrides.get("precision") != "int8",
+              "fleet gate: the int8 rung is still offered at a factor >= 1")
+    finally:
+        server.stop()
+        env_restore(saved)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return quotas, adm
+
+
+def fleet_pool(engine, build, fa, card_line: str) -> dict:
+    """The warm pool and the autoscaler over it, through a fleet-gated
+    dispatcher whose executions check residents out."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+        pool as fleet_pool_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.fleet import slices
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+        ShapeBucketer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
+        ServingDispatcher,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.warmup import (
+        warmup_engine,
+    )
+
+    shapes, batches = FLEET_GATE_POOL_LADDER
+    ladder = ",".join(f"{w}x{h}" for w, h in shapes)
+    saved = env_set({"SDTPU_FLEET": "1", "SDTPU_POOL": "1",
+                     "SDTPU_POOL_SIZE": "2", "SDTPU_BUCKET_LADDER": ladder})
+    for k in FLEET_GATE_QUOTA:
+        os.environ.pop(k, None)
+    out = {}
+    server = None
+    try:
+        pool = fleet_pool_mod.WarmPool(
+            lambda name: build(), warm=lambda e: warmup_engine(
+                e, ShapeBucketer(shapes=shapes, batches=batches), steps=2))
+        fleet_pool_mod.set_pool(pool)
+        spawns = []
+        for _ in range(2):
+            gc.collect()
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            res = pool.spawn()
+            torch.cuda.synchronize()
+            spawns.append({"name": res.name, "spawn_s": round(res.spawn_s, 3),
+                           "memory_gib": round(
+                               (torch.cuda.memory_allocated() - m0) / 2**30,
+                               3)})
+            del res
+        out["spawns"] = spawns
+        print(f"fleet gate (pool): spawns, cold (seeded weights copied, "
+              f"{len(shapes)} graphs captured, no artifact store): "
+              f"{json.dumps(spawns)} [{card_line}]")
+
+        server = ApiServer(engine, port=0).start()
+        server.dispatcher = ServingDispatcher(engine, pool=pool)
+        checked_out = []
+        acquire = pool.acquire
+
+        def logged_acquire():
+            res = acquire()
+            checked_out.append(res.name)
+            return res
+
+        pool.acquire = logged_acquire
+        bodies = [{**FLEET_GATE_BODY, "seed": 520, "width": w, "height": h}
+                  for w, h in shapes]
+        concurrent_posts(server.port, bodies)
+        del pool.acquire
+        out["routing"] = checked_out
+        print(f"fleet gate (pool): {shapes} concurrently checked out "
+              f"{checked_out} [{card_line}]")
+        check(len(set(checked_out)) == 2, f"fleet gate: two concurrent "
+              f"requests shared a resident: {checked_out}")
+
+        # one payload on each resident, on that resident's engine thread
+        images = {}
+        for res in pool._residents.values():
+            images[res.name] = res.engine.txt2img(GenerationPayload(
+                **{**FLEET_GATE_BODY, "seed": 521})).images[0]
+        del res
+        names = sorted(images)
+        same = images[names[0]] == images[names[1]]
+        out["residents_bytes"] = "equal" if same else levels(
+            images[names[0]], images[names[1]])
+        print(f"fleet gate (pool): one payload on {names}: "
+              f"{out['residents_bytes']} [{card_line}]")
+        check(same or out["residents_bytes"][0] <= FLEET_GATE_MEAN_TOLERANCE,
+              "fleet gate: the residents' images differ past 2 levels")
+
+        pool.kill(names[0])
+        t = time.perf_counter()
+        healed = pool.heal()
+        out["heal"] = {"killed": names[0], "spawned": healed,
+                       "heal_s": round(time.perf_counter() - t, 3)}
+        print(f"fleet gate (pool): {json.dumps(out['heal'])} "
+              f"[{card_line}]")
+        check(len(healed) == 1, f"fleet gate: heal spawned {healed}")
+
+        reg = slices.SliceRegistry()
+        reg.register(slices.SliceInfo("sd15/bf16", group="sd15/bf16",
+                                      replicas=2, min_replicas=1,
+                                      max_replicas=4))
+        auto = slices.AutoscaleEngine(reg, up_p95_s=0.5, down_p95_s=0.05,
+                                      cooldown_s=0.0)
+        pool.attach_autoscale(auto)
+        obs_prom.clear_histograms()
+        burst = [{**FLEET_GATE_BODY, "seed": 530 + i, "batch_size": 4,
+                  "priority_class": "batch", "tenant": "t-burst"}
+                 for i in range(6)]
+        t = time.perf_counter()
+        concurrent_posts(server.port, burst)
+        burst_s = time.perf_counter() - t
+        p95 = obs_prom.fleet_queue_wait_p95("batch")
+        gc.collect()
+        torch.cuda.synchronize()
+        m_before = torch.cuda.memory_allocated()
+        up = auto.decide()
+        torch.cuda.synchronize()
+        m_up = torch.cuda.memory_allocated()
+        refs = {r.name: (weakref.ref(r.engine), param_bytes(r.engine))
+                for r in pool._residents.values() if r.engine is not None}
+        obs_prom.clear_histograms()  # an idle window: no waits
+        down = auto.decide()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # what stays is the new resident's thread's cuBLAS workspaces:
+        # PyTorch keeps one per handle and stream and never frees it (the
+        # graphs captured on that thread hold its address)
+        m_after = torch.cuda.memory_allocated()
+        audit = get_json(server.port, "/internal/autoscale")
+        decided = [(e["direction"], e["execution"]["outcome"],
+                    e["execution"].get("detail"))
+                   for e in audit["decisions"]]
+        retired = (decided[-1][2] or "").rpartition(" ")[2]
+        ref, weights = refs.get(retired, (lambda: True, 0))
+        out["autoscale"] = {
+            "burst_s": round(burst_s, 3), "batch_p95_s": p95,
+            "decisions": decided,
+            "spawn_added_mib": round((m_up - m_before) / 2**20, 1),
+            "retire_freed_mib": round((m_up - m_after) / 2**20, 1),
+            "retired_weights_mib": round(weights / 2**20, 1),
+            "after_retire_vs_before_spawn_mib": round(
+                (m_after - m_before) / 2**20, 1),
+            "retired_engine_freed": ref() is None,
+            "pool": pool.summary()}
+        print(f"fleet gate (autoscale): {json.dumps(out['autoscale'])} "
+              f"[{card_line}]")
+        check([d.direction for d in up] == ["up"]
+              and [d.direction for d in down] == ["down"],
+              f"fleet gate: decisions {up} then {down}")
+        check([d[:2] for d in decided] == [("up", "executed"),
+                                           ("down", "executed")],
+              f"fleet gate: /internal/autoscale lists {decided}")
+        check(out["autoscale"]["retired_engine_freed"],
+              f"fleet gate: the retired {retired}'s engine outlived it")
+        check(m_up - m_after >= weights, "fleet gate: the retired "
+              "resident's weights did not come back")
+    finally:
+        if server is not None:
+            server.stop()
+        env_restore(saved)
+        slices.set_autoscale(None)
+        fleet_pool_mod.set_pool(None)
+    return out
+
+
+def phase_fleet_gate(fa, ra, card_line: str) -> dict:
+    """The fleet tier on config #1 (see the module's docstring, 7d), on an
+    engine built for this phase from the main path's seeded weights and
+    freed at its end with every pool resident."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.bridge import (
+        init_seeded,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SD15,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+
+    t_phase = time.perf_counter()
+    saved = env_set({"SDTPU_FLEET_QUANTUM_S": FLEET_GATE_QUANTUM_S})
+    for k in ("SDTPU_CACHE", "SDTPU_FLEET", "SDTPU_POOL", "SDTPU_RAGGED",
+              *FLEET_GATE_QUOTA):
+        os.environ.pop(k, None)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_seeded(SD15, seed=0, device="cuda", dtype=torch.bfloat16)
+    host = {c: {k: v.cpu() for k, v in sd.items()}
+            for c, sd in params.items()}
+    del params
+
+    built = []
+
+    def build():
+        engine = Engine(SD15, host, policy=dtypes.CARD, device="cuda")
+        built.append(weakref.ref(engine))
+        return engine
+
+    out = {"card": card_line}
+    engine = build()
+    try:
+        out["preemption"] = fleet_preemption(engine, fa, card_line)
+        out["quotas"], out["admission"] = fleet_admission(engine, fa,
+                                                          card_line)
+        out["pool"] = fleet_pool(engine, build, fa, card_line)
+    finally:
+        env_restore(saved)
+    out["peak_memory_gib"] = round(torch.cuda.max_memory_allocated()
+                                   / 2**30, 3)
+    note_peak("fleet gate", torch.cuda.max_memory_allocated())
+    del engine, host
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - allocated0
+    alive = sum(ref() is not None for ref in built)
+    # each engine thread leaves its cuBLAS workspaces (the retirement's
+    # residue measures one thread's): PyTorch keeps them per handle and
+    # stream for the next thread that takes the handle
+    per_thread = max(0.0, out["pool"]["autoscale"][
+        "after_retire_vs_before_spawn_mib"]) * 2**20
+    out["left_after_phase_mib"] = round(left / 2**20, 1)
+    out["engines_built"] = len(built)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("fleet gate metrics: " + json.dumps(out))
+    check(alive == 0, f"fleet gate: {alive} of the phase's {len(built)} "
+          f"engines outlived it")
+    check(left <= WARMUP_MEMORY_SLACK + len(built) * per_thread,
+          f"fleet gate: {left / 2**20:.1f} MiB left allocated after the "
+          f"phase's {len(built)} engines were freed")
     return out
 
 
@@ -5201,6 +5872,7 @@ def main() -> int:
     fleet = phase_fleet(engine, fa, ra, card_line)
     scripts = phase_scripts(engine, fa, ra, card_line)
     caches = phase_caches(engine, fa, ra, card_line)
+    fleet_gate = phase_fleet_gate(fa, ra, card_line)
     phase_reference(engine)
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
@@ -5329,6 +6001,9 @@ def main() -> int:
         "cost_ladder_sdxl_launches": {
             lever: row["k1_launches"]
             for lever, row in cost_ladder_sdxl.items()},
+        "fleet_gate_launches": {
+            arm: row["k1"]
+            for arm, row in fleet_gate["preemption"].items()},
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "

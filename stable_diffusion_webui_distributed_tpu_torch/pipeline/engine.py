@@ -121,6 +121,16 @@ same prefix key to resume from (``cache/prefix.py``, :meth:`Engine.
 _denoise`). ``_model_epoch`` (bumped by a LoRA merge or a VAE swap) and
 ``_cond_epoch`` (a LoRA merge) enter the keys, so an entry computed under
 older weights is never served.
+
+Chunk-boundary preemption (the fleet tier, ``fleet/policy.py``): while a
+preemptible job runs, the dispatcher installs a hook as ``preempt_hook``;
+the chunked loop polls it between chunks and, when an entitled waiter is
+queued, yields the device there. Every generation runs on the engine's one
+device thread (``runtime/runner.py``), so the yield serves the
+interloper's work nested on that thread while the yielding frame keeps its
+carry, position, step cache and prefix plan: the resumed job gives the
+bytes of an unpreempted run. DPM adaptive takes no hook, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -130,8 +140,8 @@ import functools
 import logging
 import threading
 import time
+import weakref
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -216,6 +226,9 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime.runner import (
+    DeviceRunner,
 )
 from stable_diffusion_webui_distributed_tpu_torch.samplers import (
     kdiffusion as kd,
@@ -341,6 +354,12 @@ class Engine:
         # the captured UNet evaluations, dropped with the engine
         self.cuda_graphs = cuda_graphs
         self._graphs = graphs_mod.GraphCache()
+        # Cooperative chunk-boundary preemption (fleet/policy.py): while a
+        # preemptible job runs, the fleet gate installs an object with
+        # should_yield()/yield_device() here and the denoise loop polls it
+        # between chunks. Work that runs nested during a yield sees the
+        # same attribute: the hook answers only its owning execution.
+        self.preempt_hook = None
 
         # LoRA. _active_loras latches () (pristine) or the (specs,
         # provider generation) pair the last merge ran for, missing names
@@ -382,9 +401,12 @@ class Engine:
         # PyTorch keeps cuBLAS and cuDNN handles and cuDNN's plan cache per
         # thread, and on the card the same UNet call made from a fresh
         # thread can give other bits; a repeated request must give the same
-        # image bytes. One thread also serialises the engine's requests.
-        self._device_thread = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="engine")
+        # image bytes. One thread also serialises the engine's requests; a
+        # preempted job serves the interloper's tasks on it
+        # (runtime/runner.py). The thread ends when the engine is freed.
+        #: the fleet's preempt hook serves a yield on it
+        self.device_runner = DeviceRunner("engine")
+        weakref.finalize(self, self.device_runner.close)
 
     # -- text conditioning -------------------------------------------------
 
@@ -920,6 +942,28 @@ class Engine:
                 for a in leaves))
             self.state.step(pos)
         while pos < end and not self.state.flag.interrupted:
+            hook = self.preempt_hook
+            if hook is not None and hook.should_yield():
+                # chunk-boundary yield: the gate runs the interloper nested
+                # on this thread and returns when it hands the device
+                # back. The carry, position, step cache and prefix plan
+                # stay in this frame; the graphs' per-run inputs are
+                # copied back at the next call (a new binding).
+                interrupted_before_yield = self.state.flag.interrupted
+                hook.yield_device()
+                # an interloper with <lora:...> tags merged into the live
+                # weights: this payload's adapters again (tagless: the
+                # pristine weights)
+                self._apply_prompt_loras(payload)
+                # the interloper drove the shared progress record and the
+                # interrupt latch (its begin_request cleared it; an
+                # interrupt aimed at it may still be latched): this range's
+                # view of both
+                self.state.begin(job, end - start_step)
+                if pos - start_step:
+                    self.state.step(pos - start_step)
+                self.state.restore_interrupt(interrupted_before_yield)
+                continue  # the restored latch is checked at the loop top
             chunk_end = min(pos + self.chunk_size, end)
             run_step = step
             if cache is not None:
@@ -1194,7 +1238,7 @@ class Engine:
             # the decoded bytes change: retire the cached results
             self._model_epoch += 1
 
-        self._device_thread.submit(swap).result()
+        self.device_runner.run(swap)
 
     # -- ControlNet ----------------------------------------------------------
 
@@ -1572,8 +1616,17 @@ class Engine:
     def run_on_device(self, fn, *args):
         """``fn(*args)`` on the engine's device thread, in inference mode
         with the reproducible backend settings; returns its result. The
-        serving dispatcher runs its coalesced groups through here."""
-        return self._device_thread.submit(self._on_device, fn, args).result()
+        serving dispatcher runs its coalesced groups through here. Called
+        on the device thread (an interloper run during a yield), it runs
+        inline."""
+        return self.device_runner.run(self._on_device, fn, args)
+
+    def close(self) -> None:
+        """Drop the captured graphs and end the device thread; the
+        weights go with the last reference to the engine (the warm pool
+        closes a retired resident, ``fleet/pool.py``)."""
+        self._graphs = graphs_mod.GraphCache()
+        self.device_runner.close()
 
     def _on_device(self, fn, args):
         with torch.inference_mode(), _reproducible(self.device):

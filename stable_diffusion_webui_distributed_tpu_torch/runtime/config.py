@@ -50,6 +50,42 @@ overrides:
   sigma lies below it the unconditional half is dropped; per request:
   ``override_settings.cfg_cutoff``.
 
+Fleet-tier knobs (``fleet/``; README "Fleet gate"):
+
+- ``SDTPU_FLEET`` (flag, off): the multi-tenant tier: weighted-fair
+  device gate, per-tenant quotas, ETA-SLO admission and chunk-boundary
+  preemption. Off keeps the dispatcher's plain execution lock as it was.
+  The config field ``fleet_enabled`` sets the same switch; the env var
+  wins.
+- ``SDTPU_FLEET_CLASSES`` (``name:weight`` list, ``interactive:8,batch:2,
+  best_effort:1``): the fair-queue weight per priority class; unknown
+  names define extra classes scheduled like ``batch``.
+- ``SDTPU_SLO_INTERACTIVE_S`` (seconds, 30): the completion SLO admission
+  enforces for ``interactive`` requests; 0 disables it. A request's
+  ``slo_s`` overrides it.
+- ``SDTPU_QUOTA_IPM`` (images per minute, 0 = unlimited): each tenant's
+  token-bucket refill rate; ``SDTPU_QUOTA_BURST`` (8) its depth. An
+  exhausted tenant gets 429 with ``Retry-After``.
+- ``SDTPU_FLEET_AGING_S`` (seconds, 10): waiters older than this are
+  served oldest first whatever their tags (the starvation bound).
+- ``SDTPU_FLEET_QUANTUM_S`` (seconds, 0.25): the least device tenure
+  before a preemptible job may be asked to yield.
+- ``SDTPU_FLEET_FEWSTEP`` (int, 12): the step budget of admission's
+  few-step degrade rung; 0 disables the rung.
+- ``SDTPU_AUTOSCALE_UP_S`` / ``SDTPU_AUTOSCALE_DOWN_S`` /
+  ``SDTPU_AUTOSCALE_COOLDOWN_S`` (seconds, 5 / 0.5 / 60): scale a slice
+  up when the worst per-class queue-wait p95 reaches UP_S, down when it
+  falls to DOWN_S, at most once per slice per cooldown;
+  ``SDTPU_AUTOSCALE_AUDIT`` (int, 256): the decision audit ring behind
+  ``GET /internal/autoscale``.
+- ``SDTPU_POOL`` (flag, off): the warm engine pool (``fleet/pool.py``):
+  a dispatcher made with ``pool=`` checks each execution out to the
+  least-loaded ready resident, and autoscale decisions attached with
+  ``WarmPool.attach_autoscale`` spawn and retire residents.
+  ``SDTPU_POOL_SIZE`` (int, 2): the target ready count ``heal()``
+  restores; ``SDTPU_POOL_COOLDOWN_S`` (seconds, 0): the least time
+  between autoscale-driven spawns and retirements.
+
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.
 
@@ -180,6 +216,8 @@ class ConfigModel(BaseModel):
     bucket_ladder: str = ""
     batch_ladder: str = ""
     coalesce_window: Optional[float] = None
+    # the fleet tier (fleet/); None = off unless SDTPU_FLEET says
+    # otherwise (the env var wins)
     fleet_enabled: Optional[bool] = None
 
 

@@ -88,6 +88,19 @@ class GenerationState:
         ``state.interrupted`` the same way when a generation starts)."""
         self.flag.clear()
 
+    def restore_interrupt(self, interrupted: bool) -> None:
+        """Preemption resume (the engine's chunk-boundary yield): put back
+        the yielding request's view of the latch. The latch is
+        process-global and aims at the visibly running job, so an
+        interrupt raised while an interloper held the device belongs to
+        the interloper and must not truncate the resumed request; one that
+        landed just before the yield must survive the interloper's
+        :meth:`begin_request`."""
+        if interrupted:
+            self.flag.interrupt()
+        else:
+            self.flag.clear()
+
     def step(self, completed_steps: int) -> None:
         # Snapshot under the lock, invoke listeners outside it: a listener
         # that logs or calls back into this state must not deadlock

@@ -18,13 +18,13 @@ compute part by a per-precision factor: the learned one when that
 precision has samples, else :data:`PRECISION_PRIOR`. An int8 sample
 refines only its own factor and never enters the bf16 MPE window.
 
-Left out of the port, each with the part of the system it belongs to:
-
-- ``admission_eta`` and the dispatcher's ``queue_wait`` and
-  ``padding_overhead`` terms: they serve the fleet tier's SLO admission
-  (``fleet/admission.py``), which is not ported;
-- the process-wide MPE gauge a sample is mirrored into (observability,
-  ROADMAP item 20).
+Behind a serving dispatcher the estimate takes the serving layer's two
+terms (``ServingDispatcher.eta_overhead``): the bucket's padding overhead
+scales the compute part, and the expected queue wait is added on top,
+never rescaled. :func:`admission_eta` is the fleet tier's SLO-admission
+variant (``fleet/admission.py``): with no error history of its own, a
+calibration borrows the process-wide MPE gauge
+(``obs/prometheus.py`` ``ETA_GAUGE``), which every bf16 sample feeds.
 """
 
 from __future__ import annotations
@@ -117,13 +117,20 @@ def predict_eta(cal: EtaCalibration, payload,
                 benchmark: Optional[BenchmarkPayload] = None,
                 batch_size: Optional[int] = None,
                 steps: Optional[int] = None,
-                _include_hr: bool = True, precision: str = "") -> float:
+                _include_hr: bool = True, queue_wait: float = 0.0,
+                padding_overhead: float = 1.0,
+                precision: str = "") -> float:
     """Seconds to complete ``payload`` on a backend calibrated as ``cal``.
 
     ``payload`` needs steps, batch_size, width, height, sampler_name and
     enable_hr (with hr_scale and hr_second_pass_steps when enabled): a
-    ``GenerationPayload`` or anything duck-typed like one. ``precision``:
-    the resolved serving precision, whose factor scales the estimate."""
+    ``GenerationPayload`` or anything duck-typed like one.
+    ``padding_overhead`` (>= 1, the bucket's pixels over the request's:
+    padded pixels are denoised and decoded like real ones) scales the
+    compute estimate; ``queue_wait`` (seconds in the coalesce queue) is
+    added on top and never rescaled by the MPE feedback. ``precision``:
+    the resolved serving precision, whose factor scales the compute
+    part."""
     if not cal.benchmarked:
         raise ValueError("backend not benchmarked; run the benchmark first")
     bench = benchmark or BenchmarkPayload()
@@ -145,11 +152,12 @@ def predict_eta(cal: EtaCalibration, payload,
         # positive table entry = faster than Euler a -> smaller eta
         eta -= eta * (delta / 100.0) if delta > 0 else -eta * abs(delta) / 100.0
 
+    eta *= max(1.0, padding_overhead)
     eta *= cal.precision_factor(precision)
 
     if cal.eta_percent_error:
         eta -= eta * (cal.mpe() / 100.0)
-    return eta
+    return eta + max(0.0, queue_wait)
 
 
 def _eta_hires(cal, payload, bench, batch_size) -> float:
@@ -171,13 +179,37 @@ def _eta_hires(cal, payload, bench, batch_size) -> float:
     return predict_eta(cal, pseudo, bench, _include_hr=False)
 
 
+def admission_eta(cal: EtaCalibration, payload,
+                  benchmark: Optional[BenchmarkPayload] = None,
+                  steps: Optional[int] = None, queue_wait: float = 0.0,
+                  padding_overhead: float = 1.0,
+                  precision: str = "") -> float:
+    """SLO admission's :func:`predict_eta` (``fleet/admission.py``): the
+    same model, but a calibration with no error history of its own is
+    corrected by the process-wide MPE gauge instead, so a freshly
+    registered backend admits on the fleet's live calibration rather than
+    on raw benchmark arithmetic. The wait stays additive, rescaled by
+    neither correction."""
+    eta = predict_eta(cal, payload, benchmark=benchmark, steps=steps,
+                      padding_overhead=padding_overhead,
+                      precision=precision)
+    if not cal.eta_percent_error:
+        from stable_diffusion_webui_distributed_tpu_torch.obs import (
+            prometheus,
+        )
+
+        eta -= eta * (prometheus.ETA_GAUGE.mpe() / 100.0)
+    return max(0.0, eta) + max(0.0, queue_wait)
+
+
 def record_eta_error(cal: EtaCalibration, predicted: float,
                      actual: float, precision: str = "") -> None:
     """Feed one (prediction, reality) pair back into the calibration:
     percent error = (predicted - actual) / actual * 100; |e| >= 500% is
-    rejected; the window keeps the last ``MPE_WINDOW`` samples. A sample
-    of a non-bf16 ``precision`` updates only that precision's factor (a
-    clamped EWMA of actual/predicted) and never the MPE window."""
+    rejected; the window keeps the last ``MPE_WINDOW`` samples, and the
+    sample is mirrored into the process-wide gauge. A sample of a non-bf16
+    ``precision`` updates only that precision's factor (a clamped EWMA of
+    actual/predicted) and never the MPE window or the gauge."""
     if actual <= 0 or predicted <= 0:
         return
     if precision and precision != "bf16":
@@ -192,9 +224,18 @@ def record_eta_error(cal: EtaCalibration, predicted: float,
         cal.precision_scale[precision] = min(
             PRECISION_FACTOR_MAX, max(PRECISION_FACTOR_MIN, f_new))
         return
+    _note_obs(predicted, actual)
     error = (predicted - actual) / actual * 100.0
     if abs(error) >= MPE_REJECT_ABS_PERCENT:
         return
     cal.eta_percent_error.append(error)
     while len(cal.eta_percent_error) > MPE_WINDOW:
         cal.eta_percent_error.pop(0)
+
+
+def _note_obs(predicted: float, actual: float) -> None:
+    """Mirror a bf16 sample into the process-wide MPE gauge
+    (``obs/prometheus.py``); the calibration above stays pure."""
+    from stable_diffusion_webui_distributed_tpu_torch.obs import prometheus
+
+    prometheus.ETA_GAUGE.record(predicted, actual)

@@ -29,9 +29,12 @@ or textbox, X/Y/Z plot); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
 ``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
 /internal/benchmark`` for a World; ``GET /internal/cache`` (the caching
-tier's summary, ``{"enabled": false}`` unless ``SDTPU_CACHE=1``). A
-request for something the
-port does not run answers 422. Optional Basic auth. Served by the standard
+tier's summary, ``{"enabled": false}`` unless ``SDTPU_CACHE=1``); ``GET
+/internal/autoscale`` (the autoscaler's decision audit, ``{"active":
+false}`` without one). With ``SDTPU_FLEET`` a request the fleet refuses
+(its tenant's quota, or an SLO no degrade rung meets) answers 429 with a
+``Retry-After`` header. A request for something the port does not run
+answers 422. Optional Basic auth. Served by the standard
 library's ``ThreadingHTTPServer``; ``port=0`` binds a free port.
 """
 
@@ -50,6 +53,10 @@ import torch
 from pydantic import ValidationError
 
 from stable_diffusion_webui_distributed_tpu_torch import cache
+from stable_diffusion_webui_distributed_tpu_torch.fleet import slices
+from stable_diffusion_webui_distributed_tpu_torch.fleet.admission import (
+    FleetRejected,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -92,10 +99,12 @@ MODEL_LIST_TIMEOUT = 2.0
 
 
 class ApiError(Exception):
-    def __init__(self, status: int, detail: str):
+    def __init__(self, status: int, detail: str,
+                 headers: Optional[Dict[str, str]] = None):
         super().__init__(detail)
         self.status = status
         self.detail = detail
+        self.headers = headers or {}
 
 
 class ApiServer:
@@ -226,13 +235,23 @@ class ApiServer:
                     job == "txt2img" and is_xyz(payload)):
                 # the dispatcher serializes execution itself, so that
                 # concurrent compatible requests can merge in its window
-                result = self.dispatcher.submit(payload, job=job)
+                result = self._submit_dispatch(payload, job)
             else:
                 with self._busy:
                     result = self._run_scripted(payload, job)
         except (ValidationError, Unsupported) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)
+
+    def _submit_dispatch(self, payload: GenerationPayload,
+                         job: str) -> GenerationResult:
+        """The dispatcher's submit, a fleet refusal (quota or SLO,
+        ``fleet/admission.py``) answered as 429 with ``Retry-After``."""
+        try:
+            return self.dispatcher.submit(payload, job=job)
+        except FleetRejected as e:
+            raise ApiError(429, e.detail, headers={
+                "Retry-After": str(max(1, round(e.retry_after)))})
 
     def handle_samplers(self) -> Any:
         return [{"name": n, "aliases": [], "options": {}}
@@ -501,6 +520,15 @@ class ApiServer:
             return {"enabled": False}
         return cache.summary()
 
+    def handle_autoscale(self) -> Dict[str, Any]:
+        """The autoscaler's decision audit (``fleet/slices.py``): the
+        bounded ring of every scale decision with its wall-clock time and
+        its execution outcome."""
+        engine = slices.get_autoscale()
+        if engine is None:
+            return {"active": False}
+        return engine.audit()
+
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
@@ -520,6 +548,7 @@ class ApiServer:
             ("GET", "/internal/workers"): self.handle_workers,
             ("POST", "/internal/benchmark"): self.handle_benchmark,
             ("GET", "/internal/cache"): self.handle_cache,
+            ("GET", "/internal/autoscale"): self.handle_autoscale,
         }
 
     # -- HTTP ----------------------------------------------------------------
@@ -557,16 +586,19 @@ class ApiServer:
                         result = fn()
                     self._send(200, result)
                 except ApiError as e:
-                    self._send(e.status, {"detail": e.detail})
+                    self._send(e.status, {"detail": e.detail}, e.headers)
                 except Exception as e:  # noqa: BLE001 — answer, keep serving
                     log.exception("api error on %s %s", method, self.path)
                     self._send(500, {"detail": str(e)})
 
-            def _send(self, status: int, obj: Any):
+            def _send(self, status: int, obj: Any,
+                      headers: Optional[Dict[str, str]] = None):
                 data = json.dumps(obj).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 

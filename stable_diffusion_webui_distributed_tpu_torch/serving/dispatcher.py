@@ -47,14 +47,33 @@ request, dispatch or queue wait. Only a complete result is stored. The
 stored bytes are those of the run that filled the entry, which may have
 been coalesced (see ``cache/__init__.py``).
 
-Not ported yet: the fleet gate with quotas and admission, the journal
-(and with it the cache layers' events), Prometheus, spans, perf ledger,
-TSDB and watchdog, the warm pool, the stage-graph executor and the chaos
-hook.
+The fleet tier (``SDTPU_FLEET``, ``fleet/``): a request is admitted first,
+before the result cache and before any metric: its tenant's quota, then
+its ETA against its class's SLO (accept, degrade by the step cache, the
+few-step budget and int8, or reject; a refusal raises
+:class:`~..fleet.admission.FleetRejected`, 429 at the server, and refunds
+the quota). The execution lock becomes a weighted-fair gate: a group runs
+at its strongest class, and a preemptible one (no merged LoRA, no
+adaptive sampler) gets the chunk-boundary preempt hook on its engine, so
+an interactive arrival runs at the next chunk boundary and the batch job
+resumes with its own bytes. Each dispatched request's wait feeds its
+class's queue-wait histogram (``obs/prometheus.py``), the autoscaler's
+signal. Off (the default), nothing of it is built.
+
+The warm pool (``SDTPU_POOL`` with ``pool=``, ``fleet/pool.py``): each
+leader or solo execution checks out the least-loaded ready resident before
+it takes the device, and runs on that resident's engine; grouping reads
+the primary engine (residents are built alike).
+
+Not ported yet: the journal (and with it the cache layers' and the fleet's
+events), the rest of Prometheus, spans, perf ledger, TSDB and watchdog,
+the stage-graph executor and the chaos hook.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import threading
 import time
 import uuid
@@ -64,8 +83,23 @@ import numpy as np
 import torch
 
 from stable_diffusion_webui_distributed_tpu_torch import cache
+from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+    admission as fleet_admission,
+)
+from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+    policy as fleet_policy,
+)
+from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+    pool as fleet_pool,
+)
+from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+    quotas as fleet_quotas,
+)
 from stable_diffusion_webui_distributed_tpu_torch.models import (
     lora as lora_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
     precision as precision_mod,
@@ -114,6 +148,7 @@ class Ticket:
         self.job = job
         self.bucketed = bucketed
         self.request_id = request_id
+        self.fleet_class = ""           # resolved class name (fleet on)
         self.enqueued = time.monotonic()
         self.done = threading.Event()
         self.cancelled = threading.Event()
@@ -133,8 +168,12 @@ class ServingDispatcher:
     """Leader/follower coalescer in front of a single engine."""
 
     def __init__(self, engine, bucketer: Optional[ShapeBucketer] = None,
-                 window: Optional[float] = None) -> None:
+                 window: Optional[float] = None, pool=None) -> None:
         self.engine = engine
+        # the warm pool (SDTPU_POOL): each leader or solo execution runs on
+        # the resident it checks out (_checkout_engine); None: self.engine
+        self.pool = pool
+        self._exec_engine = threading.local()
         self.bucketer = bucketer or ShapeBucketer()
         self.window = _coalesce_window() if window is None \
             else max(0.0, float(window))
@@ -146,6 +185,19 @@ class ServingDispatcher:
         self._exec_lock = threading.Lock()
         self._groups: Dict[tuple, _Group] = {}  # guarded-by: _lock
         self._tickets: Dict[str, Ticket] = {}  # guarded-by: _lock
+        # the fleet tier (SDTPU_FLEET): the execution lock becomes a
+        # weighted-fair gate, with per-tenant quotas and ETA-SLO
+        # admission. Off (the default), all three stay None and no fleet
+        # branch runs.
+        self.fleet: Optional[fleet_policy.FleetGate] = None
+        self.quotas: Optional[fleet_quotas.QuotaLedger] = None
+        self.admission: Optional[fleet_admission.AdmissionController] = None
+        if fleet_policy.fleet_enabled():
+            self.fleet = fleet_policy.FleetGate(
+                fleet_policy.FleetPolicy.from_env())
+            self.quotas = fleet_quotas.QuotaLedger.from_env()
+            # inert until set_calibration attaches an ETA calibration
+            self.admission = fleet_admission.AdmissionController()
 
     # -- public API --------------------------------------------------------
 
@@ -155,13 +207,20 @@ class ServingDispatcher:
         Called concurrently from HTTP handler threads; compatible callers
         arriving within one coalesce window share a device batch. What the
         engine does not run raises here, before the request can join a
-        group. With ``SDTPU_CACHE`` the result cache answers first."""
+        group. With ``SDTPU_FLEET`` admission comes first (a refusal
+        raises ``FleetRejected`` and feeds no metric); with
+        ``SDTPU_CACHE`` the result cache answers next."""
         payload = apply_scripts(payload.model_copy())
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
         rid = str(getattr(payload, "request_id", "") or uuid.uuid4().hex)
+        fleet_class = ""
+        if self.fleet is not None:
+            # quota and SLO before any accounting: a refused request must
+            # feed no queue wait, dispatch or calibration
+            fleet_class = self._admit_fleet(payload)
         if not cache.enabled():
-            return self._run(payload, job, rid).result
+            return self._run(payload, job, rid, fleet_class).result
         # the traced set's content joins the key (resolvable before its
         # adapters are applied); "" on the merged path, whose merges move
         # the model fingerprint's epoch
@@ -172,7 +231,7 @@ class ServingDispatcher:
         if cached is not None:
             return cached.model_copy(deep=True)
         try:
-            ticket = self._run(payload, job, rid)
+            ticket = self._run(payload, job, rid, fleet_class)
             if self._cacheable(ticket):
                 # the store keeps its own copy: the caller may change the
                 # one it is handed
@@ -185,7 +244,8 @@ class ServingDispatcher:
                 # failed, cancelled or partial: the followers elect again
                 cache.result_abandon(key, flight)
 
-    def _run(self, payload, job: str, rid: str) -> Ticket:
+    def _run(self, payload, job: str, rid: str,
+             fleet_class: str = "") -> Ticket:
         """Bucket, group and run one admitted request; its ticket holds
         the result. Raises the request's error."""
         bypass = bool(payload.init_images or payload.enable_hr)
@@ -206,6 +266,7 @@ class ServingDispatcher:
         self.engine.check_supported(run)
 
         ticket = Ticket(payload, run, job, bucketed, rid)
+        ticket.fleet_class = fleet_class
         with self._lock:
             self._tickets[rid] = ticket
         try:
@@ -237,6 +298,161 @@ class ServingDispatcher:
             return False
         t.cancelled.set()
         return True
+
+    # -- the fleet tier ----------------------------------------------------
+
+    def eta_overhead(self, payload=None) -> Dict[str, float]:
+        """The serving layer's terms of ``scheduler.eta.predict_eta``: the
+        expected queue wait (the observed mean, at least half the coalesce
+        window) and the padding overhead of this payload's bucket."""
+        wait = METRICS.avg_queue_wait() or (self.window / 2.0)
+        if payload is not None:
+            pad = self.bucketer.padding_ratio(payload.width, payload.height)
+        else:
+            pad = METRICS.avg_padding_ratio()
+        return {"queue_wait": wait, "padding_overhead": pad}
+
+    def set_calibration(self, cal, benchmark=None) -> None:
+        """Attach an ETA calibration (``scheduler/eta.py``) so SLO
+        admission can predict completion times; without one every request
+        is accepted untouched."""
+        if self.admission is not None:
+            self.admission.calibration = cal
+            self.admission.benchmark = benchmark
+
+    def fleet_summary(self) -> Optional[Dict[str, object]]:
+        """The fleet's live state; None with the fleet off."""
+        if self.fleet is None:
+            return None
+        out = self.fleet.summary()
+        if self.quotas is not None:
+            out["quotas"] = self.quotas.summary()
+        if self.admission is not None:
+            cal = self.admission.calibration
+            out["admission"] = {
+                "calibrated": bool(cal is not None and cal.benchmarked),
+                "fewstep": self.admission.fewstep,
+            }
+        return out
+
+    def _admit_fleet(self, payload) -> str:
+        """Quota, then the ETA-SLO verdict: returns the resolved class
+        name, changes the payload on degrade (step-cache cadence, few-step
+        budget, int8), raises ``FleetRejected`` on refusal."""
+        pol = self.fleet.policy.resolve(payload.priority_class)
+        slo = float(getattr(payload, "slo_s", 0.0) or 0.0)
+        if slo > 0:  # a request's own SLO overrides the class default
+            pol = dataclasses.replace(pol, slo_s=slo)
+        tenant = str(getattr(payload, "tenant", "") or "default")
+        metered = 0
+        if self.quotas is not None and self.quotas.enabled:
+            retry = self.quotas.admit(tenant, payload.total_images)
+            if retry is not None:
+                raise fleet_admission.FleetRejected(
+                    "quota", f"tenant {tenant!r} image quota exhausted",
+                    retry_after=retry)
+            metered = payload.total_images
+        decision = self.admission.decide(payload, pol,
+                                         self.eta_overhead(payload))
+        if decision.action == "reject":
+            if metered:
+                # the withdrawal preceded the verdict; a refused request
+                # did no work, so its tokens go back
+                self.quotas.refund(tenant, metered)
+            raise fleet_admission.FleetRejected(
+                "slo", decision.detail,
+                retry_after=max(1.0, (decision.predicted_s or 0.0)
+                                - (decision.slo_s or 0.0)))
+        if decision.action == "degrade":
+            ov = dict(payload.override_settings or {})
+            ov.update(decision.overrides)
+            # a marker the engine ignores; it rides into the result's
+            # parameters
+            ov["fleet_degraded"] = decision.detail
+            payload.override_settings = ov
+            if decision.steps:
+                payload.steps = decision.steps
+        return pol.name
+
+    def _engine(self):
+        """The engine this thread executes on: the resident checked out
+        for the current leader or solo execution, else the primary."""
+        return getattr(self._exec_engine, "engine", None) or self.engine
+
+    @contextlib.contextmanager
+    def _checkout_engine(self):
+        """Borrow a pool resident for one execution (``SDTPU_POOL`` with a
+        pool attached; else the primary engine). The resident rides a
+        thread-local, so the device section on this thread resolves to it
+        through :meth:`_engine`."""
+        if self.pool is None or not fleet_pool.enabled():
+            yield self.engine
+            return
+        res = self.pool.acquire()
+        self._exec_engine.engine = res.engine
+        try:
+            yield res.engine
+        finally:
+            self._exec_engine.engine = None
+            self.pool.release(res)
+
+    @contextlib.contextmanager
+    def _device(self, tickets: List[Ticket], images: int):
+        """The execution's critical section. Fleet off: the plain
+        execution lock. Fleet on: a gate entry per dispatch, with the
+        chunk-boundary preempt hook on the engine when the work is
+        preemptible and preempt-safe."""
+        if self.fleet is None:
+            with self._exec_lock:
+                yield
+            return
+        gate = self.fleet
+        with self._lock:
+            tickets = list(tickets)  # a group's list grows until it closes
+        lead = tickets[0]
+        pol = gate.policy.resolve(lead.fleet_class)
+        for t in tickets[1:]:
+            p = gate.policy.resolve(t.fleet_class)
+            if p.weight > pol.weight:
+                pol = p  # a mixed group runs at its strongest class
+        entry = fleet_policy.GateEntry(
+            pol, tenant=str(getattr(lead.payload, "tenant", "")
+                            or "default"),
+            cost=max(1, images), request_id=lead.request_id)
+        gate.acquire(entry)
+        engine = self._engine()
+        prev = engine.preempt_hook
+        hooked = False
+        try:
+            if pol.preemptible \
+                    and all(self._preempt_safe(t.run) for t in tickets):
+                # prev saved and restored: a preemptible interloper that
+                # runs during an outer job's yield cannot clear its hook
+                engine.preempt_hook = fleet_policy.EnginePreemptHook(
+                    gate, entry, engine.device_runner)
+                hooked = True
+            yield
+        finally:
+            if hooked:
+                engine.preempt_hook = prev
+            gate.release(entry)
+
+    def _preempt_safe(self, p) -> bool:
+        """May this payload yield mid-denoise? Not with MERGED adapters
+        (an interloper's tagless run would restore the pristine weights
+        under it); a traced set rides as per-run graph inputs and survives
+        an interloper. DPM adaptive runs a loop without the hook."""
+        if "<lora:" in (p.prompt or "") and self._traced_rowspec(p) is None:
+            return False
+        return not kd.resolve_sampler(p.sampler_name).adaptive
+
+    def _observe_wait(self, ticket: Ticket, wait: float) -> None:
+        """A dispatched request's queue wait: the dispatcher's mean and,
+        with the fleet on, its class's histogram (the autoscale signal)."""
+        METRICS.record_queue_wait(wait)
+        if self.fleet is not None:
+            obs_prom.fleet_observe_queue_wait(
+                self.fleet.policy.resolve(ticket.fleet_class).name, wait)
 
     # -- grouping ----------------------------------------------------------
 
@@ -333,10 +549,11 @@ class ServingDispatcher:
             return
         if self.window > 0:
             time.sleep(self.window)
-        self._run_grouped_leader(g, key)
+        with self._checkout_engine():
+            self._run_grouped_leader(g, key)
 
     def _run_grouped_leader(self, g: _Group, key) -> None:
-        with self._exec_lock:
+        with self._device(g.tickets, g.images):
             # close AFTER taking the engine: followers kept joining while a
             # previous batch held the device (continuous batching)
             with self._lock:
@@ -346,11 +563,12 @@ class ServingDispatcher:
             start = time.monotonic()
             for t in g.tickets:
                 if not t.cancelled.is_set():
-                    METRICS.record_queue_wait(start - t.enqueued)
+                    self._observe_wait(t, start - t.enqueued)
+            engine = self._engine()
             try:
                 # the engine's own thread: cuBLAS and cuDNN state is per
                 # thread, and a fresh thread may give other bits
-                self.engine.run_on_device(self._execute_group, g)
+                engine.run_on_device(self._execute_group, g, engine)
             except BaseException as e:  # noqa: BLE001 — delivered per ticket
                 for t in g.tickets:
                     if t.error is None and t.result is None:
@@ -360,14 +578,19 @@ class ServingDispatcher:
                     t.done.set()
 
     def _run_solo(self, ticket: Ticket) -> None:
-        engine = self.engine
-        with self._exec_lock:
+        with self._checkout_engine():
+            self._run_solo_inner(ticket)
+
+    def _run_solo_inner(self, ticket: Ticket) -> None:
+        engine = self._engine()
+        with self._device([ticket], ticket.run.total_images):
             try:
                 engine.state.begin_request()
                 if ticket.cancelled.is_set():
                     ticket.result = self._empty_result(ticket)
                     return
-                METRICS.record_queue_wait(time.monotonic() - ticket.enqueued)
+                self._observe_wait(ticket,
+                                   time.monotonic() - ticket.enqueued)
                 METRICS.record_dispatch(
                     1, precision=self._precision_name(ticket.run))
                 result = engine.generate_range(ticket.run, 0, None,
@@ -382,24 +605,24 @@ class ServingDispatcher:
 
     # -- merged execution (on the engine's device thread) --------------------
 
-    def _execute_group(self, g: _Group) -> None:
-        built = self._group_build_inputs(g)
+    def _execute_group(self, g: _Group, engine) -> None:
+        built = self._group_build_inputs(g, engine)
         if built is None:
             return
-        latents = self.engine._denoise(built["rp"], built["x"],
-                                       built["keys"], built["ctx"],
-                                       built["pooled"], "txt2img",
-                                       ragged=built["ragged"],
-                                       lora=built["lora"])
-        imgs = self.engine._decode_u8(latents, built["width"],
-                                      built["height"])[:built["b_raw"]]
-        self._group_merge(built, imgs)
+        latents = engine._denoise(built["rp"], built["x"], built["keys"],
+                                  built["ctx"], built["pooled"], "txt2img",
+                                  ragged=built["ragged"], lora=built["lora"])
+        imgs = engine._decode_u8(latents, built["width"],
+                                 built["height"])[:built["b_raw"]]
+        self._group_merge(built, imgs, engine)
 
-    def _group_build_inputs(self, g: _Group) -> Optional[Dict]:
+    def _group_build_inputs(self, g: _Group,
+                            engine=None) -> Optional[Dict]:
         """Cancellation filter, per-ticket prompt encodes and noise draws,
-        batch concat and pad-and-drop. Returns the denoise and merge
-        inputs, or None when no ticket is still live."""
-        engine = self.engine
+        batch concat and pad-and-drop on ``engine`` (the group's checked-out
+        resident; the primary engine by default). Returns the denoise and
+        merge inputs, or None when no ticket is still live."""
+        engine = engine or self.engine
         live = [t for t in g.tickets if not t.cancelled.is_set()]
         for t in g.tickets:
             if t not in live:
@@ -503,7 +726,7 @@ class ServingDispatcher:
                 "ragged": ragged, "lora": lora,
                 "ragged_mode": ragged_mode, "b_raw": b_raw}
 
-    def _group_merge(self, built: Dict, imgs: np.ndarray) -> None:
+    def _group_merge(self, built: Dict, imgs: np.ndarray, engine) -> None:
         """Split the batch's images back into per-ticket results: bucket
         crops (top-aligned for ragged rows) and per-image seeds and
         infotext of each original payload."""
@@ -520,7 +743,7 @@ class ServingDispatcher:
             ow, oh = t.payload.width, t.payload.height
             if t.bucketed:
                 rows = np.stack([crop(im, ow, oh) for im in rows])
-            self.engine._append_images(out, t.payload, rows, 0, ow, oh)
+            engine._append_images(out, t.payload, rows, 0, ow, oh)
             t.result = out
 
     # -- result fix-up -----------------------------------------------------

@@ -93,6 +93,21 @@ class DispatchMetrics:
             self.queue_wait_total += float(seconds)
             self.queue_wait_count += 1
 
+    def avg_queue_wait(self) -> float:
+        """Mean coalesce-queue wait (0 before any); the fleet's admission
+        prices it in (``ServingDispatcher.eta_overhead``)."""
+        with self._lock:
+            if not self.queue_wait_count:
+                return 0.0
+            return self.queue_wait_total / self.queue_wait_count
+
+    def avg_padding_ratio(self) -> float:
+        """Mean bucket-px / requested-px over bucketed requests (>= 1)."""
+        with self._lock:
+            if not self.padding_ratio_count:
+                return 1.0
+            return self.padding_ratio_total / self.padding_ratio_count
+
     def summary(self) -> Dict:
         with self._lock:
             total_buckets = self.bucket_hits + self.bucket_misses

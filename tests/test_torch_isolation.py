@@ -51,9 +51,11 @@ def test_importing_every_port_module_loads_no_jax():
                  "scheduler.worker", "scheduler.eta", "runtime.flags",
                  "runtime.daemon", "cli", "models.controlnet",
                  "pipeline.image", "models.convert", "models.safetensors_io",
-                 "pipeline.registry"):
+                 "pipeline.registry", "fleet", "fleet.policy", "fleet.quotas",
+                 "fleet.admission", "fleet.slices", "fleet.pool", "obs",
+                 "obs.prometheus", "runtime.runner"):
         assert f"{PORT}.{name}" in out["imported"]
-    assert len(out["imported"]) >= 35
+    assert len(out["imported"]) >= 44
     assert out["forbidden"] == []
 
 
