@@ -140,6 +140,35 @@ Phases, each fatal on failure (no phase is caught and passed over):
    gives its weights' memory back; its thread's cuBLAS workspaces stay
    with PyTorch), both listed ``executed`` by ``GET /internal/autoscale``;
    every engine of the phase freed at its end;
+7e. the stage-graph executor (``phase_stage_graph``) on the main path's
+   engine, graphed: (a) a config #1 request with ``n_iter`` 4 (four groups
+   of 1) through the engine's own loop, serial, staged at depth 1 and at
+   depth 2 (``SDTPU_STAGE_GRAPH``, ``SDTPU_STAGE_DEPTH``): 3 timed
+   requests per arm (p50) and one profiled (device busy share), the
+   overlap clock's ratio, the denoise stage's host seconds a group against
+   the device's, which must be under half of them (no host wait), 1280 K1
+   launches each (all Hopper), no capture, every request the serial PNG
+   bytes; (b) four concurrent config #1 requests through a dispatcher on a
+   batch ladder of 1,2 (two groups of 2, back to back; 640 K1 launches)
+   and (c) the ragged phase's three heights on its 512x768 bucket (one
+   dispatch, 640 K2 launches, no K1), each in turns serial, staged,
+   staged, serial with every run's bytes equal; (d) txt2img at batch 4
+   with one canny unit at weight 1.0, serial and staged in turns: the
+   stage-ahead tower gives the in-evaluation bytes, 460 K1 launches (20 x
+   (16 + 7)) each, ``cnres`` and ``cnstep`` captured on the first staged
+   request only; (e) two requests coalesced in one staged group, one
+   cancelled through ``POST /internal/cancel`` while the group denoises:
+   its result empty and marked cancelled, its peer's bytes those of the
+   pair without the cancel; (f) with ``SDTPU_SIM=1`` and
+   ``SDTPU_JOURNAL=1``, a World of its own (the master on this engine, a
+   remote on a second engine of the same seeded weights behind the port's
+   ``ApiServer``): a fault-free 4-image request, the remote disabled, then
+   a chaos ``kill`` on the remote at request 1: the gallery complete with
+   its seeds and the fault-free request's bytes, within 2 levels of the
+   master alone, the journal holding ``fault_injected``,
+   ``fault_cleared``, ``job_failed``, ``requeued`` and ``completed`` in
+   order, ``GET /internal/sim`` the delivered fault, every seam None
+   after ``disarm``;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
@@ -2794,6 +2823,541 @@ def phase_fleet_gate(fa, ra, card_line: str) -> dict:
     return out
 
 
+# -- the stage-graph executor, cancel and chaos ---------------------------------
+
+STAGE_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+              "negative_prompt": "blurry", "steps": 20, "width": 512,
+              "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+              "subseed": 5}
+STAGE_SIZE = 512  # the width and height of STAGE_BODY, its bucket
+STAGE_N_ITER = 4  # (a): four groups of 1
+STAGE_REPEATS = 3  # timed requests per arm of (a), beside one profiled
+STAGE_CN_K1 = 20 * (16 + 7)  # (d): the unit (7) and the UNet (16) a step
+STAGE_WINDOW = 0.3  # the coalesce window of (b) and (e), seconds
+STAGE_CHAOS_ORDER = ("fault_injected", "fault_cleared", "job_failed",
+                     "requeued", "completed")
+
+
+def stage_arm(depth: int) -> dict:
+    """``SDTPU_STAGE_GRAPH`` on at ``depth`` (0: off) for one arm; returns
+    what to restore."""
+    saved = {k: os.environ.get(k)
+             for k in ("SDTPU_STAGE_GRAPH", "SDTPU_STAGE_DEPTH")}
+    for k in saved:
+        os.environ.pop(k, None)
+    if depth:
+        os.environ.update({"SDTPU_STAGE_GRAPH": "1",
+                           "SDTPU_STAGE_DEPTH": str(depth)})
+    return saved
+
+
+def stage_engine_arms(engine, fa, ra, card_line: str) -> dict:
+    """(a): a config #1 request with ``n_iter`` 4 through the engine's own
+    loop, serial, staged at depth 1 and at depth 2: the walls of
+    ``STAGE_REPEATS`` requests per arm (their p50), the K1 launches and
+    captures of each, the overlap clock and the denoise stage's dispatch
+    seconds per group, and one profiled request per arm (device busy
+    share). Every request of every arm must give the serial PNG bytes."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.parallel import (
+        stage_graph,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import rng
+
+    # a range's ancestral noise is drawn in one block on the card: the
+    # per-step draws' bits
+    keys = rng.batch_keys(4242, 0, 2, device="cuda")
+    lat = STAGE_SIZE // 8
+    block = rng.step_noise_block(keys, 0, 20, (lat, lat, 4))
+    check(all(torch.equal(block[i], rng.step_noise(keys, i, (lat, lat, 4)))
+              for i in range(20)),
+          "(a) the block of step noise differs from the per-step draws")
+    payload = GenerationPayload(**STAGE_BODY, seed=4242, n_iter=STAGE_N_ITER)
+    want_k1 = LAUNCHES_PER_GROUP * STAGE_N_ITER
+    arms, reference = {}, None
+    for arm, depth in (("serial", 0), ("staged depth 1", 1),
+                       ("staged depth 2", 2)):
+        saved = stage_arm(depth)
+        try:
+            stage_graph.CLOCK.reset()
+            obs_prom.clear_histograms()
+            walls = []
+            for i in range(STAGE_REPEATS):
+                fa.reset_launches(fa.flash_attention)
+                fa.reset_launches(ra.ragged_attention)
+                graphs0 = captures()
+                t = time.perf_counter()
+                result = engine.txt2img(payload.model_copy())
+                walls.append(time.perf_counter() - t)
+                k1 = fa.flash_attention.launches
+                paths = dict(fa.flash_attention.path_launches)
+                print(f"stage graph (a) {arm} request {i}: "
+                      f"{walls[-1]:.4f} s, K1 {k1} by path "
+                      f"{json.dumps(paths)}, K2 "
+                      f"{ra.ragged_attention.launches}, captured "
+                      f"{captures() - graphs0} [{card_line}]")
+                check(k1 == want_k1 and paths["hopper"] == k1,
+                      f"(a) {arm}: K1 {k1} ({paths}), want {want_k1} on "
+                      f"the Hopper path")
+                check(ra.ragged_attention.launches == 0,
+                      f"(a) {arm} launched K2")
+                check(captures() == graphs0,
+                      f"(a) {arm} request {i} captured a graph")
+                check(len(result.images) == STAGE_N_ITER
+                      and result.seeds == list(range(4242, 4246)),
+                      f"(a) {arm}: seeds {result.seeds}")
+                if reference is None:
+                    reference = result.images
+                check(result.images == reference,
+                      f"(a) {arm} request {i} gave other PNG bytes than "
+                      f"the serial path")
+            clock = stage_graph.CLOCK.summary()
+            hists = obs_prom.stage_graph_histograms()
+            dispatch_ms = None
+            if "denoise" in hists:
+                _, total, n = hists["denoise"].snapshot()
+                dispatch_ms = 1e3 * total / n
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                result = engine.txt2img(payload.model_copy())
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t)
+            check(result.images == reference,
+                  f"(a) {arm}: the profiled request gave other bytes")
+        finally:
+            env_restore(saved)
+        groups = device_groups(prof, 1)
+        busy = sum(groups.values())
+        print_groups(f"stage graph (a) {arm}: config #1 n_iter "
+                     f"{STAGE_N_ITER}", wall_ms, groups, card_line)
+        arms[arm] = {
+            "walls_s": [round(w, 4) for w in walls],
+            "p50_s": round(statistics.median(walls), 4),
+            "profiled_wall_ms": round(wall_ms, 3),
+            "device_busy_ms": round(busy, 3),
+            "busy_share": round(busy / wall_ms, 4),
+            "overlap_ratio": round(clock["stage_overlap_ratio"], 4),
+            "stage_s": round(clock["stage_s"], 4),
+            "overlap_s": round(clock["overlap_s"], 4),
+            "k1": want_k1,
+        }
+        if dispatch_ms is not None:
+            # the denoise stage returns once its chunks are queued
+            per_group = busy / STAGE_N_ITER
+            arms[arm]["denoise_dispatch_ms"] = round(dispatch_ms, 3)
+            arms[arm]["device_ms_per_group"] = round(per_group, 3)
+            print(f"stage graph (a) {arm}: the denoise stage returns after "
+                  f"{dispatch_ms:.3f} ms of host time a group, against "
+                  f"{per_group:.3f} ms of device time a group "
+                  f"[{card_line}]")
+            # a host wait in the loop would hold the dispatch to the
+            # device's pace
+            check(dispatch_ms < 0.9 * per_group,
+                  f"(a) {arm}: the denoise dispatch took {dispatch_ms:.1f} "
+                  f"ms of a group's {per_group:.1f} ms: a host wait")
+    # what a step's dispatch is made of: the host time of one replay of
+    # the request's UNet graph (the launch of every node)
+    entry = max(engine._graphs.entries(), key=lambda e: e.replays)
+    arms["graph_replay_host_us"] = round(
+        host_us(entry.graph.replay, iters=20), 1)
+    print(f"stage graph (a): one UNet graph replay takes "
+          f"{arms['graph_replay_host_us']:.1f} us of host time "
+          f"[{card_line}]")
+    return arms
+
+
+def stage_submit(disp, payloads) -> tuple:
+    """``payloads`` submitted to ``disp`` 50 ms apart from threads:
+    (results, walls in s)."""
+    results, walls, errors = [None] * len(payloads), [0.0] * len(payloads), []
+
+    def send(i):
+        try:
+            t = time.perf_counter()
+            results[i] = disp.submit(payloads[i])
+            walls[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errors.append(e)
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+        time.sleep(0.05)
+    for th in threads:
+        th.join()
+    check(not errors, f"a dispatcher request failed: {errors}")
+    return results, walls
+
+
+def stage_dispatch_arms(engine, fa, ra, what: str, make, bodies,
+                        k1: int, k2: int, dispatches: int,
+                        card_line: str) -> dict:
+    """(b) and (c): ``bodies`` through a fresh dispatcher (``make()``) in
+    arms serial, staged, staged, serial: each run's launches, dispatches
+    and walls, every run's bytes equal to the first's, no capture after
+    the first run."""
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    runs, reference = [], None
+    for depth in (0, 1, 1, 0):
+        saved = stage_arm(depth)
+        try:
+            disp = make()
+            METRICS.clear()
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            results, walls = stage_submit(
+                disp, [GenerationPayload(**b) for b in bodies])
+        finally:
+            env_restore(saved)
+        arm = "staged" if depth else "serial"
+        got_k1, got_k2 = fa.flash_attention.launches, \
+            ra.ragged_attention.launches
+        paths = (fa.flash_attention.path_launches if k1
+                 else ra.ragged_attention.path_launches)
+        n_disp = METRICS.summary()["dispatches"]
+        print(f"stage graph {what} {arm}: walls "
+              f"{[round(w, 4) for w in walls]} s, K1 {got_k1}, K2 "
+              f"{got_k2} by path {json.dumps(dict(paths))}, dispatches "
+              f"{n_disp}, captured {sum(METRICS.summary()['compiles'].values())}"
+              f" [{card_line}]")
+        check(got_k1 == k1 and got_k2 == k2,
+              f"{what} {arm}: K1 {got_k1}, K2 {got_k2}, want {k1}, {k2}")
+        check(paths["hopper"] == k1 + k2,
+              f"{what} {arm}: launches off the Hopper path {dict(paths)}")
+        check(n_disp == dispatches,
+              f"{what} {arm}: {n_disp} dispatches, want {dispatches}")
+        # the first run may meet a new signature; the repeats replay
+        check(not runs or not METRICS.summary()["compiles"],
+              f"{what} {arm}: a graph was captured on a repeat")
+        images = [r.images for r in results]
+        if reference is None:
+            reference = images
+        check(images == reference,
+              f"{what} {arm}: other PNG bytes than the serial run")
+        runs.append({"arm": arm, "walls_s": [round(w, 4) for w in walls],
+                     "k1": got_k1, "k2": got_k2, "dispatches": n_disp})
+    return {"runs": runs}
+
+
+def stage_controlnet(engine, fa, card_line: str) -> dict:
+    """(d): config #1's txt2img at batch 4 with one canny unit at weight
+    1.0, serial and staged in turns (serial, staged, staged, serial): the
+    stage-ahead tower gives the in-evaluation bytes, 460 K1 launches each,
+    and captures its ``cnres`` and ``cnstep`` graphs on its first request
+    only."""
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    body = {**STAGE_BODY, "seed": 4343, "batch_size": 4,
+            "alwayson_scripts": {"controlnet": {"args": [{
+                "enabled": True,
+                "image": synth_b64_image(STAGE_SIZE, STAGE_SIZE),
+                "module": "canny", "model": CONFIG3_CN, "weight": 1.0}]}}}
+    runs, reference, first_staged = [], None, True
+    for depth in (0, 1, 1, 0):
+        saved = stage_arm(depth)
+        try:
+            METRICS.clear()
+            fa.reset_launches(fa.flash_attention)
+            t = time.perf_counter()
+            result = engine.txt2img(GenerationPayload(**body))
+            wall = time.perf_counter() - t
+        finally:
+            env_restore(saved)
+        arm = "staged" if depth else "serial"
+        k1 = fa.flash_attention.launches
+        paths = dict(fa.flash_attention.path_launches)
+        compiles = dict(METRICS.summary()["compiles"])
+        print(f"stage graph (d) ControlNet {arm}: {wall:.4f} s, K1 {k1} by "
+              f"path {json.dumps(paths)}, captures {json.dumps(compiles)} "
+              f"[{card_line}]")
+        check(k1 == STAGE_CN_K1 and paths["hopper"] == k1,
+              f"(d) {arm}: K1 {k1} ({paths}), want {STAGE_CN_K1} on the "
+              f"Hopper path")
+        if depth and first_staged:
+            check(compiles == {"cnres": 1, "cnstep": 1},
+                  f"(d) the first staged request captured {compiles}")
+            first_staged = False
+        elif depth or runs:
+            check(not compiles, f"(d) {arm} captured {compiles}")
+        if reference is None:
+            reference = result.images
+        check(len(result.images) == 4 and result.images == reference,
+              f"(d) {arm}: other PNG bytes than the in-evaluation path")
+        runs.append({"arm": arm, "wall_s": round(wall, 4), "k1": k1,
+                     "captures": compiles})
+    return {"runs": runs}
+
+
+def stage_cancel(engine, card_line: str) -> dict:
+    """(e): two requests coalesced in one staged group; the second is
+    cancelled through ``POST /internal/cancel`` while the group denoises
+    (the cancel is sent from inside the group's denoise): its result is
+    empty and marked cancelled, the first's bytes are those of the same
+    pair run without the cancel."""
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+        ShapeBucketer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
+        ServingDispatcher,
+    )
+
+    bodies = [{**STAGE_BODY, "seed": 4444, "request_id": "cancel-keep"},
+              {**STAGE_BODY, "seed": 4445, "request_id": "cancel-drop"}]
+    saved = stage_arm(1)
+    server = ApiServer(engine, port=0)
+    server.dispatcher = ServingDispatcher(
+        engine, bucketer=ShapeBucketer(shapes=[(STAGE_SIZE, STAGE_SIZE)],
+                                       batches=[1, 2]), window=STAGE_WINDOW)
+    server.start()
+    answers = []
+    try:
+        baseline, _ = concurrent_posts(server.port, bodies)
+        denoise = engine._denoise
+
+        def cancelling(*args, **kwargs):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/internal/cancel",
+                data=json.dumps({"request_id": "cancel-drop"}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                answers.append(json.loads(resp.read()))
+            return denoise(*args, **kwargs)
+
+        engine._denoise = cancelling
+        try:
+            got, walls = concurrent_posts(server.port, bodies)
+        finally:
+            del engine._denoise
+    finally:
+        server.stop()
+        env_restore(saved)
+    keep, drop = got
+    print(f"stage graph (e) cancel: answers {answers}, the cancelled "
+          f"request {len(drop['images'])} image(s), its peer "
+          f"{len(keep['images'])}, walls {[round(w, 4) for w in walls]} s "
+          f"[{card_line}]")
+    check(answers == [{"cancelled": True}], f"(e) cancel answered {answers}")
+    check(drop["images"] == [] and drop["parameters"].get("cancelled"),
+          "(e) the cancelled request is not empty and marked cancelled")
+    check(len(baseline[1]["images"]) == 1,
+          "(e) the uncancelled pair lost an image")
+    check(keep["images"] == baseline[0]["images"],
+          "(e) the cancel changed its peer's bytes")
+    return {"walls_s": [round(w, 4) for w in walls],
+            "cancelled_images": 0, "peer_bytes_equal": True}
+
+
+def stage_chaos(engine, fa, card_line: str) -> dict:
+    """(f): a World of its own: the main path's engine as the master and a
+    second engine of its weights served by an ``ApiServer`` over HTTP (the
+    remote), equal speeds. A fault-free 4-image request (master:2
+    remote:2), the same with the remote disabled, then, with
+    ``SDTPU_SIM=1`` and ``SDTPU_JOURNAL=1``, a chaos ``kill`` on the remote
+    at request 1: its range is requeued on the master and must give the
+    fault-free request's bytes (the fleet's requeue contract) with every seed,
+    the journal must hold the fault and its recovery in order, ``GET
+    /internal/sim`` the armed plan, and ``disarm`` must leave every seam
+    None. The killed remote stays unavailable, so this runs last."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SD15,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        journal as obs_journal,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        worker as worker_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        world as world_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving import (
+        dispatcher as dispatcher_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.sim import chaos
+
+    workdir = tempfile.mkdtemp(prefix="stage-chaos-")
+    saved = env_set({"SDTPU_SIM": "1", "SDTPU_JOURNAL": "1"})
+    remote_srv = server = None
+    body = {**STAGE_BODY, "seed": 4500, "batch_size": 4}
+    try:
+        # the main path's seeded weights, copied from its engine (the
+        # same values: its f32 islands are its bf16 weights widened)
+        remote_engine = Engine(
+            SD15, {name: getattr(engine, name).state_dict()
+                   for name in ("unet", "text_encoder", "vae",
+                                "vae_encoder")},
+            policy=dtypes.CARD, device="cuda")
+        remote_world = world_mod.World(
+            config_path=os.path.join(workdir, "remote.json"))
+        remote_world.add_worker(worker_mod.WorkerNode(
+            "master", worker_mod.LocalBackend(remote_engine), master=True,
+            avg_ipm=60.0))
+        remote_srv = ApiServer(remote_world, port=0).start()
+        world = world_mod.World(
+            config_path=os.path.join(workdir, "master.json"))
+        world.add_worker(worker_mod.WorkerNode(
+            "master", worker_mod.LocalBackend(engine), master=True,
+            avg_ipm=60.0))
+        remote = world.add_worker(worker_mod.WorkerNode(
+            "remote", worker_mod.HTTPBackend("127.0.0.1", remote_srv.port),
+            avg_ipm=60.0))
+        # an equal split whatever the workers' measured speeds: the phase
+        # holds the requeue, not the planner's stall deferral
+        world.job_timeout = 1e9
+        server = ApiServer(world, port=0).start()
+        first = post(server.port, {**body, "request_id": "chaos-first"})
+        check(labels_of(first) == ["master"] * 2 + ["remote"] * 2,
+              f"(f) the fault-free plan: {labels_of(first)}")
+        world.configure_worker("remote", disabled=True)
+        alone = post(server.port, {**body, "request_id": "chaos-alone"})
+        world.configure_worker("remote", disabled=False)
+        plan = [(j.worker.label, j.batch_size)
+                for j in world.plan(GenerationPayload(**body))]
+        check(plan == [("master", 2), ("remote", 2)],
+              f"(f) the plan before the kill: {plan}")
+        obs_journal.JOURNAL.clear()
+        plan = chaos.arm(chaos.ChaosPlan([chaos.Fault(
+            kind="kill", worker="remote", at_request=1)], seed=15))
+        try:
+            fa.reset_launches(fa.flash_attention)
+            t = time.perf_counter()
+            killed = post(server.port, {**body, "request_id": "chaos-kill"})
+            wall = time.perf_counter() - t
+            sim_doc = get_json(server.port, "/internal/sim")
+        finally:
+            chaos.disarm()
+        events = get_json(server.port, "/internal/journal")["events"]
+        seams = (worker_mod.CHAOS_HOOK, world_mod.CHAOS_HOOK,
+                 dispatcher_mod.CHAOS_HOOK)
+        k1 = fa.flash_attention.launches
+    finally:
+        for srv in (server, remote_srv):
+            if srv is not None:
+                srv.stop()
+        env_restore(saved)
+        shutil.rmtree(workdir, ignore_errors=True)
+    del remote_engine, remote_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    order = [e["event"] for e in events if e["event"] in STAGE_CHAOS_ORDER]
+    diffs = [float(np.abs(png_pixels(a).astype(np.int32)
+                          - png_pixels(b).astype(np.int32)).mean())
+             for a, b in zip(killed["images"], alone["images"])]
+    print(f"stage graph (f) chaos: {wall:.4f} s, labels "
+          f"{labels_of(killed)}, seeds {json.loads(killed['info'])['all_seeds']}"
+          f", remote {remote.current_state().name}, master K1 {k1}, journal "
+          f"{order}, vs master alone mean abs {[round(d, 4) for d in diffs]}"
+          f" [{card_line}]")
+    print(f"stage graph (f) /internal/sim: {json.dumps(sim_doc)}")
+    check(json.loads(killed["info"])["all_seeds"] == list(range(4500, 4504)),
+          "(f) the requeued gallery's seeds")
+    check(labels_of(killed) == ["master"] * 4, "(f) the requeue's labels")
+    same = [a == b for a, b in zip(killed["images"], first["images"])]
+    print(f"stage graph (f): the requeued gallery's images equal to the "
+          f"fault-free request's: {same}; max abs "
+          f"{[int(np.abs(png_pixels(a).astype(np.int32) - png_pixels(b).astype(np.int32)).max()) for a, b in zip(killed['images'], first['images'])]}")
+    check(all(same), "(f) the requeued range is not the remote's bytes")
+    check(all(d <= FLEET_MEAN_TOLERANCE for d in diffs),
+          "(f) the gallery drifted from the master alone")
+    check(k1 == 2 * LAUNCHES_PER_GROUP,
+          f"(f) the master launched K1 {k1} times for two ranges of 2")
+    check(order == list(STAGE_CHAOS_ORDER), f"(f) the journal: {order}")
+    check(remote.current_state().name == "UNAVAILABLE",
+          "(f) the killed remote is not unavailable")
+    check(sim_doc["enabled"] and sim_doc["chaos"]["armed"]
+          and sim_doc["chaos"]["plan"]["faults"][0]["injected"] == 1,
+          "(f) /internal/sim does not show the delivered kill")
+    check(plan.status()["faults"][0]["cleared"], "(f) the fault is not "
+          "cleared")
+    check(seams == (None, None, None), "(f) disarm left a seam armed")
+    return {"wall_s": round(wall, 4), "journal": order,
+            "vs_master_alone_mean_abs": [round(d, 4) for d in diffs]}
+
+
+def phase_stage_graph(engine, fa, ra, card_line: str) -> dict:
+    """The stage-graph executor, per-request cancel and the chaos hook with
+    the request journal (see the module's docstring, 7e) on the main path's
+    engine."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+        ShapeBucketer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
+        ServingDispatcher,
+    )
+
+    t_phase = time.perf_counter()
+    for k in ("SDTPU_CACHE", "SDTPU_FLEET", "SDTPU_POOL", "SDTPU_RAGGED"):
+        os.environ.pop(k, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card_line}
+    out["engine"] = stage_engine_arms(engine, fa, ra, card_line)
+    bodies = [{**STAGE_BODY, "seed": 4600 + i} for i in range(4)]
+    out["dispatcher"] = stage_dispatch_arms(
+        engine, fa, ra, "(b) four requests, ladder 1,2", lambda:
+        ServingDispatcher(engine, bucketer=ShapeBucketer(
+            shapes=[(STAGE_SIZE, STAGE_SIZE)], batches=[1, 2]),
+            window=STAGE_WINDOW),
+        bodies, 2 * LAUNCHES_PER_GROUP, 0, 2, card_line)
+    saved = env_set(RAGGED_ENV)
+    try:
+        out["ragged"] = stage_dispatch_arms(
+            engine, fa, ra, "(c) ragged", lambda: ServingDispatcher(engine),
+            [{**STAGE_BODY, "seed": 4700 + i, "width": w, "height": h}
+             for i, (w, h) in enumerate(RAGGED_SIZES)],
+            0, 640, 1, card_line)
+    finally:
+        env_restore(saved)
+    out["controlnet"] = stage_controlnet(engine, fa, card_line)
+    out["cancel"] = stage_cancel(engine, card_line)
+    out["chaos"] = stage_chaos(engine, fa, card_line)
+    note_peak("stage graph", torch.cuda.max_memory_allocated())
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("stage graph metrics: " + json.dumps(out))
+    return out
+
+
 def phase_scripts_sdxl(base, card_line: str) -> None:
     """SDXL textual inversion on config #2's base engine: an embedding of
     a word's clip_l and clip_g rows gives the word's conditioning exactly
@@ -3985,6 +4549,8 @@ def phase_config3(engine, fa, ra, card_line: str) -> dict:
         return init_lat, engine._decode_u8(init_lat, size, size)
 
     init_lat, trip = engine.run_on_device(round_trip)
+    torch.cuda.synchronize()  # the decode lands in host memory in order
+    trip = trip.numpy()
     inp_lat = runs["inpaint"][5]
     # latent rows far above the mask: it starts at pixel row size / 2, the
     # blur (3 box passes of 4 px) widens it by 12 px and the resize to
@@ -5873,6 +6439,7 @@ def main() -> int:
     scripts = phase_scripts(engine, fa, ra, card_line)
     caches = phase_caches(engine, fa, ra, card_line)
     fleet_gate = phase_fleet_gate(fa, ra, card_line)
+    stage = phase_stage_graph(engine, fa, ra, card_line)
     phase_reference(engine)
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
@@ -6004,6 +6571,10 @@ def main() -> int:
         "fleet_gate_launches": {
             arm: row["k1"]
             for arm, row in fleet_gate["preemption"].items()},
+        "stage_graph_launches": {
+            "n_iter 4 (a)": stage["engine"]["serial"]["k1"],
+            "dispatcher (b)": stage["dispatcher"]["runs"][0]["k1"],
+            "controlnet (d)": stage["controlnet"]["runs"][0]["k1"]},
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "
@@ -6043,6 +6614,7 @@ def main() -> int:
         "cost_ladder_launches": {
             r["precision"]: r["k2"]
             for r in cost_ladder["ragged"]["runs"]},
+        "stage_graph_launches": stage["ragged"]["runs"][0]["k2"],
         "per": "one ragged UNet call of SD1.5 on a 512x768 bucket, batch 4 "
                "with CFG (32 launches: 16 self, 16 cross), bf16; bound on "
                "the valid work",

@@ -14,8 +14,8 @@ the engine never writes into them, and the text encoders run outside the
 CUDA graphs, so no entry lies in a graph's memory pool.
 
 Each thread keeps its request's hit counts (:func:`take_request_hits`);
-they are the counts a journal event would read (the JAX dispatcher's
-``embed_cache_hit``; the journal is not ported).
+the serving dispatcher drains them on the engine's device thread into the
+journal's ``embed_cache_hit`` event (``obs/journal.py``).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ let the owner yield, and a yield that blocked the device thread would
 deadlock. :class:`EnginePreemptHook` answers only its owning execution
 and serves the interloper's tasks while it waits (``runtime/runner.py``).
 
-Left for ROADMAP item 10: the journal events (``preempted``,
-``resumed``) and the ``preemptions`` counter that :meth:`FleetGate.
-yield_device` emits in the JAX package.
+With ``SDTPU_JOURNAL`` on, :meth:`FleetGate.yield_device` journals
+``preempted`` and ``resumed`` under the yielding entry's request id. Left
+for ROADMAP item 10: the ``preemptions`` Prometheus counter it feeds in
+the JAX package.
 
 Knobs (``runtime/config.py``):
 
@@ -41,6 +42,10 @@ import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    journal as obs_journal,
+)
 
 INTERACTIVE = "interactive"
 BATCH = "batch"
@@ -331,7 +336,13 @@ class FleetGate:
             if self._running is entry:
                 self._running = None
             self._cv.notify_all()
+        if obs_journal.enabled() and entry.request_id:
+            obs_journal.emit("preempted", entry.request_id,
+                             **{"class": entry.policy.name})
         self.acquire(entry, recost=False)
+        if obs_journal.enabled() and entry.request_id:
+            obs_journal.emit("resumed", entry.request_id,
+                             **{"class": entry.policy.name})
 
     # -- introspection ------------------------------------------------------
 

@@ -27,10 +27,11 @@ thread ended), so its memory goes with the last reference.
 Everything is in-process and synchronous — no daemon threads of its own.
 Gated ``SDTPU_POOL`` (default off); knobs: ``SDTPU_POOL_SIZE`` (target
 residents, default 2), ``SDTPU_POOL_COOLDOWN_S`` (min seconds between
-autoscale-driven spawn/retire executions, default 0). The JAX package's
-``sdtpu_cold_start_seconds`` histogram and ``pool_spawned`` /
-``pool_retired`` journal events wait for ROADMAP item 10; the spawn's
-seconds stay on the resident (:meth:`summary`).
+autoscale-driven spawn/retire executions, default 0). With
+``SDTPU_JOURNAL`` on, a spawn journals ``pool_spawned`` (with its
+seconds) and a retirement ``pool_retired``, under ``pool-<name>``. The JAX
+package's ``sdtpu_cold_start_seconds`` histogram waits for ROADMAP item
+10; the spawn's seconds stay on the resident (:meth:`summary`).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    journal as obs_journal,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag, env_float, env_int,
 )
@@ -117,6 +121,9 @@ class WarmPool:
         with self._lock:
             self._residents[name] = res
             self._spawns_total += 1
+        if obs_journal.enabled():
+            obs_journal.emit("pool_spawned", f"pool-{name}",
+                             spawn_s=round(spawn_s, 4))
         return res
 
     def kill(self, name: str) -> bool:
@@ -150,6 +157,8 @@ class WarmPool:
             name = res.name
         if dropped:
             _drop(res)
+        if obs_journal.enabled():
+            obs_journal.emit("pool_retired", f"pool-{name}")
         return name
 
     def heal(self) -> List[str]:

@@ -11,9 +11,16 @@ reads.
   SLO admission (``scheduler/eta.admission_eta``) falls back to it when a
   calibration has no error history of its own.
 
+- :func:`observe_stage_graph` / :func:`stage_graph_histograms`: one
+  ``sdtpu_stage_graph_seconds`` histogram per stage-graph node name
+  (encode, denoise, decode, merge), fed by ``parallel/stage_graph.py``;
+- :class:`LabeledCounter` and :data:`SIM_FAULT_COUNTER`
+  (``sdtpu_sim_faults_total{kind}``), fed by the chaos plan
+  (``sim/chaos.py``) through :func:`sim_fault_count`.
+
 Left for ROADMAP item 10, with the rest of the exporter: the metric
 registry and its text exposition (``/internal/metrics``), the request,
-stage, compile and cold-start histograms, and every labelled counter
+compile and cold-start histograms, and the other labelled counters
 (``fleet_count`` among them).
 """
 
@@ -109,10 +116,68 @@ def fleet_queue_wait_p95(cls: Optional[str] = None) -> float:
     return max(h.quantile(0.95) for h in hists)
 
 
+_STAGE_GRAPH_LOCK = threading.Lock()
+#: per-stage-node host seconds, made at the first observation
+_STAGE_GRAPH_LAT: Dict[str, Histogram] = {}  # guarded-by: _STAGE_GRAPH_LOCK
+
+
+def observe_stage_graph(stage: str, seconds: float) -> None:
+    """One stage-graph node's host interval (encode, denoise dispatch,
+    decode dispatch, merge fetch), by stage name."""
+    with _STAGE_GRAPH_LOCK:
+        h = _STAGE_GRAPH_LAT.get(stage)
+        if h is None:
+            h = Histogram("sdtpu_stage_graph_seconds",
+                          "Stage-graph node host seconds by stage.",
+                          labels=f'stage="{stage}"')
+            _STAGE_GRAPH_LAT[stage] = h
+    h.observe(seconds)
+
+
+def stage_graph_histograms() -> Dict[str, Histogram]:
+    """The stage-graph histograms by stage name."""
+    with _STAGE_GRAPH_LOCK:
+        return dict(_STAGE_GRAPH_LAT)
+
+
 def clear_histograms() -> None:
-    """Forget every fleet queue-wait observation (tests, phases)."""
+    """Forget every fleet queue-wait and stage-graph observation (tests,
+    phases)."""
     with _FLEET_LOCK:
         _FLEET_QUEUE_WAIT.clear()
+    with _STAGE_GRAPH_LOCK:
+        _STAGE_GRAPH_LAT.clear()
+
+
+class LabeledCounter:
+    """Thread-safe counter family with a fixed label-name tuple."""
+
+    def __init__(self, name: str, help_text: str,
+                 label_names: Tuple[str, ...]) -> None:
+        self.name = name
+        self.help = help_text
+        self.label_names = label_names
+        self._lock = threading.Lock()
+        self._counts: Dict[Tuple[str, ...], float] = {}  # guarded-by: _lock
+
+    def inc(self, n: float = 1.0, **labels: Any) -> None:
+        key = tuple(str(labels.get(ln, "")) for ln in self.label_names)
+        with self._lock:
+            self._counts[key] = self._counts.get(key, 0.0) + float(n)
+
+    def total(self) -> float:
+        with self._lock:
+            return sum(self._counts.values())
+
+
+SIM_FAULT_COUNTER = LabeledCounter(
+    "sdtpu_sim_faults_total",
+    "Chaos faults injected by the scenario engine (SDTPU_SIM) by kind.",
+    ("kind",))
+
+
+def sim_fault_count(kind: str, n: float = 1.0) -> None:
+    SIM_FAULT_COUNTER.inc(n, kind=kind)
 
 
 class EtaGauge:

@@ -122,6 +122,18 @@ _denoise`). ``_model_epoch`` (bumped by a LoRA merge or a VAE swap) and
 ``_cond_epoch`` (a LoRA merge) enter the keys, so an entry computed under
 older weights is never served.
 
+The stage-graph executor (``SDTPU_STAGE_GRAPH``, ``parallel/
+stage_graph.py``): txt2img without a refiner, hires fix or adaptive sampler
+runs each group as an encode -> denoise -> decode graph whose stages
+dispatch without waiting (:meth:`Engine._run_txt2img_staged`); a
+qualifying ControlNet request runs its tower a step ahead of the UNet in
+graphs of its own (:meth:`Engine._denoise_staged_cn`). The decode of every
+path goes into pinned host memory behind a CUDA event (:meth:`Engine.
+_queue_decoded`), and the serial loops keep one group's decode in flight
+while they encode the previous group's PNGs, as the JAX package's do. The
+denoise loop reads no device value back: it paces on one CUDA event per
+chunk.
+
 Chunk-boundary preemption (the fleet tier, ``fleet/policy.py``): while a
 preemptible job runs, the dispatcher installs a hook as ``preempt_hook``;
 the chunked loop polls it between chunks and, when an entitled waiter is
@@ -141,7 +153,7 @@ import logging
 import threading
 import time
 import weakref
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -164,6 +176,7 @@ from stable_diffusion_webui_distributed_tpu_torch.cache import (
 from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
     pad_encoded_context,
 )
+from stable_diffusion_webui_distributed_tpu_torch.parallel import stage_graph
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     ModelFamily,
 )
@@ -420,7 +433,7 @@ class Engine:
         traced set whose factors touch a text encoder adds its deltas.
         ``inject``: ``(mask, values_l, values_g)`` device tensors of
         :meth:`_injection`, the textual-inversion rows of each encoder."""
-        ids_t = torch.from_numpy(ids).long().to(self.device)
+        ids_t = dtypes.to_device(torch.from_numpy(ids).long(), self.device)
         skip_arg = skip if skip else None
         ts = self._traced_lora
         te = ts.tree if ts is not None and ts.te_content else {}
@@ -435,7 +448,7 @@ class Engine:
                 inject_values=val_g, inject_mask=mask)
             ctx = torch.cat([ctx.float(), ctx2.float()], dim=-1)
         ctx = ctx.float()
-        w = torch.from_numpy(weights).to(self.device)
+        w = dtypes.to_device(torch.from_numpy(weights), self.device)
         orig_mean = ctx.mean(dim=(1, 2), keepdim=True)
         ctx = ctx * w[:, :, None]
         new_mean = ctx.mean(dim=(1, 2), keepdim=True)
@@ -465,7 +478,7 @@ class Engine:
             enc2.hidden_size if enc2 is not None else 0)
         if not mask.any():
             return None
-        return tuple(torch.from_numpy(a).to(self.device)
+        return tuple(dtypes.to_device(torch.from_numpy(a), self.device)
                      for a in (mask, val_l, val_g))
 
     def encode_prompts(self, payload: GenerationPayload, prompts=None,
@@ -620,8 +633,8 @@ class Engine:
             ids_u = ids_c
 
         def added(pooled, ids):
-            tid = torch.tensor([ids], dtype=torch.float32,
-                               device=pooled.device)
+            tid = dtypes.to_device(
+                torch.tensor([ids], dtype=torch.float32), pooled.device)
             return make_added_cond(pooled, tid.expand(pooled.shape[0], -1),
                                    ucfg.addition_time_embed_dim)
 
@@ -634,7 +647,8 @@ class Engine:
                          lora: Optional[Dict] = None,
                          precision: Optional[
                              precision_mod.PrecisionSpec] = None,
-                         cache: Optional["_StepCache"] = None):
+                         cache: Optional["_StepCache"] = None,
+                         stage_ahead: bool = False):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
         ``(1, L, D)`` context or one per row; so is ``added``'s second
@@ -672,7 +686,16 @@ class Engine:
         cache (its output lives in the graphs' pool, which the next replay
         may overwrite); ``reuse`` is ``denoise`` over the shallow levels
         from the cache. From ``cache.cfg_stop`` on both run the cond rows
-        only (the refresh mirrors them into both halves of the cache)."""
+        only (the refresh mirrors them into both halves of the cache).
+
+        ``stage_ahead`` (the stage-graph executor's ControlNet, :meth:`
+        _denoise_staged_cn`): the result is ``(denoise, ahead)``. ``ahead(x,
+        sigma, step)`` runs the active units of ``step`` alone (graph kind
+        ``cnres``) and holds their summed residuals; the next ``denoise``
+        at that step hands them to the UNet as a per-call input (kind
+        ``cnstep``). The units are gated, scaled and summed in the same
+        order as in the single evaluation, so the bytes are its bytes. A
+        step with no active unit runs the plain UNet evaluation."""
         prec = precision if precision is not None \
             else self._default_precision
         run = {"ctx": torch.cat([ctx_u.expand(batch, -1, -1),
@@ -696,10 +719,10 @@ class Engine:
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
 
-        def evaluate(active, run, call, scalars):
-            # the UNet at timestep scalars[0] over [uncond; cond] rows, with
-            # the residuals of the units in ``active``, unit active[j]'s
-            # scaled by scalars[1 + j]
+        def unit_residuals(active, run, call, scalars):
+            # the summed f32 residuals of the units in ``active`` at
+            # timestep scalars[0] over [uncond; cond] rows, unit
+            # active[j]'s scaled by scalars[1 + j]
             tb = scalars[:1].expand(2 * batch)
             both = torch.cat([call["x"], call["x"]])
             residuals = None
@@ -709,6 +732,12 @@ class Engine:
                 rs = [r.float() * scalars[1 + j] for r in rs]
                 residuals = rs if residuals is None else [
                     a + b for a, b in zip(residuals, rs)]
+            return residuals
+
+        def unet_eval(run, call, scalars, residuals):
+            # the UNet at timestep scalars[0] over [uncond; cond] rows
+            tb = scalars[:1].expand(2 * batch)
+            both = torch.cat([call["x"], call["x"]])
             unet_in = both if "inpaint" not in run else torch.cat(
                 [both, run["inpaint"].to(both.dtype)], dim=-1)
             return self.unet(unet_in, tb, run["ctx"],
@@ -718,6 +747,10 @@ class Engine:
                              control_residuals=residuals,
                              lora=graphs_mod.unflatten(run, "lora"),
                              precision=prec)
+
+        def evaluate(active, run, call, scalars):
+            return unet_eval(run, call, scalars,
+                             unit_residuals(active, run, call, scalars))
 
         def graphed(tag, kind, fn, run, call, scalars, binding):
             if self.cuda_graphs:
@@ -737,19 +770,59 @@ class Engine:
             c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
             return x * c_in, float(self.schedule.sigma_to_t(sigma))
 
-        def denoise(x, sigma, step):
-            xin, t = prep(x, sigma)
+        def active_units(step):
             unit_gates = gates(step) if controls else ()
             active = tuple(k for k, g in enumerate(unit_gates) if g != 0.0)
-            scalars = [t] + [unit_gates[k] for k in active]
+            return active, [unit_gates[k] for k in active]
+
+        def guided(x, sigma, out):
+            out_u, out_c = out.float().chunk(2)
+            return x0(x, sigma, out_u + cfg * (out_c - out_u))
+
+        def denoise(x, sigma, step):
+            xin, t = prep(x, sigma)
+            active, unit_gates = active_units(step)
             tag = (kind, prec.flags, tuple((k, id(modules[k]))
                                            for k in active))
             out = graphed(tag, kind, functools.partial(evaluate, active),
-                          run, {"x": xin}, scalars, binding)
+                          run, {"x": xin}, [t] + unit_gates, binding)
             if cache is not None:
                 cache.count("full_evals")
-            out_u, out_c = out.float().chunk(2)
-            return x0(x, sigma, out_u + cfg * (out_c - out_u))
+            return guided(x, sigma, out)
+
+        if stage_ahead:
+            held = {}
+
+            def ahead(x, sigma, step):
+                active, unit_gates = active_units(step)
+                held.clear()
+                if not active:
+                    return
+                xin, t = prep(x, sigma)
+                tag = ("cnres", prec.flags, tuple((k, id(modules[k]))
+                                                  for k in active))
+                rs = graphed(tag, "cnres",
+                             functools.partial(unit_residuals, active),
+                             run, {"x": xin}, [t] + unit_gates, binding)
+                # the residuals lie in the graphs' pool: the UNet's graph
+                # copies them into its own inputs before any other replay
+                held[step] = rs
+
+            def denoise_ahead(x, sigma, step):
+                rs = held.pop(step, None)
+                if rs is None:
+                    return denoise(x, sigma, step)
+                xin, t = prep(x, sigma)
+                call = {"x": xin, **{f"res/{i}": r for i, r in enumerate(rs)}}
+                out = graphed(("cnstep", prec.flags), "cnstep", lambda run,
+                              call, scalars: unet_eval(
+                                  run, call, scalars,
+                                  [v for n, v in call.items()
+                                   if n.startswith("res/")]),
+                              run, call, [t], binding)
+                return guided(x, sigma, out)
+
+            return denoise_ahead, ahead
 
         if cache is None:
             return denoise
@@ -830,10 +903,25 @@ class Engine:
                  end_step: Optional[int] = None,
                  controls: Sequence[Control] = (), mask=None,
                  inpaint_cond: Optional[torch.Tensor] = None,
-                 lora: Optional[Dict] = None) -> torch.Tensor:
+                 lora: Optional[Dict] = None,
+                 sync: bool = True) -> torch.Tensor:
         """Chunked sampler loop over steps ``[start_step, end_step or
         steps)`` of the request's sigma ladder: ``chunk_size`` steps at a
         time, the interrupt flag and progress checked between chunks.
+        Nothing in the loop reads a device value back: the host paces on
+        a CUDA event recorded after each chunk, letting one chunk run
+        ahead of it and waiting for the last before it returns, as the
+        JAX package's fences do. With a preempt hook installed it waits
+        for each chunk, so that the hook is polled when the card, not the
+        host, reaches the chunk boundary.
+
+        ``sync=False`` (the stage-graph executor, ``parallel/
+        stage_graph.py``): two chunks may run ahead, and the range returns
+        with its tail still running, so the caller's decode dispatch and
+        the next group's stages queue behind it; an interrupt still lands
+        within two chunks. Such a range takes no preempt hook (the
+        executor yields at group boundaries) and no prefix plan (a capture
+        reads the carry back), as in the JAX package.
         ``conds`` is ``(ctx_u, ctx_c)``, ``pooleds`` ``(pooled_u,
         pooled_c)`` (SDXL's added conditioning is made from them at the
         payload's size); ``ragged``, ``controls`` and ``inpaint_cond`` as
@@ -921,7 +1009,7 @@ class Engine:
                                             *mask)
         carry = kd.init_carry(x)
         prefix = None
-        if (job == "txt2img" and start_step == 0 and mask is None
+        if (sync and job == "txt2img" and start_step == 0 and mask is None
                 and inpaint_cond is None and not controls and end > 0
                 and ragged is None and cache_keys.enabled()):
             ts = self._traced_lora
@@ -941,14 +1029,16 @@ class Engine:
                 torch.tensor(a, device=x.device) if a.ndim else a.item()
                 for a in leaves))
             self.state.step(pos)
+        fences = _Fences(x.device)
         while pos < end and not self.state.flag.interrupted:
-            hook = self.preempt_hook
+            hook = self.preempt_hook if sync else None
             if hook is not None and hook.should_yield():
                 # chunk-boundary yield: the gate runs the interloper nested
                 # on this thread and returns when it hands the device
                 # back. The carry, position, step cache and prefix plan
                 # stay in this frame; the graphs' per-run inputs are
                 # copied back at the next call (a new binding).
+                fences.wait(0)
                 interrupted_before_yield = self.state.flag.interrupted
                 hook.yield_device()
                 # an interloper with <lora:...> tags merged into the live
@@ -977,10 +1067,17 @@ class Engine:
                     run_step = cached_step
             for i in range(pos, chunk_end):
                 carry = run_step(carry, i)
+            fences.record()
+            # a preemptible job polls its hook when the card reaches the
+            # boundary, not when the host does
+            fences.wait(2 if not sync else
+                        0 if self.preempt_hook is not None else 1)
             pos = chunk_end
             self.state.step(pos - start_step)
             if prefix is not None:
                 cache_prefix.maybe_capture(prefix, pos, carry)
+        if sync:
+            fences.wait(0)
         self.state.finish()
         if cache is not None:
             self.last_step_evals = cache.counts
@@ -1115,14 +1212,48 @@ class Engine:
         return torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0)
 
     def _decode_u8(self, latents: torch.Tensor, width: int,
-                   height: int) -> np.ndarray:
-        """Latents (B,h,w,C) -> uint8 pixels (B,H,W,3) on the host."""
+                   height: int) -> torch.Tensor:
+        """Latents (B,h,w,C) -> uint8 pixels (B,H,W,3) in host memory
+        (pinned on the card), dispatched without waiting: each
+        micro-batch's pixels are copied in stream order, so the buffer
+        holds them once the work queued so far has run (an event recorded
+        after this call says when, :meth:`_queue_decoded`)."""
         per = max(1, self._DECODE_PIXEL_BUDGET // max(1, width * height))
-        out = []
-        for s in range(0, latents.shape[0], per):
+        f = self.family.vae_scale_factor
+        b, lat_h, lat_w = latents.shape[:3]
+        host = torch.empty((b, lat_h * f, lat_w * f, 3), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        for s in range(0, b, per):
             px = self._decode(latents[s:s + per]) * 255.0 + 0.5
-            out.append(px.to(torch.uint8).cpu().numpy())
-        return np.concatenate(out)
+            host[s:s + per].copy_(px.to(torch.uint8), non_blocking=True)
+        return host
+
+    def _queue_decoded(self, latents: torch.Tensor, pos: int, n: int,
+                       width: int, height: int) -> "_Decoded":
+        """Dispatch the decode of a group's latents (:meth:`_decode_u8`)
+        and record the event :meth:`_flush_decoded` waits on. ``n`` is how
+        many of the images to keep: the pad-and-drop rows are decoded with
+        the others, so every decoder call has the group's batch size. The
+        adaptive backstop's mark is taken here, where the denoise that
+        produced these images is known."""
+        incomplete, self._adaptive_incomplete = \
+            self._adaptive_incomplete, False
+        host = self._decode_u8(latents, width, height)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return _Decoded(host, event, pos, n, width, height, incomplete)
+
+    def _flush_decoded(self, out: GenerationResult,
+                       payload: GenerationPayload,
+                       pending: Sequence["_Decoded"]) -> None:
+        """Wait for each queued decode's pixels, then encode its kept
+        images as PNGs into ``out``, in order. Needs nothing of the device
+        thread: the serving dispatcher runs it on its leader's thread."""
+        for d in pending:
+            self._append_images(out, payload, d.pixels(), d.pos, d.width,
+                                d.height, d.incomplete)
 
     # -- hires fix -----------------------------------------------------------
 
@@ -1418,6 +1549,14 @@ class Engine:
         group = max(1, payload.group_size or payload.batch_size)
         controls = self._prepare_controls(payload, width, height)
         refiner = self._refiner_engine(payload)
+        if (stage_graph.enabled() and refiner is None
+                and not payload.enable_hr and not spec.adaptive):
+            # the stage-graph executor (the JAX package's gate): the same
+            # bytes, with the host's work of one group overlapping the
+            # device's of the next. The hires fix, a refiner and DPM
+            # adaptive keep the serial loop.
+            return self._run_txt2img_staged(payload, start, count, job,
+                                            controls)
         # ragged solo run: the bucket's shape, the true rows as data (the
         # dispatcher never marks per-image prompts, the hires fix, a
         # refiner handoff, ControlNet or an inpainting family ragged; a
@@ -1446,6 +1585,7 @@ class Engine:
         inp = (self._blank_inpaint_cond(group, width, height)
                if self.family.inpaint else None)
         out = GenerationResult(parameters=payload.model_dump())
+        pending: List[_Decoded] = []
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
             n = min(group, remaining)
@@ -1470,10 +1610,193 @@ class Engine:
                 latents, out_w, out_h = self._hires_pass(
                     payload, latents, keys, conds, pooleds, job, refiner,
                     ref_cond)
-            self._finish_group(out, payload, latents, pos, n, out_w, out_h)
+            self._keep_one_decode(out, payload, pending, self._queue_decoded(
+                latents, pos, n, out_w, out_h))
             pos += n
             remaining -= n
+        self._flush_decoded(out, payload, pending)
         return out
+
+    def _run_txt2img_staged(self, payload: GenerationPayload, start: int,
+                            count: int, job: str,
+                            controls: Sequence[Control]
+                            ) -> GenerationResult:
+        """txt2img through the stage-graph executor (``SDTPU_STAGE_GRAPH``,
+        the JAX package's ``_run_txt2img_staged``): each group is an
+        encode -> denoise -> decode graph whose stages dispatch without
+        waiting (``_denoise(sync=False)``, the decode into pinned memory
+        behind an event), and a :class:`~..parallel.stage_graph.
+        GraphRunner` defers each group's flush (the PNG encode) until more
+        than ``SDTPU_STAGE_DEPTH`` groups are in flight: group *i*'s fetch
+        and PNGs, and group *i+1*'s prompt encode, overlap group *i+1*'s
+        denoise on the card. A ControlNet request that qualifies runs its
+        tower a step ahead of the UNet (:meth:`_denoise_staged_cn`).
+
+        The bytes are the serial loop's: the noise and keys are keyed by
+        image index, pad-and-drop runs every group at the full group size,
+        a ragged marker runs ragged, and the flushes are FIFO. The preempt
+        hook is polled at group boundaries (the async denoise never polls
+        it): the runner drains every group in flight, the device is
+        yielded, and this request's adapters and interrupt latch come
+        back."""
+        width, height = payload.width, payload.height
+        h, w = self._latent_hw(width, height)
+        C = self.family.vae.latent_channels
+        spec = kd.resolve_sampler(payload.sampler_name)
+        sigma0 = kd.build_sigmas(spec, self.schedule, payload.steps)[0]
+        group = max(1, payload.group_size or payload.batch_size)
+        per_image = bool(payload.all_prompts)
+        ragged_wh = None if (per_image or controls or self.family.inpaint) \
+            else self._ragged_plan(payload)
+        conds = pooleds = ragged = None
+        rows = h
+        if ragged_wh is not None:
+            conds, pooleds, ctx_true = self.encode_prompts(payload,
+                                                           ragged=True)
+            rows = self._true_latent_rows(h, ragged_wh[1])
+            ragged = tuple(torch.full((group,), length, dtype=torch.int32,
+                                      device=self.device)
+                           for length in (rows, *ctx_true))
+        elif not per_image:
+            conds, pooleds = self.encode_prompts(payload)
+        inp = (self._blank_inpaint_cond(group, width, height)
+               if self.family.inpaint else None)
+        # the stage-ahead tower reproduces the evaluation's residuals only
+        # for one evaluation per step at (x_i, sigma_i), without the step
+        # cache, traced adapters or an inpainting family; anything else
+        # keeps the ControlNet inside the evaluation, still asynchronous
+        cn_staged = (bool(controls) and spec.evals_per_step == 1
+                     and not stepcache.resolve(payload).active
+                     and self._traced_lora is None
+                     and not self.family.inpaint)
+        out = GenerationResult(parameters=payload.model_dump())
+        runner = stage_graph.GraphRunner(depth=stage_graph.depth(),
+                                         clock=stage_graph.CLOCK)
+        pos, remaining = start, count
+        while remaining > 0 and not self.state.flag.interrupted:
+            hook = self.preempt_hook
+            if hook is not None and hook.should_yield():
+                # group-boundary yield: every graph in flight flushed in
+                # order, the device handed over, this request's view back
+                runner.drain()
+                interrupted_before_yield = self.state.flag.interrupted
+                hook.yield_device()
+                self._apply_prompt_loras(payload)
+                self.state.restore_interrupt(interrupted_before_yield)
+                continue
+            n = min(group, remaining)
+            graph = stage_graph.StageGraph(
+                label=f"txt2img[{pos}:{pos + n}]", group=pos,
+                clock=stage_graph.CLOCK)
+
+            def encode_stage(p0=pos):
+                if per_image:
+                    c, pl, _ = self._group_conds(payload, p0, group, None)
+                    return c, pl
+                return conds, pooleds
+
+            def denoise_stage(cp, p0=pos):
+                c, pl = cp
+                x = self._init_noise(payload, p0, group, (h, w, C),
+                                     rows) * sigma0
+                keys = self._image_keys(payload, p0, group)
+                if cn_staged:
+                    return self._denoise_staged_cn(payload, x, keys, c, pl,
+                                                   job, controls)
+                return self._denoise(payload, x, keys, c, pl, job, ragged,
+                                     controls=controls, inpaint_cond=inp,
+                                     sync=False)
+
+            def decode_stage(latents, p0=pos, keep=n):
+                return self._queue_decoded(latents, p0, keep, width, height)
+
+            graph.add("encode", encode_stage, kind="stage")
+            graph.add("denoise", denoise_stage, deps=("encode",),
+                      kind="denoise")
+            graph.add("decode", decode_stage, deps=("denoise",),
+                      kind="stage")
+            runner.submit(graph, flush=lambda res: self._flush_decoded(
+                out, payload, [res["decode"]]))
+            pos += n
+            remaining -= n
+        runner.drain()
+        return out
+
+    def _denoise_staged_cn(self, payload: GenerationPayload, x: torch.Tensor,
+                           image_keys: torch.Tensor, conds, pooleds,
+                           job: str, controls: Sequence[Control]
+                           ) -> torch.Tensor:
+        """Denoise ``[0, steps)`` with the ControlNet tower evaluated one
+        sigma step AHEAD of the UNet, in graphs of its own (the JAX
+        package's ``_denoise_range_staged_cn``): right after step *i*'s
+        UNet and sampler math are dispatched, the residuals of step *i+1*
+        are dispatched from step *i+1*'s entry latent (graph kind
+        ``cnres``), and step *i+1*'s UNet takes them through its
+        ``control_residuals`` input (kind ``cnstep``). The residuals are
+        step *i+1*'s own, computed from the inputs the single evaluation
+        uses, with the units gated, scaled and summed in its order, so
+        the bytes are its bytes. The port's evaluation runs a unit only at
+        the steps its window gates on (a unit gated to 0 is absent, never
+        zero-gated: a zero row could flip -0.0 to +0.0 in the skip adds),
+        and so do these residuals. The host paces on one CUDA event per
+        step at depth 2 and returns with the tail running.
+
+        On the engine's card the tower shares its stream: a device of its
+        own (``SDTPU_STAGE_CN_DEVICES``, :meth:`_stage_cn_mesh`) is
+        ROADMAP item 9 and raises here."""
+        if self._stage_cn_mesh() is not None:
+            raise NotImplementedError(
+                "the stage-ahead ControlNet tower on devices of its own "
+                "(SDTPU_STAGE_CN_DEVICES) is not ported (ROADMAP item 9)")
+        spec = kd.resolve_sampler(payload.sampler_name)
+        steps = payload.steps
+        sigmas = kd.build_sigmas(spec, self.schedule, steps)
+        added = self._added_cond(pooleds, payload.width, payload.height)
+        denoise, ahead = self._make_denoise_fn(
+            *conds, payload.cfg_scale, x.shape[0], added=added,
+            controls=controls,
+            gates=lambda i: window_gates(controls, i, steps),
+            precision=self._precision_for(payload), stage_ahead=True)
+        step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
+        self.last_step_evals = None
+        carry = kd.init_carry(x)
+        fences = _Fences(x.device)
+        self.state.begin(job, steps)
+        ahead(carry.x, sigmas[0], 0)
+        i = 0
+        while i < steps and not self.state.flag.interrupted:
+            carry = step(carry, i)
+            fences.record()
+            i += 1
+            if i < steps:
+                # step i's tower queues behind step i-1's UNet
+                ahead(carry.x, sigmas[i], i)
+            fences.wait(2)
+            self.state.step(i)
+        # no final wait: the decode and the next group's stages queue
+        # behind the tail
+        self.state.finish()
+        return carry.x
+
+    def _stage_cn_mesh(self) -> Optional[List[torch.device]]:
+        """The devices of the stage-ahead ControlNet tower
+        (``SDTPU_STAGE_CN_DEVICES=N``), by the JAX package's rule: the
+        last N visible cards outside the engine's when that many are free,
+        else the trailing N of all. None when the knob is 0 or the slice
+        would take every device (the tower then shares the engine's card
+        and stream), and off the card."""
+        n = stage_graph.cn_slice_devices()
+        if n <= 0 or self.device.type != "cuda":
+            return None
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+        own = self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+        free = [d for d in devs if d.index != own]
+        pool = free if len(free) >= n else devs
+        if len(pool) >= n and not (pool is devs and len(devs) <= n):
+            return pool[-n:]
+        return None
 
     def _run_img2img(self, payload: GenerationPayload, start: int,
                      count: int, job: str) -> GenerationResult:
@@ -1516,6 +1839,7 @@ class Engine:
             torch.from_numpy(np.ascontiguousarray(init))[None]
             .to(self.device))
         out = GenerationResult(parameters=payload.model_dump())
+        pending: List[_Decoded] = []
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
             n = min(group, remaining)
@@ -1538,23 +1862,24 @@ class Engine:
                     payload, x, keys, conds, pooleds, job, refiner,
                     ref_cond, start_step=start_step, controls=controls,
                     inpaint_cond=inp)
-            self._finish_group(out, payload, latents, pos, n, width,
-                               height)
+            self._keep_one_decode(out, payload, pending, self._queue_decoded(
+                latents, pos, n, width, height))
             pos += n
             remaining -= n
+        self._flush_decoded(out, payload, pending)
         return out
 
-    def _finish_group(self, out: GenerationResult,
-                      payload: GenerationPayload, latents: torch.Tensor,
-                      pos: int, n: int, width: int, height: int) -> None:
-        """Decode a group's latents of a ``width`` x ``height`` image and
-        append its first ``n`` images."""
-        # the adaptive backstop's mark belongs to this group's images
-        incomplete, self._adaptive_incomplete = \
-            self._adaptive_incomplete, False
-        imgs = self._decode_u8(latents, width, height)[:n]
-        self._append_images(out, payload, imgs, pos, width, height,
-                            incomplete)
+    def _keep_one_decode(self, out: GenerationResult,
+                         payload: GenerationPayload, pending: list,
+                         decoded: "_Decoded") -> None:
+        """The serial loops' decode pipeline (the JAX package's): queue
+        this group's decode and flush the one before it, so one decode is
+        in flight while the host encodes the previous group's PNGs and
+        dispatches the next group."""
+        pending.append(decoded)
+        if len(pending) > 1:
+            self._flush_decoded(out, payload, pending[:-1])
+            del pending[:-1]
 
     def _append_images(self, out: GenerationResult,
                        payload: GenerationPayload, imgs: np.ndarray,
@@ -1797,6 +2122,55 @@ class Engine:
                                    "img2img")
 
 
+class _Decoded:
+    """One queued decode: the pinned host buffer its pixels land in, the
+    event recorded after its copies (None on the CPU, where the copy has
+    happened), and where its kept images go."""
+
+    __slots__ = ("host", "event", "pos", "n", "width", "height",
+                 "incomplete")
+
+    def __init__(self, host: torch.Tensor, event, pos: int, n: int,
+                 width: int, height: int, incomplete: bool):
+        self.host = host
+        self.event = event
+        self.pos = pos
+        self.n = n
+        self.width = width
+        self.height = height
+        self.incomplete = incomplete
+
+    def pixels(self) -> np.ndarray:
+        """The kept images (n, H, W, 3) uint8, once the device wrote
+        them."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host[:self.n].numpy()
+
+
+class _Fences:
+    """CUDA events recorded after each dispatched chunk (or step), so the
+    host can let at most ``depth`` of them run ahead of it: the JAX
+    package's fences. The host waits on an event, never on a copy of a
+    device value. On the CPU every dispatch has run when it returns, and
+    nothing is recorded."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._events: "deque[torch.cuda.Event]" = deque()
+
+    def record(self) -> None:
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+            self._events.append(event)
+
+    def wait(self, depth: int) -> None:
+        """Until at most ``depth`` recorded dispatches are unfinished."""
+        while len(self._events) > depth:
+            self._events.popleft().synchronize()
+
+
 class _StepCache:
     """One denoise range's deep-feature cache: the ``[uncond; cond]``
     rows of the deep feature (``buf``, outside the graphs' pool), whether
@@ -1817,6 +2191,14 @@ class _StepCache:
         self.counts[kind] += 1
 
 
+_REPRO_FLAGS = ((torch.backends.cudnn, "deterministic", True),
+                (torch.backends.cudnn, "allow_tf32", False),
+                (torch.backends.cuda.matmul, "allow_tf32", False))
+_repro_lock = threading.Lock()
+_repro_users = 0  # guarded-by: _repro_lock
+_repro_prev: List = []  # guarded-by: _repro_lock
+
+
 @contextlib.contextmanager
 def _reproducible(device: torch.device):
     """cuDNN may otherwise pick convolution algorithms whose sums run in a
@@ -1824,21 +2206,29 @@ def _reproducible(device: torch.device):
     the same image bytes. TF32 is held off for the f32 islands (the VAE
     decoder, conv_out): the flags are process-wide, and a process whose
     other code left cuDNN's TF32 on would otherwise give other bytes than
-    the fleet node beside it."""
+    the fleet node beside it. The flags are set while ANY engine of the
+    process generates and put back when the last one leaves: each engine
+    restoring its own entry's view would switch them off under another
+    engine still running on its own device thread (a fleet's local remote,
+    the warm pool's residents)."""
     if device.type != "cuda":
         yield
         return
-    flags = (torch.backends.cudnn, "deterministic", True), \
-        (torch.backends.cudnn, "allow_tf32", False), \
-        (torch.backends.cuda.matmul, "allow_tf32", False)
-    prev = [getattr(obj, name) for obj, name, _ in flags]
-    for obj, name, value in flags:
-        setattr(obj, name, value)
+    global _repro_users, _repro_prev
+    with _repro_lock:
+        if _repro_users == 0:
+            _repro_prev = [getattr(obj, name) for obj, name, _ in _REPRO_FLAGS]
+            for obj, name, value in _REPRO_FLAGS:
+                setattr(obj, name, value)
+        _repro_users += 1
     try:
         yield
     finally:
-        for (obj, name, _), value in zip(flags, prev):
-            setattr(obj, name, value)
+        with _repro_lock:
+            _repro_users -= 1
+            if _repro_users == 0:
+                for (obj, name, _), value in zip(_REPRO_FLAGS, _repro_prev):
+                    setattr(obj, name, value)
 
 
 def _zero_tail_rows(step, true_rows: torch.Tensor, lat_h: int):

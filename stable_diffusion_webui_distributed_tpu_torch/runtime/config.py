@@ -85,6 +85,21 @@ Fleet-tier knobs (``fleet/``; README "Fleet gate"):
   ``SDTPU_POOL_SIZE`` (int, 2): the target ready count ``heal()``
   restores; ``SDTPU_POOL_COOLDOWN_S`` (seconds, 0): the least time
   between autoscale-driven spawns and retirements.
+- ``SDTPU_STAGE_GRAPH`` (flag, off, read per request): the stage-graph
+  executor (``parallel/stage_graph.py``) for txt2img without a refiner,
+  hires fix or adaptive sampler, and for the dispatcher's coalesced
+  groups; ``SDTPU_STAGE_DEPTH`` (int, 1): the groups in flight before
+  the oldest one's images are fetched; ``SDTPU_STAGE_CN_DEVICES`` (int,
+  0): devices for the stage-ahead ControlNet tower (a slice other than
+  the engine's own card raises: ROADMAP item 9).
+- ``SDTPU_JOURNAL`` (flag, off, read per event): the request journal
+  (``obs/journal.py``, ``GET /internal/journal``); ``SDTPU_JOURNAL_MAX``
+  (int, 4096) its ring; ``SDTPU_JOURNAL_SINK`` (path, "" = none) the
+  JSONL file ring-evicted events spill to, rotated once past
+  ``SDTPU_JOURNAL_SINK_MAX_MB`` (float, 0 = unbounded).
+- ``SDTPU_SIM`` (flag, off): the scenario engine (``sim/``); the chaos
+  plan (``sim/chaos.py``) refuses to arm without it; ``GET
+  /internal/sim``.
 
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.

@@ -55,3 +55,16 @@ def resolve_device(device: Optional[Union[str, torch.device]]
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return torch.device("cuda")
+
+
+def to_device(t: torch.Tensor, device: Union[str, torch.device]
+              ) -> torch.Tensor:
+    """A host tensor on ``device`` without the host waiting for the
+    device: on the card it is staged in pinned memory and copied
+    asynchronously in stream order (a copy from pageable memory makes the
+    host wait for the work already queued, which would stall a dispatch
+    running ahead of the card)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

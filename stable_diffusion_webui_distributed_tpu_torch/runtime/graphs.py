@@ -17,6 +17,13 @@ rest: ragged or not (``true_rows``), the inpainting channels, SDXL's added
 conditioning and the traced-LoRA cell (the factor leaves' slot and rank
 axes; a set broadcast to every row is a layout of its own).
 
+**Kinds.** ``unet`` and ``ragged`` (an evaluation: the ControlNet units and
+the UNet), the step cache's ``deep``, ``reuse`` and their ``-trunc``
+forms, and the stage-graph executor's ControlNet: ``cnres`` (the active
+units alone, a list of summed residuals) and ``cnstep`` (the UNet with
+those residuals as per-call inputs). ``serving/metrics.py`` counts
+captures by kind.
+
 **Inputs and outputs.** Each entry keeps static input buffers, allocated
 outside the graphs' memory pool. ``per_run`` inputs (contexts, hints, the
 LoRA factors) are copied in when the caller's binding changes, ``per_call``
@@ -191,8 +198,10 @@ class Entry:
         """Bytes of its static inputs and output (the pool aside)."""
         tensors = [s.base for s in (*self.run.values(), *self.call.values())]
         tensors.append(self.scalars)
-        if isinstance(self.output, torch.Tensor):
-            tensors.append(self.output)
+        # an evaluation returns a tensor, the ControlNet stage a list
+        outs = self.output if isinstance(self.output, (list, tuple)) \
+            else [self.output]
+        tensors += [t for t in outs if isinstance(t, torch.Tensor)]
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def args(self) -> Tuple[Inputs, Inputs, torch.Tensor]:

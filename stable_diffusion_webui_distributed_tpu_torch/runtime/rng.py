@@ -90,6 +90,13 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return y1 ^ y2
 
 
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d f32 tensor of ``value`` on ``like``'s device, written by a fill
+    kernel: ``torch.tensor(value, device=...)`` copies from host memory and
+    makes the host wait for the device, once per draw of a sampler step."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
 def _erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     """XLA's f32 ``ErfInv`` (``chlo.erf_inv``): one 9-term polynomial in
     ``w = -log1p(-x^2)`` on each side of ``w = 5``."""
@@ -98,10 +105,8 @@ def _erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coeff(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype,
-                                            device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype,
-                                        device=x.device))
+        return torch.where(lt, _const(_ERFINV_LT5[i], x),
+                           _const(_ERFINV_GE5[i], x))
 
     p = coeff(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -116,11 +121,10 @@ def normal(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     bits = random_bits(keys, n)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
-    lo = torch.tensor(_UNIFORM_LO, dtype=torch.float32, device=keys.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=keys.device) - lo
+    lo = _const(_UNIFORM_LO, floats)
+    span = _const(1.0, floats) - lo
     u = torch.maximum(lo, floats * span + lo)
-    out = torch.tensor(_SQRT2, dtype=torch.float32,
-                       device=keys.device) * _erfinv_xla(u)
+    out = _const(_SQRT2, floats) * _erfinv_xla(u)
     return out.reshape(keys.shape[0], *shape)
 
 
@@ -141,7 +145,7 @@ def slerp(t: float, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     shape = a.shape
     a = a.reshape(shape[0], -1)
     b = b.reshape(shape[0], -1)
-    t = torch.tensor(t, dtype=torch.float32, device=a.device)
+    t = _const(t, a)
     a_norm = a / (torch.linalg.vector_norm(a, dim=1, keepdim=True) + 1e-12)
     b_norm = b / (torch.linalg.vector_norm(b, dim=1, keepdim=True) + 1e-12)
     dot = torch.clamp((a_norm * b_norm).sum(dim=1, keepdim=True), -1.0, 1.0)
@@ -204,6 +208,18 @@ def batch_keys(seed: int, start_index: int, batch_size: int,
     :func:`batch_noise`."""
     idx = _indices(start_index, batch_size, pin_index, device)
     return key_for_seeds(_seeds(seed, idx))
+
+
+def step_noise_block(keys: torch.Tensor, first: int, count: int,
+                     shape: Sequence[int]) -> torch.Tensor:
+    """:func:`step_noise` of steps ``[first, first+count)`` at once ->
+    ``(count, B, *shape)``: the same bits, since each draw depends on its
+    key and its step alone."""
+    steps = torch.arange(first, first + count, dtype=torch.int64,
+                         device=keys.device)
+    folded = fold_in(keys[None].expand(count, -1, -1), steps[:, None])
+    return normal(folded.reshape(-1, 2), shape).reshape(
+        count, keys.shape[0], *shape)
 
 
 def step_noise(keys: torch.Tensor, step: int,

@@ -139,6 +139,11 @@ def _to_d(x: torch.Tensor, sigma: torch.Tensor,
     return (x - denoised) / torch.clamp(sigma, min=1e-10)
 
 
+#: the index offset of a sampler's second noise stream (DPM++ 2S a's
+#: midpoint draws ``noise(500_000 + i)``)
+_STREAM = 500_000
+
+
 def make_sampler_step(spec: SamplerSpec, denoise_fn: DenoiseFn,
                       sigmas: torch.Tensor, image_keys: torch.Tensor
                       ) -> Callable[[Carry, int], Carry]:
@@ -149,8 +154,25 @@ def make_sampler_step(spec: SamplerSpec, denoise_fn: DenoiseFn,
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown sampler algorithm {algo}")
 
+    blocks = {}
+
     def noise(i: int, x: torch.Tensor) -> torch.Tensor:
-        return rng.step_noise(image_keys, i, x.shape[1:])
+        if image_keys.device.type != "cuda":
+            return rng.step_noise(image_keys, i, x.shape[1:])
+        # on the card, the draws of every step of the ladder at the first
+        # one asked for (each keyed by its own index, so the same bits):
+        # one pass of a few hundred elementwise kernels per range instead
+        # of one per step, whose launches kept the host from running ahead
+        # of the card. The CPU draws per step: its multi-threaded
+        # elementwise kernels at the block's size are not bit-stable from
+        # one call to the next.
+        base = i - i % _STREAM
+        block = blocks.get(base)
+        if block is None:
+            block = rng.step_noise_block(image_keys, base, len(sigmas) - 1,
+                                         x.shape[1:])
+            blocks[base] = block
+        return block[i - base]
 
     def step(carry: Carry, i: int) -> Carry:
         x = carry.x

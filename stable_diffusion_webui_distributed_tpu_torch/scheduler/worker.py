@@ -22,8 +22,11 @@ bf16 numbers depend on the batch size; running the master's range at its
 own size too means a range gives the same bytes on any backend, so a
 failed remote's requeued range reproduces what the remote would have made.
 
-Left out of the port: the request spans, the Prometheus counters of the
-health record and the chaos hook (ROADMAP items 17 and 20).
+The chaos hook (``CHAOS_HOOK``, ``sim/chaos.py``) is consulted inside
+:meth:`WorkerNode.request`'s try block just before the backend call, so a
+delivered fault takes the failure path of a real one. Left out of the
+port: the request spans and the Prometheus counters of the health record
+(ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
 )
 
 log = logging.getLogger(__name__)
+
+#: The chaos-injection seam (``sim/chaos.py``): consulted in
+#: :meth:`WorkerNode.request` just before the backend call, so a raised
+#: fault lands in the existing failure path. None (the default) costs one
+#: identity check.
+CHAOS_HOOK = None
 
 
 class State(enum.Enum):
@@ -312,6 +321,9 @@ class WorkerNode:
         started = time.monotonic()
         watch = self._start_interrupt_watch()
         try:
+            if CHAOS_HOOK is not None:
+                CHAOS_HOOK("worker.generate", worker=self.label,
+                           payload=payload, count=int(count))
             result = self.backend.generate(payload, start_index, count)
         except Exception as e:  # noqa: BLE001 — any backend failure demotes
             log.error("worker '%s' failed request: %s", self.label, e)

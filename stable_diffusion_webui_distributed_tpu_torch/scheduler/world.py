@@ -10,9 +10,15 @@ grow per request as backends fail and reconnect. Jobs carry an explicit
 concatenation in index order and every backend reproduces its images
 seed-exactly; a failed job's range is requeued on the surviving backends.
 
-The port leaves out the observability hooks (spans, the journal, the flight recorder, the
-hang watchdog, federation and push registration) and the chaos hook: they
-are ROADMAP items 17 and 20. So is the operator's ``sync*`` user script.
+With ``SDTPU_JOURNAL`` on, a request's plan, each job's dispatch,
+completion or failure, the requeue and the merged outcome are journaled
+(``obs/journal.py``: ``planned``, ``job_dispatched``, ``job_completed``,
+``job_failed``, ``requeued``, ``completed``) under the payload's
+``request_id``; the chaos hook (``CHAOS_HOOK``, ``sim/chaos.py``) is
+consulted once per request. The port leaves out the other observability
+hooks (spans, the flight recorder, the hang watchdog, federation and push
+registration): ROADMAP item 10. So is the operator's ``sync*`` user
+script.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    journal as obs_journal,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
@@ -47,6 +56,11 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
 )
 
 log = logging.getLogger(__name__)
+
+#: The chaos-injection seam (``sim/chaos.py``): consulted once per request
+#: entering :meth:`World.execute`. None (the default) costs one identity
+#: check.
+CHAOS_HOOK = None
 
 
 class Job:
@@ -363,6 +377,8 @@ class World:
 
     def execute(self, payload: GenerationPayload) -> GenerationResult:
         """Plan, fan out, requeue failed ranges, merge."""
+        if CHAOS_HOOK is not None:
+            CHAOS_HOOK("world.execute", payload=payload)
         # a new top-level request resets the interrupt latch; otherwise a
         # past interrupt would make every remote's in-flight watch abort
         # the fresh fan-out at its first poll
@@ -392,6 +408,18 @@ class World:
         log.info("distributing %d image(s): %s", payload.total_images,
                  ", ".join(f"{j.worker.label}:{j.batch_size}"
                            + ("*" if j.complementary else "") for j in jobs))
+        rid = str(getattr(payload, "request_id", "") or "")
+        if obs_journal.enabled():
+            # the post-fix_seed dump: re-executing it reproduces every
+            # image's seed
+            dump = payload.model_dump()
+            obs_journal.emit(
+                "planned", rid, seed=payload.seed, subseed=payload.subseed,
+                total=payload.total_images, payload=dump,
+                fingerprint=obs_journal.fingerprint(dump),
+                jobs=[{"worker": j.worker.label, "batch": j.batch_size,
+                       "start": j.start_index,
+                       "complementary": j.complementary} for j in jobs])
         for job in jobs:
             job_payload = payload
             if job.step_override is not None:
@@ -412,8 +440,7 @@ class World:
                         if j.result is None and not j.complementary]:
                 recovered = self._requeue_failed(job, payload)
                 jobs.extend(recovered)
-                job.worker.health.record_requeue(
-                    sum(j.batch_size for j in recovered))
+                self._note_job_failure(job, recovered, rid)
 
         merged = GenerationResult(parameters=payload.model_dump())
         for job in sorted(jobs, key=lambda j: j.start_index):
@@ -429,7 +456,26 @@ class World:
             ]
             merged.extend(r)
         self.save_config()
+        if obs_journal.enabled():
+            obs_journal.emit("completed", rid, images=len(merged.images),
+                             seeds=list(merged.seeds),
+                             infotexts=list(merged.infotexts))
         return merged
+
+    @staticmethod
+    def _note_job_failure(job: Job, recovered: List[Job], rid: str) -> None:
+        """A failed job's bookkeeping: the failed worker's requeue count
+        and, with the journal on, ``job_failed`` and ``requeued``."""
+        n = sum(j.batch_size for j in recovered)
+        job.worker.health.record_requeue(n)
+        if obs_journal.enabled():
+            obs_journal.emit("job_failed", rid, worker=job.worker.label,
+                             batch=job.batch_size, start=job.start_index,
+                             stalled=False,
+                             state=job.worker.current_state().name)
+            obs_journal.emit("requeued", rid, from_worker=job.worker.label,
+                             recovered=n, dropped=job.batch_size - n,
+                             to=[j.worker.label for j in recovered])
 
     def _execute_undistributed(self, payload: GenerationPayload,
                                looping: List[str]) -> GenerationResult:
@@ -508,6 +554,10 @@ class World:
         log.info("job '%s': %d image(s) [%d..%d)", job.worker.label,
                  job.batch_size, job.start_index,
                  job.start_index + job.batch_size)
+        rid = str(getattr(payload, "request_id", "") or "")
+        if obs_journal.enabled():
+            obs_journal.emit("job_dispatched", rid, worker=job.worker.label,
+                             batch=job.batch_size, start=job.start_index)
         # sync the fleet's checkpoint first (a no-op when the worker's
         # cache matches; honours its pin)
         if self.current_model and not job.worker.master:
@@ -517,6 +567,10 @@ class World:
                 return
         job.result = job.worker.request(payload, job.start_index,
                                         job.batch_size)
+        if job.result is not None and obs_journal.enabled():
+            obs_journal.emit("job_completed", rid, worker=job.worker.label,
+                             batch=job.batch_size, start=job.start_index,
+                             images=len(job.result.images))
 
     # -- cluster ops --------------------------------------------------------
 

@@ -31,7 +31,14 @@ or textbox, X/Y/Z plot); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
 /internal/benchmark`` for a World; ``GET /internal/cache`` (the caching
 tier's summary, ``{"enabled": false}`` unless ``SDTPU_CACHE=1``); ``GET
 /internal/autoscale`` (the autoscaler's decision audit, ``{"active":
-false}`` without one). With ``SDTPU_FLEET`` a request the fleet refuses
+false}`` without one); ``POST /internal/cancel`` (``{"request_id"}``,
+422 without it: drops that request's images from its coalesced group,
+answering ``{"cancelled": bool}``; a client makes its request addressable
+by a ``request_id`` in its payload, which becomes the dispatcher's ticket
+id); ``GET /internal/journal[?request_id=]`` (the request journal, ``obs/
+journal.py``; ``enabled`` false unless ``SDTPU_JOURNAL=1``); ``GET
+/internal/sim`` (the scenario engine's gate, the journal sink and the
+armed chaos plan). With ``SDTPU_FLEET`` a request the fleet refuses
 (its tenant's quota, or an SLO no degrade rung meets) answers 429 with a
 ``Retry-After`` header. A request for something the port does not run
 answers 422. Optional Basic auth. Served by the standard
@@ -47,15 +54,19 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from pydantic import ValidationError
 
-from stable_diffusion_webui_distributed_tpu_torch import cache
+from stable_diffusion_webui_distributed_tpu_torch import cache, sim
 from stable_diffusion_webui_distributed_tpu_torch.fleet import slices
 from stable_diffusion_webui_distributed_tpu_torch.fleet.admission import (
     FleetRejected,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    journal as obs_journal,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
@@ -529,6 +540,27 @@ class ApiServer:
             return {"active": False}
         return engine.audit()
 
+    def handle_cancel(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Per-request cancel (``/interrupt`` latches the whole engine):
+        the request's images are dropped when its group is split, and the
+        requests batched with it are unaffected."""
+        rid = str(body.get("request_id", "") or "")
+        if not rid:
+            raise ApiError(422, "request_id required")
+        cancelled = (self.dispatcher is not None
+                     and self.dispatcher.cancel(rid))
+        return {"cancelled": cancelled}
+
+    def handle_journal(self, query: Dict[str, str]) -> Dict[str, Any]:
+        """The request journal; ``?request_id=`` narrows it to one
+        request's events."""
+        return obs_journal.JOURNAL.snapshot(query.get("request_id") or None)
+
+    def handle_sim(self) -> Dict[str, Any]:
+        """The scenario engine's state (``sim.summary``); ``enabled`` is
+        false until ``SDTPU_SIM=1``, the document is always served."""
+        return sim.summary()
+
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
@@ -549,6 +581,9 @@ class ApiServer:
             ("POST", "/internal/benchmark"): self.handle_benchmark,
             ("GET", "/internal/cache"): self.handle_cache,
             ("GET", "/internal/autoscale"): self.handle_autoscale,
+            ("POST", "/internal/cancel"): self.handle_cancel,
+            ("GET", "/internal/journal"): self.handle_journal,
+            ("GET", "/internal/sim"): self.handle_sim,
         }
 
     # -- HTTP ----------------------------------------------------------------
@@ -582,6 +617,11 @@ class ApiServer:
                         body = json.loads(raw or b"{}")
                         result = (fn(body) if fn.__code__.co_argcount > 1
                                   else fn())
+                    elif fn.__code__.co_argcount > 1:
+                        # a GET handler with a parameter takes the query
+                        # string as a flat dict of single values
+                        query = parse_qs(urlsplit(self.path).query)
+                        result = fn({k: v[0] for k, v in query.items()})
                     else:
                         result = fn()
                     self._send(200, result)

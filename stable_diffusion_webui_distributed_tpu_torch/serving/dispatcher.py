@@ -65,9 +65,28 @@ leader or solo execution checks out the least-loaded ready resident before
 it takes the device, and runs on that resident's engine; grouping reads
 the primary engine (residents are built alike).
 
-Not ported yet: the journal (and with it the cache layers' and the fleet's
-events), the rest of Prometheus, spans, perf ledger, TSDB and watchdog,
-the stage-graph executor and the chaos hook.
+The stage-graph executor (``SDTPU_STAGE_GRAPH``, ``parallel/
+stage_graph.py``): a coalesced group runs as four stages, encode
+(:meth:`ServingDispatcher._group_build_inputs`), denoise, decode and merge.
+The first three run on the engine's device thread under the gate and
+return once their device work is queued (the denoise without a host wait,
+the decode into pinned memory behind a CUDA event); the merge (the wait on
+that event, the PNGs, the split per ticket) runs on the leader's thread
+after the gate is released, so the next group's stages overlap it.
+Tickets complete only once their images exist; each ticket's
+``on_stage(request_id, stage, seconds)`` is called as each stage ends. A
+ragged group takes the same path.
+
+The request journal (``SDTPU_JOURNAL``, ``obs/journal.py``): ``received``
+(with the payload's dump and fingerprint), ``throttled`` / ``admitted`` /
+``degraded``, ``result_dedupe_hit``, ``bucketed``, ``coalesced_leader`` /
+``coalesced_follower``, ``dispatched``, ``embed_cache_hit``,
+``prefix_resumed``, ``decoded``, ``merged``, ``completed`` and ``failed``,
+with the JAX package's attributes. The chaos hook (``CHAOS_HOOK``,
+``sim/chaos.py``) is consulted once per submitted request.
+
+Not ported yet: the rest of Prometheus, spans, perf ledger, TSDB and
+watchdog (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -77,7 +96,7 @@ import dataclasses
 import threading
 import time
 import uuid
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -99,8 +118,12 @@ from stable_diffusion_webui_distributed_tpu_torch.models import (
     lora as lora_mod,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     prometheus as obs_prom,
 )
+from stable_diffusion_webui_distributed_tpu_torch.parallel import stage_graph
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
     precision as precision_mod,
 )
@@ -116,6 +139,7 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     build_infotext,
     fix_seed,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_float,
 )
@@ -131,6 +155,12 @@ from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
 )
 
 DEFAULT_COALESCE_WINDOW = 0.05
+
+#: The chaos-injection seam (``sim/chaos.py``): consulted once per
+#: submitted request, after the seeds are fixed and before admission, so a
+#: plan's request counter advances on the serving path. None (the
+#: default) costs one identity check.
+CHAOS_HOOK = None
 
 
 def _coalesce_window() -> float:
@@ -154,6 +184,10 @@ class Ticket:
         self.cancelled = threading.Event()
         self.result: Optional[GenerationResult] = None
         self.error: Optional[BaseException] = None
+        #: the stage-graph executor's per-stage callback, called as
+        #: ``on_stage(request_id, stage, seconds)`` after each of the
+        #: group's encode, denoise, decode and merge stages; best-effort
+        self.on_stage: Optional[Callable[[str, str, float], None]] = None
 
 
 class _Group:
@@ -214,11 +248,31 @@ class ServingDispatcher:
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
         rid = str(getattr(payload, "request_id", "") or uuid.uuid4().hex)
+        if CHAOS_HOOK is not None:
+            CHAOS_HOOK("dispatcher.submit", payload=payload, rid=rid)
+        jr_on = obs_journal.enabled()
+        if jr_on:
+            # the post-fix_seed dump: the anchor a replay re-executes
+            dump = payload.model_dump()
+            obs_journal.emit("received", rid, job=job, payload=dump,
+                             fingerprint=obs_journal.fingerprint(dump))
         fleet_class = ""
         if self.fleet is not None:
             # quota and SLO before any accounting: a refused request must
             # feed no queue wait, dispatch or calibration
-            fleet_class = self._admit_fleet(payload)
+            try:
+                fleet_class = self._admit_fleet(payload)
+            except fleet_admission.FleetRejected as e:
+                if jr_on:
+                    obs_journal.emit("throttled", rid, reason=e.reason,
+                                     detail=str(e.detail))
+                raise
+            if jr_on:
+                obs_journal.emit("admitted", rid, **{"class": fleet_class})
+                degraded = (payload.override_settings
+                            or {}).get("fleet_degraded")
+                if degraded:
+                    obs_journal.emit("degraded", rid, detail=str(degraded))
         if not cache.enabled():
             return self._run(payload, job, rid, fleet_class).result
         # the traced set's content joins the key (resolvable before its
@@ -227,8 +281,14 @@ class ServingDispatcher:
         key = cache.keys.result_key(
             payload, cache.keys.model_fingerprint(self.engine), job,
             lora=self.engine.traced_content_for_payload(payload))
-        _, cached, flight = cache.result_acquire(key)
+        role, cached, flight = cache.result_acquire(key)
         if cached is not None:
+            if jr_on:
+                obs_journal.emit("result_dedupe_hit", rid, mode=role,
+                                 key=key[:16])
+                obs_journal.emit("completed", rid, images=len(cached.images),
+                                 seeds=list(cached.seeds),
+                                 infotexts=list(cached.infotexts))
             return cached.model_copy(deep=True)
         try:
             ticket = self._run(payload, job, rid, fleet_class)
@@ -264,6 +324,11 @@ class ServingDispatcher:
                 bucketed, padding_ratio=self.bucketer.padding_ratio(
                     payload.width, payload.height, batch=solo_batch))
         self.engine.check_supported(run)
+        jr_on = obs_journal.enabled()
+        if jr_on:
+            obs_journal.emit("bucketed", rid, bucketed=bucketed,
+                             bypassed=bypass,
+                             bucket=f"{run.width}x{run.height}")
 
         ticket = Ticket(payload, run, job, bucketed, rid)
         ticket.fleet_class = fleet_class
@@ -278,7 +343,17 @@ class ServingDispatcher:
             with self._lock:
                 self._tickets.pop(rid, None)
         if ticket.error is not None:
+            if jr_on:
+                err = ticket.error
+                obs_journal.emit("failed", rid,
+                                 error=f"{type(err).__name__}: {err}")
             raise ticket.error
+        if jr_on:
+            r = ticket.result
+            obs_journal.emit("completed", rid,
+                             images=len(r.images) if r else 0,
+                             seeds=list(r.seeds) if r else [],
+                             infotexts=list(r.infotexts) if r else [])
         return ticket
 
     @staticmethod
@@ -544,6 +619,12 @@ class ServingDispatcher:
                 leader = False
             g.tickets.append(ticket)
             g.images += n
+            leader_rid = g.tickets[0].request_id
+        if obs_journal.enabled():
+            # a follower's outcome depends on its leader's batch
+            obs_journal.emit(
+                "coalesced_leader" if leader else "coalesced_follower",
+                ticket.request_id, images=n, leader_request_id=leader_rid)
         if not leader:
             ticket.done.wait()
             return
@@ -553,6 +634,11 @@ class ServingDispatcher:
             self._run_grouped_leader(g, key)
 
     def _run_grouped_leader(self, g: _Group, key) -> None:
+        """The leader's execution: the device section and, under the
+        stage-graph executor, the merge after the gate is released, both
+        on this thread and on the engine :meth:`_checkout_engine`
+        resolved."""
+        finalize = None
         with self._device(g.tickets, g.images):
             # close AFTER taking the engine: followers kept joining while a
             # previous batch held the device (continuous batching)
@@ -561,21 +647,61 @@ class ServingDispatcher:
                 if self._groups.get(key) is g:
                     self._groups.pop(key)
             start = time.monotonic()
+            jr_on = obs_journal.enabled()
             for t in g.tickets:
-                if not t.cancelled.is_set():
-                    self._observe_wait(t, start - t.enqueued)
+                if t.cancelled.is_set():
+                    continue
+                self._observe_wait(t, start - t.enqueued)
+                if jr_on:
+                    obs_journal.emit("dispatched", t.request_id,
+                                     group=len(g.tickets),
+                                     precision=str(g.key[-1]),
+                                     **self._lora_cell(g.key[-3:-1]))
             engine = self._engine()
             try:
                 # the engine's own thread: cuBLAS and cuDNN state is per
                 # thread, and a fresh thread may give other bits
-                engine.run_on_device(self._execute_group, g, engine)
+                if stage_graph.enabled():
+                    # encode, denoise and decode queued under the gate;
+                    # the returned merge runs after its release, so the
+                    # next group's stages overlap it
+                    finalize = engine.run_on_device(
+                        self._execute_group_staged, g, engine)
+                else:
+                    engine.run_on_device(self._execute_group, g, engine)
             except BaseException as e:  # noqa: BLE001 — delivered per ticket
-                for t in g.tickets:
-                    if t.error is None and t.result is None:
-                        t.error = e
+                finalize = None
+                self._fail_group(g, e)
             finally:
-                for t in g.tickets:
-                    t.done.set()
+                if finalize is None:
+                    self._finish_group(g)
+        if finalize is not None:
+            # tickets complete only once their images exist
+            try:
+                finalize()
+            except BaseException as e:  # noqa: BLE001 — delivered per ticket
+                self._fail_group(g, e)
+            finally:
+                self._finish_group(g)
+
+    @staticmethod
+    def _fail_group(g: _Group, error: BaseException) -> None:
+        for t in g.tickets:
+            if t.error is None and t.result is None:
+                t.error = error
+
+    @staticmethod
+    def _finish_group(g: _Group) -> None:
+        for t in g.tickets:
+            t.done.set()
+
+    @staticmethod
+    def _lora_cell(cell) -> Dict[str, str]:
+        """The traced-LoRA cell as the journal's ``lora`` attribute; none
+        for a tagless request, so its events carry the JAX package's
+        fields."""
+        rb, sc = int(cell[0]), int(cell[1])
+        return {"lora": f"r{rb}s{sc}"} if (rb or sc) else {}
 
     def _run_solo(self, ticket: Ticket) -> None:
         with self._checkout_engine():
@@ -591,10 +717,24 @@ class ServingDispatcher:
                     return
                 self._observe_wait(ticket,
                                    time.monotonic() - ticket.enqueued)
-                METRICS.record_dispatch(
-                    1, precision=self._precision_name(ticket.run))
-                result = engine.generate_range(ticket.run, 0, None,
-                                               ticket.job)
+                prec = self._precision_name(ticket.run)
+                METRICS.record_dispatch(1, precision=prec)
+                if obs_journal.enabled():
+                    obs_journal.emit(
+                        "dispatched", ticket.request_id, group=1,
+                        precision=prec, **self._lora_cell(
+                            self._traced_rowspec(ticket.run) or (0, 0)))
+
+                def generate():
+                    # the cache notes are the device thread's: drained
+                    # there, always, so none leaks into the next request
+                    try:
+                        return engine.generate_range(ticket.run, 0, None,
+                                                     ticket.job)
+                    finally:
+                        self._drain_cache_notes(ticket.request_id)
+
+                result = engine.run_on_device(generate)
                 if ticket.bucketed:
                     result = self._restore_solo(result, ticket)
                 ticket.result = result
@@ -606,15 +746,110 @@ class ServingDispatcher:
     # -- merged execution (on the engine's device thread) --------------------
 
     def _execute_group(self, g: _Group, engine) -> None:
+        """The serial group: the four stages back to back on the device
+        thread."""
         built = self._group_build_inputs(g, engine)
         if built is None:
             return
+        latents = self._group_denoise(g, built, engine)
+        decoded = self._group_decode(g, built, latents, engine)
+        self._group_merge(g, built, decoded, engine)
+
+    def _execute_group_staged(self, g: _Group, engine):
+        """The stage-graph group (``SDTPU_STAGE_GRAPH``, the JAX package's
+        ``_execute_group_staged``): the same four stages as
+        :class:`~..parallel.stage_graph.StageGraph` nodes. Encode, the
+        asynchronous denoise and the decode dispatch run now, on the
+        device thread under the gate the caller holds; the returned
+        finalize (the wait on the decode's event and the merge) runs on
+        the leader's thread after the gate is released. Each stage's end
+        fans out to every ticket's ``on_stage``."""
+        leader_rid = g.tickets[0].request_id
+        graph = stage_graph.StageGraph(
+            label=f"group[{leader_rid}]", group=leader_rid,
+            clock=stage_graph.CLOCK, on_stage=self._stage_notifier(g))
+        # None flows through when every ticket was cancelled before the
+        # dispatch: the later stages do nothing, as the serial path returns
+        graph.add("encode", lambda: self._group_build_inputs(g, engine),
+                  kind="stage")
+        graph.add("denoise",
+                  lambda built: None if built is None
+                  else self._group_denoise(g, built, engine, sync=False),
+                  deps=("encode",), kind="denoise")
+        graph.add("decode",
+                  lambda built, latents: None if built is None
+                  else self._group_decode(g, built, latents, engine),
+                  deps=("encode", "denoise"), kind="stage")
+        graph.add("merge",
+                  lambda built, decoded: None if built is None
+                  else self._group_merge(g, built, decoded, engine),
+                  deps=("encode", "decode"), kind="stage")
+        graph.run(until="decode")
+
+        def finalize() -> None:
+            try:
+                graph.run()  # the merge waits for the decode's event
+            finally:
+                # the images exist (or failed): the group's device work is
+                # over, its denoise window closes
+                graph.close_denoise()
+
+        return finalize
+
+    @staticmethod
+    def _stage_notifier(g: _Group):
+        """Each finished stage calls every ticket's ``on_stage(request_id,
+        stage, seconds)``; a callback's error never fails the group."""
+        def notify(stage: str, seconds: float) -> None:
+            for t in g.tickets:
+                cb = t.on_stage
+                if cb is not None:
+                    try:
+                        cb(t.request_id, stage, seconds)
+                    except Exception:  # noqa: BLE001 — callback isolation
+                        pass
+
+        return notify
+
+    @staticmethod
+    def _drain_cache_notes(rid: str, *, embed: bool = True,
+                           prefix: bool = True) -> None:
+        """Journal the caching tier's activity for ``rid``: the engine
+        notes embed hits and prefix resumes per thread, on the device
+        thread; this drains them there, always (so no note leaks into the
+        next request), and emits ``embed_cache_hit`` / ``prefix_resumed``
+        only with the journal on."""
+        if not cache.enabled():
+            return
+        jr_on = obs_journal.enabled()
+        if embed:
+            pos_hits, neg_hits = cache.embed_layer.take_request_hits()
+            if jr_on and (pos_hits or neg_hits):
+                obs_journal.emit("embed_cache_hit", rid, positive=pos_hits,
+                                 negative=neg_hits)
+        if prefix:
+            note = cache.prefix_layer.take_resume_note()
+            if jr_on and note:
+                obs_journal.emit("prefix_resumed", rid, **note)
+
+    def _group_denoise(self, g: _Group, built: Dict, engine,
+                       sync: bool = True) -> torch.Tensor:
+        """Denoise stage: the group's one denoise range; ``sync=False``
+        returns as soon as its chunks are queued."""
         latents = engine._denoise(built["rp"], built["x"], built["keys"],
                                   built["ctx"], built["pooled"], "txt2img",
-                                  ragged=built["ragged"], lora=built["lora"])
-        imgs = engine._decode_u8(latents, built["width"],
-                                 built["height"])[:built["b_raw"]]
-        self._group_merge(built, imgs, engine)
+                                  ragged=built["ragged"], lora=built["lora"],
+                                  sync=sync)
+        self._drain_cache_notes(built["live"][0].request_id, embed=False)
+        return latents
+
+    @staticmethod
+    def _group_decode(g: _Group, built: Dict, latents: torch.Tensor,
+                      engine):
+        """Decode stage: the decode dispatched into pinned host memory
+        behind an event; nothing waits here."""
+        return engine._queue_decoded(latents, 0, built["b_raw"],
+                                     built["width"], built["height"])
 
     def _group_build_inputs(self, g: _Group,
                             engine=None) -> Optional[Dict]:
@@ -681,6 +916,7 @@ class ServingDispatcher:
             noise_parts.append(engine._init_noise(p, 0, n_p, (h, w, C),
                                                   rows))
             key_parts.append(engine._image_keys(p, 0, n_p))
+            self._drain_cache_notes(t.request_id, prefix=False)
             ctx_rows.append(cc.expand(n_p, -1, -1))
             pooled_rows.append(pc.expand(n_p, -1))
             uncond.append((cu, pu, n_p))
@@ -712,9 +948,9 @@ class ServingDispatcher:
                 ctx_u, pooled_u = _pad(ctx_u), _pad(pooled_u)
         ragged = None
         if ragged_mode:
-            ragged = tuple(torch.tensor(vec, dtype=torch.int32,
-                                        device=engine.device)
-                           for vec in lengths)
+            ragged = tuple(dtypes.to_device(
+                torch.tensor(vec, dtype=torch.int32), engine.device)
+                for vec in lengths)
             if b_run > b_raw:
                 ragged = tuple(_pad(vec) for vec in ragged)
         # each row's factors; the pad rows repeat the last member's set
@@ -726,10 +962,19 @@ class ServingDispatcher:
                 "ragged": ragged, "lora": lora,
                 "ragged_mode": ragged_mode, "b_raw": b_raw}
 
-    def _group_merge(self, built: Dict, imgs: np.ndarray, engine) -> None:
-        """Split the batch's images back into per-ticket results: bucket
-        crops (top-aligned for ragged rows) and per-image seeds and
-        infotext of each original payload."""
+    def _group_merge(self, g: _Group, built: Dict, decoded,
+                     engine) -> None:
+        """Merge stage: wait for the decoded images, then split the batch
+        back into per-ticket results: bucket crops (top-aligned for ragged
+        rows) and per-image seeds and infotext of each original payload.
+        Host work only: it needs nothing of the device thread."""
+        imgs = decoded.pixels()
+        live = built["live"]
+        jr_on = obs_journal.enabled()
+        if jr_on:
+            obs_journal.emit("decoded", live[0].request_id,
+                             images=built["b_raw"],
+                             batch_run=built["x"].shape[0])
         crop = self.bucketer.crop_ragged if built["ragged_mode"] \
             else self.bucketer.crop
         off = 0
@@ -745,6 +990,8 @@ class ServingDispatcher:
                 rows = np.stack([crop(im, ow, oh) for im in rows])
             engine._append_images(out, t.payload, rows, 0, ow, oh)
             t.result = out
+            if jr_on:
+                obs_journal.emit("merged", t.request_id, images=n_p)
 
     # -- result fix-up -----------------------------------------------------
 
