@@ -169,6 +169,25 @@ Phases, each fatal on failure (no phase is caught and passed over):
    ``fault_cleared``, ``job_failed``, ``requeued`` and ``completed`` in
    order, ``GET /internal/sim`` the delivered fault, every seam None
    after ``disarm``;
+7f. the request-observability plane (``phase_obs``) on the main path's
+   engine and its server: 12 warm config #1 requests in turns, 6 with
+   spans and the perf ledger on (``SDTPU_PERF=1``) and 6 with both off:
+   p50 of each arm, every request the same PNG bytes, 320 K1 launches
+   each, all Hopper; ``GET /internal/perf``'s 512x512 / cadence 1 / bf16
+   row (dispatches, CUDA-event device seconds, the pricer's UNet FLOPs, an
+   MFU in (0, 1.05] against the card's peak), beside the denoise's own
+   share; one request under ``torch.profiler``: the ledger's device
+   seconds within 5% of the profiler's device time; ``GET
+   /internal/trace.json``: each traced request's root with ``queue_wait``,
+   ``dispatch.device`` and ``denoise_range`` (``device_ms`` on the device
+   spans), and a solo request (per-image prompts) with ``generate_range``;
+   ``GET /internal/metrics`` parses and its request histogram counts the
+   traced requests; ``POST /internal/profile`` around a request writes a
+   Chrome trace holding K1; a World of two engines (the remote behind
+   HTTP, ``SDTPU_SIM=1``) with a chaos ``slow`` on the remote and
+   ``SDTPU_WATCHDOG_FACTOR=1``: the watchdog fires, the flight recorder
+   holds the stalled job with the threads' stacks, and the requeued range
+   gives the fault-free request's bytes;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
@@ -315,6 +334,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -3358,6 +3378,423 @@ def phase_stage_graph(engine, fa, ra, card_line: str) -> dict:
     return out
 
 
+OBS_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+            "negative_prompt": "blurry", "steps": 20, "width": 512,
+            "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+            "seed": 4900}
+OBS_REPEATS = 6  # warm config #1 requests per arm, observability on and off
+OBS_DEVICE_TOLERANCE = 0.05  # ledger device seconds vs the profiler's
+OBS_MFU_MAX = 1.05
+OBS_WATCHDOG_FACTOR = "1.5"  # x a job's ETA (2 s: 2 images at 60 ipm)
+OBS_SLOW_S = 8.0  # the chaos slow fault on the remote's job
+OBS_DEVICE_SPANS = ("dispatch.device", "denoise_range")
+
+
+def post_path(port: int, path: str, body: dict) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"{path} answered {resp.status}")
+        return json.loads(resp.read())
+
+
+def obs_request_spans(doc: dict, rid: str) -> dict:
+    """One request's trace events by span name, from a Chrome trace."""
+    out: dict = {}
+    for e in doc["traceEvents"]:
+        if e["args"]["request_id"] == rid:
+            out.setdefault(e["name"], []).append(e)
+    return out
+
+
+def device_window(prof) -> tuple:
+    """(kernel ms, first-kernel-start to last-kernel-end ms, kernels) of
+    a profiler trace: the device's busy time and the span it covers."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e.device_type, "name", "") == "CUDA")
+    if not spans:
+        return 0.0, 0.0, 0
+    busy = sum(b - a for a, b in spans) / 1e3
+    return busy, (spans[-1][1] - spans[0][0]) / 1e3, len(spans)
+
+
+def obs_arm(on: bool) -> None:
+    """Spans and the perf ledger both on, or both off."""
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        spans as obs_spans,
+    )
+
+    obs_spans.TRACER.enabled = on
+    if on:
+        os.environ["SDTPU_PERF"] = "1"
+    else:
+        os.environ.pop("SDTPU_PERF", None)
+
+
+def obs_watchdog_world(engine, fa, card_line: str) -> dict:
+    """A World of its own (the master on this engine, a remote on a second
+    engine of its weights behind the port's ``ApiServer``, both preset at
+    60 images a minute): a fault-free 4-image request, then, with
+    ``SDTPU_SIM=1`` and ``SDTPU_WATCHDOG_FACTOR``, a chaos ``slow`` of
+    ``OBS_SLOW_S`` on the remote's job: the watchdog fires at its ETA, the
+    flight recorder holds the stalled job with every thread's stack, the
+    range is requeued on the master and gives the fault-free request's
+    bytes."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
+        SD15,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
+        Engine,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        worker as worker_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        world as world_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.sim import chaos
+
+    workdir = tempfile.mkdtemp(prefix="obs-watchdog-")
+    remote_srv = server = first_srv = None
+    body = {**OBS_BODY, "seed": 4950, "batch_size": 4}
+
+    def master_world(name: str):
+        """The master's World over the remote, its workers preset at 60
+        images a minute. A World of its own per request: a job's actual
+        seconds feed its worker's ETA error window (scheduler/eta.py), and
+        the watched request must be predicted from the preset speeds."""
+        world = world_mod.World(
+            config_path=os.path.join(workdir, f"{name}.json"))
+        world.add_worker(worker_mod.WorkerNode(
+            "master", worker_mod.LocalBackend(engine), master=True,
+            avg_ipm=60.0))
+        remote = world.add_worker(worker_mod.WorkerNode(
+            "remote", worker_mod.HTTPBackend("127.0.0.1", remote_srv.port),
+            avg_ipm=60.0))
+        world.job_timeout = 1e9  # an equal split: the phase holds the stall
+        return world, remote
+
+    try:
+        remote_engine = Engine(
+            SD15, {name: getattr(engine, name).state_dict()
+                   for name in ("unet", "text_encoder", "vae",
+                                "vae_encoder")},
+            policy=dtypes.CARD, device="cuda")
+        remote_world = world_mod.World(
+            config_path=os.path.join(workdir, "remote.json"))
+        remote_world.add_worker(worker_mod.WorkerNode(
+            "master", worker_mod.LocalBackend(remote_engine), master=True,
+            avg_ipm=60.0))
+        remote_srv = ApiServer(remote_world, port=0).start()
+        first_srv = ApiServer(master_world("first")[0], port=0).start()
+        first = post(first_srv.port, {**body,
+                                      "request_id": "obs-fleet-first"})
+        check(labels_of(first) == ["master"] * 2 + ["remote"] * 2,
+              f"obs watchdog: the fault-free plan {labels_of(first)}")
+        world, remote = master_world("watched")
+        server = ApiServer(world, port=0).start()
+        eta_s = remote.eta(GenerationPayload(**body), batch_size=2)
+        saved = env_set({"SDTPU_SIM": "1",
+                         "SDTPU_WATCHDOG_FACTOR": OBS_WATCHDOG_FACTOR})
+        stalls0 = obs_prom.watchdog_stalls_total()
+        plan = chaos.arm(chaos.ChaosPlan([chaos.Fault(
+            kind="slow", worker="remote", at_request=1,
+            duration_s=OBS_SLOW_S)], seed=16))
+        try:
+            fa.reset_launches(fa.flash_attention)
+            t = time.perf_counter()
+            slowed = post(server.port, {**body, "request_id": "obs-stall"})
+            wall = time.perf_counter() - t
+            k1 = fa.flash_attention.launches
+            entries = get_json(server.port, "/internal/flightrec")["entries"]
+            stalls = obs_prom.watchdog_stalls_total() - stalls0
+        finally:
+            chaos.disarm()
+            env_restore(saved)
+    finally:
+        for srv in (server, first_srv, remote_srv):
+            if srv is not None:
+                srv.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    del remote_engine, remote_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    stall = [e for e in entries if e["reason"] == "watchdog_stall"
+             and e["request_id"] == "obs-stall"]
+    failure = [e for e in entries if e["reason"] == "worker_failure"
+               and e["request_id"] == "obs-stall"]
+    same = [a == b for a, b in zip(slowed["images"], first["images"])]
+    print(f"obs watchdog: the remote's ETA {eta_s:.3f} s x "
+          f"{OBS_WATCHDOG_FACTOR}, a {OBS_SLOW_S} s slow fault; the request "
+          f"{wall:.4f} s, labels {labels_of(slowed)}, stalls {stalls}, "
+          f"master K1 {k1}, flight-recorder entries "
+          f"{[e['reason'] for e in entries]}, the fault-free bytes {same} "
+          f"[{card_line}]")
+    check(stalls == 1, f"obs watchdog: {stalls} stalls, want 1")
+    check(len(stall) == 1 and "job-remote" in stall[0]["detail"]
+          and "Thread" in stall[0]["detail"],
+          "obs watchdog: no stall entry with the threads' stacks")
+    check(len(failure) == 1 and "stalled past the watchdog deadline"
+          in failure[0]["detail"], "obs watchdog: no stalled-job entry")
+    check(json.loads(slowed["info"])["all_seeds"]
+          == list(range(4950, 4954)), "obs watchdog: the gallery's seeds")
+    check(labels_of(slowed) == ["master"] * 4,
+          "obs watchdog: the requeued range did not run on the master")
+    check(all(same) and len(same) == 4,
+          "obs watchdog: the requeued range is not the remote's bytes")
+    check(k1 == 2 * LAUNCHES_PER_GROUP,
+          f"obs watchdog: the master launched K1 {k1} times")
+    check(plan.status()["faults"][0]["injected"] == 1,
+          "obs watchdog: the slow fault was not delivered")
+    return {"remote_eta_s": round(eta_s, 4), "wall_s": round(wall, 4),
+            "stalls": stalls, "k1": k1}
+
+
+def phase_obs(engine, fa, ra, card_line: str) -> dict:
+    """The request-observability plane on the main path's engine and
+    server (see the module's docstring, 7f)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.obs import flightrec
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        perf as obs_perf,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        spans as obs_spans,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        stepcache,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    t_phase = time.perf_counter()
+    for k in ("SDTPU_CACHE", "SDTPU_FLEET", "SDTPU_POOL", "SDTPU_RAGGED",
+              "SDTPU_STAGE_GRAPH", "SDTPU_WATCHDOG_FACTOR"):
+        os.environ.pop(k, None)
+    tracer_was, perf_was = (obs_spans.TRACER.enabled,
+                            os.environ.get("SDTPU_PERF"))
+    out = {"card": card_line}
+    server = ApiServer(engine, port=0).start()
+    cwd = os.getcwd()
+    workdir = tempfile.mkdtemp(prefix="obs-profile-")
+    try:
+        obs_arm(False)
+        post(server.port, {**OBS_BODY, "request_id": "obs-warm"})
+        obs_spans.TRACER.clear()
+        flightrec.RECORDER.clear()
+        METRICS.clear()
+        obs_prom.clear_histograms()
+        obs_perf.LEDGER.clear()
+        fa.reset_launches(fa.flash_attention)
+        fa.reset_launches(ra.ragged_attention)
+        walls = {"on": [], "off": []}
+        images, k1_each, traced = set(), [], []
+        for i in range(2 * OBS_REPEATS):
+            arm = "on" if i % 2 == 0 else "off"
+            obs_arm(arm == "on")
+            rid = f"obs-{arm}-{i}"
+            before = fa.flash_attention.launches
+            t = time.perf_counter()
+            resp = post(server.port, {**OBS_BODY, "request_id": rid})
+            walls[arm].append(time.perf_counter() - t)
+            k1_each.append(fa.flash_attention.launches - before)
+            images.add(resp["images"][0])
+            if arm == "on":
+                traced.append(rid)
+        k1 = fa.flash_attention.launches
+        paths = dict(fa.flash_attention.path_launches)
+        k2 = ra.ragged_attention.launches
+        obs_arm(True)
+        ledger = get_json(server.port, "/internal/perf")
+        doc = get_json(server.port, "/internal/trace.json")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            post(server.port, {**OBS_BODY, "request_id": "obs-profiled"})
+            torch.cuda.synchronize()
+        profiled = obs_perf.LEDGER.last_dispatch()
+        prof_ms, prof_span_ms, prof_kernels = device_window(prof)
+        traced.append("obs-profiled")
+        post(server.port, {**OBS_BODY, "request_id": "obs-solo",
+                           "all_prompts": [OBS_BODY["prompt"]]})
+        traced.append("obs-solo")
+        doc_all = get_json(server.port, "/internal/trace.json")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/internal/metrics",
+                timeout=60) as resp:
+            metrics_type = resp.headers.get("Content-Type", "")
+            metrics = resp.read().decode()
+        os.chdir(workdir)
+        started = post_path(server.port, "/internal/profile",
+                            {"action": "start", "dir": "k1"})
+        post(server.port, {**OBS_BODY, "request_id": "obs-profile-route"})
+        stopped = post_path(server.port, "/internal/profile",
+                            {"action": "stop"})
+        with open(os.path.join(workdir, stopped["stopped_dir"] or "",
+                               "trace.json")) as f:
+            route_events = json.load(f)["traceEvents"]
+    finally:
+        os.chdir(cwd)
+        server.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+        obs_spans.TRACER.enabled = tracer_was
+        env_restore({"SDTPU_PERF": perf_was})
+    p50 = {arm: sorted(w)[len(w) // 2] for arm, w in walls.items()}
+    print(f"obs: {OBS_REPEATS} warm config #1 requests per arm, spans and "
+          f"the perf ledger on / off in turns: p50 {p50['on']:.4f} / "
+          f"{p50['off']:.4f} s (min {min(walls['on']):.4f} / "
+          f"{min(walls['off']):.4f}, max {max(walls['on']):.4f} / "
+          f"{max(walls['off']):.4f}); K1 per request {k1_each} [{card_line}]")
+    check(len(images) == 1, "obs: the PNG bytes differ with observability "
+          "on and off")
+    check(all(n == LAUNCHES_PER_GROUP for n in k1_each),
+          f"obs: K1 per request {k1_each}")
+    check(paths["hopper"] == k1 and k2 == 0,
+          f"obs: K1 off the Hopper path or K2 launched: {paths}, {k2}")
+
+    bucket = f"{OBS_BODY['width']}x{OBS_BODY['height']}"
+    rows = [g for g in ledger["groups"]
+            if (g["bucket"], g["cadence"], g["precision"])
+            == (bucket, 1, "bf16")]
+    check(len(rows) == 1, f"obs: the perf ledger's groups {ledger['groups']}")
+    row = rows[0]
+    lat = OBS_BODY["width"] // engine.family.vae_scale_factor
+    unet_eval = stepcache.unet_eval_flops(engine.family.unet, 2, lat, lat,
+                                          77)
+    denoise_s = sum(e["args"].get("device_ms", 0.0)
+                    for rid in traced[:OBS_REPEATS]
+                    for e in obs_request_spans(doc, rid).get(
+                        "denoise_range", ())) / 1e3
+    peak = ledger["peak_flops_bf16"]
+    mfu_denoise = (row["flops"] / denoise_s / peak
+                   if denoise_s and peak else None)
+    out["perf_row"] = {k: row[k] for k in (
+        "dispatches", "requests", "device_s", "flops", "mfu",
+        "padding_ratio", "token_padding_ratio", "hbm_peak_bytes")}
+    out["perf_row"]["denoise_device_s"] = round(denoise_s, 6)
+    out["perf_row"]["mfu_denoise"] = mfu_denoise
+    out["device_kind"] = ledger["device_kind"]
+    out["peak_flops_bf16"] = peak
+    print(f"obs: /internal/perf {ledger['device_kind']!r} peak {peak}: "
+          f"dispatches {row['dispatches']}, device_s {row['device_s']:.6f} "
+          f"({row['device_s'] / max(1, row['dispatches']) * 1e3:.3f} ms a "
+          f"dispatch), UNet FLOPs {row['flops']:.6g} ({unet_eval:.6g} an "
+          f"evaluation), MFU {row['mfu']}; over the denoise's own "
+          f"{denoise_s:.6f} s: {mfu_denoise} [{card_line}]")
+    check(row["dispatches"] == OBS_REPEATS and row["requests"] == OBS_REPEATS,
+          f"obs: the ledger's dispatches {row['dispatches']}")
+    check(abs(row["flops"] - OBS_REPEATS * OBS_BODY["steps"] * unet_eval)
+          <= 1e-9 * row["flops"], "obs: the ledger's FLOPs are not one "
+          "priced evaluation a step")
+    check(row["mfu"] is not None and 0.0 < row["mfu"] <= OBS_MFU_MAX,
+          f"obs: MFU {row['mfu']} outside (0, {OBS_MFU_MAX}]")
+
+    # CUPTI's kernel records add device time between kernels (about 1 us
+    # each, over 27,000 kernels a request): the profiled dispatch's own
+    # CUDA events bracket that, its kernels do not. The same request's
+    # unprofiled dispatches are held to the profiler's kernel time, and the
+    # profiled dispatch's events to the profiler's own bounds of it.
+    ledger_ms = profiled["device_s"] * 1e3
+    plain_ms = row["device_s"] / row["dispatches"] * 1e3
+    out["profiled"] = {"ledger_device_ms": round(ledger_ms, 4),
+                       "unprofiled_ledger_device_ms": round(plain_ms, 4),
+                       "profiler_kernel_ms": round(prof_ms, 4),
+                       "profiler_span_ms": round(prof_span_ms, 4),
+                       "kernels": prof_kernels}
+    print(f"obs: the ledger's device time of an unprofiled dispatch "
+          f"{plain_ms:.4f} ms, the profiler's kernel time of the same "
+          f"request {prof_ms:.4f} ms ({plain_ms / prof_ms - 1:+.2%}); the "
+          f"profiled dispatch's {ledger_ms:.4f} ms "
+          f"({ledger_ms / prof_ms - 1:+.2%}) between its kernel time and "
+          f"its first-to-last kernel span {prof_span_ms:.4f} ms "
+          f"({prof_kernels} kernels) [{card_line}]")
+    check(abs(plain_ms / prof_ms - 1.0) <= OBS_DEVICE_TOLERANCE,
+          "obs: the ledger's device seconds are not the profiler's")
+    check(0.99 * prof_ms <= ledger_ms <= 1.01 * prof_span_ms,
+          "obs: the profiled dispatch's device seconds lie outside the "
+          "profiler's bounds of it")
+
+    spans_seen = {}
+    for rid in traced:
+        names = obs_request_spans(doc_all, rid)
+        roots = names.get("txt2img", [])
+        check(len(roots) == 1 and roots[0]["args"]["status"] == "ok",
+              f"obs: {rid} has no ok root")
+        for name in ("queue_wait", "dispatch.device", "denoise_range"):
+            check(name in names, f"obs: {rid} has no {name} span")
+        for name in OBS_DEVICE_SPANS:
+            check(all(e["args"].get("device_ms", 0) > 0
+                      for e in names[name]),
+                  f"obs: {rid}'s {name} has no device_ms")
+        spans_seen[rid] = sorted(names)
+    check("generate_range" in spans_seen["obs-solo"],
+          "obs: the solo request has no generate_range span")
+    dsp = [e["args"].get("device_ms", 0.0) for rid in traced[:OBS_REPEATS]
+           for e in obs_request_spans(doc, rid)["dispatch.device"]]
+    out["dispatch_device_ms"] = [round(v, 3) for v in dsp]
+    print(f"obs: trace.json: {len(traced)} traced requests, spans of the "
+          f"solo one {spans_seen['obs-solo']}; dispatch.device device_ms "
+          f"{out['dispatch_device_ms']} [{card_line}]")
+
+    check(metrics_type.startswith("text/plain; version=0.0.4"),
+          f"obs: /internal/metrics content type {metrics_type!r}")
+    counted = None
+    for line in metrics.splitlines():
+        if line.startswith("#"):
+            check(re.match(r"# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* ", line)
+                  is not None, f"obs: exposition line {line!r}")
+            continue
+        check(re.match(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                       r'(-?[0-9.e+-]+|NaN|\+Inf)$', line) is not None,
+              f"obs: exposition line {line!r}")
+        if line.startswith("sdtpu_request_e2e_seconds_count "):
+            counted = int(line.split()[1])
+    print(f"obs: /internal/metrics {len(metrics.splitlines())} lines, the "
+          f"request histogram counts {counted} of {len(traced)} traced")
+    check(counted == len(traced), "obs: the request histogram's count")
+
+    k1_kernels = sorted({e.get("name", "") for e in route_events
+                         if e.get("cat") == "kernel"
+                         and kernel_group(e.get("name", ""))
+                         == "K1 flash_attention"})
+    out["profile_route"] = {"dir": started["dir"], "events":
+                            len(route_events), "k1_kernels": k1_kernels}
+    print(f"obs: POST /internal/profile {started} -> {stopped}: "
+          f"{len(route_events)} events, K1 kernels {k1_kernels}")
+    check(started["started"] and k1_kernels,
+          "obs: the profile route's trace holds no K1 kernel")
+
+    out["watchdog"] = obs_watchdog_world(engine, fa, card_line)
+    out["p50_s"] = {k: round(v, 4) for k, v in p50.items()}
+    out["walls_s"] = {k: [round(x, 4) for x in v] for k, v in walls.items()}
+    out["k1_per_request"] = k1_each
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("obs metrics: " + json.dumps(out))
+    print(f"obs: phase {out['phase_s']} s [{card_line}]")
+    return out
+
+
 def phase_scripts_sdxl(base, card_line: str) -> None:
     """SDXL textual inversion on config #2's base engine: an embedding of
     a word's clip_l and clip_g rows gives the word's conditioning exactly
@@ -4701,15 +5138,14 @@ def model_tflop(family, lat: int) -> dict:
     ControlNet row there (hint at 8 x ``lat``), and of one VAE decode and
     one VAE encode at that size, counted by
     ``torch.utils.flop_counter`` (matrix products and convolutions) on
-    meta tensors: nothing is allocated. K1 has no meta kernel, so its
-    plain version, with the same two products, stands in while counting.
-    ``tools/torch_flops.py`` prints these for any family."""
+    meta tensors: nothing is allocated. The UNet rows are the package's
+    pricer (``pipeline/stepcache.py`` ``unet_eval_flops``), the one that
+    ``/internal/perf`` counts with; K1 answers a meta tensor with its plain
+    version's products. ``tools/torch_flops.py`` prints these for any
+    family."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from stable_diffusion_webui_distributed_tpu_torch.models import (
-        unet as unet_mod,
-    )
     from stable_diffusion_webui_distributed_tpu_torch.models.controlnet import (
         ControlNet,
     )
@@ -4717,41 +5153,32 @@ def model_tflop(family, lat: int) -> dict:
         Decoder,
         Encoder,
     )
-    from stable_diffusion_webui_distributed_tpu_torch.ops import (
-        flash_attention as fa,
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
+        stepcache,
     )
 
     u = family.unet
-    counts = {}
-    kernel = unet_mod.flash_attention
-    unet_mod.flash_attention = fa.flash_attention_reference
-    try:
-        with torch.device("meta"):
-            added = ((torch.zeros(1, u.projection_input_dim),)
-                     if u.addition_embed_dim else ())
-            x = torch.zeros(1, lat, lat, 4)
-            t = torch.ones(1)
-            ctx = torch.zeros(1, 77, u.cross_attention_dim)
-            hint = torch.zeros(1, 8 * lat, 8 * lat, 3)
-            side = family.vae_scale_factor * lat
-            image = torch.zeros(1, side, side, 3)
-            deep = torch.zeros(unet_mod.deep_cache_shape(u, 1, lat, lat))
-            for name, run in (
-                    ("unet_row", lambda: unet_mod.UNet(u)(x, t, ctx,
-                                                          *added)),
-                    ("unet_deep_row", lambda: unet_mod.UNet(u)(
-                        x, t, ctx, *added, cache_mode="deep")),
-                    ("unet_reuse_row", lambda: unet_mod.UNet(u)(
-                        x, t, ctx, *added, cache=deep, cache_mode="reuse")),
-                    ("controlnet_row", lambda: ControlNet(u)(
-                        x, t, ctx, hint, *added)),
-                    ("vae_decode", lambda: Decoder(family.vae)(x)),
-                    ("vae_encode", lambda: Encoder(family.vae)(image))):
-                with FlopCounterMode(display=False) as count:
-                    run()
-                counts[name] = count.get_total_flops() / 1e12
-    finally:
-        unet_mod.flash_attention = kernel
+    counts = {name: stepcache.unet_eval_flops(u, 1, lat, lat, 77, mode)
+              / 1e12
+              for name, mode in (("unet_row", None), ("unet_deep_row", "deep"),
+                                 ("unet_reuse_row", "reuse"))}
+    with torch.device("meta"):
+        added = ((torch.zeros(1, u.projection_input_dim),)
+                 if u.addition_embed_dim else ())
+        x = torch.zeros(1, lat, lat, 4)
+        t = torch.ones(1)
+        ctx = torch.zeros(1, 77, u.cross_attention_dim)
+        hint = torch.zeros(1, 8 * lat, 8 * lat, 3)
+        side = family.vae_scale_factor * lat
+        image = torch.zeros(1, side, side, 3)
+        for name, run in (
+                ("controlnet_row", lambda: ControlNet(u)(
+                    x, t, ctx, hint, *added)),
+                ("vae_decode", lambda: Decoder(family.vae)(x)),
+                ("vae_encode", lambda: Encoder(family.vae)(image))):
+            with FlopCounterMode(display=False) as count:
+                run()
+            counts[name] = count.get_total_flops() / 1e12
     return counts
 
 
@@ -6440,6 +6867,7 @@ def main() -> int:
     caches = phase_caches(engine, fa, ra, card_line)
     fleet_gate = phase_fleet_gate(fa, ra, card_line)
     stage = phase_stage_graph(engine, fa, ra, card_line)
+    obs = phase_obs(engine, fa, ra, card_line)
     phase_reference(engine)
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
@@ -6575,6 +7003,7 @@ def main() -> int:
             "n_iter 4 (a)": stage["engine"]["serial"]["k1"],
             "dispatcher (b)": stage["dispatcher"]["runs"][0]["k1"],
             "controlnet (d)": stage["controlnet"]["runs"][0]["k1"]},
+        "obs_launches": obs["k1_per_request"],
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "

@@ -45,6 +45,9 @@ from stable_diffusion_webui_distributed_tpu_torch.cache.store import (
     Flight,
     SingleFlight,
 )
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_float,
 )
@@ -81,12 +84,15 @@ def result_acquire(key: str) -> Tuple[str, Optional[Any], Optional[Flight]]:
     while True:
         cached = result_store().get(key)
         if cached is not None:
+            obs_prom.cache_count("result", "hit")
             return "hit", cached, None
         role, flight = FLIGHTS.acquire(key)
         if role == "leader":
+            obs_prom.cache_count("result", "miss")
             return "leader", None, flight
         flight.event.wait()
         if flight.value is not None:
+            obs_prom.cache_count("result", "joined")
             return "joined", flight.value, None
 
 

@@ -29,6 +29,9 @@ from stable_diffusion_webui_distributed_tpu_torch.cache import (
 from stable_diffusion_webui_distributed_tpu_torch.cache.store import (
     BoundedStore,
 )
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_float,
 )
@@ -74,13 +77,16 @@ def lookup_or_encode(engine: Any, text: str, clip_skip: int, chunks: int,
     s = store()
     hit = s.get(key)
     half = _NEG if negative else _POS
+    layer = "embed_neg" if negative else "embed_pos"
     if hit is not None:
         with _lock:
             half["hits"] += 1
         _note_hit(negative)
+        obs_prom.cache_count(layer, "hit")
         return hit
     with _lock:
         half["misses"] += 1
+    obs_prom.cache_count(layer, "miss")
     out = encode()
     s.put(key, out, sum(int(t.nbytes) for t in out))
     return out

@@ -41,6 +41,9 @@ from stable_diffusion_webui_distributed_tpu_torch.cache import (
 from stable_diffusion_webui_distributed_tpu_torch.cache.store import (
     BoundedStore,
 )
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_float,
@@ -111,6 +114,7 @@ def plan(engine: Any, payload: Any, *, batch: int, width: int, height: int,
         # under this request's cutoff too
         if 0 < k < p.end and k <= p.cfg_stop:
             p.resume = (k, ent["leaves"])
+            obs_prom.cache_count("prefix", "resumed")
             global _resumed
             with _lock:
                 _resumed += 1
@@ -140,6 +144,7 @@ def maybe_capture(p: PrefixPlan, pos: int, carry: Tuple) -> None:
         for leaf in carry)
     nbytes = sum(int(a.nbytes) for a in leaves)
     if store().put(p.key, {"step": int(pos), "leaves": leaves}, nbytes):
+        obs_prom.cache_count("prefix", "captured")
         global _captured
         with _lock:
             _captured += 1

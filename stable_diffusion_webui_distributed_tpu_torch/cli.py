@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import logging
 import os
 import sys
 import urllib.request
@@ -55,6 +54,9 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     flags as flags_mod,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+    logging as port_logging,
 )
 
 
@@ -395,8 +397,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if args.distributed_debug else logging.INFO)
+    # the port's logger: console, distributed.log (SDTPU_LOG_DIR) and the
+    # ring /internal/status serves, each line under its request's id
+    port_logging.configure(debug=args.distributed_debug)
     return args.fn(args)
 
 

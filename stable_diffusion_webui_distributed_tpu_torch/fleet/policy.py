@@ -17,9 +17,8 @@ deadlock. :class:`EnginePreemptHook` answers only its owning execution
 and serves the interloper's tasks while it waits (``runtime/runner.py``).
 
 With ``SDTPU_JOURNAL`` on, :meth:`FleetGate.yield_device` journals
-``preempted`` and ``resumed`` under the yielding entry's request id. Left
-for ROADMAP item 10: the ``preemptions`` Prometheus counter it feeds in
-the JAX package.
+``preempted`` and ``resumed`` under the yielding entry's request id, and
+counts ``sdtpu_fleet_preemptions_total`` by class (``obs/prometheus.py``).
 
 Knobs (``runtime/config.py``):
 
@@ -45,6 +44,9 @@ from typing import Dict, List, Optional, Tuple
 
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
 )
 
 INTERACTIVE = "interactive"
@@ -336,6 +338,7 @@ class FleetGate:
             if self._running is entry:
                 self._running = None
             self._cv.notify_all()
+        obs_prom.fleet_count("preemptions", **{"class": entry.policy.name})
         if obs_journal.enabled() and entry.request_id:
             obs_journal.emit("preempted", entry.request_id,
                              **{"class": entry.policy.name})

@@ -29,9 +29,9 @@ Gated ``SDTPU_POOL`` (default off); knobs: ``SDTPU_POOL_SIZE`` (target
 residents, default 2), ``SDTPU_POOL_COOLDOWN_S`` (min seconds between
 autoscale-driven spawn/retire executions, default 0). With
 ``SDTPU_JOURNAL`` on, a spawn journals ``pool_spawned`` (with its
-seconds) and a retirement ``pool_retired``, under ``pool-<name>``. The JAX
-package's ``sdtpu_cold_start_seconds`` histogram waits for ROADMAP item
-10; the spawn's seconds stay on the resident (:meth:`summary`).
+seconds) and a retirement ``pool_retired``, under ``pool-<name>``. A
+spawn's seconds feed ``sdtpu_cold_start_seconds`` (``obs/prometheus.py``)
+and stay on the resident (:meth:`summary`).
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag, env_float, env_int,
@@ -117,6 +120,7 @@ class WarmPool:
         if self.warm is not None:
             self.warm(engine)
         spawn_s = max(0.0, self._clock() - t0)
+        obs_prom.observe_cold_start(spawn_s)
         res = EngineResident(name, engine, spawn_s)
         with self._lock:
             self._residents[name] = res

@@ -193,6 +193,20 @@ def tokenize_with_embeddings(
     return ids, weights, injections
 
 
+def true_token_count(ids: np.ndarray, eos: int) -> int:
+    """The tokens that carry meaning in a tokenized ``(n_chunks, 77)``
+    prompt: BOS, the content and the closing EOS of each chunk (the EOS
+    fill after it is padding). The numerator of the perf ledger's
+    ``token_padding_ratio``."""
+    total = 0
+    for row in ids:
+        tail = row[1:]          # past BOS (a BOS equal to EOS never shows)
+        eos_at = np.flatnonzero(tail == eos)
+        content = int(eos_at[0]) if eos_at.size else CHUNK_CONTENT
+        total += 2 + content    # BOS + content + closing EOS
+    return total
+
+
 def pad_chunks(a: np.ndarray, wa: np.ndarray, n: int, eos: int,
                bos: int) -> Tuple[np.ndarray, np.ndarray]:
     """Grow (chunks, 77) ids/weights to ``n`` chunks with empty windows —

@@ -1,11 +1,21 @@
-"""Observability: what the fleet tier, the stage-graph executor and the
-scenario engine read.
+"""Observability: the request-observability plane of the JAX package's
+``obs/``.
 
-:mod:`.prometheus` holds the fixed-ladder :class:`~.prometheus.Histogram`,
-the per-class fleet queue-wait histograms the autoscaler keys on, the
-process-wide ETA mean-percent-error gauge SLO admission falls back to, the
-stage-graph node histograms and the chaos plan's fault counter.
-:mod:`.journal` is the request journal (``SDTPU_JOURNAL``). The rest of the
-JAX package's ``obs/`` (spans, flight recorder, watchdog, the text
-exposition, perf ledger, TSDB, alerts) is ROADMAP queue 1 item 10.
+- :mod:`.spans`: per-request span trees behind a contextvars request
+  context, exported as Chrome trace events (``/internal/trace.json``);
+  device spans carry the CUDA-event time of the work they queued.
+- :mod:`.flightrec`: the last failed, interrupted, slow or stalled
+  requests with their spans and log lines (``/internal/flightrec``).
+- :mod:`.watchdog`: stall detection at k x an operation's ETA
+  (``SDTPU_WATCHDOG_FACTOR``).
+- :mod:`.prometheus`: the metric registry, the fixed-ladder histograms,
+  the labelled counters, the ETA gauge and the text exposition
+  (``/internal/metrics``).
+- :mod:`.perf`: the perf ledger, with MFU against the card's peak
+  (``SDTPU_PERF``, ``/internal/perf``).
+- :mod:`.tsdb`: the device-memory readers.
+- :mod:`.journal`: the request journal (``SDTPU_JOURNAL``).
+
+The JAX package's TSDB store, alerts, notify, fleetlog, stitch,
+federation and push are ROADMAP queue 1 item 10's next slice.
 """

@@ -10,7 +10,8 @@ Pallas wrapper it takes any T and S, so there is no dense fallback.
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 what the kernel does not take. Only for tensors on the CPU does it compute
 :func:`flash_attention_reference`, the plain PyTorch version the tests and
-``chip_smoke.py`` hold the kernel against. ``flash_attention.launches``
+``chip_smoke.py`` hold the kernel against; a meta tensor (the FLOP pricer,
+``pipeline/stepcache.py``) gets that version's shape-only result. ``flash_attention.launches``
 counts kernel launches, and ``flash_attention.path_launches`` counts them
 per path, as the C entry point reports the path it launched: bf16 launches
 go to the Hopper kernel (TMA + ``wgmma``) where TMA can address the
@@ -123,11 +124,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors (f32 or bf16, last axis contiguous, D <= 256) launch the
     kernel; anything it does not take raises. CPU tensors take the plain
-    version."""
+    version, meta tensors its shape."""
     check_inputs(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
+        # a meta tensor computes nothing: the plain version's products
+        # give its shape and let FlopCounterMode count them
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")

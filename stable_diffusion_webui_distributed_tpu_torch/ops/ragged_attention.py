@@ -94,7 +94,7 @@ def ragged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors (f32 or bf16, last axis contiguous, D <= 256, the lengths
     on the same card) launch the kernel; anything it does not take raises.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version, meta tensors its shape."""
     check_inputs(q, k, v)
     if true_len.shape != (q.shape[0],) or true_len.is_floating_point():
         raise ValueError(f"true_len must be a ({q.shape[0]},) integer "
@@ -102,7 +102,9 @@ def ragged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(true_len.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
+        # a meta tensor computes nothing: the plain version's products
+        # give its shape and let FlopCounterMode count them
         return ragged_attention_reference(
             q, k, v, true_len, scale,
             q_true_len=true_len if mask_queries else None)

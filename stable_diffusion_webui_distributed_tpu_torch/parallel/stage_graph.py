@@ -32,9 +32,12 @@ Gate: ``SDTPU_STAGE_GRAPH`` (off). ``SDTPU_STAGE_DEPTH`` sizes the window;
 (``pipeline/engine.py`` ``Engine._stage_cn_device``).
 
 Each node's host seconds feed ``sdtpu_stage_graph_seconds`` (labelled by
-stage, ``obs/prometheus.py``). The JAX package also draws each node as a
-span on a fixed trace lane (:data:`LANES`); spans wait for ROADMAP item
-10, so nothing draws them yet. The module imports no torch.
+stage, ``obs/prometheus.py``) and are drawn as a ``stage.<name>`` span of
+the active request on the stage's fixed trace lane (:data:`LANES`), so
+``/internal/trace.json`` shows overlapped stages of several groups on one
+swimlane per stage; ``stage.denoise`` and ``stage.decode`` also carry the
+``device_ms`` of the work they queued (``obs/spans.py``). The module
+imports no torch.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ __all__ = [
 ]
 
 #: Fixed trace lanes (a trace's tid) so every stage kind gets its own
-#: swimlane; kept for the spans ROADMAP item 10 brings.
+#: swimlane.
 LANES = {
     "encode": -101,
     "controlnet": -102,
@@ -70,6 +73,10 @@ LANES = {
     "merge": -105,
     "refine": -106,
 }
+
+
+#: the stages whose spans carry the device time of the work they queue
+DEVICE_STAGES = ("denoise", "decode")
 
 
 def enabled() -> bool:
@@ -200,7 +207,7 @@ class StageNode:
     and the host-timeline record of its run."""
 
     __slots__ = ("name", "fn", "deps", "kind", "result", "t0", "t1",
-                 "overlap", "ran")
+                 "overlap", "ran", "dev")
 
     def __init__(self, name: str, fn: Callable[..., Any],
                  deps: Tuple[str, ...], kind: Optional[str]) -> None:
@@ -213,6 +220,8 @@ class StageNode:
         self.t1 = 0.0
         self.overlap = 0.0
         self.ran = False
+        #: the device time of the work it queued (``obs/spans.py``)
+        self.dev = None
 
     def seconds(self) -> float:
         return max(0.0, self.t1 - self.t0)
@@ -288,8 +297,19 @@ class StageGraph:
                     and self.clock is not None:
                 self.clock.begin_denoise(self.group, node.t0)
                 self.open_denoise = True
-            node.result = node.fn(
-                *(self._nodes[d].result for d in node.deps))
+            if self.obs:
+                from stable_diffusion_webui_distributed_tpu_torch.obs import (
+                    spans as obs_spans,
+                )
+
+                if obs_spans.TRACER.enabled and node.name in DEVICE_STAGES:
+                    node.dev = obs_spans.DeviceTime()
+                with obs_spans.device_sink(node.dev):
+                    node.result = node.fn(
+                        *(self._nodes[d].result for d in node.deps))
+            else:
+                node.result = node.fn(
+                    *(self._nodes[d].result for d in node.deps))
             node.t1 = time.perf_counter()
             node.ran = True
             if self.clock is not None:
@@ -314,11 +334,22 @@ class StageGraph:
     def _observe(self, node: StageNode) -> None:
         secs = node.seconds()
         if self.obs:
-            from stable_diffusion_webui_distributed_tpu_torch.obs import (
-                prometheus as obs_prom,
-            )
+            try:
+                from stable_diffusion_webui_distributed_tpu_torch.obs import (
+                    prometheus as obs_prom,
+                )
+                from stable_diffusion_webui_distributed_tpu_torch.obs import (
+                    spans as obs_spans,
+                )
 
-            obs_prom.observe_stage_graph(node.name, secs)
+                obs_prom.observe_stage_graph(node.name, secs)
+                obs_spans.add_span(
+                    obs_spans.current(), f"stage.{node.name}", node.t0,
+                    secs, attrs={"group": str(self.group),
+                                 "graph": self.label},
+                    lane=LANES.get(node.name), dev=node.dev)
+            except Exception:  # noqa: BLE001 — obs stays best-effort
+                pass
         if self.on_stage is not None:
             try:
                 self.on_stage(node.name, secs)

@@ -195,6 +195,7 @@ from stable_diffusion_webui_distributed_tpu_torch.models.prompt import (
     CHUNK_CONTENT,
     pad_chunks,
     tokenize_with_embeddings,
+    true_token_count,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
     load_tokenizer,
@@ -209,6 +210,12 @@ from stable_diffusion_webui_distributed_tpu_torch.models.vae import (
     Decoder,
     Encoder,
     encode,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.image import (
     box_blur,
@@ -234,6 +241,7 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes, rng
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     graphs as graphs_mod,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
 )
@@ -248,6 +256,9 @@ from stable_diffusion_webui_distributed_tpu_torch.samplers import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.samplers import (
     schedules as sched,
+)
+from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+    METRICS,
 )
 
 log = logging.getLogger(__name__)
@@ -410,6 +421,9 @@ class Engine:
         # store's generation
         self._cond_cache: "OrderedDict[Tuple, Tuple]" = OrderedDict()
         self._COND_CACHE_MAX = 64
+        #: UNet-evaluation prices (meta-tensor FLOP counts) for
+        #: ``METRICS``'s FLOPs per image and the perf ledger
+        self._flops = stepcache.FlopsAccountant(self)
         # Every generation runs on this one thread, whichever thread asks.
         # PyTorch keeps cuBLAS and cuDNN handles and cuDNN's plan cache per
         # thread, and on the card the same UNet call made from a fresh
@@ -433,6 +447,10 @@ class Engine:
         traced set whose factors touch a text encoder adds its deltas.
         ``inject``: ``(mask, values_l, values_g)`` device tensors of
         :meth:`_injection`, the textual-inversion rows of each encoder."""
+        with obs_spans.device_interval(self.device):
+            return self._encode_on_device(ids, weights, skip, inject)
+
+    def _encode_on_device(self, ids, weights, skip, inject):
         ids_t = dtypes.to_device(torch.from_numpy(ids).long(), self.device)
         skip_arg = skip if skip else None
         ts = self._traced_lora
@@ -546,13 +564,14 @@ class Engine:
                 self._cond_cache.popitem(last=False)
             return out
 
-        encoded = {c: cached(c, *t) for c, t in toks.items()}
-        ctx_c, pooled_c = encoded[cleaned[0]]
-        if len(cleaned) > 1:
-            ctx_c = torch.cat([encoded[c][0] for c in cleaned])
-            pooled_c = torch.cat([encoded[c][1] for c in cleaned])
-        ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u, inj_u,
-                                 negative=True)
+        with trace.STATS.timer("text_encode"):
+            encoded = {c: cached(c, *t) for c, t in toks.items()}
+            ctx_c, pooled_c = encoded[cleaned[0]]
+            if len(cleaned) > 1:
+                ctx_c = torch.cat([encoded[c][0] for c in cleaned])
+                pooled_c = torch.cat([encoded[c][1] for c in cleaned])
+            ctx_u, pooled_u = cached(payload.negative_prompt, ids_u, w_u,
+                                     inj_u, negative=True)
         if not ragged:
             return (ctx_u, ctx_c), (pooled_u, pooled_c)
         width = ids_u.shape[1]
@@ -578,6 +597,27 @@ class Engine:
         lengths.append(tokenize_with_embeddings(
             tok, payload.negative_prompt, counts)[0].shape[0])
         return int(max(lengths))
+
+    def request_token_stats(self, payload: GenerationPayload,
+                            chunks: Optional[int] = None) -> Tuple[int, int]:
+        """``(true_tokens, padded_tokens)`` of the request's conditioning,
+        the perf ledger's ``token_padding_ratio``: BOS, content and the
+        closing EOS of each chunk of the prompt and the negative prompt
+        (``models/prompt.py`` ``true_token_count``), against both halves
+        padded to ``chunks`` (default the longer) 77-token windows.
+        Tokenizes again: callers gate on ``SDTPU_PERF``."""
+        counts = self._embedding_counts()
+        eos = self.tokenizer.eos
+        ids_c = tokenize_with_embeddings(
+            self.tokenizer, lora_mod.extract_lora_tags(payload.prompt)[0],
+            counts)[0]
+        ids_u = tokenize_with_embeddings(
+            self.tokenizer, payload.negative_prompt, counts)[0]
+        if chunks is None:
+            chunks = max(ids_c.shape[0], ids_u.shape[0],
+                         int(payload.context_chunks or 0))
+        true = true_token_count(ids_c, eos) + true_token_count(ids_u, eos)
+        return int(true), int(2 * chunks * (CHUNK_CONTENT + 2))
 
     def _group_conds(self, payload: GenerationPayload, pos: int, n: int,
                      refiner: Optional["Engine"]):
@@ -953,7 +993,31 @@ class Engine:
         carry of its prefix key (the loop entering at that step with the
         step cache invalid, so it refreshes there as the continuous run
         does), else captures its carry at the first chunk boundary that
-        ``stepcache.prefix_boundary`` allows."""
+        ``stepcache.prefix_boundary`` allows.
+
+        The range is one ``denoise_range`` span (``obs/spans.py``) with a
+        ``denoise_chunk`` leaf per chunk (``runtime/trace.py``); the CUDA
+        events around its loop give the span's ``device_ms``. The
+        evaluations it dispatched are priced into ``METRICS``'s UNet
+        FLOPs (:meth:`_record_unet_flops`)."""
+        with obs_spans.span("denoise_range", device=True,
+                            sampler=payload.sampler_name,
+                            steps=int(payload.steps),
+                            start_step=int(start_step),
+                            batch=int(x.shape[0]),
+                            size=f"{payload.width}x{payload.height}"):
+            return self._denoise_range(
+                payload, x, image_keys, conds, pooleds, job, ragged,
+                start_step, end_step, controls, mask, inpaint_cond, lora,
+                sync)
+
+    def _denoise_range(self, payload: GenerationPayload, x: torch.Tensor,
+                       image_keys: torch.Tensor, conds, pooleds, job: str,
+                       ragged, start_step: int, end_step: Optional[int],
+                       controls: Sequence[Control], mask,
+                       inpaint_cond: Optional[torch.Tensor],
+                       lora: Optional[Dict], sync: bool) -> torch.Tensor:
+        """The body of :meth:`_denoise`."""
         spec = kd.resolve_sampler(payload.sampler_name)
         added = self._added_cond(pooleds, payload.width, payload.height)
         prec = self._precision_for(payload)
@@ -1030,58 +1094,93 @@ class Engine:
                 for a in leaves))
             self.state.step(pos)
         fences = _Fences(x.device)
-        while pos < end and not self.state.flag.interrupted:
-            hook = self.preempt_hook if sync else None
-            if hook is not None and hook.should_yield():
-                # chunk-boundary yield: the gate runs the interloper nested
-                # on this thread and returns when it hands the device
-                # back. The carry, position, step cache and prefix plan
-                # stay in this frame; the graphs' per-run inputs are
-                # copied back at the next call (a new binding).
+        dispatched: List[Tuple[int, int, bool]] = []
+        # the CUDA events around the loop: the span's device time
+        with obs_spans.device_interval(x.device) as interval:
+            while pos < end and not self.state.flag.interrupted:
+                hook = self.preempt_hook if sync else None
+                if hook is not None and hook.should_yield():
+                    # chunk-boundary yield: the gate runs the interloper
+                    # nested on this thread and returns when it hands the
+                    # device back. The carry, position, step cache and
+                    # prefix plan stay in this frame; the graphs' per-run
+                    # inputs are copied back at the next call (a new
+                    # binding). The interloper's device time is its own.
+                    fences.wait(0)
+                    interrupted_before_yield = self.state.flag.interrupted
+                    interval.pause()
+                    hook.yield_device()
+                    interval.resume()
+                    # an interloper with <lora:...> tags merged into the
+                    # live weights: this payload's adapters again
+                    # (tagless: the pristine weights)
+                    self._apply_prompt_loras(payload)
+                    # the interloper drove the shared progress record and
+                    # the interrupt latch (its begin_request cleared it;
+                    # an interrupt aimed at it may still be latched): this
+                    # range's view of both
+                    self.state.begin(job, end - start_step)
+                    if pos - start_step:
+                        self.state.step(pos - start_step)
+                    self.state.restore_interrupt(interrupted_before_yield)
+                    continue  # the restored latch is read at the loop top
+                chunk_end = min(pos + self.chunk_size, end)
+                run_step = step
+                if cache is not None:
+                    # a unit active anywhere in the chunk feeds the deep
+                    # blocks: the plain evaluation runs, and the cache is
+                    # stale
+                    lo = (pos + 0.5) / steps
+                    hi = (chunk_end - 0.5) / steps
+                    if any(c[3] <= hi and c[4] >= lo for c in controls):
+                        cache.valid = False
+                    else:
+                        run_step = cached_step
+                with trace.STATS.timer("denoise_chunk"), \
+                        trace.annotate(f"denoise[{pos}:{chunk_end}]"):
+                    for i in range(pos, chunk_end):
+                        carry = run_step(carry, i)
+                    fences.record()
+                    # a preemptible job polls its hook when the card
+                    # reaches the boundary, not when the host does
+                    fences.wait(2 if not sync else
+                                0 if self.preempt_hook is not None else 1)
+                dispatched.append((pos, chunk_end - pos,
+                                   run_step is cached_step))
+                pos = chunk_end
+                self.state.step(pos - start_step)
+                if prefix is not None:
+                    cache_prefix.maybe_capture(prefix, pos, carry)
+            if sync:
                 fences.wait(0)
-                interrupted_before_yield = self.state.flag.interrupted
-                hook.yield_device()
-                # an interloper with <lora:...> tags merged into the live
-                # weights: this payload's adapters again (tagless: the
-                # pristine weights)
-                self._apply_prompt_loras(payload)
-                # the interloper drove the shared progress record and the
-                # interrupt latch (its begin_request cleared it; an
-                # interrupt aimed at it may still be latched): this range's
-                # view of both
-                self.state.begin(job, end - start_step)
-                if pos - start_step:
-                    self.state.step(pos - start_step)
-                self.state.restore_interrupt(interrupted_before_yield)
-                continue  # the restored latch is checked at the loop top
-            chunk_end = min(pos + self.chunk_size, end)
-            run_step = step
-            if cache is not None:
-                # a unit active anywhere in the chunk feeds the deep
-                # blocks: the plain evaluation runs, and the cache is stale
-                lo = (pos + 0.5) / steps
-                hi = (chunk_end - 0.5) / steps
-                if any(c[3] <= hi and c[4] >= lo for c in controls):
-                    cache.valid = False
-                else:
-                    run_step = cached_step
-            for i in range(pos, chunk_end):
-                carry = run_step(carry, i)
-            fences.record()
-            # a preemptible job polls its hook when the card reaches the
-            # boundary, not when the host does
-            fences.wait(2 if not sync else
-                        0 if self.preempt_hook is not None else 1)
-            pos = chunk_end
-            self.state.step(pos - start_step)
-            if prefix is not None:
-                cache_prefix.maybe_capture(prefix, pos, carry)
-        if sync:
-            fences.wait(0)
         self.state.finish()
         if cache is not None:
             self.last_step_evals = cache.counts
+        self._record_unet_flops(
+            dispatched, sc.cadence if cache is not None else 1, cfg_stop,
+            spec.evals_per_step, steps, x.shape[0], x.shape[1], x.shape[2],
+            conds[1].shape[1], precision=prec.name)
         return carry.x
+
+    def _record_unet_flops(self, dispatched, cadence: int, cfg_stop: int,
+                           evals_per_step: int, steps: int, batch: int,
+                           lat_h: int, lat_w: int, ctx_len: int,
+                           precision: str = "") -> None:
+        """Price a range's dispatched chunks (``stepcache.plan_schedule``
+        over ``FlopsAccountant``, whose prices are cached per shape) into
+        ``METRICS``'s UNet FLOPs, the numerator of ``unet_flops_per_image``
+        and of the perf ledger's MFU; pricing never breaks generation."""
+        if not dispatched:
+            return
+        try:
+            counts = stepcache.plan_schedule(
+                dispatched, cadence, cfg_stop, evals_per_step, steps)
+            total = self._flops.request_flops(
+                counts, batch, lat_h, lat_w, ctx_len, precision=precision)
+            if total is not None:
+                METRICS.record_unet_flops(total)
+        except Exception:  # noqa: BLE001 — pricing never breaks generation
+            pass
 
     def _denoise_adaptive(self, payload: GenerationPayload, x: torch.Tensor,
                           image_keys: torch.Tensor, conds, added, job: str,
@@ -1128,7 +1227,9 @@ class Engine:
 
         def attempt_fn(xx, x_prev, s, h, rtol, atol):
             gates_now[:] = adaptive_gates(controls, sigmas, float(s))
-            return attempt(xx, x_prev, s, h, rtol, atol)
+            with trace.STATS.timer("denoise_chunk"), \
+                    trace.annotate("dpm-adaptive-attempt"):
+                return attempt(xx, x_prev, s, h, rtol, atol)
 
         total = end - start_step
         self.state.begin(job, total)
@@ -1139,10 +1240,11 @@ class Engine:
                 xx = _adaptive_pin(xx, image_keys, *mask, sigma, n)
             return xx
 
-        x_out, info = kd.sample_dpm_adaptive(
-            attempt_fn, x, sigma_max, sigma_min,
-            should_stop=lambda: self.state.flag.interrupted,
-            on_accept=on_accept)
+        with obs_spans.device_interval(x.device):
+            x_out, info = kd.sample_dpm_adaptive(
+                attempt_fn, x, sigma_max, sigma_min,
+                should_stop=lambda: self.state.flag.interrupted,
+                on_accept=on_accept)
         if mask is not None and info["completed"] and end == steps:
             # the last pin at sigma 0: the protected region comes back as
             # the clean init latent, as the fixed-grid loop's last step
@@ -1223,9 +1325,11 @@ class Engine:
         b, lat_h, lat_w = latents.shape[:3]
         host = torch.empty((b, lat_h * f, lat_w * f, 3), dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
-        for s in range(0, b, per):
-            px = self._decode(latents[s:s + per]) * 255.0 + 0.5
-            host[s:s + per].copy_(px.to(torch.uint8), non_blocking=True)
+        with trace.STATS.timer("vae_decode_dispatch"), \
+                obs_spans.device_interval(latents.device):
+            for s in range(0, b, per):
+                px = self._decode(latents[s:s + per]) * 255.0 + 0.5
+                host[s:s + per].copy_(px.to(torch.uint8), non_blocking=True)
         return host
 
     def _queue_decoded(self, latents: torch.Tensor, pos: int, n: int,
@@ -1238,6 +1342,9 @@ class Engine:
         produced these images is known."""
         incomplete, self._adaptive_incomplete = \
             self._adaptive_incomplete, False
+        # every kept row is one output image: the FLOPs-per-image
+        # denominator, counted where every decode path passes
+        METRICS.record_unet_images(min(n, latents.shape[0]))
         host = self._decode_u8(latents, width, height)
         event = None
         if self.device.type == "cuda":
@@ -1252,7 +1359,9 @@ class Engine:
         images as PNGs into ``out``, in order. Needs nothing of the device
         thread: the serving dispatcher runs it on its leader's thread."""
         for d in pending:
-            self._append_images(out, payload, d.pixels(), d.pos, d.width,
+            with trace.STATS.timer("vae_decode_fetch"):
+                imgs = d.pixels()
+            self._append_images(out, payload, imgs, d.pos, d.width,
                                 d.height, d.incomplete)
 
     # -- hires fix -----------------------------------------------------------
@@ -1289,10 +1398,11 @@ class Engine:
         budget = env_int("SDTPU_DECODE_PIXELS", self._DECODE_PIXEL_BUDGET)
         per = min(max(1, budget // max(1, payload.width * payload.height)),
                   max(1, budget // max(1, tw * th)))
-        return torch.cat([
-            self._encode_images(upscale(self._decode(latents[s:s + per]),
-                                        tw, th))
-            for s in range(0, latents.shape[0], per)])
+        with trace.STATS.timer("hires_upscale"):
+            return torch.cat([
+                self._encode_images(upscale(self._decode(latents[s:s + per]),
+                                            tw, th))
+                for s in range(0, latents.shape[0], per)])
 
     def _hires_pass(self, payload: GenerationPayload, latents: torch.Tensor,
                     keys: torch.Tensor, conds, pooleds, job: str,
@@ -1762,20 +1872,29 @@ class Engine:
         carry = kd.init_carry(x)
         fences = _Fences(x.device)
         self.state.begin(job, steps)
-        ahead(carry.x, sigmas[0], 0)
-        i = 0
-        while i < steps and not self.state.flag.interrupted:
-            carry = step(carry, i)
-            fences.record()
-            i += 1
-            if i < steps:
-                # step i's tower queues behind step i-1's UNet
-                ahead(carry.x, sigmas[i], i)
-            fences.wait(2)
-            self.state.step(i)
+        dispatched = []
+        with obs_spans.device_interval(x.device):
+            ahead(carry.x, sigmas[0], 0)
+            i = 0
+            while i < steps and not self.state.flag.interrupted:
+                with trace.STATS.timer("denoise_chunk"), \
+                        trace.annotate(f"denoise[{i}:{i + 1}]"):
+                    carry = step(carry, i)
+                    fences.record()
+                dispatched.append((i, 1, False))
+                i += 1
+                if i < steps:
+                    # step i's tower queues behind step i-1's UNet
+                    ahead(carry.x, sigmas[i], i)
+                fences.wait(2)
+                self.state.step(i)
         # no final wait: the decode and the next group's stages queue
         # behind the tail
         self.state.finish()
+        self._record_unet_flops(dispatched, 1, 0, spec.evals_per_step, steps,
+                                x.shape[0], x.shape[1], x.shape[2],
+                                conds[1].shape[1],
+                                precision=self._precision_for(payload).name)
         return carry.x
 
     def _stage_cn_mesh(self) -> Optional[List[torch.device]]:
@@ -1924,8 +2043,11 @@ class Engine:
             # image's conditioning does not depend on its group
             payload.context_chunks = self.request_context_chunks(payload)
         count = payload.total_images if count is None else count
-        return self.run_on_device(self._generate, payload, start_index,
-                                  count, job)
+        with obs_spans.span("generate_range", job=job,
+                            start=int(start_index), count=int(count),
+                            size=f"{payload.width}x{payload.height}"):
+            return self.run_on_device(self._generate, payload, start_index,
+                                      count, job)
 
     def _generate(self, payload: GenerationPayload, start: int, count: int,
                   job: str) -> GenerationResult:
@@ -2021,6 +2143,7 @@ class Engine:
                 # the merge's time is the device's, not its enqueue
                 torch.cuda.synchronize(self.device)
             self._lora_merge_total += merged
+            obs_prom.count_lora_switch("merged")
             self._lora_merge_seconds += time.perf_counter() - t0
             log.debug("lora: %d adapter(s) merged, %d module(s) applied, "
                       "%d skipped", merged, applied, skipped)
@@ -2058,6 +2181,7 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_traced_build_seconds = time.perf_counter() - t0
+        obs_prom.observe_lora_apply(self.last_traced_build_seconds)
         if ts is None:
             return None
         self._traced_cache[key] = ts
@@ -2104,7 +2228,11 @@ class Engine:
                 if self._active_loras:
                     # the traced deltas assume the pristine weights
                     self.set_loras(())
+                prev = self._traced_lora
                 self._traced_lora = ts
+                if ts is not None and (prev is None
+                                       or prev.content != ts.content):
+                    obs_prom.count_lora_switch("traced")
                 return
         self._traced_lora = None
         if tags or self._active_loras:

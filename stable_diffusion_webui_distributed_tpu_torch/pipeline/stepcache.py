@@ -19,14 +19,21 @@ cadence and the cutoff are host data of the engine's step loop
 graph. :func:`plan_schedule` replays the loop's decisions on the host; the
 engine's own evaluation counts are held against it.
 
-Left for the FLOP pricer (ROADMAP queue 1, item 10): ``FlopsAccountant``
-and ``request_flops``.
+:class:`FlopsAccountant` prices a range's UNet work: one evaluation per
+(rows, latent size, context length, cache mode, precision) counted by
+``torch.utils.flop_counter.FlopCounterMode`` on a copy of the UNet built
+on meta tensors (nothing is allocated or computed; the attention kernels
+answer a meta tensor with their plain version's products), summed over
+the evaluations :func:`plan_schedule` says the range dispatched. It counts
+matrix products and convolutions, as 2 x multiply-adds. The JAX package
+priced the same evaluations with XLA's cost analysis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -145,3 +152,109 @@ def plan_schedule(chunks: Sequence[Tuple[int, int, bool]], cadence: int,
             counts["reuse_trunc_evals" if truncated
                    else "reuse_full_evals"] += evals
     return counts
+
+
+def unet_eval_flops(ucfg, rows: int, lat_h: int, lat_w: int, ctx_len: int,
+                    mode: Optional[str] = None, unet=None) -> float:
+    """FLOPs of one UNet evaluation of ``rows`` rows at ``lat_h`` x
+    ``lat_w`` latents with ``ctx_len`` context tokens (``mode``: None for
+    the whole forward, ``"deep"`` or ``"reuse"`` for the step cache's), as
+    ``FlopCounterMode`` counts matrix products and convolutions on meta
+    tensors. ``unet``: a meta UNet of ``ucfg`` to reuse (one is built
+    otherwise)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stable_diffusion_webui_distributed_tpu_torch.models import (
+        unet as unet_mod,
+    )
+
+    with torch.device("meta"):
+        if unet is None:
+            unet = unet_mod.UNet(ucfg)
+        x = torch.zeros(rows, lat_h, lat_w, ucfg.in_channels)
+        t = torch.ones(rows)
+        ctx = torch.zeros(rows, ctx_len, ucfg.cross_attention_dim)
+        added = (torch.zeros(rows, ucfg.projection_input_dim)
+                 if ucfg.addition_embed_dim else None)
+        cache = (torch.zeros(unet_mod.deep_cache_shape(ucfg, rows, lat_h,
+                                                       lat_w))
+                 if mode == "reuse" else None)
+        with FlopCounterMode(display=False) as count:
+            unet(x, t, ctx, added, cache=cache, cache_mode=mode)
+    return float(count.get_total_flops())
+
+
+class FlopsAccountant:
+    """One engine's cache of UNet-evaluation prices (see the module's
+    docstring). Thread-safe; pricing never raises into generation."""
+
+    def __init__(self, engine) -> None:
+        self._engine = engine
+        self._lock = threading.Lock()
+        self._cache: Dict[Tuple, Optional[float]] = {}  # guarded-by: _lock
+        self._unet = None  # guarded-by: _lock
+
+    def eval_flops(self, rows: int, lat_h: int, lat_w: int,
+                   ctx_len: int, mode: Optional[str],
+                   precision: str = "") -> Optional[float]:
+        """FLOPs of one evaluation at ``rows`` rows in ``mode`` (None, the
+        whole forward; ``"deep"``; ``"reuse"``) and serving ``precision``
+        (the key's last axis, as in the JAX package: an int8 evaluation
+        makes the same products, counted alike); None when the family has
+        no step cache for a cached mode, or the count fails."""
+        key = (rows, lat_h, lat_w, ctx_len, mode, precision)
+        with self._lock:
+            if key in self._cache:
+                return self._cache[key]
+        flops = self._measure(rows, lat_h, lat_w, ctx_len, mode)
+        with self._lock:
+            self._cache[key] = flops
+        return flops
+
+    def _measure(self, rows, lat_h, lat_w, ctx_len, mode):
+        from stable_diffusion_webui_distributed_tpu_torch.models import (
+            unet as unet_mod,
+        )
+
+        ucfg = self._engine.family.unet
+        if mode is not None and not unet_mod.cache_supported(ucfg):
+            return None
+        try:
+            import torch
+
+            with self._lock:
+                if self._unet is None:
+                    with torch.device("meta"):
+                        self._unet = unet_mod.UNet(ucfg)
+                unet = self._unet
+            flops = unet_eval_flops(ucfg, rows, lat_h, lat_w, ctx_len, mode,
+                                    unet=unet)
+            return flops if flops > 0 else None
+        except Exception:  # noqa: BLE001 — pricing never breaks generation
+            return None
+
+    def request_flops(self, counts: Dict[str, int], batch: int,
+                      lat_h: int, lat_w: int, ctx_len: int,
+                      precision: str = "") -> Optional[float]:
+        """The UNet FLOPs of a denoise range from its
+        :func:`plan_schedule` counts; None when a needed price is
+        unavailable."""
+        need = (
+            ("full_evals", 2 * batch, None),
+            ("reuse_full_evals", 2 * batch, "reuse"),
+            ("reuse_trunc_evals", batch, "reuse"),
+            ("deep_full", 2 * batch, "deep"),
+            ("deep_trunc", batch, "deep"),
+        )
+        total = 0.0
+        for key, rows, mode in need:
+            n = counts.get(key, 0)
+            if not n:
+                continue
+            price = self.eval_flops(rows, lat_h, lat_w, ctx_len, mode,
+                                    precision)
+            if price is None:
+                return None
+            total += n * price
+        return total

@@ -1,10 +1,12 @@
 """StoppableDaemon: a periodic background loop with a clean stop.
 
-A copy of the JAX package's ``runtime/daemon.py`` for the two loops the
-port's fleet runs: the World's heartbeat (``SDTPU_HEARTBEAT_S``) and a
-remote request's in-flight interrupt watch. The daemon owns a plain
-``threading.Thread`` rather than subclassing it, so no attribute can shadow
-a private of ``Thread`` (``Thread.join`` calls ``self._stop()``).
+A copy of the JAX package's ``runtime/daemon.py`` for the loops the
+port's fleet runs: the World's heartbeat (``SDTPU_HEARTBEAT_S``), a
+remote request's in-flight interrupt watch, and the hang watchdog's
+one-shot timers (:meth:`StoppableDaemon.one_shot`, ``obs/watchdog.py``).
+The daemon owns a plain ``threading.Thread`` rather than subclassing it,
+so no attribute can shadow a private of ``Thread`` (``Thread.join`` calls
+``self._stop()``).
 """
 
 from __future__ import annotations
@@ -25,9 +27,19 @@ class StoppableDaemon:
         self.name = name
         self._tick = tick
         self._period_s = float(period_s)
+        self._one_shot = False
         self._halt = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
+
+    @classmethod
+    def one_shot(cls, name: str, delay_s: float,
+                 fire: Callable[[], object]) -> "StoppableDaemon":
+        """A timer: ``fire`` once after ``delay_s`` unless ``stop`` or
+        ``halt`` lands first."""
+        d = cls(name, fire, delay_s)
+        d._one_shot = True
+        return d
 
     def start(self) -> None:
         """Start the loop (a no-op while it runs; restartable after
@@ -58,3 +70,5 @@ class StoppableDaemon:
     def _run(self) -> None:
         while not self._halt.wait(self._period_s):
             self._tick()
+            if self._one_shot:
+                return

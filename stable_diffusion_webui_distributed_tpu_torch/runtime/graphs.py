@@ -22,7 +22,10 @@ the UNet), the step cache's ``deep``, ``reuse`` and their ``-trunc``
 forms, and the stage-graph executor's ControlNet: ``cnres`` (the active
 units alone, a list of summed residuals) and ``cnstep`` (the UNet with
 those residuals as per-call inputs). ``serving/metrics.py`` counts
-captures by kind.
+captures and replays by kind. A capture (its eager first call included) is
+a ``capture`` span on the request (``obs/spans.py``; the JAX package's
+``compile`` span) and, with ``SDTPU_PERF``, a capture record of the perf
+ledger (``obs/perf.py``).
 
 **Inputs and outputs.** Each entry keeps static input buffers, allocated
 outside the graphs' memory pool. ``per_run`` inputs (contexts, hints, the
@@ -70,11 +73,18 @@ tests run it on the CPU with a stand-in backend.
 from __future__ import annotations
 
 import itertools
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    perf as obs_perf,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
+)
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     add_launches,
     flash_attention,
@@ -171,7 +181,7 @@ class Entry:
     launches each replay adds, and the binding its per-run inputs hold."""
 
     __slots__ = ("graph", "run", "call", "scalars", "output", "delta",
-                 "binding", "replays")
+                 "binding", "replays", "kind")
 
     def __init__(self, per_run: Inputs, per_call: Inputs, n_scalars: int,
                  device):
@@ -184,6 +194,7 @@ class Entry:
         self.delta: List[Tuple[Callable, int, Dict[str, int]]] = []
         self.binding: Optional[int] = None
         self.replays = 0
+        self.kind = ""
 
     def load(self, per_run: Optional[Inputs], per_call: Inputs,
              scalars: Sequence[float]) -> None:
@@ -302,6 +313,7 @@ class GraphCache:
         entry.binding = binding
         self._capture.replay(entry.graph)
         entry.replays += 1
+        METRICS.record_cache_hit(entry.kind)
         for wrapper, n, paths in entry.delta:
             add_launches(wrapper, n, paths)
         return entry.output
@@ -310,25 +322,30 @@ class GraphCache:
                per_call: Inputs, scalars: Sequence[float], binding: int,
                device) -> torch.Tensor:
         entry = Entry(per_run, per_call, len(scalars), device)
+        entry.kind = kind
         entry.load(per_run, per_call, scalars)
         entry.binding = binding
         args = entry.args()
-        out = self._capture.eager(lambda: fn(*args))
-        before = [(w, w.launches, dict(w.path_launches)) for w in COUNTED]
-        try:
-            entry.graph, entry.output = self._capture.capture(
-                lambda: fn(*args))
-        finally:
-            for wrapper, n, paths in before:
-                if wrapper.launches != n:
-                    entry.delta.append(
-                        (wrapper, wrapper.launches - n,
-                         {p: c - paths[p]
-                          for p, c in wrapper.path_launches.items()}))
-                wrapper.launches = n
-                wrapper.path_launches.update(paths)
+        t0 = time.perf_counter()
+        with obs_spans.span("capture", kind=str(kind), key=str(key)):
+            out = self._capture.eager(lambda: fn(*args))
+            before = [(w, w.launches, dict(w.path_launches))
+                      for w in COUNTED]
+            try:
+                entry.graph, entry.output = self._capture.capture(
+                    lambda: fn(*args))
+            finally:
+                for wrapper, n, paths in before:
+                    if wrapper.launches != n:
+                        entry.delta.append(
+                            (wrapper, wrapper.launches - n,
+                             {p: c - paths[p]
+                              for p, c in wrapper.path_launches.items()}))
+                    wrapper.launches = n
+                    wrapper.path_launches.update(paths)
         self._entries[key] = entry
         METRICS.record_compile(kind)
+        obs_perf.LEDGER.record_compile(kind, time.perf_counter() - t0)
         total = sum(e.nbytes() for e in self._entries.values())
         while total > STATIC_BUDGET and len(self._entries) > 1:
             _, dropped = self._entries.popitem(last=False)

@@ -21,10 +21,15 @@ Each task, queued or inline, is one *execution* with its own id
 (``fleet/policy.py`` ``EnginePreemptHook``). While a yield is served
 (:attr:`yielding`), a nested execution must not yield in turn: its frame
 lies above the yielded one, which could then never resume first.
+
+A queued task runs in a copy of its caller's ``contextvars`` context, so
+the request context (``obs/spans.py``: the active request, its open spans
+and device-time sinks) follows the work onto the device thread.
 """
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 import threading
 from concurrent.futures import Future
@@ -71,7 +76,7 @@ class DeviceRunner:
         if self._closed:
             raise RuntimeError("the device thread is closed")
         fut: Future = Future()
-        self._tasks.put((fut, fn, args))
+        self._tasks.put((fut, contextvars.copy_context().run, (fn, *args)))
         return fut.result()
 
     def serve_while(self, wait, *args):

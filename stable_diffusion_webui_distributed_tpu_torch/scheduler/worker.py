@@ -24,9 +24,14 @@ failed remote's requeued range reproduces what the remote would have made.
 
 The chaos hook (``CHAOS_HOOK``, ``sim/chaos.py``) is consulted inside
 :meth:`WorkerNode.request`'s try block just before the backend call, so a
-delivered fault takes the failure path of a real one. Left out of the
-port: the request spans and the Prometheus counters of the health record
-(ROADMAP item 10).
+delivered fault takes the failure path of a real one.
+
+Observability (``obs/``): each backend call is a ``worker.generate`` span
+with its predicted and actual seconds; :class:`WorkerHealth` feeds the
+``sdtpu_worker_*`` Prometheus families (requests, failures, requeued
+images, state transitions, the latency EWMA); :class:`HTTPBackend` sends
+the request's id (``X-SDTPU-Request-Id``) and W3C ``traceparent`` with a
+generation, so the remote roots its trace under the same id.
 """
 
 from __future__ import annotations
@@ -45,6 +50,12 @@ from typing import Any, Deque, Dict, List, Optional, Protocol, Tuple
 
 import torch
 
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
+)
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
     precision as precision_mod,
 )
@@ -134,16 +145,25 @@ class WorkerHealth:
             else:
                 self.failures += 1
                 self.consecutive_failures += 1
+            ewma = self.latency_ewma_s
+        obs_prom.worker_count("requests", worker=self.label)
+        if not ok:
+            obs_prom.worker_count("failures", worker=self.label)
+        elif ewma is not None:
+            obs_prom.set_worker_latency(self.label, ewma)
 
     def record_requeue(self, images: int) -> None:
         """``images`` of this worker's range were requeued elsewhere."""
         with self._lock:
             self.requeued_images += int(images)
+        obs_prom.worker_count("requeued_images", int(images),
+                              worker=self.label)
 
     def record_transition(self, frm: str, to: str) -> None:
         at = time.time()
         with self._lock:
             self._transitions.append((at, frm, to))
+        obs_prom.worker_count("transitions", worker=self.label, to=to)
 
     def summary(self) -> Dict[str, Any]:
         with self._lock:
@@ -321,10 +341,13 @@ class WorkerNode:
         started = time.monotonic()
         watch = self._start_interrupt_watch()
         try:
-            if CHAOS_HOOK is not None:
-                CHAOS_HOOK("worker.generate", worker=self.label,
-                           payload=payload, count=int(count))
-            result = self.backend.generate(payload, start_index, count)
+            with obs_spans.span("worker.generate", worker=self.label,
+                                start=int(start_index), count=int(count),
+                                predicted_s=predicted) as wsp:
+                if CHAOS_HOOK is not None:
+                    CHAOS_HOOK("worker.generate", worker=self.label,
+                               payload=payload, count=int(count))
+                result = self.backend.generate(payload, start_index, count)
         except Exception as e:  # noqa: BLE001 — any backend failure demotes
             log.error("worker '%s' failed request: %s", self.label, e)
             self.health.record_result(False)
@@ -336,6 +359,9 @@ class WorkerNode:
         elapsed = time.monotonic() - started
         self.response_time = elapsed
         self.health.record_result(True, elapsed)
+        if wsp is not None:
+            # one request's ETA quality, on its own span
+            wsp.attrs["actual_s"] = elapsed
         if predicted is not None:
             # an int8 sample refines the int8 factor only, never the bf16
             # MPE window
@@ -751,8 +777,10 @@ class HTTPBackend:
         return conn
 
     def _exchange(self, conn, method: str, route: str,
-                  body: Optional[Dict[str, Any]]) -> Tuple[int, bytes]:
-        headers = dict(self._headers)
+                  body: Optional[Dict[str, Any]],
+                  extra: Optional[Dict[str, str]] = None
+                  ) -> Tuple[int, bytes]:
+        headers = dict(self._headers, **(extra or {}))
         data = None
         if body is not None:
             data = json.dumps(body).encode()
@@ -764,10 +792,12 @@ class HTTPBackend:
 
     def _call(self, method: str, route: str,
               body: Optional[Dict[str, Any]] = None,
-              timeout: Optional[float] = None) -> Tuple[int, bytes]:
+              timeout: Optional[float] = None,
+              headers: Optional[Dict[str, str]] = None
+              ) -> Tuple[int, bytes]:
         conn = self._connect(timeout or self.timeout)
         try:
-            return self._exchange(conn, method, route, body)
+            return self._exchange(conn, method, route, body, headers)
         finally:
             conn.close()
 
@@ -783,7 +813,17 @@ class HTTPBackend:
                  count: int) -> GenerationResult:
         body = sub_request(payload, start_index, count).model_dump()
         route = "img2img" if payload.init_images else "txt2img"
-        status, data = self._call("POST", route, body, timeout=3600)
+        # the remote roots its trace under this request's id; every hop,
+        # the sampler fallback's retry too, carries it
+        trace_headers = {}
+        rid = obs_spans.current_request_id()
+        if rid:
+            trace_headers["X-SDTPU-Request-Id"] = rid
+            tp = obs_spans.traceparent()
+            if tp:
+                trace_headers["traceparent"] = tp
+        status, data = self._call("POST", route, body, timeout=3600,
+                                  headers=trace_headers)
         if status == 404 and b"sampler" in data.lower():
             # the remote lacks this sampler: retry with Euler a, the
             # reference's degraded-capability fallback
@@ -791,7 +831,8 @@ class HTTPBackend:
                         "Euler a", self.address, self.port,
                         body.get("sampler_name"))
             body["sampler_name"] = "Euler a"
-            status, data = self._call("POST", route, body, timeout=3600)
+            status, data = self._call("POST", route, body, timeout=3600,
+                                      headers=trace_headers)
         if not 200 <= status < 300:
             raise RemoteError(status, data.decode(errors="replace")[:500])
         resp = json.loads(data)

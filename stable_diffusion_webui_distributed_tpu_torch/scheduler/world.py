@@ -14,11 +14,16 @@ With ``SDTPU_JOURNAL`` on, a request's plan, each job's dispatch,
 completion or failure, the requeue and the merged outcome are journaled
 (``obs/journal.py``: ``planned``, ``job_dispatched``, ``job_completed``,
 ``job_failed``, ``requeued``, ``completed``) under the payload's
-``request_id``; the chaos hook (``CHAOS_HOOK``, ``sim/chaos.py``) is
-consulted once per request. The port leaves out the other observability
-hooks (spans, the flight recorder, the hang watchdog, federation and push
-registration): ROADMAP item 10. So is the operator's ``sync*`` user
-script.
+``request_id`` (else the active request's); the chaos hook
+(``CHAOS_HOOK``, ``sim/chaos.py``) is consulted once per request. A
+request's fan-out is a ``world.execute`` span with a ``scheduler.job``
+span per job (``obs/spans.py``); every fan-out thread runs under the
+caller's request context (``bind_current``). With
+``SDTPU_WATCHDOG_FACTOR`` each job of a benchmarked worker is watched at
+its ETA (``obs/watchdog.py``): a job that stalls past it is marked, its
+thread abandoned and its range requeued, and every failed or stalled job
+leaves a flight-recorder entry (``obs/flightrec.py``). Federation and push
+registration and the operator's ``sync*`` user script are not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +34,16 @@ import time
 from typing import Dict, List, Optional
 
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    flightrec as obs_flightrec,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    watchdog as obs_watchdog,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
@@ -74,6 +88,9 @@ class Job:
         self.start_index = 0          # global image index of this job's range
         self.result: Optional[GenerationResult] = None
         self.thread: Optional[threading.Thread] = None
+        #: set by the hang watchdog when the job outlives k x its ETA:
+        #: execute() abandons its thread and requeues its range
+        self.stalled = False
 
     def add_work(self, payload, batch_size: int = 1) -> bool:
         """Grow the job if the pixel cap allows (cap 0 = uncapped)."""
@@ -408,7 +425,8 @@ class World:
         log.info("distributing %d image(s): %s", payload.total_images,
                  ", ".join(f"{j.worker.label}:{j.batch_size}"
                            + ("*" if j.complementary else "") for j in jobs))
-        rid = str(getattr(payload, "request_id", "") or "")
+        rid = str(getattr(payload, "request_id", "")
+                  or obs_spans.current_request_id() or "")
         if obs_journal.enabled():
             # the post-fix_seed dump: re-executing it reproduces every
             # image's seed
@@ -420,31 +438,45 @@ class World:
                 jobs=[{"worker": j.worker.label, "batch": j.batch_size,
                        "start": j.start_index,
                        "complementary": j.complementary} for j in jobs])
-        for job in jobs:
-            job_payload = payload
-            if job.step_override is not None:
-                job_payload = payload.model_copy()
-                job_payload.steps = job.step_override
-            job.thread = threading.Thread(
-                target=self._run_job, args=(job, job_payload),
-                name=f"job-{job.worker.label}", daemon=True)
-            job.thread.start()
-        for job in jobs:
-            job.thread.join()
+        with obs_spans.span("world.execute", images=payload.total_images,
+                            jobs=len(jobs)):
+            for job in jobs:
+                job_payload = payload
+                if job.step_override is not None:
+                    job_payload = payload.model_copy()
+                    job_payload.steps = job.step_override
+                # under the request's context: its spans and log lines
+                job.thread = threading.Thread(
+                    target=obs_spans.bind_current(self._run_job),
+                    args=(job, job_payload),
+                    name=f"job-{job.worker.label}", daemon=True)
+                job.thread.start()
+            watched = obs_watchdog.enabled()
+            for job in jobs:
+                if not watched:
+                    job.thread.join()
+                    continue
+                # a stall the watchdog latched abandons the (daemon) job
+                # thread, so its range falls into the requeue below
+                while job.thread.is_alive() and not job.stalled:
+                    job.thread.join(0.1)
 
         # requeue failed ranges on surviving workers, but never after an
         # interrupt: a job that died because the user cancelled must not
         # be fanned out again as fresh work
         if not interrupt_mod.STATE.flag.interrupted:
             for job in [j for j in jobs
-                        if j.result is None and not j.complementary]:
+                        if (j.result is None or j.stalled)
+                        and not j.complementary]:
                 recovered = self._requeue_failed(job, payload)
                 jobs.extend(recovered)
                 self._note_job_failure(job, recovered, rid)
 
         merged = GenerationResult(parameters=payload.model_dump())
         for job in sorted(jobs, key=lambda j: j.start_index):
-            if job.result is None:
+            # a stalled job may still finish late: its range was requeued
+            # already, so its result must not merge twice
+            if job.result is None or job.stalled:
                 continue
             r = job.result
             r.worker_labels = [job.worker.label] * len(r.images)
@@ -464,15 +496,31 @@ class World:
 
     @staticmethod
     def _note_job_failure(job: Job, recovered: List[Job], rid: str) -> None:
-        """A failed job's bookkeeping: the failed worker's requeue count
-        and, with the journal on, ``job_failed`` and ``requeued``."""
+        """A failed or stalled job's bookkeeping: a flight-recorder entry
+        (the worker, its state, the requeue decision), the failed worker's
+        requeue count and, with the journal on, ``job_failed`` and
+        ``requeued``."""
         n = sum(j.batch_size for j in recovered)
+        if recovered:
+            dests = ", ".join(f"{j.worker.label}:{j.batch_size}"
+                              for j in recovered)
+            decision = f"requeued {n}/{job.batch_size} image(s) -> {dests}"
+        else:
+            decision = (f"dropped {job.batch_size} image(s) "
+                        f"(no survivor could absorb them)")
+        state = job.worker.current_state().name
+        why = "stalled past the watchdog deadline on" if job.stalled \
+            else "failed"
         job.worker.health.record_requeue(n)
+        obs_flightrec.RECORDER.record(
+            rid, "worker_failure",
+            f"worker '{job.worker.label}' {why} {job.batch_size} image(s) "
+            f"[{job.start_index}..{job.start_index + job.batch_size}); "
+            f"state={state}; {decision}", events=[])
         if obs_journal.enabled():
             obs_journal.emit("job_failed", rid, worker=job.worker.label,
                              batch=job.batch_size, start=job.start_index,
-                             stalled=False,
-                             state=job.worker.current_state().name)
+                             stalled=job.stalled, state=state)
             obs_journal.emit("requeued", rid, from_worker=job.worker.label,
                              recovered=n, dropped=job.batch_size - n,
                              to=[j.worker.label for j in recovered])
@@ -554,7 +602,8 @@ class World:
         log.info("job '%s': %d image(s) [%d..%d)", job.worker.label,
                  job.batch_size, job.start_index,
                  job.start_index + job.batch_size)
-        rid = str(getattr(payload, "request_id", "") or "")
+        rid = str(getattr(payload, "request_id", "")
+                  or obs_spans.current_request_id() or "")
         if obs_journal.enabled():
             obs_journal.emit("job_dispatched", rid, worker=job.worker.label,
                              batch=job.batch_size, start=job.start_index)
@@ -565,8 +614,23 @@ class World:
                                            self.current_vae):
                 job.result = None
                 return
-        job.result = job.worker.request(payload, job.start_index,
-                                        job.batch_size)
+        eta_s = None
+        if obs_watchdog.enabled() and job.worker.cal.benchmarked:
+            try:
+                eta_s = job.worker.eta(payload, batch_size=job.batch_size)
+            except ValueError:
+                eta_s = None
+        stop = obs_watchdog.arm(
+            rid, f"job-{job.worker.label}", eta_s,
+            on_stall=lambda: setattr(job, "stalled", True))
+        try:
+            with obs_spans.span("scheduler.job", worker=job.worker.label,
+                                batch=job.batch_size,
+                                start=job.start_index):
+                job.result = job.worker.request(payload, job.start_index,
+                                                job.batch_size)
+        finally:
+            obs_watchdog.disarm(stop)
         if job.result is not None and obs_journal.enabled():
             obs_journal.emit("job_completed", rid, worker=job.worker.label,
                              batch=job.batch_size, start=job.start_index,
@@ -611,7 +675,8 @@ class World:
         for w in self.workers_snapshot():
             if w.current_state() == State.DISABLED and not indiscriminate:
                 continue
-            t = threading.Thread(target=probe, args=(w,), daemon=True)
+            t = threading.Thread(target=obs_spans.bind_current(probe),
+                                 args=(w,), daemon=True)
             t.start()
             threads.append(t)
         for t in threads:
@@ -655,7 +720,9 @@ class World:
         """Interrupt every working backend."""
         for w in self.workers_snapshot():
             if w.current_state() == State.WORKING:
-                threading.Thread(target=w.interrupt, daemon=True).start()
+                threading.Thread(
+                    target=obs_spans.bind_current(w.interrupt),
+                    daemon=True).start()
 
     def restart_all(self) -> Dict[str, bool]:
         """Ask every enabled remote to restart (the master restarts
@@ -669,7 +736,8 @@ class World:
         for w in self.workers_snapshot():
             if w.master or w.current_state() == State.DISABLED:
                 continue
-            t = threading.Thread(target=run, args=(w,), daemon=True)
+            t = threading.Thread(target=obs_spans.bind_current(run),
+                                 args=(w,), daemon=True)
             t.start()
             threads.append(t)
         for t in threads:
@@ -809,7 +877,8 @@ class World:
             if w.master:
                 run(w)
             else:
-                t = threading.Thread(target=run, args=(w,), daemon=True)
+                t = threading.Thread(target=obs_spans.bind_current(run),
+                                     args=(w,), daemon=True)
                 t.start()
                 threads.append(t)
         for t in threads:
@@ -824,8 +893,9 @@ class World:
         for w in self.workers_snapshot():
             if w.master or not w.available:
                 continue
-            t = threading.Thread(target=w.load_options, args=(model, vae),
-                                 daemon=True)
+            t = threading.Thread(
+                target=obs_spans.bind_current(w.load_options),
+                args=(model, vae), daemon=True)
             t.start()
             threads.append(t)
         for t in threads:

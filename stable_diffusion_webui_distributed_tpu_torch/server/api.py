@@ -38,7 +38,24 @@ by a ``request_id`` in its payload, which becomes the dispatcher's ticket
 id); ``GET /internal/journal[?request_id=]`` (the request journal, ``obs/
 journal.py``; ``enabled`` false unless ``SDTPU_JOURNAL=1``); ``GET
 /internal/sim`` (the scenario engine's gate, the journal sink and the
-armed chaos plan). With ``SDTPU_FLEET`` a request the fleet refuses
+armed chaos plan).
+
+The request-observability plane (``obs/``): every generation request runs
+under a request context whose id the client gives (``request_id`` in the
+payload, or the ``X-SDTPU-Request-Id`` header a master's ``HTTPBackend``
+sends) or the server mints, pinned onto the payload so the dispatcher,
+the flight recorder and the log lines agree on it. ``GET
+/internal/status`` (workers, World settings, the dispatcher's metrics,
+ladders and fleet, the warm pool, the tracer's summary, progress, stage
+timings and the log ring); ``GET /internal/trace.json`` (every kept
+request's spans as Chrome trace events, for Perfetto); ``GET
+/internal/metrics`` (Prometheus text exposition 0.0.4); ``GET
+/internal/flightrec`` (the failed, interrupted, slow and stalled
+requests); ``GET /internal/perf`` (the perf ledger, ``SDTPU_PERF``);
+``POST /internal/profile`` (``{"action": "start" | "stop", "dir":
+name}``) and ``GET /internal/profile?seconds=N&dir=name``: a
+``torch.profiler`` capture written as a Chrome trace under
+``./profile-traces/<basename of name>``. With ``SDTPU_FLEET`` a request the fleet refuses
 (its tenant's quota, or an SLO no degrade rung meets) answers 429 with a
 ``Retry-After`` header. A request for something the port does not run
 answers 422. Optional Basic auth. Served by the standard
@@ -53,6 +70,7 @@ import logging
 import os
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 from typing import Any, Dict, Optional, Tuple
@@ -65,8 +83,23 @@ from stable_diffusion_webui_distributed_tpu_torch.fleet import slices
 from stable_diffusion_webui_distributed_tpu_torch.fleet.admission import (
     FleetRejected,
 )
+from stable_diffusion_webui_distributed_tpu_torch.fleet import (
+    pool as fleet_pool,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    flightrec as obs_flightrec,
+)
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    perf as obs_perf,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    prometheus as obs_prom,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
@@ -88,6 +121,10 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.xyz import (
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     interrupt as interrupt_mod,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
+from stable_diffusion_webui_distributed_tpu_torch.runtime.logging import (
+    get_ring_buffer,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag,
 )
@@ -101,12 +138,22 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
 from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
     ServingDispatcher,
 )
+from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+    METRICS,
+)
 
 log = logging.getLogger(__name__)
 
 #: seconds a World without a local engine waits for its workers' model
 #: lists (asked all at once) before it checks a model name
 MODEL_LIST_TIMEOUT = 2.0
+
+
+class TextResponse(str):
+    """A handler's answer sent as plain text, not JSON (the Prometheus
+    exposition's content type)."""
+
+    content_type = "text/plain; version=0.0.4; charset=utf-8"
 
 
 class ApiError(Exception):
@@ -242,17 +289,29 @@ class ApiServer:
                 payload = apply_scripts(payload)
             except ValueError as e:
                 raise ApiError(422, str(e))
-            if self.dispatcher is not None and not (
-                    job == "txt2img" and is_xyz(payload)):
-                # the dispatcher serializes execution itself, so that
-                # concurrent compatible requests can merge in its window
-                result = self._submit_dispatch(payload, job)
-            else:
-                with self._busy:
-                    result = self._run_scripted(payload, job)
+            with self._mint_request(payload, f"/sdapi/v1/{job}"):
+                if self.dispatcher is not None and not (
+                        job == "txt2img" and is_xyz(payload)):
+                    # the dispatcher serializes execution itself, so that
+                    # concurrent compatible requests can merge in its
+                    # window
+                    result = self._submit_dispatch(payload, job)
+                else:
+                    with self._busy:
+                        result = self._run_scripted(payload, job)
         except (ValidationError, Unsupported) as e:
             raise ApiError(422, str(e))
         return self._generation_response(result)
+
+    @staticmethod
+    def _mint_request(payload: GenerationPayload, route: str):
+        """The root request context of one generation request: the
+        payload's ``request_id``, else a new one, pinned back onto the
+        payload."""
+        rid = str(getattr(payload, "request_id", "") or uuid.uuid4().hex)
+        payload.request_id = rid
+        return obs_spans.request(rid, name=route.rsplit("/", 1)[-1],
+                                 route=route)
 
     def _submit_dispatch(self, payload: GenerationPayload,
                          job: str) -> GenerationResult:
@@ -561,6 +620,108 @@ class ApiServer:
         false until ``SDTPU_SIM=1``, the document is always served."""
         return sim.summary()
 
+    def handle_internal_status(self) -> Dict[str, Any]:
+        """What a status panel shows: the fleet's workers and settings,
+        the dispatcher's metrics, ladders and fleet, the warm pool, the
+        tracer, progress, stage timings and the log ring."""
+        workers = []
+        if hasattr(self.source, "workers_snapshot"):
+            workers = [_worker_dict(w)
+                       for w in self.source.workers_snapshot()]
+        p = self.state.progress_snapshot()
+        settings = None
+        if hasattr(self.source, "job_timeout"):
+            settings = {
+                "job_timeout": self.source.job_timeout,
+                "complement_production": getattr(
+                    self.source, "complement_production", True),
+                "step_scaling": getattr(self.source, "step_scaling", False),
+                "thin_client_mode": getattr(
+                    self.source, "thin_client_mode", False),
+            }
+        serving = None
+        if self.dispatcher is not None:
+            serving = METRICS.summary()
+            serving["coalesce_window_s"] = self.dispatcher.window
+            serving["bucket_ladder"] = [
+                f"{w}x{h}" for w, h in self.dispatcher.bucketer.shapes]
+            serving["batch_ladder"] = list(self.dispatcher.bucketer.batches)
+            serving["eta_overhead"] = self.dispatcher.eta_overhead()
+            serving["fleet"] = self.dispatcher.fleet_summary()
+        obs = obs_spans.TRACER.summary()
+        obs["flightrec_entries"] = len(obs_flightrec.RECORDER)
+        active_pool = fleet_pool.get_pool()
+        pool_block = active_pool.summary() if active_pool is not None \
+            else {"enabled": fleet_pool.enabled()}
+        return {
+            "model": self.options.get("sd_model_checkpoint", ""),
+            "workers": workers,
+            "settings": settings,
+            "serving": serving,
+            "pool": pool_block,
+            "obs": obs,
+            "progress": {
+                "job": p.job,
+                "sampling_step": p.sampling_step,
+                "sampling_steps": p.sampling_steps,
+                "fraction": p.fraction,
+                "interrupted": p.interrupted,
+            },
+            "timings": trace.STATS.summary(),
+            "logs": get_ring_buffer().dump(),
+        }
+
+    def handle_trace_json(self) -> Dict[str, Any]:
+        """Every kept request trace as Chrome trace events (load the body
+        in Perfetto or chrome://tracing)."""
+        return obs_spans.TRACER.export_chrome()
+
+    def handle_metrics(self) -> TextResponse:
+        """The Prometheus text exposition."""
+        return TextResponse(obs_prom.render())
+
+    def handle_flightrec(self) -> Dict[str, Any]:
+        """The flight recorder: the last failed, interrupted, slow or
+        stalled requests with their spans and log lines."""
+        return obs_flightrec.RECORDER.dump()
+
+    def handle_perf(self) -> Dict[str, Any]:
+        """The perf ledger's summary (empty until ``SDTPU_PERF=1``)."""
+        return obs_perf.LEDGER.summary()
+
+    @staticmethod
+    def _profile_dir(name: Any) -> str:
+        """``./profile-traces/<basename>``: a client names a capture, never
+        where it lands."""
+        base = os.path.basename(str(name or "trace"))
+        if base in ("", ".", ".."):
+            base = "trace"
+        return os.path.join("profile-traces", base)
+
+    def handle_profile(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Start or stop a ``torch.profiler`` capture
+        (``runtime/trace.py``)."""
+        action = body.get("action", "")
+        if action == "start":
+            log_dir = self._profile_dir(body.get("dir"))
+            return {"started": trace.start_trace(log_dir), "dir": log_dir}
+        if action == "stop":
+            return {"stopped_dir": trace.stop_trace()}
+        raise ApiError(422, "action must be 'start' or 'stop'")
+
+    def handle_profile_get(self, query: Dict[str, str]) -> Dict[str, Any]:
+        """A capture of ``?seconds=N`` (0.1 to 60) into ``?dir=``."""
+        try:
+            seconds = float(query.get("seconds", "1"))
+        except ValueError:
+            raise ApiError(422, "seconds must be a number")
+        seconds = min(60.0, max(0.1, seconds))
+        log_dir = self._profile_dir(query.get("dir"))
+        if not trace.start_trace(log_dir):
+            raise ApiError(409, "a profiler capture is already running")
+        time.sleep(seconds)
+        return {"captured_dir": trace.stop_trace(), "seconds": seconds}
+
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
@@ -584,6 +745,13 @@ class ApiServer:
             ("POST", "/internal/cancel"): self.handle_cancel,
             ("GET", "/internal/journal"): self.handle_journal,
             ("GET", "/internal/sim"): self.handle_sim,
+            ("GET", "/internal/status"): self.handle_internal_status,
+            ("GET", "/internal/trace.json"): self.handle_trace_json,
+            ("GET", "/internal/metrics"): self.handle_metrics,
+            ("GET", "/internal/flightrec"): self.handle_flightrec,
+            ("GET", "/internal/perf"): self.handle_perf,
+            ("GET", "/internal/profile"): self.handle_profile_get,
+            ("POST", "/internal/profile"): self.handle_profile,
         }
 
     # -- HTTP ----------------------------------------------------------------
@@ -606,7 +774,8 @@ class ApiServer:
                     self.send_header("Content-Length", "0")
                     self.end_headers()
                     return
-                fn = routes.get((method, self.path.split("?")[0].rstrip("/")))
+                path = self.path.split("?")[0].rstrip("/")
+                fn = routes.get((method, path))
                 if fn is None:
                     self._send(404, {"detail": "Not Found"})
                     return
@@ -615,6 +784,13 @@ class ApiServer:
                         length = int(self.headers.get("Content-Length", 0))
                         raw = self.rfile.read(length) if length else b""
                         body = json.loads(raw or b"{}")
+                        rid_hdr = self.headers.get("X-SDTPU-Request-Id")
+                        if rid_hdr and isinstance(body, dict) \
+                                and not body.get("request_id") \
+                                and path in ("/sdapi/v1/txt2img",
+                                             "/sdapi/v1/img2img"):
+                            # a master's hop: this node's trace joins it
+                            body["request_id"] = rid_hdr
                         result = (fn(body) if fn.__code__.co_argcount > 1
                                   else fn())
                     elif fn.__code__.co_argcount > 1:
@@ -633,9 +809,14 @@ class ApiServer:
 
             def _send(self, status: int, obj: Any,
                       headers: Optional[Dict[str, str]] = None):
-                data = json.dumps(obj).encode()
+                if isinstance(obj, TextResponse):
+                    data = str(obj).encode()
+                    ctype = obj.content_type
+                else:
+                    data = json.dumps(obj).encode()
+                    ctype = "application/json"
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)

@@ -34,6 +34,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag,
     env_parsed,
@@ -213,24 +216,33 @@ class ShapeBucketer:
         (consumers read it with ``.get`` only, the ``fleet_degraded``
         pattern). An exact ragged hit still carries the marker so every
         eligible request shares the ragged executable rather than minting
-        a classic one."""
-        run = payload.model_copy()
-        if ragged:
-            bucket = self.bucket_shape_ragged(payload.width, payload.height)
-        else:
-            bucket = self.bucket_shape(payload.width, payload.height)
-        bucketed = False
-        if bucket is not None:
-            run.width, run.height = bucket
-            bucketed = bucket != (payload.width, payload.height)
+        a classic one. The request's ``bucket`` span (``obs/spans.py``)
+        carries the decision."""
+        with obs_spans.span("bucket", width=payload.width,
+                            height=payload.height) as sp:
+            run = payload.model_copy()
             if ragged:
-                ov = dict(run.override_settings or {})
-                ov["ragged_true_wh"] = [int(payload.width),
-                                        int(payload.height)]
-                run.override_settings = ov
-        group = max(1, run.group_size or run.batch_size)
-        run.group_size = self.bucket_batch(group)
-        return run, bucketed
+                bucket = self.bucket_shape_ragged(payload.width,
+                                                  payload.height)
+            else:
+                bucket = self.bucket_shape(payload.width, payload.height)
+            bucketed = False
+            if bucket is not None:
+                run.width, run.height = bucket
+                bucketed = bucket != (payload.width, payload.height)
+                if ragged:
+                    ov = dict(run.override_settings or {})
+                    ov["ragged_true_wh"] = [int(payload.width),
+                                            int(payload.height)]
+                    run.override_settings = ov
+            group = max(1, run.group_size or run.batch_size)
+            run.group_size = self.bucket_batch(group)
+            if sp is not None:
+                sp.attrs.update(bucket=f"{run.width}x{run.height}",
+                                bucketed=bucketed, ragged=bool(
+                                    ragged and bucket is not None),
+                                group_size=run.group_size)
+            return run, bucketed
 
     @staticmethod
     def crop_ragged(img: np.ndarray, width: int, height: int) -> np.ndarray:

@@ -85,8 +85,23 @@ The request journal (``SDTPU_JOURNAL``, ``obs/journal.py``): ``received``
 with the JAX package's attributes. The chaos hook (``CHAOS_HOOK``,
 ``sim/chaos.py``) is consulted once per submitted request.
 
-Not ported yet: the rest of Prometheus, spans, perf ledger, TSDB and
-watchdog (ROADMAP item 10).
+The request-observability plane (the JAX package's hooks, at its sites):
+every submitted request runs under a request context (``obs/spans.py``:
+the HTTP server's, else one minted here as ``serve.<job>``); the bucketer's
+``bucket`` span, the ``queue_wait`` interval, and one ``dispatch.device``
+span per execution, whose ``device_ms`` sums the CUDA events the engine
+records around the group's encode, denoise and decode, mirrored into each
+coalesced follower's tree as ``coalesced.dispatch`` with
+``leader_request_id``; a cancel marks the request's trace interrupted.
+With ``SDTPU_WATCHDOG_FACTOR`` and a calibrated admission controller the
+hang watchdog (``obs/watchdog.py``) watches each execution at its
+predicted seconds. With ``SDTPU_PERF`` the perf ledger (``obs/perf.py``)
+gets each dispatch once its images exist: its device seconds from those
+events (host seconds on the CPU, where nothing is queued), the UNet FLOPs
+the engine priced for its denoise, padding, tokens and device memory;
+the stage-graph groups' stage and overlap seconds; and under the fleet
+gate each request's SLO outcome. Prometheus counts queue waits, the
+precision mix and the fleet's admissions, throttles and requests.
 """
 
 from __future__ import annotations
@@ -121,7 +136,19 @@ from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    perf as obs_perf,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     prometheus as obs_prom,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    spans as obs_spans,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    tsdb as obs_tsdb,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    watchdog as obs_watchdog,
 )
 from stable_diffusion_webui_distributed_tpu_torch.parallel import stage_graph
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
@@ -180,6 +207,10 @@ class Ticket:
         self.request_id = request_id
         self.fleet_class = ""           # resolved class name (fleet on)
         self.enqueued = time.monotonic()
+        self.enqueued_perf = time.perf_counter()
+        #: the request's trace (None outside one): the leader records
+        #: queue waits and mirrored device spans into it
+        self.obs_req = obs_spans.current()
         self.done = threading.Event()
         self.cancelled = threading.Event()
         self.result: Optional[GenerationResult] = None
@@ -196,6 +227,11 @@ class _Group:
         self.tickets: List[Ticket] = []
         self.images = 0
         self.closed = False
+        #: the execution's device time and UNet FLOPs for the perf ledger
+        #: (``SDTPU_PERF``), host seconds where no event was recorded
+        self.dev: Optional[obs_spans.DeviceTime] = None
+        self.flops = 0.0
+        self.t0 = 0.0
 
 
 class ServingDispatcher:
@@ -250,6 +286,11 @@ class ServingDispatcher:
         rid = str(getattr(payload, "request_id", "") or uuid.uuid4().hex)
         if CHAOS_HOOK is not None:
             CHAOS_HOOK("dispatcher.submit", payload=payload, rid=rid)
+        # the request's trace: the HTTP server's, else one rooted here
+        with obs_spans.maybe_request(rid, name=f"serve.{job}"):
+            return self._submit(payload, job, rid)
+
+    def _submit(self, payload, job: str, rid: str) -> GenerationResult:
         jr_on = obs_journal.enabled()
         if jr_on:
             # the post-fix_seed dump: the anchor a replay re-executes
@@ -372,6 +413,7 @@ class ServingDispatcher:
         if t is None:
             return False
         t.cancelled.set()
+        obs_spans.mark(t.obs_req, "interrupted", "cancelled by client")
         return True
 
     # -- the fleet tier ----------------------------------------------------
@@ -419,16 +461,21 @@ class ServingDispatcher:
         if slo > 0:  # a request's own SLO overrides the class default
             pol = dataclasses.replace(pol, slo_s=slo)
         tenant = str(getattr(payload, "tenant", "") or "default")
+        obs_prom.fleet_count("requests", tenant=tenant,
+                             **{"class": pol.name})
         metered = 0
         if self.quotas is not None and self.quotas.enabled:
             retry = self.quotas.admit(tenant, payload.total_images)
             if retry is not None:
+                obs_prom.fleet_count("quota_throttles", tenant=tenant)
                 raise fleet_admission.FleetRejected(
                     "quota", f"tenant {tenant!r} image quota exhausted",
                     retry_after=retry)
             metered = payload.total_images
         decision = self.admission.decide(payload, pol,
                                          self.eta_overhead(payload))
+        obs_prom.fleet_count("admissions", decision=decision.action,
+                             **{"class": pol.name})
         if decision.action == "reject":
             if metered:
                 # the withdrawal preceded the verdict; a refused request
@@ -521,13 +568,60 @@ class ServingDispatcher:
             return False
         return not kd.resolve_sampler(p.sampler_name).adaptive
 
-    def _observe_wait(self, ticket: Ticket, wait: float) -> None:
-        """A dispatched request's queue wait: the dispatcher's mean and,
-        with the fleet on, its class's histogram (the autoscale signal)."""
+    def _observe_wait(self, ticket: Ticket, wait: float,
+                      start_perf: float) -> None:
+        """A dispatched request's queue wait: the dispatcher's mean, the
+        queue-wait histogram, with the fleet on its class's histogram (the
+        autoscale signal), and its trace's ``queue_wait`` interval (up to
+        ``start_perf``)."""
         METRICS.record_queue_wait(wait)
+        obs_prom.observe_hist("queue_wait", wait)
         if self.fleet is not None:
             obs_prom.fleet_observe_queue_wait(
                 self.fleet.policy.resolve(ticket.fleet_class).name, wait)
+        obs_spans.add_span(ticket.obs_req, "queue_wait",
+                           ticket.enqueued_perf,
+                           start_perf - ticket.enqueued_perf)
+
+    def _dispatch_eta(self, run, batch_size: int) -> Optional[float]:
+        """The predicted seconds of an execution for the hang watchdog:
+        the admission controller's calibrated ETA, or None (nothing to
+        watch against) without one or with the watchdog off."""
+        if not obs_watchdog.enabled() or self.admission is None:
+            return None
+        cal = getattr(self.admission, "calibration", None)
+        if cal is None or not getattr(cal, "benchmarked", False):
+            return None
+        from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+            eta as eta_mod,
+        )
+
+        try:
+            return eta_mod.predict_eta(
+                cal, run, getattr(self.admission, "benchmark", None),
+                batch_size=batch_size, precision=self._precision_name(run))
+        except (ValueError, TypeError):
+            return None
+
+    @contextlib.contextmanager
+    def _device_span(self, g: _Group, requests: int, precision: str,
+                     lora_cell: Dict[str, str]):
+        """An execution's ``dispatch.device`` span and watchdog, and with
+        ``SDTPU_PERF`` its device-time sink (``g.dev``); yields the span
+        (None outside a trace)."""
+        g.dev = obs_spans.DeviceTime() if obs_perf.enabled() else None
+        g.t0 = time.perf_counter()
+        lead = g.tickets[0]
+        wd = obs_watchdog.arm(lead.request_id, "dispatch.device",
+                              self._dispatch_eta(lead.run, g.images))
+        try:
+            with obs_spans.device_sink(g.dev), \
+                    obs_spans.span("dispatch.device", device=True,
+                                   requests=requests, precision=precision,
+                                   **lora_cell) as dsp:
+                yield dsp
+        finally:
+            obs_watchdog.disarm(wd)
 
     # -- grouping ----------------------------------------------------------
 
@@ -647,34 +741,39 @@ class ServingDispatcher:
                 if self._groups.get(key) is g:
                     self._groups.pop(key)
             start = time.monotonic()
+            start_perf = time.perf_counter()
+            leader_req = obs_spans.current()
             jr_on = obs_journal.enabled()
+            lora_cell = self._lora_cell(g.key[-3:-1])
             for t in g.tickets:
                 if t.cancelled.is_set():
                     continue
-                self._observe_wait(t, start - t.enqueued)
+                self._observe_wait(t, start - t.enqueued, start_perf)
                 if jr_on:
                     obs_journal.emit("dispatched", t.request_id,
                                      group=len(g.tickets),
-                                     precision=str(g.key[-1]),
-                                     **self._lora_cell(g.key[-3:-1]))
+                                     precision=str(g.key[-1]), **lora_cell)
             engine = self._engine()
+            dsp = None
             try:
-                # the engine's own thread: cuBLAS and cuDNN state is per
-                # thread, and a fresh thread may give other bits
-                if stage_graph.enabled():
-                    # encode, denoise and decode queued under the gate;
-                    # the returned merge runs after its release, so the
-                    # next group's stages overlap it
-                    finalize = engine.run_on_device(
-                        self._execute_group_staged, g, engine)
-                else:
-                    engine.run_on_device(self._execute_group, g, engine)
+                with self._device_span(g, len(g.tickets), g.key[-1],
+                                       lora_cell) as dsp:
+                    # the engine's own thread: cuBLAS and cuDNN state is
+                    # per thread, and a fresh thread may give other bits
+                    if stage_graph.enabled():
+                        # encode, denoise and decode queued under the
+                        # gate; the returned merge runs after its release,
+                        # so the next group's stages overlap it
+                        finalize = engine.run_on_device(
+                            self._execute_group_staged, g, engine)
+                    else:
+                        engine.run_on_device(self._execute_group, g, engine)
             except BaseException as e:  # noqa: BLE001 — delivered per ticket
                 finalize = None
                 self._fail_group(g, e)
             finally:
                 if finalize is None:
-                    self._finish_group(g)
+                    self._finish_group(g, dsp, leader_req)
         if finalize is not None:
             # tickets complete only once their images exist
             try:
@@ -682,7 +781,7 @@ class ServingDispatcher:
             except BaseException as e:  # noqa: BLE001 — delivered per ticket
                 self._fail_group(g, e)
             finally:
-                self._finish_group(g)
+                self._finish_group(g, dsp, leader_req)
 
     @staticmethod
     def _fail_group(g: _Group, error: BaseException) -> None:
@@ -690,10 +789,53 @@ class ServingDispatcher:
             if t.error is None and t.result is None:
                 t.error = error
 
-    @staticmethod
-    def _finish_group(g: _Group) -> None:
+    def _finish_group(self, g: _Group, dsp=None, leader_req=None) -> None:
+        """A group's end: the leader's device span mirrored into each
+        follower's trace (where its wall time went), each ticket's SLO
+        sample, and every ticket released."""
+        if dsp is not None and leader_req is not None:
+            for t in g.tickets:
+                if t.obs_req is not None and t.obs_req is not leader_req:
+                    obs_spans.mirror_span(
+                        t.obs_req, "coalesced.dispatch", dsp,
+                        leader_request_id=leader_req.request_id,
+                        leader_span_id=dsp.span_id)
         for t in g.tickets:
+            self._record_slo(t)
             t.done.set()
+
+    def _record_slo(self, ticket: Ticket) -> None:
+        """The perf ledger's per-(tenant, class) SLO sample of a finished
+        request (fleet and ``SDTPU_PERF`` on); never raises."""
+        if self.fleet is None or not obs_perf.enabled():
+            return
+        try:
+            if ticket.cancelled.is_set():
+                return  # never dispatched or abandoned: no SLO sample
+            pol = self.fleet.policy.resolve(ticket.fleet_class)
+            slo = float(getattr(ticket.payload, "slo_s", 0.0) or 0.0) \
+                or float(pol.slo_s or 0.0)
+            if slo <= 0:
+                return  # a class without a target: nothing to meet
+            obs_perf.LEDGER.record_slo(
+                tenant=str(getattr(ticket.payload, "tenant", "")
+                           or "default"),
+                cls=pol.name, slo_s=slo,
+                latency_s=time.monotonic() - ticket.enqueued,
+                ok=ticket.error is None)
+        except Exception:  # noqa: BLE001 — observability stays best-effort
+            pass
+
+    @staticmethod
+    def _device_seconds(g: _Group) -> float:
+        """An execution's device seconds: its CUDA events (resolved, the
+        group's decode having been waited for), else the host seconds
+        since it started (the CPU, where every call has run when it
+        returns)."""
+        ms = g.dev.ms() if g.dev is not None else None
+        if ms is not None:
+            return ms / 1e3
+        return time.perf_counter() - g.t0
 
     @staticmethod
     def _lora_cell(cell) -> Dict[str, str]:
@@ -716,14 +858,16 @@ class ServingDispatcher:
                     ticket.result = self._empty_result(ticket)
                     return
                 self._observe_wait(ticket,
-                                   time.monotonic() - ticket.enqueued)
+                                   time.monotonic() - ticket.enqueued,
+                                   time.perf_counter())
                 prec = self._precision_name(ticket.run)
                 METRICS.record_dispatch(1, precision=prec)
+                obs_prom.count_precision(prec, 1)
+                rs = self._traced_rowspec(ticket.run) or (0, 0)
+                lora_cell = self._lora_cell(rs)
                 if obs_journal.enabled():
-                    obs_journal.emit(
-                        "dispatched", ticket.request_id, group=1,
-                        precision=prec, **self._lora_cell(
-                            self._traced_rowspec(ticket.run) or (0, 0)))
+                    obs_journal.emit("dispatched", ticket.request_id,
+                                     group=1, precision=prec, **lora_cell)
 
                 def generate():
                     # the cache notes are the device thread's: drained
@@ -734,14 +878,59 @@ class ServingDispatcher:
                     finally:
                         self._drain_cache_notes(ticket.request_id)
 
-                result = engine.run_on_device(generate)
+                g = _Group(None)
+                g.tickets.append(ticket)
+                g.images = ticket.run.total_images
+                flops0 = METRICS.unet_flops_snapshot()
+                with self._device_span(g, 1, prec, lora_cell):
+                    result = engine.run_on_device(generate)
+                if obs_perf.enabled():
+                    # the range returned after waiting for its last
+                    # decode: its device time is resolvable
+                    self._record_solo_perf(engine, ticket, g, prec,
+                                           lora_cell, flops0)
                 if ticket.bucketed:
                     result = self._restore_solo(result, ticket)
                 ticket.result = result
             except BaseException as e:  # noqa: BLE001 — raised by submit
                 ticket.error = e
             finally:
+                self._record_slo(ticket)
                 ticket.done.set()
+
+    def _record_solo_perf(self, engine, ticket: Ticket, g: _Group,
+                          prec: str, lora_cell: Dict[str, str],
+                          flops0: float) -> None:
+        """The perf ledger's record of a solo execution (the JAX
+        package's attribution: a remainder group pads up to the group size,
+        a ragged bucket's tail rows are masked)."""
+        run = ticket.run
+        n_img = run.total_images
+        group = max(1, run.group_size or run.batch_size)
+        full, rem = divmod(n_img, group)
+        n_run = (full + (1 if rem else 0)) * group
+        masked_px = 0
+        wh = engine._ragged_plan(run)
+        if wh is not None:
+            f = engine.family.vae_scale_factor
+            lat_h = run.height // f
+            tr = min(lat_h, -(-wh[1] // f))
+            masked_px = (lat_h - tr) * f * run.width * n_run
+        try:
+            tok_t, tok_p = engine.request_token_stats(run)
+        except Exception:  # noqa: BLE001 — telemetry stays passive
+            tok_t = tok_p = 0
+        obs_perf.LEDGER.record_dispatch(
+            bucket=f"{run.width}x{run.height}",
+            cadence=int(stepcache.resolve(run).cadence), precision=prec,
+            lora=lora_cell.get("lora", ""),
+            device_s=self._device_seconds(g),
+            flops=METRICS.unet_flops_snapshot() - flops0,
+            requests=1, batch_raw=n_img, batch_run=n_run,
+            true_pixels=ticket.payload.width * ticket.payload.height * n_img,
+            padded_pixels=run.width * run.height * n_run,
+            masked_pixels=masked_px, true_tokens=tok_t, padded_tokens=tok_p,
+            hbm=obs_tsdb.dispatch_memory_sample())
 
     # -- merged execution (on the engine's device thread) --------------------
 
@@ -793,6 +982,14 @@ class ServingDispatcher:
                 # the images exist (or failed): the group's device work is
                 # over, its denoise window closes
                 graph.close_denoise()
+                if obs_perf.enabled():
+                    rb, sc = int(g.key[-3]), int(g.key[-2])
+                    obs_perf.LEDGER.record_stages(
+                        bucket=f"{int(g.key[3])}x{int(g.key[4])}",
+                        cadence=int(g.key[8]), precision=str(g.key[-1]),
+                        lora=f"r{rb}s{sc}" if (rb or sc) else "",
+                        stage_s=graph.stage_seconds(),
+                        overlap_s=graph.stage_overlap())
 
         return finalize
 
@@ -835,11 +1032,14 @@ class ServingDispatcher:
     def _group_denoise(self, g: _Group, built: Dict, engine,
                        sync: bool = True) -> torch.Tensor:
         """Denoise stage: the group's one denoise range; ``sync=False``
-        returns as soon as its chunks are queued."""
+        returns as soon as its chunks are queued. The UNet FLOPs the engine
+        priced for it go to the group's perf record."""
+        flops0 = METRICS.unet_flops_snapshot()
         latents = engine._denoise(built["rp"], built["x"], built["keys"],
                                   built["ctx"], built["pooled"], "txt2img",
                                   ragged=built["ragged"], lora=built["lora"],
                                   sync=sync)
+        g.flops = METRICS.unet_flops_snapshot() - flops0
         self._drain_cache_notes(built["live"][0].request_id, embed=False)
         return latents
 
@@ -865,6 +1065,9 @@ class ServingDispatcher:
         if not live:
             return None
         METRICS.record_dispatch(len(live), precision=g.key[-1])
+        obs_prom.count_precision(g.key[-1], len(live))
+        perf_on = obs_perf.enabled()
+        true_tok = padded_tok = 0
 
         rp = live[0].run.model_copy()
         width, height = rp.width, rp.height
@@ -915,6 +1118,13 @@ class ServingDispatcher:
                 (cu, cc), (pu, pc) = engine.encode_prompts(p)
             noise_parts.append(engine._init_noise(p, 0, n_p, (h, w, C),
                                                   rows))
+            if perf_on:
+                try:
+                    tt, pt = engine.request_token_stats(p, chunks=chunks)
+                    true_tok += tt
+                    padded_tok += pt
+                except Exception:  # noqa: BLE001 — telemetry stays passive
+                    pass
             key_parts.append(engine._image_keys(p, 0, n_p))
             self._drain_cache_notes(t.request_id, prefix=False)
             ctx_rows.append(cc.expand(n_p, -1, -1))
@@ -960,7 +1170,9 @@ class ServingDispatcher:
                 "height": height, "x": noise * sigma0, "keys": keys,
                 "ctx": (ctx_u, ctx_c), "pooled": (pooled_u, pooled_c),
                 "ragged": ragged, "lora": lora,
-                "ragged_mode": ragged_mode, "b_raw": b_raw}
+                "ragged_mode": ragged_mode, "b_raw": b_raw, "b_run": b_run,
+                "true_rows": lengths[0], "h": h,
+                "true_tok": true_tok, "padded_tok": padded_tok}
 
     def _group_merge(self, g: _Group, built: Dict, decoded,
                      engine) -> None:
@@ -970,6 +1182,10 @@ class ServingDispatcher:
         Host work only: it needs nothing of the device thread."""
         imgs = decoded.pixels()
         live = built["live"]
+        if obs_perf.enabled():
+            # the decode's event has completed: so has every event of the
+            # group, on the same stream before it
+            self._record_group_perf(g, built)
         jr_on = obs_journal.enabled()
         if jr_on:
             obs_journal.emit("decoded", live[0].request_id,
@@ -977,21 +1193,48 @@ class ServingDispatcher:
                              batch_run=built["x"].shape[0])
         crop = self.bucketer.crop_ragged if built["ragged_mode"] \
             else self.bucketer.crop
-        off = 0
-        for t, n_p in zip(built["live"], built["counts"]):
-            rows = imgs[off:off + n_p]
-            off += n_p
-            if t.cancelled.is_set():
-                t.result = self._empty_result(t)
-                continue
-            out = GenerationResult(parameters=t.payload.model_dump())
-            ow, oh = t.payload.width, t.payload.height
-            if t.bucketed:
-                rows = np.stack([crop(im, ow, oh) for im in rows])
-            engine._append_images(out, t.payload, rows, 0, ow, oh)
-            t.result = out
-            if jr_on:
-                obs_journal.emit("merged", t.request_id, images=n_p)
+        with obs_spans.span("merge.split", requests=len(live),
+                            images=built["b_raw"]):
+            off = 0
+            for t, n_p in zip(built["live"], built["counts"]):
+                rows = imgs[off:off + n_p]
+                off += n_p
+                if t.cancelled.is_set():
+                    t.result = self._empty_result(t)
+                    continue
+                out = GenerationResult(parameters=t.payload.model_dump())
+                ow, oh = t.payload.width, t.payload.height
+                if t.bucketed:
+                    rows = np.stack([crop(im, ow, oh) for im in rows])
+                engine._append_images(out, t.payload, rows, 0, ow, oh)
+                t.result = out
+                if jr_on:
+                    obs_journal.emit("merged", t.request_id, images=n_p)
+
+    def _record_group_perf(self, g: _Group, built: Dict) -> None:
+        """The perf ledger's record of a coalesced group, once its images
+        exist."""
+        live, counts = built["live"], built["counts"]
+        width, height = built["width"], built["height"]
+        b_run = built["b_run"]
+        masked_px = 0
+        if built["ragged_mode"]:
+            f = height // built["h"]
+            true_rows = list(built["true_rows"])
+            true_rows += [true_rows[-1]] * (b_run - len(true_rows))
+            masked_px = (built["h"] * b_run - sum(true_rows)) * f * width
+        rb, sc = int(g.key[-3]), int(g.key[-2])
+        obs_perf.LEDGER.record_dispatch(
+            bucket=f"{width}x{height}", cadence=int(g.key[8]),
+            precision=str(g.key[-1]),
+            lora=f"r{rb}s{sc}" if (rb or sc) else "",
+            device_s=self._device_seconds(g), flops=g.flops,
+            requests=len(live), batch_raw=built["b_raw"], batch_run=b_run,
+            true_pixels=sum(t.payload.width * t.payload.height * n_p
+                            for t, n_p in zip(live, counts)),
+            padded_pixels=width * height * b_run, masked_pixels=masked_px,
+            true_tokens=built["true_tok"], padded_tokens=built["padded_tok"],
+            hbm=obs_tsdb.dispatch_memory_sample())
 
     # -- result fix-up -----------------------------------------------------
 

@@ -9,13 +9,18 @@ coalesce queue, and how much padding the buckets cost; and, where the JAX
 package counted XLA compiles by stage kind, the CUDA graphs the engines
 captured, by kind (``runtime/graphs.py``: ``"unet"``, with or without
 ControlNet units, ``"ragged"``, and the step cache's ``"deep"``,
-``"deep-trunc"``, ``"reuse"`` and ``"reuse-trunc"``); and the dispatches
-and requests of each serving precision (``pipeline/precision.py``).
+``"deep-trunc"``, ``"reuse"`` and ``"reuse-trunc"``), and where it
+counted cache hits of its compiled stages, the replays of a captured
+graph by kind; the dispatches and requests of each serving precision
+(``pipeline/precision.py``); and the UNet FLOPs dispatched, priced over
+each denoise range's evaluations by ``pipeline/stepcache.py``'s
+``FlopsAccountant`` (``torch.utils.flop_counter`` on meta tensors), over
+the images decoded (``unet_flops_per_image``). The perf ledger
+(``obs/perf.py``) takes a delta of the FLOP total around each dispatch.
 Everything here is host-side counting, safe to assert in CPU tests.
 
-Left out: the JAX package's cache-hit counts, its AOT artifact loads and
-its XLA cost-analysis FLOP totals, which have no meaning for eager PyTorch
-(the FLOP pricer is ROADMAP queue 1, item 10).
+Left out: the JAX package's AOT artifact loads (the artifact store is not
+ported).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ class DispatchMetrics:
             #: graph kind -> CUDA graphs captured (the JAX package's XLA
             #: compiles by stage kind)
             self.compiles: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
+            #: graph kind -> replays of a captured graph
+            self.cache_hits: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
             self.requests = 0  # guarded-by: _lock
             #: request shape already equal to its bucket
             self.bucket_hits = 0  # guarded-by: _lock
@@ -55,6 +62,10 @@ class DispatchMetrics:
             #: sum of (bucket px / requested px) per bucketed request
             self.padding_ratio_total = 0.0  # guarded-by: _lock
             self.padding_ratio_count = 0  # guarded-by: _lock
+            #: UNet FLOPs dispatched (priced over each range's evaluations)
+            self.unet_flops_total = 0.0  # guarded-by: _lock
+            #: images decoded (the denominator of FLOPs per image)
+            self.unet_images = 0  # guarded-by: _lock
             #: resolved precision name -> dispatches / requests carried
             #: ("" = the caller did not say)
             self.precision_dispatches: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
@@ -63,6 +74,32 @@ class DispatchMetrics:
     def record_compile(self, kind: str) -> None:
         with self._lock:
             self.compiles[str(kind)] += 1
+
+    def record_cache_hit(self, kind: str) -> None:
+        with self._lock:
+            self.cache_hits[str(kind)] += 1
+
+    def record_unet_flops(self, flops: float) -> None:
+        """One denoise range's priced UNet FLOPs."""
+        with self._lock:
+            self.unet_flops_total += float(flops)
+
+    def record_unet_images(self, n: int) -> None:
+        with self._lock:
+            self.unet_images += int(n)
+
+    def unet_flops_snapshot(self) -> float:
+        """The FLOP total now; the perf ledger takes a delta around each
+        dispatch."""
+        with self._lock:
+            return self.unet_flops_total
+
+    def unet_flops_per_image(self) -> float:
+        """Mean UNet FLOPs per decoded image (0.0 before both)."""
+        with self._lock:
+            if not self.unet_images:
+                return 0.0
+            return self.unet_flops_total / self.unet_images
 
     def record_request(self, bucketed: bool, bypassed: bool = False,
                        padding_ratio: float = 1.0) -> None:
@@ -113,6 +150,7 @@ class DispatchMetrics:
             total_buckets = self.bucket_hits + self.bucket_misses
             return {
                 "compiles": dict(self.compiles),
+                "cache_hits": dict(self.cache_hits),
                 "requests": self.requests,
                 "bucket_hits": self.bucket_hits,
                 "bucket_misses": self.bucket_misses,
@@ -130,6 +168,11 @@ class DispatchMetrics:
                 "avg_padding_ratio": (self.padding_ratio_total
                                       / self.padding_ratio_count
                                       if self.padding_ratio_count else None),
+                "unet_flops_total": self.unet_flops_total,
+                "unet_images": self.unet_images,
+                "unet_flops_per_image": (self.unet_flops_total
+                                         / self.unet_images
+                                         if self.unet_images else None),
                 # the per-precision dispatch mix
                 "precision": {
                     name: {

@@ -110,10 +110,25 @@ def test_rejects_what_it_cannot_take(bad):
         fa.flash_attention(q, k, k)
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor that reports a device neither the CPU nor CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_non_cpu_device_never_falls_back():
+    # a meta tensor computes nothing: it gets the plain version's shape
+    # (the FLOP pricer's products), and no launch is counted
+    before = fa.flash_attention.launches
     q = torch.empty(1, 8, 2, 16, device="meta")
+    out = fa.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert fa.flash_attention.launches == before
+    other = torch.empty(1, 8, 2, 16).as_subclass(OtherDevice)
     with pytest.raises(ValueError, match="no flash_attention for device"):
-        fa.flash_attention(q, q, q)
+        fa.flash_attention(other, other, other)
 
 
 @pytest.fixture(params=["flash_attention", "ragged_attention"])

@@ -54,7 +54,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "pipeline.registry", "fleet", "fleet.policy", "fleet.quotas",
                  "fleet.admission", "fleet.slices", "fleet.pool", "obs",
                  "obs.prometheus", "runtime.runner", "obs.journal",
-                 "parallel", "parallel.stage_graph", "sim", "sim.chaos"):
+                 "parallel", "parallel.stage_graph", "sim", "sim.chaos",
+                 "runtime.logging", "runtime.trace", "obs.spans",
+                 "obs.flightrec", "obs.watchdog", "obs.perf", "obs.tsdb"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 70
     assert out["forbidden"] == []

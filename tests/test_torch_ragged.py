@@ -176,15 +176,28 @@ def test_cpu_launches_count_on_no_path():
     assert ra.ragged_attention.path_launches == before
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor that reports a device neither the CPU nor CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_rejects_what_it_cannot_take():
     q = torch.zeros(2, 8, 2, 16)
     with pytest.raises(ValueError, match="true_len"):
         ra.ragged_attention(q, q, q, torch.tensor([8]))
     with pytest.raises(ValueError, match="true_len"):
         ra.ragged_attention(q, q, q, torch.tensor([8.0, 8.0]))
+    # a meta tensor gets the plain version's shape (the FLOP pricer's
+    # products); a device neither the CPU nor CUDA raises
     meta = torch.empty(2, 8, 2, 16, device="meta")
+    out = ra.ragged_attention(meta, meta, meta, torch.tensor([8, 8]))
+    assert out.device.type == "meta" and out.shape == meta.shape
+    other = torch.zeros(2, 8, 2, 16).as_subclass(OtherDevice)
     with pytest.raises(ValueError, match="no ragged_attention for device"):
-        ra.ragged_attention(meta, meta, meta, torch.tensor([8, 8]))
+        ra.ragged_attention(other, other, other, torch.tensor([8, 8]))
 
 
 # -- the ragged UNet forward -------------------------------------------------

@@ -8,7 +8,9 @@ row, one VAE decode and one VAE encode of FAMILY (default ``sd15``) at
 LATENT x LATENT latents (default: 512 px over the family's VAE factor), as
 ``torch.utils.flop_counter`` counts matrix products and convolutions. The
 counting is ``chip_smoke.py``'s ``model_tflop``, which the chip run reports
-beside its timings.
+beside its timings; its UNet rows are the package's FLOP pricer
+(``pipeline/stepcache.py`` ``unet_eval_flops``), the one the perf ledger's
+MFU (``GET /internal/perf``) counts with.
 """
 
 import json
