@@ -188,6 +188,36 @@ Phases, each fatal on failure (no phase is caught and passed over):
    ``SDTPU_WATCHDOG_FACTOR=1``: the watchdog fires, the flight recorder
    holds the stalled job with the threads' stacks, and the requeued range
    gives the fault-free request's bytes;
+7g. the fleet telemetry plane (``phase_fleet_obs``): a World over the main
+   path's engine and a remote node in a child process on the same card
+   (``tools/torch_obs_remote.py``: SD1.5 on the same seeded weights behind
+   the port's ``ApiServer``, with its own journal, tracer, TSDB and push
+   buffer), every gate of the plane on (``SDTPU_TSDB`` at a 0.5 s cadence,
+   ``SDTPU_ALERTS`` at ``SDTPU_ALERT_TIMESCALE=0.01``, pages routed to a
+   local webhook, ``SDTPU_FEDERATION``, ``SDTPU_PUSH``, the journal): 8
+   fleet config #1 requests of 2 images (one a node), the gates and their
+   daemons on and off in turns: the same PNG bytes, 320 K1 launches on
+   each node, all Hopper, the p50 of each arm and the push plane's
+   delivery lag of the remote's last event; ``/internal/push``: the
+   subscriber in push mode, no loss, no duplicate, every remote journal
+   event in the master's timeline; ``/internal/fleet/timeline`` of one
+   request: the master's and the remote's events, no causal violation;
+   ``/internal/stitched-trace.json``: the remote's spans as
+   ``worker:remote`` with ``device_ms`` on its device spans, its
+   ``worker.generate`` inside the master's ``world.execute``, the clock
+   offset within the fetch's round trip of the true one (both processes'
+   trace-clock bases, one host); ``/internal/executables`` of a dispatcher
+   over the main path's engine: config #1's bucket, no alarm; explicit
+   ticks with the daemons stopped: ``hbm_bytes_in_use`` and
+   ``hbm_peak_bytes`` equal to ``torch.cuda.memory_stats()``'s, the
+   queue-wait and e2e p95 and the captures in ``/internal/tsdb``, the
+   remote fresh in ``/internal/fleet`` with its ``worker:remote/`` series;
+   the autoscaler's default feeds; a chaos ``slow`` on the remote's job
+   past the watchdog's deadline: ``watchdog_stall`` fires and resolves,
+   the webhook receives exactly one firing and one resolved document, the
+   journal and ``sdtpu_alerts_total`` agree, the requeued range gives the
+   remote's bytes; the remote's server stopped and started once: the
+   subscriber resumes from its cursor with no loss;
 8. reference: one full-width UNet call on the bf16 card policy against the
    same weights on the f32 policy;
 8b. the cost ladder (``phase_cost_ladder``) on the same engine: int8_dot
@@ -3795,6 +3825,591 @@ def phase_obs(engine, fa, ra, card_line: str) -> dict:
     return out
 
 
+FOBS_BODY = {**OBS_BODY, "seed": 5100, "batch_size": 2}  # 1 image a node
+FOBS_REPEATS = 4  # warm fleet requests per arm, the plane's gates on and off
+FOBS_INTERVAL_S = 0.5  # the TSDB sampler's and the prober's cadence
+FOBS_TIMESCALE = "0.01"  # alert windows: 5 m -> 3 s, 1 h -> 36 s
+FOBS_SLOW_S = 4.0  # the chaos slow fault on the remote's job
+FOBS_ALERT_WAIT_S = 20.0  # the webhook's firing and resolved must land
+FOBS_SETTLE_S = 10.0  # a push subscriber must catch up within this
+#: the fleet telemetry plane's gates on the master; the remote node gets
+#: the same environment
+FOBS_GATES = {"SDTPU_TSDB": "1", "SDTPU_TSDB_INTERVAL_S": str(FOBS_INTERVAL_S),
+              "SDTPU_ALERTS": "1", "SDTPU_ALERT_TIMESCALE": FOBS_TIMESCALE,
+              "SDTPU_FEDERATION": "1", "SDTPU_PUSH": "1",
+              "SDTPU_JOURNAL": "1"}
+#: the keys of the JAX package's notification document
+NOTIFY_KEYS = {"rule", "event", "value", "detail", "severity", "channel",
+               "ts"}
+
+
+def log_docs(path: str) -> list:
+    """The JSON lines a remote node wrote to its log so far."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith("{"):
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    return out
+
+
+def wait_log(proc, path: str, key: str, timeout_s: float,
+             n: int = 1) -> dict:
+    """The ``n``-th line of the node's log holding ``key`` (``counts``
+    lines by their number), within ``timeout_s``."""
+    t0 = time.perf_counter()
+    while True:
+        docs = [d for d in log_docs(path) if key in d]
+        if key == "counts":
+            docs = [d for d in docs if d["counts"] == n]
+        if len(docs) >= (1 if key == "counts" else n):
+            return docs[-1]
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
+            with open(path) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(f"the remote node wrote no {key!r} line "
+                               f"within {timeout_s} s (exit {proc.poll()}):"
+                               f"\n{tail}")
+        time.sleep(0.02)
+
+
+def start_obs_remote(workdir: str):
+    """``tools/torch_obs_remote.py`` in a child process on this card: a
+    World over SD1.5 on the main path's seeded weights (seed 0), behind the
+    port's ``ApiServer``, with this process's environment (the plane's
+    gates). Returns the process, its port, its log and its trace clock's
+    ``perf_counter`` base once it serves."""
+    port = free_port()
+    log_path = os.path.join(workdir, "obs-remote.log")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "torch_obs_remote.py"),
+             "--port", str(port), "--log", log_path],
+            cwd=workdir, env=env, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    ready = wait_log(proc, log_path, "ready", REMOTE_START_S)
+    print(f"fleet obs: remote node (pid {ready['pid']}) on port {port} "
+          f"answered after {time.perf_counter() - t0:.1f} s")
+    return proc, port, log_path, ready["epoch"]
+
+
+class Webhook:
+    """A local webhook on 127.0.0.1: records every JSON document POSTed."""
+
+    def __init__(self):
+        import http.server
+
+        docs = self.docs = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length", 0))
+                docs.append((self.path, json.loads(self.rfile.read(length))))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.port = self.httpd.server_port
+        threading.Thread(target=self.httpd.serve_forever, daemon=True,
+                         name="obs-webhook").start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def metric_value(text: str, name: str, labels: str) -> float:
+    """One sample of a Prometheus text exposition (0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(f"{name}{{{labels}}} "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def get_text(port: int, route: str) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=60) as resp:
+        return resp.read().decode()
+
+
+def phase_fleet_obs(engine, fa, ra, card_line: str) -> dict:
+    """The fleet telemetry plane on a fleet of the main path's engine and a
+    remote node in a child process, one card (see the module's docstring,
+    7g)."""
+    import signal
+
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.fleet import slices
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        alerts as obs_alerts,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        federation as obs_fed,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        fleetlog as obs_fleetlog,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        journal as obs_journal,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        notify as obs_notify,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        push as obs_push,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        spans as obs_spans,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        tsdb as obs_tsdb,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        worker as worker_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        world as world_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.sim import chaos
+
+    t_phase = time.perf_counter()
+    modules = (obs_tsdb, obs_alerts, obs_notify, obs_fed, obs_push,
+               obs_fleetlog)
+    for k in ("SDTPU_CACHE", "SDTPU_FLEET", "SDTPU_POOL", "SDTPU_RAGGED",
+              "SDTPU_STAGE_GRAPH", "SDTPU_WATCHDOG_FACTOR", "SDTPU_SIM",
+              "SDTPU_NOTIFY_URL", "SDTPU_PERF"):
+        os.environ.pop(k, None)
+    for mod in modules:
+        mod.reset()
+    obs_journal.JOURNAL.clear()
+    hook = Webhook()
+    gates = dict(FOBS_GATES, SDTPU_NOTIFY_ROUTES=(
+        f"page=http://127.0.0.1:{hook.port}/page"))
+    saved = env_set(gates)
+    workdir = tempfile.mkdtemp(prefix="fleet-obs-")
+    proc = None
+    servers = []
+    out = {"card": card_line}
+    counts_seen = [0]
+
+    def remote_k1():
+        counts_seen[0] += 1
+        proc.send_signal(signal.SIGUSR2)
+        doc = wait_log(proc, log_path, "counts", 30, n=counts_seen[0])
+        return doc["k1"], doc["k1_paths"]
+
+    def daemons(on: bool) -> None:
+        """The TSDB sampler, the prober and the push subscribers."""
+        if on:
+            obs_tsdb.start_daemon()
+            obs_fed.start_daemon()
+            obs_push.start_daemons()
+        else:
+            obs_push.stop_daemons()
+            obs_fed.stop_daemon()
+            obs_tsdb.stop_daemon()
+
+    def plane(on: bool) -> None:
+        """The master's gates and daemons: all on, or all off."""
+        if on:
+            os.environ.update(gates)
+        daemons(on)
+        if not on:
+            for k in gates:
+                os.environ.pop(k, None)
+
+    def fleet_world(name: str):
+        """A World over the main path's engine and the remote node, both
+        preset at 60 images a minute (with the gates on it registers as
+        the prober's and the push plane's source)."""
+        world = world_mod.World(
+            config_path=os.path.join(workdir, f"{name}.json"))
+        world.add_worker(worker_mod.WorkerNode(
+            "master", worker_mod.LocalBackend(engine), master=True,
+            avg_ipm=60.0))
+        world.add_worker(worker_mod.WorkerNode(
+            "remote", worker_mod.HTTPBackend("127.0.0.1", rport),
+            avg_ipm=60.0))
+        world.job_timeout = 1e9
+        return world
+
+    def remote_status():
+        return get_json(port, "/internal/push")["workers"]["remote"]
+
+    def caught_up(timeout_s: float = FOBS_SETTLE_S) -> dict:
+        """The subscriber's status once its cursor reaches the remote's
+        buffer (the remote's journal held in the master's timeline)."""
+        t0 = time.perf_counter()
+        while True:
+            remote_seqs = {e["seq"] for e in get_json(
+                rport, "/internal/journal")["events"]}
+            held = {e["seq"] for e in obs_fleetlog.LOG.merged()
+                    if e["node"] == "remote"}
+            if remote_seqs <= held:
+                return remote_status()
+            check(time.perf_counter() - t0 < timeout_s,
+                  f"fleet obs: the push subscriber lacks remote journal "
+                  f"events {sorted(remote_seqs - held)[:10]}")
+            time.sleep(0.05)
+
+    try:
+        proc, rport, log_path, remote_epoch = start_obs_remote(workdir)
+        world = fleet_world("fleet")
+        server = ApiServer(world, port=0).start()
+        servers.append(server)
+        port = server.port
+        check(obs_fed.source() is world and obs_push.source() is world,
+              "fleet obs: the World did not register as the plane's source")
+        check(not [t.name for t in threading.enumerate()
+                   if t.name.startswith(("sdtpu-tsdb", "sdtpu-federation",
+                                         "sdtpu-push", "sdtpu-notify"))],
+              "fleet obs: a daemon runs before any was started")
+        warm = post(port, {**FOBS_BODY, "request_id": "fobs-warm"})
+        check(labels_of(warm) == ["master", "remote"],
+              f"fleet obs: the plan {labels_of(warm)}")
+
+        # (a) the gates off and on in turns: bytes, K1 on each node, p50
+        walls = {"on": [], "off": []}
+        images, k1_master, k1_remote, lags = set(), [], [], []
+        on_rids = []
+        for i in range(2 * FOBS_REPEATS):
+            arm = "on" if i % 2 == 0 else "off"
+            plane(arm == "on")
+            rid = f"fobs-{arm}-{i}"
+            m0 = fa.flash_attention.launches
+            p0 = dict(fa.flash_attention.path_launches)
+            r0, rp0 = remote_k1()
+            t = time.perf_counter()
+            resp = post(port, {**FOBS_BODY, "request_id": rid})
+            walls[arm].append(time.perf_counter() - t)
+            r1, rp1 = remote_k1()
+            k1_master.append(fa.flash_attention.launches - m0)
+            k1_remote.append(r1 - r0)
+            hopper = (fa.flash_attention.path_launches.get("hopper", 0)
+                      - p0.get("hopper", 0), rp1.get("hopper", 0)
+                      - rp0.get("hopper", 0))
+            check(hopper == (k1_master[-1], k1_remote[-1]),
+                  f"fleet obs: K1 off the Hopper path ({hopper})")
+            check(labels_of(resp) == ["master", "remote"],
+                  f"fleet obs: {rid}'s plan {labels_of(resp)}")
+            images.add(tuple(resp["images"]))
+            if arm == "on":
+                on_rids.append(rid)
+                # the remote's last journal event of the request reaches
+                # the master's timeline: its delivery lag
+                t0 = time.perf_counter()
+                while True:
+                    done = [e for e in obs_fleetlog.LOG.merged(rid)
+                            if e["node"] == "remote"
+                            and e["event"] == "completed"]
+                    if done:
+                        lags.append(time.monotonic() - done[0]["t_mono"])
+                        break
+                    check(time.perf_counter() - t0 < FOBS_SETTLE_S,
+                          f"fleet obs: {rid}'s remote events never "
+                          f"reached the master")
+                    time.sleep(0.002)
+        plane(True)
+        p50 = {arm: sorted(w)[len(w) // 2] for arm, w in walls.items()}
+        print(f"fleet obs: {FOBS_REPEATS} warm fleet config #1 requests (1 "
+              f"image a node) per arm, the plane's gates and daemons on / "
+              f"off in turns: p50 {p50['on']:.4f} / {p50['off']:.4f} s (min "
+              f"{min(walls['on']):.4f} / {min(walls['off']):.4f}, max "
+              f"{max(walls['on']):.4f} / {max(walls['off']):.4f}); K1 "
+              f"master {k1_master}, remote {k1_remote}; push delivery lag "
+              f"of the remote's last event {[round(x, 4) for x in lags]} s "
+              f"against a {FOBS_INTERVAL_S} s poll interval [{card_line}]")
+        check(len(images) == 1, "fleet obs: the PNG bytes differ with the "
+              "plane's gates on and off")
+        check(all(n == LAUNCHES_PER_GROUP for n in k1_master + k1_remote),
+              f"fleet obs: K1 per request master {k1_master}, remote "
+              f"{k1_remote}")
+        ref_images = list(next(iter(images)))
+        out["p50_s"] = {k: round(v, 4) for k, v in p50.items()}
+        out["walls_s"] = {k: [round(x, 4) for x in v]
+                          for k, v in walls.items()}
+        out["k1"] = {"master": k1_master, "remote": k1_remote}
+        out["push_lag_s"] = [round(x, 4) for x in lags]
+
+        # (b) the push plane caught up: no loss, no duplicate
+        st = caught_up()
+        print(f"fleet obs: /internal/push remote {json.dumps(st)}")
+        check(st["mode"] == "push" and st["lost"] == 0
+              and st["duplicates"] == 0,
+              f"fleet obs: the subscriber {st}")
+
+        # (c) the fleet timeline and the stitched trace of one request
+        rid = on_rids[-1]
+        tl = get_json(port, f"/internal/fleet/timeline?request_id={rid}")
+        nodes = sorted({e["node"] for e in tl["events"]})
+        print(f"fleet obs: timeline of {rid}: {tl['count']} events on "
+              f"{nodes}, {tl['violations']} causal violations: "
+              f"{[(e['node'], e['event']) for e in tl['events']]}")
+        check(nodes == ["local", "remote"] and tl["violations"] == 0,
+              f"fleet obs: the timeline of {rid}")
+        t0 = time.perf_counter()
+        doc = get_json(port, "/internal/stitched-trace.json")
+        fetch_s = time.perf_counter() - t0
+        node = [n for n in doc["nodes"] if n["node"] == "worker:remote"]
+        check(len(node) == 1 and node[0]["error"] is None
+              and node[0]["events"] > 0,
+              f"fleet obs: the stitched trace's nodes {doc['nodes']}")
+        node = node[0]
+        mine = [e for e in doc["traceEvents"]
+                if e["args"].get("request_id") == rid]
+        execute = [e for e in mine if e["pid"] != "worker:remote"
+                   and e["name"] == "world.execute"]
+        remote = [e for e in mine if e["pid"] == "worker:remote"]
+        generate = [e for e in remote if e["name"] == "worker.generate"]
+        device = [e for e in remote if e["args"].get("device_ms", 0) > 0]
+        true_us = (remote_epoch - obs_spans._EPOCH) * 1e6
+        err_us = node["offset_us"] - true_us
+        out["stitch"] = {"offset_us": round(node["offset_us"], 1),
+                         "true_offset_us": round(true_us, 1),
+                         "offset_error_us": round(err_us, 1),
+                         "rtt_us": round(node["rtt_us"], 1),
+                         "remote_events": node["events"],
+                         "fetch_s": round(fetch_s, 4)}
+        print(f"fleet obs: stitched trace: {json.dumps(out['stitch'])}; "
+              f"{rid}: master world.execute {len(execute)}, remote spans "
+              f"{sorted({e['name'] for e in remote})}, device spans "
+              f"{[(e['name'], round(e['args']['device_ms'], 3)) for e in device]}")
+        check(len(execute) == 1 and len(generate) == 1 and device,
+              f"fleet obs: {rid}'s stitched spans")
+        ex, gen = execute[0], generate[0]
+        check(ex["ts"] <= gen["ts"]
+              and gen["ts"] + gen["dur"] <= ex["ts"] + ex["dur"],
+              f"fleet obs: the remote's worker.generate [{gen['ts']}, "
+              f"+{gen['dur']}] lies outside the master's world.execute "
+              f"[{ex['ts']}, +{ex['dur']}]")
+        check(abs(err_us) < node["rtt_us"],
+              f"fleet obs: the clock offset's error {err_us:.1f} us is not "
+              f"below the fetch's round trip {node['rtt_us']:.1f} us")
+
+        # (d) the executables census of the main path's engine, served by
+        # a dispatcher (a config #1 request feeds the queue-wait histogram)
+        esrv = ApiServer(engine, port=0).start()
+        servers.append(esrv)
+        m0 = fa.flash_attention.launches
+        post(esrv.port, {**OBS_BODY, "request_id": "fobs-dispatch"})
+        check(fa.flash_attention.launches - m0 == LAUNCHES_PER_GROUP,
+              "fleet obs: the dispatched request's K1 launches")
+        census = get_json(esrv.port, "/internal/executables")
+        esrv.stop()
+        servers.remove(esrv)
+        lat = OBS_BODY["width"] // engine.family.vae_scale_factor
+        mine = [b for b in census["buckets"]
+                if b["bucket"].endswith(f"latent {lat}x{lat}x4 rows 1")]
+        print(f"fleet obs: /internal/executables alarm {census['alarm']}: "
+              f"{json.dumps(census['buckets'])}")
+        check(census["available"] and not census["alarm"] and mine,
+              "fleet obs: config #1's bucket in the census")
+        out["executables"] = census["buckets"]
+
+        # (e) explicit ticks, the daemons stopped: the TSDB against the
+        # allocator, the prober's view, the push plane
+        daemons(False)
+        t0 = time.perf_counter()
+        landed = obs_tsdb.tick()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        stats = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        polled = obs_fed.tick()
+        fed_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        applied = obs_push.tick()
+        push_ms = (time.perf_counter() - t0) * 1e3
+        tsdb_doc = get_json(port, "/internal/tsdb")
+        series = tsdb_doc["series"]
+        hbm = (series.get("hbm_bytes_in_use", {}).get("latest"),
+               series.get("hbm_peak_bytes", {}).get("latest"))
+        want = (stats["allocated_bytes.all.current"],
+                stats["allocated_bytes.all.peak"])
+        out["ticks"] = {"tsdb_ms": round(tick_ms, 3), "tsdb_landed": landed,
+                        "federation_ms": round(fed_ms, 3),
+                        "federation_landed": polled,
+                        "push_ms": round(push_ms, 3),
+                        "push_applied": applied}
+        print(f"fleet obs: explicit ticks {json.dumps(out['ticks'])}; "
+              f"hbm_bytes_in_use / hbm_peak_bytes {hbm} against the "
+              f"allocator's {want}; series {sorted(series)} [{card_line}]")
+        check(hbm[0] is not None and hbm[1] is not None
+              and (hbm[0][1], hbm[1][1]) == want,
+              "fleet obs: the TSDB's hbm series are not the allocator's")
+        for name in ("queue_wait_p95_s", "e2e_p95_s", "compiles_total"):
+            check(name in series, f"fleet obs: /internal/tsdb lacks {name}")
+        fleet = get_json(port, "/internal/fleet")
+        row = fleet["workers"].get("remote", {})
+        worker_series = sorted(n for n in series
+                               if n.startswith("worker:remote/"))
+        print(f"fleet obs: /internal/fleet remote {json.dumps(row)}; "
+              f"fleet {json.dumps(fleet['fleet'])}; series {worker_series}")
+        check(row and not row["stale"]
+              and row["staleness_s"] < 2 * FOBS_INTERVAL_S,
+              f"fleet obs: the remote's federated staleness {row}")
+        for name in ("staleness_s", "error_rate", "queue_wait_p95_s",
+                     "requests_total", "poll_rtt_s"):
+            check(f"worker:remote/{name}" in series,
+                  f"fleet obs: no worker:remote/{name} series")
+        out["federation"] = {"staleness_s": row["staleness_s"],
+                             "rtt_s": row["rtt_s"]}
+
+        # (f) the autoscaler's default feeds with federation and alerts on
+        eng = slices.AutoscaleEngine(slices.SliceRegistry())
+        q, firing = eng.quantile_source(), eng.firing_alerts()
+        slices.set_autoscale(None)
+        print(f"fleet obs: the autoscaler's feeds: p95 {q} (local "
+              f"{obs_prom.fleet_queue_wait_p95()}, federated "
+              f"{obs_fed.fleet_queue_wait_p95()}), firing {firing}")
+        check(q == max(obs_prom.fleet_queue_wait_p95(),
+                       obs_fed.fleet_queue_wait_p95())
+              and firing == obs_alerts.scale_up_firing(),
+              "fleet obs: the autoscaler's default feeds")
+
+        # (g) a stall pages once and resolves once: a fresh World (its
+        # workers without ETA history, as in phase_obs), a chaos slow on
+        # the remote's job past the watchdog's deadline
+        for mod in (obs_alerts, obs_notify):
+            mod.reset()
+        hook.docs.clear()
+        metrics0 = get_text(port, "/internal/metrics")
+        seq0 = obs_journal.JOURNAL.snapshot()["total_emitted"]
+        watched = fleet_world("watched")
+        wserver = ApiServer(watched, port=0).start()
+        servers.append(wserver)
+        daemons(True)
+        stall_env = env_set({"SDTPU_SIM": "1",
+                             "SDTPU_WATCHDOG_FACTOR": OBS_WATCHDOG_FACTOR})
+        stalls0 = obs_prom.watchdog_stalls_total()
+        plan = chaos.arm(chaos.ChaosPlan([chaos.Fault(
+            kind="slow", worker="remote", at_request=1,
+            duration_s=FOBS_SLOW_S)], seed=17))
+        try:
+            m0 = fa.flash_attention.launches
+            t = time.perf_counter()
+            slowed = post(wserver.port, {**FOBS_BODY,
+                                         "request_id": "fobs-stall"})
+            stall_wall = time.perf_counter() - t
+            k1_stall = fa.flash_attention.launches - m0
+        finally:
+            chaos.disarm()
+            env_restore(stall_env)
+        t0 = time.perf_counter()
+        while len(hook.docs) < 2 \
+                and time.perf_counter() - t0 < FOBS_ALERT_WAIT_S:
+            time.sleep(0.05)
+        resolved_s = time.perf_counter() - t0
+        time.sleep(2 * FOBS_INTERVAL_S)  # no third document follows
+        check(obs_notify.flush(10.0), "fleet obs: a notification is stuck")
+        docs = [(path, d) for path, d in hook.docs]
+        metrics1 = get_text(port, "/internal/metrics")
+        journal = [e for e in obs_journal.JOURNAL.snapshot()["events"]
+                   if e["seq"] > seq0 and e["event"] in (
+                       "alert_firing", "alert_resolved", "notify_sent",
+                       "notify_failed", "notify_dropped")]
+
+        def alerts_total(state):
+            labels = f'rule="watchdog_stall",state="{state}"'
+            return (metric_value(metrics1, "sdtpu_alerts_total", labels)
+                    - metric_value(metrics0, "sdtpu_alerts_total", labels))
+
+        stall_journal = [e["event"] for e in journal
+                         if e["attrs"].get("rule") == "watchdog_stall"]
+        out["stall"] = {"wall_s": round(stall_wall, 4), "k1": k1_stall,
+                        "stalls": obs_prom.watchdog_stalls_total() - stalls0,
+                        "resolved_after_s": round(resolved_s, 3),
+                        "documents": [(d["rule"], d["event"]) for _, d
+                                      in docs],
+                        "alerts_total": {s: alerts_total(s) for s in
+                                         ("firing", "resolved")},
+                        "notify": obs_notify.summary()["outcomes"]}
+        print(f"fleet obs: the stall: {json.dumps(out['stall'])}; journal "
+              f"{stall_journal}; other transitions "
+              f"{obs_alerts.summary()['history']} [{card_line}]")
+        check(out["stall"]["stalls"] == 1,
+              f"fleet obs: {out['stall']['stalls']} stalls, want 1")
+        check([(d["rule"], d["event"]) for _, d in docs] == [
+            ("watchdog_stall", "alert_firing"),
+            ("watchdog_stall", "alert_resolved")]
+              and all(path == "/page" and set(d) == NOTIFY_KEYS
+                      for path, d in docs),
+              f"fleet obs: the webhook's documents {docs}")
+        check(stall_journal == ["alert_firing", "notify_sent",
+                                "alert_resolved", "notify_sent"],
+              f"fleet obs: the journal's watchdog_stall events "
+              f"{stall_journal}")
+        check(out["stall"]["alerts_total"] == {"firing": 1.0,
+                                               "resolved": 1.0},
+              f"fleet obs: sdtpu_alerts_total {out['stall']['alerts_total']}")
+        check(labels_of(slowed) == ["master"] * 2
+              and slowed["images"] == ref_images,
+              "fleet obs: the requeued range is not the remote's bytes")
+        check(k1_stall == 2 * LAUNCHES_PER_GROUP,
+              f"fleet obs: the master launched K1 {k1_stall} times")
+        check(plan.status()["faults"][0]["injected"] == 1,
+              "fleet obs: the slow fault was not delivered")
+
+        # (h) the remote's server stops and starts once: the subscriber
+        # resumes from its cursor with no loss
+        before = caught_up()
+        proc.send_signal(signal.SIGUSR1)
+        wait_log(proc, log_path, "restarted", 60)
+        after_req = post(wserver.port, {**FOBS_BODY,
+                                        "request_id": "fobs-after"})
+        after = caught_up()
+        daemons(False)
+        print(f"fleet obs: the remote's server restarted: subscriber "
+              f"before {json.dumps(before)}, after {json.dumps(after)}")
+        check(after["mode"] == "push" and after["lost"] == 0
+              and after["duplicates"] == 0
+              and after["cursor"] > before["cursor"]
+              and after["failures"] > before["failures"],
+              "fleet obs: the subscriber did not resume from its cursor "
+              "across the restart without loss")
+        check(labels_of(after_req) == ["master", "remote"],
+              "fleet obs: the request after the restart")
+        out["restart"] = {"before": before, "after": after}
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+        proc = None
+    finally:
+        daemons(False)
+        for srv in servers:
+            srv.stop()
+        if proc is not None:
+            stop_process(proc)
+        hook.stop()
+        env_restore(saved)
+        for mod in modules:
+            mod.reset()
+        obs_journal.JOURNAL.clear()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("fleet obs metrics: " + json.dumps(out))
+    print(f"fleet obs: phase {out['phase_s']} s [{card_line}]")
+    return out
+
+
 def phase_scripts_sdxl(base, card_line: str) -> None:
     """SDXL textual inversion on config #2's base engine: an embedding of
     a word's clip_l and clip_g rows gives the word's conditioning exactly
@@ -6868,6 +7483,7 @@ def main() -> int:
     fleet_gate = phase_fleet_gate(fa, ra, card_line)
     stage = phase_stage_graph(engine, fa, ra, card_line)
     obs = phase_obs(engine, fa, ra, card_line)
+    fleet_obs = phase_fleet_obs(engine, fa, ra, card_line)
     phase_reference(engine)
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
@@ -7004,6 +7620,7 @@ def main() -> int:
             "dispatcher (b)": stage["dispatcher"]["runs"][0]["k1"],
             "controlnet (d)": stage["controlnet"]["runs"][0]["k1"]},
         "obs_launches": obs["k1_per_request"],
+        "fleet_obs_launches": fleet_obs["k1"],
         "fleet_prompts_from_file_launches":
             fleet["prompts_from_file"]["master_k1_launches"],
         "config5_per": "one SDXL base UNet call of each pass of config #5 "

@@ -19,11 +19,11 @@ asks for a replica; p95 below ``SDTPU_AUTOSCALE_DOWN_S`` with more than
 ``min_replicas`` releases one. A cooldown stops flapping, and scale-down
 is vetoed while the worker-health feed reports a sick worker.
 
-The JAX package adds two feeds the port does not have yet: the
-federated worst-of-fleet p95 (``SDTPU_FEDERATION``) and the alert rules
-marked ``scale_up`` (``SDTPU_ALERTS``), both ROADMAP item 10. With either
-gate on, the default sources raise rather than quietly stay node-local;
-with both off they read what the JAX package reads then.
+Two more feeds, as in the JAX package: with ``SDTPU_FEDERATION`` on the
+quantile source takes the federated worst-of-fleet p95
+(``obs/federation.py``) when it is higher, and the alert source lists the
+firing alert rules marked ``scale_up`` (``obs/alerts.py``; [] with
+``SDTPU_ALERTS`` off).
 """
 
 from __future__ import annotations
@@ -327,31 +327,32 @@ def get_autoscale() -> Optional[AutoscaleEngine]:
 
 def _default_quantile_source() -> float:
     """Worst per-class p95 of the fleet queue-wait histograms — the
-    autoscaler keys on the most-starved class, not the average."""
+    autoscaler keys on the most-starved class, not the average. With
+    SDTPU_FEDERATION on, the federated worst-of-fleet p95
+    (``obs/federation.py``) folds in, so the scale signal is fleet-wide
+    rather than node-local."""
     from stable_diffusion_webui_distributed_tpu_torch.obs import (
         prometheus as obs_prom,
     )
-    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
-        env_flag,
-    )
 
-    if env_flag("SDTPU_FEDERATION", False):
-        raise NotImplementedError(
-            "SDTPU_FEDERATION: the federated queue-wait signal is not "
-            "ported (ROADMAP queue 1 item 10); the autoscaler would stay "
-            "node-local")
-    return obs_prom.fleet_queue_wait_p95()
+    local = obs_prom.fleet_queue_wait_p95()
+    try:
+        from stable_diffusion_webui_distributed_tpu_torch.obs import (
+            federation as obs_fed,
+        )
+
+        if obs_fed.enabled():
+            return max(local, obs_fed.fleet_queue_wait_p95())
+    except Exception:  # noqa: BLE001 — the scale signal stays node-local
+        pass
+    return local
 
 
 def _default_alert_source() -> List[str]:
-    """Firing scale_up-marked alert rules: [] with SDTPU_ALERTS off, as
-    the JAX package reads it then."""
-    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
-        env_flag,
+    """Firing scale_up-marked alert rules (``obs/alerts.py``; [] with
+    SDTPU_ALERTS off)."""
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        alerts as obs_alerts,
     )
 
-    if env_flag("SDTPU_ALERTS", False):
-        raise NotImplementedError(
-            "SDTPU_ALERTS: the alert engine is not ported (ROADMAP queue 1 "
-            "item 10)")
-    return []
+    return obs_alerts.scale_up_firing()

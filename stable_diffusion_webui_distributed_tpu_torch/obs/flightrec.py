@@ -7,10 +7,12 @@ exported span events, so an entry is plain JSON), and the recorder adds
 the lines the request logged (``runtime/logging.py``'s per-request index)
 and the perf ledger's last dispatch (``obs/perf.py``, None with
 ``SDTPU_PERF`` off). The hang watchdog and the World's job failures record
-here too. The ring holds ``SDTPU_OBS_FLIGHTREC`` entries (default 16) and
-``GET /internal/flightrec`` serves it. The JAX entries' ``alerts`` and
-``tsdb`` keys stay None: the alert engine and the TSDB store are the next
-slice's.
+here too, and so does the alert engine at each firing. Each entry also
+holds what the detectors saw: the alert engine's state
+(``obs/alerts.py`` ``state_snapshot``) and a bounded window of the TSDB
+(``obs/tsdb.py`` ``flight_window``), each None with its gate off. The ring
+holds ``SDTPU_OBS_FLIGHTREC`` entries (default 16) and ``GET
+/internal/flightrec`` serves it.
 """
 
 from __future__ import annotations
@@ -67,12 +69,34 @@ class FlightRecorder:
             "perf": perf,
             "spans": list(events),
             "logs": lines_for_request(request_id),
-            "alerts": None,
-            "tsdb": None,
+            "alerts": self._alert_snapshot(),
+            "tsdb": self._tsdb_window(),
         }
         with self._lock:
             self._entries.append(entry)
         return entry
+
+    @staticmethod
+    def _alert_snapshot() -> Optional[Dict[str, Any]]:
+        try:
+            from stable_diffusion_webui_distributed_tpu_torch.obs import (
+                alerts as obs_alerts,
+            )
+
+            return obs_alerts.state_snapshot()
+        except Exception:  # noqa: BLE001 — the recorder never fails
+            return None
+
+    @staticmethod
+    def _tsdb_window() -> Optional[Dict[str, Any]]:
+        try:
+            from stable_diffusion_webui_distributed_tpu_torch.obs import (
+                tsdb as obs_tsdb,
+            )
+
+            return obs_tsdb.flight_window()
+        except Exception:  # noqa: BLE001 — the recorder never fails
+            return None
 
     def dump(self) -> Dict[str, Any]:
         """Every entry, oldest first: the ``/internal/flightrec`` body."""

@@ -32,17 +32,39 @@ Gated on ``SDTPU_PERF`` (off): with it off every record call returns at
 once and the dispatch path is the uninstrumented one. Recording is host
 arithmetic under one lock, never a device synchronisation.
 ``GET /internal/perf`` serves :meth:`PerfLedger.summary`;
-``obs/prometheus.py`` renders the groups as ``sdtpu_perf_*``. The JAX
-package's executables census (``/internal/executables``) and AOT-load
-accounting are the next slice's.
+``obs/prometheus.py`` renders the groups as ``sdtpu_perf_*``.
+
+**The executables census** (``GET /internal/executables``,
+:func:`census_from_keys`) holds an engine's CUDA graphs to the JAX
+package's serving budget: at most :data:`STEP_CACHE_BUDGET` step-cache
+variants, :data:`PRECISION_BUDGET` precisions and :data:`LORA_BUDGET`
+traced-LoRA cells per shape bucket. The JAX package compiles one chunk of
+sampler steps per bucket and variant; the port captures one graph per
+evaluation signature (``runtime/graphs.py``), so the census maps the
+graph keys onto the JAX package's terms. A bucket is the model, the latent
+shape of the evaluation's rows and the number of rows. Its budgeted
+variants are the tag's precision flags and its step-cache mode: ``unet``,
+``ragged`` and the stage-ahead ControlNet's ``cnres`` and ``cnstep`` are
+the plain mode, and the step cache's ``deep`` and ``reuse`` evaluations,
+truncated or not, are one variant together (the JAX package's one
+step-cache chunk). A traced-LoRA cell is the shapes of the ``lora/``
+inputs. A bucket's ``executables`` counts its distinct (LoRA cell, mode,
+precision) combinations, the JAX package's chunks (the graphs behind them
+are more); ``alarm`` trips exactly when a variant count passes its
+budget, as it does in the JAX package. The body has the JAX package's
+keys. The AOT-load accounting is a
+later slice's, with the artifact store.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict, deque
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from stable_diffusion_webui_distributed_tpu_torch.pipeline.precision import (
+    name_for_flags,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_flag,
     env_float,
@@ -56,6 +78,17 @@ DEFAULT_GROUPS = 64
 SLO_WINDOW = 64
 #: the SLO attainment target: burn rate 1.0 misses exactly 1 - target
 DEFAULT_SLO_TARGET = 0.95
+
+#: the serving budget per shape bucket (the JAX package's): the plain and
+#: the step-cache variant, three precision rungs, and four traced-LoRA
+#: cells beside the adapterless variant
+STEP_CACHE_BUDGET = 2
+PRECISION_BUDGET = 3
+LORA_BUDGET = 4
+
+#: graph kinds of the step cache's evaluations (one variant together)
+_STEP_CACHE_KINDS = frozenset({"deep", "reuse", "deep-trunc",
+                               "reuse-trunc"})
 
 #: dense bf16 tensor-core peak FLOP/s by device name (lower case, spaces
 #: removed), from NVIDIA's H100 datasheet: the SXM5 card (the 700 W
@@ -397,3 +430,90 @@ class PerfLedger:
 
 #: The process-wide ledger.
 LEDGER = PerfLedger()
+
+
+# -- the executables census ---------------------------------------------------
+
+def _census_entry(key: Tuple) -> Optional[Tuple[Tuple, str, bool, str,
+                                                 Tuple]]:
+    """``(bucket identity, label, step cache, precision, LoRA cell)`` of a
+    ``(model, graph key)`` pair (``pipeline/engine.py``
+    ``executable_keys``), or None for a key of another shape."""
+    try:
+        model, (tag, sig_run, sig_call, _n_scalars) = key
+        kind, flags = str(tag[0]), tuple(bool(f) for f in tag[1])
+        shapes = {name: tuple(shape) for name, shape, *_ in sig_call}
+        rows, h, w, c = shapes["x"]
+    except (TypeError, ValueError, KeyError, IndexError):
+        return None
+    lora = tuple((name, tuple(shape)) for name, shape, *_ in sig_run
+                 if str(name).startswith("lora/"))
+    ident = (str(model), (h, w, c), rows)
+    label = f"{model} latent {h}x{w}x{c} rows {rows}"
+    precision = name_for_flags(flags) or str(flags)
+    return ident, label, kind in _STEP_CACHE_KINDS, precision, lora
+
+
+def census_from_keys(keys: Iterable[Tuple],
+                     step_cache_budget: int = STEP_CACHE_BUDGET,
+                     precision_budget: int = PRECISION_BUDGET,
+                     lora_budget: int = LORA_BUDGET) -> Dict[str, Any]:
+    """Group an engine's graph keys by shape bucket and hold each bucket
+    to the budget (the module's docstring gives the mapping)."""
+    buckets: "OrderedDict[Tuple, Dict[str, Any]]" = OrderedDict()
+    other = 0
+    for k in keys:
+        entry = _census_entry(k)
+        if entry is None:
+            other += 1
+            continue
+        ident, label, step_cache, precision, lora = entry
+        b = buckets.get(ident)
+        if b is None:
+            b = {"bucket": label, "variants": set(),
+                 "step_cache_variants": set(),
+                 "precision_variants": set(), "lora_variants": set()}
+            buckets[ident] = b
+        b["variants"].add((lora, step_cache, precision))
+        b["step_cache_variants"].add(step_cache)
+        b["precision_variants"].add(precision)
+        b["lora_variants"].add(lora)
+    rows: List[Dict[str, Any]] = []
+    over: List[str] = []
+    for b in buckets.values():
+        sc, prec = b["step_cache_variants"], b["precision_variants"]
+        n_lora = len([v for v in b["lora_variants"] if v])
+        executables = len(b["variants"])
+        over_budget = (len(sc) > step_cache_budget
+                       or len(prec) > precision_budget
+                       or n_lora > lora_budget
+                       or executables > step_cache_budget
+                       * precision_budget * (1 + n_lora))
+        rows.append({
+            "bucket": b["bucket"],
+            "executables": executables,
+            "step_cache_variants": len(sc),
+            "precisions": sorted(prec),
+            "lora_variants": n_lora,
+            "over_budget": over_budget,
+        })
+        if over_budget:
+            over.append(b["bucket"])
+    return {
+        "buckets": rows,
+        "chunk_executables": sum(r["executables"] for r in rows),
+        "other_executables": other,
+        "budget": {"step_cache": step_cache_budget,
+                   "precision": precision_budget,
+                   "lora": lora_budget,
+                   "per_bucket": step_cache_budget * precision_budget},
+        "over_budget": over,
+        "alarm": bool(over),
+    }
+
+
+def executables_census(engine: Any) -> Dict[str, Any]:
+    """The census over an engine's graph cache (the
+    ``/internal/executables`` body): a read, no capture, no device
+    work."""
+    return census_from_keys(engine.executable_keys())

@@ -18,16 +18,14 @@ the stage-graph node seconds per stage. :func:`render` adds every
 ``DispatchMetrics`` and ``StageStats`` scalar, the labelled counters (the
 dispatch precision mix, LoRA switches, fleet admissions, quota throttles,
 preemptions and requests, worker health, watchdog stalls, cache events,
-chaos faults), the worker latency EWMAs, the perf ledger's groups
+chaos faults, alert transitions and notification outcomes), the alert
+state gauge, the worker latency EWMAs, the perf ledger's groups
 (``obs/perf.py``, empty with ``SDTPU_PERF`` off) and the live ETA
 mean-percent-error gauge (:data:`ETA_GAUGE`, which SLO admission falls back
 to), so ``GET /internal/metrics`` holds ``/internal/status``'s numbers in
 scrapeable form. :func:`register_metric` is the one way to name a family.
-
-Left for the next slice, with their modules: the ``sdtpu_aot_*`` families
-(the artifact store), ``sdtpu_alert*`` (the alert engine), ``sdtpu_notify_*``
-(webhook delivery), the TSDB's, federation's and push's, and
-``sdtpu_sim_slo_burn`` (the scenario scorer).
+``obs/federation.py`` reads a remote's exposition back
+(``parse_prom_text``).
 """
 
 from __future__ import annotations
@@ -423,6 +421,51 @@ def sim_fault_count(kind: str, n: float = 1.0) -> None:
     SIM_FAULT_COUNTER.inc(n, kind=kind)
 
 
+# The JAX package's sdtpu_aot_* families (the artifact store) and
+# sdtpu_sim_slo_burn (the scenario scorer) come with the slices that port
+# those modules.
+
+#: alert state transitions by rule and state (firing / resolved), from
+#: ``obs/alerts.py``
+ALERT_COUNTER = LabeledCounter(
+    "sdtpu_alerts_total",
+    "Alert state transitions (SDTPU_ALERTS) by rule and state.",
+    ("rule", "state"))
+
+_ALERT_LOCK = threading.Lock()
+#: rule name -> 1.0 while firing, 0.0 once resolved; a rule is absent until
+#: its first transition
+_ALERT_STATE: Dict[str, float] = {}  # guarded-by: _ALERT_LOCK
+
+
+def alert_count(rule: str, state: str, n: float = 1.0) -> None:
+    ALERT_COUNTER.inc(n, rule=rule, state=state)
+
+
+def set_alert_state(rule: str, value: float) -> None:
+    with _ALERT_LOCK:
+        _ALERT_STATE[str(rule)] = float(value)
+
+
+def alert_states() -> Dict[str, float]:
+    with _ALERT_LOCK:
+        return dict(_ALERT_STATE)
+
+
+#: webhook delivery outcomes (sent / failed / deduped / dropped) from
+#: ``obs/notify.py``, by channel (the severity route, or "default")
+NOTIFY_COUNTER = LabeledCounter(
+    "sdtpu_notify_total",
+    "Alert notification delivery outcomes (SDTPU_NOTIFY_URL / "
+    "SDTPU_NOTIFY_ROUTES) by channel and outcome.",
+    ("channel", "outcome"))
+
+
+def notify_count(outcome: str, n: float = 1.0,
+                 channel: str = "default") -> None:
+    NOTIFY_COUNTER.inc(n, channel=channel, outcome=outcome)
+
+
 _WORKER_LOCK = threading.Lock()
 #: per-worker generate-latency EWMA
 _WORKER_LATENCY_EWMA: Dict[str, float] = {}  # guarded-by: _WORKER_LOCK
@@ -508,6 +551,10 @@ def clear_histograms() -> None:
     WATCHDOG_COUNTER.clear()
     CACHE_COUNTER.clear()
     SIM_FAULT_COUNTER.clear()
+    ALERT_COUNTER.clear()
+    NOTIFY_COUNTER.clear()
+    with _ALERT_LOCK:
+        _ALERT_STATE.clear()
     with _WORKER_LOCK:
         _WORKER_LATENCY_EWMA.clear()
 
@@ -754,6 +801,14 @@ def render() -> str:
     lines.extend(WATCHDOG_COUNTER.render())
     lines.extend(CACHE_COUNTER.render())
     lines.extend(SIM_FAULT_COUNTER.render())
+    lines.extend(ALERT_COUNTER.render())
+    lines.extend(NOTIFY_COUNTER.render())
+    _labeled_family(
+        lines, "sdtpu_alert_state", "gauge",
+        "Current alert state by rule (1 = firing, 0 = resolved/ok); "
+        "rules absent until their first transition.",
+        [(f'rule="{_label(k)}"', v)
+         for k, v in sorted(alert_states().items())])
     with _WORKER_LOCK:
         worker_lat = dict(_WORKER_LATENCY_EWMA)
     _labeled_family(

@@ -2068,6 +2068,11 @@ class Engine:
         inline."""
         return self.device_runner.run(self._on_device, fn, args)
 
+    def executable_keys(self) -> list:
+        """``(model, graph key)`` of every captured evaluation: the input
+        of the ``/internal/executables`` census (``obs/perf.py``)."""
+        return [(self.model_name, key) for key in self._graphs.keys()]
+
     def close(self) -> None:
         """Drop the captured graphs and end the device thread; the
         weights go with the last reference to the engine (the warm pool

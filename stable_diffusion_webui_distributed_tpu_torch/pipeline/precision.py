@@ -46,6 +46,14 @@ _FLAGS = {
 }
 
 
+def name_for_flags(flags: Tuple[bool, bool]) -> Optional[str]:
+    """The ladder name of a spec's :attr:`PrecisionSpec.flags`, or None for
+    a combination no rung has (a policy may quantize the convolutions
+    alone)."""
+    return next((name for name, f in _FLAGS.items() if f == tuple(flags)),
+                None)
+
+
 def bucket_precision(value, default: str = "bf16") -> str:
     """A requested precision on the :data:`PRECISIONS` ladder. Unknown or
     empty values give ``default``: a mistyped precision serves the default

@@ -283,6 +283,11 @@ class GraphCache:
     def entries(self) -> List[Entry]:
         return list(self._entries.values())
 
+    def keys(self) -> List[Tuple]:
+        """Every entry's key: ``(tag, signature of the per-run inputs,
+        signature of the per-call inputs, number of scalars)``."""
+        return list(self._entries)
+
     def binding(self) -> int:
         """A new binding: one caller's per-run inputs, which stay the same
         tensors for every call that passes it."""

@@ -790,6 +790,20 @@ class HTTPBackend:
         resp = conn.getresponse()
         return resp.status, resp.read()
 
+    def fetch(self, path: str, timeout: Optional[float] = None
+              ) -> Tuple[int, bytes]:
+        """``(status, body)`` of a GET of ``path`` (a route with its query,
+        e.g. ``/internal/trace.json``) on the node, with this backend's TLS
+        and auth: the observability plane's reads (``obs/stitch.py``,
+        ``obs/federation.py``, ``obs/push.py``)."""
+        conn = self._connect(timeout or self.timeout)
+        try:
+            conn.request("GET", path, headers=dict(self._headers))
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
     def _call(self, method: str, route: str,
               body: Optional[Dict[str, Any]] = None,
               timeout: Optional[float] = None,

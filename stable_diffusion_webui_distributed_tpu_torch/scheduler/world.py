@@ -37,7 +37,13 @@ from stable_diffusion_webui_distributed_tpu_torch.obs import (
     flightrec as obs_flightrec,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    federation as obs_federation,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     journal as obs_journal,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    push as obs_push,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
     spans as obs_spans,
@@ -142,6 +148,13 @@ class World:
         # UNAVAILABLE nodes recover without an operator; off by default
         self._heartbeat: Optional[StoppableDaemon] = None
         self.start_heartbeat()
+        # with SDTPU_FEDERATION on, this World is the metrics prober's
+        # worker source (obs/federation.py), and with SDTPU_PUSH on the push
+        # plane's (obs/push.py); neither starts a daemon
+        if obs_federation.enabled():
+            obs_federation.set_source(self)
+        if obs_push.enabled():
+            obs_push.set_source(self)
 
     # -- registry -----------------------------------------------------------
 

@@ -55,7 +55,19 @@ requests); ``GET /internal/perf`` (the perf ledger, ``SDTPU_PERF``);
 ``POST /internal/profile`` (``{"action": "start" | "stop", "dir":
 name}``) and ``GET /internal/profile?seconds=N&dir=name``: a
 ``torch.profiler`` capture written as a Chrome trace under
-``./profile-traces/<basename of name>``. With ``SDTPU_FLEET`` a request the fleet refuses
+``./profile-traces/<basename of name>``.
+
+The fleet telemetry plane (``obs/``): ``GET /internal/stitched-trace.json``
+(this node's spans with each remote's, on this node's clock), ``GET
+/internal/tsdb`` (the metric history, ``SDTPU_TSDB``), ``GET
+/internal/alerts`` (the alert engine, ``SDTPU_ALERTS``), ``GET
+/internal/fleet`` (the federated view, ``SDTPU_FEDERATION``), ``GET
+/internal/fleet/timeline[?request_id=]`` (the fleet-merged journal), ``GET
+/internal/deltas?cursor=N[&wait_s=]`` (the push plane's feed: 404 with
+``SDTPU_PUSH`` off, 422 on a bad cursor, a hold of at most 5 s), ``GET
+/internal/push`` (the push plane's status) and ``GET
+/internal/executables`` (the census of the dispatcher's engine's CUDA
+graphs against the serving budget). With ``SDTPU_FLEET`` a request the fleet refuses
 (its tenant's quota, or an SLO no degrade rung meets) answers 429 with a
 ``Retry-After`` header. A request for something the port does not run
 answers 422. Optional Basic auth. Served by the standard
@@ -87,6 +99,15 @@ from stable_diffusion_webui_distributed_tpu_torch.fleet import (
     pool as fleet_pool,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    alerts as obs_alerts,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    federation as obs_federation,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    fleetlog as obs_fleetlog,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     flightrec as obs_flightrec,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
@@ -99,7 +120,16 @@ from stable_diffusion_webui_distributed_tpu_torch.obs import (
     prometheus as obs_prom,
 )
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    push as obs_push,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
     spans as obs_spans,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    stitch as obs_stitch,
+)
+from stable_diffusion_webui_distributed_tpu_torch.obs import (
+    tsdb as obs_tsdb,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
@@ -722,6 +752,69 @@ class ApiServer:
         time.sleep(seconds)
         return {"captured_dir": trace.stop_trace(), "seconds": seconds}
 
+    def handle_stitched_trace(self) -> Dict[str, Any]:
+        """The master's spans merged with every reachable remote's trace,
+        each shifted by its clock offset and tagged
+        ``pid="worker:<label>"`` (``obs/stitch.py``)."""
+        return obs_stitch.stitch(self.source)
+
+    def handle_tsdb(self) -> Dict[str, Any]:
+        """The metric-history store (``obs/tsdb.py``); ``enabled`` is false
+        until ``SDTPU_TSDB=1``, the document is always served."""
+        return obs_tsdb.summary()
+
+    def handle_alerts(self) -> Dict[str, Any]:
+        """The alert engine (``obs/alerts.py``): the rule registry, each
+        rule's state and the transition history."""
+        return obs_alerts.summary()
+
+    def handle_fleet(self) -> Dict[str, Any]:
+        """The federated fleet view (``obs/federation.py``): each worker's
+        poll and staleness status and the fleet's latest aggregates."""
+        return obs_federation.summary()
+
+    def handle_fleet_timeline(self, query: Dict[str, str]) -> Dict[str, Any]:
+        """The fleet-merged journal timeline (``obs/fleetlog.py``);
+        ``?request_id=`` narrows it to one request's cross-node story."""
+        return obs_fleetlog.timeline(query.get("request_id") or None)
+
+    def handle_deltas(self, query: Dict[str, str]) -> Dict[str, Any]:
+        """The push plane's worker feed (``obs/push.py``): ``?cursor=N``
+        long-polls (``?wait_s=``, at most 5 s) for the journal events, TSDB
+        samples and counter totals after N. 404 with ``SDTPU_PUSH`` off: a
+        master reads that as "poll this node"."""
+        if not obs_push.enabled():
+            raise ApiError(404, "push plane disabled (SDTPU_PUSH=0)")
+        try:
+            cursor = int(query.get("cursor", "0"))
+        except ValueError:
+            raise ApiError(422, "cursor must be an integer")
+        try:
+            hold = float(query.get("wait_s", str(obs_push.wait_s())))
+        except ValueError:
+            raise ApiError(422, "wait_s must be a number")
+        return obs_push.serve_deltas(cursor,
+                                     hold_s=min(5.0, max(0.0, hold)))
+
+    def handle_push(self) -> Dict[str, Any]:
+        """The push plane's status (``obs/push.py``): each subscriber's
+        mode, cursor and loss and duplicate counts, and the worker-side
+        buffer; always served."""
+        return obs_push.summary()
+
+    def handle_executables(self) -> Dict[str, Any]:
+        """The census of the dispatcher's engine's CUDA graphs against the
+        serving budget per shape bucket (``obs/perf.py``); ``alarm`` trips
+        when a bucket passes it. ``{"available": false}`` without a
+        dispatcher (a World's node)."""
+        engine = getattr(self.dispatcher, "engine", None) \
+            if self.dispatcher is not None else None
+        if engine is None or not hasattr(engine, "executable_keys"):
+            return {"available": False}
+        census = obs_perf.executables_census(engine)
+        census["available"] = True
+        return census
+
     def routes(self):
         return {
             ("POST", "/sdapi/v1/txt2img"): self.handle_txt2img,
@@ -750,6 +843,15 @@ class ApiServer:
             ("GET", "/internal/metrics"): self.handle_metrics,
             ("GET", "/internal/flightrec"): self.handle_flightrec,
             ("GET", "/internal/perf"): self.handle_perf,
+            ("GET", "/internal/stitched-trace.json"):
+                self.handle_stitched_trace,
+            ("GET", "/internal/tsdb"): self.handle_tsdb,
+            ("GET", "/internal/alerts"): self.handle_alerts,
+            ("GET", "/internal/fleet"): self.handle_fleet,
+            ("GET", "/internal/fleet/timeline"): self.handle_fleet_timeline,
+            ("GET", "/internal/deltas"): self.handle_deltas,
+            ("GET", "/internal/push"): self.handle_push,
+            ("GET", "/internal/executables"): self.handle_executables,
             ("GET", "/internal/profile"): self.handle_profile_get,
             ("POST", "/internal/profile"): self.handle_profile,
         }

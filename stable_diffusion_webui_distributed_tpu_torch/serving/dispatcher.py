@@ -889,6 +889,9 @@ class ServingDispatcher:
                     # decode: its device time is resolvable
                     self._record_solo_perf(engine, ticket, g, prec,
                                            lora_cell, flops0)
+                elif obs_tsdb.enabled():
+                    # the watermark still lands in the TSDB's series
+                    obs_tsdb.dispatch_memory_sample()
                 if ticket.bucketed:
                     result = self._restore_solo(result, ticket)
                 ticket.result = result
@@ -1186,6 +1189,9 @@ class ServingDispatcher:
             # the decode's event has completed: so has every event of the
             # group, on the same stream before it
             self._record_group_perf(g, built)
+        elif obs_tsdb.enabled():
+            # the watermark still lands in the TSDB's series
+            obs_tsdb.dispatch_memory_sample()
         jr_on = obs_journal.enabled()
         if jr_on:
             obs_journal.emit("decoded", live[0].request_id,

@@ -517,11 +517,16 @@ def test_autoscale_default_feeds(monkeypatch):
     eng = t_slices.AutoscaleEngine(t_slices.SliceRegistry(), cooldown_s=0)
     assert eng.quantile_source() == 10.0 and eng.firing_alerts() == []
     assert t_slices.get_autoscale() is eng
-    # the gates whose feeds are not ported refuse to stay node-local
+    # with either telemetry gate on, the feeds read what the JAX
+    # package's read (no federated p95 recorded, no alert firing)
     for gate in ("SDTPU_ALERTS", "SDTPU_FEDERATION"):
         monkeypatch.setenv(gate, "1")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            t_slices.AutoscaleEngine(t_slices.SliceRegistry())
+        a, b = both(lambda P: (P.slices._default_quantile_source(),
+                               P.slices._default_alert_source()))
+        assert a == b == (10.0, [])
+        eng = t_slices.AutoscaleEngine(t_slices.SliceRegistry(),
+                                       cooldown_s=0)
+        assert eng.quantile_source() == 10.0 and eng.firing_alerts() == []
         monkeypatch.delenv(gate)
     t_slices.set_autoscale(None)
     j_slices.set_autoscale(None)

@@ -5,8 +5,9 @@ the format itself).
 A fresh interpreter imports every module of the port; afterwards neither
 ``jax``, ``flax``, ``safetensors`` nor any module of
 ``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
-sources (the port's and ``chip_smoke.py``) asserts the same of every import
-statement, including imports inside functions.
+sources (the port's, ``chip_smoke.py`` and the fleet telemetry phase's
+runners in ``tools/``) asserts the same of every import statement,
+including imports inside functions.
 """
 
 import ast
@@ -56,7 +57,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.prometheus", "runtime.runner", "obs.journal",
                  "parallel", "parallel.stage_graph", "sim", "sim.chaos",
                  "runtime.logging", "runtime.trace", "obs.spans",
-                 "obs.flightrec", "obs.watchdog", "obs.perf", "obs.tsdb"):
+                 "obs.flightrec", "obs.watchdog", "obs.perf", "obs.tsdb",
+                 "obs.alerts", "obs.notify", "obs.fleetlog", "obs.stitch",
+                 "obs.federation", "obs.push"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 70
     assert out["forbidden"] == []
@@ -65,6 +68,9 @@ def test_importing_every_port_module_loads_no_jax():
 def _sources():
     yield from sorted((ROOT / PORT).rglob("*.py"))
     yield ROOT / "chip_smoke.py"
+    # the chip harness's runners of the fleet telemetry phase
+    yield ROOT / "tools" / "torch_obs_fleet.py"
+    yield ROOT / "tools" / "torch_obs_remote.py"
 
 
 @pytest.mark.parametrize("path", list(_sources()),

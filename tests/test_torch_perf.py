@@ -95,10 +95,10 @@ from test_pipeline import init_params
 
 #: the JAX package's summary keys the port leaves out (no artifact store)
 JAX_ONLY_SUMMARY = {"aot_loads", "aot_hit_rate"}
-#: families of modules left to the next slice (JAX only)
+#: families of modules left to later slices (JAX only): the artifact
+#: store's and the scenario scorer's
 JAX_ONLY_FAMILIES = {"sdtpu_aot_total", "sdtpu_aot_load_seconds",
-                     "sdtpu_alerts_total", "sdtpu_alert_state",
-                     "sdtpu_notify_total", "sdtpu_sim_slo_burn"}
+                     "sdtpu_sim_slo_burn"}
 #: help texts that name the JAX package's mechanisms (XLA builds, cost
 #: analysis, host-observed dispatch seconds, the AOT store)
 HELP_DIFFERS = {"sdtpu_compile_seconds", "sdtpu_stage_compiles_total",
