@@ -11,6 +11,20 @@ Phases, each fatal on failure (no phase is caught and passed over):
    and any serialised ``wgmma`` of the Hopper instantiations reported (from
    ``ptxas -v``), and the shared memory each takes at its launch (from the
    profiler's trace of one launch of each);
+2b. aot: the kernel-library artifact store (``serving/aot.py``,
+   ``SDTPU_AOT=1``, a temporary ``SDTPU_AOT_DIR``), each step a process of
+   its own, since a library loads once per process: (a) cold, K1 and K2 a
+   miss, built by nvcc at once and saved (their first calls timed); (b) a
+   new process, both a hit, loaded from the store's content-named files
+   without a compile (the load seconds from ``sdtpu_aot_load_seconds``);
+   (c) K2's artifact truncated and (d) K1's cell given another
+   fingerprint, in one process: ``corrupt`` and ``fingerprint_mismatch``,
+   both rebuilt and saved, two ``aot_fallback`` events in the journal; (e)
+   ``verify()`` and ``tools/torch_aot_report.py`` find the store coherent.
+   In (a), (b) and (c, d) each kernel's first launch, at an SD1.5 shape
+   (K1 (2, 4096, 8, 40); K2 (8, 1536, 8, 80) with lengths), is held
+   against its plain version on the Hopper path, and the process's
+   ``sdtpu_aot_total`` counts checked;
 3. kernels: K1 held against its plain PyTorch version on the card at every
    shape and layout SD1.5 512x512 gives it, in f32 (TF32 off for matmul and
    cuDNN) and in bf16, and timed beside its plain version, PyTorch's
@@ -84,8 +98,15 @@ Phases, each fatal on failure (no phase is caught and passed over):
    320 K1 launches on the master, each image within a mean of 2 uint8
    levels of the same request on the master alone; with the remote
    terminated, its range is requeued on the master and must give the
-   remote's PNG bytes. Master and remote share one card: the phase
-   measures the fleet's mechanics, not a speed-up;
+   remote's PNG bytes. Before the prompts-from-file request, the
+   operator's surface, live: ``GET /`` serves the panel, ``POST
+   /internal/workers`` adds a worker at the remote's endpoint, ``POST
+   /internal/worker-models`` lists its models, a pin it serves is set and
+   validated, one it does not refused with 422, the pin dropped, ``POST
+   /internal/reset-mpe`` clears every ETA error history and the worker is
+   removed; the 4-image request then keeps its plan and PNG bytes. Master
+   and remote share one card: the phase measures the fleet's mechanics,
+   not a speed-up;
 7b. scripts on the same engine, with a temporary model directory of
    seeded embeddings (``tok``: 2 x 768 ``emb_params``; ``neg.pt``: 3 x 768
    ``string_to_param``; ``tok_exact``: the engine's own token rows of a
@@ -131,7 +152,8 @@ Phases, each fatal on failure (no phase is caught and passed over):
    factor after each int8 sample, and the rung no longer offered once the
    factor reaches 1. The warm pool (``SDTPU_POOL=1``, size 2, residents
    built from the seeded weights and warmed by ``warmup_engine``): each
-   spawn's seconds and memory, two concurrent requests on the 512x512 and
+   spawn's seconds, split into the engine's build (the weights' copy) and
+   the warmup sweep (the graph captures), and its memory, two concurrent requests on the 512x512 and
    512x768 buckets on different residents, one payload's bytes on each
    resident, a kill and its heal, then an autoscaler (up 0.5 s, down 0.05
    s, no cooldown) over the per-class queue-wait histograms: a burst of 6
@@ -1552,6 +1574,62 @@ def labels_of(resp: dict) -> list:
             for t in json.loads(resp["info"])["infotexts"]]
 
 
+def fleet_operator(server, world, remote_port: int, card_line: str) -> dict:
+    """The operator's surface on the fleet, live: the panel served, a
+    worker added at the remote's endpoint with ``POST /internal/workers``,
+    its model list read, a checkpoint it serves pinned (validated), one it
+    does not refused with 422, the pin dropped, every ETA error history
+    reset, the worker removed."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/",
+                                timeout=60) as resp:
+        panel = resp.read().decode()
+        check(resp.status == 200
+              and resp.headers["Content-Type"].startswith("text/html")
+              and "/internal/status" in panel, "GET / is not the panel")
+    port = server.port
+    answers = []
+
+    def route(path, body, want=200):
+        status, _, doc = post_status(port, body, path)
+        check(status == want, f"{path} {body}: {status} {doc}, want {want}")
+        answers.append(status)
+        return doc
+
+    route("/internal/workers", {"action": "add", "label": "live",
+                                "address": "127.0.0.1",
+                                "port": remote_port})
+    check(world.get_worker("live") is not None, "the added worker is absent")
+    models = route("/internal/worker-models", {"label": "live"})["models"]
+    check(bool(models), "the live worker lists no model")
+    route("/internal/workers", {"label": "live", "model_override": models[0]})
+    live = world.get_worker("live")
+    check(live.model_override == models[0] and live.pin_validated is True,
+          f"pin {live.model_override!r}, validated {live.pin_validated}")
+    route("/internal/workers", {"label": "live",
+                                "model_override": "no-such-model"}, 422)
+    route("/internal/workers", {"label": "live", "model_override": ""})
+    check(live.model_override is None and live.pin_validated is None,
+          "the pin was not dropped")
+    history = sorted(w.label for w in world.workers_snapshot()
+                     if w.cal.eta_percent_error)
+    cleared = route("/internal/reset-mpe", {})["cleared"]
+    check(sorted(cleared) == history and not any(
+        w.cal.eta_percent_error for w in world.workers_snapshot()),
+          f"reset-mpe cleared {cleared}, histories of {history}")
+    rows = get_json(port, "/internal/status")["workers"]
+    check("live" in [r["label"] for r in rows], "status lacks the worker")
+    route("/internal/workers", {"action": "remove", "label": "live"})
+    check(world.get_worker("live") is None, "the removed worker is there")
+    seconds = time.perf_counter() - t0
+    print(f"fleet operator: panel {len(panel)} bytes; worker 'live' added, "
+          f"pinned to {models[0]!r} (validated), refused a pin it does not "
+          f"serve (422), unpinned, ETA histories of {cleared} reset, "
+          f"removed: {len(answers)} POSTs in {seconds:.3f} s [{card_line}]")
+    return {"statuses": answers, "cleared": cleared, "pin": models[0],
+            "seconds": round(seconds, 4)}
+
+
 def phase_fleet(engine, fa, ra, card_line: str) -> dict:
     """The fleet: a World over the main path's engine (the master) and a
     remote node in a child process, on one card."""
@@ -1650,6 +1728,16 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
         check(again["images"] == first["images"],
               "the repeated fleet request gave other PNG bytes")
         remote_mem = get_json(port, "/sdapi/v1/memory")["cuda"]
+
+        # the operator changes the fleet live and back: the same request
+        # afterwards keeps its plan and bytes
+        operator = fleet_operator(server, world, port, card_line)
+        after = post(server.port, FLEET_BODY)
+        check([(j.worker.label, j.batch_size, j.start_index)
+               for j in world.jobs] == plan,
+              "the operator's routes changed the plan")
+        check(after["images"] == first["images"],
+              "the request after the operator's routes gave other bytes")
 
         # per-image prompts across the fleet: 4 lines, the last past 75
         # tokens, at batch_size 2; the master's range holds short lines
@@ -1773,6 +1861,7 @@ def phase_fleet(engine, fa, ra, card_line: str) -> dict:
         "remote_peak_memory_gib": round(
             remote_mem["allocated"]["peak"] / 2**30, 3),
         "k1_launches": launches, "card": card_line, "note": shared,
+        "operator": operator,
     }
     print(f"fleet: 4-image request {fleet_wall:.3f} s on the fleet, "
           f"{alone_wall:.3f} s on the master alone ({shared}: no speed-up "
@@ -2246,13 +2335,14 @@ FLEET_GATE_MEAN_TOLERANCE = 2.0  # uint8 levels, one payload on two residents
 FLEET_GATE_INT8_SAMPLES = 8  # int8 samples at most, until the factor >= 1
 
 
-def post_status(port: int, body: dict) -> tuple:
-    """``POST /sdapi/v1/txt2img``: (status, headers, JSON body), an HTTP
-    error answered rather than raised."""
+def post_status(port: int, body: dict,
+                path: str = "/sdapi/v1/txt2img") -> tuple:
+    """``POST path``: (status, headers, JSON body), an HTTP error answered
+    rather than raised."""
     import urllib.error
 
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/sdapi/v1/txt2img",
+        f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     try:
@@ -2663,10 +2753,22 @@ def fleet_pool(engine, build, fa, card_line: str) -> dict:
         os.environ.pop(k, None)
     out = {}
     server = None
+    split = {}  # a spawn's two calls, timed from outside the pool
+
+    def timed(key, fn):
+        def run(arg):
+            t = time.perf_counter()
+            result = fn(arg)
+            torch.cuda.synchronize()
+            split[key] = time.perf_counter() - t
+            return result
+        return run
+
     try:
         pool = fleet_pool_mod.WarmPool(
-            lambda name: build(), warm=lambda e: warmup_engine(
-                e, ShapeBucketer(shapes=shapes, batches=batches), steps=2))
+            timed("weights_s", lambda name: build()),
+            warm=timed("captures_s", lambda e: warmup_engine(
+                e, ShapeBucketer(shapes=shapes, batches=batches), steps=2)))
         fleet_pool_mod.set_pool(pool)
         spawns = []
         for _ in range(2):
@@ -2676,6 +2778,8 @@ def fleet_pool(engine, build, fa, card_line: str) -> dict:
             res = pool.spawn()
             torch.cuda.synchronize()
             spawns.append({"name": res.name, "spawn_s": round(res.spawn_s, 3),
+                           "weights_s": round(split["weights_s"], 3),
+                           "captures_s": round(split["captures_s"], 3),
                            "memory_gib": round(
                                (torch.cuda.memory_allocated() - m0) / 2**30,
                                3)})
@@ -2684,6 +2788,11 @@ def fleet_pool(engine, build, fa, card_line: str) -> dict:
         print(f"fleet gate (pool): spawns, cold (seeded weights copied, "
               f"{len(shapes)} graphs captured, no artifact store): "
               f"{json.dumps(spawns)} [{card_line}]")
+        print(f"fleet gate (pool): a resident's spawn split, timed from "
+              f"outside: the engine's build (the seeded weights' copy) "
+              f"{[s['weights_s'] for s in spawns]} s, the warmup sweep "
+              f"(the graph captures) {[s['captures_s'] for s in spawns]} s "
+              f"[{card_line}]")
 
         server = ApiServer(engine, port=0).start()
         server.dispatcher = ServingDispatcher(engine, pool=pool)
@@ -7432,8 +7541,265 @@ def phase_build(*modules) -> dict:
     return out
 
 
+AOT_K1_SHAPE = MAIN_SHAPES[0][0]  # SD1.5 512x512 level-0 self-attention
+AOT_K2_LAUNCH = 2  # of ragged_shapes(): level-1 self-attention, lengths
+AOT_STEPS = ("cold", "warm", "damaged")
+AOT_CHILD_S = 600  # a child's time limit (its builds included)
+
+
+def aot_child(step: str) -> int:
+    """One process of the ``aot`` phase (``--aot-child STEP``; the parent
+    sets ``SDTPU_AOT``, ``SDTPU_AOT_DIR`` and ``SDTPU_JOURNAL``): where
+    the step builds (``cold``, ``damaged``), both libraries through the
+    artifact store at once (nvcc and a save: threads that touch no CUDA
+    state); then on this thread the first launch of K1 and of K2, each
+    from the library the store gave (loaded, on a hit, from the store's
+    own file), held against its plain version on the Hopper path; prints
+    one ``aot-child:`` JSON line of the store's outcomes, tallies,
+    exposition and journal."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        journal as obs_journal,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        ragged_attention as ra,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving import aot
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def randn(shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = (randn(AOT_K1_SHAPE) for _ in range(3))
+    rshape, s_len, lens, mask_q, _ = ragged_shapes()[AOT_K2_LAUNCH]
+    rq = randn(rshape)
+    rk, rv = (randn((rshape[0], s_len) + rshape[2:]) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": (fa.flash_attention,
+                            lambda: fa.flash_attention(q, k, v),
+                            lambda: fa.flash_attention_reference(q, k, v)),
+        "ragged_attention": (
+            ra.ragged_attention,
+            lambda: ra.ragged_attention(rq, rk, rv, lengths,
+                                        mask_queries=mask_q),
+            lambda: ra.ragged_attention_reference(
+                rq, rk, rv, lengths, q_true_len=lengths if mask_q else None)),
+    }
+
+    def build(name):
+        t0 = time.perf_counter()
+        {"flash_attention": fa, "ragged_attention": ra}[name].build()
+        return name, round(time.perf_counter() - t0, 4)
+
+    t0 = time.perf_counter()
+    builds = {}
+    if step != "warm":
+        with ThreadPoolExecutor(len(calls)) as pool:  # one nvcc each
+            builds = dict(pool.map(build, calls))
+    build_s = round(time.perf_counter() - t0, 4)
+    runs = {}
+    for name, (wrapper, call, plain) in calls.items():
+        t0 = time.perf_counter()
+        out, path = launched_path(wrapper, call)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        err = (out.float() - plain().float()).abs().max().item()
+        check(path == "hopper", f"aot {step}: {name} took the {path} path")
+        check(err <= TOLERANCE["bf16"], f"aot {step}: {name} disagrees "
+              f"with the plain version: {err}")
+        runs[name] = {"build_s": builds.get(name), "path": path,
+                      "first_call_s": round(seconds, 4), "max_abs_err": err}
+    text = obs_prom.render()
+    doc = {
+        "step": step,
+        "runs": runs,
+        "build_s": build_s,
+        "outcomes": nvcc.store_outcomes(),
+        "stats": aot.get_store().stats_snapshot(),
+        "aot_total": {o: metric_value(text, "sdtpu_aot_total",
+                                      f'outcome="{o}"')
+                      for o in ("hit", "miss", "saved", "fallback")},
+        "load_s": {name: metric_value(text, "sdtpu_aot_load_seconds_sum",
+                                      f'kind="{name}"') for name in calls},
+        "aot_loads": METRICS.summary()["aot_loads"],
+        "fallbacks": sorted(
+            (e["request_id"], e["attrs"]["reason"])
+            for e in obs_journal.JOURNAL.snapshot()["events"]
+            if e["event"] == "aot_fallback"),
+    }
+    print("aot-child: " + json.dumps(doc))
+    return 0
+
+
+def aot_summary(phase: dict, kind: str) -> dict:
+    """One library's numbers of the ``aot`` phase, for the kernels line."""
+    return {
+        "cold_build_s": phase["cold"]["runs"][kind]["build_s"],
+        "load_s": round(phase["warm"]["load_s"][kind], 4),
+        "warm_first_call_s": phase["warm"]["runs"][kind]["first_call_s"],
+        "rebuild_s": phase["damaged"]["runs"][kind]["build_s"],
+        "max_abs_err": max(phase[step]["runs"][kind]["max_abs_err"]
+                           for step in AOT_STEPS),
+    }
+
+
+def run_aot_child(step: str, store: str) -> dict:
+    """``aot_child(step)`` in a process of its own over the store at
+    ``store``: its document, with the process's wall seconds."""
+    env = dict(os.environ, SDTPU_AOT="1", SDTPU_AOT_DIR=store,
+               SDTPU_JOURNAL="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--aot-child", step], env=env, capture_output=True, text=True,
+        timeout=AOT_CHILD_S)
+    wall = time.perf_counter() - t0
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith("aot-child: ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"aot {step}: exit {proc.returncode}:\n{proc.stdout[-2000:]}"
+          f"{proc.stderr[-3000:]}")
+    doc = json.loads(lines[0][len("aot-child: "):])
+    doc["process_s"] = round(wall, 3)
+    return doc
+
+
+def phase_aot(card_line: str) -> dict:
+    """The kernel-library artifact store (``serving/aot.py``), each step a
+    process of its own (a library loads once per process): (a) cold, both
+    libraries a miss, built and saved; (b) a new process, both a hit, no
+    compile; (c) K2's artifact truncated and (d) K1's cell given another
+    fingerprint, in one process: K2 ``corrupt`` and K1
+    ``fingerprint_mismatch``, both rebuilt and saved, two ``aot_fallback``
+    events; (e) ``verify()`` and ``tools/torch_aot_report.py`` find the
+    store coherent."""
+    from stable_diffusion_webui_distributed_tpu_torch.serving import aot
+
+    kinds = ("flash_attention", "ragged_attention")
+    store = tempfile.mkdtemp(prefix="aot-")
+    out = {}
+    try:
+        cold = run_aot_child("cold", store)
+        check(cold["outcomes"] == dict.fromkeys(kinds, "miss")
+              and cold["aot_total"] == {"hit": 0, "miss": 2, "saved": 2,
+                                        "fallback": 0}
+              and cold["stats"] == {"hit": 0, "miss": 2, "saved": 2,
+                                    "fallback": 0}
+              and cold["fallbacks"] == [] and cold["aot_loads"] == {},
+              f"aot (a) cold: {json.dumps(cold)}")
+        manifest = os.path.join(store, aot.MANIFEST_NAME)
+        with open(manifest) as f:
+            doc = json.load(f)
+        cells = {c["kind"]: (cid, c) for cid, c in doc["cells"].items()}
+        check(sorted(cells) == list(kinds), f"aot: cells {sorted(cells)}")
+        print(f"aot (a) cold: K1 and K2 a miss, built by nvcc (both at "
+              f"once) and saved: K1 "
+              f"{cold['runs']['flash_attention']['build_s']} s, K2 "
+              f"{cold['runs']['ragged_attention']['build_s']} s, both "
+              f"{cold['build_s']} s; first call (load, launch) K1 "
+              f"{cold['runs']['flash_attention']['first_call_s']} s, K2 "
+              f"{cold['runs']['ragged_attention']['first_call_s']} s; "
+              f"process {cold['process_s']} s; artifacts "
+              f"{[c['bytes'] for _, c in cells.values()]} bytes "
+              f"[{card_line}]")
+
+        warm = run_aot_child("warm", store)
+        check(warm["outcomes"] == dict.fromkeys(kinds, "hit")
+              and warm["aot_total"] == {"hit": 2, "miss": 0, "saved": 0,
+                                        "fallback": 0}
+              and warm["aot_loads"] == dict.fromkeys(kinds, 1)
+              and all(warm["load_s"][k] > 0 for k in kinds)
+              and warm["fallbacks"] == [],
+              f"aot (b) warm: {json.dumps(warm)}")
+        print(f"aot (b) new process: K1 and K2 a hit, loaded from the "
+              f"store (sha256 checked, nothing copied, no compile): load "
+              f"K1 {warm['load_s']['flash_attention']:.4f} s, K2 "
+              f"{warm['load_s']['ragged_attention']:.4f} s; first call "
+              f"K1 {warm['runs']['flash_attention']['first_call_s']} s, "
+              f"K2 {warm['runs']['ragged_attention']['first_call_s']} s; "
+              f"process {warm['process_s']} s; max abs err K1 "
+              f"{warm['runs']['flash_attention']['max_abs_err']:.3g}, K2 "
+              f"{warm['runs']['ragged_attention']['max_abs_err']:.3g}, "
+              f"both Hopper [{card_line}]")
+
+        # (c) K2's artifact truncated; (d) K1's cell of another runtime
+        _, k2 = cells["ragged_attention"]
+        path = os.path.join(store, k2["file"])
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[:len(data) // 2])
+        cid, _ = cells["flash_attention"]
+        doc["cells"][cid]["fingerprint_id"] = "0" * 16
+        with open(manifest, "w") as f:
+            json.dump(doc, f)
+        damaged = run_aot_child("damaged", store)
+        check(damaged["outcomes"] == {
+                  "flash_attention": "fingerprint_mismatch",
+                  "ragged_attention": "corrupt"}
+              and damaged["aot_total"] == {"hit": 0, "miss": 0, "saved": 2,
+                                           "fallback": 2}
+              and damaged["fallbacks"] == [
+                  ["aot-flash_attention", "fingerprint_mismatch"],
+                  ["aot-ragged_attention", "corrupt"]]
+              and damaged["aot_loads"] == {},
+              f"aot (c, d) damaged: {json.dumps(damaged)}")
+        print(f"aot (c) K2 truncated: corrupt, rebuilt and back-filled; "
+              f"(d) K1 of another fingerprint: rebuilt, never loaded; two "
+              f"aot_fallback events journaled; rebuilds K1 "
+              f"{damaged['runs']['flash_attention']['build_s']} s, K2 "
+              f"{damaged['runs']['ragged_attention']['build_s']} s, both "
+              f"{damaged['build_s']} s; process {damaged['process_s']} s "
+              f"[{card_line}]")
+
+        report = aot.AotStore(store).verify()
+        check(report["ok"] and len(report["cells"]) == 2,
+              f"aot (e): verify {json.dumps(report)}")
+        with open(manifest) as f:
+            rebuilt = {c["kind"]: c["sha256"]
+                       for c in json.load(f)["cells"].values()}
+        tool = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "torch_aot_report.py"),
+             "--dir", store], capture_output=True, text=True, timeout=300)
+        check(tool.returncode == 0 and json.loads(tool.stdout)["ok"],
+              f"tools/torch_aot_report.py: exit {tool.returncode}: "
+              f"{tool.stderr[-2000:]}")
+        same = {k: rebuilt[k] == cells[k][1]["sha256"] for k in kinds}
+        print(f"aot (e) verify: ok, 2 cells, no orphan; "
+              f"tools/torch_aot_report.py exit 0; rebuilt bytes equal to "
+              f"the cold build's: {json.dumps(same)}")
+        out = {"cold": cold, "warm": warm, "damaged": damaged,
+               "rebuild_same_bytes": same}
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--aot-child"]:
+        return aot_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -7454,6 +7820,7 @@ def main() -> int:
 
     build = phase_build(fa, ra)
     resources = phase_resources(fa, ra)
+    aot_phase = phase_aot(card_line)
     for name in ("flash_attention", "ragged_attention"):
         for row in build[name]:
             row["smem_bytes"] = resources[(row["dp"],
@@ -7517,6 +7884,7 @@ def main() -> int:
                     "flash_attention.py:30",
         "launches": launches,
         "fleet_launches": fleet["k1_launches"],
+        "aot": aot_summary(aot_phase, "flash_attention"),
         "max_abs_err": max(max_err, config3_k1["max_abs_err"]),
         "ms": round(totals["ms"], 4),
         "device_ms": round(totals["device_ms"], 4),
@@ -7639,6 +8007,7 @@ def main() -> int:
         "launches": k2_launches,
         "max_abs_err": r_err["bf16"],
         "max_abs_err_f32": r_err["f32"],
+        "aot": aot_summary(aot_phase, "ragged_attention"),
         "ms": round(r_totals["ms"], 4),
         "device_ms": round(r_totals["device_ms"], 4),
         "plain_ms": round(r_totals["plain_ms"], 4),

@@ -14,11 +14,13 @@ histograms give p50/p95/p99 where ``StageStats`` keeps rolling means:
 
 and, by label, the gate queue wait per priority class (the autoscaler's
 signal, ``fleet/slices.py``), the CUDA-graph capture seconds per kind and
-the stage-graph node seconds per stage. :func:`render` adds every
-``DispatchMetrics`` and ``StageStats`` scalar, the labelled counters (the
-dispatch precision mix, LoRA switches, fleet admissions, quota throttles,
-preemptions and requests, worker health, watchdog stalls, cache events,
-chaos faults, alert transitions and notification outcomes), the alert
+the stage-graph node seconds per stage and a kernel library's load from
+the artifact store per kind (``sdtpu_aot_load_seconds``). :func:`render`
+adds every ``DispatchMetrics`` and ``StageStats`` scalar, the labelled
+counters (the dispatch precision mix, LoRA switches, fleet admissions,
+quota throttles, preemptions and requests, worker health, watchdog
+stalls, cache events, artifact-store outcomes, chaos faults, alert
+transitions and notification outcomes), the alert
 state gauge, the worker latency EWMAs, the perf ledger's groups
 (``obs/perf.py``, empty with ``SDTPU_PERF`` off) and the live ETA
 mean-percent-error gauge (:data:`ETA_GAUGE`, which SLO admission falls back
@@ -261,6 +263,28 @@ def observe_compile(kind: str, seconds: float) -> None:
     h.observe(seconds)
 
 
+# -- the kernel-library artifact store (serving/aot.py) ----------------------
+
+_AOT_LOAD_LOCK = threading.Lock()
+#: per-kind load latency of a library from the artifact store (its hash
+#: check and ``ctypes`` load), made at the first load; a sibling of
+#: sdtpu_compile_seconds, never the same family
+_AOT_LOAD_LAT: Dict[str, Histogram] = {}  # guarded-by: _AOT_LOAD_LOCK
+
+
+def observe_aot_load(kind: str, seconds: float) -> None:
+    """One library's load from the store, by kind (its source's stem)."""
+    with _AOT_LOAD_LOCK:
+        h = _AOT_LOAD_LAT.get(kind)
+        if h is None:
+            h = Histogram(
+                "sdtpu_aot_load_seconds",
+                "AOT artifact deserialize latency by stage kind.",
+                labels=f'kind="{_label(kind)}"')
+            _AOT_LOAD_LAT[kind] = h
+    h.observe(seconds)
+
+
 # -- the stage-graph executor (parallel/stage_graph.py) -----------------------
 
 _STAGE_GRAPH_LOCK = threading.Lock()
@@ -421,9 +445,22 @@ def sim_fault_count(kind: str, n: float = 1.0) -> None:
     SIM_FAULT_COUNTER.inc(n, kind=kind)
 
 
-# The JAX package's sdtpu_aot_* families (the artifact store) and
-# sdtpu_sim_slo_burn (the scenario scorer) come with the slices that port
-# those modules.
+#: artifact-store events by outcome: ``hit`` (a library loaded from the
+#: store), ``miss`` (no cell: built), ``saved`` (a build stored),
+#: ``fallback`` (a cell of another fingerprint or damaged: built, journaled
+#: as ``aot_fallback``). Fed by serving/aot.py and ops/nvcc.py.
+AOT_COUNTER = LabeledCounter(
+    "sdtpu_aot_total",
+    "AOT executable artifact events (SDTPU_AOT) by outcome.",
+    ("outcome",))
+
+
+def aot_count(outcome: str, n: float = 1.0) -> None:
+    AOT_COUNTER.inc(n, outcome=outcome)
+
+
+# The JAX package's sdtpu_sim_slo_burn (the scenario scorer) comes with the
+# slice that ports it.
 
 #: alert state transitions by rule and state (firing / resolved), from
 #: ``obs/alerts.py``
@@ -540,6 +577,8 @@ def clear_histograms() -> None:
         _FLEET_QUEUE_WAIT.clear()
     with _COMPILE_LOCK:
         _COMPILE_LAT.clear()
+    with _AOT_LOAD_LOCK:
+        _AOT_LOAD_LAT.clear()
     with _STAGE_GRAPH_LOCK:
         _STAGE_GRAPH_LAT.clear()
     for c in FLEET_COUNTERS.values():
@@ -550,6 +589,7 @@ def clear_histograms() -> None:
         c.clear()
     WATCHDOG_COUNTER.clear()
     CACHE_COUNTER.clear()
+    AOT_COUNTER.clear()
     SIM_FAULT_COUNTER.clear()
     ALERT_COUNTER.clear()
     NOTIFY_COUNTER.clear()
@@ -800,6 +840,7 @@ def render() -> str:
         lines.extend(c.render())
     lines.extend(WATCHDOG_COUNTER.render())
     lines.extend(CACHE_COUNTER.render())
+    lines.extend(AOT_COUNTER.render())
     lines.extend(SIM_FAULT_COUNTER.render())
     lines.extend(ALERT_COUNTER.render())
     lines.extend(NOTIFY_COUNTER.render())
@@ -818,6 +859,7 @@ def render() -> str:
          for k, v in sorted(worker_lat.items())])
     _labeled_histograms(lines, _FLEET_LOCK, _FLEET_QUEUE_WAIT)
     _labeled_histograms(lines, _COMPILE_LOCK, _COMPILE_LAT)
+    _labeled_histograms(lines, _AOT_LOAD_LOCK, _AOT_LOAD_LAT)
     _labeled_histograms(lines, _STAGE_GRAPH_LOCK, _STAGE_GRAPH_LAT)
     _render_perf(lines)
 

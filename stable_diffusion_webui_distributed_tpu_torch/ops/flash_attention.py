@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -117,6 +118,21 @@ def on_device(x: torch.Tensor):
     return torch.cuda.device(x.device)
 
 
+_THREAD = threading.local()
+
+
+def bind_context(device: torch.device) -> None:
+    """Make ``device``'s context current on this thread, once per thread
+    and card. A kernel library's first launch on a thread that has made no
+    CUDA call yet fails with cudaError 1 (cudaErrorInvalidValue): its
+    statically linked runtime finds no context there. Call it with the
+    card current (inside :func:`on_device`)."""
+    bound = _THREAD.__dict__.setdefault("devices", set())
+    if device.index not in bound:
+        torch.cuda.set_device(device)
+        bound.add(device.index)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention over ``(B, T, H, D)`` queries and ``(B, S, H, D)`` keys and
@@ -139,6 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with on_device(q):
+        bind_context(q.device)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, t, k.shape[1], h, d, *kernel_strides(q, k, v),
                   float(scale), DTYPES[q.dtype], current_stream(q))

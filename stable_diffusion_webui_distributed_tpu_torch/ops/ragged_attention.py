@@ -36,6 +36,7 @@ import torch
 from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     DTYPES,
+    bind_context,
     check_inputs,
     check_kernel_inputs,
     count_launch,
@@ -119,6 +120,7 @@ def ragged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with on_device(q):
+        bind_context(q.device)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lengths.data_ptr(), b, t, k.shape[1], h, d,
                   *kernel_strides(q, k, v), float(scale), int(mask_queries),

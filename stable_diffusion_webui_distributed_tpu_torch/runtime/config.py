@@ -101,6 +101,21 @@ Fleet-tier knobs (``fleet/``; README "Fleet gate"):
   plan (``sim/chaos.py``) refuses to arm without it; ``GET
   /internal/sim``.
 
+Artifact-store knobs (``serving/aot.py``; README "The kernel-library
+artifact store"):
+
+- ``SDTPU_AOT`` (flag, off, read per build): the kernel libraries go
+  through the artifact store: a library is loaded from it when its cell
+  (its sources, its toolchain) is there with this runtime's fingerprint
+  (PyTorch, its CUDA, the toolchain, the card's name, compute capability
+  and count) and its sha256 holds; otherwise nvcc builds it and the store
+  is back-filled, a fingerprint mismatch or a damaged artifact journaled
+  as ``aot_fallback``. Off, libraries are built into ``_build/`` as before
+  and the store is not touched.
+- ``SDTPU_AOT_DIR`` (path, ``~/.cache/sdtpu-aot``): the store's root, a
+  ``manifest.json`` and content-named ``*.so`` files (rendered and
+  verified by ``tools/torch_aot_report.py``); re-read per store access.
+
 Malformed values warn and fall back to the default: a bad knob must not
 take the server down.
 

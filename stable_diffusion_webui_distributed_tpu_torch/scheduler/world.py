@@ -22,13 +22,20 @@ caller's request context (``bind_current``). With
 ``SDTPU_WATCHDOG_FACTOR`` each job of a benchmarked worker is watched at
 its ETA (``obs/watchdog.py``): a job that stalls past it is marked, its
 thread abandoned and its range requeued, and every failed or stalled job
-leaves a flight-recorder entry (``obs/flightrec.py``). Federation and push
-registration and the operator's ``sync*`` user script are not ported.
+leaves a flight-recorder entry (``obs/flightrec.py``). With
+``SDTPU_FEDERATION`` or ``SDTPU_PUSH`` on, the World is the prober's and
+the push plane's worker source. The operator's surface (``server/api.py``)
+edits the registry live: a worker's pin, cap and state
+(:meth:`World.configure_worker`), remotes added, edited in place (probed
+first through :meth:`World.candidate_backend`) and removed, and the
+``sync*`` user script (:meth:`World.run_user_script`).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
@@ -801,6 +808,48 @@ class World:
         self.save_config()
         return node
 
+    @staticmethod
+    def _merged_endpoint(old, address, port, tls, user, password):
+        """The backend's endpoint with the pending edits applied: (address,
+        port, tls, user, password). None keeps a field; an empty string
+        clears a credential. The edit and its validation probe both take
+        their endpoint from here."""
+        new_address = address if address is not None else old.address
+        if not new_address:
+            raise ValueError("address required")
+        return (new_address,
+                int(port) if port is not None else old.port,
+                bool(tls) if tls is not None else old.tls,
+                (user if user is not None else old.user) or None,
+                (password if password is not None else old.password)
+                or None)
+
+    def _remote_backend_of(self, label: str):
+        """``(worker, its HTTPBackend)``, ``(None, None)`` for an unknown
+        label; ValueError for the master or a non-HTTP worker."""
+        w = self.get_worker(label)
+        if w is None:
+            return None, None
+        if w.master:
+            raise ValueError("master has no remote endpoint to edit")
+        if not isinstance(w.backend, HTTPBackend):
+            raise ValueError(f"worker '{label}' is not an HTTP remote")
+        return w, w.backend
+
+    def candidate_backend(self, label: str, *, address=None, port=None,
+                          tls=None, user=None, password=None):
+        """A transient HTTPBackend at the endpoint these edits would give,
+        to probe (its ``/sd-models``) before the edit applies (it opens a
+        connection per call: nothing to close). None for an unknown
+        label."""
+        w, old = self._remote_backend_of(label)
+        if w is None:
+            return None
+        a, p, t, u, pw = self._merged_endpoint(old, address, port, tls,
+                                               user, password)
+        return HTTPBackend(a, p, tls=t, user=u, password=pw,
+                           verify_tls=self.verify_tls)
+
     def update_worker_endpoint(self, label: str, *, address=None, port=None,
                                tls=None, user=None, password=None) -> bool:
         """Edit a remote's address, port, TLS or credentials in place.
@@ -809,23 +858,11 @@ class World:
         endpoint; a new address also drops the speed calibration. False
         for an unknown label; ValueError for the master or a non-HTTP
         worker."""
-        w = self.get_worker(label)
+        w, old = self._remote_backend_of(label)
         if w is None:
             return False
-        if w.master:
-            raise ValueError("master has no remote endpoint to edit")
-        old = w.backend
-        if not isinstance(old, HTTPBackend):
-            raise ValueError(f"worker '{label}' is not an HTTP remote")
-        new_address = address if address is not None else old.address
-        if not new_address:
-            raise ValueError("address required")
-        merged = (new_address,
-                  int(port) if port is not None else old.port,
-                  bool(tls) if tls is not None else old.tls,
-                  (user if user is not None else old.user) or None,
-                  (password if password is not None else old.password)
-                  or None)
+        merged = self._merged_endpoint(old, address, port, tls, user,
+                                       password)
         if merged == (old.address, old.port, old.tls, old.user,
                       old.password):
             # a no-op edit keeps the live backend and its sync caches
@@ -898,6 +935,35 @@ class World:
             t.join()
         self.save_config()
         return out
+
+    def run_user_script(self) -> bool:
+        """Run the operator's ``sync*`` script (the reference's user-script
+        button): the first file named ``sync*``, in sort order, under
+        ``<config dir>/user/``, through its shebang line (``sh`` when it
+        has none). False when there is none or it exits non-zero."""
+        base = os.path.dirname(os.path.abspath(
+            self.config_path or config_mod.default_config_path()))
+        user_dir = os.path.join(base, "user")
+        script = None
+        if os.path.isdir(user_dir):
+            for name in sorted(os.listdir(user_dir)):
+                path = os.path.join(user_dir, name)
+                if name.startswith("sync") and os.path.isfile(path):
+                    script = path
+                    break
+        if script is None:
+            log.error("couldn't find user script: place a file named "
+                      "sync* under %s", user_dir)
+            return False
+        with open(script, "r", encoding="utf-8", errors="replace") as f:
+            first = f.readline().strip()
+        cmd = (first[2:].split() + [script] if first.startswith("#!")
+               else ["sh", script])
+        log.info("running user script %s", script)
+        rc = subprocess.call(cmd)
+        if rc != 0:
+            log.error("user script exited %d", rc)
+        return rc == 0
 
     def sync_models(self, model: str, vae: str = "") -> None:
         """Push a checkpoint change to every available non-master

@@ -28,7 +28,15 @@ or textbox, X/Y/Z plot); ``POST /sdapi/v1/refresh-checkpoints`` and ``POST
 /sdapi/v1/refresh-loras`` (rescan the ``registry``'s directories;
 ``<lora:...>`` tags are served by the engine); ``POST
 /sdapi/v1/server-restart``; ``GET /internal/workers`` and ``POST
-/internal/benchmark`` for a World; ``GET /internal/cache`` (the caching
+/internal/benchmark`` for a World; the operator's surface: ``GET /`` (the
+control panel, ``server/panel.py``), ``POST /internal/workers``
+(``action`` add, update or remove: validated before anything changes, a
+checkpoint pin probed against the endpoint the edit would leave, 422 for
+a pin the node does not serve, the password never sent back), ``POST
+/internal/worker-models`` (one worker's model list), ``POST
+/internal/reset-mpe`` (every worker's ETA error history cleared), ``POST
+/internal/restart-all`` and ``POST /internal/user-script`` (400 without a
+fleet); ``GET /internal/cache`` (the caching
 tier's summary, ``{"enabled": false}`` unless ``SDTPU_CACHE=1``); ``GET
 /internal/autoscale`` (the autoscaler's decision audit, ``{"active":
 false}`` without one); ``POST /internal/cancel`` (``{"request_id"}``,
@@ -168,6 +176,9 @@ from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
 from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
     ServingDispatcher,
 )
+from stable_diffusion_webui_distributed_tpu_torch.server.panel import (
+    PANEL_HTML,
+)
 from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
     METRICS,
 )
@@ -184,6 +195,12 @@ class TextResponse(str):
     exposition's content type)."""
 
     content_type = "text/plain; version=0.0.4; charset=utf-8"
+
+
+class HtmlResponse(TextResponse):
+    """A handler's answer sent as an HTML page (the panel)."""
+
+    content_type = "text/html; charset=utf-8"
 
 
 class ApiError(Exception):
@@ -591,6 +608,163 @@ class ApiServer:
             return []
         return [_worker_dict(w) for w in self.source.workers_snapshot()]
 
+    def _find_worker(self, label: str):
+        """The worker of ``label``, or None (a bare engine has none)."""
+        get = getattr(self.source, "get_worker", None)
+        return get(label) if get is not None else None
+
+    def handle_reset_mpe(self) -> Dict[str, Any]:
+        """Clear every worker's ETA error history (the reference's 'reset
+        mpe' button) and save the config."""
+        cleared = []
+        if hasattr(self.source, "workers_snapshot"):
+            # under _busy: the save must not interleave with the one at
+            # the end of a generation (both write the same .tmp file)
+            with self._busy:
+                for w in self.source.workers_snapshot():
+                    if w.cal.eta_percent_error:
+                        w.cal.eta_percent_error.clear()
+                        cleared.append(w.label)
+                self.source.save_config()
+        return {"cleared": cleared}
+
+    def handle_user_script(self) -> Dict[str, Any]:
+        """Run the operator's ``sync*`` script from ``<config
+        dir>/user/`` (``World.run_user_script``)."""
+        if not hasattr(self.source, "run_user_script"):
+            raise ApiError(400, "no fleet attached to this node")
+        return {"ran": self.source.run_user_script()}
+
+    def handle_restart_all(self) -> Dict[str, Any]:
+        """Ask every enabled remote to restart (the reference's 'Restart
+        All Workers'; the panel confirms first, an API caller is its own
+        confirmation)."""
+        if not hasattr(self.source, "restart_all"):
+            raise ApiError(400, "no fleet attached to this node")
+        return {"restarted": self.source.restart_all()}
+
+    def handle_workers_post(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Worker edits, live and persisted: ``action`` "update" (the
+        default: ``model_override``, ``pixel_cap``, ``disabled`` and the
+        endpoint fields), "add" (``label``, ``address``, ``port``, ``tls``,
+        ``user``, ``password``, ``pixel_cap``) or "remove". Everything is
+        validated before anything changes; the password is never sent
+        back."""
+        if not hasattr(self.source, "configure_worker"):
+            raise ApiError(400, "no fleet attached to this node")
+        label = body.get("label", "")
+        if not label:
+            raise ApiError(422, "label required")
+        action = body.get("action", "update")
+        if action == "add":
+            try:
+                with self._busy:
+                    self.source.add_remote_worker(
+                        label, body.get("address", ""),
+                        int(body.get("port", 7860)),
+                        tls=bool(body.get("tls", False)),
+                        user=body.get("user") or None,
+                        password=body.get("password") or None,
+                        pixel_cap=int(body.get("pixel_cap", 0)))
+            except (ValueError, TypeError) as e:
+                raise ApiError(422, str(e))
+            return {"added": label}
+        if action == "remove":
+            try:
+                with self._busy:
+                    ok = self.source.remove_worker(label)
+            except ValueError as e:
+                raise ApiError(422, str(e))
+            if not ok:
+                raise ApiError(404, f"no worker '{label}'")
+            return {"removed": label}
+        if action != "update":
+            raise ApiError(422, f"unknown action '{action}'")
+        endpoint = {k: body[k] for k in
+                    ("address", "port", "tls", "user", "password")
+                    if k in body}
+        kwargs = {k: body[k] for k in
+                  ("model_override", "pixel_cap", "disabled") if k in body}
+        # validate before any change, a pin against the endpoint the edit
+        # would leave: a 422 must not leave the edit half applied
+        pin_validated = None
+        if kwargs.get("model_override"):
+            pin_validated = self._validate_model_pin(
+                label, kwargs["model_override"], endpoint or None)
+        if endpoint and not hasattr(self.source, "update_worker_endpoint"):
+            raise ApiError(
+                422, "this server's worker source does not support "
+                f"endpoint edits (fields: {', '.join(sorted(endpoint))})")
+        if endpoint:
+            try:
+                with self._busy:
+                    ok = self.source.update_worker_endpoint(label, **endpoint)
+            except (ValueError, TypeError) as e:
+                raise ApiError(422, str(e))
+            if not ok:
+                raise ApiError(404, f"no worker '{label}'")
+        if kwargs or not endpoint:
+            with self._busy:
+                ok = self.source.configure_worker(label, **kwargs)
+            if not ok:
+                raise ApiError(404, f"no worker '{label}'")
+        if pin_validated is not None:
+            # configure_worker reset the provenance to False: True only
+            # when the node's model list held the pin (ping_workers
+            # re-checks an unvalidated one)
+            w = self._find_worker(label)
+            if w is not None and w.model_override:
+                w.pin_validated = pin_validated
+        endpoint.pop("password", None)
+        return {"updated": label, **endpoint, **kwargs}
+
+    def _validate_model_pin(self, label: str, pin: str,
+                            endpoint: Optional[Dict[str, Any]] = None
+                            ) -> bool:
+        """422 for a checkpoint pin the worker does not serve (its
+        ``/sd-models``, probed at the endpoint the pending ``endpoint``
+        edits would give). True on a positive match; False when the node
+        cannot be asked or lists no model: the pin is then accepted
+        unvalidated."""
+        w = self._find_worker(label)
+        if w is None:
+            return False
+        backend = w.backend
+        if endpoint and hasattr(self.source, "candidate_backend"):
+            try:
+                candidate = self.source.candidate_backend(label, **endpoint)
+            except (ValueError, TypeError):
+                return False  # the edit itself answers 422 for these
+            if candidate is not None:
+                backend = candidate
+        try:
+            models = backend.available_models()
+        except Exception:  # noqa: BLE001 — node down: accept unvalidated
+            log.warning("worker '%s' unreachable; accepting pin '%s' "
+                        "UNVALIDATED", label, pin)
+            return False
+        if models and pin not in models:
+            raise ApiError(
+                422, f"worker '{label}' does not serve model '{pin}' "
+                f"(available: {', '.join(models[:20])})")
+        return bool(models)
+
+    def handle_worker_models(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """One worker's model list (the panel's pin dropdown), or none and
+        the error when its node is down."""
+        label = body.get("label", "")
+        w = self._find_worker(label)
+        if w is None:
+            raise ApiError(404, f"no worker '{label}'")
+        try:
+            return {"label": label, "models": w.backend.available_models()}
+        except Exception as e:  # noqa: BLE001 — node down
+            return {"label": label, "models": [], "error": str(e)}
+
+    def handle_panel(self) -> "HtmlResponse":
+        """The operator's control panel (``server/panel.py``)."""
+        return HtmlResponse(PANEL_HTML)
+
     def handle_benchmark(self, body: Dict[str, Any]) -> Dict[str, Any]:
         """Start a fleet benchmark sweep in the background; returns at
         once (the speeds update as it goes)."""
@@ -831,7 +1005,13 @@ class ApiServer:
             ("POST", "/sdapi/v1/refresh-checkpoints"): self.handle_refresh,
             ("POST", "/sdapi/v1/refresh-loras"): self.handle_refresh,
             ("POST", "/sdapi/v1/server-restart"): self.handle_server_restart,
+            ("GET", ""): self.handle_panel,  # "/", its slash stripped
             ("GET", "/internal/workers"): self.handle_workers,
+            ("POST", "/internal/workers"): self.handle_workers_post,
+            ("POST", "/internal/worker-models"): self.handle_worker_models,
+            ("POST", "/internal/reset-mpe"): self.handle_reset_mpe,
+            ("POST", "/internal/restart-all"): self.handle_restart_all,
+            ("POST", "/internal/user-script"): self.handle_user_script,
             ("POST", "/internal/benchmark"): self.handle_benchmark,
             ("GET", "/internal/cache"): self.handle_cache,
             ("GET", "/internal/autoscale"): self.handle_autoscale,

@@ -17,10 +17,9 @@ each denoise range's evaluations by ``pipeline/stepcache.py``'s
 ``FlopsAccountant`` (``torch.utils.flop_counter`` on meta tensors), over
 the images decoded (``unet_flops_per_image``). The perf ledger
 (``obs/perf.py``) takes a delta of the FLOP total around each dispatch.
-Everything here is host-side counting, safe to assert in CPU tests.
-
-Left out: the JAX package's AOT artifact loads (the artifact store is not
-ported).
+The kernel libraries loaded from the artifact store count by kind
+(``aot_loads``, ``serving/aot.py``: a load is not a capture). Everything
+here is host-side counting, safe to assert in CPU tests.
 """
 
 from __future__ import annotations
@@ -44,6 +43,9 @@ class DispatchMetrics:
             self.compiles: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
             #: graph kind -> replays of a captured graph
             self.cache_hits: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
+            #: library kind -> kernel libraries loaded from the artifact
+            #: store (ops/nvcc.py)
+            self.aot_loads: Dict[str, int] = defaultdict(int)  # guarded-by: _lock
             self.requests = 0  # guarded-by: _lock
             #: request shape already equal to its bucket
             self.bucket_hits = 0  # guarded-by: _lock
@@ -78,6 +80,10 @@ class DispatchMetrics:
     def record_cache_hit(self, kind: str) -> None:
         with self._lock:
             self.cache_hits[str(kind)] += 1
+
+    def record_aot_load(self, kind: str) -> None:
+        with self._lock:
+            self.aot_loads[str(kind)] += 1
 
     def record_unet_flops(self, flops: float) -> None:
         """One denoise range's priced UNet FLOPs."""
@@ -151,6 +157,7 @@ class DispatchMetrics:
             return {
                 "compiles": dict(self.compiles),
                 "cache_hits": dict(self.cache_hits),
+                "aot_loads": dict(self.aot_loads),
                 "requests": self.requests,
                 "bucket_hits": self.bucket_hits,
                 "bucket_misses": self.bucket_misses,

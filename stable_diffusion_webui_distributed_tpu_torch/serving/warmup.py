@@ -25,9 +25,14 @@ The sweep captures no step-cache graph: a bucket's first request with a
 cadence or a cutoff captures them, and they serve every cadence and cutoff
 after it.
 
-Not ported yet: the report's ``xla_cache_dir`` and ``aot`` block wait for
-the compiled-artifact store. Graphs live in process memory, so a restarted
-server sweeps again.
+With ``SDTPU_AOT`` on, the report has the JAX package's ``aot`` block,
+over what the port stores (``serving/aot.py``): ``enabled``, ``dir``, the
+store's outcome tallies (``stats``), the kernel libraries loaded through
+it with their outcomes (``libraries``), those the sweep loaded from it
+(``hydrated``) and the share of the libraries that were hits
+(``hit_rate``). The JAX report's ``xla_cache_dir`` has no counterpart:
+there is no compilation cache to name. Graphs live in process memory, so
+a restarted server sweeps again.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from stable_diffusion_webui_distributed_tpu_torch.models import (
 from stable_diffusion_webui_distributed_tpu_torch.pipeline import (
     precision as precision_mod,
 )
+from stable_diffusion_webui_distributed_tpu_torch.ops import nvcc
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
 )
@@ -49,6 +55,7 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
     env_str,
 )
+from stable_diffusion_webui_distributed_tpu_torch.serving import aot
 from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
     ShapeBucketer,
 )
@@ -107,7 +114,8 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
     """Run one generation per ``(shape, batch[, precision][, LoRA cell])``
     point of the ladder; returns the JAX package's report: the points, the
     steps and sampler, the precisions, the LoRA cells, the graphs the
-    sweep captured by kind (``stage_builds``) and its wall time."""
+    sweep captured by kind (``stage_builds``), its wall time and, with
+    ``SDTPU_AOT`` on, the ``aot`` block."""
     if env_str("SDTPU_WARMUP") == "0":
         return {"skipped": True, "reason": "SDTPU_WARMUP=0"}
     bucketer = bucketer or ShapeBucketer()
@@ -116,7 +124,9 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
 
     precisions = _warmup_precisions()
     lora_cells = _warmup_lora_cells()
-    before = dict(METRICS.summary()["compiles"])
+    summary0 = METRICS.summary()
+    before = dict(summary0["compiles"])
+    aot_before = dict(summary0["aot_loads"])
     t0 = time.monotonic()
     warmed = []
     try:
@@ -140,10 +150,11 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
     finally:
         engine._warmup_lora = None
         engine._traced_lora = None
-    after = METRICS.summary()["compiles"]
+    summary1 = METRICS.summary()
+    after = summary1["compiles"]
     built = {k: after.get(k, 0) - before.get(k, 0)
              for k in after if after.get(k, 0) != before.get(k, 0)}
-    return {
+    report = {
         "skipped": False,
         "buckets": warmed,
         "steps": steps,
@@ -153,3 +164,18 @@ def warmup_engine(engine, bucketer: Optional[ShapeBucketer] = None,
         "stage_builds": built,
         "wall_s": round(time.monotonic() - t0, 2),
     }
+    if aot.enabled():
+        aot_after = summary1["aot_loads"]
+        libraries = nvcc.store_outcomes()
+        hits = sum(1 for o in libraries.values() if o == "hit")
+        report["aot"] = {
+            "enabled": True,
+            "dir": aot.default_dir(),
+            "stats": aot.get_store().stats_snapshot(),
+            "libraries": libraries,
+            "hydrated": {k: aot_after.get(k, 0) - aot_before.get(k, 0)
+                         for k in aot_after
+                         if aot_after.get(k, 0) != aot_before.get(k, 0)},
+            "hit_rate": hits / len(libraries) if libraries else None,
+        }
+    return report

@@ -124,6 +124,44 @@ def test_repeat_launch_gives_same_bits(card):
                        ra.ragged_attention(q, k, v, lens))
 
 
+FRESH_THREAD = """
+import sys, threading, torch
+from stable_diffusion_webui_distributed_tpu_torch.ops import flash_attention as fa
+from stable_diffusion_webui_distributed_tpu_torch.ops import ragged_attention as ra
+q, k, v = (torch.randn((2, 512, 2, 40), device="cuda").to(torch.bfloat16)
+           for _ in range(3))
+lens = torch.tensor([512, 300], dtype=torch.int32, device="cuda")
+out = {}
+def run():
+    out["k1"] = fa.flash_attention(q, k, v)
+    out["k2"] = ra.ragged_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+thread = threading.Thread(target=run)
+thread.start()
+thread.join()
+assert torch.equal(out["k1"], fa.flash_attention(q, k, v))
+assert torch.equal(out["k2"], ra.ragged_attention(q, k, v, lens))
+assert fa.flash_attention.path_launches["hopper"] == 2
+print("fresh thread ok")
+"""
+
+
+@pytest.mark.cuda
+def test_first_launch_on_a_fresh_thread(card):
+    """A library's first launch on a thread that made no CUDA call (the
+    wrappers bind the card's context there first), in a process of its own
+    so that the libraries load there."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", FRESH_THREAD], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "fresh thread ok" in proc.stdout
+
+
 @pytest.mark.cuda
 def test_rejects_what_the_kernel_cannot_take(card):
     q = torch.zeros((1, 8, 2, 16), device=card, dtype=torch.float16)

@@ -5,8 +5,9 @@ the format itself).
 A fresh interpreter imports every module of the port; afterwards neither
 ``jax``, ``flax``, ``safetensors`` nor any module of
 ``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
-sources (the port's, ``chip_smoke.py`` and the fleet telemetry phase's
-runners in ``tools/``) asserts the same of every import statement,
+sources (the port's, ``chip_smoke.py``, the fleet telemetry phase's
+runners in ``tools/``, the artifact store's report and its phase's
+runner) asserts the same of every import statement,
 including imports inside functions.
 """
 
@@ -59,7 +60,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "runtime.logging", "runtime.trace", "obs.spans",
                  "obs.flightrec", "obs.watchdog", "obs.perf", "obs.tsdb",
                  "obs.alerts", "obs.notify", "obs.fleetlog", "obs.stitch",
-                 "obs.federation", "obs.push"):
+                 "obs.federation", "obs.push", "server.panel",
+                 "serving.aot"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 70
     assert out["forbidden"] == []
@@ -71,6 +73,9 @@ def _sources():
     # the chip harness's runners of the fleet telemetry phase
     yield ROOT / "tools" / "torch_obs_fleet.py"
     yield ROOT / "tools" / "torch_obs_remote.py"
+    # the artifact store's report and the chip runner of its phase
+    yield ROOT / "tools" / "torch_aot_report.py"
+    yield ROOT / "tools" / "torch_aot.py"
 
 
 @pytest.mark.parametrize("path", list(_sources()),

@@ -178,7 +178,7 @@ def test_status_has_the_jax_documents_keys(server, served, params):
                        port=0).handle_internal_status()
     assert status == 200 and set(doc) == set(ref)
     assert set(doc["obs"]) == set(ref["obs"])
-    assert set(doc["serving"]) >= set(ref["serving"]) - {"aot_loads"}
+    assert set(doc["serving"]) >= set(ref["serving"])
     assert doc["serving"]["requests"] == 3
     assert doc["obs"]["enabled"] is True
     assert doc["timings"]["denoise_chunk"]["count"] >= 3

@@ -93,12 +93,13 @@ from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
 )
 from test_pipeline import init_params
 
-#: the JAX package's summary keys the port leaves out (no artifact store)
+#: the JAX ledger's summary keys the port leaves out: its artifacts are
+#: per-signature executables, the port's kernel libraries, which the
+#: ledger does not count (``DispatchMetrics.aot_loads`` does)
 JAX_ONLY_SUMMARY = {"aot_loads", "aot_hit_rate"}
-#: families of modules left to later slices (JAX only): the artifact
-#: store's and the scenario scorer's
-JAX_ONLY_FAMILIES = {"sdtpu_aot_total", "sdtpu_aot_load_seconds",
-                     "sdtpu_sim_slo_burn"}
+#: families of modules left to later slices (JAX only): the scenario
+#: scorer's
+JAX_ONLY_FAMILIES = {"sdtpu_sim_slo_burn"}
 #: help texts that name the JAX package's mechanisms (XLA builds, cost
 #: analysis, host-observed dispatch seconds, the AOT store)
 HELP_DIFFERS = {"sdtpu_compile_seconds", "sdtpu_stage_compiles_total",

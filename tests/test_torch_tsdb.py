@@ -49,13 +49,13 @@ def clean(monkeypatch):
     j_tsdb.reset()
 
 
-def fill(seed, points=64):
+def fill(seed, points=64, start=1000.0):
     """The same records in a store of each package: three series of
-    monotonic times and seeded values, one a counter."""
+    monotonic times from ``start`` on and seeded values, one a counter."""
     rng = np.random.default_rng(seed)
     stores = (j_tsdb.SeriesStore(points=points),
               t_tsdb.SeriesStore(points=points))
-    t = 1000.0
+    t = start
     counter = 0.0
     for _ in range(96):
         t += float(rng.uniform(0.05, 0.4))
@@ -134,7 +134,10 @@ def test_store_bounds_and_garbage_match():
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_snapshot_files_load_across_packages(writer, tmp_path):
-    (js, ts), _ = fill(3, points=32)
+    # a load drops samples stamped after now, and time.monotonic() counts
+    # from boot: the samples end (96 steps of at most 0.4 s) before now on
+    # a machine of any uptime
+    (js, ts), _ = fill(3, points=32, start=time.monotonic() - 200.0)
     src, dst = (js, t_tsdb) if writer == "jax" else (ts, j_tsdb)
     save = j_tsdb.save_snapshot if writer == "jax" else t_tsdb.save_snapshot
     path = str(tmp_path / "snap.json")

@@ -6,8 +6,9 @@ precisions and cells, and the payloads each point runs) must equal the JAX
 package's for the same ladder and knobs, the precision rungs of
 ``SDTPU_WARMUP_PRECISIONS`` included; ``SDTPU_WARMUP=0`` skips without
 touching the engine. The port's report has the JAX package's keys but
-``xla_cache_dir`` and the ``aot`` block, which wait for the compiled-
-artifact store.
+``xla_cache_dir``, which names a compilation cache the port does not
+have (the ``aot`` block comes with ``SDTPU_AOT`` on in both packages; it
+is held in ``tests/test_torch_aot.py``).
 
 ``runtime/graphs.py``: on the CPU the cache runs with a stand-in capture
 backend (``Stub``: the "graph" is the function, replayed on the static
@@ -185,7 +186,7 @@ def test_report_and_points_match_jax(monkeypatch, no_xla_cache, ladder, env,
     port_e, jax_e = RecordingEngine(), RecordingEngine()
     got = warmup.warmup_engine(port_e, port_b, **kwargs)
     want = jax_warmup.warmup_engine(jax_e, jax_b, **kwargs)
-    assert set(got) == set(want) - {"xla_cache_dir", "aot"}
+    assert set(got) == set(want) - {"xla_cache_dir"}
     for key in ("skipped", "buckets", "steps", "sampler", "precisions",
                 "lora_cells"):
         assert got[key] == want[key], key
