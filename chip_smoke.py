@@ -287,6 +287,20 @@ Phases, each fatal on failure (no phase is caught and passed over):
    width, bf16 against f32 on the same weights (relative error at most
    5e-2), the SDPA backends that take the encoder's bf16 mid attention,
    where one warm evaluation spends its time, and the encode's time;
+9c. mesh (``phase_mesh``) on the same engine, placed with
+   ``Engine.set_mesh`` over a virtual mesh on cuda:0 (distinct cards
+   where there are two; the line says which) and put back after each arm:
+   config #1 on ``dp=2`` at batch 2, ``tp=2`` and ``sp=2`` at batch 1,
+   each against the meshless engine on the same seed: the init latents
+   bit-equal, the images within a mean of 2 uint8 levels (the max
+   printed), a repeat the same bytes, K1 640 / 640 / 0 launches (two
+   replicas of 320; 16 x 20 x 2 head shards; every self-attention on the
+   ring), all on the Hopper path, and on a virtual mesh no weight copied
+   by the placement; each arm's wall time and peak. Then
+   ``ring_attention`` over ``sp=2`` against K1 at (2, 4096, 8, 40) (the
+   relative error and both times) and the stage-ahead ControlNet tower on
+   a mesh handed to it (``dp=1`` over the last device) against the
+   shared-stream stage-ahead request: the same PNG bytes, 460 K1 each;
 10. config #2 (the SD1.5 engine freed first): SDXL base and refiner at full
    width and depth on seeded weights (bf16 card policy) behind the port's
    server, the base engine handing over to the refiner through its
@@ -295,7 +309,10 @@ Phases, each fatal on failure (no phase is caught and passed over):
    must give 8 images with seeds 4321-4328, launch K1 1944 times (70 x 24
    + 44 x 6), all on the Hopper path, and K2 never; its repeat must give
    the same PNG bytes, and a batch-1 request of seed 4324 must agree with
-   image 3 within a mean of 2 uint8 levels. Then each SDXL UNet at full
+   image 3 within a mean of 2 uint8 levels; ``pipelined_txt2img`` with
+   base and refiner on meshes of one device each (batch 1, ``n_iter`` 2)
+   must give the sequential request's PNG bytes, 1944 K1 a group. Then
+   each SDXL UNet at full
    width, bf16 against f32 on the same weights (relative error at most
    5e-2), and where a warm base UNet call at batch 8 spends its time; a
    dual ``clip_l``/``clip_g`` embedding of the base engine's own token rows
@@ -3216,6 +3233,15 @@ def stage_dispatch_arms(engine, fa, ra, what: str, make, bodies,
     return {"runs": runs}
 
 
+def stage_cn_body() -> dict:
+    """(d)'s request: config #1 at batch 4 with one canny unit."""
+    return {**STAGE_BODY, "seed": 4343, "batch_size": 4,
+            "alwayson_scripts": {"controlnet": {"args": [{
+                "enabled": True,
+                "image": synth_b64_image(STAGE_SIZE, STAGE_SIZE),
+                "module": "canny", "model": CONFIG3_CN, "weight": 1.0}]}}}
+
+
 def stage_controlnet(engine, fa, card_line: str) -> dict:
     """(d): config #1's txt2img at batch 4 with one canny unit at weight
     1.0, serial and staged in turns (serial, staged, staged, serial): the
@@ -3229,11 +3255,7 @@ def stage_controlnet(engine, fa, card_line: str) -> dict:
         METRICS,
     )
 
-    body = {**STAGE_BODY, "seed": 4343, "batch_size": 4,
-            "alwayson_scripts": {"controlnet": {"args": [{
-                "enabled": True,
-                "image": synth_b64_image(STAGE_SIZE, STAGE_SIZE),
-                "module": "canny", "model": CONFIG3_CN, "weight": 1.0}]}}}
+    body = stage_cn_body()
     runs, reference, first_staged = [], None, True
     for depth in (0, 1, 1, 0):
         saved = stage_arm(depth)
@@ -5844,6 +5866,202 @@ def phase_config3(engine, fa, ra, card_line: str) -> dict:
     return metrics
 
 
+MESH_BODY = {"prompt": "a photograph of an astronaut riding a horse",
+             "negative_prompt": "blurry", "steps": 20, "width": 512,
+             "height": 512, "cfg_scale": 7, "sampler_name": "Euler a",
+             "seed": 1900}
+#: (mesh spec, batch, K1 launches a request): dp=2 is two replicas of the
+#: main path's 320, tp=2 16 x 20 evaluations x 2 head shards, and under
+#: sp=2 every self-attention takes the ring
+MESH_ARMS = (("dp=2", 2, 2 * LAUNCHES_PER_GROUP),
+             ("tp=2", 1, 2 * LAUNCHES_PER_GROUP),
+             ("sp=2", 1, 0))
+MESH_MEAN_TOLERANCE = 2.0  # uint8 levels, a mesh's image vs meshless
+#: bytes a placement on a virtual mesh may allocate: its shards are views
+#: of the weights and its replicas share them
+MESH_PLACEMENT_SLACK = 64 * 2**20
+MESH_RING_SHAPE = (2, 4096, 8, 40)  # the level-0 self-attention, with CFG
+MESH_RING_TOLERANCE = 2e-2  # relative, the f32 ring vs bf16 K1
+
+
+def mesh_devices():
+    """Two devices for the meshes: distinct cards where there are two,
+    else cuda:0 twice (a virtual mesh: one card runs every shard)."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        return ["cuda:0", "cuda:1"], "distinct cards cuda:0 and cuda:1"
+    return ["cuda:0", "cuda:0"], "a virtual mesh over cuda:0"
+
+
+def phase_mesh(engine, fa, card_line: str) -> dict:
+    """The port's mesh paths on the main path's engine (config #1 at full
+    width), placed with ``Engine.set_mesh`` and put back after each arm:
+    ``dp=2`` at batch 2, ``tp=2`` and ``sp=2`` at batch 1, each against
+    the meshless engine on the same weights and seed (the init latents
+    bit-equal, the images within a mean of 2 uint8 levels, a repeat the
+    same bytes, the K1 launches of ``MESH_ARMS`` all on the Hopper path,
+    no weight copied onto the card by the placement); then
+    ``ring_attention`` over ``sp=2`` against K1 at the level-0 shape, and
+    the stage-ahead ControlNet tower on a mesh handed to it (the JAX
+    rule's own finds no free device on one card) against the shared-stream
+    stage-ahead bytes."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        ring_attention as ring,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+        build_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    devices, kind = mesh_devices()
+    print(f"mesh: {kind} [{card_line}]")
+    out = {"devices": kind, "card": card_line, "arms": {}}
+    latents = []
+    run_denoise = engine._denoise
+
+    def recording(payload, x, *args, **kw):
+        if not latents:
+            latents.append(x.clone())
+        return run_denoise(payload, x, *args, **kw)
+
+    def request(body):
+        latents.clear()
+        fa.reset_launches(fa.flash_attention)
+        t = time.perf_counter()
+        result = engine.txt2img(GenerationPayload(**body))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t, result, fa.flash_attention.launches,
+                dict(fa.flash_attention.path_launches), latents[0])
+
+    engine._denoise = recording
+    try:
+        for spec, batch, want_k1 in MESH_ARMS:
+            body = {**MESH_BODY, "batch_size": batch}
+            plain_wall, plain, _, _, plain_x = request(body)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            engine.set_mesh(build_mesh(spec, devices))
+            torch.cuda.synchronize()
+            placed = torch.cuda.memory_allocated() - before
+            torch.cuda.reset_peak_memory_stats()
+            runs = [request(body) for _ in range(2)]
+            peak = torch.cuda.max_memory_allocated()
+            engine.set_mesh(None)
+            note_peak(f"mesh {spec}", peak)
+            (wall, got, k1, paths, x), (wall2, again, k1b, _, _) = runs
+            a = np.stack([png_pixels(b).astype(np.int32)
+                          for b in got.images])
+            b = np.stack([png_pixels(b).astype(np.int32)
+                          for b in plain.images])
+            diff = np.abs(a - b)
+            arm = {"batch": batch, "wall_s": [round(wall, 4),
+                                              round(wall2, 4)],
+                   "meshless_wall_s": round(plain_wall, 4),
+                   "k1": k1, "k1_paths": paths,
+                   "peak_gib": round(peak / 2**30, 3),
+                   "placement_mib": round(placed / 2**20, 3),
+                   "mean_abs": round(float(diff.mean()), 4),
+                   "max_abs": int(diff.max())}
+            out["arms"][spec] = arm
+            print(f"mesh {spec} at batch {batch}: {json.dumps(arm)} "
+                  f"[{card_line}]")
+            check(torch.equal(x, plain_x),
+                  f"mesh {spec}: the init latents differ from meshless")
+            check(k1 == want_k1 and k1b == want_k1,
+                  f"mesh {spec}: K1 {k1}/{k1b} launches, want {want_k1}")
+            check(paths["hopper"] == k1,
+                  f"mesh {spec}: K1 off the Hopper path: {paths}")
+            check(again.images == got.images,
+                  f"mesh {spec}: a repeat gave other PNG bytes")
+            check(diff.mean() <= MESH_MEAN_TOLERANCE,
+                  f"mesh {spec}: mean |diff| {diff.mean():.4f} vs meshless")
+            check(kind.startswith("distinct") or
+                  placed <= MESH_PLACEMENT_SLACK,
+                  f"mesh {spec}: the placement allocated {placed} bytes")
+    finally:
+        del engine._denoise
+        engine.set_mesh(None)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn(MESH_RING_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    sp2 = build_mesh("sp=2", devices)
+    with torch.inference_mode():
+        want = fa.flash_attention(q, k, v).float()
+        got = ring.ring_attention(q, k, v, sp2).float()
+        rel = float((got - want).norm() / want.norm())
+        ring_ms = cuda_ms(lambda: ring.ring_attention(q, k, v, sp2), 10)
+        k1_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    out["ring"] = {"shape": list(MESH_RING_SHAPE), "rel_error": rel,
+                   "ring_ms": round(ring_ms, 4), "k1_ms": round(k1_ms, 4)}
+    print(f"mesh: ring_attention over sp=2 at {MESH_RING_SHAPE} bf16: "
+          f"{ring_ms:.4f} ms against K1's {k1_ms:.4f} ms, relative error "
+          f"{rel:.3g} [{card_line}]")
+    check(rel <= MESH_RING_TOLERANCE, f"the ring disagrees with K1: {rel}")
+
+    out["tower"] = mesh_tower(engine, fa, devices, card_line)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print("mesh metrics: " + json.dumps(out))
+    return out
+
+
+def mesh_tower(engine, fa, devices, card_line: str) -> dict:
+    """(d)'s stage-ahead ControlNet request with the tower on a mesh of
+    its own, handed to the engine as ``tests/test_torch_stage_controlnet.py``
+    hands it (``_stage_cn_mesh``), against the shared-stream stage-ahead
+    request: the same PNG bytes, the same K1 launches on the Hopper
+    path."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+        build_mesh,
+    )
+
+    saved = env_set({"SDTPU_STAGE_CN_DEVICES": "1"})
+    try:
+        own_rule = engine._stage_cn_mesh()
+    finally:
+        env_restore(saved)
+    tower = build_mesh("dp=1", devices[-1:])
+    print(f"mesh tower: the JAX rule with SDTPU_STAGE_CN_DEVICES=1 gives "
+          f"{own_rule}; the tower is handed {tower}")
+    runs = {}
+    saved = stage_arm(1)
+    try:
+        for arm in ("shared", "tower"):
+            if arm == "tower":
+                engine._stage_cn_mesh = lambda: tower
+            fa.reset_launches(fa.flash_attention)
+            t = time.perf_counter()
+            result = engine.txt2img(GenerationPayload(**stage_cn_body()))
+            torch.cuda.synchronize()
+            runs[arm] = (time.perf_counter() - t, result,
+                         fa.flash_attention.launches,
+                         dict(fa.flash_attention.path_launches))
+    finally:
+        engine.__dict__.pop("_stage_cn_mesh", None)
+        env_restore(saved)
+    for arm, (wall, _, k1, paths) in runs.items():
+        print(f"mesh tower ({arm}): {wall:.4f} s, K1 {k1} by path "
+              f"{json.dumps(paths)} [{card_line}]")
+        check(k1 == STAGE_CN_K1 and paths["hopper"] == k1,
+              f"mesh tower ({arm}): K1 {k1} ({paths}), want {STAGE_CN_K1}")
+    check(runs["tower"][1].images == runs["shared"][1].images,
+          "the tower on its own mesh gave other PNG bytes")
+    return {arm: {"wall_s": round(r[0], 4), "k1": r[2]}
+            for arm, r in runs.items()}
+
+
 # BASELINE config #2 (bench.py's payload): SDXL base + refiner, 1024x1024,
 # 30 steps Euler a, the refiner from step int(30 * 0.8) = 24, batch 8
 CONFIG2_REFINER = "sdxl-refiner"
@@ -5906,15 +6124,11 @@ def model_tflop(family, lat: int) -> dict:
     return counts
 
 
-def phase_config2(fa, ra, card_line: str) -> dict:
-    """BASELINE config #2 through the port's server: SDXL base and refiner
-    at full width and depth on seeded weights (bf16 card policy), the base
-    engine handing over to the refiner through its ``engine_provider``.
-    Then the two UNets bf16 vs f32, and where a warm base UNet call at
-    batch 8 spends its time."""
-    import numpy as np
+def config2_engines():
+    """Config #2's SDXL base and refiner engines on seeded weights (bf16
+    card policy), the base handing over to the refiner through its
+    ``engine_provider``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from stable_diffusion_webui_distributed_tpu_torch.bridge import (
         init_seeded,
@@ -5927,17 +6141,7 @@ def phase_config2(fa, ra, card_line: str) -> dict:
         Engine,
     )
     from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
-    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
-        BenchmarkPayload,
-    )
-    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
-        ApiServer,
-    )
-    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
-        METRICS,
-    )
 
-    t0 = time.perf_counter()
     params = init_seeded(SDXL_REFINER, seed=1, device="cuda",
                          dtype=torch.bfloat16)
     refiner = Engine(SDXL_REFINER, params, policy=dtypes.CARD,
@@ -5949,6 +6153,31 @@ def phase_config2(fa, ra, card_line: str) -> dict:
                       refiner if name == CONFIG2_REFINER else None))
     del params
     torch.cuda.synchronize()
+    return base, refiner
+
+
+def phase_config2(fa, ra, card_line: str) -> dict:
+    """BASELINE config #2 through the port's server: SDXL base and refiner
+    at full width and depth on seeded weights (bf16 card policy), the base
+    engine handing over to the refiner through its ``engine_provider``.
+    Then the two UNets bf16 vs f32, and where a warm base UNet call at
+    batch 8 spends its time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+
+    t0 = time.perf_counter()
+    base, refiner = config2_engines()
     print(f"config #2: SDXL base and refiner engines on seeded weights in "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
@@ -6085,10 +6314,76 @@ def phase_config2(fa, ra, card_line: str) -> dict:
                "tflop": {m: {k: round(v, 3) for k, v in t.items()}
                          for m, t in tflop.items()},
                "card": card_line}
+    metrics["pipeline"] = config2_pipeline(base, refiner, fa, card_line)
     print("config #2 metrics: " + json.dumps(metrics))
     # config #4 runs on this base engine, without the refiner
     base.engine_provider = None
     return metrics, base
+
+
+#: the stage pipeline's request: config #2 at batch 1 in two groups
+CONFIG2_PIPELINE_BODY = {**CONFIG2_BODY, "batch_size": 1, "n_iter": 2,
+                         "seed": 4400}
+
+
+def config2_pipeline(base, refiner, fa, card_line: str) -> dict:
+    """Config #2's base and refiner through ``pipelined_txt2img`` on two
+    meshes of one device each (``dp=1`` over cuda:0, placed with
+    ``Engine.set_mesh`` and put back): on one card both stages run on
+    one device, so the images must be the sequential request's bytes;
+    1944 K1 launches a group, all on the Hopper path."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.parallel.stage_pipeline import (
+        pipelined_txt2img,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+        build_mesh,
+    )
+
+    bp = BenchmarkPayload()
+    body = {"prompt": bp.prompt, "negative_prompt": bp.negative_prompt,
+            **CONFIG2_PIPELINE_BODY}
+    runs = {}
+    for arm in ("sequential", "pipelined"):
+        fa.reset_launches(fa.flash_attention)
+        if arm == "pipelined":
+            base.set_mesh(build_mesh("dp=1", ["cuda:0"]))
+            refiner.set_mesh(build_mesh("dp=1", ["cuda:0"]))
+        t = time.perf_counter()
+        try:
+            result = (base.txt2img(GenerationPayload(**body))
+                      if arm == "sequential" else
+                      pipelined_txt2img(base, refiner,
+                                        GenerationPayload(**body)))
+            torch.cuda.synchronize()
+        finally:
+            base.set_mesh(None)
+            refiner.set_mesh(None)
+        runs[arm] = (time.perf_counter() - t, result,
+                     fa.flash_attention.launches,
+                     dict(fa.flash_attention.path_launches))
+    want = CONFIG2_K1_LAUNCHES * body["n_iter"]
+    for arm, (wall, result, k1, paths) in runs.items():
+        print(f"config #2 stage pipeline ({arm}): {wall:.4f} s for "
+              f"{len(result.images)} images, K1 {k1} by path "
+              f"{json.dumps(paths)} [{card_line}]")
+        check(k1 == want and paths["hopper"] == k1,
+              f"config #2 stage pipeline ({arm}): K1 {k1} ({paths}), "
+              f"want {want}")
+    check(runs["pipelined"][1].images == runs["sequential"][1].images,
+          "the stage pipeline gave other PNG bytes than the sequential "
+          "request")
+    check(runs["pipelined"][1].seeds == runs["sequential"][1].seeds,
+          "the stage pipeline's seeds")
+    return {arm: {"wall_s": round(r[0], 4), "k1": r[2]}
+            for arm, r in runs.items()}
 
 
 def phase_ragged_sdxl(base, fa, ra, card_line: str) -> dict:
@@ -7855,6 +8150,7 @@ def main() -> int:
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
+    mesh = phase_mesh(engine, fa, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
     torch.cuda.empty_cache()
@@ -7906,6 +8202,9 @@ def main() -> int:
         "per": "one UNet call of SD1.5 512x512 with CFG (16 launches), bf16",
         "sampler_launches": {n: r["k1_launches"]
                              for n, r in samplers.items()},
+        "mesh_launches": {spec: arm["k1"]
+                          for spec, arm in mesh["arms"].items()},
+        "mesh_devices": mesh["devices"],
         "config3_launches": config3["k1_launches"],
         "config3_ms": round(config3_k1["ms"], 4),
         "config3_device_ms": round(config3_k1["device_ms"], 4),

@@ -34,6 +34,13 @@ directory holds ``vocab.json`` and ``merges.txt``, else a fallback. The
 engine runs on ``cuda`` with the card policy (bf16) unless ``--device
 cpu`` is given (f32 there); with no GPU and no ``--device`` the commands
 that build it raise.
+
+``--mesh "dp=2,tp=2"`` (else the config file's ``mesh_axes``) places the
+engine over a device mesh (``runtime/mesh.py``) for ``serve``,
+``generate`` and ``benchmark`` over every visible card
+(``CUDA_VISIBLE_DEVICES`` picks them). Those commands first call
+``init_multihost``, which raises where a coordinator names a mesh across
+hosts (not ported).
 """
 
 from __future__ import annotations
@@ -84,7 +91,8 @@ def _build_world(args, require_local: bool = True):
     registry = None
     if require_local:
         registry = ModelRegistry(args.model_dir or cfg.model_dir,
-                                 device=args.device)
+                                 device=args.device,
+                                 mesh=_build_mesh(args, cfg))
         names = list(registry.available())
         if names:
             registry.activate(cfg.default_model if cfg.default_model in names
@@ -109,20 +117,36 @@ def _build_world(args, require_local: bool = True):
     return world, registry
 
 
+def _build_mesh(args, cfg):
+    """The mesh of ``--mesh`` (else the config's ``mesh_axes``) over
+    every visible card; None without a spec (the JAX ``cli.py`` builds it
+    so)."""
+    spec = getattr(args, "mesh", None) or ",".join(
+        f"{k}={v}" for k, v in cfg.mesh_axes.items())
+    if not spec:
+        return None
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+        build_mesh,
+    )
+
+    return build_mesh(spec)
+
+
 def _seeded_engine(args, registry):
     """An engine of seeded random weights of ``--family``, with the
-    registry's providers."""
+    registry's providers, over the registry's mesh."""
     from stable_diffusion_webui_distributed_tpu_torch import bridge
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
         Engine,
     )
 
-    device = dtypes.resolve_device(args.device)
+    device = dtypes.resolve_device(registry.device)
     policy = dtypes.CARD if device.type == "cuda" else dtypes.F32
     family = FAMILIES[args.family]
     params = bridge.init_seeded(family, args.seed, device,
                                 policy.param_dtype)
     return Engine(family, params, policy=policy, device=device,
+                  mesh=registry.mesh,
                   lora_provider=registry.lora_provider,
                   controlnet_provider=registry.controlnet_provider,
                   upscaler_provider=registry.upscaler_provider,
@@ -400,6 +424,13 @@ def main(argv: Optional[list] = None) -> int:
     # the port's logger: console, distributed.log (SDTPU_LOG_DIR) and the
     # ring /internal/status serves, each line under its request's id
     port_logging.configure(debug=args.distributed_debug)
+    if args.fn in (cmd_generate, cmd_serve, cmd_benchmark):
+        # a mesh across hosts (SDTPU_COORDINATOR): not ported, raises
+        from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+            init_multihost,
+        )
+
+        init_multihost()
     return args.fn(args)
 
 

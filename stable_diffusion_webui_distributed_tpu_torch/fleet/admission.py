@@ -89,11 +89,13 @@ class AdmissionController:
             if fewstep is None else fewstep
 
     def decide(self, payload, policy: ClassPolicy,
-               overhead: Optional[Dict[str, float]] = None
-               ) -> AdmissionDecision:
+               overhead: Optional[Dict[str, float]] = None,
+               int8: bool = True) -> AdmissionDecision:
         """Admission verdict for ``payload`` under ``policy``'s SLO. The
         caller applies ``overrides``/``steps`` on degrade and raises
-        :class:`FleetRejected` on reject."""
+        :class:`FleetRejected` on reject. ``int8``: whether the engine
+        runs the payload at int8 (an engine on a ``tp > 1`` mesh does
+        not); without it the int8 rung is never offered."""
         from stable_diffusion_webui_distributed_tpu_torch.scheduler import eta
 
         slo = policy.slo_s
@@ -159,7 +161,7 @@ class AdmissionController:
         # a non-bf16 precision has nothing left to give here. Quality
         # stays inside the tier-1 PSNR/SSIM floors (test_quality_int8).
         int8_factor = cal.precision_factor("int8")
-        if requested_prec == "bf16" and int8_factor < 1.0:
+        if int8 and requested_prec == "bf16" and int8_factor < 1.0:
             steps_arg = few if few and 0 < few < payload.steps else None
             scaled = max(0.0, predict(steps=steps_arg) - wait) \
                 * cadence_speedup(cadence) * int8_factor + wait

@@ -82,6 +82,10 @@ from stable_diffusion_webui_distributed_tpu_torch.ops.quant import (
 from stable_diffusion_webui_distributed_tpu_torch.ops.ragged_attention import (
     ragged_attention,
 )
+from stable_diffusion_webui_distributed_tpu_torch.ops.ring_attention import (
+    ring_attention_over,
+)
+from stable_diffusion_webui_distributed_tpu_torch.parallel import sharding
 
 EPS = 1e-6  # Flax's GroupNorm/LayerNorm epsilon (torch defaults to 1e-5)
 
@@ -105,9 +109,13 @@ class Dense(nn.Linear):
     with ``dtype`` = the policy's compute dtype). ``quant``: the W8A8
     product of ``ops/quant.py`` from the same weight (JAX ``QuantDense``):
     the input quantized as it comes, the bias added in f32, the output in
-    the weight's dtype."""
+    the weight's dtype. ``tp``: its shards on a mesh (:func:`place`)."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp(x, quant)
         if quant:
             out = int8_dot(x, self.weight)
             if self.bias is not None:
@@ -117,10 +125,14 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its weight's dtype; ``quant`` as for
-    :class:`Dense` (JAX ``QuantConv``)."""
+    """``nn.Conv2d`` that computes in its weight's dtype; ``quant`` and
+    ``tp`` as for :class:`Dense` (JAX ``QuantConv``)."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp(x, quant)
         if quant:
             out = int8_conv(x, self.weight, self.stride, self.padding)
             if self.bias is not None:
@@ -218,11 +230,37 @@ class ResBlock(nn.Module):
         return (x.float() + h).to(h.dtype)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            self_attention: bool, true_len: Optional[torch.Tensor],
+            ring: Optional[Sequence[torch.device]],
+            scale: float) -> torch.Tensor:
+    """One attention over ``(B, T, H, D)`` heads, in the JAX package's order
+    of branches: ragged rows (kernel K2), the ``sp`` ring when the tokens
+    divide it, then K1 for self-attention; cross-attention is K2 with a
+    context mask, else SDPA."""
+    if self_attention:
+        if true_len is not None:
+            return ragged_attention(q, k, v, true_len, scale=scale)
+        if ring is not None and q.shape[1] % len(ring) == 0:
+            return ring_attention_over(q, k, v, ring, scale)
+        return flash_attention(q, k, v, scale=scale)
+    if true_len is not None:
+        return ragged_attention(q, k, v, true_len, scale=scale,
+                                mask_queries=False)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        scale=scale).transpose(1, 2)
+
+
 class Attention(nn.Module):
     """Self-attention (fused QKV, kernel K1) or cross-attention (fused KV,
     SDPA) over flattened spatial tokens. With ``true_len`` (a ``(B,)``
     valid prefix: of the tokens for self-attention, of the context for
-    cross-attention) both take kernel K2."""
+    cross-attention) both take kernel K2. ``ring``: the ``sp`` devices of
+    its replica on a mesh; ``tp``: its head shards (:func:`place`)."""
+
+    tp = None
+    ring = None
 
     def __init__(self, channels: int, num_heads: int,
                  context_dim: Optional[int] = None):
@@ -240,6 +278,9 @@ class Attention(nn.Module):
                 true_len: Optional[torch.Tensor] = None,
                 lora: Optional[dict] = None,
                 ql: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            refuse_on_shards(lora, ql)
+            return self.tp(x, context, true_len)
         B, T, C = x.shape
         heads = self.num_heads
         scale = 1.0 / math.sqrt(C // heads)
@@ -249,23 +290,13 @@ class Attention(nn.Module):
             qkv = apply_site(self.qkv(x, ql), x, lora, "qkv")
             q, k, v = (t.unflatten(-1, (heads, C // heads))
                        for t in qkv.split(C, dim=-1))
-            if true_len is None:
-                out = flash_attention(q, k, v, scale=scale)
-            else:
-                out = ragged_attention(q, k, v, true_len, scale=scale)
         else:
             q = apply_site(self.q(x, ql), x, lora, "q").unflatten(
                 -1, (heads, C // heads))
             kv = apply_site(self.kv(context, ql), context, lora, "kv")
             k, v = (t.unflatten(-1, (heads, C // heads))
                     for t in kv.split(C, dim=-1))
-            if true_len is None:
-                out = F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    scale=scale).transpose(1, 2)
-            else:
-                out = ragged_attention(q, k, v, true_len, scale=scale,
-                                       mask_queries=False)
+        out = _attend(q, k, v, context is None, true_len, self.ring, scale)
         out = out.reshape(B, T, C)
         return apply_site(self.out_proj(out, ql), out, lora, "out_proj")
 
@@ -282,7 +313,10 @@ class GEGLU(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> GEGLU MLP, each with pre-LN + residual."""
+    """self-attn -> cross-attn -> GEGLU MLP, each with pre-LN + residual.
+    ``ffn_tp``: the GEGLU and ``ff_out`` on their shards (:func:`place`)."""
+
+    ffn_tp = None
 
     def __init__(self, channels: int, num_heads: int, context_dim: int):
         super().__init__()
@@ -304,6 +338,9 @@ class TransformerBlock(nn.Module):
                            lora=sub.get("attn1"), ql=ql)
         x = x + self.attn2(self.ln2(x), context, true_len=ctx_true,
                            lora=sub.get("attn2"), ql=ql)
+        if self.ffn_tp is not None:
+            refuse_on_shards(lora, ql)
+            return x + self.ffn_tp(self.ln3(x))
         g = self.geglu(self.ln3(x), lora=sub.get("geglu"), ql=ql)
         return x + apply_site(self.ff_out(g, ql), g, lora, "ff_out")
 
@@ -598,3 +635,200 @@ def make_added_cond(pooled_text: torch.Tensor, time_ids: torch.Tensor,
     b = time_ids.shape[0]
     emb = timestep_embedding(time_ids.reshape(-1), addition_time_embed_dim)
     return torch.cat([pooled_text.float(), emb.reshape(b, -1)], dim=-1)
+
+
+# -- placement on a mesh (runtime/mesh.py, parallel/sharding.py) ------------
+
+def refuse_on_shards(lora, quant: bool) -> None:
+    if quant:
+        raise ValueError("the int8 precisions are not ported under tp > 1 "
+                         "(ROADMAP item 14): a token's scale needs its full "
+                         "feature row")
+    if lora:
+        raise ValueError("traced LoRA is not ported under tp > 1 (ROADMAP "
+                         "item 14): its deltas add to the full output")
+
+
+def _row_out(partials, bias: Optional[torch.Tensor], home: torch.device,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer's output: the partials summed in f32 on the
+    home device, the bias added once, in the layer's dtype."""
+    out = sharding.reduce_sum([p.float() for p in partials], home)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(dtype)
+
+
+class _Column(sharding.Placement):
+    """A Dense or Conv layer whose output features split over the ``tp``
+    devices: each shard computes its slice, gathered on the home
+    device."""
+
+    def __init__(self, layer: nn.Module, devices, home: torch.device):
+        n = len(devices)
+        self.layer_conv = isinstance(layer, nn.Conv2d)
+        self.stride, self.padding = ((layer.stride, layer.padding)
+                                     if self.layer_conv else (None, None))
+        self.devices, self.home = devices, home
+        self.weights = [w.to(d) for w, d in
+                        zip(layer.weight.chunk(n, 0), devices)]
+        self.biases = ([b.to(d) for b, d in
+                        zip(layer.bias.chunk(n, 0), devices)]
+                       if layer.bias is not None else [None] * n)
+
+    def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        refuse_on_shards(None, quant)
+        x = _cast(x, self.weights[0].dtype)
+        if self.layer_conv:
+            parts = [F.conv2d(x.to(d, non_blocking=True), w, b, self.stride,
+                              self.padding)
+                     for d, w, b in zip(self.devices, self.weights,
+                                        self.biases)]
+            return sharding.gather(parts, 1, self.home)
+        parts = [F.linear(x.to(d, non_blocking=True), w, b)
+                 for d, w, b in zip(self.devices, self.weights, self.biases)]
+        return sharding.gather(parts, -1, self.home)
+
+
+class _Row(sharding.Placement):
+    """A Dense layer whose input features split over the ``tp`` devices:
+    each shard multiplies its slice of the input, the partials summed on
+    the home device."""
+
+    def __init__(self, layer: nn.Module, devices, home: torch.device):
+        n = len(devices)
+        self.devices, self.home = devices, home
+        self.weights = [w.to(d) for w, d in
+                        zip(layer.weight.chunk(n, 1), devices)]
+        self.bias = layer.bias
+
+    def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        refuse_on_shards(None, quant)
+        dtype = self.weights[0].dtype
+        parts = [F.linear(_cast(xj, dtype).to(d, non_blocking=True), w)
+                 for xj, d, w in zip(x.chunk(len(self.devices), -1),
+                                     self.devices, self.weights)]
+        return _row_out(parts, self.bias, self.home, dtype)
+
+
+class _Heads(sharding.Placement):
+    """An Attention layer split by heads over the ``tp`` devices: shard
+    ``j`` projects its heads' q, k and v (the per-head rows of the fused
+    ``qkv`` or ``kv`` weight), runs the attention of those heads on its
+    device (on its ``sp`` ring where it has one) and multiplies its
+    ``out_proj`` columns; the partials are summed on the home device."""
+
+    def __init__(self, attn: Attention, devices, rings, home: torch.device):
+        n = len(devices)
+        c = attn.out_proj.in_features
+        if hasattr(attn, "qkv"):
+            w = attn.qkv.weight
+            wq, wk, wv = w[:c], w[c:2 * c], w[2 * c:]
+        else:
+            wq, wk, wv = attn.q.weight, attn.kv.weight[:c], \
+                attn.kv.weight[c:]
+        self.heads = attn.num_heads // n
+        self.head_dim = c // attn.num_heads
+        self.devices, self.rings, self.home = devices, rings, home
+        self.qkv = [tuple(t.to(d) for t in ws) for ws, d in zip(
+            zip(wq.chunk(n), wk.chunk(n), wv.chunk(n)), devices)]
+        self.out = [w.to(d) for w, d in
+                    zip(attn.out_proj.weight.chunk(n, 1), devices)]
+        self.out_bias = attn.out_proj.bias
+
+    def __call__(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                 true_len: Optional[torch.Tensor]) -> torch.Tensor:
+        b, t, _ = x.shape
+        dtype = self.out[0].dtype
+        x = _cast(x, dtype)
+        src = x if context is None else _cast(context, dtype)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        parts = []
+        for d, (wq, wk, wv), wo, ring in zip(self.devices, self.qkv,
+                                             self.out, self.rings):
+            xd = x.to(d, non_blocking=True)
+            sd = xd if context is None else src.to(d, non_blocking=True)
+            q, k, v = (F.linear(a, w).unflatten(-1, (self.heads,
+                                                      self.head_dim))
+                       for a, w in ((xd, wq), (sd, wk), (sd, wv)))
+            tl = None if true_len is None else true_len.to(d)
+            o = _attend(q, k, v, context is None, tl, ring, scale)
+            parts.append(F.linear(o.reshape(b, t, -1), wo))
+        return _row_out(parts, self.out_bias, self.home, dtype)
+
+
+class _Halves(sharding.Placement):
+    """A TransformerBlock's GEGLU and ``ff_out`` over the ``tp`` devices:
+    shard ``j`` holds its rows of both halves of ``proj`` (``a`` and the
+    gelu gate), so its ``a * gelu(g)`` is whole, and multiplies its
+    ``ff_out`` columns; the partials are summed on the home device."""
+
+    def __init__(self, block: TransformerBlock, devices,
+                 home: torch.device):
+        n = len(devices)
+        proj = block.geglu.proj
+        half = proj.out_features // 2
+        self.devices, self.home = devices, home
+        self.a = [(w.to(d), b.to(d)) for w, b, d in zip(
+            proj.weight[:half].chunk(n), proj.bias[:half].chunk(n), devices)]
+        self.g = [(w.to(d), b.to(d)) for w, b, d in zip(
+            proj.weight[half:].chunk(n), proj.bias[half:].chunk(n), devices)]
+        self.out = [w.to(d) for w, d in
+                    zip(block.ff_out.weight.chunk(n, 1), devices)]
+        self.out_bias = block.ff_out.bias
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        dtype = self.out[0].dtype
+        h = _cast(h, dtype)
+        parts = []
+        for d, (wa, ba), (wg, bg), wo in zip(self.devices, self.a, self.g,
+                                             self.out):
+            hd = h.to(d, non_blocking=True)
+            y = F.linear(hd, wa, ba) * F.gelu(F.linear(hd, wg, bg),
+                                              approximate="tanh")
+            parts.append(F.linear(y, wo))
+        return _row_out(parts, self.out_bias, self.home, dtype)
+
+
+def place(module: nn.Module, layout) -> None:
+    """Attach one replica's mesh placement to a UNet or ControlNet
+    (``layout``: its ``(tp, sp)`` devices, ``parallel/sharding.py``
+    :func:`~..parallel.sharding.replica_layout`), or remove it (None).
+    Under ``sp > 1`` every attention gets its ring (shard 0's where a
+    layer is not split by heads); under ``tp > 1`` attentions whose heads
+    divide it split by heads, GEGLUs whose halves divide it by halves,
+    and every other Dense or Conv layer by its class in JAX's rule
+    (``sharding.shard_dim``; a layer it leaves replicated computes on the
+    home device)."""
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv, Attention)):
+            m.tp = None
+        if isinstance(m, Attention):
+            m.ring = None
+        if isinstance(m, TransformerBlock):
+            m.ffn_tp = None
+    if layout is None:
+        return
+    home = layout[0][0]
+    devices = [row[0] for row in layout]
+    rings = [list(row) if len(row) > 1 else None for row in layout]
+    tp = len(devices)
+    done = set()
+    for m in module.modules():
+        if isinstance(m, Attention):
+            m.ring = rings[0]
+            if tp > 1 and m.num_heads % tp == 0:
+                m.tp = _Heads(m, devices, rings, home)
+                done.update(c for c in m.children())
+        elif isinstance(m, TransformerBlock) and tp > 1 \
+                and (m.geglu.proj.out_features // 2) % tp == 0:
+            m.ffn_tp = _Halves(m, devices, home)
+            done.update((m.geglu.proj, m.ff_out))
+    for name, m in module.named_modules():
+        if not isinstance(m, (Dense, Conv)) or m in done:
+            continue
+        dim = sharding.shard_dim(f"{name}.weight", m.weight, tp)
+        if dim == 0:
+            m.tp = _Column(m, devices, home)
+        elif dim == 1 and isinstance(m, Dense):
+            m.tp = _Row(m, devices, home)

@@ -29,7 +29,7 @@ are byte-identical to the serial path's.
 
 Gate: ``SDTPU_STAGE_GRAPH`` (off). ``SDTPU_STAGE_DEPTH`` sizes the window;
 ``SDTPU_STAGE_CN_DEVICES`` the devices of the stage-ahead ControlNet tower
-(``pipeline/engine.py`` ``Engine._stage_cn_device``).
+(``pipeline/engine.py`` ``Engine._stage_cn_mesh``).
 
 Each node's host seconds feed ``sdtpu_stage_graph_seconds`` (labelled by
 stage, ``obs/prometheus.py``) and are drawn as a ``stage.<name>`` span of

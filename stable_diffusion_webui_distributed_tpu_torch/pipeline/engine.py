@@ -134,6 +134,24 @@ while they encode the previous group's PNGs, as the JAX package's do. The
 denoise loop reads no device value back: it paces on one CUDA event per
 chunk.
 
+A mesh (``mesh``, ``runtime/mesh.py``; one process over a grid of
+``torch.device`` objects, the JAX engine's ``mesh`` argument): the engine lives
+on the mesh's home device, where the sampler math, the text encoders and
+the conditioning stay. Each ``dp`` replica holds the UNet, the ControlNets
+and the VAE decoder on its home device (one copy per device: a virtual
+mesh over one card holds them once) and runs its block of rows of every
+UNet evaluation and every decode when the batch divides ``dp``; otherwise
+replica 0 runs the whole batch, the JAX package's odd-batch fallback. The
+rows come back in global order. Under ``tp`` the UNet and the ControlNets
+compute their split layers on their shards and under ``sp`` their
+self-attention on the ring (``models/unet.py`` :func:`~..models.unet.
+place`); the placement is made at construction and again after a VAE swap
+or a LoRA merge, from the full weights (:meth:`Engine.set_mesh`). An
+evaluation whose replica lies on one device replays one CUDA graph per
+replica; a ``tp`` or ``sp`` replica over several cards runs eagerly. The
+int8 precisions and traced LoRA are refused under ``tp > 1`` (ROADMAP
+item 14).
+
 Chunk-boundary preemption (the fleet tier, ``fleet/policy.py``): while a
 preemptible job runs, the dispatcher installs a hook as ``preempt_hook``;
 the chunked loop polls it between chunks and, when an entitled waiter is
@@ -176,6 +194,7 @@ from stable_diffusion_webui_distributed_tpu_torch.cache import (
 from stable_diffusion_webui_distributed_tpu_torch.models.clip import (
     pad_encoded_context,
 )
+from stable_diffusion_webui_distributed_tpu_torch.parallel import sharding
 from stable_diffusion_webui_distributed_tpu_torch.parallel import stage_graph
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     ModelFamily,
@@ -199,6 +218,9 @@ from stable_diffusion_webui_distributed_tpu_torch.models.prompt import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.tokenizer import (
     load_tokenizer,
+)
+from stable_diffusion_webui_distributed_tpu_torch.models import (
+    unet as unet_mod,
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.unet import (
     cache_supported,
@@ -231,6 +253,7 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
+    Unsupported,
     apply_scripts,
     array_to_b64png,
     b64png_to_array,
@@ -242,6 +265,10 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     graphs as graphs_mod,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
+from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+    Mesh,
+    build_mesh,
+)
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
 )
@@ -298,7 +325,10 @@ class Engine:
     none). ``cuda_graphs``: on the card, each UNet evaluation replays a
     CUDA graph captured at its shape's first call (``runtime/graphs.py``;
     the attribute may be switched between requests to time the eager path
-    beside it). CPU tensors always run eagerly."""
+    beside it). CPU tensors always run eagerly. ``mesh``: a
+    :class:`~..runtime.mesh.Mesh` to place the model over (see the
+    module's docstring); its home device is the engine's device, and a
+    ``device`` named beside it must be that one."""
 
     def __init__(
         self,
@@ -319,7 +349,14 @@ class Engine:
             Callable[[str], Optional[Callable]]] = None,
         embedding_store: Optional[EmbeddingStore] = None,
         cuda_graphs: bool = True,
+        mesh: Optional[Mesh] = None,
     ):
+        if mesh is not None:
+            if device is not None and not _same_device(torch.device(device),
+                                                       mesh.home()):
+                raise ValueError(f"device {device} is not the home device "
+                                 f"{mesh.home()} of {mesh}")
+            device = mesh.home()
         self.device = dtypes.resolve_device(device)
         self.family = family
         self.policy = policy
@@ -434,6 +471,13 @@ class Engine:
         #: the fleet's preempt hook serves a yield on it
         self.device_runner = DeviceRunner("engine")
         weakref.finalize(self, self.device_runner.close)
+        #: the mesh the model is placed over (None: the engine's device),
+        #: and each placed module's replicas by (module, mesh)
+        self.mesh: Optional[Mesh] = None
+        self._placed: Dict[Tuple[int, int], Tuple] = {}
+        # the stage-ahead ControlNet tower's mesh, by its device count
+        self._stage_cn_mesh_cache: Optional[Tuple[int, Optional[Mesh]]] = None
+        self.set_mesh(mesh)
 
     # -- text conditioning -------------------------------------------------
 
@@ -688,7 +732,8 @@ class Engine:
                          precision: Optional[
                              precision_mod.PrecisionSpec] = None,
                          cache: Optional["_StepCache"] = None,
-                         stage_ahead: bool = False):
+                         stage_ahead: bool = False,
+                         tower: Optional[Mesh] = None):
         """x0-prediction denoiser with classifier-free guidance: one UNet
         call on ``[uncond; cond]`` rows per evaluation. ``ctx_c`` is one
         ``(1, L, D)`` context or one per row; so is ``added``'s second
@@ -735,7 +780,15 @@ class Engine:
         at that step hands them to the UNet as a per-call input (kind
         ``cnstep``). The units are gated, scaled and summed in the same
         order as in the single evaluation, so the bytes are its bytes. A
-        step with no active unit runs the plain UNet evaluation."""
+        step with no active unit runs the plain UNet evaluation. ``tower``:
+        the mesh the units run on there (``SDTPU_STAGE_CN_DEVICES``,
+        :meth:`_stage_cn_mesh`; None: the engine's); their residuals come
+        back to the engine's device behind an event.
+
+        On a mesh every evaluation runs per ``dp`` replica on its block of
+        rows when the batch divides ``dp`` (:meth:`_split_run`), each
+        replica's a graph of its own where its devices are one, and the
+        outputs come back in global row order."""
         prec = precision if precision is not None \
             else self._default_precision
         run = {"ctx": torch.cat([ctx_u.expand(batch, -1, -1),
@@ -755,32 +808,45 @@ class Engine:
             run.update(graphs_mod.flatten(lora_mod.double_rows(lora), "lora"))
         modules = [module for module, *_ in controls]
         kind = "unet" if ragged is None else "ragged"
-        binding = self._graphs.binding()
+        mesh = self.mesh
+        parts = self._split_run(run, batch, mesh)
+        cn_mesh = mesh if tower is None else tower
+        cn_parts = parts if tower is None else self._split_run(run, batch,
+                                                                tower)
+        for module in modules if tower is not None else ():
+            # the tower's copies before any evaluation: making them drops
+            # the graphs of the copies they replace
+            self._replicas(module, tower)
         cfg = torch.tensor(cfg_scale, dtype=torch.float32)
         v_pred = self.schedule.prediction_type == "v_prediction"
 
-        def unit_residuals(active, run, call, scalars):
+        def unet_of(r):
+            return self._replicas(self.unet, mesh)[r]
+
+        def unit_residuals(active, on, r, run, call, scalars):
             # the summed f32 residuals of the units in ``active`` at
             # timestep scalars[0] over [uncond; cond] rows, unit
-            # active[j]'s scaled by scalars[1 + j]
-            tb = scalars[:1].expand(2 * batch)
+            # active[j]'s scaled by scalars[1 + j], on mesh ``on``'s
+            # replica r
+            tb = scalars[:1].expand(2 * call["x"].shape[0])
             both = torch.cat([call["x"], call["x"]])
             residuals = None
             for j, k in enumerate(active):
-                rs = modules[k](both, tb, run["ctx"], run[f"hint_{k}"],
-                                run.get("added_cond"), precision=prec)
+                unit = self._replicas(modules[k], on)[r]
+                rs = unit(both, tb, run["ctx"], run[f"hint_{k}"],
+                          run.get("added_cond"), precision=prec)
                 rs = [r.float() * scalars[1 + j] for r in rs]
                 residuals = rs if residuals is None else [
                     a + b for a, b in zip(residuals, rs)]
             return residuals
 
-        def unet_eval(run, call, scalars, residuals):
+        def unet_eval(r, run, call, scalars, residuals):
             # the UNet at timestep scalars[0] over [uncond; cond] rows
-            tb = scalars[:1].expand(2 * batch)
+            tb = scalars[:1].expand(2 * call["x"].shape[0])
             both = torch.cat([call["x"], call["x"]])
             unet_in = both if "inpaint" not in run else torch.cat(
                 [both, run["inpaint"].to(both.dtype)], dim=-1)
-            return self.unet(unet_in, tb, run["ctx"],
+            return unet_of(r)(unet_in, tb, run["ctx"],
                              added_cond=run.get("added_cond"),
                              true_rows=run.get("true_rows"),
                              ctx_true=run.get("ctx_true"),
@@ -788,16 +854,39 @@ class Engine:
                              lora=graphs_mod.unflatten(run, "lora"),
                              precision=prec)
 
-        def evaluate(active, run, call, scalars):
-            return unet_eval(run, call, scalars,
-                             unit_residuals(active, run, call, scalars))
+        def evaluate(active, r, run, call, scalars):
+            return unet_eval(r, run, call, scalars, unit_residuals(
+                active, mesh, r, run, call, scalars))
 
-        def graphed(tag, kind, fn, run, call, scalars, binding):
-            if self.cuda_graphs:
+        def one(tag, kind, fn, run, call, scalars, binding, graph_ok):
+            if self.cuda_graphs and graph_ok:
                 return self._graphs.run(tag, kind, fn, run, call, scalars,
                                         binding)
             return fn(run, call,
                       graphs_mod.scalar_tensor(scalars, call["x"].device))
+
+        def graphed(tag, kind, fn, parts, call, scalars, on):
+            # fn(r, run, call, scalars) on each replica of mesh ``on`` that
+            # ``parts`` (its rows' per-run inputs and bindings) names
+            if on is None:
+                (run_0, binding_0), = parts
+                return one(tag, kind, functools.partial(fn, 0), run_0, call,
+                           scalars, binding_0, True)
+            n, out = len(parts), None
+            for r, (run_r, binding_r) in enumerate(parts):
+                layout = sharding.replica_layout(on, r)
+                call_r = {k: sharding.batch_block(v, r, n, batch).to(
+                    on.home(r), non_blocking=True) for k, v in call.items()}
+                got = one(tag + (("mesh", tuple(on.shape.values()), r,
+                                  layout),), kind, functools.partial(fn, r),
+                          run_r, call_r, scalars, binding_r,
+                          sharding.one_device(layout))
+                if n == 1:
+                    return got
+                # copied out at once: the next replica's replay may reuse
+                # the graphs' pool
+                out = _write_blocks(out, got, r, n, batch, on.home())
+            return out
 
         def x0(x, sigma, guided):
             if v_pred:
@@ -825,7 +914,7 @@ class Engine:
             tag = (kind, prec.flags, tuple((k, id(modules[k]))
                                            for k in active))
             out = graphed(tag, kind, functools.partial(evaluate, active),
-                          run, {"x": xin}, [t] + unit_gates, binding)
+                          parts, {"x": xin}, [t] + unit_gates, mesh)
             if cache is not None:
                 cache.count("full_evals")
             return guided(x, sigma, out)
@@ -842,10 +931,14 @@ class Engine:
                 tag = ("cnres", prec.flags, tuple((k, id(modules[k]))
                                                   for k in active))
                 rs = graphed(tag, "cnres",
-                             functools.partial(unit_residuals, active),
-                             run, {"x": xin}, [t] + unit_gates, binding)
-                # the residuals lie in the graphs' pool: the UNet's graph
-                # copies them into its own inputs before any other replay
+                             functools.partial(unit_residuals, active,
+                                               cn_mesh),
+                             cn_parts, {"x": xin}, [t] + unit_gates, cn_mesh)
+                if tower is not None:
+                    rs = self._from_tower(rs, tower)
+                # the residuals may lie in the graphs' pool: the UNet's
+                # graph copies them into its own inputs before any other
+                # replay
                 held[step] = rs
 
             def denoise_ahead(x, sigma, step):
@@ -854,12 +947,12 @@ class Engine:
                     return denoise(x, sigma, step)
                 xin, t = prep(x, sigma)
                 call = {"x": xin, **{f"res/{i}": r for i, r in enumerate(rs)}}
-                out = graphed(("cnstep", prec.flags), "cnstep", lambda run,
+                out = graphed(("cnstep", prec.flags), "cnstep", lambda r, run,
                               call, scalars: unet_eval(
-                                  run, call, scalars,
+                                  r, run, call, scalars,
                                   [v for n, v in call.items()
                                    if n.startswith("res/")]),
-                              run, call, [t], binding)
+                              parts, call, [t], mesh)
                 return guided(x, sigma, out)
 
             return denoise_ahead, ahead
@@ -875,9 +968,9 @@ class Engine:
             run_c["inpaint"] = inpaint_cond
         if lora is not None:
             run_c.update(graphs_mod.flatten(lora, "lora"))
-        binding_c = self._graphs.binding()
+        parts_c = self._split_run(run_c, batch, mesh)
 
-        def evaluate_cached(mode, full, run, call, scalars):
+        def evaluate_cached(mode, full, r, run, call, scalars):
             # the UNet in cache mode ``mode`` over [uncond; cond] rows
             # (``full``) or the cond rows, the reuse mode from call["cache"]
             x = call["x"]
@@ -886,7 +979,7 @@ class Engine:
             tb = scalars[:1].expand(x.shape[0])
             if "inpaint" in run:
                 x = torch.cat([x, run["inpaint"].to(x.dtype)], dim=-1)
-            return self.unet(x, tb, run["ctx"],
+            return unet_of(r)(x, tb, run["ctx"],
                              added_cond=run.get("added_cond"),
                              lora=graphs_mod.unflatten(run, "lora"),
                              precision=prec, cache=call.get("cache"),
@@ -897,8 +990,7 @@ class Engine:
             return graphed((name, prec.flags), name,
                            functools.partial(evaluate_cached, mode,
                                              not trunc),
-                           run_c if trunc else run, call, [t],
-                           binding_c if trunc else binding)
+                           parts_c if trunc else parts, call, [t], mesh)
 
         def refresh(x, sigma, step):
             xin, t = prep(x, sigma)
@@ -1307,10 +1399,12 @@ class Engine:
     #: the f32 decoder's scratch (the JAX package's _DECODE_PIXEL_BUDGET)
     _DECODE_PIXEL_BUDGET = 1024 * 1024
 
-    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+    def _decode(self, latents: torch.Tensor,
+                vae: Optional[torch.nn.Module] = None) -> torch.Tensor:
         """Latents (B,h,w,C) -> f32 pixels (B,H,W,3) in [0, 1] on the
-        device."""
-        imgs = self.vae(latents / self.family.vae.scaling_factor)
+        device (``vae``: a replica's decoder, else the engine's)."""
+        vae = self.vae if vae is None else vae
+        imgs = vae(latents / self.family.vae.scaling_factor)
         return torch.clamp(imgs * 0.5 + 0.5, 0.0, 1.0)
 
     def _decode_u8(self, latents: torch.Tensor, width: int,
@@ -1325,11 +1419,22 @@ class Engine:
         b, lat_h, lat_w = latents.shape[:3]
         host = torch.empty((b, lat_h * f, lat_w * f, 3), dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
+        # each dp replica decodes its block of rows on its own VAE
+        n = self._dp_split(self.mesh, b)
+        blk = b // n
+        vaes = self._replicas(self.vae, self.mesh, None) if n > 1 \
+            else [self.vae]
         with trace.STATS.timer("vae_decode_dispatch"), \
                 obs_spans.device_interval(latents.device):
-            for s in range(0, b, per):
-                px = self._decode(latents[s:s + per]) * 255.0 + 0.5
-                host[s:s + per].copy_(px.to(torch.uint8), non_blocking=True)
+            for r in range(n):
+                rows = latents[r * blk:(r + 1) * blk]
+                if n > 1:
+                    rows = rows.to(self.mesh.home(r), non_blocking=True)
+                for s in range(0, blk, per):
+                    px = self._decode(rows[s:s + per], vaes[r]) * 255.0 + 0.5
+                    at = r * blk + s
+                    host[at:at + per].copy_(px.to(torch.uint8),
+                                            non_blocking=True)
         return host
 
     def _queue_decoded(self, latents: torch.Tensor, pos: int, n: int,
@@ -1346,11 +1451,17 @@ class Engine:
         # denominator, counted where every decode path passes
         METRICS.record_unet_images(min(n, latents.shape[0]))
         host = self._decode_u8(latents, width, height)
-        event = None
+        events = []
         if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return _Decoded(host, event, pos, n, width, height, incomplete)
+            # an event on each device whose replica copied pixels
+            devices = {self.device} if self.mesh is None else {
+                self.mesh.home(r) for r in range(self._dp_split(
+                    self.mesh, latents.shape[0]))} | {self.device}
+            for d in devices:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(d))
+                events.append(event)
+        return _Decoded(host, events, pos, n, width, height, incomplete)
 
     def _flush_decoded(self, out: GenerationResult,
                        payload: GenerationPayload,
@@ -1475,6 +1586,8 @@ class Engine:
             self.vae, self.vae_encoder = new
             if params is None:
                 self._checkpoint_vae = None
+            if self.mesh is not None:
+                self.set_mesh(self.mesh)
             self._blank_cond_cache.clear()
             # the decoded bytes change: retire the cached results
             self._model_epoch += 1
@@ -1500,6 +1613,7 @@ class Engine:
         module = _load(module, sd, self.device, self.policy.param_dtype)
         module = norms_to_f32(module.to(self.policy.compute_dtype))
         self._controlnets[name] = module
+        self._replicas(module, self.mesh)
         return module
 
     def _prepare_controls(self, payload: GenerationPayload, width: int,
@@ -1711,8 +1825,8 @@ class Engine:
                 conds, pooleds, ref_cond = self._group_conds(
                     payload, pos, group, refiner)
             latents = self._split_denoise(
-                payload, noise * sigma0, keys, conds, pooleds, job,
-                refiner, ref_cond, ragged, controls=controls,
+                payload, self._place_batch(noise * sigma0), keys, conds,
+                pooleds, job, refiner, ref_cond, ragged, controls=controls,
                 inpaint_cond=inp)
             out_w, out_h = width, height
             if payload.enable_hr and not self.state.flag.interrupted:
@@ -1807,8 +1921,8 @@ class Engine:
 
             def denoise_stage(cp, p0=pos):
                 c, pl = cp
-                x = self._init_noise(payload, p0, group, (h, w, C),
-                                     rows) * sigma0
+                x = self._place_batch(self._init_noise(
+                    payload, p0, group, (h, w, C), rows) * sigma0)
                 keys = self._image_keys(payload, p0, group)
                 if cn_staged:
                     return self._denoise_staged_cn(payload, x, keys, c, pl,
@@ -1851,13 +1965,12 @@ class Engine:
         and so do these residuals. The host paces on one CUDA event per
         step at depth 2 and returns with the tail running.
 
-        On the engine's card the tower shares its stream: a device of its
-        own (``SDTPU_STAGE_CN_DEVICES``, :meth:`_stage_cn_mesh`) is
-        ROADMAP item 9 and raises here."""
-        if self._stage_cn_mesh() is not None:
-            raise NotImplementedError(
-                "the stage-ahead ControlNet tower on devices of its own "
-                "(SDTPU_STAGE_CN_DEVICES) is not ported (ROADMAP item 9)")
+        Without ``SDTPU_STAGE_CN_DEVICES`` the tower shares the engine's
+        devices and stream. With it, :meth:`_stage_cn_mesh` gives the
+        tower a mesh of its own: the ``cnres`` graphs run there on copies
+        of the units (split over its ``dp`` as the UNet's rows are), and
+        the residuals come back to the UNet's device behind an event
+        (:meth:`_from_tower`)."""
         spec = kd.resolve_sampler(payload.sampler_name)
         steps = payload.steps
         sigmas = kd.build_sigmas(spec, self.schedule, steps)
@@ -1866,7 +1979,8 @@ class Engine:
             *conds, payload.cfg_scale, x.shape[0], added=added,
             controls=controls,
             gates=lambda i: window_gates(controls, i, steps),
-            precision=self._precision_for(payload), stage_ahead=True)
+            precision=self._precision_for(payload), stage_ahead=True,
+            tower=self._stage_cn_mesh())
         step = kd.make_sampler_step(spec, denoise, sigmas, image_keys)
         self.last_step_evals = None
         carry = kd.init_carry(x)
@@ -1897,25 +2011,33 @@ class Engine:
                                 precision=self._precision_for(payload).name)
         return carry.x
 
-    def _stage_cn_mesh(self) -> Optional[List[torch.device]]:
-        """The devices of the stage-ahead ControlNet tower
-        (``SDTPU_STAGE_CN_DEVICES=N``), by the JAX package's rule: the
-        last N visible cards outside the engine's when that many are free,
-        else the trailing N of all. None when the knob is 0 or the slice
-        would take every device (the tower then shares the engine's card
-        and stream), and off the card."""
+    def _stage_cn_mesh(self) -> Optional[Mesh]:
+        """The stage-ahead ControlNet tower's mesh
+        (``SDTPU_STAGE_CN_DEVICES=N``), by the JAX package's rule: ``dp=N``
+        over the last N visible cards outside the engine's when that many
+        are free, else over the trailing N of all, built by
+        ``build_mesh``. None when the knob is 0 or the slice would take
+        every device (the tower then shares the engine's card and
+        stream), and off the card. Cached per N until the engine's mesh
+        changes."""
         n = stage_graph.cn_slice_devices()
         if n <= 0 or self.device.type != "cuda":
             return None
+        cached = self._stage_cn_mesh_cache
+        if cached is not None and cached[0] == n:
+            return cached[1]
         devs = [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-        own = self.device.index if self.device.index is not None \
-            else torch.cuda.current_device()
-        free = [d for d in devs if d.index != own]
+        used = ({d for d in self.mesh.devices.flat} if self.mesh is not None
+                else {self.device})
+        free = [d for d in devs
+                if not any(_same_device(d, u) for u in used)]
         pool = free if len(free) >= n else devs
+        mesh = None
         if len(pool) >= n and not (pool is devs and len(devs) <= n):
-            return pool[-n:]
-        return None
+            mesh = build_mesh(f"dp={n}", devices=pool[-n:])
+        self._stage_cn_mesh_cache = (n, mesh)
+        return mesh
 
     def _run_img2img(self, payload: GenerationPayload, start: int,
                      count: int, job: str) -> GenerationResult:
@@ -1967,7 +2089,7 @@ class Engine:
             init_lat = self._apply_inpaint_fill(
                 payload, init_lat1.repeat(group, 1, 1, 1), mask_lat, keys)
             noise = self._init_noise(payload, pos, group, (h, w, C), h)
-            x = init_lat + noise * sigmas[start_step]
+            x = self._place_batch(init_lat + noise * sigmas[start_step])
             if per_image:
                 conds, pooleds, ref_cond = self._group_conds(
                     payload, pos, group, refiner)
@@ -2058,7 +2180,17 @@ class Engine:
     def check_supported(self, payload: GenerationPayload) -> None:
         """Raise :class:`Unsupported` (HTTP 422) for what this engine does
         not run, before a request joins a group. Every payload the JAX
-        engine runs is ported, so nothing is refused here."""
+        engine runs is ported; on a mesh with ``tp > 1`` the int8
+        precisions and traced LoRA are not (ROADMAP item 14)."""
+        if self._mesh_axis("tp") <= 1:
+            return
+        traced = self.traced_content_for_payload(payload)
+        try:
+            unet_mod.refuse_on_shards(
+                traced or None, precision_mod.resolve(payload,
+                                                      self.policy).active)
+        except ValueError as e:
+            raise Unsupported(str(e)) from None
 
     def run_on_device(self, fn, *args):
         """``fn(*args)`` on the engine's device thread, in inference mode
@@ -2083,6 +2215,106 @@ class Engine:
     def _on_device(self, fn, args):
         with torch.inference_mode(), _reproducible(self.device):
             return fn(*args)
+
+    # -- mesh ----------------------------------------------------------------
+
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Place the model over ``mesh`` (None: the engine's device alone),
+        from the full weights (the JAX engine's ``shard_params`` at
+        construction, after ``set_vae`` and after a LoRA merge): each
+        ``dp`` replica's UNet, ControlNets and VAE decoder on its home
+        device, the UNet and the ControlNets with their ``tp`` and ``sp``
+        placement. The mesh's home device must be the engine's. Call it
+        between requests (or on the device thread, as a VAE swap does)."""
+        if mesh is not None and not _same_device(mesh.home(), self.device):
+            raise ValueError(f"the home device {mesh.home()} of {mesh} is "
+                             f"not the engine's device {self.device}")
+        self.mesh = mesh
+        self._placed.clear()
+        self._stage_cn_mesh_cache = None
+        for module in (self.unet, *self._controlnets.values()):
+            unet_mod.place(module, None)
+        if mesh is None:
+            return
+        for module in (self.unet, *self._controlnets.values()):
+            self._replicas(module, mesh)
+        self._replicas(self.vae, mesh, None)
+
+    def _mesh_axis(self, axis: str) -> int:
+        return self.mesh.shape[axis] if self.mesh is not None else 1
+
+    def _replicas(self, module: torch.nn.Module, mesh: Optional[Mesh],
+                  place=unet_mod.place) -> List[torch.nn.Module]:
+        """``module`` for each ``dp`` replica of ``mesh`` (``[module]``
+        without one), placed once per (module, mesh) with ``place``
+        (``models/unet.py``; None for the VAE, which only replicates). On
+        a mesh other than the engine's (the ControlNet tower's) the
+        replicas are copies, so the engine's placement of the same module
+        stands.
+
+        A replica on a copy (another card's, made anew after every
+        :meth:`set_mesh`, VAE swap and LoRA merge) drops the graphs keyed
+        by its replica and devices: they were captured against the old
+        copy, whose memory is freed or holds the old weights."""
+        if mesh is None:
+            return [module]
+        key = (id(module), id(mesh))
+        hit = self._placed.get(key)
+        if hit is None or hit[0] is not module or hit[1] is not mesh:
+            reps = sharding.replicas(module, mesh, place,
+                                     reuse=mesh is self.mesh)
+            hit = self._placed[key] = (module, mesh, reps)
+            shape = tuple(mesh.shape.values())
+            stale = {(shape, r, sharding.replica_layout(mesh, r))
+                     for r, m in enumerate(reps) if m is not module}
+            if stale:
+                self._graphs.discard(
+                    lambda k: _mesh_tag(k[0]) in stale)
+        return hit[2]
+
+    @staticmethod
+    def _dp_split(mesh: Optional[Mesh], rows: int) -> int:
+        """Replicas a batch of ``rows`` images splits over on ``mesh``:
+        its ``dp`` when the rows divide it, else 1 (replica 0 runs the
+        whole batch: JAX's odd-batch fallback)."""
+        if mesh is None:
+            return 1
+        dp = mesh.shape["dp"]
+        return dp if dp > 1 and rows % dp == 0 else 1
+
+    def _split_run(self, run: Dict[str, torch.Tensor], batch: int,
+                   mesh: Optional[Mesh]) -> List[Tuple[Dict, int]]:
+        """An evaluation's per-run inputs (batch-major, ``batch`` image
+        rows or their CFG doubling) and a graph binding, for each replica
+        of ``mesh`` that a batch of ``batch`` splits over: replica ``r``'s
+        rows of every input on its home device, in the doubled layout
+        ``[uncond_r; cond_r]`` (``sharding.batch_block``). One entry
+        without a mesh."""
+        if mesh is None:
+            return [(run, self._graphs.binding())]
+        n = self._dp_split(mesh, batch)
+        return [({k: sharding.batch_block(v, r, n, batch).to(
+            mesh.home(r), non_blocking=True) for k, v in run.items()},
+            self._graphs.binding()) for r in range(n)]
+
+    def _place_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """A range's rows on the engine's home device, where the sampler
+        runs (the JAX engine's ``_place_batch``): each UNet evaluation and
+        each decode then runs replica ``r``'s block of them on its
+        device when they divide ``dp`` (:meth:`_dp_split`), else the whole
+        batch on replica 0."""
+        return x.to(self.device, non_blocking=True)
+
+    def _from_tower(self, residuals: Sequence[torch.Tensor],
+                    tower: Mesh) -> List[torch.Tensor]:
+        """The tower's residuals on the engine's device: its stream waits
+        on an event recorded after them on the tower's, then copies."""
+        src = tower.home()
+        if src.type == "cuda" and not _same_device(src, self.device):
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(src))
+            torch.cuda.current_stream(self.device).wait_event(event)
+        return [r.to(self.device, non_blocking=True) for r in residuals]
 
     # -- LoRA ---------------------------------------------------------------
 
@@ -2143,6 +2375,9 @@ class Engine:
                 param.copy_(lora_mod.merge_leaf(pristine, patches))
         self._active_loras = (key, gen)
         self.last_lora_counts = (applied, skipped)
+        if self.mesh is not None:
+            # a replica on another device holds a copy: the new weights
+            self.set_mesh(self.mesh)
         if merged:
             if self.device.type == "cuda":
                 # the merge's time is the device's, not its enqueue
@@ -2257,16 +2492,17 @@ class Engine:
 
 class _Decoded:
     """One queued decode: the pinned host buffer its pixels land in, the
-    event recorded after its copies (None on the CPU, where the copy has
-    happened), and where its kept images go."""
+    events recorded after its copies on each device that made them (none
+    on the CPU, where the copy has happened), and where its kept images
+    go."""
 
-    __slots__ = ("host", "event", "pos", "n", "width", "height",
+    __slots__ = ("host", "events", "pos", "n", "width", "height",
                  "incomplete")
 
-    def __init__(self, host: torch.Tensor, event, pos: int, n: int,
+    def __init__(self, host: torch.Tensor, events, pos: int, n: int,
                  width: int, height: int, incomplete: bool):
         self.host = host
-        self.event = event
+        self.events = events
         self.pos = pos
         self.n = n
         self.width = width
@@ -2276,8 +2512,8 @@ class _Decoded:
     def pixels(self) -> np.ndarray:
         """The kept images (n, H, W, 3) uint8, once the device wrote
         them."""
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         return self.host[:self.n].numpy()
 
 
@@ -2362,6 +2598,39 @@ def _reproducible(device: torch.device):
             if _repro_users == 0:
                 for (obj, name, _), value in zip(_REPRO_FLAGS, _repro_prev):
                     setattr(obj, name, value)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:<current>`` are one device."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == \
+        (b.index if b.index is not None else current)
+
+
+def _mesh_tag(tag: Tuple) -> Optional[Tuple]:
+    """``(mesh shape, replica, devices)`` of a graph tag that ends with
+    one (a replica's evaluation on a mesh, ``_make_denoise_fn``), else
+    None."""
+    last = tag[-1] if tag else None
+    if isinstance(last, tuple) and len(last) == 4 and last[0] == "mesh":
+        return last[1:]
+    return None
+
+
+def _write_blocks(out, got, r: int, n: int, batch: int,
+                  home: torch.device):
+    """Writes replica ``r``'s evaluation output (a tensor, or the tower's
+    list of them) into ``out``, the whole output in row order on
+    ``home`` (``sharding.write_block``)."""
+    if isinstance(got, (list, tuple)):
+        out = [None] * len(got) if out is None else out
+        return [sharding.write_block(o, g, r, n, batch, home)
+                for o, g in zip(out, got)]
+    return sharding.write_block(out, got, r, n, batch, home)
 
 
 def _zero_tail_rows(step, true_rows: torch.Tensor, lat_h: int):

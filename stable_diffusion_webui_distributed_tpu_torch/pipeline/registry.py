@@ -31,7 +31,10 @@ directory (webui's layout), through one ``EmbeddingStore`` that every
 engine the registry builds holds and that :meth:`ModelRegistry.refresh`
 rescans in place.
 
-Left out: the ``mesh`` argument (multi-GPU, ROADMAP queue 1, item 11).
+``mesh`` (a ``runtime/mesh.py`` :class:`~..runtime.mesh.Mesh`; JAX
+``pipeline/registry.py:38, 460``): every engine the registry builds, the
+active one and a secondary (a refiner), is placed over it, on its home
+device.
 """
 
 from __future__ import annotations
@@ -102,13 +105,16 @@ class ModelRegistry:
     Engines and upscalers load to ``device`` (``cuda`` unless named; with
     none named and no GPU, building either raises), engines with the card
     policy on ``cuda`` and f32 elsewhere, sharing the generation ``state``
-    (the process's unless named)."""
+    (the process's unless named), each placed over ``mesh`` when one is
+    given (its home device is then the engines' device)."""
 
     def __init__(self, model_dir: str = "models",
                  device: Optional[Union[str, torch.device]] = None,
-                 state=None) -> None:
+                 state=None, mesh=None) -> None:
         self.model_dir = model_dir
-        self.device = device
+        self.mesh = mesh
+        self.device = device if mesh is None or device is not None \
+            else mesh.home()
         self.state = state
         self._paths: Dict[str, str] = {}
         self._lora_paths: Dict[str, str] = {}
@@ -412,7 +418,7 @@ class ModelRegistry:
             controlnet_provider=self.controlnet_provider,
             lora_provider=self.lora_provider,
             upscaler_provider=self.upscaler_provider,
-            embedding_store=self.embedding_store)
+            embedding_store=self.embedding_store, mesh=self.mesh)
 
     def activate(self, name: str):
         """Make checkpoint ``name`` the active engine and return it. The

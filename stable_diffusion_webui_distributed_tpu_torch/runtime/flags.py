@@ -1,7 +1,8 @@
 """The fleet's command-line flags, as the JAX package's ``runtime/flags.py``
-names them (``--mesh`` waits for multi-GPU; ``--model-dir`` holds the
-adapters under ``Lora/`` until the checkpoint registry lands).
-``add_flags`` also works on a host application's parser."""
+names them: ``--mesh`` places the local engine over a device mesh
+(``runtime/mesh.py``), and ``--model-dir`` names the model directory the
+checkpoint registry serves. ``add_flags`` also works on a host
+application's parser."""
 
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ def add_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         "--thin-client", action="store_true",
         help="exclude the local engine from planning: coordinate remotes "
         "only")
+    group.add_argument(
+        "--mesh", type=str, default=None,
+        help='mesh axis spec over every visible card, e.g. "dp=4,tp=2" '
+        "(default: the config file's mesh_axes, else no mesh)")
     group.add_argument(
         "--model-dir", type=str, default=None,
         help="model directory: LoRA adapters under Lora/ or lora/ "

@@ -65,6 +65,13 @@ entry always kept; a dropped signature captures again at its next call.
 Dropping the cache (with its engine) drops every graph, static buffer and
 output, and with the last graph the pool.
 
+**Devices.** A capture runs on one device, so the cache keeps one backend
+(its side stream and pool) per card its calls come from: the replicas of
+a mesh over several cards (``runtime/mesh.py``) each capture on their own,
+and their entries count against the one budget. The engine keys a
+replica's evaluation by its replica and devices, and runs an evaluation
+that spans several cards eagerly.
+
 The bookkeeping (keys, bindings, deltas, captures by kind, the budget) is
 plain Python apart from the capture backend, :class:`CudaCapture`, so the
 tests run it on the CPU with a stand-in backend.
@@ -267,15 +274,28 @@ class CudaCapture:
 class GraphCache:
     """A cache of captured evaluations (see the module's docstring).
 
-    ``capture`` is the backend (:class:`CudaCapture` at the first call on
-    the card when None; the tests pass a stand-in, which then also takes
-    CPU tensors through the bookkeeping). Used from one thread at a time:
-    the engine's device thread."""
+    ``capture`` is the backend of every device (when None, a
+    :class:`CudaCapture` per card at its first call; the tests pass a
+    stand-in, which then also takes CPU tensors through the bookkeeping).
+    Used from one thread at a time: the engine's device thread."""
 
     def __init__(self, capture=None):
         self._capture = capture
+        self._captures: Dict[torch.device, CudaCapture] = {}
         self._entries: "OrderedDict[Tuple, Entry]" = OrderedDict()
         self._bindings = itertools.count(1)
+
+    def _backend(self, device: torch.device):
+        """The capture backend of ``device``'s calls; None for tensors off
+        the card without a stand-in (they run eagerly)."""
+        if self._capture is not None:
+            return self._capture
+        if device.type != "cuda":
+            return None
+        backend = self._captures.get(device)
+        if backend is None:
+            backend = self._captures[device] = CudaCapture(device)
+        return backend
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -287,6 +307,15 @@ class GraphCache:
         """Every entry's key: ``(tag, signature of the per-run inputs,
         signature of the per-call inputs, number of scalars)``."""
         return list(self._entries)
+
+    def discard(self, stale: Callable[[Tuple], bool]) -> int:
+        """Drop every entry whose key ``stale`` names (its graph reads
+        tensors that were replaced); returns how many went. A dropped key
+        captures again at its next call."""
+        keys = [key for key in self._entries if stale(key)]
+        for key in keys:
+            del self._entries[key]
+        return len(keys)
 
     def binding(self) -> int:
         """A new binding: one caller's per-run inputs, which stay the same
@@ -303,20 +332,19 @@ class GraphCache:
         call. The result of a replay is the entry's output: consume it
         before the next call."""
         device = next(iter(per_call.values())).device
-        if self._capture is None:
-            if device.type != "cuda":
-                return fn(per_run, per_call, scalar_tensor(scalars, device))
-            self._capture = CudaCapture(device)
+        backend = self._backend(device)
+        if backend is None:
+            return fn(per_run, per_call, scalar_tensor(scalars, device))
         key = (tag, signature(per_run), signature(per_call), len(scalars))
         entry = self._entries.get(key)
         if entry is None:
             return self._first(key, kind, fn, per_run, per_call, scalars,
-                               binding, device)
+                               binding, device, backend)
         self._entries.move_to_end(key)
         entry.load(per_run if entry.binding != binding else None, per_call,
                    scalars)
         entry.binding = binding
-        self._capture.replay(entry.graph)
+        backend.replay(entry.graph)
         entry.replays += 1
         METRICS.record_cache_hit(entry.kind)
         for wrapper, n, paths in entry.delta:
@@ -325,7 +353,7 @@ class GraphCache:
 
     def _first(self, key: Tuple, kind: str, fn, per_run: Inputs,
                per_call: Inputs, scalars: Sequence[float], binding: int,
-               device) -> torch.Tensor:
+               device, backend) -> torch.Tensor:
         entry = Entry(per_run, per_call, len(scalars), device)
         entry.kind = kind
         entry.load(per_run, per_call, scalars)
@@ -333,11 +361,11 @@ class GraphCache:
         args = entry.args()
         t0 = time.perf_counter()
         with obs_spans.span("capture", kind=str(kind), key=str(key)):
-            out = self._capture.eager(lambda: fn(*args))
+            out = backend.eager(lambda: fn(*args))
             before = [(w, w.launches, dict(w.path_launches))
                       for w in COUNTED]
             try:
-                entry.graph, entry.output = self._capture.capture(
+                entry.graph, entry.output = backend.capture(
                     lambda: fn(*args))
             finally:
                 for wrapper, n, paths in before:

@@ -160,6 +160,7 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
+    Unsupported,
     apply_scripts,
     array_to_b64png,
     b64png_to_array,
@@ -473,7 +474,8 @@ class ServingDispatcher:
                     retry_after=retry)
             metered = payload.total_images
         decision = self.admission.decide(payload, pol,
-                                         self.eta_overhead(payload))
+                                         self.eta_overhead(payload),
+                                         int8=self._runs_int8(payload))
         obs_prom.fleet_count("admissions", decision=decision.action,
                              **{"class": pol.name})
         if decision.action == "reject":
@@ -495,6 +497,18 @@ class ServingDispatcher:
             if decision.steps:
                 payload.steps = decision.steps
         return pol.name
+
+    def _runs_int8(self, payload) -> bool:
+        """Whether the engine runs ``payload`` at the int8 precision, the
+        admission's last degrade rung (an engine on a ``tp > 1`` mesh
+        refuses it)."""
+        ov = {**(payload.override_settings or {}), "precision": "int8"}
+        try:
+            self.engine.check_supported(
+                payload.model_copy(update={"override_settings": ov}))
+        except Unsupported:
+            return False
+        return True
 
     def _engine(self):
         """The engine this thread executes on: the resident checked out
@@ -1170,7 +1184,8 @@ class ServingDispatcher:
         lora = (lora_mod.stack_row_sets(row_sets, b_run)["unet"]
                 if traced else None)
         return {"live": live, "counts": counts, "rp": rp, "width": width,
-                "height": height, "x": noise * sigma0, "keys": keys,
+                "height": height,
+                "x": engine._place_batch(noise * sigma0), "keys": keys,
                 "ctx": (ctx_u, ctx_c), "pooled": (pooled_u, pooled_c),
                 "ragged": ragged, "lora": lora,
                 "ragged_mode": ragged_mode, "b_raw": b_raw, "b_run": b_run,

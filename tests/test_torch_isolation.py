@@ -7,7 +7,7 @@ A fresh interpreter imports every module of the port; afterwards neither
 ``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
 sources (the port's, ``chip_smoke.py``, the fleet telemetry phase's
 runners in ``tools/``, the artifact store's report and its phase's
-runner) asserts the same of every import statement,
+runner, the mesh phase's runner) asserts the same of every import statement,
 including imports inside functions.
 """
 
@@ -61,7 +61,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.flightrec", "obs.watchdog", "obs.perf", "obs.tsdb",
                  "obs.alerts", "obs.notify", "obs.fleetlog", "obs.stitch",
                  "obs.federation", "obs.push", "server.panel",
-                 "serving.aot"):
+                 "serving.aot", "runtime.mesh", "parallel.sharding",
+                 "parallel.stage_pipeline", "ops.ring_attention"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 70
     assert out["forbidden"] == []
@@ -76,6 +77,8 @@ def _sources():
     # the artifact store's report and the chip runner of its phase
     yield ROOT / "tools" / "torch_aot_report.py"
     yield ROOT / "tools" / "torch_aot.py"
+    # the chip runner of the mesh phase
+    yield ROOT / "tools" / "torch_mesh.py"
 
 
 @pytest.mark.parametrize("path", list(_sources()),

@@ -10,11 +10,10 @@ stand-in capture backend, a plain staged request replays the serial
 request's graphs, the first stage-ahead request captures its ``cnres``
 (one per set of active units) and ``cnstep`` graphs, a repeat none; Heun
 (two evaluations a step) keeps the tower inside the evaluation. A tower on
-a device of its own raises (ROADMAP item 9). The engines and weights are
-``tests/test_torch_stage_graph.py``'s.
+a mesh of its own gives the shared-device bytes (the mesh tests in
+``tests/test_torch_parallel_rows.py`` hold it further). The engines and weights
+are ``tests/test_torch_stage_graph.py``'s.
 """
-
-import pytest
 
 from stable_diffusion_webui_distributed_tpu_torch import bridge
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import TINY
@@ -22,6 +21,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.runtime import graphs
 from stable_diffusion_webui_distributed_tpu_torch.runtime.interrupt import (
     GenerationState,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+    build_mesh,
 )
 from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
     METRICS,
@@ -103,10 +105,20 @@ def test_stage_ahead_captures_once_and_replays_the_serial_graphs(
 
 
 def test_tower_on_a_device_of_its_own_is_not_ported(engine, staged):
-    staged.setattr(engine, "_stage_cn_mesh", lambda: ["cuda:1"])
+    """The tower on a mesh of its own (``SDTPU_STAGE_CN_DEVICES``; here a
+    patched ``_stage_cn_mesh`` over CPU devices) gives the shared-device
+    stage-ahead bytes; the CPU engine's own rule gives no slice."""
     staged.setenv("SDTPU_STAGE_GRAPH", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        engine.txt2img(payload(**cn_body()))
+    shared = engine.txt2img(payload(**cn_body(batch_size=2)))
+    for spec in ("dp=1", "dp=2"):
+        tower = build_mesh(spec, devices=["cpu"] * 2)
+        staged.setattr(engine, "_stage_cn_mesh", lambda t=tower: t)
+        got = engine.txt2img(payload(**cn_body(batch_size=2)))
+        if spec == "dp=1":
+            assert got.images == shared.images
+        else:
+            # each replica of the tower runs one row
+            assert_near_jax(got, shared)
     staged.undo()
     staged.setenv("SDTPU_STAGE_CN_DEVICES", "1")
     assert engine._stage_cn_mesh() is None  # the CPU engine: no slice
