@@ -6124,6 +6124,415 @@ def model_tflop(family, lat: int) -> dict:
     return counts
 
 
+SCENARIO_SIZE = 512  # config #1's width and height, its one bucket
+SCENARIO_STEPS = 20
+SCENARIO_SLO_S = 30.0  # the interactive SLO (batch: 4x), bench.py's non-CPU
+SCENARIO_SEED = 0
+SCENARIO_ENV = {"SDTPU_SIM": "1", "SDTPU_JOURNAL": "1", "SDTPU_PERF": "1"}
+SCENARIO_MEAN_TOLERANCE = 2.0  # uint8 levels, a coalesced image vs solo
+SCENARIO_CHAOS_STEPS = 8  # bench.py's chaos payload: 512x512, batch 4
+SCENARIO_EXPLORER_SEEDS = 16  # schedule-explorer seeds per harness
+SCENARIO_ENCODE_REPEATS = 5  # PNG encodes per size and encoder
+
+
+def scenario_agreement(name: str, cap: dict, solo: dict) -> dict:
+    """A scenario's first coalesced image against the solo image of its
+    seed (``solo``: seed -> pixels): the batch-row agreement."""
+    from stable_diffusion_webui_distributed_tpu_torch.sim import scenarios
+
+    seeds = {e["request_id"]: e["attrs"]["payload"]["seed"]
+             for e in cap["events"] if e["event"] == "received"}
+    groups = scenarios.coalesced(cap["events"])
+    rid = next((r for r in sorted(groups) if r in cap["results"]
+                and cap["results"][r].images), None)
+    check(rid is not None, f"scenarios {name}: no request was coalesced")
+    seed = seeds[rid]
+    a = png_pixels(cap["results"][rid].images[0]).astype("int32")
+    diff = abs(a - solo[seed].astype("int32"))
+    out = {"request_id": rid, "group": groups[rid], "seed": seed,
+           "mean_abs": round(float(diff.mean()), 4),
+           "max_abs": int(diff.max())}
+    check(out["mean_abs"] <= SCENARIO_MEAN_TOLERANCE,
+          f"scenarios {name}: coalesced {rid} (group {groups[rid]}) is "
+          f"{out['mean_abs']} levels from seed {seed}'s solo image")
+    return out
+
+
+def scenario_scored(name: str, card: dict, cap: dict, n: int) -> None:
+    """Every request scored: completed, throttled with a reason or failed
+    with its error, and the scorecard's per-class counts add up."""
+    recs = cap["records"]
+    check(len(recs) == n and card["requests"] == n,
+          f"scenarios {name}: {len(recs)} records, {card['requests']} "
+          f"scored, want {n}")
+    for r in recs:
+        status = r.get("status")
+        check(isinstance(status, str) and status != "",
+              f"scenarios {name}: {r.get('request_id')} has no status")
+        if status == "failed":
+            check(bool(r.get("error")), f"scenarios {name}: "
+                  f"{r.get('request_id')} failed with no error")
+    for cls, row in card["classes"].items():
+        check(row["completed"] + row["failed"] + row["throttled"]
+              == row["requests"], f"scenarios {name}: class {cls} "
+              f"counts do not add up: {row}")
+    check(card["double_merged_images"] == 0,
+          f"scenarios {name}: {card['double_merged_images']} images "
+          f"merged twice")
+
+
+def scenario_line(name: str, card: dict, cap: dict, dispatches: int,
+                  k1: int, card_line: str) -> dict:
+    """The printed numbers of one dispatcher scenario."""
+    ledger = cap.get("ledger") or {}
+    groups = ledger.get("groups", [])
+    disp = sum(int(g["dispatches"]) for g in groups)
+    dev_s = sum(float(g["device_s"]) for g in groups)
+    flops = sum(float(g["flops"]) for g in groups)
+    peak = ledger.get("peak_flops_bf16")
+    row = {"wall_s": round(cap["wall_s"], 4),
+           "requests": card["requests"], "dispatches": dispatches,
+           "requests_per_dispatch": round(card["requests"]
+                                          / max(1, dispatches), 4),
+           "classes": {cls: {k: r[k] for k in (
+               "requests", "completed", "throttled", "failed", "p50_s",
+               "p95_s", "slo_attainment")}
+               for cls, r in card["classes"].items()},
+           "worst_slo_burn": card["worst_slo_burn"],
+           "delivered_images": card["delivered_images"],
+           "expected_images": card["expected_images"],
+           "ledger_dispatches": disp,
+           "device_ms_per_dispatch": round(dev_s / disp * 1e3, 4)
+           if disp else None,
+           "mfu": round(flops / dev_s / peak, 6) if disp and dev_s > 0
+           and peak else None,
+           "k1_launches": k1}
+    print(f"scenarios {name}: {json.dumps(row)} [{card_line}]")
+    return row
+
+
+def scenario_explorer(card_line: str) -> dict:
+    """The seven schedule-explorer harnesses at
+    :data:`SCENARIO_EXPLORER_SEEDS` seeds each on this interpreter: every
+    seed clean, a repeat of the first seeds the same digests. Host work:
+    it shows the explorer's thread patches hold here."""
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import locksan
+    from stable_diffusion_webui_distributed_tpu_torch.sim import harnesses
+
+    t0 = time.perf_counter()
+    out = {}
+    locksan.install()
+    try:
+        for name in sorted(harnesses.HARNESSES):
+            t = time.perf_counter()
+            res = harnesses.run_harness(
+                name, range(SCENARIO_EXPLORER_SEEDS))
+            again = harnesses.run_harness(name, range(2))
+            bad = [f"seed {r.seed}: deadlock={r.deadlock!r} livelock="
+                   f"{r.livelock} errors={r.errors}" for r in res
+                   if not r.ok]
+            check(not bad, f"explorer {name}: {bad[:2]}")
+            check([r.digest() for r in again]
+                  == [r.digest() for r in res[:2]],
+                  f"explorer {name}: a seed gave another interleaving")
+            out[name] = {"seeds": len(res), "clean": len(res) - len(bad),
+                         "interleavings": len({r.digest() for r in res}),
+                         "steps": sum(r.steps for r in res),
+                         "seconds": round(time.perf_counter() - t, 3)}
+    finally:
+        locksan.uninstall()
+        locksan.reset()
+    secs = round(time.perf_counter() - t0, 3)
+    print(f"scenarios explorer: {len(out)} harnesses x "
+          f"{SCENARIO_EXPLORER_SEEDS} seeds in {secs} s: {json.dumps(out)} "
+          f"[{card_line}]")
+    return {"harnesses": out, "seconds": secs}
+
+
+def scenario_encoder(pixels, card_line: str) -> dict:
+    """The native PNG encoder against PIL on one 512x512 and one 1024x1024
+    image: both decode to the input, ms per image of each."""
+    import numpy as np
+    from PIL import Image
+
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import native
+
+    out = {}
+    for size in (512, 1024):
+        reps = size // pixels.shape[0]
+        img = np.ascontiguousarray(np.tile(pixels, (reps, reps, 1)))
+        check(img.shape == (size, size, 3), f"encoder image {img.shape}")
+
+        def pil_png():
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="PNG")
+            return buf.getvalue()
+
+        times = {"native": [], "pil": []}
+        data = {}
+        for _ in range(SCENARIO_ENCODE_REPEATS):
+            for arm, fn in (("native", lambda: native.encode_png(img)),
+                            ("pil", pil_png)):
+                t = time.perf_counter()
+                data[arm] = fn()
+                times[arm].append((time.perf_counter() - t) * 1e3)
+        check(data["native"] is not None, "the native encoder is not built")
+        for arm, blob in data.items():
+            got = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+            check(np.array_equal(got, img),
+                  f"the {arm} PNG at {size}x{size} decodes to other pixels")
+        out[size] = {f"{arm}_ms": round(float(np.median(ts)), 4)
+                     for arm, ts in times.items()}
+        out[size]["native_bytes"] = len(data["native"])
+        out[size]["pil_bytes"] = len(data["pil"])
+    print(f"scenarios encoder (median of {SCENARIO_ENCODE_REPEATS}, ms per "
+          f"image): {json.dumps(out)} [{card_line}]")
+    return out
+
+
+def phase_scenarios(engine, fa, ra, card_line: str) -> dict:
+    """The scenario engine (``sim/scenarios.py``, the JAX ``bench.py
+    --scenarios``) on the main path's engine at config #1's full width:
+    a four-request recorded mix through a dispatcher (bucket 512x512,
+    batch 2, window 0), then steady (12 requests at 4x), flash burst (8 at
+    2x and a burst of 4, two tenants and classes, the fleet gate with
+    quantum 0, a 240/min quota with a burst of 8, an interactive SLO of
+    30 s), a chaos kill on a World whose survivor is this engine behind a
+    ``LocalBackend`` (the victim a stub worker killed at request 1) and
+    the capacity sweep (``solo_b1``, ``coalesce_b2``, ``coalesce_b4``) over
+    one 8-request plan. Each dispatcher scenario's K1 launches must equal
+    320 x its dispatches, all on the Hopper path, and one coalesced image
+    must agree with its seed's solo image; ``/internal/metrics`` must show
+    the last burn and ``/internal/sim`` the last run. Then the seven
+    explorer harnesses on this interpreter and the native PNG encoder
+    against PIL; every image of the phase must have gone through the
+    native encoder."""
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.obs import (
+        prometheus as obs_prom,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import native
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler.worker import (
+        LocalBackend,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.server.api import (
+        ApiServer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
+        ShapeBucketer,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.dispatcher import (
+        ServingDispatcher,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.sim import scenarios
+
+    t_phase = time.perf_counter()
+    size, steps, slo_s = SCENARIO_SIZE, SCENARIO_STEPS, SCENARIO_SLO_S
+    saved = env_set(SCENARIO_ENV)
+    encodes0 = native.stats()
+    out = {"card": card_line, "scenarios": {}}
+    images = 0
+    try:
+        check(native.available(), "the native PNG encoder did not build")
+        bucketer = ShapeBucketer(shapes=[(size, size)], batches=[2])
+
+        def counted(name, run, n):
+            nonlocal images
+            METRICS.clear()
+            fa.reset_launches(fa.flash_attention)
+            fa.reset_launches(ra.ragged_attention)
+            cap = {}
+            card = run(cap)
+            torch.cuda.synchronize()
+            k1 = fa.flash_attention.launches
+            paths = dict(fa.flash_attention.path_launches)
+            dispatches = METRICS.summary()["dispatches"]
+            images += sum(len(r.images) for r in cap["results"].values())
+            scenario_scored(name, card, cap, n)
+            check(ra.ragged_attention.launches == 0,
+                  f"scenarios {name}: K2 launched")
+            check(k1 == LAUNCHES_PER_GROUP * dispatches,
+                  f"scenarios {name}: {k1} K1 launches for {dispatches} "
+                  f"dispatches, want {LAUNCHES_PER_GROUP} each")
+            check(paths.get("hopper", 0) == k1,
+                  f"scenarios {name}: K1 off the Hopper path: {paths}")
+            return card, cap, dispatches, k1
+
+        recorder = ServingDispatcher(engine, bucketer=bucketer, window=0.0)
+        t = time.perf_counter()
+        mix_cap = {}
+        mix = scenarios.record_mix(recorder, size, steps,
+                                   capture=mix_cap)
+        images += sum(len(r.images) for r in mix_cap["results"].values())
+        check([p["seed"] for p, _ in mix] == [400, 401, 402, 403],
+              f"scenarios: the recorded mix is {len(mix)} requests")
+        solo = {400 + i: png_pixels(mix_cap["results"][
+            f"record-{i:03d}"].images[0]) for i in range(4)}
+        out["recorded_mix"] = {
+            "requests": len(mix), "wall_s": round(time.perf_counter() - t,
+                                                  4),
+            "arrivals_s": [round(a, 4) for _, a in mix]}
+        print(f"scenarios recorded mix: {json.dumps(out['recorded_mix'])} "
+              f"[{card_line}]")
+
+        last_burn = None
+        for name, run, n in (
+                ("steady", lambda cap: scenarios.steady(
+                    engine, bucketer, mix, SCENARIO_SEED, slo_s, cap), 12),
+                ("flash_burst", lambda cap: scenarios.flash_burst(
+                    engine, bucketer, mix, SCENARIO_SEED, slo_s, cap), 12)):
+            card, cap, dispatches, k1 = counted(name, run, n)
+            row = scenario_line(name, card, cap, dispatches, k1, card_line)
+            row["agreement"] = scenario_agreement(name, cap, solo)
+            print(f"scenarios {name}: coalesced vs solo "
+                  f"{json.dumps(row['agreement'])} [{card_line}]")
+            out["scenarios"][name] = row
+            if card["worst_slo_burn"] is not None:
+                last_burn = card["worst_slo_burn"]
+            if name == "steady":
+                check(card["delivered_images"] == card["expected_images"],
+                      f"scenarios steady: {card['delivered_images']} of "
+                      f"{card['expected_images']} images delivered")
+        check(last_burn is not None,
+              "scenarios flash_burst: the ledger scored no SLO burn")
+
+        # the chaos kill: the survivor is this engine behind a LocalBackend
+        class Survivor(LocalBackend):
+            ranges = 0
+
+            def generate(self, payload, start_index, count):
+                Survivor.ranges += 1
+                return super().generate(payload, start_index, count)
+
+        fa.reset_launches(fa.flash_attention)
+        cap = {}
+        t = time.perf_counter()
+        card = scenarios.chaos_kill(SCENARIO_SEED, Survivor(engine), size,
+                                    SCENARIO_CHAOS_STEPS, cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k1 = fa.flash_attention.launches
+        images += sum(len(r.images) for r in cap["results"].values())
+        want_k1 = 16 * SCENARIO_CHAOS_STEPS * Survivor.ranges
+        row = {"wall_s": round(wall, 4), "faults": card["faults"],
+               "requeues": card["requeues"],
+               "requeue_recovery_rate": card["requeue_recovery_rate"],
+               "delivered_images": card["delivered_images"],
+               "expected_images": card["expected_images"],
+               "double_merged_images": card["double_merged_images"],
+               "survivor_ranges": Survivor.ranges, "k1_launches": k1}
+        out["scenarios"]["chaos_kill"] = row
+        print(f"scenarios chaos_kill: {json.dumps(row)} [{card_line}]")
+        check(card["requeue_recovery_rate"] == 1.0,
+              f"scenarios chaos_kill: recovery {row}")
+        check(card["requeues"] >= 1 and card["faults"] == {"kill": 1},
+              f"scenarios chaos_kill: requeues or faults {row}")
+        check(card["double_merged_images"] == 0,
+              "scenarios chaos_kill: images merged twice")
+        check(k1 == want_k1 and dict(fa.flash_attention.path_launches).get(
+            "hopper", 0) == k1, f"scenarios chaos_kill: {k1} K1 launches, "
+              f"want {want_k1} on the Hopper path")
+
+        # the capacity sweep, one dispatcher scenario per candidate
+        sweep_caps = {}
+        METRICS.clear()
+        fa.reset_launches(fa.flash_attention)
+        t = time.perf_counter()
+        result = scenarios.sweep(engine, mix, SCENARIO_SEED, size, slo_s,
+                                 sweep_caps)
+        torch.cuda.synchronize()
+        k1 = fa.flash_attention.launches
+        dispatches = METRICS.summary()["dispatches"]
+        check(k1 == LAUNCHES_PER_GROUP * dispatches
+              and dict(fa.flash_attention.path_launches).get("hopper", 0)
+              == k1, f"scenarios sweep: {k1} K1 launches for "
+              f"{dispatches} dispatches")
+        sweep_solo = {rid: png_pixels(r.images[0]) for rid, r in
+                      sweep_caps["solo_b1"]["results"].items()}
+        sweep_out = {"wall_s": round(time.perf_counter() - t, 4),
+                     "k1_launches": k1, "dispatches": dispatches,
+                     "candidates": {}}
+        for name in sorted(result["runs"]):
+            card, cap = result["runs"][name], sweep_caps[name]
+            images += sum(len(r.images) for r in cap["results"].values())
+            scenario_scored(f"sweep {name}", card, cap, 8)
+            check(card["delivered_images"] == card["expected_images"],
+                  f"scenarios sweep {name}: {card['delivered_images']} of "
+                  f"{card['expected_images']} images delivered")
+            groups = scenarios.coalesced(cap["events"])
+            cand_dispatches = sum(int(g["dispatches"])
+                                  for g in cap["ledger"]["groups"])
+            row = scenario_line(f"sweep {name}", card, cap, cand_dispatches,
+                                LAUNCHES_PER_GROUP * cand_dispatches,
+                                card_line)
+            if name != "solo_b1":
+                # the same plan's request id: the same payload, solo
+                rid = next((r for r in sorted(groups)
+                            if cap["results"].get(r)), None)
+                check(rid is not None,
+                      f"scenarios sweep {name}: nothing coalesced")
+                diff = abs(png_pixels(cap["results"][rid].images[0])
+                           .astype("int32")
+                           - sweep_solo[rid].astype("int32"))
+                row["agreement"] = {"request_id": rid, "group": groups[rid],
+                                    "mean_abs": round(float(diff.mean()), 4),
+                                    "max_abs": int(diff.max())}
+                print(f"scenarios sweep {name}: coalesced vs solo_b1 "
+                      f"{json.dumps(row['agreement'])} [{card_line}]")
+                check(diff.mean() <= SCENARIO_MEAN_TOLERANCE,
+                      f"scenarios sweep {name}: {row['agreement']}")
+            else:
+                check(groups == {}, "scenarios sweep solo_b1 coalesced")
+            sweep_out["candidates"][name] = row
+        check(sorted(r["name"] for r in result["ranked"])
+              == sorted(scenarios.SWEEP_CONFIGS),
+              f"scenarios sweep: ranked {result['ranked']}")
+        sweep_out["ranked"] = [(r["rank"], r["name"],
+                                r["worst_slo_attainment"], r["worst_p95_s"],
+                                r["compiles"]) for r in result["ranked"]]
+        sweep_out["recommendation"] = result["recommendation"]
+        out["sweep"] = sweep_out
+        print(f"scenarios sweep: ranking {json.dumps(sweep_out['ranked'])}, "
+              f"recommendation {result['recommendation']}, "
+              f"{sweep_out['wall_s']} s, K1 {k1} for {dispatches} "
+              f"dispatches [{card_line}]")
+
+        # the gauge and the last run through the server's routes
+        server = ApiServer(engine, port=0).start()
+        try:
+            text = get_text(server.port, "/internal/metrics")
+            doc = get_json(server.port, "/internal/sim")
+        finally:
+            server.stop()
+        burn = [float(line.split()[1]) for line in text.splitlines()
+                if line.startswith("sdtpu_sim_slo_burn ")]
+        check(burn == [last_burn] and obs_prom.sim_slo_burn() == last_burn,
+              f"scenarios: sdtpu_sim_slo_burn {burn}, want [{last_burn}]")
+        check((doc.get("last_run") or {}).get("name") == "chaos_kill"
+              and doc.get("enabled") is True,
+              f"scenarios: /internal/sim last_run {doc.get('last_run')}")
+        out["slo_burn_gauge"] = last_burn
+    finally:
+        env_restore(saved)
+    stats = native.stats()
+    out["png"] = {"native": stats["native"] - encodes0["native"],
+                  "fallback": stats["fallback"] - encodes0["fallback"],
+                  "images": images}
+    check(out["png"]["fallback"] == 0
+          and out["png"]["native"] >= images > 0,
+          f"scenarios: PNG encodes {out['png']}, not all native")
+    out["explorer"] = scenario_explorer(card_line)
+    out["encoder"] = scenario_encoder(solo[400], card_line)
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    print(f"scenarios: phase passed in {out['seconds']} s "
+          f"(png {json.dumps(out['png'])}) [{card_line}]")
+    return out
+
+
 def config2_engines():
     """Config #2's SDXL base and refiner engines on seeded weights (bf16
     card policy), the base handing over to the refiner through its
@@ -8151,6 +8560,7 @@ def main() -> int:
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
     mesh = phase_mesh(engine, fa, card_line)
+    scenario = phase_scenarios(engine, fa, ra, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
     torch.cuda.empty_cache()
@@ -8205,6 +8615,10 @@ def main() -> int:
         "mesh_launches": {spec: arm["k1"]
                           for spec, arm in mesh["arms"].items()},
         "mesh_devices": mesh["devices"],
+        "scenario_launches": {
+            **{name: row["k1_launches"]
+               for name, row in scenario["scenarios"].items()},
+            "sweep": scenario["sweep"]["k1_launches"]},
         "config3_launches": config3["k1_launches"],
         "config3_ms": round(config3_k1["ms"], 4),
         "config3_device_ms": round(config3_k1["device_ms"], 4),

@@ -425,6 +425,12 @@ def main(argv: Optional[list] = None) -> int:
     # ring /internal/status serves, each line under its request's id
     port_logging.configure(debug=args.distributed_debug)
     if args.fn in (cmd_generate, cmd_serve, cmd_benchmark):
+        # build the native PNG encoder off the request path
+        from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+            native,
+        )
+
+        native.warm_up()
         # a mesh across hosts (SDTPU_COORDINATOR): not ported, raises
         from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
             init_multihost,

@@ -459,8 +459,23 @@ def aot_count(outcome: str, n: float = 1.0) -> None:
     AOT_COUNTER.inc(n, outcome=outcome)
 
 
-# The JAX package's sdtpu_sim_slo_burn (the scenario scorer) comes with the
-# slice that ports it.
+_SIM_LOCK = threading.Lock()
+#: worst per-(tenant, class) SLO burn rate from the last scored scenario
+#: run; None until ``sim/score.py`` scores one, omitted from the exposition
+#: while None
+_SIM_SLO_BURN: Optional[float] = None  # guarded-by: _SIM_LOCK
+
+
+def set_sim_slo_burn(value: Optional[float]) -> None:
+    """Record the last scenario run's worst SLO burn rate (sim/score.py)."""
+    global _SIM_SLO_BURN
+    with _SIM_LOCK:
+        _SIM_SLO_BURN = None if value is None else float(value)
+
+
+def sim_slo_burn() -> Optional[float]:
+    with _SIM_LOCK:
+        return _SIM_SLO_BURN
 
 #: alert state transitions by rule and state (firing / resolved), from
 #: ``obs/alerts.py``
@@ -595,6 +610,7 @@ def clear_histograms() -> None:
     NOTIFY_COUNTER.clear()
     with _ALERT_LOCK:
         _ALERT_STATE.clear()
+    set_sim_slo_burn(None)
     with _WORKER_LOCK:
         _WORKER_LATENCY_EWMA.clear()
 
@@ -850,6 +866,11 @@ def render() -> str:
         "rules absent until their first transition.",
         [(f'rule="{_label(k)}"', v)
          for k, v in sorted(alert_states().items())])
+    burn = sim_slo_burn()
+    if burn is not None:
+        _scalar(lines, "sdtpu_sim_slo_burn", "gauge",
+                "Worst per-(tenant, class) SLO burn rate from the last "
+                "scored scenario run (sim/score.py).", burn)
     with _WORKER_LOCK:
         worker_lat = dict(_WORKER_LATENCY_EWMA)
     _labeled_family(

@@ -233,12 +233,21 @@ def canonical_dump(payload: "GenerationPayload") -> Dict[str, Any]:
 
 
 def array_to_b64png(img: np.ndarray) -> str:
-    """(H,W,3) uint8 -> base64 PNG string (PIL)."""
-    from PIL import Image
+    """(H,W,3) uint8 -> base64 PNG string, through the native encoder
+    (``runtime/native.py``, as the JAX package's payload does), or PIL
+    where it cannot be built."""
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import native
 
-    buf = io.BytesIO()
-    Image.fromarray(np.asarray(img)).save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode("ascii")
+    img = np.asarray(img)
+    data = native.encode_png(img)
+    if data is None:
+        from PIL import Image
+
+        native.record_fallback()
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        data = buf.getvalue()
+    return base64.b64encode(data).decode("ascii")
 
 
 def b64png_to_array(data: str) -> np.ndarray:

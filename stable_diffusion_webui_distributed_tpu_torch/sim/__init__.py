@@ -1,12 +1,31 @@
-"""sim/: the scenario engine's gate, its live state and chaos injection.
+"""sim/: the scenario engine, journal-driven traffic simulation, chaos
+injection, SLO-scored capacity sweeps and the schedule explorer.
 
-Port of the parts of the JAX package's ``sim/`` the port runs:
-:func:`enabled` (``SDTPU_SIM``), the last scored run's record
-(:func:`record_last_run`, :func:`last_run`) and :func:`summary`, the
-``GET /internal/sim`` document; :mod:`.chaos` is the seeded fault plan
-delivered through the ``CHAOS_HOOK`` seams of the serving dispatcher, the
-World and the worker. The workload replay, the scorer, the sweep and the
-schedule-explorer harnesses stay in ROADMAP item 12.
+Port of the JAX package's ``sim/``, whole:
+
+- :mod:`.workload`: load a recorded journal (live snapshot, snapshot file
+  or ``SDTPU_JOURNAL_SINK`` JSONL spill) or a synthetic mix, and re-emit
+  its request mix open-loop through the real dispatcher, with
+  deterministic seeded transforms (rate scaling, diurnal curves, flash
+  bursts, shape/precision/tenant/class diversity);
+- :mod:`.chaos`: the seeded fault plan delivered through the
+  ``CHAOS_HOOK`` seams of the serving dispatcher, the World and the
+  worker;
+- :mod:`.score`: a run scored from its open-loop records, journal and
+  perf ledger (per-class p50/p95 and SLO attainment, requeue recovery,
+  double-merge audit, fault census, SLO burn into
+  ``sdtpu_sim_slo_burn``);
+- :mod:`.sweep`: one replayed mix under competing configs, ranked;
+- :mod:`.scenarios`: the steady / flash-burst / chaos-kill matrix and the
+  capacity sweep on the engine the caller gives (the JAX package's
+  ``bench.py --scenarios``);
+- :mod:`.sched` and :mod:`.harnesses`: the deterministic schedule
+  explorer over ``runtime/locksan.py``'s yield points, and its seven
+  harnesses over the port's real lock protocols.
+
+This module holds the gate, :func:`enabled` (``SDTPU_SIM``), the last
+scored run's record (:func:`record_last_run`, :func:`last_run`) and
+:func:`summary`, the ``GET /internal/sim`` document.
 
 Off by default: the chaos hooks refuse to arm without ``SDTPU_SIM=1``, so
 the default path never sees a hook.

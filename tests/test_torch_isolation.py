@@ -7,8 +7,8 @@ A fresh interpreter imports every module of the port; afterwards neither
 ``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
 sources (the port's, ``chip_smoke.py``, the fleet telemetry phase's
 runners in ``tools/``, the artifact store's report and its phase's
-runner, the mesh phase's runner) asserts the same of every import statement,
-including imports inside functions.
+runner, the mesh and scenario phases' runners) asserts the same of every
+import statement, including imports inside functions.
 """
 
 import ast
@@ -62,7 +62,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.alerts", "obs.notify", "obs.fleetlog", "obs.stitch",
                  "obs.federation", "obs.push", "server.panel",
                  "serving.aot", "runtime.mesh", "parallel.sharding",
-                 "parallel.stage_pipeline", "ops.ring_attention"):
+                 "parallel.stage_pipeline", "ops.ring_attention",
+                 "sim.workload", "sim.score", "sim.sweep", "sim.scenarios",
+                 "sim.sched", "sim.harnesses", "runtime.locksan",
+                 "runtime.native"):
         assert f"{PORT}.{name}" in out["imported"]
     assert len(out["imported"]) >= 70
     assert out["forbidden"] == []
@@ -79,6 +82,8 @@ def _sources():
     yield ROOT / "tools" / "torch_aot.py"
     # the chip runner of the mesh phase
     yield ROOT / "tools" / "torch_mesh.py"
+    # the chip runner of the scenario phase
+    yield ROOT / "tools" / "torch_scenarios.py"
 
 
 @pytest.mark.parametrize("path", list(_sources()),

@@ -363,7 +363,15 @@ def fire(mod, prom, rec, jr, monkeypatch, disarm_in_time):
                      on_stall=lambda: called.append(1))
     if disarm_in_time:
         mod.disarm(handle)
-    time.sleep(0.5)
+        time.sleep(0.5)
+    else:
+        # the stall's flight-recorder entry, then its on_stall call, land
+        # on the timer's thread: wait for both, up to a deadline, since a
+        # loaded machine can run that thread late
+        deadline = time.monotonic() + 5.0
+        while (len(rec.RECORDER) == recorded0 or not called) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
     mod.disarm(handle)
     events = [e["event"] for e in jr.JOURNAL.snapshot()["events"]]
     new = rec.RECORDER.dump()["entries"][recorded0:]
