@@ -18,9 +18,10 @@ CUDA graph per UNet evaluation of the ladder), with
   a replacement), and :meth:`heal` spawns back to the target size.
 
 Each resident is its own engine with its own device thread
-(``runtime/runner.py``). The port has no compiled-artifact store yet
-(ROADMAP item 8), so a spawn on the card is a real cold start: the
-weights' copy and every graph's capture. A retired resident leaves the
+(``runtime/runner.py``). The port's artifact store (``serving/aot.py``,
+``SDTPU_AOT``) keeps built kernel libraries, not graphs, so a spawn on
+the card still copies the weights and captures every graph (most of a
+spawn's time, PERF.md section 6). A retired resident leaves the
 table once it drains, and its engine is closed (its graphs dropped, its
 thread ended), so its memory goes with the last reference.
 

@@ -175,7 +175,9 @@ class FederationProber:
         """Flatten one worker's scrape into the per-worker series row."""
         row: Dict[str, float] = {}
         prom = parse_prom_text(metrics_text or "")
+        # sdtpu-lint: metric — reads of the remote's registered families
         requests = prom.get("sdtpu_worker_requests_total", 0.0)
+        # sdtpu-lint: metric
         failures = prom.get("sdtpu_worker_failures_total", 0.0)
         row["requests_total"] = requests
         row["failures_total"] = failures

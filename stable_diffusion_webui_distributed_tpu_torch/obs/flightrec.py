@@ -64,7 +64,7 @@ class FlightRecorder:
             "reason": str(reason),
             "detail": str(detail),
             # wall clock: a postmortem is read beside logs and dashboards
-            "recorded_at": time.time(),
+            "recorded_at": time.time(),  # sdtpu-lint: wallclock
             "duration_s": float(duration_s),
             "perf": perf,
             "spans": list(events),

@@ -234,7 +234,7 @@ class Notifier:
         if not target:
             return False, 0
         body = dict(item)
-        body["ts"] = time.time()  # wall clock: a pager reads it
+        body["ts"] = time.time()  # sdtpu-lint: wallclock — pager-facing
         data = json.dumps(body, sort_keys=True, default=str).encode("utf-8")
         timeout = stitch.http_timeout_s()
         for attempt in range(_MAX_ATTEMPTS):

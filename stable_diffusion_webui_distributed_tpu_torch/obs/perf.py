@@ -169,19 +169,22 @@ class PerfLedger:
         self._last_dispatch: Optional[Dict[str, Any]] = None  # guarded-by: _lock
         self._device_kind: Optional[str] = None  # guarded-by: _lock
 
-    def _group(self, key: Tuple[str, int, str, str]) -> Dict[str, float]:
-        """The group row of ``key``, made (evicting the oldest) when new;
-        the caller holds the lock."""
+    def _group(self, key: Tuple[str, int, str, str]
+               ) -> Tuple[Dict[str, float], int]:
+        """The group row of ``key``, made (evicting the oldest) when new,
+        and the number of rows that evicted; the caller holds the lock and
+        counts the evictions."""
         g = self._groups.get(key)
-        if g is None:
-            if len(self._groups) >= self.max_groups:
-                self._groups.popitem(last=False)
-                self._groups_evicted += 1
-            g = _new_group()
-            self._groups[key] = g
-        else:
+        if g is not None:
             self._groups.move_to_end(key)
-        return g
+            return g, 0
+        evicted = 0
+        if len(self._groups) >= self.max_groups:
+            self._groups.popitem(last=False)
+            evicted = 1
+        g = _new_group()
+        self._groups[key] = g
+        return g, evicted
 
     def record_dispatch(self, *, bucket: str, cadence: int, precision: str,
                         lora: str = "",
@@ -205,7 +208,8 @@ class PerfLedger:
             with self._lock:
                 if self._device_kind is None:
                     self._device_kind = _device_kind()
-                g = self._group(key)
+                g, evicted = self._group(key)
+                self._groups_evicted += evicted
                 g["dispatches"] += 1
                 g["requests"] += int(requests)
                 g["device_s"] += max(0.0, float(device_s))
@@ -248,7 +252,8 @@ class PerfLedger:
         try:
             key = (str(bucket), int(cadence), str(precision), str(lora))
             with self._lock:
-                g = self._group(key)
+                g, evicted = self._group(key)
+                self._groups_evicted += evicted
                 g["stage_s"] = g.get("stage_s", 0.0) \
                     + max(0.0, float(stage_s))
                 g["stage_overlap_s"] = g.get("stage_overlap_s", 0.0) \

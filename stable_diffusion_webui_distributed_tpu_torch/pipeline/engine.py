@@ -2398,12 +2398,22 @@ class Engine:
         ladders (the caller then takes the merged path). Cached by (specs,
         provider generation); a hit is served only while each adapter's
         state dict is still the provider's own, so a file edited on disk
-        (reloaded to a new dict) rebuilds it."""
+        (reloaded to a new dict) rebuilds it. A build is timed to the end
+        of its device work, waited for after the lock is released."""
         with self._traced_lock:
-            return self._traced_set_locked(tuple(specs))
+            ts, t0 = self._traced_set_locked(tuple(specs))
+        if t0 is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last_traced_build_seconds = time.perf_counter() - t0
+            obs_prom.observe_lora_apply(self.last_traced_build_seconds)
+        return ts
 
     def _traced_set_locked(self, specs: Tuple
-                           ) -> Optional[lora_mod.TracedSet]:
+                           ) -> Tuple[Optional[lora_mod.TracedSet],
+                                      Optional[float]]:
+        """The set (or None) and, when it was built now, the build's
+        start on the host clock."""
         key = (specs, self._lora_provider_gen())
         ts = self._traced_cache.get(key)
         if ts is not None:
@@ -2411,23 +2421,19 @@ class Engine:
                     self.lora_provider(name) is src
                     for (name, _w, _tw), src in zip(ts.specs, ts.srcs)):
                 self._traced_cache.move_to_end(key)
-                return ts
+                return ts, None
             del self._traced_cache[key]
         t0 = time.perf_counter()
         ts = lora_mod.build_traced_set(specs, self.lora_provider,
                                        self.family, self._lora_leaves,
                                        self.device,
                                        self.policy.compute_dtype)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.last_traced_build_seconds = time.perf_counter() - t0
-        obs_prom.observe_lora_apply(self.last_traced_build_seconds)
         if ts is None:
-            return None
+            return None, t0
         self._traced_cache[key] = ts
         if len(self._traced_cache) > self._TRACED_CACHE_MAX:
             self._traced_cache.popitem(last=False)
-        return ts
+        return ts, t0
 
     def traced_te_content(self) -> str:
         """Content address of the active traced set's text-encoder

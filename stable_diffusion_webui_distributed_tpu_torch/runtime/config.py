@@ -90,8 +90,9 @@ Fleet-tier knobs (``fleet/``; README "Fleet gate"):
   hires fix or adaptive sampler, and for the dispatcher's coalesced
   groups; ``SDTPU_STAGE_DEPTH`` (int, 1): the groups in flight before
   the oldest one's images are fetched; ``SDTPU_STAGE_CN_DEVICES`` (int,
-  0): devices for the stage-ahead ControlNet tower (a slice other than
-  the engine's own card raises: ROADMAP item 9).
+  0): devices for the stage-ahead ControlNet tower, a ``dp`` mesh over
+  the last free cards (``Engine._stage_cn_mesh``); none free, or the
+  slice would take every card, and the tower shares the engine's.
 - ``SDTPU_JOURNAL`` (flag, off, read per event): the request journal
   (``obs/journal.py``, ``GET /internal/journal``); ``SDTPU_JOURNAL_MAX``
   (int, 4096) its ring; ``SDTPU_JOURNAL_SINK`` (path, "" = none) the
@@ -129,12 +130,13 @@ migrated, and a corrupt or invalid file is renamed aside.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 from pydantic import BaseModel, Field, field_validator
 
@@ -166,6 +168,22 @@ def env_parsed(name: str, parse, default, what: str = "value"):
         warnings.warn(f"{name}={raw!r} is not a valid {what} ({e}); "
                       f"using default {default!r}", stacklevel=3)
         return default
+
+
+@contextlib.contextmanager
+def env_patch(**values: str) -> Iterator[None]:
+    """Set env knobs for the block and restore them exactly after it (a
+    knob unset before is unset again)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
 
 
 def env_int(name: str, default: Optional[int] = None) -> Optional[int]:

@@ -1,11 +1,12 @@
 """StoppableDaemon: a periodic background loop with a clean stop.
 
 A copy of the JAX package's ``runtime/daemon.py`` for the loops the
-port's fleet runs: the World's heartbeat (``SDTPU_HEARTBEAT_S``), a
-remote request's in-flight interrupt watch, the hang watchdog's one-shot
-timers (:meth:`StoppableDaemon.one_shot`, ``obs/watchdog.py``), and the
-fleet telemetry plane's TSDB sampler, federation prober, notify drain and
-push subscribers (``obs/``). The daemon owns a plain ``threading.Thread``
+port runs: an engine's device thread (``runtime/runner.py``: a tick
+blocks on its task queue, period 0), the World's heartbeat
+(``SDTPU_HEARTBEAT_S``), a remote request's in-flight interrupt watch,
+the hang watchdog's one-shot timers (:meth:`StoppableDaemon.one_shot`,
+``obs/watchdog.py``), and the fleet telemetry plane's TSDB sampler,
+federation prober, notify drain and push subscribers (``obs/``). The daemon owns a plain ``threading.Thread``
 rather than subclassing it, so no attribute can shadow a private of
 ``Thread`` (``Thread.join`` calls ``self._stop()``).
 
@@ -83,6 +84,11 @@ class StoppableDaemon:
     def alive(self) -> bool:
         with self._lock:
             return self._thread is not None and self._thread.is_alive()
+
+    def is_current(self) -> bool:
+        """True on the loop's own thread (a reference read: no lock, so a
+        hot path may ask)."""
+        return threading.current_thread() is self._thread
 
     def stopped(self) -> bool:
         """True once a stop or a halt has been signalled."""

@@ -322,6 +322,7 @@ class GraphCache:
         tensors for every call that passes it."""
         return next(self._bindings)
 
+    # sdtpu-lint: captures(fn, key=tag, pool)
     def run(self, tag: Tuple, kind: str,
             fn: Callable[[Inputs, Inputs, torch.Tensor], torch.Tensor],
             per_run: Inputs, per_call: Inputs, scalars: Sequence[float],

@@ -1,4 +1,4 @@
-"""Runtime lockset sanitizer, its runtime half (default off).
+"""Runtime lockset sanitizer (default off).
 
 Port of the JAX package's ``runtime/locksan.py``. :func:`install` replaces
 the ``threading.Lock`` / ``threading.RLock`` / ``threading.Condition``
@@ -25,10 +25,11 @@ factories with wrappers that
 a dict: an observed edge between two statically-known lock names with no
 static path in that direction means the static model missed a real
 ordering. Anonymous locks (no ``self.<attr> =`` creation site, stdlib
-internals) never participate. The static graph of a package and its
-``lockorder`` annotations come from the lint over source code, which the
-port does not have yet (ROADMAP), so this module has no ``static_graph``
-or ``declared_orders``.
+internals) never participate. :func:`static_graph` is that graph for the
+port's package, from its lint (``analysis/locks.py``, pure AST), and
+:func:`declared_orders` its ``lockorder`` annotations;
+``tests/test_torch_locksan_gate.py`` diffs a lock-heavy run against them
+(the JAX package's ``SDTPU_LOCKSAN=1`` session gate).
 
 The module is also the instrumentation seam for the deterministic
 schedule explorer (``sim/sched.py``): :func:`set_scheduler` installs a
@@ -439,3 +440,24 @@ def divergence(observed: Set[Tuple[str, str]],
 
     return sorted((a, b) for a, b in observed
                   if a in nodes and b in nodes and not reachable(a, b))
+
+
+def static_graph(root: str) -> Dict[str, Set[str]]:
+    """The port's static lock-order digraph (pure AST; no device).
+    Annotation-aware: a ``# sdtpu-lint: lockorder a<b`` in the package
+    removes the contradicted reverse edge from this graph, so a runtime
+    acquisition in the annotated-away direction is a divergence."""
+    from ..analysis import callgraph, locks
+    from ..analysis.core import walk_package
+    modules = walk_package(root)
+    return locks.lock_order_graph(modules, callgraph.build(modules))
+
+
+def declared_orders(root: str) -> Set[Tuple[str, str]]:
+    """The port's ``lockorder a<b`` annotation pairs. The session gate
+    requires each to be exercised at runtime (observed as an edge):
+    an annotation no test demonstrates is not allowed to suppress."""
+    from ..analysis import locks
+    from ..analysis.core import walk_package
+    return {(a, b) for a, b, _path, _line
+            in locks.declared_orders(walk_package(root))}

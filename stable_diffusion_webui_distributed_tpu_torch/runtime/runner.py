@@ -36,6 +36,10 @@ from concurrent.futures import Future
 from queue import SimpleQueue
 from typing import List, Optional
 
+from stable_diffusion_webui_distributed_tpu_torch.runtime.daemon import (
+    StoppableDaemon,
+)
+
 #: queue markers: wake a serving loop; end the thread
 _WAKE = object()
 _STOP = object()
@@ -43,8 +47,10 @@ _STOP = object()
 
 class DeviceRunner:
     """One daemon thread running queued callables in order (see the
-    module's docstring). It holds no reference to what it runs once a task
-    has finished, so an engine that owns it can be freed."""
+    module's docstring): a :class:`StoppableDaemon` whose tick serves the
+    next task, blocking on the queue until there is one. It holds no
+    reference to what it runs once a task has finished, so an engine that
+    owns it can be freed."""
 
     def __init__(self, name: str = "engine") -> None:
         self._tasks: SimpleQueue = SimpleQueue()
@@ -54,12 +60,12 @@ class DeviceRunner:
         #: yields being served on the thread (device thread only)
         self.yielding = 0
         self._closed = False
-        self._thread = threading.Thread(target=self._main, name=name,
-                                        daemon=True)
-        self._thread.start()
+        self._daemon = StoppableDaemon(name, self._next, 0.0,
+                                       immediate=True)
+        self._daemon.start()
 
     def on_thread(self) -> bool:
-        return threading.current_thread() is self._thread
+        return self._daemon.is_current()
 
     def current(self) -> Optional[int]:
         """The id of the innermost execution, None off the device thread
@@ -96,7 +102,7 @@ class DeviceRunner:
                 done.set()
                 self._tasks.put(_WAKE)
 
-        threading.Thread(target=waiter, name=f"{self._thread.name}-yield",
+        threading.Thread(target=waiter, name=f"{self._daemon.name}-yield",
                          daemon=True).start()
         self.yielding += 1
         try:
@@ -138,13 +144,11 @@ class DeviceRunner:
         except BaseException as e:  # noqa: BLE001 — delivered to the caller
             fut.set_exception(e)
 
-    def _main(self) -> None:
-        while True:
-            item = self._tasks.get()
-            if item is _STOP:
-                return
-            if item is not _WAKE:
-                self._serve(item)
-            # the finished task's callable (an engine's bound method) must
-            # not outlive it in this frame
-            del item
+    def _next(self) -> None:
+        """The daemon's tick: the next queued task; a close ends the
+        loop."""
+        item = self._tasks.get()
+        if item is _STOP:
+            self._daemon.halt()
+        elif item is not _WAKE:
+            self._serve(item)

@@ -39,10 +39,8 @@ request id (``results``), the open-loop ``records``, the journal
 
 from __future__ import annotations
 
-import contextlib
-import os
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from stable_diffusion_webui_distributed_tpu_torch import sim
 from stable_diffusion_webui_distributed_tpu_torch.obs import (
@@ -56,6 +54,7 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     ConfigModel,
+    env_patch,
 )
 from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
     worker as worker_mod,
@@ -90,21 +89,6 @@ SWEEP_CONFIGS: Dict[str, Dict[str, Any]] = {
     "coalesce_b2": {"window": 0.02, "batches": [2]},
     "coalesce_b4": {"window": 0.05, "batches": [4]},
 }
-
-
-@contextlib.contextmanager
-def _env_patch(**values: str) -> Iterator[None]:
-    """Set env knobs for one scenario and restore them exactly."""
-    saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, old in saved.items():
-            if old is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = old
 
 
 def _submitter(dispatcher, capture: Optional[Dict[str, Any]]
@@ -192,7 +176,7 @@ def flash_burst(engine, bucketer, mix: Mix, seed: int, slo_s: float,
         classes=["interactive", "batch"])
     plan = sim_workload.generate_plan(mix, spec)
     obs_perf.LEDGER.clear()
-    with _env_patch(SDTPU_FLEET="1", SDTPU_FLEET_QUANTUM_S="0",
+    with env_patch(SDTPU_FLEET="1", SDTPU_FLEET_QUANTUM_S="0",
                    SDTPU_QUOTA_IPM="240", SDTPU_QUOTA_BURST="8",
                    SDTPU_SLO_INTERACTIVE_S=str(slo_s)):
         records = _replay(engine, bucketer, 0.02, plan, capture)

@@ -762,3 +762,21 @@ def test_preempted_job_on_a_runner_resumes_after_the_interloper():
     assert log[0][1] == 2 and log[1][1] == 1
     assert gate.preemption_count() == 1
     runner.close()
+
+
+def test_runner_thread_is_a_stoppable_daemon_that_close_ends():
+    # the device thread loops on runtime/daemon.py (the lint's TH001): a
+    # close ends it once the queued tasks have run
+    runner = DeviceRunner("test-runner")
+    seen = []
+    runner.run(lambda: seen.append(runner.on_thread()))
+    assert seen == [True] and not runner.on_thread()
+    assert runner._daemon.alive()
+    runner.close()
+    deadline = time.monotonic() + 5.0
+    while runner._daemon.alive() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not runner._daemon.alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        runner.run(lambda: None)
+

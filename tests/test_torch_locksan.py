@@ -11,8 +11,8 @@ the JAX package's, on the CPU.
   flagged, the ``Thread.start`` handshake exempt;
 - ``divergence`` over synthetic graphs equals the JAX function's.
 
-The static lock-order graph of a package (``static_graph``) comes with the
-port of the lint, which it needs.
+The static half (``static_graph``, ``declared_orders``) and the session
+gate over a lock-heavy subset are in ``tests/test_torch_locksan_gate.py``.
 """
 
 import hashlib
@@ -78,7 +78,9 @@ def test_import_patches_nothing():
     assert threading.RLock is locksan._real_rlock
     assert threading.Condition is locksan._real_condition
     assert locksan.scheduler() is None
-    assert not hasattr(locksan, "static_graph")
+    # the static half is there (it runs the lint only when called)
+    assert callable(locksan.static_graph)
+    assert callable(locksan.declared_orders)
 
 
 def test_workload_is_identical_on_and_off(sanitized):

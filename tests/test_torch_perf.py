@@ -490,3 +490,25 @@ def test_gates_on_give_the_same_bytes(engine, monkeypatch):
     assert sum(g["dispatches"] for g in groups) == 2
     assert all(g["flops"] > 0 and g["device_s"] > 0 for g in groups)
     assert all(g["mfu"] is None for g in groups)  # no peak on the CPU
+
+
+def _ledger_dispatch(led, bucket):
+    led.record_dispatch(bucket=bucket, cadence=1, precision="bf16",
+                        device_s=0.5, flops=1e9, requests=1, batch_raw=1,
+                        batch_run=1, true_pixels=64, padded_pixels=64)
+
+
+def test_group_evictions_are_counted_as_jax(perf_on):
+    # the port counts an evicted group row in the caller, under the
+    # ledger's lock (its lint's LK001); the JAX ledger counts it inline
+    port, jax_led = perf.PerfLedger(max_groups=2), \
+        jperf.PerfLedger(max_groups=2)
+    for led in (port, jax_led):
+        for bucket in ("64x64", "64x96", "96x96", "64x64"):
+            _ledger_dispatch(led, bucket)
+        led.record_stages(bucket="128x128", cadence=1, precision="bf16",
+                          stage_s=0.1, overlap_s=0.0)
+    assert port.summary()["groups_evicted"] == \
+        jax_led.summary()["groups_evicted"] == 3
+    assert [g["bucket"] for g in port.summary()["groups"]] == \
+        [g["bucket"] for g in jax_led.summary()["groups"]]

@@ -397,3 +397,22 @@ def test_chaos_kill_scorecard_matches_jax(sim_env):
     assert card["chaos_plan"]["faults"][0]["injected"] == 1
     assert sim.last_run()["name"] == "chaos_kill"
     assert sim.last_run()["score"]["requeues"] == card["requeues"]
+
+
+def test_env_patch_sets_and_restores_exactly(monkeypatch):
+    # the scenario runners' knob patch lives in runtime/config.py (the
+    # lint's EV001): a set knob is restored, an unset one unset again,
+    # also when the block raises
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        env_patch,
+    )
+
+    monkeypatch.setenv("SDTPU_FLEET", "0")
+    monkeypatch.delenv("SDTPU_FLEET_QUANTUM_S", raising=False)
+    with pytest.raises(ValueError):
+        with env_patch(SDTPU_FLEET="1", SDTPU_FLEET_QUANTUM_S="0"):
+            assert os.environ["SDTPU_FLEET"] == "1"
+            assert os.environ["SDTPU_FLEET_QUANTUM_S"] == "0"
+            raise ValueError("inside")
+    assert os.environ["SDTPU_FLEET"] == "0"
+    assert "SDTPU_FLEET_QUANTUM_S" not in os.environ
