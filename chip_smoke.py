@@ -296,8 +296,16 @@ Phases, each fatal on failure (no phase is caught and passed over):
    printed), a repeat the same bytes, K1 640 / 640 / 0 launches (two
    replicas of 320; 16 x 20 x 2 head shards; every self-attention on the
    ring), all on the Hopper path, and on a virtual mesh no weight copied
-   by the placement; each arm's wall time and peak. Then
-   ``ring_attention`` over ``sp=2`` against K1 at (2, 4096, 8, 40) (the
+   by the placement; each arm's wall time and peak. Then ``tp=2`` at
+   batch 1 at ``int8`` and with a traced SD1.5 adapter (``SDTPU_LORA_
+   TRACED=1``; rank 8 on every resolvable key, written from a seed into a
+   temporary ``Lora/`` directory), each against the meshless engine at
+   the same precision and adapter: the same checks (640 K1, all Hopper),
+   the traced image within a mean of 2 levels and merging nothing, the
+   int8 image at PSNR >= 20 dB and SSIM >= 0.6 against the meshless bf16
+   image (its mean gap to meshless int8 printed), and the int8 products
+   launched, as many in the run as in its repeat; each arm's seconds.
+   Then ``ring_attention`` over ``sp=2`` against K1 at (2, 4096, 8, 40) (the
    relative error and both times) and the stage-ahead ControlNet tower on
    a mesh handed to it (``dp=1`` over the last device) against the
    shared-stream stage-ahead request: the same PNG bytes, 460 K1 each;
@@ -5876,6 +5884,17 @@ MESH_BODY = {"prompt": "a photograph of an astronaut riding a horse",
 MESH_ARMS = (("dp=2", 2, 2 * LAUNCHES_PER_GROUP),
              ("tp=2", 1, 2 * LAUNCHES_PER_GROUP),
              ("sp=2", 1, 0))
+#: the int8 precision and traced LoRA on ``tp=2`` (ROADMAP item 14a), at
+#: batch 1 as the tp=2 arm: (label, spec, batch, K1 launches, body). Each
+#: is held against the meshless engine at the same precision and adapter
+MESH_LORA = "mesh-adapter"
+MESH_SPLIT_ARMS = (
+    ("tp=2 int8", "tp=2", 1, 2 * LAUNCHES_PER_GROUP, {"precision": "int8"}),
+    ("tp=2 traced LoRA", "tp=2", 1, 2 * LAUNCHES_PER_GROUP,
+     {"prompt": f"{MESH_BODY['prompt']} <lora:{MESH_LORA}:0.8>"}))
+#: the traced arm's adapter, written by this script: one module for every
+#: resolvable SD1.5 key at rank 8 (q, k and v fuse to 24, the 32 rung)
+MESH_LORA_RANK = 8
 MESH_MEAN_TOLERANCE = 2.0  # uint8 levels, a mesh's image vs meshless
 #: bytes a placement on a virtual mesh may allocate: its shards are views
 #: of the weights and its replicas share them
@@ -5901,16 +5920,27 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
     the meshless engine on the same weights and seed (the init latents
     bit-equal, the images within a mean of 2 uint8 levels, a repeat the
     same bytes, the K1 launches of ``MESH_ARMS`` all on the Hopper path,
-    no weight copied onto the card by the placement); then
-    ``ring_attention`` over ``sp=2`` against K1 at the level-0 shape, and
-    the stage-ahead ControlNet tower on a mesh handed to it (the JAX
-    rule's own finds no free device on one card) against the shared-stream
-    stage-ahead bytes."""
+    no weight copied onto the card by the placement); then ``tp=2`` at
+    ``int8`` and with a traced adapter (``MESH_SPLIT_ARMS``) against the
+    meshless engine at the same precision and adapter, with the same
+    checks but that the int8 image holds the int8 quality floors against
+    the meshless bf16 image (its mean gap to meshless int8 printed), and
+    the int8 products launched, the same count in the run and its repeat;
+    then ``ring_attention`` over ``sp=2`` against K1 at the level-0 shape,
+    and the stage-ahead ControlNet tower on a mesh handed to it (the JAX
+    rule's own finds no free device on one card) against the
+    shared-stream stage-ahead bytes."""
     import numpy as np
     import torch
 
     from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        quant,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
         ring_attention as ring,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
+        ModelRegistry,
     )
     from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
         GenerationPayload,
@@ -5934,17 +5964,45 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
     def request(body):
         latents.clear()
         fa.reset_launches(fa.flash_attention)
+        q0 = quant.int8_mm.launches
         t = time.perf_counter()
         result = engine.txt2img(GenerationPayload(**body))
         torch.cuda.synchronize()
         return (time.perf_counter() - t, result, fa.flash_attention.launches,
-                dict(fa.flash_attention.path_launches), latents[0])
+                dict(fa.flash_attention.path_launches), latents[0],
+                quant.int8_mm.launches - q0)
 
+    def pixels(result):
+        return np.stack([png_pixels(b).astype(np.int32)
+                         for b in result.images])
+
+    # the traced arm's adapter, served from a temporary Lora/ directory
+    workdir = tempfile.mkdtemp(prefix="mesh-lora-")
+    os.makedirs(os.path.join(workdir, "Lora"))
+    adapter, _ = full_coverage_adapter(engine.family, MESH_LORA_RANK,
+                                       seed=14, scale=CONFIG4_SCALE)
+    write_safetensors(os.path.join(workdir, "Lora",
+                                   f"{MESH_LORA}.safetensors"), adapter)
+    provider = engine.lora_provider
+    engine.lora_provider = ModelRegistry(workdir).lora_provider
+    arms = [(spec, spec, batch, want_k1, {})
+            for spec, batch, want_k1 in MESH_ARMS] + list(MESH_SPLIT_ARMS)
+    bf16 = {}  # the meshless bf16 image of each batch, for the int8 floors
+    saved = {}
     engine._denoise = recording
     try:
-        for spec, batch, want_k1 in MESH_ARMS:
-            body = {**MESH_BODY, "batch_size": batch}
-            plain_wall, plain, _, _, plain_x = request(body)
+        for label, spec, batch, want_k1, extra in arms:
+            t_arm = time.perf_counter()
+            traced = "prompt" in extra
+            saved = env_set({"SDTPU_LORA_TRACED": "1"} if traced else {})
+            merges = engine._lora_merge_total
+            body = {**MESH_BODY, "batch_size": batch, **extra}
+            plain_wall, plain, _, _, plain_x, plain_q = request(body)
+            if extra:  # a first request at a new precision or adapter
+                # captures: time a warm one too
+                plain_wall = [plain_wall, request(body)[0]]
+            if not extra:
+                bf16.setdefault(batch, plain)
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
             engine.set_mesh(build_mesh(spec, devices))
@@ -5954,40 +6012,66 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             runs = [request(body) for _ in range(2)]
             peak = torch.cuda.max_memory_allocated()
             engine.set_mesh(None)
-            note_peak(f"mesh {spec}", peak)
-            (wall, got, k1, paths, x), (wall2, again, k1b, _, _) = runs
-            a = np.stack([png_pixels(b).astype(np.int32)
-                          for b in got.images])
-            b = np.stack([png_pixels(b).astype(np.int32)
-                          for b in plain.images])
-            diff = np.abs(a - b)
+            env_restore(saved)
+            note_peak(f"mesh {label}", peak)
+            (wall, got, k1, paths, x, q8), (wall2, again, k1b, _, _, q8b) = \
+                runs
+            diff = np.abs(pixels(got) - pixels(plain))
             arm = {"batch": batch, "wall_s": [round(wall, 4),
                                               round(wall2, 4)],
-                   "meshless_wall_s": round(plain_wall, 4),
+                   "meshless_wall_s": np.round(plain_wall, 4).tolist(),
                    "k1": k1, "k1_paths": paths,
+                   "int8_mm": [q8, q8b], "meshless_int8_mm": plain_q,
                    "peak_gib": round(peak / 2**30, 3),
                    "placement_mib": round(placed / 2**20, 3),
                    "mean_abs": round(float(diff.mean()), 4),
                    "max_abs": int(diff.max())}
-            out["arms"][spec] = arm
-            print(f"mesh {spec} at batch {batch}: {json.dumps(arm)} "
+            if extra.get("precision") == "int8":
+                ref = bf16[batch]
+                arm["vs_meshless_bf16"] = {
+                    "psnr_db": round(psnr(pixels(got), pixels(ref)), 3),
+                    "ssim": round(ssim(pixels(got)[0], pixels(ref)[0]), 4)}
+            arm["arm_s"] = round(time.perf_counter() - t_arm, 3)
+            out["arms"][label] = arm
+            print(f"mesh {label} at batch {batch}: {json.dumps(arm)} "
                   f"[{card_line}]")
             check(torch.equal(x, plain_x),
-                  f"mesh {spec}: the init latents differ from meshless")
+                  f"mesh {label}: the init latents differ from meshless")
             check(k1 == want_k1 and k1b == want_k1,
-                  f"mesh {spec}: K1 {k1}/{k1b} launches, want {want_k1}")
+                  f"mesh {label}: K1 {k1}/{k1b} launches, want {want_k1}")
             check(paths["hopper"] == k1,
-                  f"mesh {spec}: K1 off the Hopper path: {paths}")
+                  f"mesh {label}: K1 off the Hopper path: {paths}")
             check(again.images == got.images,
-                  f"mesh {spec}: a repeat gave other PNG bytes")
-            check(diff.mean() <= MESH_MEAN_TOLERANCE,
-                  f"mesh {spec}: mean |diff| {diff.mean():.4f} vs meshless")
+                  f"mesh {label}: a repeat gave other PNG bytes")
             check(kind.startswith("distinct") or
                   placed <= MESH_PLACEMENT_SLACK,
-                  f"mesh {spec}: the placement allocated {placed} bytes")
+                  f"mesh {label}: the placement allocated {placed} bytes")
+            if extra.get("precision") == "int8":
+                floor = LADDER_FLOORS["int8"]
+                q = arm["vs_meshless_bf16"]
+                check(q8 > 0 and q8 == q8b and plain_q > 0,
+                      f"mesh {label}: int8 products {q8}/{q8b} (meshless "
+                      f"{plain_q}): want the same nonzero count")
+                check(q["psnr_db"] >= floor[0] and q["ssim"] >= floor[1],
+                      f"mesh {label}: PSNR {q['psnr_db']} dB, SSIM "
+                      f"{q['ssim']} against meshless bf16, floors {floor}")
+            else:
+                check(diff.mean() <= MESH_MEAN_TOLERANCE,
+                      f"mesh {label}: mean |diff| {diff.mean():.4f} vs "
+                      "meshless")
+            if traced:
+                check(engine._traced_lora is not None and
+                      engine._lora_merge_total == merges,
+                      f"mesh {label}: the adapter was merged, not traced")
+                check(np.abs(pixels(plain) - pixels(bf16[batch])).mean()
+                      > MESH_MEAN_TOLERANCE,
+                      f"mesh {label}: the adapter did not change the image")
     finally:
         del engine._denoise
         engine.set_mesh(None)
+        env_restore(saved)
+        engine.lora_provider = provider
+        shutil.rmtree(workdir, ignore_errors=True)
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     q, k, v = (torch.randn(MESH_RING_SHAPE, generator=gen, device="cuda",
@@ -7039,6 +7123,8 @@ def full_coverage_adapter(family, rank: int, seed: int, scale: float):
                      (t + "ff_net_2", 4 * c, c)]
     for prefix, te in (("lora_te1", family.text_encoder),
                        ("lora_te2", family.text_encoder_2)):
+        if te is None:  # SD1.x: one text encoder
+            continue
         h, i_dim = te.hidden_size, te.intermediate_size
         for layer in range(te.num_layers):
             t = f"{prefix}_text_model_encoder_layers_{layer}_"

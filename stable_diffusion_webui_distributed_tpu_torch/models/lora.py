@@ -577,14 +577,34 @@ def delta_out(x: torch.Tensor, site: Dict[str, torch.Tensor]
     rb]`` (a set per row). A per-row site broadcast from one set (row
     stride 0, :func:`broadcast_set`) takes the one-set form: one product
     over all rows instead of a batched one."""
+    down, up = site_factors(site)
+    return delta_up(delta_down(x, down.to(x.dtype)), up.to(x.dtype))
+
+
+def site_factors(site: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A site's ``(down, up)``, a per-row site broadcast from one set
+    (row stride 0) in the one-set form. Their input features are the last
+    axis of ``down``, their output features the last but one of ``up``,
+    in every form: a split layer slices them there (views, no copy)."""
     down, up = site["down"], site["up"]
     if down.dim() == 4 and down.stride(0) == 0 and up.stride(0) == 0:
-        down, up = down[0], up[0]
+        return down[0], up[0]
+    return down, up
+
+
+def delta_down(x: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """``h = x @ down_s^T`` per set, ``(B, S, T, rb)``."""
     if down.dim() == 4:
-        h = torch.einsum("bti,bsri->bstr", x, down.to(x.dtype))
-        return torch.einsum("bstr,bsor->bto", h, up.to(x.dtype))
-    h = torch.einsum("bti,sri->bstr", x, down.to(x.dtype))
-    return torch.einsum("bstr,sor->bto", h, up.to(x.dtype))
+        return torch.einsum("bti,bsri->bstr", x, down)
+    return torch.einsum("bti,sri->bstr", x, down)
+
+
+def delta_up(h: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``sum_s h_s @ up_s^T``, ``(B, T, O)``."""
+    if up.dim() == 4:
+        return torch.einsum("bstr,bsor->bto", h, up)
+    return torch.einsum("bstr,sor->bto", h, up)
 
 
 def apply_site(y: torch.Tensor, x: torch.Tensor, lora: Optional[Dict],

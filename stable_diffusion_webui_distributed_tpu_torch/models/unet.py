@@ -59,7 +59,7 @@ the image of the same seed at its own size.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,13 +71,24 @@ from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.models.lora import (
     apply_site,
+    delta_down,
+    delta_up,
+    site_factors,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.quant import (
+    absmax,
+    codes,
+    dequantize,
+    int8_accumulate,
     int8_conv,
+    int8_conv_codes,
     int8_dot,
+    int8_dot_codes,
+    quantize,
+    scale_of,
 )
 from stable_diffusion_webui_distributed_tpu_torch.ops.ragged_attention import (
     ragged_attention,
@@ -279,8 +290,7 @@ class Attention(nn.Module):
                 lora: Optional[dict] = None,
                 ql: bool = False) -> torch.Tensor:
         if self.tp is not None:
-            refuse_on_shards(lora, ql)
-            return self.tp(x, context, true_len)
+            return self.tp(x, context, true_len, lora, ql)
         B, T, C = x.shape
         heads = self.num_heads
         scale = 1.0 / math.sqrt(C // heads)
@@ -339,8 +349,9 @@ class TransformerBlock(nn.Module):
         x = x + self.attn2(self.ln2(x), context, true_len=ctx_true,
                            lora=sub.get("attn2"), ql=ql)
         if self.ffn_tp is not None:
-            refuse_on_shards(lora, ql)
-            return x + self.ffn_tp(self.ln3(x))
+            return x + self.ffn_tp(self.ln3(x),
+                                   (sub.get("geglu") or {}).get("proj"),
+                                   sub.get("ff_out"), ql)
         g = self.geglu(self.ln3(x), lora=sub.get("geglu"), ql=ql)
         return x + apply_site(self.ff_out(g, ql), g, lora, "ff_out")
 
@@ -638,25 +649,114 @@ def make_added_cond(pooled_text: torch.Tensor, time_ids: torch.Tensor,
 
 
 # -- placement on a mesh (runtime/mesh.py, parallel/sharding.py) ------------
+#
+# Under ``tp`` every product gives the meshless layer's values. At int8 a
+# column split quantizes its whole input once on the home device and sends
+# the codes: each shard owns whole output channels, hence their weight
+# scales. A row split needs a token's scale from its full feature row and a
+# channel's from its full weight row: each is the max of the shards'
+# maxima, and the shards' int32 accumulators add exactly before one
+# dequantize. A traced LoRA site of a column split computes ``h = x @
+# down^T`` once and each shard adds ``h @ up_j^T`` for its output rows; at a
+# row split each shard multiplies its input columns by ``down``'s, the
+# partial ``h`` are summed in f32 on the home device and multiplied by
+# ``up`` there (the rank-sized ``h`` crosses the cards, not the input).
 
-def refuse_on_shards(lora, quant: bool) -> None:
-    if quant:
-        raise ValueError("the int8 precisions are not ported under tp > 1 "
-                         "(ROADMAP item 14): a token's scale needs its full "
-                         "feature row")
-    if lora:
-        raise ValueError("traced LoRA is not ported under tp > 1 (ROADMAP "
-                         "item 14): its deltas add to the full output")
+
+def _to(inp, device: torch.device):
+    """A product's input (a tensor, or int8 codes with their scales) on
+    ``device``."""
+    if isinstance(inp, tuple):
+        return tuple(t.to(device, non_blocking=True) for t in inp)
+    return inp.to(device, non_blocking=True)
 
 
-def _row_out(partials, bias: Optional[torch.Tensor], home: torch.device,
-             dtype: torch.dtype) -> torch.Tensor:
-    """A row-parallel layer's output: the partials summed in f32 on the
-    home device, the bias added once, in the layer's dtype."""
-    out = sharding.reduce_sum([p.float() for p in partials], home)
+def _dense(inp, w: torch.Tensor, b: Optional[torch.Tensor],
+           dtype: torch.dtype) -> torch.Tensor:
+    """A Dense shard's product as the meshless :class:`Dense` computes it:
+    ``inp`` is the input in ``dtype`` or its ``(codes, scales)``."""
+    if not isinstance(inp, tuple):
+        return F.linear(inp, w, b)
+    out = int8_dot_codes(inp[0], inp[1], w)
+    if b is not None:
+        out = out + b.float()
+    return out.to(dtype)
+
+
+def _dense_input(x: torch.Tensor, quant: bool, dtype: torch.dtype):
+    """A column split's whole input on the home device: quantized once
+    per token at int8, else in the layer's dtype."""
+    return quantize(x, -1) if quant else _cast(x, dtype)
+
+
+def _split_rows(xs, weights, bias: Optional[torch.Tensor],
+                home: torch.device, dtype: torch.dtype, quant: bool = False,
+                s_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A row-parallel product ``sum_j xs[j] @ weights[j]^T`` on the home
+    device, the bias added once in f32, in the layer's dtype. ``xs[j]``
+    lies on ``weights[j]``'s device. The bf16 partials are summed in f32.
+    At int8 each token's scale is the max of the shards' maxima (or
+    ``s_x``, where the caller quantized the whole input and ``xs`` are
+    its codes), each output channel's weight scale likewise, and the
+    shards' int32 accumulators are summed before one dequantize."""
+    if not quant:
+        out = sharding.reduce_sum(
+            [F.linear(x, w).float() for x, w in zip(xs, weights)], home)
+    else:
+        acc, s_x, s_w = _int8_rows(xs, weights, home, s_x)
+        out = dequantize(acc, s_x, s_w.reshape(-1))
     if bias is not None:
         out = out + bias.float()
     return out.to(dtype)
+
+
+def _int8_rows(xs, weights, home: torch.device,
+               s_x: Optional[torch.Tensor] = None):
+    """An int8 row product's ``(acc, s_x, s_w)`` on the home device: the
+    shards' int32 accumulators summed, the per-token scales (from the
+    max of the shards' maxima unless ``s_x`` is given with ``xs`` its
+    codes) and the per-output-channel weight scales (likewise)."""
+    if s_x is None:
+        s_x = scale_of(sharding.reduce_max([absmax(x, -1) for x in xs],
+                                           home))
+        xs = [codes(x, _to(s_x, x.device)) for x in xs]
+    s_w = scale_of(sharding.reduce_max([absmax(w, 1) for w in weights],
+                                       home))
+    acc = sharding.reduce_sum(
+        [int8_accumulate(xq, codes(w, _to(s_w, w.device)))
+         for xq, w in zip(xs, weights)], home)
+    return acc, s_x, s_w
+
+
+def _column_site(x: torch.Tensor, site: Optional[dict],
+                 dtype: torch.dtype):
+    """A traced site of a column split: ``(h, up)`` with ``h = x @
+    down^T`` computed once on the home device (None without the site)."""
+    if site is None:
+        return None
+    down, up = site_factors(site)
+    return delta_down(_cast(x, dtype), down.to(dtype)), up.to(dtype)
+
+
+def _column_delta(hu, rows: slice, device: torch.device) -> torch.Tensor:
+    """A column shard's delta: ``h @ up^T`` over its output ``rows``."""
+    h, up = hu
+    return delta_up(_to(h, device), _to(up[..., rows, :], device))
+
+
+def _row_delta(xs, site: dict, home: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """A traced site of a row split, on the home device: each shard's
+    ``xs[j] @ down[:, cols_j]^T``, summed in f32, times ``up``."""
+    down, up = site_factors(site)
+    parts, at = [], 0
+    for x in xs:
+        n = x.shape[-1]
+        cols = _to(down[..., at:at + n].to(dtype), x.device)
+        parts.append(delta_down(_cast(x, dtype), cols).float())
+        at += n
+    h = sharding.reduce_sum(parts, home).to(dtype)
+    return delta_up(h, up.to(dtype))
 
 
 class _Column(sharding.Placement):
@@ -677,23 +777,34 @@ class _Column(sharding.Placement):
                        if layer.bias is not None else [None] * n)
 
     def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
-        refuse_on_shards(None, quant)
-        x = _cast(x, self.weights[0].dtype)
-        if self.layer_conv:
-            parts = [F.conv2d(x.to(d, non_blocking=True), w, b, self.stride,
-                              self.padding)
-                     for d, w, b in zip(self.devices, self.weights,
-                                        self.biases)]
-            return sharding.gather(parts, 1, self.home)
-        parts = [F.linear(x.to(d, non_blocking=True), w, b)
-                 for d, w, b in zip(self.devices, self.weights, self.biases)]
-        return sharding.gather(parts, -1, self.home)
+        dtype = self.weights[0].dtype
+        shards = zip(self.devices, self.weights, self.biases)
+        if not self.layer_conv:
+            inp = _dense_input(x, quant, dtype)
+            return sharding.gather([_dense(_to(inp, d), w, b, dtype)
+                                    for d, w, b in shards], -1, self.home)
+        if not quant:
+            x = _cast(x, dtype)
+            return sharding.gather(
+                [F.conv2d(x.to(d, non_blocking=True), w, b, self.stride,
+                          self.padding) for d, w, b in shards], 1, self.home)
+        # one scale per image over C, H and W of the whole input
+        xq, s_x = quantize(x, (1, 2, 3))
+        parts = []
+        for d, w, b in shards:
+            out = int8_conv_codes(*_to((xq, s_x), d), w, self.stride,
+                                  self.padding)
+            if b is not None:
+                out = out + b.float()[:, None, None]
+            parts.append(out.to(dtype))
+        return sharding.gather(parts, 1, self.home)
 
 
 class _Row(sharding.Placement):
     """A Dense layer whose input features split over the ``tp`` devices:
     each shard multiplies its slice of the input, the partials summed on
-    the home device."""
+    the home device. At int8 the whole input is quantized on the home
+    device and its codes split."""
 
     def __init__(self, layer: nn.Module, devices, home: torch.device):
         n = len(devices)
@@ -703,20 +814,28 @@ class _Row(sharding.Placement):
         self.bias = layer.bias
 
     def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
-        refuse_on_shards(None, quant)
         dtype = self.weights[0].dtype
-        parts = [F.linear(_cast(xj, dtype).to(d, non_blocking=True), w)
-                 for xj, d, w in zip(x.chunk(len(self.devices), -1),
-                                     self.devices, self.weights)]
-        return _row_out(parts, self.bias, self.home, dtype)
+        n, s_x = len(self.devices), None
+        if quant:
+            x, s_x = quantize(x, -1)
+        else:
+            x = _cast(x, dtype)
+        xs = [xj.to(d, non_blocking=True)
+              for xj, d in zip(x.chunk(n, -1), self.devices)]
+        return _split_rows(xs, self.weights, self.bias, self.home, dtype,
+                           quant, s_x)
 
 
 class _Heads(sharding.Placement):
     """An Attention layer split by heads over the ``tp`` devices: shard
     ``j`` projects its heads' q, k and v (the per-head rows of the fused
-    ``qkv`` or ``kv`` weight), runs the attention of those heads on its
-    device (on its ``sp`` ring where it has one) and multiplies its
-    ``out_proj`` columns; the partials are summed on the home device."""
+    ``qkv`` or ``kv`` weight, with their own int8 scales), runs the
+    attention of those heads on its device (on its ``sp`` ring where it
+    has one) and multiplies its ``out_proj`` columns, a row product whose
+    int8 token scales take the max over the shards; the partials are
+    summed on the home device. A traced ``qkv``, ``q`` or ``kv`` site adds
+    each shard's rows of ``up``'s q, k and v blocks; ``out_proj``'s is a
+    row delta."""
 
     def __init__(self, attn: Attention, devices, rings, home: torch.device):
         n = len(devices)
@@ -727,6 +846,7 @@ class _Heads(sharding.Placement):
         else:
             wq, wk, wv = attn.q.weight, attn.kv.weight[:c], \
                 attn.kv.weight[c:]
+        self.width = c
         self.heads = attn.num_heads // n
         self.head_dim = c // attn.num_heads
         self.devices, self.rings, self.home = devices, rings, home
@@ -737,37 +857,79 @@ class _Heads(sharding.Placement):
         self.out_bias = attn.out_proj.bias
 
     def __call__(self, x: torch.Tensor, context: Optional[torch.Tensor],
-                 true_len: Optional[torch.Tensor]) -> torch.Tensor:
+                 true_len: Optional[torch.Tensor], lora: Optional[dict],
+                 quant: bool) -> torch.Tensor:
         b, t, _ = x.shape
-        dtype = self.out[0].dtype
-        x = _cast(x, dtype)
-        src = x if context is None else _cast(context, dtype)
+        lora = {} if lora is None else lora
         scale = 1.0 / math.sqrt(self.head_dim)
-        parts = []
-        for d, (wq, wk, wv), wo, ring in zip(self.devices, self.qkv,
-                                             self.out, self.rings):
-            xd = x.to(d, non_blocking=True)
-            sd = xd if context is None else src.to(d, non_blocking=True)
-            q, k, v = (F.linear(a, w).unflatten(-1, (self.heads,
-                                                      self.head_dim))
-                       for a, w in ((xd, wq), (sd, wk), (sd, wv)))
+        os_ = []
+        for d, qkv, ring in zip(self.devices,
+                                self.project(x, context, lora, quant),
+                                self.rings):
             tl = None if true_len is None else true_len.to(d)
-            o = _attend(q, k, v, context is None, tl, ring, scale)
-            parts.append(F.linear(o.reshape(b, t, -1), wo))
-        return _row_out(parts, self.out_bias, self.home, dtype)
+            o = _attend(*qkv, context is None, tl, ring, scale)
+            os_.append(o.reshape(b, t, -1))
+        return self.output(os_, lora.get("out_proj"), quant)
+
+    def project(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                lora: dict, quant: bool) -> List[Tuple[torch.Tensor, ...]]:
+        """Each shard's ``(q, k, v)``, ``(B, T, heads, head_dim)`` on its
+        device, with the traced ``qkv``, ``q`` and ``kv`` sites' deltas."""
+        c = self.width
+        dtype = self.out[0].dtype
+        inp = _dense_input(x, quant, dtype)
+        if context is None:
+            src_inp = inp
+            hq = hk = _column_site(x, lora.get("qkv"), dtype)
+            offsets = (0, c, 2 * c)
+        else:
+            src_inp = _dense_input(context, quant, dtype)
+            hq = _column_site(x, lora.get("q"), dtype)
+            hk = _column_site(context, lora.get("kv"), dtype)
+            offsets = (0, 0, c)
+        cols = self.heads * self.head_dim
+        out = []
+        for j, (d, ws) in enumerate(zip(self.devices, self.qkv)):
+            xd = _to(inp, d)
+            sd = xd if context is None else _to(src_inp, d)
+            qkv = []
+            for a, w, hu, at in zip((xd, sd, sd), ws, (hq, hk, hk),
+                                    offsets):
+                y = _dense(a, w, None, dtype)
+                if hu is not None:
+                    y = y + _column_delta(
+                        hu, slice(at + j * cols, at + (j + 1) * cols), d)
+                qkv.append(y.unflatten(-1, (self.heads, self.head_dim)))
+            out.append(tuple(qkv))
+        return out
+
+    def output(self, os_: List[torch.Tensor], site: Optional[dict],
+               quant: bool) -> torch.Tensor:
+        """``out_proj`` of the shards' attention outputs ``(B, T,
+        heads * head_dim)``: a row product, with the traced ``out_proj``
+        site's delta."""
+        dtype = self.out[0].dtype
+        out = _split_rows(os_, self.out, self.out_bias, self.home, dtype,
+                          quant)
+        return out if site is None else \
+            out + _row_delta(os_, site, self.home, dtype)
 
 
 class _Halves(sharding.Placement):
     """A TransformerBlock's GEGLU and ``ff_out`` over the ``tp`` devices:
     shard ``j`` holds its rows of both halves of ``proj`` (``a`` and the
     gelu gate), so its ``a * gelu(g)`` is whole, and multiplies its
-    ``ff_out`` columns; the partials are summed on the home device."""
+    ``ff_out`` columns; the partials are summed on the home device. The
+    ``proj`` halves are column products (a traced ``up`` splits into its
+    ``a`` and ``g`` halves, each chunked by shard), ``ff_out`` a row
+    product as ``_Heads``' ``out_proj``."""
 
     def __init__(self, block: TransformerBlock, devices,
                  home: torch.device):
         n = len(devices)
         proj = block.geglu.proj
         half = proj.out_features // 2
+        self.half = half
         self.devices, self.home = devices, home
         self.a = [(w.to(d), b.to(d)) for w, b, d in zip(
             proj.weight[:half].chunk(n), proj.bias[:half].chunk(n), devices)]
@@ -777,17 +939,40 @@ class _Halves(sharding.Placement):
                     zip(block.ff_out.weight.chunk(n, 1), devices)]
         self.out_bias = block.ff_out.bias
 
-    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+    def __call__(self, h: torch.Tensor, proj: Optional[dict],
+                 ff_out: Optional[dict], quant: bool) -> torch.Tensor:
+        return self.output(self.hidden(h, proj, quant), ff_out, quant)
+
+    def hidden(self, h: torch.Tensor, proj: Optional[dict],
+               quant: bool) -> List[torch.Tensor]:
+        """Each shard's ``a * gelu(g)`` on its device, with the traced
+        ``proj`` site's delta."""
         dtype = self.out[0].dtype
-        h = _cast(h, dtype)
-        parts = []
-        for d, (wa, ba), (wg, bg), wo in zip(self.devices, self.a, self.g,
-                                             self.out):
-            hd = h.to(d, non_blocking=True)
-            y = F.linear(hd, wa, ba) * F.gelu(F.linear(hd, wg, bg),
-                                              approximate="tanh")
-            parts.append(F.linear(y, wo))
-        return _row_out(parts, self.out_bias, self.home, dtype)
+        inp = _dense_input(h, quant, dtype)
+        hu = _column_site(h, proj, dtype)
+        rows = self.half // len(self.devices)
+        ys = []
+        for j, (d, (wa, ba), (wg, bg)) in enumerate(zip(self.devices, self.a,
+                                                        self.g)):
+            hd = _to(inp, d)
+            a, g = _dense(hd, wa, ba, dtype), _dense(hd, wg, bg, dtype)
+            if hu is not None:
+                a = a + _column_delta(hu, slice(j * rows, (j + 1) * rows), d)
+                g = g + _column_delta(hu, slice(self.half + j * rows,
+                                                self.half + (j + 1) * rows),
+                                      d)
+            ys.append(a * F.gelu(g, approximate="tanh"))
+        return ys
+
+    def output(self, ys: List[torch.Tensor], site: Optional[dict],
+               quant: bool) -> torch.Tensor:
+        """``ff_out`` of the shards' hidden states: a row product, with
+        the traced ``ff_out`` site's delta."""
+        dtype = self.out[0].dtype
+        out = _split_rows(ys, self.out, self.out_bias, self.home, dtype,
+                          quant)
+        return out if site is None else \
+            out + _row_delta(ys, site, self.home, dtype)
 
 
 def place(module: nn.Module, layout) -> None:

@@ -29,6 +29,15 @@ over patches of the int8 codes: ``F.unfold`` has no int8 kernel, so the
 codes are padded and windowed with ``Tensor.unfold`` views, the patch
 axis in the order of an OIHW weight reshaped to ``(O, I*kh*kw)``.
 
+Under ``tp`` (``models/unet.py``'s placements) a product splits over
+shards without changing a bit: a column split quantizes its input once
+(:func:`int8_dot_codes`, :func:`int8_conv_codes`) and each shard owns
+whole output channels, hence their scales; a row split takes each scale
+as the max of its shards' :func:`absmax`, makes :func:`codes` from it and
+sums the shards' int32 products (:func:`int8_accumulate`) before one
+:func:`dequantize`. Integer sums are exact, so the result is the
+meshless layer's.
+
 ``int8_mm.launches`` counts the card's int8 products (a replayed CUDA
 graph adds the ones it captured, as for the attention kernels), so a
 request can show that it ran at int8.
@@ -47,13 +56,40 @@ INT_MM_MIN_ROWS = 16
 INT_MM_ALIGN = 8
 
 
+def absmax(x: torch.Tensor, dims: Union[int, Sequence[int]]
+           ) -> torch.Tensor:
+    """``amax|x|`` in f32 over ``dims`` (kept). A split product takes the
+    max of its shards' values: the max is exact, so the scale is the
+    whole tensor's."""
+    return x.float().abs().amax(dim=dims, keepdim=True)
+
+
+def scale_of(amax: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """The symmetric scale ``amax / 127 + eps``."""
+    return amax / 127.0 + eps
+
+
+def codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``round(x / s)`` in f32, half to even, as int8: the codes of ``x``
+    under a scale the caller supplies (under ``tp`` a scale can come from
+    more than one shard)."""
+    return torch.round(x.float() / s).to(torch.int8)
+
+
 def quantize(x: torch.Tensor, dims: Union[int, Sequence[int]],
              eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(codes, scale)``: ``x`` in f32 scaled by ``amax|x| / 127 + eps``
     over ``dims`` (kept), rounded half to even, as int8."""
-    xf = x.float()
-    s = xf.abs().amax(dim=dims, keepdim=True) / 127.0 + eps
-    return torch.round(xf / s).to(torch.int8), s
+    s = scale_of(absmax(x, dims), eps)
+    return codes(x, s), s
+
+
+def dequantize(acc: torch.Tensor, s_x: torch.Tensor,
+               s_w: torch.Tensor) -> torch.Tensor:
+    """``acc * s_x * s_w`` in f32, in the JAX package's order. A split
+    row product sums its shards' int32 accumulators first (exactly) and
+    dequantizes once."""
+    return acc.float() * s_x * s_w
 
 
 def int8_mm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -84,6 +120,10 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no int8_mm for device {a.device}")
     m, k = a.shape
     n = b.shape[1]
+    # row-major codes and a column-major weight, the layouts the meshless
+    # products pass; a split product's slices may come strided
+    a = a.contiguous()
+    b = b.t().contiguous().t()
     mp = max(m, INT_MM_MIN_ROWS + 1)
     kp, np_ = _round_up(k, INT_MM_ALIGN), _round_up(n, INT_MM_ALIGN)
     if (mp, kp) != (m, k):
@@ -112,10 +152,27 @@ def int8_dot(x: torch.Tensor, weight: torch.Tensor, eps: float = EPS,
     ``(..., out)``; with ``accumulators`` also the int32 ``(M, out)``
     products."""
     xq, s_x = quantize(x, -1, eps)
-    wq, s_w = quantize(weight, 1, eps)
+    return int8_dot_codes(xq, s_x, weight, eps, accumulators)
+
+
+def int8_accumulate(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 ``(..., out)`` products of ``(..., in)`` codes by
+    ``(out, in)`` weight codes."""
     acc = int8_mm(xq.reshape(-1, xq.shape[-1]), wq.t())
-    out = acc.reshape(*x.shape[:-1], -1).float() * s_x * s_w.reshape(-1)
-    return (out, acc) if accumulators else out
+    return acc.reshape(*xq.shape[:-1], -1)
+
+
+def int8_dot_codes(xq: torch.Tensor, s_x: torch.Tensor,
+                   weight: torch.Tensor, eps: float = EPS,
+                   accumulators: bool = False):
+    """:func:`int8_dot` from the codes and per-token scales of ``x``,
+    made by the caller (a column split quantizes ``x`` once and sends the
+    codes to each shard), and the weight (or a shard of whole rows of
+    it: each output channel's scale is its row's)."""
+    wq, s_w = quantize(weight, 1, eps)
+    acc = int8_accumulate(xq, wq)
+    out = dequantize(acc, s_x, s_w.reshape(-1))
+    return (out, acc.reshape(-1, acc.shape[-1])) if accumulators else out
 
 
 def conv_patches(xq: torch.Tensor, kernel: Tuple[int, int],
@@ -144,14 +201,26 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor,
     per-output-channel weight scales, int32 accumulation over the
     patches. Returns f32 NCHW; with ``accumulators`` also the int32
     ``(B*Ho*Wo, O)`` products."""
-    b = x.shape[0]
-    o, _, kh, kw = weight.shape
     xq, s_x = quantize(x, (1, 2, 3), eps)
+    return int8_conv_codes(xq, s_x, weight, stride, padding, eps,
+                           accumulators)
+
+
+def int8_conv_codes(xq: torch.Tensor, s_x: torch.Tensor,
+                    weight: torch.Tensor,
+                    stride: Tuple[int, int] = (1, 1),
+                    padding: Tuple[int, int] = (0, 0), eps: float = EPS,
+                    accumulators: bool = False):
+    """:func:`int8_conv` from the NCHW codes and per-image scales of
+    ``x``, made by the caller, and an OIHW weight (or a shard of whole
+    output channels)."""
+    b = xq.shape[0]
+    o, _, kh, kw = weight.shape
     wq, s_w = quantize(weight, (1, 2, 3), eps)
     patches, ho, wo = conv_patches(xq, (kh, kw), tuple(stride),
                                    tuple(padding))
     acc = int8_mm(patches, wq.reshape(o, -1).t())
     # NHWC as the JAX package computes it, then back to the port's NCHW
-    out = (acc.reshape(b, ho, wo, o).float() * s_x.reshape(b, 1, 1, 1)
-           * s_w.reshape(1, 1, 1, o)).permute(0, 3, 1, 2)
+    out = dequantize(acc.reshape(b, ho, wo, o), s_x.reshape(b, 1, 1, 1),
+                     s_w.reshape(1, 1, 1, o)).permute(0, 3, 1, 2)
     return (out, acc) if accumulators else out

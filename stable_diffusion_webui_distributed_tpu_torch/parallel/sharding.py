@@ -25,7 +25,8 @@ explicit:
   nothing), a dimension that does not divide by ``tp`` replicated, as in
   JAX. The layers compute on their shards (``models/unet.py``).
 - **Collectives**, with the JAX meaning: :func:`gather` (column slices to
-  one device), :func:`reduce_sum` (partials summed onto one device) and
+  one device), :func:`reduce_sum` (partials summed onto one device),
+  :func:`reduce_max` (an int8 row product's scales from its shards) and
   :func:`ring_shift` (each block one step along the ring). They are
   ``.to(device, non_blocking=True)`` copies and adds: the same code on one
   card and on several, where the copies go over NVLink. NCCL and
@@ -172,6 +173,15 @@ def reduce_sum(parts: Sequence[torch.Tensor],
     out = parts[0].to(device, non_blocking=True)
     for p in parts[1:]:
         out = out + p.to(device, non_blocking=True)
+    return out
+
+
+def reduce_max(parts: Sequence[torch.Tensor],
+               device: torch.device) -> torch.Tensor:
+    """The elementwise max of ``parts`` on ``device`` (``lax.pmax``)."""
+    out = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(device, non_blocking=True))
     return out
 
 

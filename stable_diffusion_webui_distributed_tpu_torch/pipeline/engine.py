@@ -148,9 +148,10 @@ self-attention on the ring (``models/unet.py`` :func:`~..models.unet.
 place`); the placement is made at construction and again after a VAE swap
 or a LoRA merge, from the full weights (:meth:`Engine.set_mesh`). An
 evaluation whose replica lies on one device replays one CUDA graph per
-replica; a ``tp`` or ``sp`` replica over several cards runs eagerly. The
-int8 precisions and traced LoRA are refused under ``tp > 1`` (ROADMAP
-item 14).
+replica; a ``tp`` or ``sp`` replica over several cards runs eagerly.
+Every precision and traced LoRA run under ``tp`` too: a split int8 product
+gives the meshless layer's values, and a traced site adds each shard's
+share of its delta (``models/unet.py``).
 
 Chunk-boundary preemption (the fleet tier, ``fleet/policy.py``): while a
 preemptible job runs, the dispatcher installs a hook as ``preempt_hook``;
@@ -253,7 +254,6 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline import stepcache
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
     GenerationResult,
-    Unsupported,
     apply_scripts,
     array_to_b64png,
     b64png_to_array,
@@ -2157,7 +2157,6 @@ class Engine:
         payload = payload.model_copy()
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
-        self.check_supported(payload)
         self._adaptive_incomplete = False
         if payload.all_prompts and payload.context_chunks is None:
             # a whole request (a range from a fleet arrives with its
@@ -2176,21 +2175,6 @@ class Engine:
         self._apply_prompt_loras(payload)
         run = self._run_img2img if payload.init_images else self._run_txt2img
         return run(payload, start, count, job)
-
-    def check_supported(self, payload: GenerationPayload) -> None:
-        """Raise :class:`Unsupported` (HTTP 422) for what this engine does
-        not run, before a request joins a group. Every payload the JAX
-        engine runs is ported; on a mesh with ``tp > 1`` the int8
-        precisions and traced LoRA are not (ROADMAP item 14)."""
-        if self._mesh_axis("tp") <= 1:
-            return
-        traced = self.traced_content_for_payload(payload)
-        try:
-            unet_mod.refuse_on_shards(
-                traced or None, precision_mod.resolve(payload,
-                                                      self.policy).active)
-        except ValueError as e:
-            raise Unsupported(str(e)) from None
 
     def run_on_device(self, fn, *args):
         """``fn(*args)`` on the engine's device thread, in inference mode

@@ -160,7 +160,6 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
-    Unsupported,
     apply_scripts,
     array_to_b64png,
     b64png_to_array,
@@ -365,7 +364,6 @@ class ServingDispatcher:
             METRICS.record_request(
                 bucketed, padding_ratio=self.bucketer.padding_ratio(
                     payload.width, payload.height, batch=solo_batch))
-        self.engine.check_supported(run)
         jr_on = obs_journal.enabled()
         if jr_on:
             obs_journal.emit("bucketed", rid, bucketed=bucketed,
@@ -474,8 +472,7 @@ class ServingDispatcher:
                     retry_after=retry)
             metered = payload.total_images
         decision = self.admission.decide(payload, pol,
-                                         self.eta_overhead(payload),
-                                         int8=self._runs_int8(payload))
+                                         self.eta_overhead(payload))
         obs_prom.fleet_count("admissions", decision=decision.action,
                              **{"class": pol.name})
         if decision.action == "reject":
@@ -497,18 +494,6 @@ class ServingDispatcher:
             if decision.steps:
                 payload.steps = decision.steps
         return pol.name
-
-    def _runs_int8(self, payload) -> bool:
-        """Whether the engine runs ``payload`` at the int8 precision, the
-        admission's last degrade rung (an engine on a ``tp > 1`` mesh
-        refuses it)."""
-        ov = {**(payload.override_settings or {}), "precision": "int8"}
-        try:
-            self.engine.check_supported(
-                payload.model_copy(update={"override_settings": ov}))
-        except Unsupported:
-            return False
-        return True
 
     def _engine(self):
         """The engine this thread executes on: the resident checked out

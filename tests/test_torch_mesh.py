@@ -13,7 +13,7 @@ JAX package's, on the CPU.
   within 1e-5 (f32) for ``sp=8``, ``dp x sp``, a ``SDTPU_RING_CHUNK`` that
   pads the block, and ``sp=4`` of 8 devices;
 - the collectives, and a UNet placed under ``tp`` and ``sp`` against the
-  plain UNet.
+  plain UNet, at f32 and, under ``tp``, at int8 and int8+conv.
 
 Inputs come from numpy with a seed; the parameter trees' shapes from
 ``jax.eval_shape`` (no JAX parameter is drawn).
@@ -296,7 +296,15 @@ def test_placed_unet_matches_the_plain_unet(spec):
             np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5,
                                        atol=1e-5)
         if "tp" in spec:
-            # int8 on the shards is refused, never computed otherwise
-            with pytest.raises(ValueError, match="ROADMAP item 14"):
-                reps[0](x, t, ctx, added_cond=added,
-                        precision=PrecisionSpec("int8", quant_linears=True))
+            # int8 on the shards: the split products give the plain
+            # layers' values, so the UNet is the plain int8 UNet's
+            for prec in (PrecisionSpec("int8", quant_linears=True),
+                         PrecisionSpec("int8+conv", quant_linears=True,
+                                       quant_convs=True)):
+                unet_mod.place(unet, None)
+                want = unet(x, t, ctx, added_cond=added, precision=prec)
+                reps = sharding.replicas(unet, mesh.build_mesh(spec, CPU8),
+                                         unet_mod.place)
+                got = reps[0](x, t, ctx, added_cond=added, precision=prec)
+                np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                           rtol=1e-5, atol=1e-5)

@@ -13,12 +13,21 @@ meshless engine, on TINY on the CPU.
   ``tests/test_torch_parallel_rows.py``; the graphs and the tower in
   ``tests/test_torch_parallel_graphs.py``; the stage pipeline in
   ``tests/test_torch_stage_pipeline.py``;
-- under ``tp=2`` the int8 precisions and traced LoRA are refused, and the
-  fleet gate's admission never degrades a request to int8 there.
+- under ``tp=2`` the int8 precisions and traced LoRA are served through
+  ``POST /sdapi/v1/txt2img`` (200), each image within its bound of the
+  meshless port's (``SERVED``), and the fleet gate's admission offers the
+  int8 rung there as it does meshless (the JAX admission has no other
+  rule). The same requests on ``dp=4,tp=2`` against the JAX engine are in
+  ``tests/test_torch_parallel_int8.py``, ``_int8_conv.py`` and
+  ``_lora.py``, a JAX compile each.
 
 The weights are TINY's parameter trees filled from a seeded numpy stream
 (shapes from ``jax.eval_shape``); both packages take the same trees.
 """
+
+import json
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -39,16 +48,12 @@ from stable_diffusion_webui_distributed_tpu.runtime.interrupt import (
     GenerationState as JaxState,
 )
 from stable_diffusion_webui_distributed_tpu_torch import bridge
-from stable_diffusion_webui_distributed_tpu_torch.fleet.admission import (
-    FleetRejected,
-)
 from stable_diffusion_webui_distributed_tpu_torch.models.configs import (
     TINY,
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.engine import Engine
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationPayload,
-    Unsupported,
     array_to_b64png,
     b64png_to_array,
 )
@@ -61,6 +66,7 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
 from stable_diffusion_webui_distributed_tpu_torch.scheduler.eta import (
     EtaCalibration,
 )
+from stable_diffusion_webui_distributed_tpu_torch.server.api import ApiServer
 from stable_diffusion_webui_distributed_tpu_torch.serving.bucketer import (
     ShapeBucketer,
 )
@@ -100,6 +106,63 @@ def assert_within_one(got, want):
     a, b = pixels(got), pixels(want)
     assert a.shape == b.shape
     assert np.abs(a - b).max() <= 1
+
+
+#: what a ``tp`` engine serves beyond bf16, and each image's bound against
+#: the JAX engine's and the meshless port's, (max, mean) uint8 levels: the
+#: int8 precisions' of ``tests/test_torch_quant.py`` (``PIXELS``: code
+#: flips at rounding edges add up over the steps) and traced LoRA's 1
+#: level of ``tests/test_torch_lora_traced.py``
+SERVED = {"int8": ({"precision": "int8"}, (32, 5.0)),
+          "int8+conv": ({"precision": "int8+conv"}, (80, 12.0)),
+          "traced LoRA": ({"prompt": f"mesh cow <lora:{LORA}:0.8>"},
+                          (1, 1.0))}
+
+
+def assert_within(images, want, bound):
+    a = np.stack([b64png_to_array(b).astype(np.int32) for b in images])
+    b = pixels(want)
+    assert a.shape == b.shape
+    gap = np.abs(a - b)
+    assert gap.max() <= bound[0] and gap.mean() <= bound[1], \
+        (int(gap.max()), float(gap.mean()))
+
+
+def serve(engine, body):
+    """``POST /sdapi/v1/txt2img`` of ``body`` to a server over ``engine``
+    (its serving dispatcher on a 32x32 ladder): ``(status, response)``."""
+    server = ApiServer(engine, port=0).start()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.port}/sdapi/v1/txt2img",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+    finally:
+        server.stop()
+
+
+def served_case(case, engine, wants, monkeypatch, batch=1):
+    """``SERVED[case]`` at ``batch`` served by ``engine`` (200), its
+    images within the case's bound of each result in ``wants``; traced
+    LoRA takes the traced path (no merge)."""
+    extra, bound = SERVED[case]
+    monkeypatch.setenv("SDTPU_BUCKET_LADDER", "32x32")
+    METRICS.clear()
+    merges = engine._lora_merge_total
+    status, resp = serve(engine, {**BASE, **extra, "batch_size": batch})
+    assert status == 200, resp
+    assert len(resp["images"]) == batch
+    if "precision" in extra:
+        assert extra["precision"] in METRICS.summary()["precision"]
+    else:
+        assert engine._traced_lora is not None
+        assert engine._lora_merge_total == merges and not engine._pristine
+    for want in wants:
+        assert_within(resp["images"], want, bound)
 
 
 @pytest.fixture(autouse=True)
@@ -187,27 +250,28 @@ def test_engine_on_a_mesh_matches_jax_and_the_meshless_port(
     engine_case(case, plain, mesh_engines)
 
 
-@pytest.mark.parametrize("body", [
-    {"precision": "int8"}, {"precision": "int8+conv"},
-    {"prompt": f"mesh cow <lora:{LORA}:0.8>"}])
-def test_int8_and_traced_lora_are_refused_under_tp(body, params, providers,
-                                                   monkeypatch):
+@pytest.fixture(scope="module")
+def tp2(params, providers):
+    return port_engine(params, providers, "tp=2")
+
+
+@pytest.mark.parametrize("case", list(SERVED))
+def test_int8_and_traced_lora_are_served_under_tp(case, plain, tp2,
+                                                  monkeypatch):
     monkeypatch.setenv("SDTPU_LORA_TRACED", "1")
-    tp2 = port_engine(params, providers, "tp=2")
-    with pytest.raises(Unsupported, match="ROADMAP item 14"):
-        tp2.txt2img(GenerationPayload(**{**BASE, **body}))
+    extra, _ = SERVED[case]
+    want = plain.txt2img(GenerationPayload(**{**BASE, **extra}))
+    served_case(case, tp2, [want], monkeypatch)
 
 
-def test_fleet_admission_offers_no_int8_rung_under_tp(plain, params,
-                                                      providers,
-                                                      monkeypatch):
+def test_fleet_admission_offers_the_int8_rung_under_tp(plain, tp2,
+                                                       monkeypatch):
     monkeypatch.setenv("SDTPU_FLEET", "1")
     monkeypatch.setenv("SDTPU_QUOTA_IPM", "60")
     monkeypatch.setenv("SDTPU_QUOTA_BURST", "1")
     # 20 steps at 32x32 predict 0.039 s: an SLO of 0.01 s fits only the
     # last rung, int8 + cadence 3 + the few-step budget of 12 (0.0082 s)
     body = {**BASE, "steps": 20, "slo_s": 0.01}
-    tp2 = port_engine(params, providers, "tp=2")
     verdicts = []
     for engine in (plain, tp2):
         METRICS.clear()
@@ -215,13 +279,11 @@ def test_fleet_admission_offers_no_int8_rung_under_tp(plain, params,
             shapes=[(32, 32)], batches=[1]), window=0.0)
         disp.set_calibration(EtaCalibration(avg_ipm=6.0,
                                             eta_percent_error=[0.0]))
-        try:
-            got = disp.submit(GenerationPayload(**body))
-            verdicts.append(got.parameters["override_settings"]["precision"])
-        except FleetRejected as e:
-            verdicts.append(e.reason)
-            # a refused request did no work: its quota token came back
-            assert disp.quotas.summary()["tenants"]["default"] == 1.0
-    # meshless, int8 serves it; on tp=2 it is rejected (429), not
-    # degraded to int8 and then refused (422)
-    assert verdicts == ["int8", "slo"]
+        got = disp.submit(GenerationPayload(**body))
+        verdicts.append(got.parameters["override_settings"]["precision"])
+        assert len(got.images) == 1
+        assert METRICS.summary()["precision"] == {
+            "int8": {"dispatches": 1, "requests": 1}}
+    # degraded to int8 and served at int8 on both, as the JAX admission
+    # degrades it on any mesh
+    assert verdicts == ["int8", "int8"]

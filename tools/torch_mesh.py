@@ -8,7 +8,9 @@ Builds the kernels, runs the main path (its checks hold K1 on the Hopper
 path) and ``phase_mesh`` on its engine: config #1 at full width on
 ``dp=2`` (batch 2), ``tp=2`` and ``sp=2`` meshes (a virtual mesh over
 cuda:0 on one card, distinct cards where there are two) against the
-meshless engine, ``ring_attention`` against K1 at the level-0 shape, and
+meshless engine, ``tp=2`` at ``int8`` and with a traced adapter against
+the meshless engine at the same precision and adapter,
+``ring_attention`` against K1 at the level-0 shape, and
 the stage-ahead ControlNet tower on a mesh of its own; then, with the SD1.5
 engine freed, config #2's SDXL base and refiner through
 ``pipelined_txt2img`` against the sequential request. Each phase with the
