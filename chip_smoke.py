@@ -5913,6 +5913,37 @@ def mesh_devices():
     return ["cuda:0", "cuda:0"], "a virtual mesh over cuda:0"
 
 
+def placed_layers(engine) -> dict:
+    """``[column, row]`` per text encoder and VAE half of ``engine``: its
+    layers split over the mesh's ``tp`` by output and by input features
+    (replica 0's decoder; the others run on the home device)."""
+    from stable_diffusion_webui_distributed_tpu_torch.models import (
+        unet as unet_mod,
+    )
+
+    out = {}
+    for name in ("text_encoder", "text_encoder_2", "vae", "vae_encoder"):
+        module = getattr(engine, name)
+        if module is None:
+            continue
+        plans = [m.tp for m in module.modules()
+                 if isinstance(m, (unet_mod.Dense, unet_mod.Conv))]
+        out[name] = [sum(isinstance(p, unet_mod._Column) for p in plans),
+                     sum(isinstance(p, unet_mod._Row) for p in plans)]
+    return out
+
+
+def check_placed(label: str, layers: dict, tp: int) -> None:
+    """Under ``tp > 1`` every text encoder and VAE half has column and row
+    layers (JAX's rule splits CLIP's ``qkv``/``fc1`` and ``out_proj``/
+    ``fc2``, the VAE's convs and its mid attention's ``out_proj``); none
+    without."""
+    for name, (column, row) in layers.items():
+        check((column > 0 and row > 0) if tp > 1 else column == row == 0,
+              f"{label}: {name} has {column} column and {row} row layers "
+              f"on tp={tp}")
+
+
 def phase_mesh(engine, fa, card_line: str) -> dict:
     """The port's mesh paths on the main path's engine (config #1 at full
     width), placed with ``Engine.set_mesh`` and put back after each arm:
@@ -5920,7 +5951,9 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
     the meshless engine on the same weights and seed (the init latents
     bit-equal, the images within a mean of 2 uint8 levels, a repeat the
     same bytes, the K1 launches of ``MESH_ARMS`` all on the Hopper path,
-    no weight copied onto the card by the placement); then ``tp=2`` at
+    no weight copied onto the card by the placement, the text encoder and
+    both VAE halves placed by JAX's rule under ``tp``, their column and
+    row layers printed); then ``tp=2`` at
     ``int8`` and with a traced adapter (``MESH_SPLIT_ARMS``) against the
     meshless engine at the same precision and adapter, with the same
     checks but that the int8 image holds the int8 quality floors against
@@ -6005,9 +6038,11 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
                 bf16.setdefault(batch, plain)
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
-            engine.set_mesh(build_mesh(spec, devices))
+            mesh = build_mesh(spec, devices)
+            engine.set_mesh(mesh)
             torch.cuda.synchronize()
             placed = torch.cuda.memory_allocated() - before
+            layers = placed_layers(engine)
             torch.cuda.reset_peak_memory_stats()
             runs = [request(body) for _ in range(2)]
             peak = torch.cuda.max_memory_allocated()
@@ -6024,6 +6059,7 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
                    "int8_mm": [q8, q8b], "meshless_int8_mm": plain_q,
                    "peak_gib": round(peak / 2**30, 3),
                    "placement_mib": round(placed / 2**20, 3),
+                   "te_vae_layers": layers,
                    "mean_abs": round(float(diff.mean()), 4),
                    "max_abs": int(diff.max())}
             if extra.get("precision") == "int8":
@@ -6035,6 +6071,9 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             out["arms"][label] = arm
             print(f"mesh {label} at batch {batch}: {json.dumps(arm)} "
                   f"[{card_line}]")
+            print(f"mesh {label}: CLIP and VAE layers placed [column, row]: "
+                  f"{json.dumps(layers)}")
+            check_placed(f"mesh {label}", layers, mesh.shape["tp"])
             check(torch.equal(x, plain_x),
                   f"mesh {label}: the init latents differ from meshless")
             check(k1 == want_k1 and k1b == want_k1,
@@ -6653,8 +6692,9 @@ def phase_config2(fa, ra, card_line: str) -> dict:
     """BASELINE config #2 through the port's server: SDXL base and refiner
     at full width and depth on seeded weights (bf16 card policy), the base
     engine handing over to the refiner through its ``engine_provider``.
-    Then the two UNets bf16 vs f32, and where a warm base UNet call at
-    batch 8 spends its time."""
+    Then the two UNets bf16 vs f32, where a warm base UNet call at batch 8
+    spends its time, the stage pipeline (:func:`config2_pipeline`) and the
+    base on ``tp=2`` (:func:`config2_mesh`)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -6808,6 +6848,7 @@ def phase_config2(fa, ra, card_line: str) -> dict:
                          for m, t in tflop.items()},
                "card": card_line}
     metrics["pipeline"] = config2_pipeline(base, refiner, fa, card_line)
+    metrics["tp2"] = config2_mesh(base, fa, card_line)
     print("config #2 metrics: " + json.dumps(metrics))
     # config #4 runs on this base engine, without the refiner
     base.engine_provider = None
@@ -6877,6 +6918,121 @@ def config2_pipeline(base, refiner, fa, card_line: str) -> dict:
           "the stage pipeline's seeds")
     return {arm: {"wall_s": round(r[0], 4), "k1": r[2]}
             for arm, r in runs.items()}
+
+
+#: config #2's base on a virtual tp=2 (ROADMAP item 14b): txt2img at
+#: config #2's size, depth, sampler and CFG, batch 1 and no refiner. Not
+#: cut to 10 steps: there the meshless image of a batch-2 row is already
+#: 2.0 uint8 levels from the batch-1 image of its seed, so the 2-level
+#: bound could not tell a placement fault from bf16's rounding
+#: (``tools/torch_tp_parts.py``); at 30 steps that gap is 1.2
+CONFIG2_MESH_BODY = {"steps": 30, "width": 1024, "height": 1024,
+                     "cfg_scale": 7, "sampler_name": "Euler a",
+                     "batch_size": 1, "seed": 4500}
+#: K1 a request: the base's 70 self-attentions x 30 steps, meshless; on
+#: tp=2 each on its 2 head shards (SDXL's 10 and 20 heads divide by 2)
+CONFIG2_MESH_K1 = 70 * 30
+
+
+def config2_mesh(base, fa, card_line: str) -> dict:
+    """Config #2's SDXL base engine on ``tp=2`` (a virtual mesh over
+    cuda:0 on one card), placed with ``Engine.set_mesh`` and put back,
+    against itself meshless on the same seed (``CONFIG2_MESH_BODY``): the
+    one arm where CLIP-G, its ``text_projection`` and the 1024x1024 f32
+    decode run on their shards. The init latents bit-equal to meshless,
+    the image within a mean of 2 uint8 levels (the max printed), a repeat
+    the same bytes, K1 at twice the meshless 2100 all on the Hopper path,
+    no weight copied; the wall and the peak of each."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
+        GenerationPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
+        BenchmarkPayload,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+        build_mesh,
+    )
+
+    t_arm = time.perf_counter()
+    bp = BenchmarkPayload()
+    body = {"prompt": bp.prompt, "negative_prompt": bp.negative_prompt,
+            **CONFIG2_MESH_BODY}
+    devices, kind = mesh_devices()
+    latents = []
+    run_denoise = base._denoise
+
+    def recording(payload, x, *args, **kw):
+        if not latents:
+            latents.append(x.clone())
+        return run_denoise(payload, x, *args, **kw)
+
+    def request():
+        latents.clear()
+        fa.reset_launches(fa.flash_attention)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        result = base.txt2img(GenerationPayload(**body))
+        torch.cuda.synchronize()
+        return {"wall": time.perf_counter() - t, "result": result,
+                "k1": fa.flash_attention.launches,
+                "paths": dict(fa.flash_attention.path_launches),
+                "x": latents[0], "peak": torch.cuda.max_memory_allocated()}
+
+    base._denoise = recording
+    try:
+        plain = request()
+        before = torch.cuda.memory_allocated()
+        base.set_mesh(build_mesh("tp=2", devices))
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - before
+        layers = placed_layers(base)
+        runs = [request() for _ in range(2)]
+    finally:
+        del base._denoise
+        base.set_mesh(None)
+    note_peak("config #2 tp=2", max(r["peak"] for r in runs))
+
+    def pixels(r):
+        return np.stack([png_pixels(b).astype(np.int32)
+                         for b in r["result"].images])
+
+    diff = np.abs(pixels(runs[0]) - pixels(plain))
+    out = {"devices": kind, "steps": body["steps"],
+           "wall_s": [round(r["wall"], 4) for r in runs],
+           "meshless_wall_s": round(plain["wall"], 4),
+           "peak_gib": [round(r["peak"] / 2**30, 3) for r in runs],
+           "meshless_peak_gib": round(plain["peak"] / 2**30, 3),
+           "placement_mib": round(placed / 2**20, 3),
+           "k1": [r["k1"] for r in runs], "meshless_k1": plain["k1"],
+           "k1_paths": runs[0]["paths"], "te_vae_layers": layers,
+           "mean_abs": round(float(diff.mean()), 4),
+           "max_abs": int(diff.max())}
+    out["arm_s"] = round(time.perf_counter() - t_arm, 3)
+    print(f"config #2 tp=2 (SDXL base, {body['width']}x{body['height']}, "
+          f"{body['steps']} steps, batch 1, {kind}): {json.dumps(out)} "
+          f"[{card_line}]")
+    print(f"config #2 tp=2: CLIP and VAE layers placed [column, row]: "
+          f"{json.dumps(layers)}")
+    check_placed("config #2 tp=2", layers, 2)
+    check(torch.equal(runs[0]["x"], plain["x"]),
+          "config #2 tp=2: the init latents differ from meshless")
+    check(plain["k1"] == CONFIG2_MESH_K1
+          and all(r["k1"] == 2 * CONFIG2_MESH_K1 for r in runs),
+          f"config #2 tp=2: K1 {out['k1']} (meshless {plain['k1']}), want "
+          f"{2 * CONFIG2_MESH_K1} ({CONFIG2_MESH_K1})")
+    check(all(r["paths"]["hopper"] == r["k1"] for r in (plain, *runs)),
+          f"config #2 tp=2: K1 off the Hopper path: {out['k1_paths']}")
+    check(runs[1]["result"].images == runs[0]["result"].images,
+          "config #2 tp=2: a repeat gave other PNG bytes")
+    check(kind.startswith("distinct") or placed <= MESH_PLACEMENT_SLACK,
+          f"config #2 tp=2: the placement allocated {placed} bytes")
+    check(diff.mean() <= MESH_MEAN_TOLERANCE,
+          f"config #2 tp=2: mean |diff| {diff.mean():.4f} vs meshless")
+    return out
 
 
 def phase_ragged_sdxl(base, fa, ra, card_line: str) -> dict:

@@ -120,7 +120,7 @@ class Dense(nn.Linear):
     with ``dtype`` = the policy's compute dtype). ``quant``: the W8A8
     product of ``ops/quant.py`` from the same weight (JAX ``QuantDense``):
     the input quantized as it comes, the bias added in f32, the output in
-    the weight's dtype. ``tp``: its shards on a mesh (:func:`place`)."""
+    the weight's dtype. ``tp``: its shards on a mesh (:func:`place_layers`)."""
 
     tp = None
 
@@ -268,7 +268,7 @@ class Attention(nn.Module):
     SDPA) over flattened spatial tokens. With ``true_len`` (a ``(B,)``
     valid prefix: of the tokens for self-attention, of the context for
     cross-attention) both take kernel K2. ``ring``: the ``sp`` devices of
-    its replica on a mesh; ``tp``: its head shards (:func:`place`)."""
+    its replica on a mesh; ``tp``: its head shards (:func:`place_layers`)."""
 
     tp = None
     ring = None
@@ -324,7 +324,8 @@ class GEGLU(nn.Module):
 
 class TransformerBlock(nn.Module):
     """self-attn -> cross-attn -> GEGLU MLP, each with pre-LN + residual.
-    ``ffn_tp``: the GEGLU and ``ff_out`` on their shards (:func:`place`)."""
+    ``ffn_tp``: the GEGLU and ``ff_out`` on their shards
+    (:func:`place_layers`)."""
 
     ffn_tp = None
 
@@ -975,16 +976,21 @@ class _Halves(sharding.Placement):
             out + _row_delta(ys, site, self.home, dtype)
 
 
-def place(module: nn.Module, layout) -> None:
-    """Attach one replica's mesh placement to a UNet or ControlNet
-    (``layout``: its ``(tp, sp)`` devices, ``parallel/sharding.py``
-    :func:`~..parallel.sharding.replica_layout`), or remove it (None).
-    Under ``sp > 1`` every attention gets its ring (shard 0's where a
-    layer is not split by heads); under ``tp > 1`` attentions whose heads
-    divide it split by heads, GEGLUs whose halves divide it by halves,
-    and every other Dense or Conv layer by its class in JAX's rule
-    (``sharding.shard_dim``; a layer it leaves replicated computes on the
-    home device)."""
+def place_layers(module: nn.Module, layout) -> None:
+    """Attach one replica's mesh placement to the layers of a model built
+    on :class:`Dense` and :class:`Conv` (a UNet, a ControlNet, a CLIP text
+    encoder, the VAE's decoder or encoder), or remove it (None).
+    ``layout``: the replica's ``(tp, sp)`` devices
+    (``parallel/sharding.py`` :func:`~..parallel.sharding.replica_layout`).
+    Under ``sp > 1`` every UNet :class:`Attention` gets its ring (shard
+    0's where a layer is not split by heads). Under ``tp > 1`` a UNet
+    attention whose heads divide it splits by heads, a GEGLU whose halves
+    divide it by halves, and every other Dense or Conv layer by its class
+    in JAX's rule (``sharding.shard_dim``): output features (a gather on
+    the home device), input features (partials summed there), or none (it
+    computes whole on the home device). So CLIP's and the VAE's attentions
+    split as JAX splits them: the fused ``qkv`` by columns, gathered
+    before the attention, and ``out_proj`` by rows."""
     for m in module.modules():
         if isinstance(m, (Dense, Conv, Attention)):
             m.tp = None

@@ -23,14 +23,18 @@ explicit:
   gives each parameter's shards on a replica's ``tp`` devices (views of
   the weight where a shard lands on its device, so a virtual mesh copies
   nothing), a dimension that does not divide by ``tp`` replicated, as in
-  JAX. The layers compute on their shards (``models/unet.py``).
+  JAX. The layers of every model (the UNet, the ControlNets, the text
+  encoders and both halves of the VAE) compute on their shards
+  (``models/unet.py`` ``place_layers``).
 - **Collectives**, with the JAX meaning: :func:`gather` (column slices to
   one device), :func:`reduce_sum` (partials summed onto one device),
   :func:`reduce_max` (an int8 row product's scales from its shards) and
   :func:`ring_shift` (each block one step along the ring). They are
   ``.to(device, non_blocking=True)`` copies and adds: the same code on one
-  card and on several, where the copies go over NVLink. NCCL and
-  ``torch.cuda.comm`` are later work (ROADMAP item 14).
+  card and on several, where the copies go over NVLink. One process
+  drives every device of the mesh, so no collective library is used; a
+  mesh across hosts, whose collectives those copies would become, is not
+  ported (``runtime/mesh.py`` ``init_multihost``).
 
 JAX's ``keystr_path`` has no counterpart (state-dict keys are strings).
 ``batch_concat`` and ``channel_concat`` work around an XLA partitioner

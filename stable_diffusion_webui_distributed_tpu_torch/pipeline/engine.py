@@ -136,19 +136,25 @@ chunk.
 
 A mesh (``mesh``, ``runtime/mesh.py``; one process over a grid of
 ``torch.device`` objects, the JAX engine's ``mesh`` argument): the engine lives
-on the mesh's home device, where the sampler math, the text encoders and
-the conditioning stay. Each ``dp`` replica holds the UNet, the ControlNets
-and the VAE decoder on its home device (one copy per device: a virtual
-mesh over one card holds them once) and runs its block of rows of every
-UNet evaluation and every decode when the batch divides ``dp``; otherwise
-replica 0 runs the whole batch, the JAX package's odd-batch fallback. The
-rows come back in global order. Under ``tp`` the UNet and the ControlNets
-compute their split layers on their shards and under ``sp`` their
-self-attention on the ring (``models/unet.py`` :func:`~..models.unet.
-place`); the placement is made at construction and again after a VAE swap
-or a LoRA merge, from the full weights (:meth:`Engine.set_mesh`). An
-evaluation whose replica lies on one device replays one CUDA graph per
-replica; a ``tp`` or ``sp`` replica over several cards runs eagerly.
+on the mesh's home device, where the sampler math, the text encoders, the
+VAE encoder and the conditioning stay. Each ``dp`` replica holds the UNet,
+the ControlNets and the VAE decoder on its home device (one copy per
+device: a virtual mesh over one card holds them once) and runs its block
+of rows of every UNet evaluation and every decode when the batch divides
+``dp``; otherwise replica 0 runs the whole batch, the JAX package's
+odd-batch fallback. The rows come back in global order. Under ``tp`` every
+model computes the layers that JAX's rule splits on their shards, as the
+JAX engine shards its whole parameter tree: the UNet, the ControlNets and
+the VAE decoder on each replica's devices, the text encoders and the VAE
+encoder on replica 0's (they take every row, as the JAX engine runs them
+replicated over ``dp``). Under ``sp`` the UNet's and the ControlNets'
+self-attention runs on the ring (``models/unet.py``
+:func:`~..models.unet.place_layers`). The placement is made at
+construction and again after a VAE swap or a LoRA merge, from the full
+weights (:meth:`Engine.set_mesh`). An evaluation whose replica lies on one
+device replays one CUDA graph per replica; a ``tp`` or ``sp`` replica over
+several cards runs eagerly. The text encoders and the VAE run eagerly, on
+a mesh as without one.
 Every precision and traced LoRA run under ``tp`` too: a split int8 product
 gives the meshless layer's values, and a traced site adds each shard's
 share of its delta (``models/unet.py``).
@@ -1422,7 +1428,7 @@ class Engine:
         # each dp replica decodes its block of rows on its own VAE
         n = self._dp_split(self.mesh, b)
         blk = b // n
-        vaes = self._replicas(self.vae, self.mesh, None) if n > 1 \
+        vaes = self._replicas(self.vae, self.mesh) if n > 1 \
             else [self.vae]
         with trace.STATS.timer("vae_decode_dispatch"), \
                 obs_spans.device_interval(latents.device):
@@ -1581,6 +1587,10 @@ class Engine:
                                          self.device, pd))
 
         def swap():
+            # the outgoing modules keep no placement: one kept aside comes
+            # back to whatever mesh the engine has then
+            for module in (self.vae, self.vae_encoder):
+                unet_mod.place_layers(module, None)
             if self._checkpoint_vae is None:
                 self._checkpoint_vae = (self.vae, self.vae_encoder)
             self.vae, self.vae_encoder = new
@@ -2204,37 +2214,49 @@ class Engine:
 
     def set_mesh(self, mesh: Optional[Mesh]) -> None:
         """Place the model over ``mesh`` (None: the engine's device alone),
-        from the full weights (the JAX engine's ``shard_params`` at
-        construction, after ``set_vae`` and after a LoRA merge): each
-        ``dp`` replica's UNet, ControlNets and VAE decoder on its home
-        device, the UNet and the ControlNets with their ``tp`` and ``sp``
-        placement. The mesh's home device must be the engine's. Call it
-        between requests (or on the device thread, as a VAE swap does)."""
+        from the full weights (the JAX engine's ``shard_params`` over its
+        whole parameter tree, at construction, after ``set_vae`` and after
+        a LoRA merge): each ``dp`` replica's UNet, ControlNets and VAE
+        decoder on its home device with their ``tp`` and ``sp``
+        placement, and the text encoders and the VAE encoder, which run on
+        the home device, with replica 0's. The mesh's home device must be
+        the engine's. Call it between requests (or on the device thread,
+        as a VAE swap does)."""
         if mesh is not None and not _same_device(mesh.home(), self.device):
             raise ValueError(f"the home device {mesh.home()} of {mesh} is "
                              f"not the engine's device {self.device}")
         self.mesh = mesh
         self._placed.clear()
         self._stage_cn_mesh_cache = None
-        for module in (self.unet, *self._controlnets.values()):
-            unet_mod.place(module, None)
+        replicated = (self.unet, *self._controlnets.values(), self.vae)
+        for module in (*replicated, *self._home_modules()):
+            unet_mod.place_layers(module, None)
         if mesh is None:
             return
-        for module in (self.unet, *self._controlnets.values()):
+        for module in replicated:
             self._replicas(module, mesh)
-        self._replicas(self.vae, mesh, None)
+        layout = sharding.replica_layout(mesh, 0)
+        for module in self._home_modules():
+            unet_mod.place_layers(module, layout)
+
+    def _home_modules(self) -> List[torch.nn.Module]:
+        """The modules that run on the home device alone, over every
+        row: the text encoders and the VAE encoder."""
+        return [m for m in (self.text_encoder, self.text_encoder_2,
+                            self.vae_encoder) if m is not None]
 
     def _mesh_axis(self, axis: str) -> int:
         return self.mesh.shape[axis] if self.mesh is not None else 1
 
-    def _replicas(self, module: torch.nn.Module, mesh: Optional[Mesh],
-                  place=unet_mod.place) -> List[torch.nn.Module]:
-        """``module`` for each ``dp`` replica of ``mesh`` (``[module]``
-        without one), placed once per (module, mesh) with ``place``
-        (``models/unet.py``; None for the VAE, which only replicates). On
-        a mesh other than the engine's (the ControlNet tower's) the
-        replicas are copies, so the engine's placement of the same module
-        stands.
+    def _replicas(self, module: torch.nn.Module,
+                  mesh: Optional[Mesh]) -> List[torch.nn.Module]:
+        """``module`` (the UNet, a ControlNet or the VAE decoder) for each
+        ``dp`` replica of ``mesh`` (``[module]`` without one), its layers
+        placed once per (module, mesh) over the replica's ``tp`` and
+        ``sp`` devices (``models/unet.py`` :func:`~..models.unet.
+        place_layers`). On a mesh other than the engine's (the ControlNet
+        tower's) the replicas are copies, so the engine's placement of the
+        same module stands.
 
         A replica on a copy (another card's, made anew after every
         :meth:`set_mesh`, VAE swap and LoRA merge) drops the graphs keyed
@@ -2245,7 +2267,7 @@ class Engine:
         key = (id(module), id(mesh))
         hit = self._placed.get(key)
         if hit is None or hit[0] is not module or hit[1] is not mesh:
-            reps = sharding.replicas(module, mesh, place,
+            reps = sharding.replicas(module, mesh, unet_mod.place_layers,
                                      reuse=mesh is self.mesh)
             hit = self._placed[key] = (module, mesh, reps)
             shape = tuple(mesh.shape.values())

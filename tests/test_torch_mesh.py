@@ -8,7 +8,8 @@ JAX package's, on the CPU.
 - ``tp_spec_for`` gives every TINY and SD1.5 parameter (text encoder, UNet,
   VAE) the class JAX's gives the Flax path it came from, column, row or
   replicated, with the same split or replicated outcome at ``tp`` 2 and 4;
-  a placed UNet computes each layer by its class;
+  a placed UNet, text encoder or VAE half computes each layer by its
+  class;
 - ``ring_attention`` on a virtual mesh matches JAX ``ring_attention``
   within 1e-5 (f32) for ``sp=8``, ``dp x sp``, a ``SDTPU_RING_CHUNK`` that
   pads the block, and ``sp=4`` of 8 devices;
@@ -174,20 +175,34 @@ def placed_roles(module):
             if m in roles}
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_placed_unet_computes_each_layer_by_its_class(tp):
-    unet = bridge.build_modules(TINY_XL)["unet"]
-    unet_mod.place(unet, sharding.replica_layout(
+#: (component, tp) of TINY_XL: the UNet keeps its first ids, ``[2]`` and
+#: ``[4]``; both text encoders and both VAE halves are placed by the same
+#: function
+PLACED = [(c, tp) for c in ("unet", "text_encoder", "text_encoder_2", "vae",
+                            "vae_encoder") for tp in (2, 4)]
+
+
+@pytest.mark.parametrize(
+    "component,tp", PLACED,
+    ids=[str(tp) if c == "unet" else f"{c}-{tp}" for c, tp in PLACED])
+def test_placed_unet_computes_each_layer_by_its_class(component, tp):
+    module = bridge.build_modules(TINY_XL)[component]
+    unet_mod.place_layers(module, sharding.replica_layout(
         mesh.build_mesh(f"tp={tp}", ["cpu"] * tp), 0))
-    roles = placed_roles(unet)
+    roles = placed_roles(module)
+    params = dict(module.named_parameters())
     for name, role in roles.items():
-        w = dict(unet.named_parameters())[f"{name}.weight"]
-        dim = sharding.shard_dim(f"{name}.weight", w, tp)
+        dim = sharding.shard_dim(f"{name}.weight", params[f"{name}.weight"],
+                                 tp)
         assert role == {0: "column", 1: "row", None: "replicated"}[dim], name
-    assert set(roles.values()) == {"column", "row"}
-    unet_mod.place(unet, None)
+    # the UNet splits every layer; a VAE's 3-channel conv and a text
+    # encoder's nothing-dividing layers would stay whole
+    assert {"column", "row"} <= set(roles.values())
+    if component == "unet":
+        assert set(roles.values()) == {"column", "row"}
+    unet_mod.place_layers(module, None)
     assert all(getattr(m, "tp", None) is None and
-               getattr(m, "ffn_tp", None) is None for m in unet.modules())
+               getattr(m, "ffn_tp", None) is None for m in module.modules())
 
 
 # -- the ring --------------------------------------------------------------------
@@ -289,7 +304,7 @@ def test_placed_unet_matches_the_plain_unet(spec):
     with torch.no_grad():
         want = unet(x, t, ctx, added_cond=added)
         reps = sharding.replicas(unet, mesh.build_mesh(spec, CPU8),
-                                 unet_mod.place)
+                                 unet_mod.place_layers)
         assert all(r is unet for r in reps)  # one device: one module
         got = [r(x, t, ctx, added_cond=added) for r in reps]
         for g in got:
@@ -301,10 +316,10 @@ def test_placed_unet_matches_the_plain_unet(spec):
             for prec in (PrecisionSpec("int8", quant_linears=True),
                          PrecisionSpec("int8+conv", quant_linears=True,
                                        quant_convs=True)):
-                unet_mod.place(unet, None)
+                unet_mod.place_layers(unet, None)
                 want = unet(x, t, ctx, added_cond=added, precision=prec)
                 reps = sharding.replicas(unet, mesh.build_mesh(spec, CPU8),
-                                         unet_mod.place)
+                                         unet_mod.place_layers)
                 got = reps[0](x, t, ctx, added_cond=added, precision=prec)
                 np.testing.assert_allclose(got.numpy(), want.numpy(),
                                            rtol=1e-5, atol=1e-5)

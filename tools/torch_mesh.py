@@ -13,8 +13,10 @@ the meshless engine at the same precision and adapter,
 ``ring_attention`` against K1 at the level-0 shape, and
 the stage-ahead ControlNet tower on a mesh of its own; then, with the SD1.5
 engine freed, config #2's SDXL base and refiner through
-``pipelined_txt2img`` against the sequential request. Each phase with the
-checks it has in ``chip_smoke.py``; a failed check exits non-zero.
+``pipelined_txt2img`` against the sequential request, and the base on
+``tp=2`` (its text encoders and VAE on their shards) against itself
+meshless. Each phase with the checks it has in ``chip_smoke.py``; a failed
+check exits non-zero.
 """
 
 import gc
@@ -53,6 +55,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     base, refiner = cs.config2_engines()
     cs.config2_pipeline(base, refiner, fa, card_line)
+    cs.config2_mesh(base, fa, card_line)
     del base, refiner
     print(f"torch_mesh: every phase passed in "
           f"{time.perf_counter() - t0:.1f} s [{card_line}]")
