@@ -14,7 +14,9 @@ Phases, each fatal on failure (no phase is caught and passed over):
 2b. aot: the kernel-library artifact store (``serving/aot.py``,
    ``SDTPU_AOT=1``, a temporary ``SDTPU_AOT_DIR``), each step a process of
    its own, since a library loads once per process: (a) cold, K1 and K2 a
-   miss, built by nvcc at once and saved (their first calls timed); (b) a
+   miss, built by nvcc at once and saved (their first calls timed),
+   started with the build phase so that its two nvcc runs go beside the
+   build's two; (b) a
    new process, both a hit, loaded from the store's content-named files
    without a compile (the load seconds from ``sdtpu_aot_load_seconds``);
    (c) K2's artifact truncated and (d) K1's cell given another
@@ -58,8 +60,8 @@ Phases, each fatal on failure (no phase is caught and passed over):
    warmup sweep (``serving/warmup.py``) over the main path's ladder
    (512x512 at batch 1 and 2) must capture two CUDA graphs of the UNet
    evaluation and a second sweep none, each sweep launching K1 640 times
-   (its replays counted), all on the Hopper path; then 12 warm config #1
-   requests graphed and 12 eager on that engine, in turns, each with 320
+   (its replays counted), all on the Hopper path; then 6 warm config #1
+   requests graphed and 6 eager on that engine, in turns, each with 320
    K1 launches, the repeats of each arm the same PNG bytes and the arms
    the same bytes or a mean within 2 uint8 levels: their p50, min and
    max, one profiled request and one UNet evaluation of each arm (wall,
@@ -165,7 +167,7 @@ Phases, each fatal on failure (no phase is caught and passed over):
 7e. the stage-graph executor (``phase_stage_graph``) on the main path's
    engine, graphed: (a) a config #1 request with ``n_iter`` 4 (four groups
    of 1) through the engine's own loop, serial, staged at depth 1 and at
-   depth 2 (``SDTPU_STAGE_GRAPH``, ``SDTPU_STAGE_DEPTH``): 3 timed
+   depth 2 (``SDTPU_STAGE_GRAPH``, ``SDTPU_STAGE_DEPTH``): 2 timed
    requests per arm (p50) and one profiled (device busy share), the
    overlap clock's ratio, the denoise stage's host seconds a group against
    the device's, which must be under half of them (no host wait), 1280 K1
@@ -251,7 +253,7 @@ Phases, each fatal on failure (no phase is caught and passed over):
    full-width UNet at int8 and int8+conv against f32, within the same
    error measured on the CPU plus 5e-2; config #1 requests at bf16, int8,
    int8+conv, cadence 3, cadence 3 with a cutoff at sigma 1.5 and int8 with
-   cadence 3, each first then 5 warm: K1 launches exact (320, or
+   cadence 3, each first then 3 warm: K1 launches exact (320, or
    ``plan_schedule``'s count at cadence 3: 191), all on the Hopper path,
    the engine's evaluations equal to ``plan_schedule``'s, the graphs
    captured by kind (none by a repeat, none at a new cadence or cutoff),
@@ -309,6 +311,22 @@ Phases, each fatal on failure (no phase is caught and passed over):
    relative error and both times) and the stage-ahead ControlNet tower on
    a mesh handed to it (``dp=1`` over the last device) against the
    shared-stream stage-ahead request: the same PNG bytes, 460 K1 each;
+9d. multihost (``phase_multihost``): a mesh across two processes. Two rank
+   processes of this script (``--multihost-rank``), started before the
+   mesh phase so that their start (imports, the group, the seeded engine)
+   overlaps it, wait for the phase's go at their request and then run
+   ``cli generate`` on cuda:0, both under
+   ``SDTPU_COORDINATOR=127.0.0.1:<free port>`` (a gloo group; NCCL
+   refuses two ranks on one card) with the same arguments: config #1 at
+   full width (SD1.5 512x512, 20 steps Euler a, CFG 7, batch 2, the CLI's
+   seeded weights, the mesh phase's seed) on a global ``dp=2``, one
+   replica a rank. Both ranks' PNG files must be the same bytes, their
+   pixels those of the mesh phase's ``dp=2`` images, and each rank must
+   launch K1 320 times, all on the Hopper path. Each rank's wall time
+   from the go, the seconds it took to get ready, its generation's
+   seconds and the pixel gather's milliseconds are printed; the ranks are
+   killed, and the phase fails, past ``MULTIHOST_DEADLINE_S`` from the
+   go;
 10. config #2 (the SD1.5 engine freed first): SDXL base and refiner at full
    width and depth on seeded weights (bf16 card policy) behind the port's
    server, the base engine handing over to the refiner through its
@@ -405,6 +423,7 @@ rest of the repository beside this file, the script exits non-zero.
 
 from __future__ import annotations
 
+import atexit
 import base64
 import dataclasses
 import gc
@@ -1159,7 +1178,7 @@ def phase_main_path(fa, ra, card_line: str):
     return engine, total_launches, paths
 
 WARMUP_LADDER = ([(512, 512)], [1, 2])  # the main path's bucket and batches
-WARMUP_REPEATS = 12  # warm config #1 requests per arm, graphed and eager
+WARMUP_REPEATS = 6  # warm config #1 requests per arm, graphed and eager
 WARMUP_MEMORY_SLACK = 256 * 2**20  # bytes left allocated by a freed engine
 WARMUP_MEAN_TOLERANCE = 2.0  # uint8 levels, graphed vs eager request
 
@@ -3015,7 +3034,7 @@ STAGE_BODY = {"prompt": "a photograph of an astronaut riding a horse",
               "subseed": 5}
 STAGE_SIZE = 512  # the width and height of STAGE_BODY, its bucket
 STAGE_N_ITER = 4  # (a): four groups of 1
-STAGE_REPEATS = 3  # timed requests per arm of (a), beside one profiled
+STAGE_REPEATS = 2  # timed requests per arm of (a), beside one profiled
 STAGE_CN_K1 = 20 * (16 + 7)  # (d): the unit (7) and the UNet (16) a step
 STAGE_WINDOW = 0.3  # the coalesce window of (b) and (e), seconds
 STAGE_CHAOS_ORDER = ("fault_injected", "fault_cleared", "job_failed",
@@ -3685,6 +3704,7 @@ def obs_watchdog_world(engine, fa, card_line: str) -> dict:
             duration_s=OBS_SLOW_S)], seed=16))
         try:
             fa.reset_launches(fa.flash_attention)
+            t_wall = time.time()  # the flight recorder's clock
             t = time.perf_counter()
             slowed = post(server.port, {**body, "request_id": "obs-stall"})
             wall = time.perf_counter() - t
@@ -3707,6 +3727,15 @@ def obs_watchdog_world(engine, fa, card_line: str) -> dict:
     failure = [e for e in entries if e["reason"] == "worker_failure"
                and e["request_id"] == "obs-stall"]
     same = [a == b for a, b in zip(slowed["images"], first["images"])]
+    # every stall recorded since the watched request began, whichever
+    # request or worker it names: what a count other than 1 was made of
+    for e in entries:
+        if e["reason"] == "watchdog_stall" and e["recorded_at"] >= t_wall:
+            into = e["recorded_at"] - t_wall
+            print(f"obs watchdog: a stall of {e['detail'].split(' ', 1)[0]} "
+                  f"(request {e['request_id']!r}) {into:.3f} s into the "
+                  f"watched request, deadline {e['duration_s']:.3f} s "
+                  f"[{card_line}]")
     print(f"obs watchdog: the remote's ETA {eta_s:.3f} s x "
           f"{OBS_WATCHDOG_FACTOR}, a {OBS_SLOW_S} s slow fault; the request "
           f"{wall:.4f} s, labels {labels_of(slowed)}, stalls {stalls}, "
@@ -4868,7 +4897,7 @@ LADDER_LEVERS = {
     "int8 + cadence 3": {"precision": "int8",
                          "override_settings": {"deepcache": 3}},
 }
-LADDER_REPEATS = 5  # warm requests per lever for its p50
+LADDER_REPEATS = 3  # warm requests per lever for its p50
 #: the JAX package's quality floors against bf16 (tests/test_quality_int8.py;
 #: tests/test_stepcache.py): held on the TINY families by the CPU tests,
 #: printed here beside the seeded full-width numbers
@@ -6022,6 +6051,7 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             for spec, batch, want_k1 in MESH_ARMS] + list(MESH_SPLIT_ARMS)
     bf16 = {}  # the meshless bf16 image of each batch, for the int8 floors
     saved = {}
+    dp2_images = None
     engine._denoise = recording
     try:
         for label, spec, batch, want_k1, extra in arms:
@@ -6051,6 +6081,8 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             note_peak(f"mesh {label}", peak)
             (wall, got, k1, paths, x, q8), (wall2, again, k1b, _, _, q8b) = \
                 runs
+            if label == "dp=2":
+                dp2_images = got.images
             diff = np.abs(pixels(got) - pixels(plain))
             arm = {"batch": batch, "wall_s": [round(wall, 4),
                                               round(wall2, 4)],
@@ -6132,6 +6164,8 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
     out["tower"] = mesh_tower(engine, fa, devices, card_line)
     out["phase_s"] = round(time.perf_counter() - t_phase, 3)
     print("mesh metrics: " + json.dumps(out))
+    # the multihost phase's reference, kept off the metrics line
+    out["dp2_images"] = dp2_images
     return out
 
 
@@ -6183,6 +6217,205 @@ def mesh_tower(engine, fa, devices, card_line: str) -> dict:
           "the tower on its own mesh gave other PNG bytes")
     return {arm: {"wall_s": round(r[0], 4), "k1": r[2]}
             for arm, r in runs.items()}
+
+
+#: the multihost phase: two rank processes of ``cli generate`` on cuda:0
+#: at the mesh phase's dp=2 request (config #1 at batch 2, its seed)
+MULTIHOST_RANKS = 2
+MULTIHOST_DEADLINE_S = 150  # from the go: the ranks are killed past it
+MULTIHOST_WAIT_S = 900  # a rank that sees no go within this exits
+
+
+def multihost_argv(outdir: str, workdir: str, config_path: str) -> list:
+    """``cli generate`` of the mesh phase's ``dp=2`` request on a global
+    ``dp=2``, on the CLI's seeded SD1.5 weights (seed 0: the main path's)."""
+    body = MESH_BODY
+    return ["generate", "--prompt", body["prompt"],
+            "--negative", body["negative_prompt"],
+            "--steps", str(body["steps"]),
+            "--size", f"{body['width']}x{body['height']}",
+            "-n", str(MULTIHOST_RANKS), "--image-seed", str(body["seed"]),
+            "--sampler", body["sampler_name"],
+            "--cfg", str(body["cfg_scale"]), "--family", "sd15",
+            "--seed", "0", "--mesh", f"dp={MULTIHOST_RANKS}",
+            "--model-dir", os.path.join(workdir, "no-models"),
+            "--distributed-config", config_path, "--outdir", outdir]
+
+
+def multihost_rank(job_path: str) -> int:
+    """One rank of the multihost phase (``--multihost-rank JOB``): runs
+    ``cli.main`` on the job's arguments, its group joined through the
+    environment the parent set, up to the World's request, where it waits
+    for the job's go file (at most ``MULTIHOST_WAIT_S``, and not past its
+    parent); then prints one ``multihost-rank:`` JSON line: its K1
+    launches and their paths, its wall time from the go, the generation's
+    seconds, the pixel gather's milliseconds and the seconds it took to
+    get ready (imports, the group, the engine). It then exits at once:
+    the interpreter's teardown of the card's state adds seconds and
+    nothing to check."""
+    started = time.perf_counter()
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from stable_diffusion_webui_distributed_tpu_torch import cli
+    from stable_diffusion_webui_distributed_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
+    from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
+        world as world_mod,
+    )
+
+    with open(job_path) as f:
+        job = json.load(f)
+    parent = os.getppid()
+    execute = world_mod.World.execute
+    timed = {}
+
+    def timed_execute(self, payload):
+        timed["ready_s"] = time.perf_counter() - started
+        while not os.path.exists(job["go"]):
+            if time.perf_counter() - started > MULTIHOST_WAIT_S or \
+                    os.getppid() != parent:
+                raise RuntimeError("multihost-rank: no go")
+            time.sleep(0.05)
+        timed["go"] = t = time.perf_counter()
+        try:
+            return execute(self, payload)
+        finally:
+            torch.cuda.synchronize()
+            timed["generate_s"] = time.perf_counter() - t
+
+    world_mod.World.execute = timed_execute
+    rc = cli.main(job["argv"])
+    gather = trace.STATS.summary().get("process_gather",
+                                       {"count": 0, "mean": 0.0})
+    print("multihost-rank: " + json.dumps({
+        "rank": int(os.environ["SDTPU_PROCESS_ID"]), "rc": rc,
+        "k1": fa.flash_attention.launches,
+        "k1_paths": dict(fa.flash_attention.path_launches),
+        "wall_s": round(time.perf_counter() - timed["go"], 3),
+        "ready_s": round(timed["ready_s"], 3),
+        "generate_s": round(timed.get("generate_s", -1.0), 4),
+        "gathers": gather["count"],
+        "gather_ms": round(1e3 * gather["mean"] * gather["count"], 3)}),
+        flush=True)
+    sys.stderr.flush()
+    os._exit(rc)
+
+
+def start_multihost_ranks() -> dict:
+    """The multihost phase's rank processes, started ahead of it: each
+    gets ready (imports, the group, the mesh, the CLI's seeded engine on
+    the card) and waits for the phase's go file before its request, so
+    its start overlaps the mesh phase and its generation runs alone. An
+    exit hook stops them and removes their directory if the run ends
+    first. Returns what :func:`phase_multihost` needs."""
+    from stable_diffusion_webui_distributed_tpu_torch.runtime import config
+
+    workdir = tempfile.mkdtemp(prefix="multihost-")
+    coordinator = f"127.0.0.1:{free_port()}"
+    ranks = {"workdir": workdir, "go": os.path.join(workdir, "go"),
+             "procs": [], "logs": [], "outdirs": []}
+
+    def stop():
+        for proc in ranks["procs"]:
+            stop_process(proc)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    atexit.register(stop)
+    ranks["stop"] = stop
+    for rank in range(MULTIHOST_RANKS):
+        rankdir = os.path.join(workdir, f"rank{rank}")
+        os.makedirs(rankdir)
+        # a benchmarked master: no benchmark before the request
+        cfg = os.path.join(rankdir, "config.json")
+        config.save_config(config.ConfigModel(workers=[{
+            "master": config.WorkerModel(master=True, avg_ipm=60.0)}]), cfg)
+        ranks["outdirs"].append(os.path.join(rankdir, "out"))
+        job = os.path.join(rankdir, "job.json")
+        with open(job, "w") as f:
+            json.dump({"go": ranks["go"], "argv": multihost_argv(
+                ranks["outdirs"][-1], rankdir, cfg)}, f)
+        env = dict(os.environ, SDTPU_COORDINATOR=coordinator,
+                   SDTPU_NUM_PROCESSES=str(MULTIHOST_RANKS),
+                   SDTPU_PROCESS_ID=str(rank))
+        ranks["logs"].append(os.path.join(rankdir, "rank.log"))
+        with open(ranks["logs"][-1], "w") as log:
+            ranks["procs"].append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--multihost-rank", job], cwd=rankdir, env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+    return ranks
+
+
+def phase_multihost(ranks: dict, mesh: dict, fa, card_line: str) -> dict:
+    """A mesh across two processes (see the module's docstring, 9d): the
+    two rank processes of :func:`start_multihost_ranks`, given the go,
+    run ``cli generate`` on cuda:0 in one gloo group and are held to the
+    mesh phase's ``dp=2`` images of the same request."""
+    import numpy as np
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    procs = ranks["procs"]
+    try:
+        with open(ranks["go"], "w"):
+            pass
+        while any(p.poll() is None for p in procs) and \
+                time.perf_counter() - t_phase < MULTIHOST_DEADLINE_S:
+            time.sleep(0.05)
+        timed_out = any(p.poll() is None for p in procs)
+        rows, tails = [], []
+        for log in ranks["logs"]:
+            with open(log) as f:
+                text = f.read()
+            tails.append(text[-3000:])
+            line = [ln for ln in text.splitlines()
+                    if ln.startswith("multihost-rank: {")]
+            rows.append(json.loads(line[-1].split(": ", 1)[1])
+                        if line else None)
+        check(not timed_out, f"multihost: the ranks outlived "
+              f"{MULTIHOST_DEADLINE_S} s and were killed:\n" +
+              "\n".join(tails))
+        check(all(p.returncode == 0 for p in procs) and None not in rows,
+              "multihost: a rank failed (exit codes "
+              f"{[p.returncode for p in procs]}):\n" + "\n".join(tails))
+        files = []
+        for outdir in ranks["outdirs"]:
+            files.append({n: open(os.path.join(outdir, n), "rb").read()
+                          for n in sorted(os.listdir(outdir))})
+        pixels = [np.asarray(Image.open(io.BytesIO(b))).astype(np.int32)
+                  for b in files[0].values()]
+    finally:
+        ranks["stop"]()
+    want = [png_pixels(b).astype(np.int32) for b in mesh["dp2_images"]]
+    diff = [np.abs(a - b) for a, b in zip(pixels, want)]
+    out = {"card": card_line, "ranks": rows,
+           "files": list(files[0]),
+           "max_abs": max(int(d.max()) for d in diff),
+           "mean_abs": round(max(float(d.mean()) for d in diff), 4),
+           "phase_s": round(time.perf_counter() - t_phase, 3)}
+    for r in rows:
+        print(f"multihost: rank {r['rank']}: wall {r['wall_s']} s from the "
+              f"go (ready {r['ready_s']} s after its launch), the "
+              f"generation {r['generate_s']} s, the pixel gather "
+              f"{r['gather_ms']} ms over {r['gathers']} group(s), K1 "
+              f"{r['k1']} by path {json.dumps(r['k1_paths'])} [{card_line}]")
+    print("multihost metrics: " + json.dumps(out))
+    check(files[0] == files[1] and len(files[0]) == MULTIHOST_RANKS,
+          f"multihost: the ranks wrote other PNG files: "
+          f"{list(files[0])} / {list(files[1])}")
+    check(len(pixels) == len(want) and out["max_abs"] == 0,
+          f"multihost: the ranks' pixels are not the one-process dp=2 "
+          f"images (max {out['max_abs']}, mean {out['mean_abs']})")
+    for r in rows:
+        check(r["k1"] == LAUNCHES_PER_GROUP and
+              r["k1_paths"].get("hopper") == r["k1"],
+              f"multihost: rank {r['rank']} launched K1 {r['k1']} times "
+              f"({r['k1_paths']}), want {LAUNCHES_PER_GROUP} on the "
+              f"Hopper path")
+    return out
 
 
 # BASELINE config #2 (bench.py's payload): SDXL base + refiner, 1024x1024,
@@ -8607,33 +8840,53 @@ def aot_summary(phase: dict, kind: str) -> dict:
     }
 
 
-def run_aot_child(step: str, store: str) -> dict:
-    """``aot_child(step)`` in a process of its own over the store at
-    ``store``: its document, with the process's wall seconds."""
+def start_aot_child(step: str, store: str) -> tuple:
+    """``aot_child(step)`` started in a process of its own over the store
+    at ``store``; :func:`finish_aot_child` reads it. An exit hook stops it
+    if the run ends first."""
     env = dict(os.environ, SDTPU_AOT="1", SDTPU_AOT_DIR=store,
                SDTPU_JOURNAL="1")
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, env.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-         "--aot-child", step], env=env, capture_output=True, text=True,
-        timeout=AOT_CHILD_S)
+         "--aot-child", step], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    atexit.register(stop_process, proc)
+    return step, proc, time.perf_counter()
+
+
+def finish_aot_child(child: tuple) -> dict:
+    """The started child's document, with the process's wall seconds."""
+    step, proc, t0 = child
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, AOT_CHILD_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        stdout, stderr = proc.communicate()
     wall = time.perf_counter() - t0
-    lines = [l for l in proc.stdout.splitlines()
-             if l.startswith("aot-child: ")]
+    lines = [l for l in stdout.splitlines() if l.startswith("aot-child: ")]
     check(proc.returncode == 0 and len(lines) == 1,
-          f"aot {step}: exit {proc.returncode}:\n{proc.stdout[-2000:]}"
-          f"{proc.stderr[-3000:]}")
+          f"aot {step}: exit {proc.returncode}:\n{stdout[-2000:]}"
+          f"{stderr[-3000:]}")
     doc = json.loads(lines[0][len("aot-child: "):])
     doc["process_s"] = round(wall, 3)
     return doc
 
 
-def phase_aot(card_line: str) -> dict:
-    """The kernel-library artifact store (``serving/aot.py``), each step a
-    process of its own (a library loads once per process): (a) cold, both
-    libraries a miss, built and saved; (b) a new process, both a hit, no
+def run_aot_child(step: str, store: str) -> dict:
+    """``aot_child(step)`` in a process of its own over the store at
+    ``store``: its document, with the process's wall seconds."""
+    return finish_aot_child(start_aot_child(step, store))
+
+
+def phase_aot(card_line: str, store: str, cold_child: tuple) -> dict:
+    """The kernel-library artifact store (``serving/aot.py``) at ``store``,
+    each step a process of its own (a library loads once per process):
+    (a) cold, both libraries a miss, built and saved (``cold_child``,
+    started with the build phase: its two nvcc runs beside the build's
+    two); (b) a new process, both a hit, no
     compile; (c) K2's artifact truncated and (d) K1's cell given another
     fingerprint, in one process: K2 ``corrupt`` and K1
     ``fingerprint_mismatch``, both rebuilt and saved, two ``aot_fallback``
@@ -8642,10 +8895,9 @@ def phase_aot(card_line: str) -> dict:
     from stable_diffusion_webui_distributed_tpu_torch.serving import aot
 
     kinds = ("flash_attention", "ragged_attention")
-    store = tempfile.mkdtemp(prefix="aot-")
     out = {}
     try:
-        cold = run_aot_child("cold", store)
+        cold = finish_aot_child(cold_child)
         check(cold["outcomes"] == dict.fromkeys(kinds, "miss")
               and cold["aot_total"] == {"hit": 0, "miss": 2, "saved": 2,
                                         "fallback": 0}
@@ -8746,6 +8998,8 @@ def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--aot-child"]:
         return aot_child(sys.argv[2])
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        return multihost_rank(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -8764,9 +9018,14 @@ def main() -> int:
     print(f"device: {kind}; nvidia-smi: {card_line}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
+    # the aot phase's cold child compiles beside the build: four nvcc
+    # runs at once on the host's cores
+    aot_store = tempfile.mkdtemp(prefix="aot-")
+    atexit.register(shutil.rmtree, aot_store, True)
+    aot_cold = start_aot_child("cold", aot_store)
     build = phase_build(fa, ra)
     resources = phase_resources(fa, ra)
-    aot_phase = phase_aot(card_line)
+    aot_phase = phase_aot(card_line, aot_store, aot_cold)
     for name in ("flash_attention", "ragged_attention"):
         for row in build[name]:
             row["smem_bytes"] = resources[(row["dp"],
@@ -8801,7 +9060,9 @@ def main() -> int:
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
+    ranks = start_multihost_ranks()  # their start overlaps the mesh phase
     mesh = phase_mesh(engine, fa, card_line)
+    multihost = phase_multihost(ranks, mesh, fa, card_line)
     scenario = phase_scenarios(engine, fa, ra, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
@@ -8857,6 +9118,9 @@ def main() -> int:
         "mesh_launches": {spec: arm["k1"]
                           for spec, arm in mesh["arms"].items()},
         "mesh_devices": mesh["devices"],
+        "multihost_launches": [r["k1"] for r in multihost["ranks"]],
+        "multihost_path_launches": [r["k1_paths"]
+                                    for r in multihost["ranks"]],
         "scenario_launches": {
             **{name: row["k1_launches"]
                for name, row in scenario["scenarios"].items()},

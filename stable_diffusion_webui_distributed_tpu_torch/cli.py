@@ -39,8 +39,21 @@ that build it raise.
 engine over a device mesh (``runtime/mesh.py``) for ``serve``,
 ``generate`` and ``benchmark`` over every visible card
 (``CUDA_VISIBLE_DEVICES`` picks them). Those commands first call
-``init_multihost``, which raises where a coordinator names a mesh across
-hosts (not ported).
+``init_multihost``: with a coordinator (``SDTPU_COORDINATOR``,
+``SDTPU_NUM_PROCESSES``, ``SDTPU_PROCESS_ID``) the process joins a
+``torch.distributed`` group, and the mesh spans every process's cards in
+rank order (all of them on ``dp`` without a spec). ``generate`` and
+``benchmark`` then run on every process with the same arguments: each
+computes the rows of the replicas it owns, and every process writes every
+image (the engine takes process 0's random ``--image-seed``). ``serve``
+under a group of more than one process raises (ROADMAP item 14d), as does
+a config file with remote workers there. Each process gives the group
+back when its command ends.
+
+    SDTPU_COORDINATOR=10.0.0.1:29500 SDTPU_NUM_PROCESSES=2 \\
+    SDTPU_PROCESS_ID=0 \\
+    python -m stable_diffusion_webui_distributed_tpu_torch.cli \\
+        generate --prompt "a red barn" -n 4 --mesh dp=4,tp=2
 """
 
 from __future__ import annotations
@@ -64,6 +77,13 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     logging as port_logging,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+    across_processes,
+    build_mesh,
+    init_multihost,
+    process_count,
+    shutdown_multihost,
 )
 
 
@@ -89,6 +109,11 @@ def _build_world(args, require_local: bool = True):
     path = args.distributed_config or config_mod.default_config_path()
     cfg = config_mod.load_config(path)
     registry = None
+    if require_local and process_count() > 1 and any(
+            not wm.master and not wm.disabled
+            for entry in cfg.workers for wm in entry.values()):
+        # every process would send its own requests to the remotes
+        raise across_processes("a World with remote workers")
     if require_local:
         registry = ModelRegistry(args.model_dir or cfg.model_dir,
                                  device=args.device,
@@ -120,16 +145,13 @@ def _build_world(args, require_local: bool = True):
 def _build_mesh(args, cfg):
     """The mesh of ``--mesh`` (else the config's ``mesh_axes``) over
     every visible card; None without a spec (the JAX ``cli.py`` builds it
-    so)."""
+    so). Under a group of processes it spans every process's cards, and
+    without a spec puts them all on ``dp``."""
     spec = getattr(args, "mesh", None) or ",".join(
         f"{k}={v}" for k, v in cfg.mesh_axes.items())
-    if not spec:
+    if not spec and process_count() == 1:
         return None
-    from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
-        build_mesh,
-    )
-
-    return build_mesh(spec)
+    return build_mesh(spec or None)
 
 
 def _seeded_engine(args, registry):
@@ -158,6 +180,10 @@ def cmd_serve(args) -> int:
         ApiServer,
     )
 
+    if process_count() > 1:
+        # process 0 would have to hand every request and coalesced
+        # dispatch to the others
+        raise across_processes("cli serve")
     world, registry = _build_world(args)
     server = ApiServer(world, registry=registry, host=args.listen,
                        port=args.port,
@@ -431,12 +457,12 @@ def main(argv: Optional[list] = None) -> int:
         )
 
         native.warm_up()
-        # a mesh across hosts (SDTPU_COORDINATOR): not ported, raises
-        from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
-            init_multihost,
-        )
-
-        init_multihost()
+        # a mesh across hosts (SDTPU_COORDINATOR): join the process group
+        if init_multihost():
+            try:
+                return args.fn(args)
+            finally:
+                shutdown_multihost()
     return args.fn(args)
 
 

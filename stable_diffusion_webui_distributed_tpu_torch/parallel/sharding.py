@@ -32,9 +32,17 @@ explicit:
   :func:`ring_shift` (each block one step along the ring). They are
   ``.to(device, non_blocking=True)`` copies and adds: the same code on one
   card and on several, where the copies go over NVLink. One process
-  drives every device of the mesh, so no collective library is used; a
-  mesh across hosts, whose collectives those copies would become, is not
-  ported (``runtime/mesh.py`` ``init_multihost``).
+  drives every device of a replica, so they need no collective library.
+- **Across processes** (a mesh that ``runtime/mesh.py``'s ``build_mesh``
+  spans over the ranks of a ``torch.distributed`` group): each process
+  places and runs only the replicas it owns (:func:`replicas` gives None
+  for the others), on its share of each group of rows
+  (:func:`process_rows`: a block of ``dp`` replicas' rows, or every row
+  on replica 0's process when the rows do not divide ``dp``). The one
+  collective is :func:`gather_rows`: the uint8 pixels of each share, in
+  host memory, gathered over the group (gloo) so that every process holds
+  every row. A ``tp`` or ``sp`` group across processes, whose copies
+  above would become NCCL collectives, is ROADMAP item 14e.
 
 JAX's ``keystr_path`` has no counterpart (state-dict keys are strings).
 ``batch_concat`` and ``channel_concat`` work around an XLA partitioner
@@ -47,6 +55,7 @@ import copy
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 _COLUMN_ENDINGS = ("qkv", "q", "kv", "fc1", "proj", "time_fc1", "add_fc1",
@@ -226,7 +235,7 @@ def module_on(module: nn.Module, device: torch.device) -> nn.Module:
 
 def replicas(module: nn.Module, mesh,
              place: Optional[Callable[[nn.Module, Optional[Tuple]], None]]
-             = None, reuse: bool = True) -> List[nn.Module]:
+             = None, reuse: bool = True) -> List[Optional[nn.Module]]:
     """One module per ``dp`` replica, on the replica's home device, with
     ``place(module, layout)`` attaching the ``tp`` and ``sp`` placement of
     its layout (``place(module, None)`` removes one). Replicas of one
@@ -234,10 +243,13 @@ def replicas(module: nn.Module, mesh,
     module's own device takes the module itself; the others (and every
     one without ``reuse``) take copies (:func:`module_on`: the weights
     are shared where the copy lies on their device). A placement is never
-    copied with a module (its ``__deepcopy__`` gives None)."""
+    copied with a module (its ``__deepcopy__`` gives None). On a mesh
+    across processes a replica that another process owns is None: it
+    holds no weights here."""
     own = next(iter(module.parameters())).device
     by_layout: Dict[Tuple, nn.Module] = {}
-    for r in range(mesh.shape["dp"]):
+    owned = set(mesh.local_replicas)
+    for r in sorted(owned):
         layout = replica_layout(mesh, r)
         if layout not in by_layout:
             home = layout[0][0]
@@ -247,8 +259,57 @@ def replicas(module: nn.Module, mesh,
     if place is not None:
         for layout, m in by_layout.items():
             place(m, layout)
-    return [by_layout[replica_layout(mesh, r)]
+    return [by_layout[replica_layout(mesh, r)] if r in owned else None
             for r in range(mesh.shape["dp"])]
+
+
+def process_rows(mesh, rows: int,
+                 whole: bool = False) -> List[Tuple[int, int]]:
+    """Each process's rows ``[lo, hi)`` of a group of ``rows`` image rows
+    on ``mesh``, by rank: the rows of the replicas it owns when they
+    divide ``dp`` (a process's replicas are consecutive, so are its
+    rows), else, or with ``whole``, every row on replica 0's process and
+    none on the others (the JAX package's odd-batch fallback, which a
+    batch-wide controller such as DPM adaptive's takes too). One process
+    takes every row."""
+    count = max(mesh.replica_ranks) + 1
+    dp = mesh.shape["dp"]
+    if whole or rows % dp:
+        return [(0, rows) if q == mesh.replica_ranks[0] else (0, 0)
+                for q in range(count)]
+    blk = rows // dp
+    out = []
+    for q in range(count):
+        mine = [r for r, owner in enumerate(mesh.replica_ranks) if owner == q]
+        out.append((mine[0] * blk, (mine[-1] + 1) * blk))
+    return out
+
+
+def gather_rows(local: torch.Tensor,
+                shares: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The rows of every process in row order, on every process, from this
+    process's ``local`` rows (a host tensor; ``shares``: each rank's ``[lo,
+    hi)`` of :func:`process_rows`, in which the ranks' rows follow one
+    another). One gloo collective over the default group: an all-gather
+    when every share has one size, else a broadcast from each rank that
+    has rows."""
+    sizes = [hi - lo for lo, hi in shares]
+    shape = tuple(local.shape[1:])
+    if len(set(sizes)) == 1:
+        parts = [torch.empty((sizes[0], *shape), dtype=local.dtype)
+                 for _ in sizes]
+        dist.all_gather(parts, local.contiguous())
+        return torch.cat(parts)
+    out = torch.empty((sum(sizes), *shape), dtype=local.dtype)
+    at = 0
+    for q, n in enumerate(sizes):
+        if n:
+            part = out[at:at + n]
+            if q == dist.get_rank():
+                part.copy_(local)
+            dist.broadcast(part, src=q)
+        at += n
+    return out
 
 
 class Placement:

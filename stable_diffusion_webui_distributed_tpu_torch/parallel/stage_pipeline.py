@@ -20,7 +20,8 @@ where they lie on different devices.
 
 Scope, with the JAX package's refusals: txt2img without the hires fix, a
 fixed-grid sampler, ``refiner_switch_at`` in (0, 1), one prompt for every
-image, no ControlNet unit and no inpainting checkpoint. An interrupt during
+image, no ControlNet unit and no inpainting checkpoint; and a mesh of one
+process (across processes it is ROADMAP item 14d). An interrupt during
 a group's base half skips its refiner and decodes its partial latents, as
 the sequential path's ``_split_denoise`` does.
 """
@@ -37,6 +38,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
     GenerationResult,
     fix_seed,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+    across_processes,
+)
 from stable_diffusion_webui_distributed_tpu_torch.samplers import (
     kdiffusion as kd,
 )
@@ -49,6 +53,9 @@ def pipelined_txt2img(base, refiner, payload, *,
     ``group_size`` (default the batch size). Runs on the base engine's
     device thread, as the sequential path does (it calls the refiner from
     there too)."""
+    for engine in (base, refiner):
+        if engine.mesh is not None and engine.mesh.spans_processes:
+            raise across_processes("the base+refiner stage pipeline")
     if payload.init_images or payload.enable_hr:
         raise ValueError("stage pipeline: txt2img without hires only")
     if kd.resolve_sampler(payload.sampler_name).adaptive:

@@ -159,6 +159,22 @@ Every precision and traced LoRA run under ``tp`` too: a split int8 product
 gives the meshless layer's values, and a traced site adds each shard's
 share of its delta (``models/unet.py``).
 
+A mesh across processes (``runtime/mesh.py`` ``build_mesh`` under a
+``torch.distributed`` group; every process runs the same request): each
+process computes over its share of the mesh (``Mesh.local``, the
+engine's ``local_mesh``), on which everything above holds. The range
+entries (:meth:`Engine._run_txt2img`, :meth:`Engine._run_img2img`) split
+each pad-and-drop group of rows by ``parallel/sharding.py``
+``process_rows``: a process denoises and decodes the rows of the replicas
+it owns, with their seeds, noise and conditioning rows, or, when the rows
+do not divide ``dp`` (or DPM adaptive's batch-wide controller runs),
+replica 0's process runs every row on replica 0. The text encoders and
+the VAE encoder run on every process. The decoded uint8 pixels are
+gathered over the group (``sharding.gather_rows``), so every process's
+result holds every image, seed and infotext in order. The stage-graph
+executor, the ControlNet tower on its own mesh, the stage pipeline and
+the serving dispatcher refuse such a mesh (ROADMAP item 14d).
+
 Chunk-boundary preemption (the fleet tier, ``fleet/policy.py``): while a
 preemptible job runs, the dispatcher installs a hook as ``preempt_hook``;
 the chunked loop polls it between chunks and, when an entitled waiter is
@@ -179,7 +195,15 @@ import threading
 import time
 import weakref
 from collections import OrderedDict, deque
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Callable,
+    Dict,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
@@ -273,6 +297,8 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import (
 from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
 from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
     Mesh,
+    across_processes,
+    broadcast_object,
     build_mesh,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
@@ -478,8 +504,14 @@ class Engine:
         self.device_runner = DeviceRunner("engine")
         weakref.finalize(self, self.device_runner.close)
         #: the mesh the model is placed over (None: the engine's device),
-        #: and each placed module's replicas by (module, mesh)
+        #: the share of it this process computes over (``mesh`` itself
+        #: unless it spans processes), and each placed module's replicas
+        #: by (module, mesh)
         self.mesh: Optional[Mesh] = None
+        self.local_mesh: Optional[Mesh] = None
+        # a group of rows that runs whole on replica 0 of the local mesh
+        # under a process split (:meth:`_dp_split`); set per group
+        self._whole_group = False
         self._placed: Dict[Tuple[int, int], Tuple] = {}
         # the stage-ahead ControlNet tower's mesh, by its device count
         self._stage_cn_mesh_cache: Optional[Tuple[int, Optional[Mesh]]] = None
@@ -814,7 +846,7 @@ class Engine:
             run.update(graphs_mod.flatten(lora_mod.double_rows(lora), "lora"))
         modules = [module for module, *_ in controls]
         kind = "unet" if ragged is None else "ragged"
-        mesh = self.mesh
+        mesh = self.local_mesh
         parts = self._split_run(run, batch, mesh)
         cn_mesh = mesh if tower is None else tower
         cn_parts = parts if tower is None else self._split_run(run, batch,
@@ -1426,16 +1458,16 @@ class Engine:
         host = torch.empty((b, lat_h * f, lat_w * f, 3), dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
         # each dp replica decodes its block of rows on its own VAE
-        n = self._dp_split(self.mesh, b)
+        mesh = self.local_mesh
+        n = self._dp_split(mesh, b)
         blk = b // n
-        vaes = self._replicas(self.vae, self.mesh) if n > 1 \
-            else [self.vae]
+        vaes = self._replicas(self.vae, mesh) if n > 1 else [self.vae]
         with trace.STATS.timer("vae_decode_dispatch"), \
                 obs_spans.device_interval(latents.device):
             for r in range(n):
                 rows = latents[r * blk:(r + 1) * blk]
                 if n > 1:
-                    rows = rows.to(self.mesh.home(r), non_blocking=True)
+                    rows = rows.to(mesh.home(r), non_blocking=True)
                 for s in range(0, blk, per):
                     px = self._decode(rows[s:s + per], vaes[r]) * 255.0 + 0.5
                     at = r * blk + s
@@ -1444,30 +1476,36 @@ class Engine:
         return host
 
     def _queue_decoded(self, latents: torch.Tensor, pos: int, n: int,
-                       width: int, height: int) -> "_Decoded":
+                       width: int, height: int,
+                       share: Optional["_Share"] = None) -> "_Decoded":
         """Dispatch the decode of a group's latents (:meth:`_decode_u8`)
         and record the event :meth:`_flush_decoded` waits on. ``n`` is how
         many of the images to keep: the pad-and-drop rows are decoded with
         the others, so every decoder call has the group's batch size. The
         adaptive backstop's mark is taken here, where the denoise that
-        produced these images is known."""
+        produced these images is known. ``share``: this process's rows of
+        the group under a process split (:meth:`_share`), whose pixels
+        are gathered over the group when they are fetched."""
         incomplete, self._adaptive_incomplete = \
             self._adaptive_incomplete, False
         # every kept row is one output image: the FLOPs-per-image
         # denominator, counted where every decode path passes
-        METRICS.record_unet_images(min(n, latents.shape[0]))
+        lo = 0 if share is None else share.lo
+        METRICS.record_unet_images(max(0, min(n - lo, latents.shape[0])))
         host = self._decode_u8(latents, width, height)
         events = []
         if self.device.type == "cuda":
             # an event on each device whose replica copied pixels
-            devices = {self.device} if self.mesh is None else {
-                self.mesh.home(r) for r in range(self._dp_split(
-                    self.mesh, latents.shape[0]))} | {self.device}
+            mesh = self.local_mesh
+            devices = {self.device} if mesh is None else {
+                mesh.home(r) for r in range(self._dp_split(
+                    mesh, latents.shape[0]))} | {self.device}
             for d in devices:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(d))
                 events.append(event)
-        return _Decoded(host, events, pos, n, width, height, incomplete)
+        return _Decoded(host, events, pos, n, width, height, incomplete,
+                        None if share is None else share.shares)
 
     def _flush_decoded(self, out: GenerationResult,
                        payload: GenerationPayload,
@@ -1623,7 +1661,7 @@ class Engine:
         module = _load(module, sd, self.device, self.policy.param_dtype)
         module = norms_to_f32(module.to(self.policy.compute_dtype))
         self._controlnets[name] = module
-        self._replicas(module, self.mesh)
+        self._replicas(module, self.local_mesh)
         return module
 
     def _prepare_controls(self, payload: GenerationPayload, width: int,
@@ -1828,24 +1866,34 @@ class Engine:
             # decoder call has the batch size of the whole-batch run. A
             # row's numbers depend on the batch size (GEMM and convolution
             # algorithms do), not on its position, so a sub-range then
-            # reproduces the whole-batch rows exactly.
-            noise = self._init_noise(payload, pos, group, (h, w, C), rows)
-            keys = self._image_keys(payload, pos, group)
-            if per_image:
-                conds, pooleds, ref_cond = self._group_conds(
-                    payload, pos, group, refiner)
-            latents = self._split_denoise(
-                payload, self._place_batch(noise * sigma0), keys, conds,
-                pooleds, job, refiner, ref_cond, ragged, controls=controls,
-                inpaint_cond=inp)
+            # reproduces the whole-batch rows exactly. Under a process
+            # split this process runs its share of the group's rows
+            share = self._share(group, spec)
+            lo, hi = share.lo, share.hi
             out_w, out_h = width, height
-            if payload.enable_hr and not self.state.flag.interrupted:
-                # the whole group's rows, pad-and-drop as above
-                latents, out_w, out_h = self._hires_pass(
-                    payload, latents, keys, conds, pooleds, job, refiner,
-                    ref_cond)
+            if hi > lo:
+                noise = self._init_noise(payload, pos + lo, hi - lo,
+                                         (h, w, C), rows)
+                keys = self._image_keys(payload, pos + lo, hi - lo)
+                if per_image:
+                    conds, pooleds, ref_cond = _rows_of(self._group_conds(
+                        payload, pos, group, refiner), share, group)
+                latents = self._split_denoise(
+                    payload, self._place_batch(noise * sigma0), keys, conds,
+                    pooleds, job, refiner, ref_cond,
+                    _rows_of(ragged, share, group), controls=controls,
+                    inpaint_cond=_rows_of(inp, share, group))
+                if payload.enable_hr and not self.state.flag.interrupted:
+                    # the group's rows, pad-and-drop as above
+                    latents, out_w, out_h = self._hires_pass(
+                        payload, latents, keys, conds, pooleds, job,
+                        refiner, ref_cond)
+            else:
+                if payload.enable_hr:
+                    out_w, out_h = self._hires_target(payload)
+                latents = self._no_rows(out_w, out_h)
             self._keep_one_decode(out, payload, pending, self._queue_decoded(
-                latents, pos, n, out_w, out_h))
+                latents, pos, n, out_w, out_h, share))
             pos += n
             remaining -= n
         self._flush_decoded(out, payload, pending)
@@ -1872,7 +1920,11 @@ class Engine:
         hook is polled at group boundaries (the async denoise never polls
         it): the runner drains every group in flight, the device is
         yielded, and this request's adapters and interrupt latch come
-        back."""
+        back. It does not split rows over processes (ROADMAP item 14d),
+        so a mesh across processes raises."""
+        if self.mesh is not None and self.mesh.spans_processes:
+            raise across_processes(
+                "the stage-graph executor (SDTPU_STAGE_GRAPH)")
         width, height = payload.width, payload.height
         h, w = self._latent_hw(width, height)
         C = self.family.vae.latent_channels
@@ -2029,8 +2081,12 @@ class Engine:
         ``build_mesh``. None when the knob is 0 or the slice would take
         every device (the tower then shares the engine's card and
         stream), and off the card. Cached per N until the engine's mesh
-        changes."""
+        changes. A mesh across processes raises (ROADMAP item 14d)."""
         n = stage_graph.cn_slice_devices()
+        if n > 0 and self.mesh is not None and self.mesh.spans_processes:
+            # the JAX rule picks from every visible card, which another
+            # process's replicas may hold
+            raise across_processes("the ControlNet tower on its own mesh")
         if n <= 0 or self.device.type != "cuda":
             return None
         cached = self._stage_cn_mesh_cache
@@ -2094,27 +2150,36 @@ class Engine:
         pos, remaining = start, count
         while remaining > 0 and not self.state.flag.interrupted:
             n = min(group, remaining)
-            # pad-and-drop, as in txt2img
-            keys = self._image_keys(payload, pos, group)
-            init_lat = self._apply_inpaint_fill(
-                payload, init_lat1.repeat(group, 1, 1, 1), mask_lat, keys)
-            noise = self._init_noise(payload, pos, group, (h, w, C), h)
-            x = self._place_batch(init_lat + noise * sigmas[start_step])
-            if per_image:
-                conds, pooleds, ref_cond = self._group_conds(
-                    payload, pos, group, refiner)
-            if masked:
-                latents = self._denoise(
-                    payload, x, keys, conds, pooleds, job,
-                    start_step=start_step, controls=controls,
-                    mask=(mask_lat, init_lat), inpaint_cond=inp)
+            # pad-and-drop, and a process's share of the rows, as in
+            # txt2img
+            share = self._share(group, spec)
+            lo, hi = share.lo, share.hi
+            if hi > lo:
+                keys = self._image_keys(payload, pos + lo, hi - lo)
+                init_lat = self._apply_inpaint_fill(
+                    payload, init_lat1.repeat(hi - lo, 1, 1, 1), mask_lat,
+                    keys)
+                noise = self._init_noise(payload, pos + lo, hi - lo,
+                                         (h, w, C), h)
+                x = self._place_batch(init_lat + noise * sigmas[start_step])
+                if per_image:
+                    conds, pooleds, ref_cond = _rows_of(self._group_conds(
+                        payload, pos, group, refiner), share, group)
+                inp_rows = _rows_of(inp, share, group)
+                if masked:
+                    latents = self._denoise(
+                        payload, x, keys, conds, pooleds, job,
+                        start_step=start_step, controls=controls,
+                        mask=(mask_lat, init_lat), inpaint_cond=inp_rows)
+                else:
+                    latents = self._split_denoise(
+                        payload, x, keys, conds, pooleds, job, refiner,
+                        ref_cond, start_step=start_step, controls=controls,
+                        inpaint_cond=inp_rows)
             else:
-                latents = self._split_denoise(
-                    payload, x, keys, conds, pooleds, job, refiner,
-                    ref_cond, start_step=start_step, controls=controls,
-                    inpaint_cond=inp)
+                latents = self._no_rows(width, height)
             self._keep_one_decode(out, payload, pending, self._queue_decoded(
-                latents, pos, n, width, height))
+                latents, pos, n, width, height, share))
             pos += n
             remaining -= n
         self._flush_decoded(out, payload, pending)
@@ -2163,10 +2228,15 @@ class Engine:
                        job: str = "txt2img") -> GenerationResult:
         """Produce images ``[start_index, start_index+count)`` of the
         request (the unit of a seed-exact batch split): img2img when it
-        carries ``init_images``, else txt2img."""
+        carries ``init_images``, else txt2img. On a mesh across processes
+        every process calls it with the same request, and a random seed
+        is process 0's."""
         payload = payload.model_copy()
         payload.seed = fix_seed(payload.seed)
         payload.subseed = fix_seed(payload.subseed)
+        if self.mesh is not None and self.mesh.spans_processes:
+            payload.seed, payload.subseed = broadcast_object(
+                (payload.seed, payload.subseed))
         self._adaptive_incomplete = False
         if payload.all_prompts and payload.context_chunks is None:
             # a whole request (a range from a fleet arrives with its
@@ -2220,12 +2290,16 @@ class Engine:
         decoder on its home device with their ``tp`` and ``sp``
         placement, and the text encoders and the VAE encoder, which run on
         the home device, with replica 0's. The mesh's home device must be
-        the engine's. Call it between requests (or on the device thread,
-        as a VAE swap does)."""
+        the engine's. On a mesh across processes all of this is over the
+        share this process owns (``Mesh.local``: the text encoders and the
+        VAE encoder with its first replica's layout); the others' replicas
+        hold nothing here. Call it between requests (or on the device
+        thread, as a VAE swap does)."""
         if mesh is not None and not _same_device(mesh.home(), self.device):
             raise ValueError(f"the home device {mesh.home()} of {mesh} is "
                              f"not the engine's device {self.device}")
         self.mesh = mesh
+        self.local_mesh = None if mesh is None else mesh.local()
         self._placed.clear()
         self._stage_cn_mesh_cache = None
         replicated = (self.unet, *self._controlnets.values(), self.vae)
@@ -2234,8 +2308,8 @@ class Engine:
         if mesh is None:
             return
         for module in replicated:
-            self._replicas(module, mesh)
-        layout = sharding.replica_layout(mesh, 0)
+            self._replicas(module, self.local_mesh)
+        layout = sharding.replica_layout(self.local_mesh, 0)
         for module in self._home_modules():
             unet_mod.place_layers(module, layout)
 
@@ -2268,7 +2342,7 @@ class Engine:
         hit = self._placed.get(key)
         if hit is None or hit[0] is not module or hit[1] is not mesh:
             reps = sharding.replicas(module, mesh, unet_mod.place_layers,
-                                     reuse=mesh is self.mesh)
+                                     reuse=mesh is self.local_mesh)
             hit = self._placed[key] = (module, mesh, reps)
             shape = tuple(mesh.shape.values())
             stale = {(shape, r, sharding.replica_layout(mesh, r))
@@ -2278,15 +2352,42 @@ class Engine:
                     lambda k: _mesh_tag(k[0]) in stale)
         return hit[2]
 
-    @staticmethod
-    def _dp_split(mesh: Optional[Mesh], rows: int) -> int:
+    def _dp_split(self, mesh: Optional[Mesh], rows: int) -> int:
         """Replicas a batch of ``rows`` images splits over on ``mesh``:
         its ``dp`` when the rows divide it, else 1 (replica 0 runs the
-        whole batch: JAX's odd-batch fallback)."""
-        if mesh is None:
+        whole batch: JAX's odd-batch fallback). Under a process split a
+        group that runs whole (:meth:`_share`) takes 1 on the local mesh
+        whatever its rows."""
+        if mesh is None or (self._whole_group and mesh is self.local_mesh):
             return 1
         dp = mesh.shape["dp"]
         return dp if dp > 1 and rows % dp == 0 else 1
+
+    def _share(self, rows: int, spec) -> "_Share":
+        """This process's rows of a group of ``rows``: all of them on one
+        process; on a mesh across processes its share
+        (``sharding.process_rows``: every row on replica 0's process when
+        they do not divide ``dp`` or under DPM adaptive, whose step
+        controller reads the whole batch), setting whether they run whole
+        on replica 0 (:meth:`_dp_split`). There every process must call it
+        for every group, in the same order: the group's pixels are
+        gathered over them all."""
+        mesh = self.mesh
+        self._whole_group = False
+        if mesh is None or not mesh.spans_processes:
+            return _Share(0, rows, None)
+        whole = spec.adaptive or rows % mesh.shape["dp"] != 0
+        shares = sharding.process_rows(mesh, rows, whole)
+        self._whole_group = whole
+        return _Share(*shares[mesh.rank], shares)
+
+    def _no_rows(self, width: int, height: int) -> torch.Tensor:
+        """A process's empty share of a group: no latent rows, at the
+        size the group's decode has, so that its pixels gather with the
+        others'."""
+        h, w = self._latent_hw(width, height)
+        return torch.empty((0, h, w, self.family.vae.latent_channels),
+                           device=self.device)
 
     def _split_run(self, run: Dict[str, torch.Tensor], batch: int,
                    mesh: Optional[Mesh]) -> List[Tuple[Dict, int]]:
@@ -2502,6 +2603,28 @@ class Engine:
                                    "img2img")
 
 
+class _Share(NamedTuple):
+    """This process's rows ``[lo, hi)`` of a group, and under a process
+    split every process's (``sharding.process_rows``; None on one
+    process)."""
+
+    lo: int
+    hi: int
+    shares: Optional[List[Tuple[int, int]]]
+
+
+def _rows_of(tree, share: _Share, rows: int):
+    """``tree`` (a tensor, None or nested tuples of them) with each tensor
+    that holds a row per image of a group of ``rows`` cut to the share's
+    rows under a process split; a tensor of one row for every image stays
+    whole."""
+    if share.shares is None or tree is None:
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(_rows_of(t, share, rows) for t in tree)
+    return tree[share.lo:share.hi] if tree.shape[0] == rows else tree
+
+
 class _Decoded:
     """One queued decode: the pinned host buffer its pixels land in, the
     events recorded after its copies on each device that made them (none
@@ -2509,10 +2632,11 @@ class _Decoded:
     go."""
 
     __slots__ = ("host", "events", "pos", "n", "width", "height",
-                 "incomplete")
+                 "incomplete", "shares")
 
     def __init__(self, host: torch.Tensor, events, pos: int, n: int,
-                 width: int, height: int, incomplete: bool):
+                 width: int, height: int, incomplete: bool,
+                 shares: Optional[List[Tuple[int, int]]] = None):
         self.host = host
         self.events = events
         self.pos = pos
@@ -2520,13 +2644,21 @@ class _Decoded:
         self.width = width
         self.height = height
         self.incomplete = incomplete
+        #: under a process split, every process's rows of the group
+        #: (``host`` holds this process's): gathered when fetched
+        self.shares = shares
 
     def pixels(self) -> np.ndarray:
         """The kept images (n, H, W, 3) uint8, once the device wrote
-        them."""
+        them (and, under a process split, once every process's rows came
+        over the group)."""
         for event in self.events:
             event.synchronize()
-        return self.host[:self.n].numpy()
+        host = self.host
+        if self.shares is not None:
+            with trace.STATS.timer("process_gather"):
+                host = sharding.gather_rows(host, self.shares)
+        return host[:self.n].numpy()
 
 
 class _Fences:

@@ -102,6 +102,14 @@ Fleet-tier knobs (``fleet/``; README "Fleet gate"):
   plan (``sim/chaos.py``) refuses to arm without it; ``GET
   /internal/sim``.
 
+Process-group knobs (``runtime/mesh.py``; README "A mesh across
+processes"), the JAX package's names:
+
+- ``SDTPU_COORDINATOR`` (``host:port``, "" = none): ``init_multihost``
+  joins a gloo ``torch.distributed`` group there (process 0 listens);
+  ``SDTPU_NUM_PROCESSES`` and ``SDTPU_PROCESS_ID`` (ints): its size and
+  this process's rank.
+
 Artifact-store knobs (``serving/aot.py``; README "The kernel-library
 artifact store"):
 

@@ -17,17 +17,32 @@ another shard's device is a copy over NVLink.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: the port
 compiles nothing per call signature (its kernels are ``nvcc`` libraries,
-stored by ``serving/aot.py``). A mesh across hosts (``init_multihost``
-with a coordinator) would be ``torch.distributed`` with one process per
-card; it is ROADMAP item 14 and raises here.
+stored by ``serving/aot.py``).
+
+**A mesh across processes.** :func:`init_multihost` joins a
+``torch.distributed`` group (gloo, over TCP) when a coordinator is
+configured, as the JAX function joins ``jax.distributed``: one process per
+host drives that host's cards, and every process runs the same program.
+:func:`build_mesh` then exchanges each process's device list and spans
+their concatenation in rank order (JAX's order of ``jax.devices()``), so
+``dp``, the outer axis, runs across the processes and a replica's ``tp x
+sp`` group stays inside one (a group that would span two is ROADMAP item
+14e, NCCL collectives in place of ``parallel/sharding.py``'s copies).
+:class:`Mesh` records the rank that owns each entry; :meth:`Mesh.local`
+is this process's share, the replicas it computes. Only uint8 pixels
+cross processes (``parallel/sharding.py`` :func:`~..parallel.sharding.
+gather_rows`), which is why the group's backend is gloo on host tensors,
+on the card too: two ranks may share one card, which NCCL refuses.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import datetime
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_int,
@@ -36,40 +51,114 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
 
 AXIS_ORDER = ("dp", "tp", "sp")
 
+#: seconds a collective of the process group waits for a peer before it
+#: raises, unless ``init_multihost`` is given another: torch.distributed's
+#: own default for gloo. A rank that waits for another's pixels waits for
+#: that rank's whole group of rows, so it must exceed the longest group's
+#: time.
+DEFAULT_TIMEOUT_S = 1800.0
+
 
 class Mesh:
     """``devices``: a ``(dp, tp, sp)`` numpy array of ``torch.device``;
     ``shape``: ``{axis: size}`` in :data:`AXIS_ORDER`, as JAX's
-    ``Mesh.shape``."""
+    ``Mesh.shape``; ``ranks``: the process that owns each entry, an int
+    array of ``devices``' shape (all 0 on one process); ``rank``: this
+    process's. A replica's ``tp x sp`` entries share one rank
+    (:func:`build_mesh` checks), so ``replica_ranks[r]`` is replica ``r``'s
+    process and ``local_replicas`` the replicas this process computes."""
 
     axis_names = AXIS_ORDER
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, ranks: Optional[np.ndarray] = None,
+                 rank: int = 0):
         if devices.ndim != len(AXIS_ORDER):
             raise ValueError(f"a mesh is {len(AXIS_ORDER)}-D over "
                              f"{AXIS_ORDER}, not {devices.shape}")
         self.devices = devices
         self.shape: Dict[str, int] = dict(zip(AXIS_ORDER, devices.shape))
+        self.ranks = (np.zeros(devices.shape, dtype=np.int64)
+                      if ranks is None else ranks)
+        self.rank = rank
+        self.replica_ranks: List[int] = [int(q) for q in self.ranks[:, 0, 0]]
+        self.local_replicas: List[int] = [
+            r for r, q in enumerate(self.replica_ranks) if q == rank]
+        self._local: Optional["Mesh"] = None
 
-    def home(self, replica: int = 0) -> torch.device:
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the replicas belong to more than one process."""
+        return len(set(self.replica_ranks)) > 1
+
+    def home(self, replica: Optional[int] = None) -> torch.device:
         """Replica ``replica``'s home device (its ``tp`` and ``sp`` index
         0): where its rows enter and leave, and where the layers the rule
-        leaves replicated compute."""
+        leaves replicated compute. None: this process's first replica
+        (replica 0 on one process)."""
+        if replica is None:
+            replica = self.local_replicas[0]
         return self.devices[replica, 0, 0]
+
+    def local(self) -> "Mesh":
+        """The replicas this process owns, as a mesh of one process (the
+        mesh itself when it spans no other)."""
+        if not self.spans_processes:
+            return self
+        if self._local is None:
+            self._local = Mesh(self.devices[self.local_replicas])
+        return self._local
 
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.flat})
+        if self.spans_processes:
+            return (f"Mesh({self.shape}, devices={devs}, "
+                    f"replica_ranks={self.replica_ranks}, rank={self.rank})")
         return f"Mesh({self.shape}, devices={devs})"
+
+
+def across_processes(what: str, item: str = "14d") -> NotImplementedError:
+    """The error of a path that does not run on a mesh across processes:
+    it names the ROADMAP item that would port it."""
+    return NotImplementedError(
+        f"{what} does not run on a mesh across processes (ROADMAP item "
+        f"{item}); it would compute unsplit rows on one rank")
+
+
+def process_index() -> int:
+    """This process's rank in the group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The processes of the group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every rank (itself without a group): what every
+    rank must agree on before it computes, such as a random seed."""
+    if process_count() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def init_multihost(coordinator: Optional[str] = None,
                    num_processes: Optional[int] = None,
-                   process_id: Optional[int] = None) -> bool:
-    """Join a mesh across hosts: False when no coordinator is configured
-    (``SDTPU_COORDINATOR``), as in the JAX package, so a single host never
-    pays it. With one it raises: across hosts the port would run
-    ``torch.distributed`` with one process per card, which is not ported
-    (ROADMAP item 14)."""
+                   process_id: Optional[int] = None,
+                   timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+    """Join the processes of a mesh across hosts: False when no
+    coordinator is configured (``SDTPU_COORDINATOR``), as in the JAX
+    package, so a single host never pays it. With one, a gloo
+    ``torch.distributed`` group over ``tcp://<coordinator>`` (process 0
+    listens there) of ``num_processes`` (``SDTPU_NUM_PROCESSES``), this one
+    ``process_id`` (``SDTPU_PROCESS_ID``); True once joined. torch has no
+    cloud auto-detection, so both must be given. ``timeout_s``: how long
+    a collective waits for a peer, so a dead or stuck rank makes the
+    others raise instead of hang. Joining twice is a no-op."""
     coordinator = coordinator or env_str("SDTPU_COORDINATOR") or None
     if not coordinator:
         return False
@@ -77,10 +166,22 @@ def init_multihost(coordinator: Optional[str] = None,
         env_int("SDTPU_NUM_PROCESSES")
     pid = process_id if process_id is not None else \
         env_int("SDTPU_PROCESS_ID")
-    raise NotImplementedError(
-        f"a mesh across hosts (coordinator {coordinator}, processes {n}, "
-        f"process {pid}) is not ported: it needs torch.distributed with one "
-        f"process per card (ROADMAP item 14)")
+    if n is None or pid is None:
+        raise ValueError(
+            f"coordinator {coordinator}: a process group needs its size and "
+            f"this process's rank (SDTPU_NUM_PROCESSES, SDTPU_PROCESS_ID)")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}", world_size=int(n),
+            rank=int(pid), timeout=datetime.timedelta(seconds=timeout_s))
+    return True
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group, if one was joined (JAX's
+    ``jax.distributed.shutdown``)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
@@ -120,12 +221,24 @@ def build_mesh(spec: Optional[str] = None,
     ``torch.device`` objects; a device may repeat: a virtual mesh), or over
     every visible card.
 
+    Under a group of processes (:func:`init_multihost`) ``devices`` names
+    this process's devices: every rank's list is exchanged, and the mesh
+    spans their concatenation in rank order. A replica whose ``tp x sp``
+    group would span two ranks raises (ROADMAP item 14e), as does a spec
+    that leaves a rank no replica (every rank raises alike).
+
     Unspecified axes get size 1; if no axes are given, every device lands
     on ``dp``. A spec that uses a subset whose size divides the device
     count takes the first devices; any other mismatch raises, with the JAX
     package's message."""
     devices = [torch.device(d) for d in (
         devices if devices is not None else _visible_devices())]
+    rank, owners = process_index(), [0] * len(devices)
+    if process_count() > 1:
+        lists: List[Optional[List[str]]] = [None] * process_count()
+        dist.all_gather_object(lists, [str(d) for d in devices])
+        devices = [torch.device(d) for names in lists for d in names]
+        owners = [q for q, names in enumerate(lists) for _ in names]
     axes = parse_mesh_spec(spec)
     if not axes:
         axes = {"dp": len(devices)}
@@ -134,14 +247,26 @@ def build_mesh(spec: Optional[str] = None,
     if total != len(devices):
         # allow a spec that uses a subset (e.g. dp=4 of 8 devices)
         if total < len(devices) and len(devices) % total == 0:
-            devices = devices[:total]
+            devices, owners = devices[:total], owners[:total]
         else:
             raise ValueError(
                 f"mesh spec {axes} needs {total} devices, have {len(devices)}"
             )
     arr = np.empty(total, dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(sizes))
+    ranks = np.asarray(owners, dtype=np.int64).reshape(sizes)
+    for r in range(sizes[0]):
+        if len(set(ranks[r].flat)) > 1:
+            raise ValueError(
+                f"mesh spec {axes}: replica {r}'s tp x sp group spans "
+                f"processes {sorted(set(int(q) for q in ranks[r].flat))}; "
+                f"tp and sp across processes need NCCL collectives "
+                f"(ROADMAP item 14e)")
+    idle = sorted(set(range(process_count())) - set(ranks[:, 0, 0].tolist()))
+    if idle:
+        raise ValueError(f"mesh spec {axes}: processes {idle} would own no "
+                         f"replica of the {total} devices it takes")
+    return Mesh(arr.reshape(sizes), ranks, rank)
 
 
 def pad_batch(n: int, mesh: Mesh) -> int:

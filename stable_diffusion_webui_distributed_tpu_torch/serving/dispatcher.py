@@ -170,6 +170,9 @@ from stable_diffusion_webui_distributed_tpu_torch.runtime import dtypes
 from stable_diffusion_webui_distributed_tpu_torch.runtime.config import (
     env_float,
 )
+from stable_diffusion_webui_distributed_tpu_torch.runtime.mesh import (
+    across_processes,
+)
 from stable_diffusion_webui_distributed_tpu_torch.samplers import (
     kdiffusion as kd,
 )
@@ -239,6 +242,11 @@ class ServingDispatcher:
 
     def __init__(self, engine, bucketer: Optional[ShapeBucketer] = None,
                  window: Optional[float] = None, pool=None) -> None:
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.spans_processes:
+            # rank 0 would have to hand every coalesced dispatch to the
+            # others
+            raise across_processes("the serving dispatcher")
         self.engine = engine
         # the warm pool (SDTPU_POOL): each leader or solo execution runs on
         # the resident it checks out (_checkout_engine); None: self.engine

@@ -7,8 +7,9 @@ A fresh interpreter imports every module of the port; afterwards neither
 ``stable_diffusion_webui_distributed_tpu`` may be loaded. A scan of the
 sources (the port's, ``chip_smoke.py``, the fleet telemetry phase's
 runners in ``tools/``, the artifact store's report and its phase's
-runner, the mesh and scenario phases' runners) asserts the same of every
-import statement, including imports inside functions.
+runner, the mesh, scenario and multihost phases' runners, the multihost
+tests' rank helper) asserts the same of every import statement, including imports
+inside functions.
 """
 
 import ast
@@ -84,6 +85,10 @@ def _sources():
     yield ROOT / "tools" / "torch_mesh.py"
     # the chip runner of the scenario phase
     yield ROOT / "tools" / "torch_scenarios.py"
+    # the chip runner of the multihost phase, and the rank processes of
+    # the multihost tests
+    yield ROOT / "tools" / "torch_multihost.py"
+    yield ROOT / "tests" / "torch_multihost_rank.py"
 
 
 @pytest.mark.parametrize("path", list(_sources()),

@@ -4,7 +4,8 @@ JAX package's, on the CPU.
 - ``parse_mesh_spec`` and ``build_mesh`` accept and refuse the same specs
   as JAX's (JAX over the conftest's eight virtual CPU devices, the port
   over eight ``cpu`` entries: a virtual mesh), with the same messages;
-  ``init_multihost`` and ``pad_batch``;
+  ``init_multihost`` (False without a coordinator, and a one-process gloo
+  group joined and left with one) and ``pad_batch``;
 - ``tp_spec_for`` gives every TINY and SD1.5 parameter (text encoder, UNet,
   VAE) the class JAX's gives the Flax path it came from, column, row or
   replicated, with the same split or replicated outcome at ``tp`` 2 and 4;
@@ -22,9 +23,12 @@ Inputs come from numpy with a seed; the parameter trees' shapes from
 
 import importlib
 
+import socket
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 from jax.sharding import Mesh as JaxMesh
@@ -91,8 +95,23 @@ def test_mesh_helpers_match_jax(monkeypatch):
     assert mesh.AXIS_ORDER == jmesh.AXIS_ORDER
     monkeypatch.delenv("SDTPU_COORDINATOR", raising=False)
     assert mesh.init_multihost() is False and jmesh.init_multihost() is False
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        mesh.init_multihost("10.0.0.1:1234", 2, 0)
+    assert (mesh.process_index(), mesh.process_count()) == (0, 1)
+    # a coordinator joins a gloo group: here one of one process
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("SDTPU_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("SDTPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("SDTPU_PROCESS_ID", "0")
+    try:
+        assert mesh.init_multihost(timeout_s=30) is True
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert (mesh.process_index(), mesh.process_count()) == (0, 1)
+        # one process of one: the mesh spans no other
+        assert not mesh.build_mesh("dp=4,tp=2", CPU8).spans_processes
+    finally:
+        mesh.shutdown_multihost()
+    assert not dist.is_initialized()
     assert m.home(3) == torch.device("cpu")
     assert m.devices.shape == (4, 2, 1) and {*m.devices.flat} == {m.home()}
     if not torch.cuda.is_available():

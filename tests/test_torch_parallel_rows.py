@@ -7,13 +7,18 @@ holds the shared fixtures), on TINY on the CPU.
   lengths, traced-LoRA row factors) against the meshless engine;
 - **registry and CLI**: ``ModelRegistry(mesh=)`` hands the mesh on, and
   ``cli serve --mesh`` and the config's ``mesh_axes`` build the same mesh;
-  ``init_multihost`` runs first;
+  under a coordinator ``cli generate`` joins a one-process group, writes
+  its images and leaves it (two processes:
+  ``tests/test_torch_multihost_cli.py``);
 - the graphs and the tower: ``tests/test_torch_parallel_graphs.py``.
 """
 
 import json
+import os
+import socket
 
 import pytest
+import torch.distributed as dist
 
 from stable_diffusion_webui_distributed_tpu_torch import cli
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
@@ -21,6 +26,9 @@ from stable_diffusion_webui_distributed_tpu_torch.pipeline.payload import (
 )
 from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry import (
     ModelRegistry,
+)
+from stable_diffusion_webui_distributed_tpu_torch.runtime import (
+    config as config_mod,
 )
 from stable_diffusion_webui_distributed_tpu_torch.runtime import (
     mesh as mesh_mod,
@@ -111,6 +119,21 @@ def test_cli_mesh_and_config_mesh_axes_build_one_mesh(tmp_path,
         meshes.append(registry.mesh)
     assert meshes[0].shape == meshes[1].shape == {"dp": 2, "tp": 1, "sp": 2}
     assert meshes[0].devices.tolist() == meshes[1].devices.tolist()
-    monkeypatch.setenv("SDTPU_COORDINATOR", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="across hosts"):
-        cli.main(["generate", "--prompt", "x", "--device", "cpu"])
+    # a coordinator: cli generate joins a one-process group, writes its
+    # images and leaves the group
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("SDTPU_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("SDTPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("SDTPU_PROCESS_ID", "0")
+    cfg = str(tmp_path / "cfg-gen.json")
+    config_mod.save_config(config_mod.ConfigModel(workers=[{
+        "master": config_mod.WorkerModel(master=True, avg_ipm=60.0)}]), cfg)
+    out = str(tmp_path / "out")
+    assert cli.main(["generate", "--prompt", "x", "--device", "cpu",
+                     "--family", "tiny", "--size", "32x32", "--steps", "2",
+                     "-n", "2", "--image-seed", "5", "--model-dir", empty,
+                     "--distributed-config", cfg, "--outdir", out]) == 0
+    assert sorted(os.listdir(out)) == ["5-00.png", "6-01.png"]
+    assert not dist.is_initialized()

@@ -16,6 +16,7 @@ checks the phase has in ``chip_smoke.py``; a failed check exits non-zero.
 
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +36,8 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{card_line}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    cs.phase_aot(card_line)
+    store = tempfile.mkdtemp(prefix="aot-")
+    cs.phase_aot(card_line, store, cs.start_aot_child("cold", store))
     print(f"torch_aot: every step passed in "
           f"{time.perf_counter() - t0:.1f} s [{card_line}]")
     return 0
