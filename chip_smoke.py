@@ -60,8 +60,8 @@ Phases, each fatal on failure (no phase is caught and passed over):
    warmup sweep (``serving/warmup.py``) over the main path's ladder
    (512x512 at batch 1 and 2) must capture two CUDA graphs of the UNet
    evaluation and a second sweep none, each sweep launching K1 640 times
-   (its replays counted), all on the Hopper path; then 6 warm config #1
-   requests graphed and 6 eager on that engine, in turns, each with 320
+   (its replays counted), all on the Hopper path; then 3 warm config #1
+   requests graphed and 3 eager on that engine, in turns, each with 320
    K1 launches, the repeats of each arm the same PNG bytes and the arms
    the same bytes or a mean within 2 uint8 levels: their p50, min and
    max, one profiled request and one UNet evaluation of each arm (wall,
@@ -167,8 +167,8 @@ Phases, each fatal on failure (no phase is caught and passed over):
 7e. the stage-graph executor (``phase_stage_graph``) on the main path's
    engine, graphed: (a) a config #1 request with ``n_iter`` 4 (four groups
    of 1) through the engine's own loop, serial, staged at depth 1 and at
-   depth 2 (``SDTPU_STAGE_GRAPH``, ``SDTPU_STAGE_DEPTH``): 2 timed
-   requests per arm (p50) and one profiled (device busy share), the
+   depth 2 (``SDTPU_STAGE_GRAPH``, ``SDTPU_STAGE_DEPTH``): 1 timed
+   request per arm and one profiled (device busy share), the
    overlap clock's ratio, the denoise stage's host seconds a group against
    the device's, which must be under half of them (no host wait), 1280 K1
    launches each (all Hopper), no capture, every request the serial PNG
@@ -218,7 +218,7 @@ Phases, each fatal on failure (no phase is caught and passed over):
    the port's ``ApiServer``, with its own journal, tracer, TSDB and push
    buffer), every gate of the plane on (``SDTPU_TSDB`` at a 0.5 s cadence,
    ``SDTPU_ALERTS`` at ``SDTPU_ALERT_TIMESCALE=0.01``, pages routed to a
-   local webhook, ``SDTPU_FEDERATION``, ``SDTPU_PUSH``, the journal): 8
+   local webhook, ``SDTPU_FEDERATION``, ``SDTPU_PUSH``, the journal): 6
    fleet config #1 requests of 2 images (one a node), the gates and their
    daemons on and off in turns: the same PNG bytes, 320 K1 launches on
    each node, all Hopper, the p50 of each arm and the push plane's
@@ -253,7 +253,7 @@ Phases, each fatal on failure (no phase is caught and passed over):
    full-width UNet at int8 and int8+conv against f32, within the same
    error measured on the CPU plus 5e-2; config #1 requests at bf16, int8,
    int8+conv, cadence 3, cadence 3 with a cutoff at sigma 1.5 and int8 with
-   cadence 3, each first then 3 warm: K1 launches exact (320, or
+   cadence 3, each first then 2 warm: K1 launches exact (320, or
    ``plan_schedule``'s count at cadence 3: 191), all on the Hopper path,
    the engine's evaluations equal to ``plan_schedule``'s, the graphs
    captured by kind (none by a repeat, none at a new cadence or cutoff),
@@ -311,22 +311,28 @@ Phases, each fatal on failure (no phase is caught and passed over):
    relative error and both times) and the stage-ahead ControlNet tower on
    a mesh handed to it (``dp=1`` over the last device) against the
    shared-stream stage-ahead request: the same PNG bytes, 460 K1 each;
-9d. multihost (``phase_multihost``): a mesh across two processes. Two rank
-   processes of this script (``--multihost-rank``), started before the
-   mesh phase so that their start (imports, the group, the seeded engine)
-   overlaps it, wait for the phase's go at their request and then run
-   ``cli generate`` on cuda:0, both under
-   ``SDTPU_COORDINATOR=127.0.0.1:<free port>`` (a gloo group; NCCL
-   refuses two ranks on one card) with the same arguments: config #1 at
-   full width (SD1.5 512x512, 20 steps Euler a, CFG 7, batch 2, the CLI's
-   seeded weights, the mesh phase's seed) on a global ``dp=2``, one
-   replica a rank. Both ranks' PNG files must be the same bytes, their
-   pixels those of the mesh phase's ``dp=2`` images, and each rank must
-   launch K1 320 times, all on the Hopper path. Each rank's wall time
-   from the go, the seconds it took to get ready, its generation's
-   seconds and the pixel gather's milliseconds are printed; the ranks are
-   killed, and the phase fails, past ``MULTIHOST_DEADLINE_S`` from the
-   go;
+9d. multihost (``phase_multihost``): a mesh across two processes, in two
+   rank pairs (``MULTIHOST_PAIRS``). Each pair is two processes of this
+   script (``--multihost-rank``), started before the mesh phase so that
+   their start (imports, the group, the seeded engine) overlaps it; they
+   wait for their go at their request and then run ``cli generate`` on
+   cuda:0, both under ``SDTPU_COORDINATOR=127.0.0.1:<free port>`` (a gloo
+   group; NCCL refuses two ranks on one card) with the same arguments:
+   config #1 at full width (SD1.5 512x512, 20 steps Euler a, CFG 7, the
+   CLI's seeded weights, the mesh phase's seed), at batch 2 on a global
+   ``dp=2`` (one replica a rank), then at batch 1 and
+   ``MULTIHOST_TP_STEPS`` (4) steps on a global ``tp=2`` (each rank one
+   head shard of the one replica, whose collectives cross the pair over
+   gloo; ROADMAP item 14e). Both ranks' PNG files must be the same bytes,
+   their pixels those of the mesh phase's ``dp=2`` images or of its
+   ``tp=2`` request at the pair's steps, and each rank must launch K1 16
+   times an evaluation (320; 64), all on the Hopper path; on ``tp=2`` each rank makes shard collectives and no
+   CUDA-graph capture (a spanning replica runs eagerly), on ``dp=2`` no
+   shard collective. Each rank's wall time from the go, the seconds it
+   took to get ready, its generation's seconds, the pixel gather's
+   milliseconds and the shard collectives' count and seconds are
+   printed; the ranks are killed, and the phase fails, past
+   ``MULTIHOST_DEADLINE_S`` from the go;
 10. config #2 (the SD1.5 engine freed first): SDXL base and refiner at full
    width and depth on seeded weights (bf16 card policy) behind the port's
    server, the base engine handing over to the refiner through its
@@ -1178,7 +1184,7 @@ def phase_main_path(fa, ra, card_line: str):
     return engine, total_launches, paths
 
 WARMUP_LADDER = ([(512, 512)], [1, 2])  # the main path's bucket and batches
-WARMUP_REPEATS = 6  # warm config #1 requests per arm, graphed and eager
+WARMUP_REPEATS = 3  # warm config #1 requests per arm, graphed and eager
 WARMUP_MEMORY_SLACK = 256 * 2**20  # bytes left allocated by a freed engine
 WARMUP_MEAN_TOLERANCE = 2.0  # uint8 levels, graphed vs eager request
 
@@ -3034,7 +3040,7 @@ STAGE_BODY = {"prompt": "a photograph of an astronaut riding a horse",
               "subseed": 5}
 STAGE_SIZE = 512  # the width and height of STAGE_BODY, its bucket
 STAGE_N_ITER = 4  # (a): four groups of 1
-STAGE_REPEATS = 2  # timed requests per arm of (a), beside one profiled
+STAGE_REPEATS = 1  # timed requests per arm of (a), beside one profiled
 STAGE_CN_K1 = 20 * (16 + 7)  # (d): the unit (7) and the UNet (16) a step
 STAGE_WINDOW = 0.3  # the coalesce window of (b) and (e), seconds
 STAGE_CHAOS_ORDER = ("fault_injected", "fault_cleared", "job_failed",
@@ -3994,7 +4000,7 @@ def phase_obs(engine, fa, ra, card_line: str) -> dict:
 
 
 FOBS_BODY = {**OBS_BODY, "seed": 5100, "batch_size": 2}  # 1 image a node
-FOBS_REPEATS = 4  # warm fleet requests per arm, the plane's gates on and off
+FOBS_REPEATS = 3  # warm fleet requests per arm, the plane's gates on and off
 FOBS_INTERVAL_S = 0.5  # the TSDB sampler's and the prober's cadence
 FOBS_TIMESCALE = "0.01"  # alert windows: 5 m -> 3 s, 1 h -> 36 s
 FOBS_SLOW_S = 4.0  # the chaos slow fault on the remote's job
@@ -4897,7 +4903,7 @@ LADDER_LEVERS = {
     "int8 + cadence 3": {"precision": "int8",
                          "override_settings": {"deepcache": 3}},
 }
-LADDER_REPEATS = 3  # warm requests per lever for its p50
+LADDER_REPEATS = 2  # warm requests per lever for its p50
 #: the JAX package's quality floors against bf16 (tests/test_quality_int8.py;
 #: tests/test_stepcache.py): held on the TINY families by the CPU tests,
 #: printed here beside the seeded full-width numbers
@@ -6051,7 +6057,7 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             for spec, batch, want_k1 in MESH_ARMS] + list(MESH_SPLIT_ARMS)
     bf16 = {}  # the meshless bf16 image of each batch, for the int8 floors
     saved = {}
-    dp2_images = None
+    references = {}  # the multihost pairs' images, by spec
     engine._denoise = recording
     try:
         for label, spec, batch, want_k1, extra in arms:
@@ -6076,13 +6082,21 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             runs = [request(body) for _ in range(2)]
             peak = torch.cuda.max_memory_allocated()
+            if label == "tp=2":
+                # the multihost tp=2 pair's request, at its steps, its
+                # prompt encoded under tp=2 as the ranks encode it (the
+                # engine's conditioning cache outlives set_mesh and holds
+                # the meshless CLIP's encoding: ROADMAP section 3, 3d)
+                engine._cond_cache.clear()
+                references[label] = request(
+                    {**body, "steps": MULTIHOST_TP_STEPS})[1].images
             engine.set_mesh(None)
             env_restore(saved)
             note_peak(f"mesh {label}", peak)
             (wall, got, k1, paths, x, q8), (wall2, again, k1b, _, _, q8b) = \
                 runs
             if label == "dp=2":
-                dp2_images = got.images
+                references[label] = got.images
             diff = np.abs(pixels(got) - pixels(plain))
             arm = {"batch": batch, "wall_s": [round(wall, 4),
                                               round(wall2, 4)],
@@ -6164,8 +6178,8 @@ def phase_mesh(engine, fa, card_line: str) -> dict:
     out["tower"] = mesh_tower(engine, fa, devices, card_line)
     out["phase_s"] = round(time.perf_counter() - t_phase, 3)
     print("mesh metrics: " + json.dumps(out))
-    # the multihost phase's reference, kept off the metrics line
-    out["dp2_images"] = dp2_images
+    # the multihost pairs' references, kept off the metrics line
+    out["references"] = references
     return out
 
 
@@ -6226,18 +6240,34 @@ MULTIHOST_DEADLINE_S = 150  # from the go: the ranks are killed past it
 MULTIHOST_WAIT_S = 900  # a rank that sees no go within this exits
 
 
-def multihost_argv(outdir: str, workdir: str, config_path: str) -> list:
-    """``cli generate`` of the mesh phase's ``dp=2`` request on a global
-    ``dp=2``, on the CLI's seeded SD1.5 weights (seed 0: the main path's)."""
+#: the ``tp=2`` pair's steps: each of its ~165 shard collectives an
+#: evaluation crosses host memory between two processes on one card, and
+#: 20 steps took 50.5 s against the ``dp=2`` pair's 7.1 (PERF.md section
+#: 6, PR 26); ``phase_mesh`` makes a matching ``tp=2`` request at as many
+MULTIHOST_TP_STEPS = 4
+#: the rank pairs of the multihost phase: (global mesh spec, batch,
+#: steps). On ``dp=2`` each rank owns one replica; on ``tp=2`` each owns
+#: one shard of the one replica, whose collectives cross the pair
+#: (ROADMAP item 14e)
+MULTIHOST_PAIRS = (("dp=2", MULTIHOST_RANKS, MESH_BODY["steps"]),
+                   ("tp=2", 1, MULTIHOST_TP_STEPS))
+
+
+def multihost_argv(outdir: str, workdir: str, config_path: str,
+                   spec: str = "dp=2", batch: int = MULTIHOST_RANKS,
+                   steps: int = MESH_BODY["steps"]) -> list:
+    """``cli generate`` of the mesh phase's request at ``batch`` and
+    ``steps`` on the global mesh ``spec``, on the CLI's seeded SD1.5
+    weights (seed 0: the main path's)."""
     body = MESH_BODY
     return ["generate", "--prompt", body["prompt"],
             "--negative", body["negative_prompt"],
-            "--steps", str(body["steps"]),
+            "--steps", str(steps),
             "--size", f"{body['width']}x{body['height']}",
-            "-n", str(MULTIHOST_RANKS), "--image-seed", str(body["seed"]),
+            "-n", str(batch), "--image-seed", str(body["seed"]),
             "--sampler", body["sampler_name"],
             "--cfg", str(body["cfg_scale"]), "--family", "sd15",
-            "--seed", "0", "--mesh", f"dp={MULTIHOST_RANKS}",
+            "--seed", "0", "--mesh", spec,
             "--model-dir", os.path.join(workdir, "no-models"),
             "--distributed-config", config_path, "--outdir", outdir]
 
@@ -6249,8 +6279,10 @@ def multihost_rank(job_path: str) -> int:
     for the job's go file (at most ``MULTIHOST_WAIT_S``, and not past its
     parent); then prints one ``multihost-rank:`` JSON line: its K1
     launches and their paths, its wall time from the go, the generation's
-    seconds, the pixel gather's milliseconds and the seconds it took to
-    get ready (imports, the group, the engine). It then exits at once:
+    seconds, the pixel gather's milliseconds, the seconds it took to get
+    ready (imports, the group, the engine), the shard collectives of a
+    replica that spans the pair (count and seconds) and its CUDA-graph
+    captures. It then exits at once:
     the interpreter's teardown of the card's state adds seconds and
     nothing to check."""
     started = time.perf_counter()
@@ -6261,9 +6293,15 @@ def multihost_rank(job_path: str) -> int:
     from stable_diffusion_webui_distributed_tpu_torch.ops import (
         flash_attention as fa,
     )
+    from stable_diffusion_webui_distributed_tpu_torch.parallel import (
+        sharding,
+    )
     from stable_diffusion_webui_distributed_tpu_torch.runtime import trace
     from stable_diffusion_webui_distributed_tpu_torch.scheduler import (
         world as world_mod,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.serving.metrics import (
+        METRICS,
     )
 
     with open(job_path) as f:
@@ -6285,6 +6323,9 @@ def multihost_rank(job_path: str) -> int:
         finally:
             torch.cuda.synchronize()
             timed["generate_s"] = time.perf_counter() - t
+            # what the rank holds on the card once its request is done:
+            # its weights and caches
+            timed["memory_gib"] = torch.cuda.memory_allocated() / 2**30
 
     world_mod.World.execute = timed_execute
     rc = cli.main(job["argv"])
@@ -6298,25 +6339,32 @@ def multihost_rank(job_path: str) -> int:
         "ready_s": round(timed["ready_s"], 3),
         "generate_s": round(timed.get("generate_s", -1.0), 4),
         "gathers": gather["count"],
-        "gather_ms": round(1e3 * gather["mean"] * gather["count"], 3)}),
+        "gather_ms": round(1e3 * gather["mean"] * gather["count"], 3),
+        "collectives": sharding.Span.calls,
+        "collective_s": round(sharding.Span.seconds, 4),
+        "memory_gib": round(timed.get("memory_gib", -1.0), 4),
+        "captures": sum(METRICS.summary()["compiles"].values())}),
         flush=True)
     sys.stderr.flush()
     os._exit(rc)
 
 
-def start_multihost_ranks() -> dict:
-    """The multihost phase's rank processes, started ahead of it: each
-    gets ready (imports, the group, the mesh, the CLI's seeded engine on
-    the card) and waits for the phase's go file before its request, so
-    its start overlaps the mesh phase and its generation runs alone. An
-    exit hook stops them and removes their directory if the run ends
-    first. Returns what :func:`phase_multihost` needs."""
+def start_multihost_ranks(spec: str = "dp=2", batch: int = MULTIHOST_RANKS,
+                          steps: int = MESH_BODY["steps"]) -> dict:
+    """A pair of the multihost phase's rank processes for the global mesh
+    ``spec`` at ``batch`` and ``steps``, started ahead of it: each gets ready (imports,
+    the group, the mesh, the CLI's seeded engine on the card) and waits
+    for its go file before its request, so its start overlaps the mesh
+    phase and its generation runs alone. An exit hook stops them and
+    removes their directory if the run ends first. Returns what
+    :func:`phase_multihost` needs."""
     from stable_diffusion_webui_distributed_tpu_torch.runtime import config
 
     workdir = tempfile.mkdtemp(prefix="multihost-")
     coordinator = f"127.0.0.1:{free_port()}"
     ranks = {"workdir": workdir, "go": os.path.join(workdir, "go"),
-             "procs": [], "logs": [], "outdirs": []}
+             "procs": [], "logs": [], "outdirs": [], "spec": spec,
+             "batch": batch, "steps": steps}
 
     def stop():
         for proc in ranks["procs"]:
@@ -6336,7 +6384,8 @@ def start_multihost_ranks() -> dict:
         job = os.path.join(rankdir, "job.json")
         with open(job, "w") as f:
             json.dump({"go": ranks["go"], "argv": multihost_argv(
-                ranks["outdirs"][-1], rankdir, cfg)}, f)
+                ranks["outdirs"][-1], rankdir, cfg, spec, batch, steps)},
+                f)
         env = dict(os.environ, SDTPU_COORDINATOR=coordinator,
                    SDTPU_NUM_PROCESSES=str(MULTIHOST_RANKS),
                    SDTPU_PROCESS_ID=str(rank))
@@ -6349,11 +6398,13 @@ def start_multihost_ranks() -> dict:
     return ranks
 
 
-def phase_multihost(ranks: dict, mesh: dict, fa, card_line: str) -> dict:
+def phase_multihost(ranks: dict, want_images: list, fa,
+                    card_line: str) -> dict:
     """A mesh across two processes (see the module's docstring, 9d): the
     two rank processes of :func:`start_multihost_ranks`, given the go,
-    run ``cli generate`` on cuda:0 in one gloo group and are held to the
-    mesh phase's ``dp=2`` images of the same request."""
+    run ``cli generate`` on cuda:0 in one gloo group and are held to
+    ``want_images``, the mesh phase's images of the same request on the
+    same spec."""
     import numpy as np
     from PIL import Image
 
@@ -6389,33 +6440,61 @@ def phase_multihost(ranks: dict, mesh: dict, fa, card_line: str) -> dict:
                   for b in files[0].values()]
     finally:
         ranks["stop"]()
-    want = [png_pixels(b).astype(np.int32) for b in mesh["dp2_images"]]
+    spec, batch, steps = ranks["spec"], ranks["batch"], ranks["steps"]
+    spans = spec != f"dp={MULTIHOST_RANKS}"
+    want_k1 = 16 * steps
+    want = [png_pixels(b).astype(np.int32) for b in want_images]
     diff = [np.abs(a - b) for a, b in zip(pixels, want)]
-    out = {"card": card_line, "ranks": rows,
+    out = {"spec": spec, "batch": batch, "steps": steps, "card": card_line,
+           "ranks": rows,
            "files": list(files[0]),
            "max_abs": max(int(d.max()) for d in diff),
            "mean_abs": round(max(float(d.mean()) for d in diff), 4),
            "phase_s": round(time.perf_counter() - t_phase, 3)}
     for r in rows:
-        print(f"multihost: rank {r['rank']}: wall {r['wall_s']} s from the "
-              f"go (ready {r['ready_s']} s after its launch), the "
+        print(f"multihost {spec}: rank {r['rank']}: wall {r['wall_s']} s "
+              f"from the go (ready {r['ready_s']} s after its launch), the "
               f"generation {r['generate_s']} s, the pixel gather "
-              f"{r['gather_ms']} ms over {r['gathers']} group(s), K1 "
-              f"{r['k1']} by path {json.dumps(r['k1_paths'])} [{card_line}]")
-    print("multihost metrics: " + json.dumps(out))
-    check(files[0] == files[1] and len(files[0]) == MULTIHOST_RANKS,
-          f"multihost: the ranks wrote other PNG files: "
+              f"{r['gather_ms']} ms over {r['gathers']} group(s), "
+              f"{r['collectives']} shard collectives in "
+              f"{r['collective_s']} s, {r['captures']} graph captures, "
+              f"{r['memory_gib']} GiB held after it, K1 {r['k1']} by path "
+              f"{json.dumps(r['k1_paths'])} [{card_line}]")
+    print(f"multihost {spec} metrics: " + json.dumps(out))
+    check(files[0] == files[1] and len(files[0]) == batch,
+          f"multihost {spec}: the ranks wrote other PNG files: "
           f"{list(files[0])} / {list(files[1])}")
     check(len(pixels) == len(want) and out["max_abs"] == 0,
-          f"multihost: the ranks' pixels are not the one-process dp=2 "
-          f"images (max {out['max_abs']}, mean {out['mean_abs']})")
+          f"multihost {spec}: the ranks' pixels are not the one-process "
+          f"{spec} images (max {out['max_abs']}, mean {out['mean_abs']})")
     for r in rows:
-        check(r["k1"] == LAUNCHES_PER_GROUP and
-              r["k1_paths"].get("hopper") == r["k1"],
-              f"multihost: rank {r['rank']} launched K1 {r['k1']} times "
-              f"({r['k1_paths']}), want {LAUNCHES_PER_GROUP} on the "
-              f"Hopper path")
+        # 16 an evaluation on each rank: one image's (dp), or one of the
+        # two head shards of every self-attention (tp)
+        check(r["k1"] == want_k1 and r["k1_paths"].get("hopper") == r["k1"],
+              f"multihost {spec}: rank {r['rank']} launched K1 {r['k1']} "
+              f"times ({r['k1_paths']}), want {want_k1} on the Hopper path")
+        check((r["collectives"] > 0 and r["captures"] == 0) if spans else
+              r["collectives"] == 0,
+              f"multihost {spec}: rank {r['rank']} made {r['collectives']} "
+              f"shard collectives and {r['captures']} graph captures")
     return out
+
+
+def check_multihost_memory(multihost: list) -> None:
+    """A rank of a replica that spans the pair holds its own shards and
+    the layers that are not split, so less than a ``dp`` rank, which
+    holds the whole model: each pair's ranks' memory after the request."""
+    held = {m["spec"]: [r["memory_gib"] for r in m["ranks"]]
+            for m in multihost}
+    whole = held[f"dp={MULTIHOST_RANKS}"]
+    print("multihost memory, GiB held after the request: "
+          + json.dumps(held))
+    for spec, gib in held.items():
+        if spec != f"dp={MULTIHOST_RANKS}":
+            check(max(gib) < min(whole),
+                  f"multihost {spec}: a rank holds {max(gib)} GiB, not "
+                  f"less than a dp rank's {min(whole)}: its placements "
+                  f"did not free the other rank's shards")
 
 
 # BASELINE config #2 (bench.py's payload): SDXL base + refiner, 1024x1024,
@@ -7171,8 +7250,11 @@ def config2_mesh(base, fa, card_line: str) -> dict:
     """Config #2's SDXL base engine on ``tp=2`` (a virtual mesh over
     cuda:0 on one card), placed with ``Engine.set_mesh`` and put back,
     against itself meshless on the same seed (``CONFIG2_MESH_BODY``): the
-    one arm where CLIP-G, its ``text_projection`` and the 1024x1024 f32
-    decode run on their shards. The init latents bit-equal to meshless,
+    one arm where the 1024x1024 f32 decode runs on its shards. CLIP-L and
+    CLIP-G are placed too (their layers are checked), but the request
+    takes the prompt's encoding from the meshless run's conditioning
+    cache, which ``set_mesh`` keeps (ROADMAP section 3, 3d), so their
+    split products do not run here. The init latents bit-equal to meshless,
     the image within a mean of 2 uint8 levels (the max printed), a repeat
     the same bytes, K1 at twice the meshless 2100 all on the Hopper path,
     no weight copied; the wall and the peak of each."""
@@ -8994,6 +9076,29 @@ def phase_aot(card_line: str, store: str, cold_child: tuple) -> dict:
     return out
 
 
+#: each phase's seconds in this run (a phase called more than once:
+#: their sum), filled by :func:`time_phases`
+PHASE_SECONDS: dict = {}
+
+
+def time_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that its seconds
+    add up in :data:`PHASE_SECONDS` (the depth to cut is read there)."""
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0)
+                                            + time.perf_counter() - t, 3)
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(name[len("phase_"):], fn)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--aot-child"]:
@@ -9013,6 +9118,7 @@ def main() -> int:
         ragged_attention as ra,
     )
 
+    time_phases()
     kind = torch.cuda.get_device_name(0)
     card_line = card()
     print(f"device: {kind}; nvidia-smi: {card_line}; torch "
@@ -9060,9 +9166,12 @@ def main() -> int:
     cost_ladder = phase_cost_ladder(engine, fa, ra, card_line)
     phase_profile(engine, card_line)
     config3 = phase_config3(engine, fa, ra, card_line)
-    ranks = start_multihost_ranks()  # their start overlaps the mesh phase
+    # the pairs' start overlaps the mesh phase
+    pairs = [start_multihost_ranks(*pair) for pair in MULTIHOST_PAIRS]
     mesh = phase_mesh(engine, fa, card_line)
-    multihost = phase_multihost(ranks, mesh, fa, card_line)
+    multihost = [phase_multihost(pair, mesh["references"][pair["spec"]], fa,
+                                 card_line) for pair in pairs]
+    check_multihost_memory(multihost)
     scenario = phase_scenarios(engine, fa, ra, card_line)
     del engine  # the SD1.5 engine's memory goes back before SDXL's
     gc.collect()
@@ -9118,9 +9227,11 @@ def main() -> int:
         "mesh_launches": {spec: arm["k1"]
                           for spec, arm in mesh["arms"].items()},
         "mesh_devices": mesh["devices"],
-        "multihost_launches": [r["k1"] for r in multihost["ranks"]],
-        "multihost_path_launches": [r["k1_paths"]
-                                    for r in multihost["ranks"]],
+        "multihost_launches": {m["spec"]: [r["k1"] for r in m["ranks"]]
+                               for m in multihost},
+        "multihost_path_launches": {
+            m["spec"]: [r["k1_paths"] for r in m["ranks"]]
+            for m in multihost},
         "scenario_launches": {
             **{name: row["k1_launches"]
                for name, row in scenario["scenarios"].items()},
@@ -9267,6 +9378,7 @@ def main() -> int:
           + json.dumps({phase: [round(peak / 2**30, 3),
                                 PARENT_PEAK_GIB.get(phase)]
                         for phase, peak in PEAKS.items()}))
+    print("seconds per phase: " + json.dumps(PHASE_SECONDS))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s [{card_line}]")
     print(json.dumps({"kernels": kernels}))

@@ -253,7 +253,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if true_len is not None:
             return ragged_attention(q, k, v, true_len, scale=scale)
         if ring is not None and q.shape[1] % len(ring) == 0:
-            return ring_attention_over(q, k, v, ring, scale)
+            return ring_attention_over(q, k, v, ring, scale,
+                                       getattr(ring, "span", None))
         return flash_attention(q, k, v, scale=scale)
     if true_len is not None:
         return ragged_attention(q, k, v, true_len, scale=scale,
@@ -662,6 +663,14 @@ def make_added_cond(pooled_text: torch.Tensor, time_ids: torch.Tensor,
 # row split each shard multiplies its input columns by ``down``'s, the
 # partial ``h`` are summed in f32 on the home device and multiplied by
 # ``up`` there (the rank-sized ``h`` crosses the cards, not the input).
+#
+# Across processes (a replica whose entries span ranks) a placement holds
+# and computes only this rank's shards: ``devices[j]`` is None for a shard
+# it does not hold, and so are that shard's weights and parts; the layer's
+# whole weights are freed (``sharding.Placement.release``). The
+# collectives take the replica's ``span`` and fill in the other ranks'
+# parts before they sum, max or concatenate in shard order: the int8
+# maxima cross the processes before any shard quantizes.
 
 
 def _to(inp, device: torch.device):
@@ -670,6 +679,12 @@ def _to(inp, device: torch.device):
     if isinstance(inp, tuple):
         return tuple(t.to(device, non_blocking=True) for t in inp)
     return inp.to(device, non_blocking=True)
+
+
+def _one(cuts):
+    """Each shard's only cut (:meth:`~..parallel.sharding.Placement.take`
+    of one block), None where this process does not hold the shard."""
+    return [None if c is None else c[0] for c in cuts]
 
 
 def _dense(inp, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -692,19 +707,22 @@ def _dense_input(x: torch.Tensor, quant: bool, dtype: torch.dtype):
 
 def _split_rows(xs, weights, bias: Optional[torch.Tensor],
                 home: torch.device, dtype: torch.dtype, quant: bool = False,
-                s_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+                s_x: Optional[torch.Tensor] = None,
+                span: Optional[sharding.Span] = None) -> torch.Tensor:
     """A row-parallel product ``sum_j xs[j] @ weights[j]^T`` on the home
     device, the bias added once in f32, in the layer's dtype. ``xs[j]``
-    lies on ``weights[j]``'s device. The bf16 partials are summed in f32.
-    At int8 each token's scale is the max of the shards' maxima (or
+    lies on ``weights[j]``'s device (both None for a shard another
+    process computes, under ``span``). The bf16 partials are summed in
+    f32. At int8 each token's scale is the max of the shards' maxima (or
     ``s_x``, where the caller quantized the whole input and ``xs`` are
     its codes), each output channel's weight scale likewise, and the
     shards' int32 accumulators are summed before one dequantize."""
     if not quant:
         out = sharding.reduce_sum(
-            [F.linear(x, w).float() for x, w in zip(xs, weights)], home)
+            [None if w is None else F.linear(x, w).float()
+             for x, w in zip(xs, weights)], home, span)
     else:
-        acc, s_x, s_w = _int8_rows(xs, weights, home, s_x)
+        acc, s_x, s_w = _int8_rows(xs, weights, home, s_x, span)
         out = dequantize(acc, s_x, s_w.reshape(-1))
     if bias is not None:
         out = out + bias.float()
@@ -712,20 +730,23 @@ def _split_rows(xs, weights, bias: Optional[torch.Tensor],
 
 
 def _int8_rows(xs, weights, home: torch.device,
-               s_x: Optional[torch.Tensor] = None):
+               s_x: Optional[torch.Tensor] = None,
+               span: Optional[sharding.Span] = None):
     """An int8 row product's ``(acc, s_x, s_w)`` on the home device: the
     shards' int32 accumulators summed, the per-token scales (from the
     max of the shards' maxima unless ``s_x`` is given with ``xs`` its
     codes) and the per-output-channel weight scales (likewise)."""
     if s_x is None:
-        s_x = scale_of(sharding.reduce_max([absmax(x, -1) for x in xs],
-                                           home))
-        xs = [codes(x, _to(s_x, x.device)) for x in xs]
-    s_w = scale_of(sharding.reduce_max([absmax(w, 1) for w in weights],
-                                       home))
+        s_x = scale_of(sharding.reduce_max(
+            [None if x is None else absmax(x, -1) for x in xs], home, span))
+        xs = [None if x is None else codes(x, _to(s_x, x.device))
+              for x in xs]
+    s_w = scale_of(sharding.reduce_max(
+        [None if w is None else absmax(w, 1) for w in weights], home, span))
     acc = sharding.reduce_sum(
-        [int8_accumulate(xq, codes(w, _to(s_w, w.device)))
-         for xq, w in zip(xs, weights)], home)
+        [None if w is None else
+         int8_accumulate(xq, codes(w, _to(s_w, w.device)))
+         for xq, w in zip(xs, weights)], home, span)
     return acc, s_x, s_w
 
 
@@ -745,18 +766,21 @@ def _column_delta(hu, rows: slice, device: torch.device) -> torch.Tensor:
     return delta_up(_to(h, device), _to(up[..., rows, :], device))
 
 
-def _row_delta(xs, site: dict, home: torch.device,
-               dtype: torch.dtype) -> torch.Tensor:
+def _row_delta(xs, site: dict, home: torch.device, dtype: torch.dtype,
+               span: Optional[sharding.Span] = None) -> torch.Tensor:
     """A traced site of a row split, on the home device: each shard's
-    ``xs[j] @ down[:, cols_j]^T``, summed in f32, times ``up``."""
+    ``xs[j] @ down[:, cols_j]^T``, summed in f32, times ``up`` (the
+    shards of one width; ``span`` as for :func:`_split_rows`)."""
     down, up = site_factors(site)
-    parts, at = [], 0
-    for x in xs:
-        n = x.shape[-1]
-        cols = _to(down[..., at:at + n].to(dtype), x.device)
+    n = next(x for x in xs if x is not None).shape[-1]
+    parts = []
+    for j, x in enumerate(xs):
+        if x is None:
+            parts.append(None)
+            continue
+        cols = _to(down[..., j * n:(j + 1) * n].to(dtype), x.device)
         parts.append(delta_down(_cast(x, dtype), cols).float())
-        at += n
-    h = sharding.reduce_sum(parts, home).to(dtype)
+    h = sharding.reduce_sum(parts, home, span).to(dtype)
     return delta_up(h, up.to(dtype))
 
 
@@ -765,40 +789,47 @@ class _Column(sharding.Placement):
     devices: each shard computes its slice, gathered on the home
     device."""
 
-    def __init__(self, layer: nn.Module, devices, home: torch.device):
+    def __init__(self, layer: nn.Module, devices, home: torch.device,
+                 span: Optional[sharding.Span] = None):
         n = len(devices)
         self.layer_conv = isinstance(layer, nn.Conv2d)
         self.stride, self.padding = ((layer.stride, layer.padding)
                                      if self.layer_conv else (None, None))
-        self.devices, self.home = devices, home
-        self.weights = [w.to(d) for w, d in
-                        zip(layer.weight.chunk(n, 0), devices)]
-        self.biases = ([b.to(d) for b, d in
-                        zip(layer.bias.chunk(n, 0), devices)]
+        self.devices, self.home, self.span = devices, home, span
+        self.dtype = layer.weight.dtype
+        self.weights = _one(self.take(layer.weight, devices, 0))
+        self.biases = (_one(self.take(layer.bias, devices, 0))
                        if layer.bias is not None else [None] * n)
+        self.release()
 
     def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
-        dtype = self.weights[0].dtype
-        shards = zip(self.devices, self.weights, self.biases)
+        dtype = self.dtype
+        shards = list(zip(self.devices, self.weights, self.biases))
         if not self.layer_conv:
             inp = _dense_input(x, quant, dtype)
-            return sharding.gather([_dense(_to(inp, d), w, b, dtype)
-                                    for d, w, b in shards], -1, self.home)
+            return sharding.gather(
+                [None if d is None else _dense(_to(inp, d), w, b, dtype)
+                 for d, w, b in shards], -1, self.home, self.span)
         if not quant:
             x = _cast(x, dtype)
             return sharding.gather(
-                [F.conv2d(x.to(d, non_blocking=True), w, b, self.stride,
-                          self.padding) for d, w, b in shards], 1, self.home)
+                [None if d is None else
+                 F.conv2d(x.to(d, non_blocking=True), w, b, self.stride,
+                          self.padding) for d, w, b in shards], 1,
+                self.home, self.span)
         # one scale per image over C, H and W of the whole input
         xq, s_x = quantize(x, (1, 2, 3))
         parts = []
         for d, w, b in shards:
+            if d is None:
+                parts.append(None)
+                continue
             out = int8_conv_codes(*_to((xq, s_x), d), w, self.stride,
                                   self.padding)
             if b is not None:
                 out = out + b.float()[:, None, None]
             parts.append(out.to(dtype))
-        return sharding.gather(parts, 1, self.home)
+        return sharding.gather(parts, 1, self.home, self.span)
 
 
 class _Row(sharding.Placement):
@@ -807,24 +838,24 @@ class _Row(sharding.Placement):
     the home device. At int8 the whole input is quantized on the home
     device and its codes split."""
 
-    def __init__(self, layer: nn.Module, devices, home: torch.device):
-        n = len(devices)
-        self.devices, self.home = devices, home
-        self.weights = [w.to(d) for w, d in
-                        zip(layer.weight.chunk(n, 1), devices)]
+    def __init__(self, layer: nn.Module, devices, home: torch.device,
+                 span: Optional[sharding.Span] = None):
+        self.devices, self.home, self.span = devices, home, span
+        self.dtype = layer.weight.dtype
+        self.weights = _one(self.take(layer.weight, devices, 1))
         self.bias = layer.bias
+        self.release()
 
     def __call__(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
-        dtype = self.weights[0].dtype
         n, s_x = len(self.devices), None
         if quant:
             x, s_x = quantize(x, -1)
         else:
-            x = _cast(x, dtype)
-        xs = [xj.to(d, non_blocking=True)
+            x = _cast(x, self.dtype)
+        xs = [None if d is None else xj.to(d, non_blocking=True)
               for xj, d in zip(x.chunk(n, -1), self.devices)]
-        return _split_rows(xs, self.weights, self.bias, self.home, dtype,
-                           quant, s_x)
+        return _split_rows(xs, self.weights, self.bias, self.home,
+                           self.dtype, quant, s_x, self.span)
 
 
 class _Heads(sharding.Placement):
@@ -838,24 +869,25 @@ class _Heads(sharding.Placement):
     each shard's rows of ``up``'s q, k and v blocks; ``out_proj``'s is a
     row delta."""
 
-    def __init__(self, attn: Attention, devices, rings, home: torch.device):
-        n = len(devices)
+    def __init__(self, attn: Attention, devices, rings, home: torch.device,
+                 span: Optional[sharding.Span] = None):
         c = attn.out_proj.in_features
-        if hasattr(attn, "qkv"):
-            w = attn.qkv.weight
-            wq, wk, wv = w[:c], w[c:2 * c], w[2 * c:]
-        else:
-            wq, wk, wv = attn.q.weight, attn.kv.weight[:c], \
-                attn.kv.weight[c:]
         self.width = c
-        self.heads = attn.num_heads // n
+        self.heads = attn.num_heads // len(devices)
         self.head_dim = c // attn.num_heads
         self.devices, self.rings, self.home = devices, rings, home
-        self.qkv = [tuple(t.to(d) for t in ws) for ws, d in zip(
-            zip(wq.chunk(n), wk.chunk(n), wv.chunk(n)), devices)]
-        self.out = [w.to(d) for w, d in
-                    zip(attn.out_proj.weight.chunk(n, 1), devices)]
+        self.span, self.dtype = span, attn.out_proj.weight.dtype
+        # each shard's (q, k, v) rows: of the fused qkv's three blocks, or
+        # of q and kv's two
+        if hasattr(attn, "qkv"):
+            self.qkv = self.take(attn.qkv.weight, devices, 0, 3)
+        else:
+            self.qkv = [None if q is None else q + kv for q, kv in zip(
+                self.take(attn.q.weight, devices, 0),
+                self.take(attn.kv.weight, devices, 0, 2))]
+        self.out = _one(self.take(attn.out_proj.weight, devices, 1))
         self.out_bias = attn.out_proj.bias
+        self.release()
 
     def __call__(self, x: torch.Tensor, context: Optional[torch.Tensor],
                  true_len: Optional[torch.Tensor], lora: Optional[dict],
@@ -867,17 +899,22 @@ class _Heads(sharding.Placement):
         for d, qkv, ring in zip(self.devices,
                                 self.project(x, context, lora, quant),
                                 self.rings):
+            if d is None:
+                os_.append(None)
+                continue
             tl = None if true_len is None else true_len.to(d)
             o = _attend(*qkv, context is None, tl, ring, scale)
             os_.append(o.reshape(b, t, -1))
         return self.output(os_, lora.get("out_proj"), quant)
 
     def project(self, x: torch.Tensor, context: Optional[torch.Tensor],
-                lora: dict, quant: bool) -> List[Tuple[torch.Tensor, ...]]:
+                lora: dict, quant: bool
+                ) -> List[Optional[Tuple[torch.Tensor, ...]]]:
         """Each shard's ``(q, k, v)``, ``(B, T, heads, head_dim)`` on its
-        device, with the traced ``qkv``, ``q`` and ``kv`` sites' deltas."""
+        device (None for a shard another process computes), with the
+        traced ``qkv``, ``q`` and ``kv`` sites' deltas."""
         c = self.width
-        dtype = self.out[0].dtype
+        dtype = self.dtype
         inp = _dense_input(x, quant, dtype)
         if context is None:
             src_inp = inp
@@ -891,6 +928,9 @@ class _Heads(sharding.Placement):
         cols = self.heads * self.head_dim
         out = []
         for j, (d, ws) in enumerate(zip(self.devices, self.qkv)):
+            if d is None:
+                out.append(None)
+                continue
             xd = _to(inp, d)
             sd = xd if context is None else _to(src_inp, d)
             qkv = []
@@ -904,16 +944,15 @@ class _Heads(sharding.Placement):
             out.append(tuple(qkv))
         return out
 
-    def output(self, os_: List[torch.Tensor], site: Optional[dict],
+    def output(self, os_: List[Optional[torch.Tensor]], site: Optional[dict],
                quant: bool) -> torch.Tensor:
         """``out_proj`` of the shards' attention outputs ``(B, T,
         heads * head_dim)``: a row product, with the traced ``out_proj``
         site's delta."""
-        dtype = self.out[0].dtype
-        out = _split_rows(os_, self.out, self.out_bias, self.home, dtype,
-                          quant)
+        out = _split_rows(os_, self.out, self.out_bias, self.home,
+                          self.dtype, quant, span=self.span)
         return out if site is None else \
-            out + _row_delta(os_, site, self.home, dtype)
+            out + _row_delta(os_, site, self.home, self.dtype, self.span)
 
 
 class _Halves(sharding.Placement):
@@ -926,37 +965,40 @@ class _Halves(sharding.Placement):
     product as ``_Heads``' ``out_proj``."""
 
     def __init__(self, block: TransformerBlock, devices,
-                 home: torch.device):
-        n = len(devices)
+                 home: torch.device, span: Optional[sharding.Span] = None):
         proj = block.geglu.proj
-        half = proj.out_features // 2
-        self.half = half
-        self.devices, self.home = devices, home
-        self.a = [(w.to(d), b.to(d)) for w, b, d in zip(
-            proj.weight[:half].chunk(n), proj.bias[:half].chunk(n), devices)]
-        self.g = [(w.to(d), b.to(d)) for w, b, d in zip(
-            proj.weight[half:].chunk(n), proj.bias[half:].chunk(n), devices)]
-        self.out = [w.to(d) for w, d in
-                    zip(block.ff_out.weight.chunk(n, 1), devices)]
+        self.half = proj.out_features // 2
+        self.devices, self.home, self.span = devices, home, span
+        self.dtype = block.ff_out.weight.dtype
+        # each shard's rows of both halves (a, then the gelu gate)
+        ws, bs = (self.take(proj.weight, devices, 0, 2),
+                  self.take(proj.bias, devices, 0, 2))
+        self.a, self.g = ([None if w is None else (w[h], b[h])
+                           for w, b in zip(ws, bs)] for h in (0, 1))
+        self.out = _one(self.take(block.ff_out.weight, devices, 1))
         self.out_bias = block.ff_out.bias
+        self.release()
 
     def __call__(self, h: torch.Tensor, proj: Optional[dict],
                  ff_out: Optional[dict], quant: bool) -> torch.Tensor:
         return self.output(self.hidden(h, proj, quant), ff_out, quant)
 
     def hidden(self, h: torch.Tensor, proj: Optional[dict],
-               quant: bool) -> List[torch.Tensor]:
-        """Each shard's ``a * gelu(g)`` on its device, with the traced
-        ``proj`` site's delta."""
-        dtype = self.out[0].dtype
+               quant: bool) -> List[Optional[torch.Tensor]]:
+        """Each shard's ``a * gelu(g)`` on its device (None for a shard
+        another process computes), with the traced ``proj`` site's
+        delta."""
+        dtype = self.dtype
         inp = _dense_input(h, quant, dtype)
         hu = _column_site(h, proj, dtype)
         rows = self.half // len(self.devices)
         ys = []
-        for j, (d, (wa, ba), (wg, bg)) in enumerate(zip(self.devices, self.a,
-                                                        self.g)):
+        for j, (d, ag, gg) in enumerate(zip(self.devices, self.a, self.g)):
+            if d is None:
+                ys.append(None)
+                continue
             hd = _to(inp, d)
-            a, g = _dense(hd, wa, ba, dtype), _dense(hd, wg, bg, dtype)
+            a, g = _dense(hd, *ag, dtype), _dense(hd, *gg, dtype)
             if hu is not None:
                 a = a + _column_delta(hu, slice(j * rows, (j + 1) * rows), d)
                 g = g + _column_delta(hu, slice(self.half + j * rows,
@@ -965,15 +1007,14 @@ class _Halves(sharding.Placement):
             ys.append(a * F.gelu(g, approximate="tanh"))
         return ys
 
-    def output(self, ys: List[torch.Tensor], site: Optional[dict],
+    def output(self, ys: List[Optional[torch.Tensor]], site: Optional[dict],
                quant: bool) -> torch.Tensor:
         """``ff_out`` of the shards' hidden states: a row product, with
         the traced ``ff_out`` site's delta."""
-        dtype = self.out[0].dtype
-        out = _split_rows(ys, self.out, self.out_bias, self.home, dtype,
-                          quant)
+        out = _split_rows(ys, self.out, self.out_bias, self.home,
+                          self.dtype, quant, span=self.span)
         return out if site is None else \
-            out + _row_delta(ys, site, self.home, dtype)
+            out + _row_delta(ys, site, self.home, self.dtype, self.span)
 
 
 def place_layers(module: nn.Module, layout) -> None:
@@ -981,16 +1022,25 @@ def place_layers(module: nn.Module, layout) -> None:
     on :class:`Dense` and :class:`Conv` (a UNet, a ControlNet, a CLIP text
     encoder, the VAE's decoder or encoder), or remove it (None).
     ``layout``: the replica's ``(tp, sp)`` devices
-    (``parallel/sharding.py`` :func:`~..parallel.sharding.replica_layout`).
-    Under ``sp > 1`` every UNet :class:`Attention` gets its ring (shard
-    0's where a layer is not split by heads). Under ``tp > 1`` a UNet
-    attention whose heads divide it splits by heads, a GEGLU whose halves
-    divide it by halves, and every other Dense or Conv layer by its class
-    in JAX's rule (``sharding.shard_dim``): output features (a gather on
-    the home device), input features (partials summed there), or none (it
-    computes whole on the home device). So CLIP's and the VAE's attentions
-    split as JAX splits them: the fused ``qkv`` by columns, gathered
-    before the attention, and ``out_proj`` by rows."""
+    (``parallel/sharding.py`` :func:`~..parallel.sharding.replica_layout`;
+    across processes, the shards this process holds of it,
+    :func:`~..parallel.sharding.placement`). Under ``sp > 1`` every UNet
+    :class:`Attention` gets its ring (shard 0's where a layer is not split
+    by heads). Under ``tp > 1`` a UNet attention whose heads divide it
+    splits by heads, a GEGLU whose halves divide it by halves, and every
+    other Dense or Conv layer by its class in JAX's rule
+    (``sharding.shard_dim``): output features (a gather on the home
+    device), input features (partials summed there), or none (it computes
+    whole on the home device). So CLIP's and the VAE's attentions split as
+    JAX splits them: the fused ``qkv`` by columns, gathered before the
+    attention, and ``out_proj`` by rows. A placement across processes
+    holds this process's shards alone and frees the layer's whole
+    weights; removing or replacing it gathers them back from the replica's
+    ranks first, so every rank of it places and removes together."""
+    for m in module.modules():
+        for p in (getattr(m, "tp", None), getattr(m, "ffn_tp", None)):
+            if isinstance(p, sharding.Placement):
+                p.restore()
     for m in module.modules():
         if isinstance(m, (Dense, Conv, Attention)):
             m.tp = None
@@ -1000,26 +1050,24 @@ def place_layers(module: nn.Module, layout) -> None:
             m.ffn_tp = None
     if layout is None:
         return
-    home = layout[0][0]
-    devices = [row[0] for row in layout]
-    rings = [list(row) if len(row) > 1 else None for row in layout]
+    home, devices, rings, span = sharding.placement(layout)
     tp = len(devices)
     done = set()
     for m in module.modules():
         if isinstance(m, Attention):
             m.ring = rings[0]
             if tp > 1 and m.num_heads % tp == 0:
-                m.tp = _Heads(m, devices, rings, home)
+                m.tp = _Heads(m, devices, rings, home, span)
                 done.update(c for c in m.children())
         elif isinstance(m, TransformerBlock) and tp > 1 \
                 and (m.geglu.proj.out_features // 2) % tp == 0:
-            m.ffn_tp = _Halves(m, devices, home)
+            m.ffn_tp = _Halves(m, devices, home, span)
             done.update((m.geglu.proj, m.ff_out))
     for name, m in module.named_modules():
         if not isinstance(m, (Dense, Conv)) or m in done:
             continue
         dim = sharding.shard_dim(f"{name}.weight", m.weight, tp)
         if dim == 0:
-            m.tp = _Column(m, devices, home)
+            m.tp = _Column(m, devices, home, span)
         elif dim == 1 and isinstance(m, Dense):
-            m.tp = _Row(m, devices, home)
+            m.tp = _Row(m, devices, home, span)

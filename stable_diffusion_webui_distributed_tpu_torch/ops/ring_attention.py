@@ -7,7 +7,10 @@ the K/V blocks that rotate round the ring (``parallel/sharding.py``
 :func:`~..parallel.sharding.ring_shift`, the ``lax.ppermute`` of the JAX
 body), in the ``(m, l, acc)`` online softmax in f32. Device ``i`` folds the
 blocks in the JAX order, ``i, i - 1, ...``, so the float sums run as JAX
-runs them.
+runs them. Across processes (a ring whose positions belong to more than one
+rank) each rank holds K and V whole, folds its own positions' query blocks
+against their blocks in the same order without a shift, and only the final
+gather crosses the ring's group.
 
 Each block is folded in key chunks of at most ``SDTPU_RING_CHUNK`` (default
 1024, at least 128): the score buffer is ``(b, h, t_loc, chunk)``, not
@@ -27,6 +30,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from stable_diffusion_webui_distributed_tpu_torch.parallel.sharding import (
+    Span,
     gather,
     ring_shift,
 )
@@ -87,16 +91,39 @@ class _Fold:
 
 def ring_attention_over(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         devices: Sequence[torch.device],
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        span: Optional[Span] = None) -> torch.Tensor:
     """Attention of ``(B, T, H, D)`` tensors with their tokens split over
     the ring ``devices`` (T must divide their count); the result
-    ``(B, T, H, D)`` in q's dtype on q's device."""
+    ``(B, T, H, D)`` in q's dtype on q's device. ``span``: the ring's
+    positions' ranks when they belong to more than one process: this
+    process folds the query blocks of its own positions against the K/V
+    blocks it holds, and the final gather fills in the other ranks'
+    results over the ring's group, so every rank holds the whole
+    result."""
     n = len(devices)
     if q.shape[1] % n or k.shape[1] % n:
         raise ValueError(f"{q.shape[1]} queries or {k.shape[1]} keys do not "
                          f"divide a ring of {n}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+
+    if span is not None:
+        # every rank holds K and V whole: its positions fold the blocks in
+        # the ring's order from them, and only the results cross processes
+        kb, vb = k.chunk(n, 1), v.chunk(n, 1)
+        outs = []
+        for i, (b, d) in enumerate(zip(q.chunk(n, 1), devices)):
+            if not span.local(i):
+                outs.append(None)
+                continue
+            f = _Fold(b.to(d, non_blocking=True), scale)
+            for step in range(n):
+                j = (i - step) % n
+                f.fold(kb[j].to(d, non_blocking=True),
+                       vb[j].to(d, non_blocking=True))
+            outs.append(f.result())
+        return gather(outs, 1, q.device, span)
     folds = [_Fold(b.to(d, non_blocking=True), scale)
              for b, d in zip(q.chunk(n, 1), devices)]
     ks: List[torch.Tensor] = [b.to(d, non_blocking=True)

@@ -162,16 +162,25 @@ share of its delta (``models/unet.py``).
 A mesh across processes (``runtime/mesh.py`` ``build_mesh`` under a
 ``torch.distributed`` group; every process runs the same request): each
 process computes over its share of the mesh (``Mesh.local``, the
-engine's ``local_mesh``), on which everything above holds. The range
-entries (:meth:`Engine._run_txt2img`, :meth:`Engine._run_img2img`) split
-each pad-and-drop group of rows by ``parallel/sharding.py``
-``process_rows``: a process denoises and decodes the rows of the replicas
-it owns, with their seeds, noise and conditioning rows, or, when the rows
-do not divide ``dp`` (or DPM adaptive's batch-wide controller runs),
-replica 0's process runs every row on replica 0. The text encoders and
-the VAE encoder run on every process. The decoded uint8 pixels are
-gathered over the group (``sharding.gather_rows``), so every process's
-result holds every image, seed and infotext in order. The stage-graph
+engine's ``local_mesh``: the replicas in which it owns an entry), on
+which everything above holds. The range entries
+(:meth:`Engine._run_txt2img`, :meth:`Engine._run_img2img`) split each
+pad-and-drop group of rows by ``parallel/sharding.py`` ``process_rows``:
+a process denoises and decodes the rows of its replicas, with their
+seeds, noise and conditioning rows (DPM adaptive's step controller reads
+the error of the whole batch, its rows' part gathered from every
+process, so each replica runs the UNet batch it runs on one process), or,
+when the rows do not divide ``dp``, replica 0's processes run every row
+on replica 0. A replica whose ``tp`` or ``sp``
+shards span processes runs on each of its ranks, every rank computing the
+replicated layers and its own shards, the collectives filling in the
+others' over the replica's group, so each rank holds the one-process
+values bit for bit; such a replica runs eagerly (a CUDA graph never
+captures a collective). The text encoders and the VAE encoder run on
+every process. The decoded uint8 pixels are gathered over the group
+(``sharding.gather_rows``) with DPM adaptive's backstop mark, so every
+process's result holds every image, seed and infotext in order. The
+stage-graph
 executor, the ControlNet tower on its own mesh, the stage pipeline and
 the serving dispatcher refuse such a mesh (ROADMAP item 14d).
 
@@ -512,6 +521,9 @@ class Engine:
         # a group of rows that runs whole on replica 0 of the local mesh
         # under a process split (:meth:`_dp_split`); set per group
         self._whole_group = False
+        # under a process split, every process's rows of a group split
+        # over them (:meth:`_share`; DPM adaptive's error spans them)
+        self._row_shares: Optional[List[Tuple[int, int]]] = None
         self._placed: Dict[Tuple[int, int], Tuple] = {}
         # the stage-ahead ControlNet tower's mesh, by its device count
         self._stage_cn_mesh_cache: Optional[Tuple[int, Optional[Mesh]]] = None
@@ -1353,7 +1365,13 @@ class Engine:
             *conds, payload.cfg_scale, x.shape[0], added=added,
             controls=controls, gates=lambda step: gates_now,
             inpaint_cond=inpaint_cond, precision=precision)
-        attempt = kd.make_adaptive_attempt(denoise)
+        shares = self._row_shares
+        # a group split over processes: each rank's rows' differences
+        # from every rank's, so every rank's controller reads one error
+        # over the UNet batches one process runs
+        attempt = kd.make_adaptive_attempt(denoise, None if shares is None
+                                           else functools.partial(
+                                               _whole_rows, shares=shares))
 
         def attempt_fn(xx, x_prev, s, h, rtol, atol):
             gates_now[:] = adaptive_gates(controls, sigmas, float(s))
@@ -1428,6 +1446,9 @@ class Engine:
         if self.state.flag.interrupted:
             return x
         ref_conds, ref_pooleds = ref_cond
+        # the refiner shares the mesh: the same rows, split the same way
+        refiner._whole_group, refiner._row_shares = \
+            self._whole_group, self._row_shares
         return refiner._denoise(payload, x, keys, ref_conds, ref_pooleds,
                                 job + "+refiner", start_step=switch)
 
@@ -1625,10 +1646,10 @@ class Engine:
                                          self.device, pd))
 
         def swap():
-            # the outgoing modules keep no placement: one kept aside comes
-            # back to whatever mesh the engine has then
-            for module in (self.vae, self.vae_encoder):
-                unet_mod.place_layers(module, None)
+            # the outgoing modules keep no placement (and their whole
+            # weights): one kept aside comes back to whatever mesh the
+            # engine has then
+            self._unplace()
             if self._checkpoint_vae is None:
                 self._checkpoint_vae = (self.vae, self.vae_encoder)
             self.vae, self.vae_encoder = new
@@ -1868,7 +1889,7 @@ class Engine:
             # algorithms do), not on its position, so a sub-range then
             # reproduces the whole-batch rows exactly. Under a process
             # split this process runs its share of the group's rows
-            share = self._share(group, spec)
+            share = self._share(group)
             lo, hi = share.lo, share.hi
             out_w, out_h = width, height
             if hi > lo:
@@ -2152,7 +2173,7 @@ class Engine:
             n = min(group, remaining)
             # pad-and-drop, and a process's share of the rows, as in
             # txt2img
-            share = self._share(group, spec)
+            share = self._share(group)
             lo, hi = share.lo, share.hi
             if hi > lo:
                 keys = self._image_keys(payload, pos + lo, hi - lo)
@@ -2298,20 +2319,35 @@ class Engine:
         if mesh is not None and not _same_device(mesh.home(), self.device):
             raise ValueError(f"the home device {mesh.home()} of {mesh} is "
                              f"not the engine's device {self.device}")
+        self._unplace()
         self.mesh = mesh
         self.local_mesh = None if mesh is None else mesh.local()
-        self._placed.clear()
         self._stage_cn_mesh_cache = None
         replicated = (self.unet, *self._controlnets.values(), self.vae)
-        for module in (*replicated, *self._home_modules()):
-            unet_mod.place_layers(module, None)
         if mesh is None:
             return
         for module in replicated:
             self._replicas(module, self.local_mesh)
-        layout = sharding.replica_layout(self.local_mesh, 0)
+        layout = sharding.home_layout(mesh)
         for module in self._home_modules():
             unet_mod.place_layers(module, layout)
+
+    def _unplace(self) -> None:
+        """Remove every placement of the engine's modules and their
+        copies. One across processes gathers back the weights it freed
+        first (``sharding.Placement.restore``, a collective), so every
+        process removes them in one order: the placed modules' replicas
+        in the order they were placed, then the home modules."""
+        done = set()
+        for _, _, reps in self._placed.values():
+            for m in reps:
+                if m is not None and id(m) not in done:
+                    done.add(id(m))
+                    unet_mod.place_layers(m, None)
+        self._placed.clear()
+        for module in (self.unet, *self._controlnets.values(), self.vae,
+                       *self._home_modules()):
+            unet_mod.place_layers(module, None)
 
     def _home_modules(self) -> List[torch.nn.Module]:
         """The modules that run on the home device alone, over every
@@ -2363,22 +2399,25 @@ class Engine:
         dp = mesh.shape["dp"]
         return dp if dp > 1 and rows % dp == 0 else 1
 
-    def _share(self, rows: int, spec) -> "_Share":
+    def _share(self, rows: int) -> "_Share":
         """This process's rows of a group of ``rows``: all of them on one
         process; on a mesh across processes its share
-        (``sharding.process_rows``: every row on replica 0's process when
-        they do not divide ``dp`` or under DPM adaptive, whose step
-        controller reads the whole batch), setting whether they run whole
-        on replica 0 (:meth:`_dp_split`). There every process must call it
-        for every group, in the same order: the group's pixels are
-        gathered over them all."""
+        (``sharding.process_rows``: every row on replica 0's processes
+        when they do not divide ``dp``), setting whether they run whole on
+        replica 0 (:meth:`_dp_split`) and, when they do not, every
+        process's share (DPM adaptive's step controller reads the error of
+        the whole batch). There every process must call it for every
+        group, in the same order: the group's pixels are gathered over
+        them all."""
         mesh = self.mesh
-        self._whole_group = False
+        self._whole_group, self._row_shares = False, None
         if mesh is None or not mesh.spans_processes:
             return _Share(0, rows, None)
-        whole = spec.adaptive or rows % mesh.shape["dp"] != 0
+        whole = rows % mesh.shape["dp"] != 0
         shares = sharding.process_rows(mesh, rows, whole)
         self._whole_group = whole
+        if not whole:
+            self._row_shares = shares
         return _Share(*shares[mesh.rank], shares)
 
     def _no_rows(self, width: int, height: int) -> torch.Tensor:
@@ -2469,6 +2508,9 @@ class Engine:
             merged += 1
             applied += a
             skipped += sk
+        # the merge writes whole weights: a placement across processes
+        # gives back those it freed (set_mesh places them again below)
+        self._unplace()
         with torch.no_grad():
             for leaf in [k for k in self._pristine if k not in by_leaf]:
                 comp, name = leaf
@@ -2613,6 +2655,12 @@ class _Share(NamedTuple):
     shares: Optional[List[Tuple[int, int]]]
 
 
+def _whole_rows(t: torch.Tensor, shares) -> torch.Tensor:
+    """Every process's rows of ``t`` (this process's rows of a group split
+    over them by ``shares``), in row order, on ``t``'s device."""
+    return sharding.gather_rows(t.cpu(), shares).to(t.device)
+
+
 def _rows_of(tree, share: _Share, rows: int):
     """``tree`` (a tensor, None or nested tuples of them) with each tensor
     that holds a row per image of a group of ``rows`` cut to the share's
@@ -2658,6 +2706,8 @@ class _Decoded:
         if self.shares is not None:
             with trace.STATS.timer("process_gather"):
                 host = sharding.gather_rows(host, self.shares)
+                # the ranks that ran the group carry its adaptive mark
+                self.incomplete = sharding.any_process(self.incomplete)
         return host[:self.n].numpy()
 
 

@@ -25,20 +25,22 @@ configured, as the JAX function joins ``jax.distributed``: one process per
 host drives that host's cards, and every process runs the same program.
 :func:`build_mesh` then exchanges each process's device list and spans
 their concatenation in rank order (JAX's order of ``jax.devices()``), so
-``dp``, the outer axis, runs across the processes and a replica's ``tp x
-sp`` group stays inside one (a group that would span two is ROADMAP item
-14e, NCCL collectives in place of ``parallel/sharding.py``'s copies).
-:class:`Mesh` records the rank that owns each entry; :meth:`Mesh.local`
-is this process's share, the replicas it computes. Only uint8 pixels
-cross processes (``parallel/sharding.py`` :func:`~..parallel.sharding.
-gather_rows`), which is why the group's backend is gloo on host tensors,
-on the card too: two ranks may share one card, which NCCL refuses.
+``dp``, the outer axis, runs across the processes, and a replica's ``tp x
+sp`` group may span them too, as GSPMD runs a global mesh (ROADMAP item
+14e). :class:`Mesh` records the rank that owns each entry, each replica's
+ranks and a group for each set of ranks that a collective runs over (a
+replica's, and each ``tp`` row's ``sp`` ring); :meth:`Mesh.local` is this
+process's share, the replicas in which it owns an entry. Every rank of a
+replica computes its replicated layers and the shards it owns, and
+``parallel/sharding.py``'s collectives fill in the other ranks' shards
+over the replica's group. The group's backend is gloo on host tensors, on
+the card too: two ranks may share one card, which NCCL refuses.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +59,8 @@ AXIS_ORDER = ("dp", "tp", "sp")
 #: that rank's whole group of rows, so it must exceed the longest group's
 #: time.
 DEFAULT_TIMEOUT_S = 1800.0
+#: the joined group's timeout, which the replicas' groups take too
+_TIMEOUT = [DEFAULT_TIMEOUT_S]
 
 
 class Mesh:
@@ -64,14 +68,17 @@ class Mesh:
     ``shape``: ``{axis: size}`` in :data:`AXIS_ORDER`, as JAX's
     ``Mesh.shape``; ``ranks``: the process that owns each entry, an int
     array of ``devices``' shape (all 0 on one process); ``rank``: this
-    process's. A replica's ``tp x sp`` entries share one rank
-    (:func:`build_mesh` checks), so ``replica_ranks[r]`` is replica ``r``'s
-    process and ``local_replicas`` the replicas this process computes."""
+    process's; ``groups``: the ``torch.distributed`` group of each set of
+    ranks (a sorted tuple) that a collective of a replica runs over
+    (:func:`build_mesh` makes them). ``replica_ranks[r]`` is the sorted
+    tuple of the processes that own an entry of replica ``r``, and
+    ``local_replicas`` the replicas in which this process owns one."""
 
     axis_names = AXIS_ORDER
 
     def __init__(self, devices: np.ndarray, ranks: Optional[np.ndarray] = None,
-                 rank: int = 0):
+                 rank: int = 0, groups: Optional[Dict[Tuple[int, ...],
+                                                       Any]] = None):
         if devices.ndim != len(AXIS_ORDER):
             raise ValueError(f"a mesh is {len(AXIS_ORDER)}-D over "
                              f"{AXIS_ORDER}, not {devices.shape}")
@@ -80,32 +87,40 @@ class Mesh:
         self.ranks = (np.zeros(devices.shape, dtype=np.int64)
                       if ranks is None else ranks)
         self.rank = rank
-        self.replica_ranks: List[int] = [int(q) for q in self.ranks[:, 0, 0]]
+        self.groups = {} if groups is None else groups
+        self.replica_ranks: List[Tuple[int, ...]] = [
+            tuple(sorted({int(q) for q in rep.flat})) for rep in self.ranks]
         self.local_replicas: List[int] = [
-            r for r, q in enumerate(self.replica_ranks) if q == rank]
+            r for r, qs in enumerate(self.replica_ranks) if rank in qs]
         self._local: Optional["Mesh"] = None
 
     @property
     def spans_processes(self) -> bool:
-        """Whether the replicas belong to more than one process."""
-        return len(set(self.replica_ranks)) > 1
+        """Whether the entries belong to more than one process."""
+        return len(set(self.ranks.flat)) > 1
 
     def home(self, replica: Optional[int] = None) -> torch.device:
-        """Replica ``replica``'s home device (its ``tp`` and ``sp`` index
-        0): where its rows enter and leave, and where the layers the rule
-        leaves replicated compute. None: this process's first replica
-        (replica 0 on one process)."""
+        """Replica ``replica``'s home device here: this process's first
+        entry of it in ``(tp, sp)`` order (its ``tp`` and ``sp`` index 0
+        on one process), where its rows enter and leave and where the
+        layers the rule leaves replicated compute. None: this process's
+        first replica (replica 0 on one process)."""
         if replica is None:
             replica = self.local_replicas[0]
-        return self.devices[replica, 0, 0]
+        own = np.flatnonzero(self.ranks[replica].reshape(-1) == self.rank)
+        flat = self.devices[replica].reshape(-1)
+        return flat[own[0]] if len(own) else flat[0]
 
     def local(self) -> "Mesh":
-        """The replicas this process owns, as a mesh of one process (the
-        mesh itself when it spans no other)."""
+        """The replicas in which this process owns an entry, as a mesh
+        that keeps their ranks and groups (the mesh itself when it spans
+        no other process)."""
         if not self.spans_processes:
             return self
         if self._local is None:
-            self._local = Mesh(self.devices[self.local_replicas])
+            self._local = Mesh(self.devices[self.local_replicas],
+                               self.ranks[self.local_replicas], self.rank,
+                               self.groups)
         return self._local
 
     def __repr__(self) -> str:
@@ -158,7 +173,8 @@ def init_multihost(coordinator: Optional[str] = None,
     ``process_id`` (``SDTPU_PROCESS_ID``); True once joined. torch has no
     cloud auto-detection, so both must be given. ``timeout_s``: how long
     a collective waits for a peer, so a dead or stuck rank makes the
-    others raise instead of hang. Joining twice is a no-op."""
+    others raise instead of hang (the replicas' groups of
+    :func:`build_mesh` wait as long). Joining twice is a no-op."""
     coordinator = coordinator or env_str("SDTPU_COORDINATOR") or None
     if not coordinator:
         return False
@@ -174,6 +190,7 @@ def init_multihost(coordinator: Optional[str] = None,
         dist.init_process_group(
             "gloo", init_method=f"tcp://{coordinator}", world_size=int(n),
             rank=int(pid), timeout=datetime.timedelta(seconds=timeout_s))
+        _TIMEOUT[0] = timeout_s
     return True
 
 
@@ -223,9 +240,10 @@ def build_mesh(spec: Optional[str] = None,
 
     Under a group of processes (:func:`init_multihost`) ``devices`` names
     this process's devices: every rank's list is exchanged, and the mesh
-    spans their concatenation in rank order. A replica whose ``tp x sp``
-    group would span two ranks raises (ROADMAP item 14e), as does a spec
-    that leaves a rank no replica (every rank raises alike).
+    spans their concatenation in rank order. A replica's ``tp x sp`` group
+    may span ranks (its collectives then run over a group of them, which
+    every rank makes here in the same order); a spec that leaves a rank no
+    entry raises (every rank raises alike).
 
     Unspecified axes get size 1; if no axes are given, every device lands
     on ``dp``. A spec that uses a subset whose size divides the device
@@ -255,18 +273,28 @@ def build_mesh(spec: Optional[str] = None,
     arr = np.empty(total, dtype=object)
     arr[:] = devices
     ranks = np.asarray(owners, dtype=np.int64).reshape(sizes)
-    for r in range(sizes[0]):
-        if len(set(ranks[r].flat)) > 1:
-            raise ValueError(
-                f"mesh spec {axes}: replica {r}'s tp x sp group spans "
-                f"processes {sorted(set(int(q) for q in ranks[r].flat))}; "
-                f"tp and sp across processes need NCCL collectives "
-                f"(ROADMAP item 14e)")
-    idle = sorted(set(range(process_count())) - set(ranks[:, 0, 0].tolist()))
+    idle = sorted(set(range(process_count())) - set(ranks.flat))
     if idle:
         raise ValueError(f"mesh spec {axes}: processes {idle} would own no "
-                         f"replica of the {total} devices it takes")
-    return Mesh(arr.reshape(sizes), ranks, rank)
+                         f"entry of the {total} devices it takes")
+    return Mesh(arr.reshape(sizes), ranks, rank, _groups(ranks))
+
+
+def _groups(ranks: np.ndarray) -> Dict[Tuple[int, ...], Any]:
+    """A group for each set of ranks that a replica's collectives run
+    over: each replica's and each of its ``tp`` rows' (an ``sp`` ring),
+    where the set holds more than one rank. ``dist.new_group`` is a
+    collective of every process, so every rank makes them in one order:
+    the sets sorted; the whole group is the default one."""
+    sets = set()
+    for rep in ranks:
+        sets.add(tuple(sorted({int(q) for q in rep.flat})))
+        sets.update(tuple(sorted({int(q) for q in row})) for row in rep)
+    world = tuple(range(process_count()))
+    timeout = datetime.timedelta(seconds=_TIMEOUT[0])
+    return {qs: (dist.group.WORLD if qs == world else
+                 dist.new_group(list(qs), timeout=timeout))
+            for qs in sorted(qs for qs in sets if len(qs) > 1)}
 
 
 def pad_batch(n: int, mesh: Mesh) -> int:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -402,13 +402,18 @@ class PIDStepController:
         return accept
 
 
-def make_adaptive_attempt(denoise_fn: DenoiseFn):
+def make_adaptive_attempt(denoise_fn: DenoiseFn,
+                          whole: Optional[Callable[[torch.Tensor],
+                                                   torch.Tensor]] = None):
     """One adaptive attempt ``(x, x_prev, s, h, rtol, atol) -> (x_low,
     x_high, error)`` with ``s``, ``h``, ``rtol`` and ``atol`` f32 CPU
     scalars: k-diffusion's embedded order-2/3 DPM-Solver pair in the eps
     parameterization over ``t = -log(sigma)`` (both share the probe at
     r1 = 1/3, so an attempt is 3 evaluations), and the scaled RMS error
-    between them, a 0-d device tensor."""
+    between them, a 0-d device tensor. ``whole``: where ``x`` holds this
+    process's rows of a batch split over processes, the batch's scaled
+    differences from every process's rows (each process then takes the
+    same error over the whole batch)."""
 
     def attempt(x, x_prev, s, h, rtol, atol):
         sig_s = torch.exp(-s)
@@ -435,8 +440,10 @@ def make_adaptive_attempt(denoise_fn: DenoiseFn):
         delta = torch.clamp(
             rtol * torch.maximum(x_low.abs(), x_prev.abs()),
             min=float(atol))
-        error = torch.sqrt(torch.mean(torch.square((x_low - x_high)
-                                                   / delta)))
+        scaled = (x_low - x_high) / delta
+        if whole is not None:
+            scaled = whole(scaled)
+        error = torch.sqrt(torch.mean(torch.square(scaled)))
         return x_low, x_high, error
 
     return attempt

@@ -7,8 +7,9 @@ port, each with a virtual local mesh of four ``cpu`` entries.
 - ``build_mesh`` over the two ranks has the shape JAX ``build_mesh`` gives
   the same spec over the conftest's eight virtual devices, and its
   replicas belong to ranks ``[0, 0, 1, 1]`` over ``dp``; ``tp=8``, whose
-  one replica would span both ranks, raises on both, naming ROADMAP item
-  14e;
+  one replica spans both ranks, is built on both, its one replica's ranks
+  ``(0, 1)`` and local on each, with this rank's first entry as its home;
+  ``dp=2``, which takes rank 0's entries alone, raises on both;
 - a rank that exits before the first collective makes the other raise
   within the ``timeout_s`` the test passes, instead of hanging;
 - ``cli serve`` and the stage-graph executor under the group raise on
@@ -131,21 +132,30 @@ def run_ranks(tmp: Path, modes, timeout_s: float = 60.0, **job):
 
 
 def test_mesh_across_two_ranks_has_the_jax_shape_and_rank_order(tmp_path):
-    outs = run_ranks(tmp_path, "mesh", specs=[SPEC, "tp=8", ""])
+    outs = run_ranks(tmp_path, "mesh", specs=[SPEC, "tp=8", "", "dp=2"])
     jm = jmesh.build_mesh(SPEC)
     for rank, out in enumerate(outs):
         got = out[SPEC]
         assert got["shape"] == dict(jm.shape)
         assert list(np.asarray(got["ranks"]).shape) == list(jm.devices.shape)
-        assert got["replica_ranks"] == [0, 0, 1, 1]
+        assert got["replica_ranks"] == [[0], [0], [1], [1]]
         assert got["spans"] is True
         assert got["local"] == [[0, 1], [2, 3]][rank]
         assert got["local_shape"] == {"dp": 2, "tp": 2, "sp": 1}
         # every entry of a replica on its replica's rank
         assert got["ranks"] == [[[q]] * 2 for q in (0, 0, 1, 1)]
-        assert "ROADMAP item 14e" in out["tp=8"]["error"]
+        # tp=8: one replica over both ranks' four entries each, local to
+        # both, with a group of the pair
+        tp8 = out["tp=8"]
+        assert "error" not in tp8, tp8
+        assert tp8["replica_ranks"] == [[0, 1]] and tp8["local"] == [0]
+        assert tp8["ranks"] == [[[0]] * 4 + [[1]] * 4]
+        assert tp8["local_shape"] == {"dp": 1, "tp": 8, "sp": 1}
+        assert tp8["groups"] == [[0, 1]]
         # no spec: all eight entries on dp, four a rank
-        assert out[""]["replica_ranks"] == [0] * 4 + [1] * 4
+        assert out[""]["replica_ranks"] == [[0]] * 4 + [[1]] * 4
+        # a spec that leaves rank 1 no entry raises on both ranks
+        assert "processes [1] would own no entry" in out["dp=2"]["error"]
 
 
 def test_a_dead_rank_makes_the_other_raise_within_its_timeout(params,

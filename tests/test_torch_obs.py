@@ -357,6 +357,10 @@ def fire(mod, prom, rec, jr, monkeypatch, disarm_in_time):
     monkeypatch.setenv("SDTPU_WATCHDOG_FACTOR", "2.0")
     monkeypatch.setenv("SDTPU_JOURNAL", "1")
     jr.JOURNAL.clear()
+    # the recorder is a ring (16 entries by default) that earlier tests
+    # of the worker process may have filled: at capacity its length stays
+    # put, so a stall's entry would neither be waited for nor found
+    rec.RECORDER.clear()
     stalls0, recorded0 = prom.watchdog_stalls_total(), len(rec.RECORDER)
     called = []
     handle = mod.arm("wd-0", "fake-op", 0.05,

@@ -10,8 +10,21 @@ The job file names the group (``coordinator``, ``world``, ``rank``,
   ``weights`` and run each of ``cases`` (``[name, "txt2img" or
   "img2img", body]``); the images, seeds and infotexts go to ``out``
   as JSON;
-- ``mesh``: join, build each of ``specs`` and write its shape, ranks
-  and local replicas (or the error it raised);
+- ``runs``: join, then for each of ``runs`` in turn build its ``mesh``
+  over its ``local`` ``cpu`` entries (a count, or one per rank) and run
+  its ``cases`` on an engine over it: of its ``weights`` (with its
+  ``family``, TINY by default) or of checkpoint ``model`` of a
+  ``ModelRegistry`` over ``registry`` (a directory, or one per rank),
+  which then serves the ControlNets, LoRAs, upscalers and refiner
+  engines the cases name (to a weights engine too). A run may set ``env`` for its cases and force
+  DPM adaptive's attempt backstop to ``max_attempts``. ``out`` gets each
+  run's results under its ``name``, with ``held``: for each of this
+  rank's replicas (by global index), the distinct patterns of which
+  ``tp`` shards its UNet's split layers hold weights for here, their
+  weights' bytes and those of every weight the replica holds here, and
+  ``collectives``, the exchanges of shards it made;
+- ``mesh``: join, build each of ``specs`` and write its shape, ranks,
+  local replicas and groups (or the error it raised);
 - ``die``: join, build the engine as ``engine`` does and exit before the
   first gather, without leaving the group;
 - ``cli``: run ``cli.main(argv)`` with ``local`` ``cpu`` entries as the
@@ -23,6 +36,7 @@ It imports only the port and torch, never JAX, and runs from any
 directory.
 """
 
+import functools
 import json
 import os
 import sys
@@ -55,6 +69,93 @@ def engine(job):
     mesh = mesh_mod.build_mesh(job["mesh"], ["cpu"] * job["local"])
     return Engine(TINY, params, chunk_size=3, state=GenerationState(),
                   mesh=mesh)
+
+
+def held(eng):
+    """For each replica this process computes, by its index in the global
+    mesh: the distinct patterns of held shards over its UNet's split
+    layers (True where a shard's weights lie here); ``shard_bytes``, the
+    bytes of those shards' weights; and ``bytes``, of every weight the
+    replica's module and its placements hold here (each storage once, a
+    released whole weight not at all)."""
+    from stable_diffusion_webui_distributed_tpu_torch.parallel import (
+        sharding,
+    )
+
+    def nbytes(tensors):
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes()
+                    for t in tensors if not sharding.released(t)}
+        return sum(storages.values())
+
+    out = {}
+    for r, module in zip(eng.mesh.local_replicas,
+                         eng._replicas(eng.unet, eng.local_mesh)):
+        patterns, shards = set(), []
+        for m in module.modules():
+            for p in (getattr(m, "tp", None), getattr(m, "ffn_tp", None)):
+                if isinstance(p, sharding.Placement):
+                    for _, _, pieces in p.split:
+                        patterns.add(tuple(c is not None
+                                           for c in pieces[0]))
+                        shards += [c for b in pieces for c in b
+                                   if c is not None]
+        own = list(module.parameters()) + list(module.buffers())
+        out[str(r)] = {"patterns": sorted(patterns),
+                       "shard_bytes": nbytes(shards),
+                       "bytes": nbytes(own + shards)}
+    return out
+
+
+def run(job, spec, rank):
+    """One of ``job["runs"]`` on this rank (see the module docstring)."""
+    from stable_diffusion_webui_distributed_tpu_torch.models import configs
+    from stable_diffusion_webui_distributed_tpu_torch.parallel import (
+        sharding,
+    )
+    from stable_diffusion_webui_distributed_tpu_torch.pipeline.registry \
+        import ModelRegistry
+    from stable_diffusion_webui_distributed_tpu_torch.samplers import (
+        kdiffusion,
+    )
+
+    def mine(v):
+        return v[rank] if isinstance(v, list) else v
+
+    mesh = mesh_mod.build_mesh(spec["mesh"], ["cpu"] * mine(spec["local"]))
+    registry = providers = None
+    if "registry" in spec:
+        registry = ModelRegistry(mine(spec["registry"]), device="cpu",
+                                 state=GenerationState(), mesh=mesh)
+        providers = dict(engine_provider=registry.secondary_engine,
+                         controlnet_provider=registry.controlnet_provider,
+                         lora_provider=registry.lora_provider,
+                         upscaler_provider=registry.upscaler_provider)
+    if "model" in spec:
+        eng = registry.activate(spec["model"])
+    else:
+        family = configs.FAMILIES[spec.get("family", "tiny")]
+        eng = Engine(family, torch.load(spec["weights"]), chunk_size=3,
+                     state=GenerationState(), mesh=mesh, **(providers or {}))
+    saved_env = {k: os.environ.get(k) for k in spec.get("env", {})}
+    adaptive = kdiffusion.sample_dpm_adaptive
+    os.environ.update(spec.get("env", {}))
+    if "max_attempts" in spec:
+        kdiffusion.sample_dpm_adaptive = functools.partial(
+            adaptive, max_attempts=spec["max_attempts"])
+    calls = sharding.Span.calls
+    try:
+        out = run_cases({"cases": spec["cases"]}, eng)
+    finally:
+        kdiffusion.sample_dpm_adaptive = adaptive
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["held"] = held(eng)
+    out["collectives"] = sharding.Span.calls - calls
+    return out
 
 
 def run_cases(job, eng):
@@ -99,9 +200,13 @@ def main(path):
                                     "replica_ranks": m.replica_ranks,
                                     "local": m.local_replicas,
                                     "spans": m.spans_processes,
-                                    "local_shape": m.local().shape}
+                                    "local_shape": m.local().shape,
+                                    "groups": sorted(m.groups)}
                 except ValueError as e:
                     result[spec] = {"error": str(e)}
+        elif mode == "runs":
+            for spec in job["runs"]:
+                result[spec["name"]] = run(job, spec, job["rank"])
         elif mode == "die":
             engine(job)
             os._exit(0)
